@@ -117,6 +117,8 @@ class Library:
         lib.ssam_window_launch.argtypes = (
             [p, p, i, p, p, p] + [i] * 20 + [i, p])
         lib.ssam_window_launch.restype = i
+        lib.ssam_scan_launch.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.ssam_scan_launch.restype = i
         return lib
 
 

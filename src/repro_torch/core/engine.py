@@ -1,4 +1,5 @@
-"""The windowed plan engine: one entry, a CUDA kernel and its plain version.
+"""The plan engine: windowed plans (K1) and scan plans (K5), each a CUDA
+kernel beside its plain version.
 
 :func:`run_window_plan` runs a windowed :class:`SystolicPlan` (2-D and
 3-D stencils, dense 2-D convolution, with leading batch axes) over an
@@ -17,6 +18,13 @@ The geometry is the reference ``_window_call``'s: output shape
 disjointly, each read from a ``t``-widened overlapped input block.
 Plans outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
+
+:func:`run_scan_plan` runs a scan plan (``combine='add'``: prefix sum;
+``'linrec'``: ``h_t = a_t·h_{t−1} + b_t``) over ``(R, T)`` rows, with an
+optional carry in and out: a CUDA tensor launches K5
+(``csrc/ssam_scan.cu``, replacing ``_scan_kernel``), a CPU tensor runs
+:func:`run_scan_plan_reference`. :func:`run_scan_plan_chunked` streams
+``(R, chunk)`` slabs through it, threading the carry.
 """
 from __future__ import annotations
 
@@ -52,7 +60,8 @@ def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
     if plan.strategy == "mxu":
         todo.append("strategy='mxu' (K2, ROADMAP Queue 1 item 8)")
     if plan.combine != "fma":
-        todo.append(f"combine={plan.combine!r} (K5, ROADMAP Queue 1 item 5)")
+        raise ValueError(f"{plan.kind!r} plan has combine={plan.combine!r}: "
+                         "scan plans run through run_scan_plan")
     if todo:
         raise NotImplementedError(
             f"{plan.kind!r} plan: {', '.join(todo)} not ported yet")
@@ -361,3 +370,217 @@ def run_window_plan(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                                          time_steps=time_steps,
                                          variant=variant)
     raise ValueError(f"no windowed engine for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# Scan family: cumsum / linear recurrence (K5)
+# ---------------------------------------------------------------------------
+
+COMBINES = ("add", "linrec")
+
+
+def check_scan_plan(plan: SystolicPlan, operands) -> None:
+    """Raise for a scan plan or operands this port does not run."""
+    if plan.combine not in COMBINES:
+        raise ValueError(f"{plan.kind!r} plan has combine={plan.combine!r}: "
+                         f"run_scan_plan takes {COMBINES}; windowed plans "
+                         "run through run_window_plan")
+    if plan.epilogue:
+        raise NotImplementedError(
+            f"{plan.kind!r} plan: epilogues on scan plans are not ported "
+            "yet (ROADMAP Queue 1 item 4)")
+    want = 2 if plan.combine == "linrec" else 1
+    if len(operands) != want:
+        raise ValueError(f"combine={plan.combine!r} takes {want} operand(s), "
+                         f"got {len(operands)}")
+    shape = operands[0].shape
+    if (len(shape) != 2 or 0 in shape
+            or any(o.shape != shape for o in operands)):
+        raise ValueError(f"scan operands must share one non-empty (R, T) "
+                         f"shape, got {[tuple(o.shape) for o in operands]}")
+
+
+def _carry_rows(carry, R, like):
+    """``carry`` (``(R,)`` or ``(R, 1)``) as ``(R, 1)`` in the operands'
+    dtype, as the reference casts it before the kernel reads it."""
+    return carry.reshape(R, 1).to(like.dtype)
+
+
+def run_scan_plan_reference(*operands: torch.Tensor, plan: SystolicPlan,
+                            block_r: int = 8, carry=None,
+                            return_carry: bool = False):
+    """The plain version of K5, on any device: the reference
+    ``_scan_kernel`` body over the ``_scan_call`` tiling.
+
+    Operands pad with the combine's identity (``add``: 0; ``linrec``:
+    ``(1, 0)``) to ``(gr·BR, gt·S)`` and split into ``(BR, S)`` tiles.
+    Row tiles are independent, so they run as one batch. In every tile
+    the Kogge–Stone steps of ``plan.steps`` shift by ``d`` and combine
+    under ``lane >= d`` (``linrec``: ``A, B = A·As, A·Bs + B``, f_t ∘
+    f_{t−d}); the in-tile scan does not read the carry, so all T tiles
+    scan at once. The carry then walks the T tiles in order: seeded from
+    ``carry`` (else 0), ``add`` adds it after the scan, ``linrec`` applies
+    the prefix to it (``h = A·carry + B``), and the tile's last lane is
+    the next carry. fp32 accumulation; the output, and the ``(R, 1)``
+    carry-out, in the operands' dtype.
+    """
+    check_scan_plan(plan, operands)
+    x0 = operands[0]
+    R, T = x0.shape
+    S = plan.S
+    BR = min(block_r, R)
+    gr, gt = -(-R // BR), -(-T // S)
+    pad = (0, gt * S - T, 0, gr * BR - R)
+    if plan.combine == "linrec":
+        A = F.pad(operands[0].float(), pad, value=1.0)
+        B = F.pad(operands[1].float(), pad)
+    else:
+        A = None
+        B = F.pad(operands[0].float(), pad)
+    tiles = (gr * BR, gt, S)
+    B = B.reshape(tiles)
+    if A is not None:
+        A = A.reshape(tiles)
+    lane = torch.arange(S, device=x0.device)
+    for step in plan.steps:
+        ctrl = lane >= step.shift
+        Bs = torch.where(ctrl, torch.roll(B, step.shift, dims=-1), 0.0)
+        if A is None:
+            B = B + Bs
+            continue
+        As = torch.where(ctrl, torch.roll(A, step.shift, dims=-1), 1.0)
+        A, B = A * As, A * Bs + B
+    c = (x0.new_zeros((R, 1), dtype=torch.float32) if carry is None
+         else _carry_rows(carry, R, x0).float())
+    c = F.pad(c, (0, 0, 0, gr * BR - R))
+    outs = []
+    for j in range(gt):
+        h = B[:, j] + c if A is None else A[:, j] * c + B[:, j]
+        c = h[:, -1:]
+        outs.append(h)
+    out = torch.stack(outs, dim=1).reshape(gr * BR, gt * S)[:R, :T]
+    out = out.to(x0.dtype)
+    if return_carry:
+        return out, c[:R].to(x0.dtype)
+    return out
+
+
+class ScanKernel:
+    """Wrapper of K5. ``launches`` counts the kernel launches it made."""
+
+    name = "ssam_scan"
+    source = "src/repro_torch/csrc/ssam_scan.cu"
+    replaces = "src/repro/core/engine.py:897 (_scan_kernel, pallas_call at 1015)"
+
+    def __init__(self, library: _build.Library):
+        self.library = library
+        self.launches = 0
+
+    def __call__(self, *operands: torch.Tensor, plan: SystolicPlan,
+                 carry=None, return_carry: bool = False):
+        check_scan_plan(plan, operands)
+        x0 = operands[0]
+        if not all(o.is_cuda and o.device == x0.device for o in operands):
+            raise ValueError(f"K5 takes CUDA tensors on one device, got "
+                             f"{[str(o.device) for o in operands]}")
+        if x0.dtype not in (torch.float32, torch.bfloat16) or any(
+                o.dtype != x0.dtype for o in operands):
+            raise TypeError(f"K5 takes float32 or bfloat16 operands of one "
+                            f"dtype, got {[o.dtype for o in operands]}")
+        R, T = x0.shape
+        ops_c = [o.contiguous() for o in operands]
+        out = torch.empty_like(ops_c[0])
+        cin = None
+        if carry is not None:
+            if carry.device != x0.device:
+                raise ValueError("the carry must lie on the operands' device")
+            cin = _carry_rows(carry, R, x0).contiguous()
+        cout = (torch.empty((R, 1), dtype=x0.dtype, device=x0.device)
+                if return_carry else None)
+        err = self.library.get().ssam_scan_launch(
+            ops_c[0].data_ptr(),
+            ops_c[1].data_ptr() if len(ops_c) == 2 else None,
+            None if cin is None else cin.data_ptr(), out.data_ptr(),
+            None if cout is None else cout.data_ptr(), R, T,
+            COMBINES.index(plan.combine), int(x0.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x0.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"K5 launch failed: CUDA error {err} "
+                               f"({plan.combine}, R={R}, T={T})")
+        self.launches += 1
+        return (out, cout) if return_carry else out
+
+
+SCAN_KERNEL = ScanKernel(_build.LIBRARY)
+
+
+def run_scan_plan(*operands: torch.Tensor, plan: SystolicPlan,
+                  block_r: int = 8, carry=None, return_carry: bool = False):
+    """Run a scan plan over ``(R, T)`` operands: K5 for CUDA tensors, the
+    plain version for CPU tensors, an error for anything else.
+
+    ``carry`` (``(R,)`` or ``(R, 1)``) seeds the state h₋₁ entering the
+    first tile (default 0); ``return_carry=True`` also returns the final
+    raw state ``(R, 1)``. ``plan.S`` and ``block_r`` set the plain
+    version's ``(block_r, S)`` tile; K5 walks each row in 32-lane pieces
+    whatever the plan's tile. The two compute the same function and
+    differ only in rounding.
+    """
+    check_scan_plan(plan, operands)
+    dev = operands[0].device
+    if dev.type == "cuda":
+        return SCAN_KERNEL(*operands, plan=plan, carry=carry,
+                           return_carry=return_carry)
+    if dev.type == "cpu":
+        return run_scan_plan_reference(*operands, plan=plan, block_r=block_r,
+                                       carry=carry, return_carry=return_carry)
+    raise ValueError(f"no scan engine for device {dev}")
+
+
+def check_chunk_geometry(plan: SystolicPlan, chunk: int) -> None:
+    """Guards of the chunk-streamed scan schedule: no epilogues (the
+    streamed schedule carries the raw state between chunks), and a chunk
+    that holds a whole number of lane tiles."""
+    if plan.epilogue_op_count():
+        raise ValueError(
+            f"{plan.kind}: epilogue stages are illegal under chunking — the "
+            "chunk-streamed schedule carries the raw scan state between "
+            "chunks and recomputes it on backward; apply activations to "
+            "the streamed output instead")
+    if chunk < plan.S:
+        raise ValueError(
+            f"{plan.kind}: chunk={chunk} is smaller than the lane tile "
+            f"S={plan.S}; a chunk must hold at least one Kogge–Stone tile")
+    if chunk % plan.S:
+        raise ValueError(
+            f"{plan.kind}: chunk={chunk} is not a multiple of the lane "
+            f"tile S={plan.S}; partial tiles would shift the carry "
+            "hand-off off the tile boundary")
+
+
+def run_scan_plan_chunked(*operands: torch.Tensor, plan: SystolicPlan,
+                          chunk: int, block_r: int = 8, carry=None,
+                          return_carry: bool = False):
+    """Stream a scan plan over ``(R, chunk)`` slabs: one
+    :func:`run_scan_plan` call per slab (one K5 launch on the card), the
+    carry threaded from each slab to the next. T pads to whole chunks
+    with the combine's identity."""
+    check_chunk_geometry(plan, chunk)
+    check_scan_plan(plan, operands)
+    x0 = operands[0]
+    R, T = x0.shape
+    nc = -(-T // chunk)
+    pad = (0, nc * chunk - T)
+    if plan.combine == "linrec":
+        padded = (F.pad(operands[0], pad, value=1.0), F.pad(operands[1], pad))
+    else:
+        padded = (F.pad(operands[0], pad),)
+    c = (x0.new_zeros((R, 1)) if carry is None else _carry_rows(carry, R, x0))
+    outs = []
+    for i in range(nc):
+        out, c = run_scan_plan(
+            *(o[:, i * chunk:(i + 1) * chunk] for o in padded), plan=plan,
+            block_r=block_r, carry=c, return_carry=True)
+        outs.append(out)
+    out = torch.cat(outs, dim=1)[:, :T]
+    return (out, c) if return_carry else out

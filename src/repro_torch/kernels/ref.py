@@ -3,7 +3,7 @@
 Each function is a direct statement of the math with no systolic
 structure: shifted-slice sums in fp32, no library convolution (whose
 TF32 default on the card would not meet the fp32 tolerance). The scan
-oracles wait for the scan slice of the port.
+oracles are fp32 and sequential.
 """
 from __future__ import annotations
 
@@ -86,3 +86,28 @@ def stencil_iterate_dirichlet(x: torch.Tensor, sdef: StencilDef,
     for _ in range(steps):
         x = stencil_apply(x, sdef)
     return x
+
+
+# ---------------------------------------------------------------------------
+# Scans
+# ---------------------------------------------------------------------------
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(x.float(), dim=-1).to(x.dtype)
+
+
+def sat(x: torch.Tensor) -> torch.Tensor:
+    """Summed-area table: SAT[y,x] = Σ_{i≤y,j≤x} X[i,j]."""
+    s = torch.cumsum(x.float(), dim=-1)
+    return torch.cumsum(s, dim=-2).to(x.dtype)
+
+
+def linear_recurrence(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sequential gold: h_t = a_t·h_{t−1} + b_t along the last axis, fp32."""
+    a32, b32 = a.float(), b.float()
+    h = a32.new_zeros(a.shape[:-1])
+    hs = []
+    for t in range(a.shape[-1]):
+        h = a32[..., t] * h + b32[..., t]
+        hs.append(h)
+    return torch.stack(hs, dim=-1).to(a.dtype)

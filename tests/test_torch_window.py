@@ -218,8 +218,8 @@ def test_cpu_tensor_never_loads_the_kernel():
 
 def test_nvcc_command_targets_sm_90a():
     src = _build.sources()
-    assert [p.name for p in src] == ["ssam_window.cu", "ssam_window_2d.cu",
-                                     "ssam_window_3d.cu"]
+    assert [p.name for p in src] == ["ssam_scan.cu", "ssam_window.cu",
+                                     "ssam_window_2d.cu", "ssam_window_3d.cu"]
     cmd = _build.compile_command(src[0], _build.BUILD_DIR / "k.o")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" not in cmd
     assert "arch=compute_90a,code=sm_90a" in _build.link_command(
