@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR]
 
-Two paths. The first is the paper's experiment: the 15 Table-3 stencils
-at 8192² (2-D) and 512³ (3-D) in fp32, both schedule variants,
+Three paths. The first is the paper's experiment: the 15 Table-3
+stencils at 8192² (2-D) and 512³ (3-D) in fp32, both schedule variants,
 t ∈ {1, 2}, one bf16 case, and 2-D convolution ('same' and 'valid') at
 8192² over the Fig. 4 filter sweep plus a (16, 2048, 2048) batched 5×5,
 all through ``repro_torch.kernels.ops`` on CUDA tensors, i.e. through
 K1, the CUDA windowed-plan kernel. The second serves rwkv6-1.6b at full
 width (weights from ``--seed``) through ``repro_torch.launch.serve``,
 whose prefill runs the WKV recurrence through K5, the CUDA scan kernel.
-Phases, one JSON line each:
+The third trains whisper-base with the mel conv stem at full width
+through ``repro_torch.launch.train``: the stem's forward runs K1's
+channel-reduce path, its backward K1 on the input-adjoint plan and K3,
+the CUDA weight-gradient kernel. Phases, one JSON line each:
 
-1. build: compile K1 and K5 from ``src/repro_torch/csrc`` (nvcc, sm_90a);
+1. build: compile K1, K3 and K5 from ``src/repro_torch/csrc`` (nvcc,
+   sm_90a);
 2. stencils and 3. convolution: every case against the plain torch
    version on the card, ``rtol=3e-5, atol=3e-5·max|plain|`` (bf16:
    3e-2), and small cases against the torch oracles;
@@ -44,7 +48,24 @@ Phases, one JSON line each:
    path (plain torch, no kernel) at rtol 1e-4, atol 1e-4·max|plain|, and
    the server's greedy tokens against a token-by-token greedy decode of
    each request wherever the plain top-2 logit gap exceeds 100× that
-   tolerance.
+   tolerance;
+8. training: (a) K1 and K3 at the stem's full-width shapes (batch 8,
+   mel (8, 80, 1, 3000), d_model 512): conv1 and conv2 forward (conv2 at
+   stride (1, 2), both with bias+GELU), conv2's dx on the input-adjoint
+   plan, the dW of both, one single-channel 5×5 dW at 8192² and one bf16
+   forward, each against its plain version on the card (fp32 rtol 1e-4,
+   atol 1e-4·max|plain|; bf16 3e-2); (b) the stem's gradients (both
+   filters and biases, and conv2's input) through the kernels against
+   torch autograd through the plain versions, same tolerance;
+   (c) whisper-base with the stem (89,150,976 parameters, weights from
+   ``--seed``, TF32 off), batch 8, 128 tokens, 6 steps of
+   ``launch.train.main``: every loss finite, K1's counter (zeroed before)
+   at 5 per step (2 forwards, 2 recomputed pre-activations, 1 dx) and
+   K3's at 2 per step; (d) step time and samples/s, K1 and K3 device
+   times beside their bound, the plain versions and the library
+   yardsticks (``F.conv2d`` + tanh-GELU, ``torch.nn.grad.conv2d_input``
+   / ``conv2d_weight``, TF32 off, never called by the port), and the
+   profiler's top device ops of one step with the stem's share.
 
 It exits non-zero if there is no card, if a build, launch or check fails,
 and when run outside a checkout of the repository. The full results go
@@ -77,6 +98,12 @@ FULL_PARAMS = 1_465_503_744     # rwkv6-1.6b
 SERVE_RTOL = 1e-4
 K5_SERVE_LAUNCHES = 1392        # 24 layers × Σ⌈(L−1)/64⌉ over the prompts
 SPIN_CYCLES_PER_MS = 2_000_000  # SM cycles per ms at ≤ 2 GHz: spins err long
+TRAIN_PARAMS = 89_150_976       # whisper-base with the conv stem (n_mels 80)
+TRAIN_STEPS = 6
+TRAIN_BATCH = 8
+TRAIN_SEQ = 128
+N_MELS, N_FRAMES, D_MODEL = 80, 1500, 512
+STEM_RTOL = 1e-4                # K1 reduce path and K3 against plain, fp32
 
 
 def emit(obj) -> None:
@@ -263,9 +290,11 @@ def scan_phase(args, dev, card, results) -> dict:
     return {"worst_abs": worst, "headline": headline}
 
 
-def device_ops(prof, top: int = 5):
+def device_ops(prof, top: int = 5, match=None):
     """Kernels of a ``torch.profiler`` run by device time: the ``top``
-    largest, the total, and K5's share."""
+    largest, the total, and for each ``name: pattern`` of ``match``
+    (default K5's) the time, calls and share of the kernels whose name
+    holds the pattern."""
     from torch.autograd import DeviceType
 
     rows = []
@@ -279,13 +308,15 @@ def device_ops(prof, top: int = 5):
             rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    k5 = [r for r in rows if "ssam_scan_kernel" in r[0]]
-    k5_ms = sum(r[1] for r in k5)
-    return {"device_ms": total,
-            "top": [{"op": k[:160], "ms": ms, "calls": c,
-                     "share": ms / total} for k, ms, c in rows[:top]],
-            "k5_ms": k5_ms, "k5_calls": sum(r[2] for r in k5),
-            "k5_share": k5_ms / total if total else None}
+    out = {"device_ms": total,
+           "top": [{"op": k[:160], "ms": ms, "calls": c,
+                    "share": ms / total} for k, ms, c in rows[:top]]}
+    for name, pattern in (match or {"k5": "ssam_scan_kernel"}).items():
+        hit = [r for r in rows if pattern in r[0]]
+        ms = sum(r[1] for r in hit)
+        out.update({f"{name}_ms": ms, f"{name}_calls": sum(r[2] for r in hit),
+                    f"{name}_share": ms / total if total else None})
+    return out
 
 
 def serve_phase(args, dev, card, results) -> dict:
@@ -435,6 +466,248 @@ def serve_phase(args, dev, card, results) -> dict:
     return {"k5_launches": k5}
 
 
+def stem_cases(dev, seed):
+    """The Whisper stem's full-width operands at batch 8 (fp32, from the
+    numpy generator): mel, both filters and biases, conv1's output and
+    conv2's cotangent scattered onto the dense 3000-lane lattice."""
+    import numpy as np
+
+    from repro_torch import convert
+
+    rng = np.random.default_rng(seed)
+
+    def put(*shape, scale=1.0):
+        return convert.from_numpy(
+            (scale * rng.standard_normal(shape)).astype(np.float32), dev)
+
+    B, T, D = TRAIN_BATCH, 2 * N_FRAMES, D_MODEL
+    return {"mel": put(B, N_MELS, 1, T),
+            "w1": put(D, N_MELS, 1, 3, scale=N_MELS ** -0.5),
+            "b1": put(D, scale=0.1),
+            "x2": put(B, D, 1, T),
+            "w2": put(D, D, 1, 3, scale=D ** -0.5),
+            "b2": put(D, scale=0.1),
+            "g1": put(B, D, 1, T),
+            "g2": put(B, D, 1, T // 2)}
+
+
+def train_phase(args, dev, card, results) -> dict:
+    """Phase 8: train whisper-base with the conv stem at full width; the
+    stem runs K1 (forward, recomputed pre-activations, dx) and K3 (dW)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import adjoint, engine
+    from repro_torch.core.plan import normalize_epilogue
+    from repro_torch.data import TokenDataset
+    from repro_torch.kernels import ops, ssam_conv2d
+    from repro_torch.launch import train
+
+    K1, K3, K5 = engine.WINDOW_KERNEL, engine.WGRAD_KERNEL, engine.SCAN_KERNEL
+    c = stem_cases(dev, args.seed + 3)
+    B, T, D = TRAIN_BATCH, 2 * N_FRAMES, D_MODEL
+    epi = ("bias", "gelu")
+
+    def nchw(x, w, stride=None, epilogue=None):
+        return dataclasses.replace(
+            ssam_conv2d.plan_for_nchw(x.shape, w.shape, "same"),
+            stride=stride, epilogue=normalize_epilogue(epilogue))
+
+    p1 = nchw(c["mel"], c["w1"], None, epi)
+    p2 = nchw(c["x2"], c["w2"], (1, 2), epi)
+    lin2 = nchw(c["x2"], c["w2"])
+    adj2 = adjoint.input_adjoint_plan(lin2)
+    wa2 = adjoint.adjoint_coeff_array(lin2, c["w2"])
+    g2d = torch.zeros_like(c["g1"])
+    g2d[..., ::2] = c["g2"]                      # the scattered cotangent
+    rng = np.random.default_rng(args.seed + 4)
+    x8k = torch.as_tensor(rng.standard_normal((8192, 8192), np.float32),
+                          device=dev)
+    g8k = torch.as_tensor(rng.standard_normal((8192, 8192), np.float32),
+                          device=dev)
+    p8k = ssam_conv2d.plan_for((5, 5), "same")
+    ref = engine.run_window_plan_reference
+    wref = engine.run_weight_grad_plan_reference
+    run, wrun = engine.run_window_plan, engine.run_weight_grad_plan
+    x2_bf16 = c["x2"].to(torch.bfloat16)
+    F32 = STEM_RTOL
+    # (tag, kernel, plain, rtol, operations, bytes, library, counter)
+    cases = [
+        ("K1 conv1 forward (8,80,1,3000)->(8,512,1,3000) bias+gelu",
+         lambda: run(c["mel"], c["w1"], plan=p1, epilogue_args=(c["b1"],)),
+         lambda: ref(c["mel"], c["w1"], plan=p1, epilogue_args=(c["b1"],)),
+         F32, 2 * D * N_MELS * 3 * B * T,
+         4 * (B * N_MELS * T + D * N_MELS * 3 + D + B * D * T),
+         lambda: F.gelu(F.conv2d(c["mel"], c["w1"], c["b1"],
+                                 padding=(0, 1)), approximate="tanh"), K1),
+        ("K1 conv2 forward stride (1,2) (8,512,1,3000)->(8,512,1,1500) "
+         "bias+gelu",
+         lambda: run(c["x2"], c["w2"], plan=p2, epilogue_args=(c["b2"],)),
+         lambda: ref(c["x2"], c["w2"], plan=p2, epilogue_args=(c["b2"],)),
+         F32, 2 * D * D * 3 * B * (T // 2),
+         4 * (B * D * T + D * D * 3 + D + B * D * T // 2),
+         lambda: F.gelu(F.conv2d(c["x2"], c["w2"], c["b2"], stride=(1, 2),
+                                 padding=(0, 1)), approximate="tanh"), K1),
+        ("K1 conv2 dx, adjoint plan on the scattered cotangent "
+         "(8,512,1,3000)",
+         lambda: run(g2d, wa2, plan=adj2), lambda: ref(g2d, wa2, plan=adj2),
+         F32, 2 * D * D * 3 * B * T, 4 * (2 * B * D * T + D * D * 3),
+         lambda: torch.nn.grad.conv2d_input(
+             c["x2"].shape, c["w2"], c["g2"], stride=(1, 2), padding=(0, 1)),
+         K1),
+        ("K3 conv1 dW (8,80,1,3000) x (8,512,1,3000) -> (512,80,1,3)",
+         lambda: wrun(c["mel"], c["g1"], plan=p1),
+         lambda: wref(c["mel"], c["g1"], plan=p1),
+         F32, 2 * D * N_MELS * 3 * B * T,
+         4 * (B * N_MELS * T + B * D * T + D * N_MELS * 3),
+         lambda: torch.nn.grad.conv2d_weight(
+             c["mel"], c["w1"].shape, c["g1"], padding=(0, 1)), K3),
+        ("K3 conv2 dW on the scattered cotangent -> (512,512,1,3)",
+         lambda: wrun(c["x2"], g2d, plan=lin2),
+         lambda: wref(c["x2"], g2d, plan=lin2),
+         F32, 2 * D * D * 3 * B * T, 4 * (2 * B * D * T + D * D * 3),
+         lambda: torch.nn.grad.conv2d_weight(
+             c["x2"], c["w2"].shape, c["g2"], stride=(1, 2), padding=(0, 1)),
+         K3),
+        ("K3 dense (N, M) 5x5 'same' 8192x8192 -> (5,5)",
+         lambda: wrun(x8k, g8k, plan=p8k), lambda: wref(x8k, g8k, plan=p8k),
+         F32, 2 * 25 * 8192 * 8192, 4 * (2 * 8192 * 8192 + 25),
+         lambda: torch.nn.grad.conv2d_weight(
+             x8k[None, None], (1, 1, 5, 5), g8k[None, None], padding=2), K3),
+        ("K1 conv2 forward bf16 I/O",
+         lambda: run(x2_bf16, c["w2"], plan=p2, epilogue_args=(c["b2"],)),
+         lambda: ref(x2_bf16, c["w2"], plan=p2, epilogue_args=(c["b2"],)),
+         3e-2, 2 * D * D * 3 * B * (T // 2),
+         2 * (B * D * T + B * D * T // 2) + 4 * (D * D * 3 + D), None, K1),
+    ]
+    # -- (a) each kernel against its plain version at the stem's shapes ----
+    worst = {"K1": 0.0, "K3": 0.0}
+    for tag, kern, plain, rtol, *_ in cases:
+        got, want = kern(), plain()
+        err = compare(tag, got, want, rtol, results)
+        if rtol == F32:
+            worst[tag[:2]] = max(worst[tag[:2]], err)
+        del got, want
+    torch.cuda.empty_cache()
+
+    # -- (b) the stem's autograd against the plain path ---------------------
+    # Kernel path: ops.conv2d (K1 forward, recompute and dx, K3 dW).
+    # Plain path: torch autograd through run_window_plan_reference.
+    leaves = {k: c[k].clone().requires_grad_() for k in
+              ("w1", "b1", "w2", "b2")}
+    grads = {}
+    for path in ("kernel", "plain"):
+        p = {k: v.detach().clone().requires_grad_() for k, v in
+             leaves.items()}
+        if path == "kernel":
+            y1 = ops.conv2d(c["mel"], p["w1"], epilogue=epi,
+                            epilogue_args=(p["b1"],))
+            y1.retain_grad()
+            y2 = ops.conv2d(y1, p["w2"], stride=(1, 2), epilogue=epi,
+                            epilogue_args=(p["b2"],))
+        else:
+            y1 = ref(c["mel"], p["w1"], plan=p1, epilogue_args=(p["b1"],))
+            y1.retain_grad()
+            y2 = ref(y1, p["w2"], plan=p2, epilogue_args=(p["b2"],))
+        (y2 * c["g2"]).sum().backward()
+        grads[path] = {**{k: v.grad for k, v in p.items()}, "x2": y1.grad}
+    for k in ("w1", "b1", "w2", "b2", "x2"):
+        compare(f"stem autograd d{k}: kernel path vs plain path",
+                grads["kernel"][k], grads["plain"][k], F32, results)
+    del grads, leaves
+    torch.cuda.empty_cache()
+
+    # -- (c) the main path: the trainer at full width ------------------------
+    argv = ["--arch", "whisper-base", "--conv-frontend", "--steps",
+            str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--seed", str(args.seed), "--log-every", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K1.launches = K3.launches = K5.launches = 0
+    t0 = time.perf_counter()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    k1, k3, k5 = K1.launches, K3.launches, K5.launches
+    model = res.trainer.model
+    n_params = sum(p.numel() for p in model.parameters())
+    steady = res.step_seconds[1:]
+    step_ms = statistics.median(steady) * 1e3
+    rec = {"arch": model.cfg.name, "params": n_params,
+           "n_mels": model.cfg.n_mels, "steps": TRAIN_STEPS,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": res.losses,
+           "grad_norms": res.grad_norms,
+           "step_ms": [t * 1e3 for t in res.step_seconds],
+           "step_ms_median_after_first": step_ms,
+           "samples_per_s": TRAIN_BATCH / step_ms * 1e3, "run_s": run_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "k1_launches": k1, "k3_launches": k3, "k5_launches": k5,
+           "card": card}
+    results["train"] = rec
+    emit({"phase": "train", **rec})
+    require(n_params == TRAIN_PARAMS, ("whisper-base parameters", n_params))
+    require(all(np.isfinite(res.losses)), ("non-finite loss", res.losses))
+    require(k1 == 5 * TRAIN_STEPS and k3 == 2 * TRAIN_STEPS and k5 == 0,
+            ("train launches (K1 5/step, K3 2/step)", k1, k3, k5))
+
+    # -- (d) times at the stem's shapes, and one profiled step --------------
+    for tag, kern, plain, _, flops, nbytes, lib, _ in cases:
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / FP32_FLOPS * 1e3
+        if "bf16" in tag:
+            continue
+        ms = device_ms(kern, 20)
+        rec = {"case": tag, "ms": ms, "call_ms": event_ms(kern, 20),
+               "plain_ms": device_ms(plain, 3),
+               "library_ms": device_ms(lib, 20), "bound_ms": max(b_ms, f_ms),
+               "bound_by": "bytes" if b_ms >= f_ms else "operations",
+               "gflop": flops / 1e9, "bytes": nbytes,
+               "roofline_share": max(b_ms, f_ms) / ms, "card": card}
+        results["times"].append(rec)
+        emit({"phase": "train_time", **rec})
+    ds = TokenDataset(model.cfg.vocab, TRAIN_SEQ, seed=args.seed)
+    batch = train.make_batch(model, ds, TRAIN_STEPS, TRAIN_BATCH, dev)
+    res.trainer.step(batch)
+    torch.cuda.synchronize()
+    before = K1.launches, K3.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss, _ = res.trainer.step(batch)
+        float(loss)
+        torch.cuda.synchronize()
+    rec = {**device_ops(prof, match={"k1": "window_reduce_kernel",
+                                     "k3": "wgrad"}),
+           "k1_launches": K1.launches - before[0],
+           "k3_launches": K3.launches - before[1], "card": card}
+    rec["stem_share"] = ((rec["k1_ms"] + rec["k3_ms"]) / rec["device_ms"]
+                         if rec["device_ms"] else None)
+    # The same step's stem from the timed calls of (d): each forward twice
+    # (the backward recomputes the pre-activation), conv2's dx, both dW.
+    timed = {r["case"][:14]: r["ms"] for r in results["times"]
+             if r["case"].startswith(("K1 conv", "K3 conv"))}
+    rec["stem_ms_from_timed_calls"] = (
+        2 * timed["K1 conv1 forwa"] + 2 * timed["K1 conv2 forwa"]
+        + timed["K1 conv2 dx, a"] + timed["K3 conv1 dW (8"]
+        + timed["K3 conv2 dW on"])
+    kernels = {}
+    for e in prof.events():
+        if "ssam" in e.name and e.device_type == DeviceType.CUDA:
+            kernels[e.name[:60]] = kernels.get(e.name[:60], 0) + 1
+    rec["stem_kernel_events"] = kernels
+    results["train_profile"] = rec
+    emit({"phase": "train_profile", **rec})
+    return {"k1_launches": k1, "k3_launches": k3, "worst": worst,
+            "k3_headline": next(r for r in results["times"]
+                                if r["case"].startswith("K3 conv2 dW")),
+            "k1_headline": next(r for r in results["times"]
+                                if r["case"].startswith("K1 conv2 dx"))}
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -475,7 +748,7 @@ def main() -> int:
             rng.standard_normal(shape, dtype=np.float32), dev)
 
     card = card_line()
-    K1, K5 = engine.WINDOW_KERNEL, engine.SCAN_KERNEL
+    K1, K3, K5 = engine.WINDOW_KERNEL, engine.WGRAD_KERNEL, engine.SCAN_KERNEL
     results = {"card": card, "seed": args.seed, "checks": [], "times": []}
 
     # -- 1. build --------------------------------------------------------
@@ -497,7 +770,7 @@ def main() -> int:
         worst["abs"] = max(worst["abs"], compare(tag, y, plain, rtol, results))
 
     # -- 2./3. the main path ----------------------------------------------
-    K1.launches = K5.launches = 0
+    K1.launches = K3.launches = K5.launches = 0
     calls = 0
     grids = {2: randn(8192, 8192), 3: randn(512, 512, 512)}
     for name, sd in stencils.BENCHMARKS.items():
@@ -557,9 +830,11 @@ def main() -> int:
     # -- 4. launch count --------------------------------------------------
     launches = K1.launches
     results["launches"] = {"kernel": K1.name, "launches": launches,
-                           "calls": calls, "k5_launches": K5.launches}
+                           "calls": calls, "k3_launches": K3.launches,
+                           "k5_launches": K5.launches}
     emit({"phase": "launches", **results["launches"]})
-    require(launches == calls and K5.launches == 0, results["launches"])
+    require(launches == calls and K3.launches == K5.launches == 0,
+            results["launches"])
 
     # -- 5. times at t = 1 --------------------------------------------------
     def bound(in_elems, out_elems, elem_bytes, flops):
@@ -639,11 +914,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     scan = scan_phase(args, dev, card, results)
     served = serve_phase(args, dev, card, results)
+    torch.cuda.empty_cache()
+    trained = train_phase(args, dev, card, results)
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
     wkv = scan["headline"]
+    k3h, k1t = trained["k3_headline"], trained["k1_headline"]
     emit({"kernels": [{
         "name": K1.name, "route": "cuda", "source": K1.source,
         "replaces": K1.replaces, "launches": launches,
@@ -651,13 +929,24 @@ def main() -> int:
         "plain_ms": headline["plain_ms"], "bound_ms": headline["bound_ms"],
         "bound_by": headline["bound_by"],
         "library_ms": headline["library_ms"],
-        "case": headline["case"] + " 8192x8192 fp32"}, {
+        "case": headline["case"] + " 8192x8192 fp32",
+        "train": {"launches": trained["k1_launches"],
+                  "max_abs_err": trained["worst"]["K1"], "ms": k1t["ms"],
+                  "plain_ms": k1t["plain_ms"], "bound_ms": k1t["bound_ms"],
+                  "bound_by": k1t["bound_by"],
+                  "library_ms": k1t["library_ms"], "case": k1t["case"]}}, {
         "name": K5.name, "route": "cuda", "source": K5.source,
         "replaces": K5.replaces, "launches": served["k5_launches"],
         "max_abs_err": scan["worst_abs"], "ms": wkv["ms"],
         "plain_ms": wkv["plain_ms"], "bound_ms": wkv["bound_ms"],
         "bound_by": wkv["bound_by"], "library_ms": wkv["library_ms"],
-        "case": wkv["case"]}]})
+        "case": wkv["case"]}, {
+        "name": K3.name, "route": "cuda", "source": K3.source,
+        "replaces": K3.replaces, "launches": trained["k3_launches"],
+        "max_abs_err": trained["worst"]["K3"], "ms": k3h["ms"],
+        "plain_ms": k3h["plain_ms"], "bound_ms": k3h["bound_ms"],
+        "bound_by": k3h["bound_by"], "library_ms": k3h["library_ms"],
+        "case": k3h["case"]}]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

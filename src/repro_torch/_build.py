@@ -119,6 +119,12 @@ class Library:
         lib.ssam_window_launch.restype = i
         lib.ssam_scan_launch.argtypes = [p] * 5 + [i] * 4 + [p]
         lib.ssam_scan_launch.restype = i
+        lib.ssam_window_reduce_launch.argtypes = (
+            [p, p, i, p, p, i, p, ctypes.POINTER(ctypes.c_int),
+             ctypes.POINTER(ctypes.c_float), i] + [i] * 16 + [p])
+        lib.ssam_window_reduce_launch.restype = i
+        lib.ssam_wgrad_launch.argtypes = [p, p, i, p, p] + [i] * 22 + [p]
+        lib.ssam_wgrad_launch.restype = i
         return lib
 
 

@@ -10,12 +10,12 @@ import importlib
 from .models.base import ArchConfig
 
 # canonical ids of the ported architectures → module names
-ARCH_IDS = {"rwkv6-1.6b": "rwkv6_1g6b"}
+ARCH_IDS = {"rwkv6-1.6b": "rwkv6_1g6b", "whisper-base": "whisper_base"}
 
 
 def normalize_arch(arch: str) -> str:
     """The config module name of ``arch`` (``rwkv6-1.6b`` or
-    ``rwkv6_1g6b``)."""
+    ``rwkv6_1g6b``, ``whisper-base`` or ``whisper_base``)."""
     name = ARCH_IDS.get(arch, arch.replace("-", "_").replace(".", "g"))
     if name not in ARCH_IDS.values():
         raise NotImplementedError(

@@ -50,17 +50,23 @@ def _tree_from_numpy(tree, device):
     return from_numpy(np.array(tree), device)     # a writable copy
 
 
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
 def params_from_reference(tree, device="cpu"):
     """A reference parameter tree (nested dicts of numpy arrays, the
-    layers stacked on a leading axis under ``"layers"``) as the port's
-    tree: the same names, torch tensors on ``device``, and ``"layers"`` a
-    list of per-layer trees."""
+    layers stacked on a leading axis under ``"layers"``, or
+    ``"enc_layers"`` and ``"dec_layers"`` for an encoder-decoder) as the
+    port's tree: the same names, torch tensors on ``device``, and each
+    stack a list of per-layer trees."""
     out = _tree_from_numpy(tree, device)
-    if "layers" in out:
-        n = {v.shape[0] for _, v in leaves(out["layers"])}
+    for key in STACKED:
+        if key not in out:
+            continue
+        n = {v.shape[0] for _, v in leaves(out[key])}
         if len(n) != 1:
-            raise ValueError(f"stacked layers disagree on their count: {n}")
-        out["layers"] = unstack(out["layers"], n.pop())
+            raise ValueError(f"stacked {key} disagree on their count: {n}")
+        out[key] = unstack(out[key], n.pop())
     return out
 
 

@@ -1,23 +1,32 @@
-"""The plan engine: windowed plans (K1) and scan plans (K5), each a CUDA
-kernel beside its plain version.
+"""The plan engine: windowed plans (K1, K3) and scan plans (K5), each a
+CUDA kernel beside its plain version.
 
 :func:`run_window_plan` runs a windowed :class:`SystolicPlan` (2-D and
-3-D stencils, dense 2-D convolution, with leading batch axes) over an
-input whose lane axis is last. The tensor's device decides how:
+3-D stencils, dense 2-D convolution, with leading batch axes, and NCHW
+convolution with a channel reduction, an output stride and a fused
+epilogue) over an input whose lane axis is last. The tensor's device
+decides how:
 
 * a CUDA tensor launches K1, the hand-written kernel in
-  ``csrc/ssam_window.cu`` (it replaces the JAX package's
+  ``csrc/ssam_window*.cu`` (it replaces the JAX package's
   ``core/engine.py::_window_kernel``); a failure raises, it never
   falls back;
 * a CPU tensor runs :func:`run_window_plan_reference`, the plain torch
   version: the reference's ``_apply_plan_once`` block walk, both
-  variants, over overlapped blocks padded per :func:`origin_pads`.
+  variants and the strided read, over overlapped blocks padded per
+  :func:`origin_pads`, then the epilogue at the flush.
 
 The geometry is the reference ``_window_call``'s: output shape
-``in + t·(lead+trail) − t·(ext−1)`` per axis, blocks of the output tiled
-disjointly, each read from a ``t``-widened overlapped input block.
-Plans outside this slice raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+``(in + t·(lead+trail) − t·(ext−1) − 1) // stride + 1`` per axis,
+blocks of the output tiled disjointly, each read from a ``t``-widened
+overlapped input block at a stride-scaled origin. Plans outside the
+port's reach raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
+
+:func:`run_weight_grad_plan` is the backward-weight correlation
+``∂L/∂w[n,m] = Σ_{b,o} g[b,o]·xp[b,o+(n,m)]`` of a dense plan: K3
+(``csrc/ssam_wgrad.cu``, replacing ``_wgrad_dense_kernel``) for CUDA
+tensors, :func:`run_weight_grad_plan_reference` for CPU tensors.
 
 :func:`run_scan_plan` runs a scan plan (``combine='add'``: prefix sum;
 ``'linrec'``: ``h_t = a_t·h_{t−1} + b_t``) over ``(R, T)`` rows, with an
@@ -28,6 +37,7 @@ optional carry in and out: a CUDA tensor launches K5
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -35,28 +45,42 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .adjoint import apply_epilogue
 from .halo import origin_pads
-from .plan import SystolicPlan
+from .plan import EPILOGUE_OPERANDS, SystolicPlan, epilogue_operand_stages
 
 VARIANTS = ("shift_psum", "shift_data")
 WARP = 32
 SMEM_LIMIT = 232448          # bytes of shared memory one H100 block may use
 TABLE_SLOTS = 1024           # the kernel's tap-table limit (steps · D · N)
+# K1's epilogue codes (csrc/ssam_window_reduce.cu), in the kernel's order
+EPILOGUE_CODES = {"bias": 1, "gelu": 2, "silu": 3, "relu": 4, "scale": 5}
+MAX_EPILOGUE = 8
+
+
+def _is_reduce(plan: SystolicPlan) -> bool:
+    return bool(plan.reduce_axes or plan.out_axes)
 
 
 def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
-    """Raise for what this slice of the port does not run yet."""
+    """Raise for what the port does not run yet."""
     todo = []
-    if plan.reduce_axes or plan.out_axes:
-        todo.append("reduce/out axes (ROADMAP Queue 1 item 4)")
-    if plan.stride is not None and any(v > 1 for v in plan.stride):
-        todo.append("output stride (ROADMAP Queue 1 item 4)")
-    if plan.epilogue:
-        todo.append("epilogues (ROADMAP Queue 1 item 4)")
+    reduce = _is_reduce(plan)
+    if reduce and (plan.reduce_axes, plan.out_axes) != (1, 1):
+        todo.append("reduce/out axes other than one of each (ROADMAP "
+                    "Queue 1 item 4)")
+    if any(v > 1 for v in plan.stride_per_axis()) and not reduce:
+        todo.append("output strides on single-channel plans (ROADMAP "
+                    "Queue 1 item 4)")
+    if plan.epilogue and not reduce:
+        todo.append("epilogues on single-channel and stencil plans "
+                    "(ROADMAP Queue 1 item 4)")
+    if any(st.op == "residual_add" for st in plan.epilogue):
+        todo.append("residual_add epilogues (ROADMAP Queue 1 item 4)")
     if plan.stages:
         todo.append("fused stages (ROADMAP Queue 1 item 7)")
     if plan.coeff_mode == "perlane":
-        todo.append("per-lane coefficients (ROADMAP Queue 1 item 5)")
+        todo.append("per-lane coefficients (ROADMAP Queue 1 item 5c)")
     if plan.strategy == "mxu":
         todo.append("strategy='mxu' (K2, ROADMAP Queue 1 item 8)")
     if plan.combine != "fma":
@@ -73,16 +97,56 @@ def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if int(time_steps) != time_steps or time_steps < 1:
         raise ValueError(f"time_steps must be an int >= 1, got {time_steps}")
+    if reduce:
+        if plan.coeff_mode != "dense" or plan.ndim_spatial != 2 \
+                or plan.batch_axes > 1:
+            raise ValueError(f"{plan.kind!r}: reduce plans are dense 2-D "
+                             "plans with at most one batch axis")
+        if time_steps != 1:
+            raise ValueError(
+                "temporal blocking does not commute with a channel "
+                "reduction: iterate t must see the summed output of "
+                "iterate t-1")
+    elif time_steps != 1 and any(v > 1 for v in plan.stride_per_axis()):
+        raise ValueError("output strides support single plan applications")
+
+
+def _check_operands(plan: SystolicPlan, x, w, epilogue_args) -> None:
+    """Shapes of the filter and the epilogue operands against the plan."""
+    if plan.coeff_mode == "dense" and w is None:
+        raise ValueError("a dense plan needs its filter w")
+    need = epilogue_operand_stages(plan.epilogue)
+    if len(epilogue_args) != len(need):
+        raise ValueError(
+            f"epilogue {tuple(s.op for s in plan.epilogue)} needs "
+            f"{len(need)} runtime operand(s), got {len(epilogue_args)}")
+    if not _is_reduce(plan):
+        return
+    nb = plan.batch_axes
+    if x.ndim != nb + 3 or w.ndim != 4 or w.shape[1] != x.shape[nb]:
+        raise ValueError(
+            f"{plan.kind!r}: x {tuple(x.shape)} must be (B, C_in, H, W) "
+            f"against a (C_out, C_in, N, M) filter, got w {tuple(w.shape)}")
+    if tuple(w.shape[2:]) != plan.exts:
+        raise ValueError(f"filter {tuple(w.shape)} does not match the "
+                         f"plan's footprint {plan.exts}")
+    for st, arr in zip(need, epilogue_args):
+        if st.op == "bias" and tuple(arr.shape) != (w.shape[0],):
+            raise ValueError(f"bias epilogue wants a per-C_out "
+                             f"({w.shape[0]},) row, got {tuple(arr.shape)}")
 
 
 def _geometry(plan, x_shape, block, time_steps):
-    nb, nd = plan.batch_axes, plan.ndim_spatial
-    if len(x_shape) != nb + nd:
-        raise ValueError(f"{plan.kind!r} plan takes a {nb + nd}-D input "
-                         f"(batch axes {nb}), got shape {tuple(x_shape)}")
+    lead_axes = plan.batch_axes + plan.reduce_axes
+    nd = plan.ndim_spatial
+    if len(x_shape) != lead_axes + nd:
+        raise ValueError(
+            f"{plan.kind!r} plan takes a {lead_axes + nd}-D input (batch "
+            f"axes {plan.batch_axes}, reduce axes {plan.reduce_axes}), got "
+            f"shape {tuple(x_shape)}")
     if len(block) != nd:
         raise ValueError(f"block {block} must have {nd} entries")
-    spatial_in = tuple(x_shape[nb:])
+    spatial_in = tuple(x_shape[lead_axes:])
     out_sp = plan.out_shape(spatial_in, time_steps)
     if any(o < 1 for o in out_sp):
         raise ValueError(f"input {spatial_in} is smaller than the plan's "
@@ -92,14 +156,34 @@ def _geometry(plan, x_shape, block, time_steps):
     return spatial_in, out_sp, B, g
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32 accumulation, fp64 for fp64 inputs (so that fp64 gradcheck
+    holds the plain path to its own precision)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # The plain version: the reference block walk in torch
 # ---------------------------------------------------------------------------
 
-def _coeff(plan: SystolicPlan, w, tap):
+def _term(plan: SystolicPlan, w, tap, view):
+    """One tap's products. Reduce plans contract the input channels of the
+    view (axis 1) against ``w[:, :, tap]``, the ``C_in`` sweep of the
+    reference's reduce grid done as one contraction per tap."""
     if plan.coeff_mode == "table":
-        return plan.coeffs[tap.coeff_id[-1]]
-    return w[tap.coeff_id].float()
+        return view * plan.coeffs[tap.coeff_id[-1]]
+    if _is_reduce(plan):
+        wt = w[(slice(None), slice(None)) + tuple(tap.coeff_id)]
+        return torch.einsum("bc...,oc->bo...", view, wt.to(view.dtype))
+    return view * w[tuple(tap.coeff_id)].to(view.dtype)
+
+
+def _zeros(xb, plan, w, spatial):
+    nd = plan.ndim_spatial
+    shape = list(xb.shape[:-nd]) + list(spatial)
+    if _is_reduce(plan):
+        shape[1] = w.shape[0]
+    return xb.new_zeros(shape)
 
 
 def _tap_read(xb, tap, valid):
@@ -111,24 +195,42 @@ def _tap_read(xb, tap, valid):
 
 def apply_plan_once(xb: torch.Tensor, plan: SystolicPlan, w,
                     variant: str) -> torch.Tensor:
-    """One valid application of ``plan`` on blocks ``xb`` (fp32).
+    """One valid application of ``plan`` on blocks ``xb`` (in xb's dtype).
 
     The last ``plan.ndim_spatial`` axes are the block; any leading axes
-    are independent blocks. The torch twin of the reference's
-    ``_apply_plan_once`` (lanes strategy, stride 1): ``shift_psum`` rolls
-    the partial sums one lane per column step and keeps lanes
-    ``[M−1, W)``; ``shift_data`` rolls the data by the cumulative shift
-    and keeps lanes ``[0, W−M+1)``. Same products, same order.
+    are independent blocks (for reduce plans axis 0 is the batch and axis
+    1 the reduced channel). The torch twin of the reference's
+    ``_apply_plan_once`` (lanes strategy): ``shift_psum`` rolls the
+    partial sums one lane per column step and keeps lanes ``[M−1, W)``;
+    ``shift_data`` rolls the data by the cumulative shift and keeps lanes
+    ``[0, W−M+1)``; an output-strided plan reads lane ``l·stride + cum``
+    directly and computes only the kept outputs. Same products, same
+    order.
     """
     nd = plan.ndim_spatial
+    stride = plan.stride_per_axis()
+    if any(v > 1 for v in stride):
+        sh, sw = stride
+        out_sp = tuple((n - e) // v + 1
+                       for n, e, v in zip(xb.shape[-2:], plan.exts, stride))
+        s = _zeros(xb, plan, w, out_sp)
+        cum = 0
+        for step in plan.steps:
+            cum += step.shift
+            for tap in step.taps:
+                view = xb[..., tap.row_offset:
+                          tap.row_offset + (out_sp[0] - 1) * sh + 1:sh,
+                          cum:cum + (out_sp[1] - 1) * sw + 1:sw]
+                s = s + _term(plan, w, tap, view)
+        return s
     valid = tuple(n - (e - 1) for n, e in zip(xb.shape[-nd:], plan.exts))
-    s = xb.new_zeros(xb.shape[:-nd] + valid[:-1] + (xb.shape[-1],))
+    s = _zeros(xb, plan, w, valid[:-1] + (xb.shape[-1],))
     if variant == "shift_psum":
         for step in plan.steps:
             if step.shift:
                 s = torch.roll(s, step.shift, dims=-1)
             for tap in step.taps:
-                s = s + _tap_read(xb, tap, valid) * _coeff(plan, w, tap)
+                s = s + _term(plan, w, tap, _tap_read(xb, tap, valid))
         return s[..., plan.M - 1:plan.M - 1 + valid[-1]]
     if variant == "shift_data":
         cum = 0
@@ -136,42 +238,60 @@ def apply_plan_once(xb: torch.Tensor, plan: SystolicPlan, w,
             cum += step.shift
             xs = torch.roll(xb, -cum, dims=-1) if cum else xb
             for tap in step.taps:
-                s = s + _tap_read(xs, tap, valid) * _coeff(plan, w, tap)
+                s = s + _term(plan, w, tap, _tap_read(xs, tap, valid))
         return s[..., :valid[-1]]
     raise ValueError(variant)
 
 
 def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                               block=None, time_steps: int = 1,
-                              variant: str = "shift_psum") -> torch.Tensor:
+                              variant: str = "shift_psum",
+                              epilogue_args=()) -> torch.Tensor:
     """The plain version of K1, on any device.
 
     Pads ``x`` per :func:`origin_pads` (``t·lead`` zeros ahead, enough
     behind for the last block), cuts it into the overlapped input blocks
-    of the disjoint output tiling (a strided view), runs ``time_steps``
-    applications of :func:`apply_plan_once` on every block at once, crops
-    each block to its output tile and stitches the tiles.
+    of the disjoint output tiling (a strided view; strided plans start
+    block ``i`` at ``i·b·stride``), runs ``time_steps`` applications of
+    :func:`apply_plan_once` on every block at once, crops each block to
+    its output tile, stitches the tiles and applies the epilogue to the
+    sum, as the reference does at the accumulator flush. Accumulates in
+    fp32 (fp64 for fp64 inputs); returns ``x``'s dtype.
     """
     check_supported(plan, time_steps, variant)
+    _check_operands(plan, x, w, epilogue_args)
     block = tuple(block or default_block(plan, time_steps))
     t = time_steps
-    nb, nd = plan.batch_axes, plan.ndim_spatial
-    spatial_in, out_sp, B, g = _geometry(plan, x.shape, block, t)
+    nd = plan.ndim_spatial
+    squeeze = _is_reduce(plan) and not plan.batch_axes
+    xx = x[None] if squeeze else x
+    lead_in = xx.ndim - nd
+    spatial_in, out_sp, B, g = _geometry(
+        dataclasses.replace(plan, batch_axes=lead_in - plan.reduce_axes),
+        xx.shape, block, t)
     pads = origin_pads(plan, spatial_in, g, B, t)
-    xp = F.pad(x.float(), [v for lo_hi in reversed(pads) for v in lo_hi])
+    xp = F.pad(xx.to(_acc_dtype(x)),
+               [v for lo_hi in reversed(pads) for v in lo_hi])
     in_block = plan.block_in_shape(B, t)
+    stride = plan.stride_per_axis()
     blocks = xp
     for a in range(nd):
-        blocks = blocks.unfold(nb + a, in_block[a], B[a])
-    blocks = blocks[(slice(None),) * nb + tuple(slice(0, gi) for gi in g)]
+        blocks = blocks.unfold(lead_in + a, in_block[a], B[a] * stride[a])
+    blocks = blocks[(slice(None),) * lead_in + tuple(slice(0, gi) for gi in g)]
     for _ in range(t):
         blocks = apply_plan_once(blocks, plan, w, variant)
     blocks = blocks[(...,) + tuple(slice(0, b) for b in B)]
-    perm = list(range(nb)) + [d for a in range(nd)
-                              for d in (nb + a, nb + nd + a)]
+    lead_out = lead_in                    # C_in is replaced by C_out in place
+    perm = list(range(lead_out)) + [d for a in range(nd)
+                                    for d in (lead_out + a, lead_out + nd + a)]
     out = blocks.permute(perm).reshape(
-        tuple(x.shape[:nb]) + tuple(gi * bi for gi, bi in zip(g, B)))
-    out = out[(slice(None),) * nb + tuple(slice(0, o) for o in out_sp)]
+        tuple(blocks.shape[:lead_out])
+        + tuple(gi * bi for gi, bi in zip(g, B)))
+    out = out[(slice(None),) * lead_out + tuple(slice(0, o) for o in out_sp)]
+    if plan.epilogue:
+        out = apply_epilogue(plan, out, epilogue_args)
+    if squeeze:
+        out = out[0]
     return out.to(x.dtype)
 
 
@@ -180,7 +300,9 @@ def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
 # ---------------------------------------------------------------------------
 
 class WindowKernel:
-    """Wrapper of K1. ``launches`` counts the kernel launches it made."""
+    """Wrapper of K1. ``launches`` counts the kernel launches it made:
+    one per call, on the single-channel path (``ssam_window_launch``) and
+    on the channel-reduce path (``ssam_window_reduce_launch``) alike."""
 
     name = "ssam_window"
     source = "src/repro_torch/csrc/ssam_window.cu"
@@ -191,20 +313,23 @@ class WindowKernel:
         self.launches = 0
 
     def __call__(self, x: torch.Tensor, w, *, plan: SystolicPlan, block,
-                 time_steps: int, variant: str) -> torch.Tensor:
+                 time_steps: int, variant: str,
+                 epilogue_args=()) -> torch.Tensor:
         if not x.is_cuda:
             raise ValueError(f"K1 takes a CUDA tensor, got {x.device}")
         if x.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"K1 takes float32 or bfloat16, got {x.dtype}")
+        if plan.coeff_mode == "dense" and w.device != x.device:
+            raise ValueError("a dense plan takes its filter w on the same "
+                             "device as x")
+        if _is_reduce(plan):
+            return self._reduce(x, w, plan, epilogue_args)
         t = time_steps
         nb, nd = plan.batch_axes, plan.ndim_spatial
         spatial_in, out_sp, B, _ = _geometry(plan, x.shape, block, t)
         table = tap_table(plan, None if w is None else tuple(w.shape))
         cidx, shifts, cvals = _device_table(table, x.device)
         if plan.coeff_mode == "dense":
-            if w.device != x.device:
-                raise ValueError("a dense plan takes its filter w on the "
-                                 "same device as x")
             cvals = w.detach().to(torch.float32).contiguous()
         smem = smem_bytes(plan, B, t)
         if smem > SMEM_LIMIT:
@@ -236,8 +361,105 @@ class WindowKernel:
         self.launches += 1
         return out
 
+    def _reduce(self, x, w, plan, epilogue_args):
+        """The channel-reduce path: ``x (B, C_in, H, W)`` against
+        ``w (C_out, C_in, N, M)``, output stride and epilogue."""
+        x4 = (x if plan.batch_axes else x[None]).contiguous()
+        Bn, Cr, H, W = x4.shape
+        Co = w.shape[0]
+        Ho, Wo = plan.out_shape((H, W))
+        if Ho > 65535 or Bn * -(-Co // REDUCE_CO_TILE) > 65535:
+            raise ValueError(f"K1's reduce grid cannot hold {Ho} rows or "
+                             f"{Bn} x {Co} channels")
+        taps = reduce_tap_table(plan)
+        dtaps = _device_ints(taps, x.device)
+        ntaps = len(taps) // 3
+        ci_t, smem = reduce_smem_plan(plan, ntaps, Cr)
+        wf = w.detach().to(torch.float32).contiguous()
+        ops_, vals, bias = [], [], None
+        args = iter(epilogue_args)
+        for st in plan.epilogue:
+            ops_.append(EPILOGUE_CODES[st.op])
+            vals.append(st.value or 0.0)
+            if st.op in EPILOGUE_OPERANDS:
+                arr = next(args)
+                if arr.device != x.device:
+                    raise ValueError("epilogue operands must lie on x's "
+                                     "device")
+                bias = arr.detach().to(torch.float32).contiguous()
+        if len(ops_) > MAX_EPILOGUE:
+            raise ValueError(f"K1 applies at most {MAX_EPILOGUE} epilogue "
+                             "stages")
+        c_ops = (ctypes.c_int * MAX_EPILOGUE)(*ops_)
+        c_vals = (ctypes.c_float * MAX_EPILOGUE)(*vals)
+        out = torch.empty((Bn, Co, Ho, Wo), dtype=x.dtype, device=x.device)
+        lead, _ = plan.lead_trail()
+        sh, sw = plan.stride_per_axis()
+        err = self.library.get().ssam_window_reduce_launch(
+            x4.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
+            wf.data_ptr(), dtaps.data_ptr(), ntaps,
+            None if bias is None else bias.data_ptr(), c_ops, c_vals,
+            len(ops_), Bn, Cr, Co, H, W, Ho, Wo, lead[0], lead[1], sh, sw,
+            plan.N * plan.M, plan.N, plan.M, ci_t, smem,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"K1 launch failed: CUDA error {err} "
+                               f"({plan.kind}, reduce {Cr} -> {Co})")
+        self.launches += 1
+        return out if plan.batch_axes else out[0]
+
 
 WINDOW_KERNEL = WindowKernel(_build.LIBRARY)
+
+# The reduce path's block: 8 warps x 4 output channels, 1 row x 128 columns
+# (4 per lane); input channels are staged REDUCE_CI_MAX at a time at most.
+REDUCE_CO_TILE = 32
+REDUCE_COLS = 128
+REDUCE_CI_MAX = 16
+REDUCE_SMEM_TARGET = 48 * 1024
+
+
+def reduce_tap_table(plan: SystolicPlan) -> tuple[int, ...]:
+    """The taps of a dense reduce plan as ``(row, col, coeff)`` triples in
+    plan order: ``col`` is the cumulative lane shift of the tap's step,
+    ``coeff`` the flat index into one ``(N, M)`` filter slice."""
+    out, cum = [], 0
+    for step in plan.steps:
+        cum += step.shift
+        for tap in step.taps:
+            n, m = tap.coeff_id
+            if not (0 <= tap.row_offset < plan.N and 0 <= cum < plan.M
+                    and 0 <= n < plan.N and 0 <= m < plan.M):
+                raise ValueError(f"tap {tap} at column {cum} lies outside "
+                                 f"the {plan.exts} footprint")
+            out += [tap.row_offset, cum, n * plan.M + m]
+    if not out or len(out) // 3 > TABLE_SLOTS:
+        raise ValueError(f"K1's reduce path takes 1..{TABLE_SLOTS} taps, "
+                         f"got {len(out) // 3}")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_ints(values: tuple[int, ...], device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.int32, device=device)
+
+
+def reduce_smem_plan(plan: SystolicPlan, ntaps: int, c_in: int):
+    """``(ci_t, bytes)``: input channels staged per pass and the dynamic
+    shared memory of one reduce block (layout of
+    ``ssam_window_reduce.cu``: tap table, ``ci_t × taps × 32`` filter
+    values, ``ci_t × N`` staged input rows)."""
+    sw = plan.stride_per_axis()[1]
+    span = (REDUCE_COLS - 1) * sw + plan.M
+    table = (3 * ntaps + 3) & ~3
+    per_ci = ntaps * REDUCE_CO_TILE + plan.N * span
+    ci_t = (REDUCE_SMEM_TARGET // 4 - table) // per_ci
+    ci_t = max(1, min(REDUCE_CI_MAX, c_in, ci_t))
+    smem = 4 * (table + ci_t * per_ci)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K1's reduce block needs {smem} bytes of shared "
+                         f"memory (limit {SMEM_LIMIT})")
+    return ci_t, smem
 
 
 @dataclasses.dataclass(frozen=True)
@@ -310,9 +532,9 @@ def _device_table(table: TapTable, device):
 
 
 def smem_bytes(plan: SystolicPlan, block, time_steps: int) -> int:
-    """Dynamic shared memory of one K1 block: the tap table, the staged
-    skirt and, for ``t > 1``, the buffer of the first intermediate iterate
-    (layout of ``ssam_window.cuh``)."""
+    """Dynamic shared memory of one single-channel K1 block: the tap
+    table, the staged skirt and, for ``t > 1``, the buffer of the first
+    intermediate iterate (layout of ``ssam_window.cuh``)."""
     nd = plan.ndim_spatial
     D = plan.depth if nd == 3 else 1
     N, M, steps = plan.N, plan.M, len(plan.steps)
@@ -328,9 +550,10 @@ def smem_bytes(plan: SystolicPlan, block, time_steps: int) -> int:
 
 
 def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
-    """K1's output tile: four warp-widths of valid lanes across, 64 rows
-    (2-D) or 16 rows by 8 slices (3-D), halved until the block fits in
-    shared memory."""
+    """The output tile of the block walk: four warp-widths of valid lanes
+    across, 64 rows (2-D) or 16 rows by 8 slices (3-D), halved until a
+    single-channel K1 block fits in shared memory. (K1's reduce path
+    tiles its output itself: 32 channels x 1 row x 128 columns.)"""
     V = max(1, WARP - (plan.M - 1))
     if plan.ndim_spatial == 3:
         block = [8, 16, 2 * V]
@@ -346,30 +569,218 @@ def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
 
 def run_window_plan(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                     block=None, time_steps: int = 1,
-                    variant: str = "shift_psum") -> torch.Tensor:
+                    variant: str = "shift_psum",
+                    epilogue_args=()) -> torch.Tensor:
     """Run a windowed plan: K1 for a CUDA tensor, the plain version for a
     CPU tensor, an error for anything else.
 
     Args:
-      x: ``batch_axes + ndim_spatial``-dim input, lane axis last.
-      w: the dense ``(N, M)`` filter for ``coeff_mode='dense'`` plans,
-        None for ``'table'`` plans.
-      block: output tile per windowed axis (default :func:`default_block`).
+      x: ``batch_axes + reduce_axes + ndim_spatial``-dim input, lane axis
+        last.
+      w: the dense filter for ``coeff_mode='dense'`` plans — ``(N, M)``,
+        or ``(C_out, C_in, N, M)`` for reduce plans — None for ``'table'``
+        plans.
+      block: output tile per windowed axis of the block walk (default
+        :func:`default_block`).
       time_steps: fused applications (§6.4), pad-once semantics.
       variant: ``'shift_psum'`` (paper) or ``'shift_data'``.
+      epilogue_args: runtime operands of the plan's epilogue (a per-C_out
+        bias row).
     """
     check_supported(plan, time_steps, variant)
-    if plan.coeff_mode == "dense" and w is None:
-        raise ValueError("a dense plan needs its filter w")
+    _check_operands(plan, x, w, epilogue_args)
     block = tuple(block or default_block(plan, time_steps))
     if x.device.type == "cuda":
         return WINDOW_KERNEL(x, w, plan=plan, block=block,
-                             time_steps=time_steps, variant=variant)
+                             time_steps=time_steps, variant=variant,
+                             epilogue_args=epilogue_args)
     if x.device.type == "cpu":
         return run_window_plan_reference(x, w, plan=plan, block=block,
                                          time_steps=time_steps,
-                                         variant=variant)
+                                         variant=variant,
+                                         epilogue_args=epilogue_args)
     raise ValueError(f"no windowed engine for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# Backward-weight: the adjoint correlation (K3)
+# ---------------------------------------------------------------------------
+
+def _wgrad_operands(x, g, plan: SystolicPlan):
+    """``x`` and ``g`` as ``(B, C_in, H, W)`` and ``(B, C_out, H', W')``,
+    checked against the plan's geometry as the reference checks them."""
+    if plan.combine != "fma" or plan.coeff_mode == "table":
+        raise ValueError(
+            f"no weight gradient for {plan.kind!r} "
+            f"(combine={plan.combine!r}, coeff_mode={plan.coeff_mode!r})")
+    if plan.coeff_mode == "perlane":
+        raise NotImplementedError(
+            "the per-lane weight gradient (K4) is not ported yet (ROADMAP "
+            "Queue 1 item 5c)")
+    if plan.ndim_spatial != 2 or plan.reduce_axes != plan.out_axes:
+        raise ValueError(f"{plan.kind!r}: the dense weight gradient takes "
+                         "2-D plans, single-channel or NCHW")
+    if any(v > 1 for v in plan.stride_per_axis()):
+        raise ValueError("scatter the cotangent of a strided plan into the "
+                         "dense lattice and pass the stride-free plan")
+    nb, nr = plan.batch_axes, plan.reduce_axes
+    x4 = x if nb else x[None]
+    x4 = x4 if nr else x4[:, None]
+    g4 = g if nb else g[None]
+    g4 = g4 if nr else g4[:, None]
+    if x4.ndim != 4 or g4.ndim != 4 or x4.shape[0] != g4.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} do not "
+                         f"fit the {plan.kind!r} plan")
+    N, M = plan.exts
+    lead, trail = plan.lead_trail()
+    H, W = x4.shape[2:]
+    Ho, Wo = g4.shape[2:]
+    if (Ho, Wo) != (H + lead[0] + trail[0] - (N - 1),
+                    W + lead[1] + trail[1] - (M - 1)):
+        raise ValueError(f"cotangent {tuple(g.shape)} is not the output of "
+                         f"the {plan.kind!r} plan on {tuple(x.shape)}")
+    return x4, g4
+
+
+def run_weight_grad_plan_reference(x: torch.Tensor, g: torch.Tensor, *,
+                                   plan: SystolicPlan) -> torch.Tensor:
+    """The plain version of K3, on any device: one correlation per filter
+    tap, ``dW[:, :, n, m] = Σ_{b,o} g[b, :, o]·xp[b, :, o + (n, m)]`` over
+    the input padded by the plan's lead (and trail). Returns fp32 (fp64
+    for fp64 inputs), ``(N, M)`` or ``(C_out, C_in, N, M)``."""
+    x4, g4 = _wgrad_operands(x, g, plan)
+    acc = _acc_dtype(x)
+    N, M = plan.exts
+    (ly, lx), _ = plan.lead_trail()
+    H, W = x4.shape[2:]
+    Ho, Wo = g4.shape[2:]
+    xp = F.pad(x4.to(acc), (lx, Wo + M - 1 - lx - W, ly, Ho + N - 1 - ly - H))
+    gf = g4.to(acc)
+    out = xp.new_zeros((g4.shape[1], x4.shape[1], N, M))
+    for n in range(N):
+        for m in range(M):
+            out[:, :, n, m] = torch.einsum(
+                "bohw,bchw->oc", gf, xp[..., n:n + Ho, m:m + Wo])
+    return out if plan.out_axes else out[0, 0]
+
+
+WGRAD_POSITIONS = 64          # cotangent positions per staged chunk (K3)
+WGRAD_THREADS = 256
+WGRAD_TARGET_BLOCKS = 4 * 132  # enough blocks for every SM of an H100
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradLayout:
+    """K3's launch geometry: a block of 256 threads owns ``co_tile``
+    output channels × ``rows_tile`` flattened ``(c_in, n, m)`` rows; its
+    threads split as ``cg`` channel groups (``cr`` channels each) ×
+    ``rg`` row groups (4 rows each) × ``ph`` position phases, whose
+    partial sums the block adds in a fixed order. The cotangent's
+    positions, in chunks of 64 along a row, split into ``slices``
+    reduce slices (a second kernel adds their partials in order)."""
+
+    cr: int
+    cg: int
+    rg: int
+    ph: int
+    grid: tuple[int, int, int]
+    chunks: int
+    slices: int
+    span: int                  # input channels one block stages
+    lp: int                    # staged columns per input row (odd)
+    smem: int
+
+
+def wgrad_layout(B, c_in, c_out, Ho, Wo, N, M) -> WgradLayout:
+    rows = c_in * N * M
+    cr = 4 if c_out > 1 else 1
+    cg = min(8, _pow2_ceil(-(-c_out // cr)))
+    rg = min(WGRAD_THREADS // cg, _pow2_ceil(-(-rows // 4)))
+    ph = WGRAD_THREADS // (cg * rg)
+    co_tile, rows_tile = cg * cr, 4 * rg
+    grid_xy = (-(-rows // rows_tile), -(-c_out // co_tile))
+    chunks = B * Ho * -(-Wo // WGRAD_POSITIONS)
+    slices = max(1, min(chunks, -(-WGRAD_TARGET_BLOCKS
+                                  // (grid_xy[0] * grid_xy[1]))))
+    # channels a block's rows can touch (a tile may start mid-channel)
+    span = min(c_in, rows_tile // (N * M) + 2)
+    lp = (WGRAD_POSITIONS + M - 1) | 1
+    staged = WGRAD_POSITIONS * co_tile + span * N * lp
+    smem = 4 * max(staged, WGRAD_THREADS * cr * 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K3 needs {smem} bytes of shared memory for a "
+                         f"{N}x{M} filter (limit {SMEM_LIMIT})")
+    if grid_xy[1] > 65535 or slices > 65535:
+        raise ValueError(f"K3's grid cannot hold {c_out} channels")
+    return WgradLayout(cr, cg, rg, ph, grid_xy + (slices,), chunks, slices,
+                       span, lp, smem)
+
+
+class WgradKernel:
+    """Wrapper of K3. ``launches`` counts its calls: one per gradient, the
+    partial-sum pass (when the reduce is split) included."""
+
+    name = "ssam_wgrad"
+    source = "src/repro_torch/csrc/ssam_wgrad.cu"
+    replaces = ("src/repro/core/engine.py:737 (_wgrad_dense_kernel, "
+                "pallas_call at 873)")
+
+    def __init__(self, library: _build.Library):
+        self.library = library
+        self.launches = 0
+
+    def __call__(self, x: torch.Tensor, g: torch.Tensor, *,
+                 plan: SystolicPlan) -> torch.Tensor:
+        if not (x.is_cuda and g.device == x.device):
+            raise ValueError(f"K3 takes CUDA tensors on one device, got "
+                             f"{x.device} and {g.device}")
+        if x.dtype not in (torch.float32, torch.bfloat16) \
+                or g.dtype != x.dtype:
+            raise TypeError(f"K3 takes float32 or bfloat16 x and g of one "
+                            f"dtype, got {x.dtype} and {g.dtype}")
+        x4, g4 = _wgrad_operands(x, g, plan)
+        x4, g4 = x4.contiguous(), g4.contiguous()
+        B, Ci, H, W = x4.shape
+        Co, Ho, Wo = g4.shape[1:]
+        N, M = plan.exts
+        (ly, lx), _ = plan.lead_trail()
+        lay = wgrad_layout(B, Ci, Co, Ho, Wo, N, M)
+        out = torch.empty((Co, Ci, N, M), dtype=torch.float32,
+                          device=x.device)
+        part = (torch.empty((lay.slices, Co, Ci * N * M), dtype=torch.float32,
+                            device=x.device) if lay.slices > 1 else out)
+        err = self.library.get().ssam_wgrad_launch(
+            x4.data_ptr(), g4.data_ptr(), int(x.dtype == torch.bfloat16),
+            part.data_ptr(), out.data_ptr(), B, Ci, Co, H, W, Ho, Wo, N, M,
+            ly, lx, lay.cr, lay.cg, lay.rg, lay.ph, *lay.grid, lay.chunks,
+            lay.span, lay.lp, lay.smem,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"K3 launch failed: CUDA error {err} "
+                               f"({plan.kind}, {Co}x{Ci}x{N}x{M})")
+        self.launches += 1
+        return out if plan.out_axes else out[0, 0]
+
+
+WGRAD_KERNEL = WgradKernel(_build.LIBRARY)
+
+
+def run_weight_grad_plan(x: torch.Tensor, g: torch.Tensor, *,
+                         plan: SystolicPlan) -> torch.Tensor:
+    """Backward-weight of a dense windowed plan: ``∂L/∂w`` of
+    ``y = run_window_plan(x, w, plan=plan)`` given the cotangent ``g``
+    (shaped like the stride-free output). K3 for CUDA tensors, the plain
+    version for CPU tensors. Returns fp32 (the accumulator's dtype) in
+    the filter's layout: ``(N, M)`` or ``(C_out, C_in, N, M)``."""
+    if x.device.type == "cuda":
+        return WGRAD_KERNEL(x, g, plan=plan)
+    if x.device.type == "cpu":
+        return run_weight_grad_plan_reference(x, g, plan=plan)
+    raise ValueError(f"no weight-gradient engine for device {x.device}")
 
 
 # ---------------------------------------------------------------------------

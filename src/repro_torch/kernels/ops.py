@@ -1,21 +1,35 @@
 """Public ops of the port: ``stencil`` and ``conv2d`` (windowed plans,
-K1) and the scan family ``cumsum``, ``sat``, ``linear_recurrence``,
-``linear_recurrence_carry`` and ``chunked_linear_recurrence`` (K5).
+K1, with gradients through K1 and K3) and the scan family ``cumsum``,
+``sat``, ``linear_recurrence``, ``linear_recurrence_carry`` and
+``chunked_linear_recurrence`` (K5).
 
 The device of the input decides the path: a CUDA tensor launches the
 hand-written kernel, and a CPU tensor runs its plain torch version
 (:func:`repro_torch.core.engine.run_window_plan_reference`,
+:func:`repro_torch.core.engine.run_weight_grad_plan_reference`,
 :func:`repro_torch.core.engine.run_scan_plan_reference`). Nothing falls
 back: a CUDA failure raises. There is no autotuner, mesh, guard lattice
 or device ``impl=`` switch; ``chunked_linear_recurrence``'s ``impl``
 names the schedule, as in the reference.
+
+The windowed ops are differentiable: :class:`WindowOp` is the
+``torch.autograd.Function`` of the reference's ``_window_op`` custom VJP
+(``ops.py:353-435``). Its backward recomputes the pre-activation with
+the linear plan, differentiates the epilogue there (which also gives the
+bias gradient), scatters the cotangent of a strided plan into the dense
+output lattice, runs the input-adjoint plan through the engine for
+``dx`` (K1) and the weight-gradient correlation for ``dW`` (K3).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from ..core import adjoint as adj
 from ..core import engine as _engine
-from ..core.plan import linear_recurrence_plan
+from ..core.plan import (SystolicPlan, linear_recurrence_plan,
+                         normalize_epilogue)
 from . import ssam_conv2d as _c2
 from . import ssam_scan as _sc
 from . import ssam_stencil2d as _s2
@@ -23,11 +37,102 @@ from . import ssam_stencil3d as _s3
 from .stencils import BENCHMARKS, StencilDef
 
 
+@dataclasses.dataclass(frozen=True)
+class WindowCfg:
+    """Static configuration of one windowed engine call."""
+
+    plan: SystolicPlan
+    block: tuple[int, ...] | None = None
+    time_steps: int = 1
+    variant: str = "shift_psum"
+
+
+def _run(cfg: WindowCfg, plan: SystolicPlan, x, w, epi=()):
+    return _engine.run_window_plan(
+        x, w, plan=plan, block=cfg.block, time_steps=cfg.time_steps,
+        variant=cfg.variant, epilogue_args=tuple(epi))
+
+
+def window_backward(cfg: WindowCfg, x, w, epi, g, *, need_x: bool = True,
+                    need_w: bool = True):
+    """``(dx, dw, depi)`` of ``y = run_window_plan(x, w, plan=cfg.plan,
+    epilogue_args=epi)`` given the cotangent ``g``, in the reference's
+    order: epilogue VJP at the recomputed pre-activation, the scatter of
+    a strided cotangent, ``dx`` through the input-adjoint plan (when
+    ``need_x``), ``dW`` through the weight-gradient correlation (when
+    ``need_w`` and the plan has runtime coefficients)."""
+    plan = cfg.plan
+    if cfg.time_steps != 1 and plan.coeff_mode != "table":
+        raise ValueError(
+            "gradients of temporally-blocked convolutions are not "
+            "supported (the weight enters every fused iterate); stencil "
+            "plans (compile-time coefficients) differentiate at any "
+            "time_steps")
+    depi = (None,) * len(epi)
+    if plan.epilogue:
+        plan = dataclasses.replace(plan, epilogue=())
+        z = _run(cfg, plan, x, w)
+        with torch.enable_grad():
+            zz = z.detach().requires_grad_(True)
+            aa = [a.detach().requires_grad_(True) for a in epi]
+            y = adj.apply_epilogue(cfg.plan, zz, aa)
+            grads = torch.autograd.grad(y, [zz, *aa], g.to(z.dtype))
+        g, depi = grads[0], tuple(grads[1:])
+    if any(v > 1 for v in plan.stride_per_axis()):
+        # the transpose of the output-strided grid: the cotangent lands on
+        # the kept lanes of the dense output lattice, zeros between them
+        plan = dataclasses.replace(plan, stride=None)
+        lead_in = plan.batch_axes + plan.reduce_axes
+        dense = plan.out_shape(tuple(x.shape[lead_in:]))
+        lead_nd = g.ndim - plan.ndim_spatial
+        gd = g.new_zeros(g.shape[:lead_nd] + dense)
+        gd[(...,) + tuple(slice(None, None, v)
+                          for v in cfg.plan.stride_per_axis())] = g
+        g = gd
+    dx = dw = None
+    if need_x:
+        aplan = adj.input_adjoint_plan(plan)
+        adj.record_lowering(aplan.kind)
+        dx = _run(cfg, aplan, g, adj.adjoint_coeff_array(plan, w)).to(x.dtype)
+    if need_w and w is not None and plan.coeff_mode != "table":
+        adj.record_lowering(adj.weight_adjoint_plan(plan).kind)
+        dw = _engine.run_weight_grad_plan(x, g.to(x.dtype),
+                                          plan=plan).to(w.dtype)
+    return dx, dw, depi
+
+
+class WindowOp(torch.autograd.Function):
+    """A windowed engine call with its adjoint-plan backward."""
+
+    @staticmethod
+    def forward(ctx, cfg: WindowCfg, x, w, *epi):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, w, *epi)
+        return _run(cfg, cfg.plan, x, w, epi)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, *epi = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, dw, depi = window_backward(ctx.cfg, x, w, tuple(epi), g,
+                                       need_x=need[1], need_w=need[2])
+        return (None, dx, dw, *depi)
+
+
+def window_op(plan: SystolicPlan, x, w=None, epilogue_args=(), *, block=None,
+              time_steps: int = 1, variant: str = "shift_psum"):
+    """``run_window_plan`` under autograd (:class:`WindowOp`)."""
+    cfg = WindowCfg(plan, None if block is None else tuple(block),
+                    time_steps, variant)
+    return WindowOp.apply(cfg, x, w, *epilogue_args)
+
+
 def stencil(x: torch.Tensor, sdef: StencilDef | str, *, time_steps: int = 1,
             variant: str = "shift_psum", block=None, epilogue=None,
             mesh=None) -> torch.Tensor:
     """Apply a Table-3 stencil ``time_steps`` times to an ``(H, W)`` or
-    ``(D, H, W)`` grid (zero boundary, same shape, pad-once semantics)."""
+    ``(D, H, W)`` grid (zero boundary, same shape, pad-once semantics).
+    Differentiable in ``x`` (the input-adjoint plan through K1)."""
     if epilogue is not None:
         raise NotImplementedError(
             "stencil epilogues are ROADMAP Queue 1 item 4")
@@ -39,37 +144,78 @@ def stencil(x: torch.Tensor, sdef: StencilDef | str, *, time_steps: int = 1,
     if x.ndim != sdef.ndim:
         raise ValueError(f"{sdef.name} is {sdef.ndim}-D, x has shape "
                          f"{tuple(x.shape)}")
-    fn = _s2.stencil2d if sdef.ndim == 2 else _s3.stencil3d
-    return fn(x, sdef, block=block, time_steps=time_steps, variant=variant)
+    mod = _s2 if sdef.ndim == 2 else _s3
+    return window_op(mod.plan_for(sdef), x, block=block,
+                     time_steps=time_steps, variant=variant)
+
+
+def _normalize_stride(stride):
+    if stride is None:
+        return None
+    stride = (stride, stride) if isinstance(stride, int) else tuple(stride)
+    if len(stride) != 2 or any(int(v) != v or v < 1 for v in stride):
+        raise ValueError(f"conv2d: stride must be two ints >= 1, got {stride}")
+    stride = tuple(int(v) for v in stride)
+    return None if stride == (1, 1) else stride
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, mode: str = "same",
            variant: str = "shift_psum", block=None, groups: int = 1,
-           stride=None, epilogue=None, mesh=None) -> torch.Tensor:
-    """2-D cross-correlation with an ``(N, M)`` filter, by input rank:
-    ``(H, W)`` for one image, ``(B, H, W)`` for a stack of single-channel
-    images. ``mode`` is ``'same'`` (zero boundary, centre anchor) or
-    ``'valid'``."""
-    if x.ndim == 4 or groups != 1 or stride not in (None, 1, (1, 1)) \
-            or epilogue is not None:
-        raise NotImplementedError(
-            "NCHW input, groups, stride and epilogues are ROADMAP Queue 1 "
-            "item 4")
+           stride=None, epilogue=None, epilogue_args=(),
+           mesh=None) -> torch.Tensor:
+    """2-D cross-correlation, by input rank:
+
+    * ``(H, W)`` — one image against an ``(N, M)`` filter;
+    * ``(B, H, W)`` — a stack of single-channel images against one
+      ``(N, M)`` filter;
+    * ``(B, C_in, H, W)`` — an NCHW minibatch against an OIHW
+      ``(C_out, C_in, N, M)`` filter through the reduce-axes plan, with
+      an fp32 accumulator across the channel reduction.
+
+    ``mode`` is ``'same'`` (zero boundary, centre anchor) or ``'valid'``.
+    On NCHW inputs ``stride=(sh, sw)`` computes only every ``s``-th
+    output, and ``epilogue=`` fuses elementwise output stages
+    (``bias``/``gelu``/``silu``/``relu``/``scale``) applied to the summed
+    value before the store; a per-C_out bias row rides in
+    ``epilogue_args``. Differentiable in ``x``, ``w`` and the bias.
+    """
     if mesh is not None:
         raise NotImplementedError("sharded conv2d is ROADMAP Queue 1 item 12")
+    if int(groups) != groups or groups < 1:
+        raise ValueError(f"conv2d: groups must be an int >= 1, got {groups}")
+    if groups != 1:
+        raise NotImplementedError(
+            "grouped conv2d is not ported yet (ROADMAP Queue 1 item 4)")
     if mode not in ("same", "valid"):
-        raise ValueError(f"conv2d: mode must be 'same' or 'valid', got {mode!r}")
-    if w.ndim != 2:
-        raise ValueError(f"conv2d takes an (N, M) filter, got w shape "
-                         f"{tuple(w.shape)}")
-    if x.ndim == 3:
-        return _c2.conv2d_batched(x, w, mode=mode, block=block,
-                                  variant=variant)
-    if x.ndim != 2:
-        raise ValueError(f"conv2d takes (H, W) or (B, H, W), got "
-                         f"{tuple(x.shape)}")
-    fn = _c2.conv2d_same if mode == "same" else _c2.conv2d_valid
-    return fn(x, w, block=block, variant=variant)
+        raise ValueError(
+            f"conv2d: mode must be 'same' or 'valid', got {mode!r}")
+    stride = _normalize_stride(stride)
+    epi_stages = normalize_epilogue(epilogue)
+    if x.ndim == 4:
+        if w.ndim != 4:
+            raise ValueError(
+                f"conv2d on a 4-D NCHW input needs an OIHW "
+                f"(C_out, C_in, N, M) filter, got w shape {tuple(w.shape)}")
+        plan = _c2.plan_for_nchw(x.shape, w.shape, mode)
+    else:
+        if stride is not None or epi_stages:
+            raise NotImplementedError(
+                "stride and epilogues on single-channel conv2d are not "
+                "ported yet (ROADMAP Queue 1 item 4); pass an NCHW input")
+        if w.ndim != 2:
+            raise ValueError(f"conv2d takes an (N, M) filter for (H, W) or "
+                             f"(B, H, W) input, got w shape {tuple(w.shape)}")
+        if x.ndim == 3:
+            plan = _c2.plan_for_batched(tuple(w.shape), mode)
+        elif x.ndim == 2:
+            plan = _c2.plan_for(tuple(w.shape), mode)
+        else:
+            raise ValueError(f"conv2d takes (H, W), (B, H, W) or "
+                             f"(B, C, H, W), got {tuple(x.shape)}")
+    if stride is not None or epi_stages:
+        plan = dataclasses.replace(plan, stride=stride, epilogue=epi_stages)
+    return window_op(plan, x, w, tuple(epilogue_args), block=block,
+                     variant=variant)
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,35 @@ def conv2d_batched(x: torch.Tensor, w: torch.Tensor,
     return conv2d_same(x, w) if mode == "same" else conv2d_valid(x, w)
 
 
+def conv2d_nchw(x: torch.Tensor, w: torch.Tensor, mode: str = "valid",
+                stride=(1, 1)) -> torch.Tensor:
+    """Batched multi-channel cross-correlation, then an output stride.
+
+    x: (B, C_in, H, W); w: (C_out, C_in, N, M) → (B, C_out, H', W'):
+    ``out[b,o,y,x] = Σ_{c,n,m} xp[b, c, y·sh + n, x·sw + m]·w[o,c,n,m]``.
+    'same' mode anchors at the filter centre (top = (N−1)//2), as
+    :func:`conv2d_same`; a stride keeps every ``s``-th output of the dense
+    result. The channel sum is one fp32 (fp64 for fp64 inputs)
+    contraction per tap.
+    """
+    N, M = w.shape[2:]
+    sh, sw = stride
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, wf = x.to(acc), w.to(acc)
+    if mode == "same":
+        top, left = (N - 1) // 2, (M - 1) // 2
+        xf = F.pad(xf, (left, M - 1 - left, top, N - 1 - top))
+    H, W = xf.shape[-2:]
+    Ho, Wo = (H - N) // sh + 1, (W - M) // sw + 1
+    out = xf.new_zeros((x.shape[0], w.shape[0], Ho, Wo))
+    for n in range(N):
+        for m in range(M):
+            patch = xf[..., n:n + (Ho - 1) * sh + 1:sh,
+                       m:m + (Wo - 1) * sw + 1:sw]
+            out = out + torch.einsum("bchw,oc->bohw", patch, wf[:, :, n, m])
+    return out.to(x.dtype)
+
+
 def stencil_apply(x: torch.Tensor, sdef: StencilDef) -> torch.Tensor:
     """One same-shape stencil application with zeros outside the domain."""
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)

@@ -30,8 +30,8 @@ def plan_for_batched(w_shape: tuple[int, int], mode: str = "valid"):
 def plan_for_nchw(x_shape, w_shape, mode: str = "valid", groups: int = 1):
     """Reduce-axes plan for an NCHW minibatch against an OIHW filter.
 
-    Only the builder is ported: the engine runs reduce axes from ROADMAP
-    Queue 1 item 4 on.
+    ``groups > 1`` describes one group's reduce sweep; the ops layer does
+    not run grouped convolutions yet (ROADMAP Queue 1 item 4).
     """
     B, C_in = x_shape[:2]
     C_out, C_in_w, N, M = w_shape
@@ -64,3 +64,12 @@ def conv2d_batched(x: torch.Tensor, w: torch.Tensor, *, mode: str = "valid",
     return run_window_plan(x, w, plan=plan_for_batched(tuple(w.shape), mode),
                            block=block, time_steps=time_steps,
                            variant=variant)
+
+
+def conv2d_nchw(x: torch.Tensor, w: torch.Tensor, *, mode: str = "valid",
+                block=None, variant: str = "shift_psum") -> torch.Tensor:
+    """Batched multi-channel NCHW convolution through the reduce-axes
+    plan: ``(B, C_in, H, W) ⋆ (C_out, C_in, N, M) → (B, C_out, H', W')``,
+    the channel reduction in an fp32 accumulator."""
+    return run_window_plan(x, w, plan=plan_for_nchw(x.shape, w.shape, mode),
+                           block=block, variant=variant)

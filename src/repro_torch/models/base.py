@@ -1,15 +1,19 @@
 """Model base of the port: :class:`ArchConfig`, the fields of the
-reference's config (the same names and defaults), with torch dtypes.
+reference's config (the same names and defaults), with torch dtypes, and
+the chunked language-model loss.
 
 Attention, MoE, MLA, hybrid and audio fields are carried so configs
 compare field for field with the reference; only the families that
-``repro_torch.models.build_model`` builds use them.
+``repro_torch.models.build_model`` builds use them. ``remat`` is carried
+and not acted on: in the reference it trades memory for recomputation
+(``jax.checkpoint`` of each layer) and changes no value.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,3 +94,29 @@ class ArchConfig:
     def scan_schedule(self) -> str:
         """The recurrence schedule: ``scan_impl``, or 'engine' when None."""
         return self.scan_impl or "engine"
+
+
+def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
+                          labels: torch.Tensor, *,
+                          chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross entropy without materialising ``(B, S, V)``
+    logits at once: sequence chunks of ``chunk`` positions, each read out
+    through the tied ``(V, d)`` embedding ``table`` in fp32. Labels < 0
+    are excluded."""
+    B, S, d = x.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = x.new_zeros((), dtype=torch.float32)
+    cnt = x.new_zeros((), dtype=torch.float32)
+    for c in range(0, S + pad, chunk):
+        xx, ll = x[:, c:c + chunk], labels[:, c:c + chunk]
+        logits = (xx @ table.T.to(xx.dtype)).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, ll.clamp_min(0)[..., None])[..., 0]
+        valid = (ll >= 0).float()
+        tot = tot + ((lse - tgt) * valid).sum()
+        cnt = cnt + valid.sum()
+    return tot / torch.clamp_min(cnt, 1.0)

@@ -1,4 +1,5 @@
-"""Core layers of the port: RMS norm and embeddings (the ones RWKV6 uses).
+"""Core layers of the port: norms, embeddings, the MLP and the NCHW
+convolution layer (the ones RWKV6 and Whisper use).
 
 Functional style, as in the reference: ``<layer>_specs(...)`` returns a
 ParamSpec tree, ``<layer>_apply(params, ...)`` reads the materialized
@@ -7,6 +8,7 @@ parameters (any mapping of name → tensor).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .spec import ParamSpec
 
@@ -35,3 +37,82 @@ def embedding_specs(vocab: int, d: int) -> dict:
 
 def embedding_apply(p, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens]
+
+
+def layernorm_specs(d: int) -> dict:
+    return {
+        "scale": ParamSpec((d,), ("embed",), init="ones"),
+        "bias": ParamSpec((d,), ("embed",), init="zeros"),
+    }
+
+
+def layernorm_apply(p, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in fp32 over the last axis (population variance), cast
+    back to ``x``'s dtype."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
+    """``x @ w (+ b)`` in ``x``'s dtype: the MLP's linear map."""
+    y = x @ w.to(x.dtype)
+    return y if b is None else y + b.to(x.dtype)
+
+
+def mlp_specs(d: int, ff: int, *, bias: bool = True) -> dict:
+    """Plain 2-layer MLP (whisper)."""
+    s = {
+        "w_in": ParamSpec((d, ff), ("embed", "ff")),
+        "w_out": ParamSpec((ff, d), ("ff", "embed")),
+    }
+    if bias:
+        s["b_in"] = ParamSpec((ff,), ("ff",), init="zeros")
+        s["b_out"] = ParamSpec((d,), ("embed",), init="zeros")
+    return s
+
+
+def mlp_apply(p, x: torch.Tensor, *, act: str = "gelu") -> torch.Tensor:
+    """``act(x W_in + b_in) W_out + b_out``; gelu is the tanh form."""
+    h = linear(x, p["w_in"], p.get("b_in"))
+    h = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
+    return linear(h, p["w_out"], p.get("b_out"))
+
+
+def conv2d_specs(c_in: int, c_out: int, k, *, bias: bool = True) -> dict:
+    """NCHW 2-D convolution layer: OIHW filter + per-channel bias."""
+    kh, kw = (k, k) if isinstance(k, int) else k
+    s = {"w": ParamSpec((c_out, c_in, kh, kw),
+                        ("conv_out", "conv_in", None, None))}
+    if bias:
+        s["b"] = ParamSpec((c_out,), ("conv_out",), init="zeros")
+    return s
+
+
+def conv2d_apply(p, x: torch.Tensor, *, mode: str = "same", stride=1,
+                 activation: str | None = None,
+                 strategy: str | None = None) -> torch.Tensor:
+    """NCHW convolution through the engine's reduce-axes plan (K1 on the
+    card): ``x (B, C_in, H, W) → (B, C_out, H', W')``. The per-channel
+    bias and ``activation`` ('gelu'/'silu'/'relu') are the kernel's fused
+    epilogue, and a stride computes only the kept outputs. Differentiable:
+    the backward runs the adjoint plans (K1 for ``dx``, K3 for ``dW``).
+    ``strategy='mxu'`` (the tensor-core lowering, K2) is not ported."""
+    from ..kernels import ops
+
+    if strategy == "mxu":
+        raise NotImplementedError(
+            "the mxu lowering of the conv stem is K2, not ported yet "
+            "(ROADMAP Queue 1 item 8)")
+    if strategy not in (None, "auto", "lanes"):
+        raise ValueError(f"unknown conv strategy {strategy!r}")
+    epilogue, args = [], []
+    if "b" in p:
+        epilogue.append("bias")
+        args.append(p["b"])
+    if activation is not None:
+        epilogue.append(activation)
+    return ops.conv2d(x, p["w"], mode=mode, stride=stride,
+                      epilogue=tuple(epilogue) or None, epilogue_args=args)

@@ -105,18 +105,35 @@ def unstack(tree, n: int) -> list:
     return [map_tree(lambda t: t[i], tree) for i in range(n)]
 
 
-def as_module(tree) -> torch.nn.Module:
+def as_module(tree, *, requires_grad: bool = False) -> torch.nn.Module:
     """A nested dict (and list) of tensors as ``nn.ModuleDict`` /
     ``nn.ModuleList`` of ``nn.ParameterDict`` leaves, so that a model owns
     its parameters and indexes them as the reference indexes its tree.
-    Parameters are frozen (``requires_grad=False``): this port serves and
-    does not train yet."""
+    Served models freeze their parameters; trained ones pass
+    ``requires_grad=True``."""
     if isinstance(tree, list):
-        return torch.nn.ModuleList([as_module(t) for t in tree])
+        return torch.nn.ModuleList([as_module(t, requires_grad=requires_grad)
+                                    for t in tree])
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
         return torch.nn.ParameterDict({
-            k: torch.nn.Parameter(v, requires_grad=False)
+            k: torch.nn.Parameter(v, requires_grad=requires_grad)
             for k, v in tree.items()})
     if any(isinstance(v, torch.Tensor) for v in tree.values()):
         raise ValueError(f"a node mixes tensors and subtrees: {sorted(tree)}")
-    return torch.nn.ModuleDict({k: as_module(v) for k, v in tree.items()})
+    return torch.nn.ModuleDict({k: as_module(v, requires_grad=requires_grad)
+                                for k, v in tree.items()})
+
+
+def module_leaves(module, prefix=()):
+    """``(path, parameter)`` pairs of an :func:`as_module` tree in sorted-key
+    order (list entries by index): a fixed order for optimizer state and
+    gradients."""
+    if isinstance(module, torch.nn.ParameterDict):
+        for k in sorted(module.keys()):
+            yield prefix + (k,), module[k]
+    elif isinstance(module, torch.nn.ModuleList):
+        for i, m in enumerate(module):
+            yield from module_leaves(m, prefix + (i,))
+    else:
+        for k in sorted(module.keys()):
+            yield from module_leaves(module[k], prefix + (k,))

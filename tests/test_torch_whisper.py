@@ -1,0 +1,378 @@
+"""Parity of the port's Whisper training path with the JAX package.
+
+``SMOKE_CONV`` (the real mel stem at smoke size) runs in both packages on
+the reference's parameters (``init_params(PRNGKey(0))``, carried over by
+``convert.params_from_reference``). The JAX side composes the loss from
+``frontend(..., impl="xla")``, ``encode``, ``decode_train`` and
+``chunked_cross_entropy``: ``Whisper.loss`` would run the conv stem on
+the JAX windowed engine, which needs ``pl.Unblocked`` (ROADMAP R1).
+Tolerances: loss 1e-5 relative; each gradient leaf 1e-4·max|leaf|; one
+AdamW update from the same gradients 1e-5.
+"""
+import dataclasses
+import functools
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import whisper_base as jcfgs
+from repro.data import TokenDataset as JTokenDataset
+from repro.models import base as jbase
+from repro.models.whisper import Whisper as JWhisper
+from repro.nn import attention as jattn
+from repro.nn import layers as jlayers
+from repro.nn import spec as jspec
+from repro.optim import adamw as jadamw
+from repro_torch import _build, config, convert
+from repro_torch.configs import whisper_base as cfgs
+from repro_torch.core import adjoint, engine
+from repro_torch.data import TokenDataset
+from repro_torch.launch import train
+from repro_torch.models import base, build_model, whisper
+from repro_torch.nn import attention, layers, spec
+from repro_torch.optim import adamw
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+FULL_PARAMS = 89_150_976
+B, S = 2, 10
+
+
+def _close(got, want, rtol):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=rtol * float(np.abs(want).max()))
+
+
+def _jleaf(tree, path):
+    """The reference leaf of a port path: list indices select a layer of
+    the stacked leaf."""
+    idx = [k for k in path if isinstance(k, int)]
+    for k in path:
+        if not isinstance(k, int):
+            tree = tree[k]
+    return np.asarray(tree)[idx[0]] if idx else np.asarray(tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_side():
+    """The reference model, its parameters, a batch and the jitted value
+    and gradient of the composed loss."""
+    c = jcfgs.SMOKE_CONV
+    jm = JWhisper(c)
+    jp = jspec.init_params(jm.specs(), jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    mel = rng.standard_normal((B, c.n_mels, 2 * c.n_frames)).astype(
+        np.float32)
+    tokens = rng.integers(0, c.vocab, (B, S)).astype(np.int32)
+    labels = rng.integers(0, c.vocab, (B, S)).astype(np.int32)
+    labels[1, -3:] = -1
+
+    def jloss(p):
+        frames = jm.frontend(p["frontend"], jnp.asarray(mel), impl="xla")
+        enc = jm.encode(p, frames)
+        x = jm.decode_train(p, enc, jnp.asarray(tokens))
+        return jbase.chunked_cross_entropy(
+            x, p["embed"]["table"], jnp.asarray(labels), chunk=c.loss_chunk)
+
+    batch = {"mel": torch.from_numpy(mel),
+             "tokens": torch.from_numpy(tokens).long(),
+             "labels": torch.from_numpy(labels).long()}
+    return jp, jax.jit(jax.value_and_grad(jloss)), batch
+
+
+@functools.lru_cache(maxsize=None)
+def _run(weight_scale: float = 1.0):
+    """Loss and gradients in both packages. ``weight_scale`` multiplies
+    every matrix of the reference's init (1.0: the init itself)."""
+    jp0, jvg, batch = _jax_side()
+    jp = jax.tree_util.tree_map_with_path(
+        lambda path, a: a * weight_scale if a.ndim >= 2
+        and path[-1].key.startswith("w") else a, jp0)
+    jl, jg = jvg(jp)
+    model = build_model(cfgs.SMOKE_CONV, convert.params_from_reference(
+        jax.tree.map(np.asarray, jp)))
+    adjoint.reset_lowering_counts()
+    loss = model.loss(batch)
+    leaves = list(spec.module_leaves(model.params))
+    grads = torch.autograd.grad(loss, [p for _, p in leaves])
+    lowerings = dict(adjoint.BACKWARD_LOWERINGS)
+    return jp, float(jl), jg, model, loss.item(), leaves, grads, lowerings
+
+
+# --- configs and parameters -------------------------------------------------
+
+@pytest.mark.parametrize("name", ["CONFIG", "SMOKE", "SMOKE_CONV",
+                                  "SMOKE_CONV_MXU"])
+def test_config_matches_reference(name):
+    assert dataclasses.asdict(getattr(cfgs, name)) == dataclasses.asdict(
+        getattr(jcfgs, name))
+    assert config.get_config("whisper-base") is cfgs.CONFIG
+    assert config.get_config("whisper_base", smoke=True) is cfgs.SMOKE
+
+
+def test_full_param_count_without_allocation():
+    cfg = dataclasses.replace(cfgs.CONFIG, conv_frontend=True, n_mels=80)
+    specs = whisper.specs(cfg)
+    assert spec.param_count(specs) == FULL_PARAMS
+    jcfg = dataclasses.replace(jcfgs.CONFIG, conv_frontend=True, n_mels=80)
+    jspecs = JWhisper(jcfg).specs()
+    assert jspec.param_count(jspecs) == FULL_PARAMS
+    got = {path: (s.shape, s.init, s.scale) for path, s in spec.leaves(specs)}
+    want = {tuple(k.key for k in path): (s.shape, s.init, s.scale)
+            for path, s in jax.tree_util.tree_leaves_with_path(
+                jspecs, is_leaf=jspec.is_spec)}
+    assert got == want
+
+
+@pytest.mark.parametrize("conv", [False, True])
+def test_train_inputs_match_reference(conv):
+    cfg = dataclasses.replace(cfgs.SMOKE, conv_frontend=conv, n_mels=8)
+    jinp, _ = JWhisper(dataclasses.replace(
+        jcfgs.SMOKE, conv_frontend=conv, n_mels=8)).train_inputs(3, 7)
+    got = build_model(cfg, device="cpu").train_inputs(3, 7)
+    assert {k: s for k, (s, _) in got.items()} == {
+        k: v.shape for k, v in jinp.items()}
+    assert got["mel" if conv else "frames"][1] == torch.float32
+
+
+def test_mxu_stem_raises_naming_k2():
+    with pytest.raises(NotImplementedError, match="K2"):
+        build_model(cfgs.SMOKE_CONV_MXU, device="cpu")
+    with pytest.raises(NotImplementedError, match="K2"):
+        layers.conv2d_apply({"w": torch.ones(2, 2, 1, 3)},
+                            torch.ones(1, 2, 1, 8), strategy="mxu")
+
+
+def test_converted_params_unstack_both_stacks():
+    jp, _, _, model, _, leaves, _, _ = _run()
+    c = cfgs.SMOKE_CONV
+    assert len(model.params["enc_layers"]) == c.encoder_layers
+    assert len(model.params["dec_layers"]) == c.n_layers
+    for path, p in leaves:
+        np.testing.assert_array_equal(p.detach().numpy(), _jleaf(jp, path),
+                                      err_msg=str(path))
+        assert p.requires_grad
+    assert len(leaves) == sum(
+        np.asarray(v).shape[0] if "layers" in str(k[0]) else 1
+        for k, v in jax.tree_util.tree_leaves_with_path(jp))
+
+
+# --- the loss, its gradients and one optimizer step --------------------------
+
+def test_smoke_conv_loss_matches_reference():
+    _, jl, _, _, loss, _, _, lowerings = _run()
+    assert abs(loss - jl) <= 1e-5 * abs(jl)
+    # conv2: dx through the adjoint plan, dW; conv1: dW only (mel)
+    assert lowerings == {"adj_conv2d_nchw": 1, "wgrad_conv2d_nchw": 2}
+
+
+# At the reference's init this model is ill-conditioned in fp32 (the
+# stacked-spec fan-in gives attention weights of std 1/sqrt(2), so the
+# softmaxes are nearly one-hot): a 1e-7 relative change of the parameters
+# moves the gradients by more than 1e-4·max|leaf|
+# (test_reference_init_is_ill_conditioned_in_fp32). There each leaf is
+# held to 2e-3·max|leaf|; with the weight matrices scaled by 0.3 the
+# softmaxes soften and each leaf is held to 1e-4·max|leaf|.
+@pytest.mark.parametrize("weight_scale,rtol", [(1.0, 2e-3), (0.3, 1e-4)])
+def test_every_gradient_leaf_matches_jax_grad(weight_scale, rtol):
+    """The key bias's gradient vanishes in exact arithmetic (it adds one
+    constant to all of a query's logits), so both sides hold rounding
+    noise there: it is held to the scale of the query bias's gradient."""
+    _, jl, jg, _, loss, leaves, grads, _ = _run(weight_scale)
+    assert abs(loss - jl) <= 1e-5 * abs(jl)
+    for (path, _), g in zip(leaves, grads):
+        want = _jleaf(jg, path)
+        scale = float(np.abs(want).max())
+        if path[-1] == "bk":
+            scale = float(np.abs(_jleaf(jg, path[:-1] + ("bq",))).max())
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=rtol * scale, err_msg=str(path))
+
+
+def _perturbed_spread(weight_scale):
+    """Largest change of a gradient leaf, relative to its scale, when every
+    parameter moves by a relative 1e-7 (key biases left out)."""
+    jp, _, _, _, _, leaves, grads, _ = _run(weight_scale)
+    model = build_model(cfgs.SMOKE_CONV, convert.params_from_reference(
+        jax.tree.map(np.asarray, jp)))
+    moved = list(spec.module_leaves(model.params))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for _, p in moved:
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen))
+    again = torch.autograd.grad(model.loss(_jax_side()[2]),
+                                [p for _, p in moved])
+    return max(float((a - b).abs().max() / b.abs().max())
+               for (path, _), a, b in zip(leaves, again, grads)
+               if path[-1] != "bk")
+
+
+def test_reference_init_is_ill_conditioned_in_fp32():
+    """Why the gradient test holds the reference's init at 2e-3: there a
+    perturbation at fp32's rounding level already moves the gradients by
+    more than 1e-4 of their scale; at the softer point it does not."""
+    assert _perturbed_spread(1.0) > 1e-4
+    assert _perturbed_spread(0.3) < 1e-4
+
+
+def test_adamw_step_matches_reference():
+    """One update from the same parameters and gradients (JAX's), at a
+    nonzero learning rate, past the clip."""
+    jp, _, jg, _, _, leaves, _, _ = _run()
+    state = {"m": jax.tree.map(jnp.zeros_like, jp),
+             "v": jax.tree.map(jnp.zeros_like, jp),
+             "step": jnp.int32(0)}
+    jnew, jstate, jnorm = jax.jit(functools.partial(
+        jadamw.adamw_update, lr=1e-2))(jp, jg, state)
+    params = [torch.from_numpy(_jleaf(jp, path).copy()) for path, _ in leaves]
+    grads = [torch.from_numpy(_jleaf(jg, path).copy()) for path, _ in leaves]
+    st = adamw.adamw_state(params)
+    norm = adamw.adamw_update(params, grads, st, lr=1e-2)
+    assert float(jnorm) > 1.0                    # the clip is active
+    assert abs(float(norm) - float(jnorm)) <= 1e-5 * float(jnorm)
+    assert st["step"] == 1
+    for (path, _), p, m, v in zip(leaves, params, st["m"], st["v"]):
+        _close(p, _jleaf(jnew, path), 1e-5)
+        _close(m, _jleaf(jstate["m"], path), 1e-5)
+        _close(v, _jleaf(jstate["v"], path), 1e-5)
+
+
+def test_cosine_schedule_matches_reference():
+    for step in (0, 1, 5, 10, 11, 50, 99, 100, 150):
+        got = adamw.cosine_schedule(step, base_lr=3e-4, warmup=10, total=100)
+        want = float(jadamw.cosine_schedule(jnp.int32(step), base_lr=3e-4,
+                                            warmup=10, total=100))
+        assert abs(got - want) <= 1e-6 * 3e-4, step
+
+
+# --- layers and attention --------------------------------------------------
+
+def test_attention_matches_reference():
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((2, 37, 4, 8)).astype(np.float32)
+    k = rng.standard_normal((2, 45, 2, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 45, 2, 8)).astype(np.float32)
+    kv_pos = np.arange(45)
+    big = np.iinfo(np.int32).max
+    chunked = jax.jit(functools.partial(jattn.mha_chunked, window=big,
+                                        is_global=True, block_q=16,
+                                        block_kv=16))
+    direct = jax.jit(functools.partial(jattn.mha_direct, window=big,
+                                       is_global=True))
+    for q_pos in (np.arange(8, 45), np.full(37, 2 ** 30)):
+        j = [jnp.asarray(a) for a in (q, k, v, q_pos, kv_pos)]
+        t = [torch.from_numpy(a) for a in (q, k, v, q_pos, kv_pos)]
+        _close(attention.mha_chunked(*t, block_q=16, block_kv=16),
+               chunked(*j), 1e-5)
+        _close(attention.mha_direct(*t), direct(*j), 1e-5)
+
+
+def test_chunked_attention_gradients_equal_direct():
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(1, 30, 2, 4, generator=g, dtype=torch.float64,
+                           requires_grad=True) for _ in range(3))
+    pos = torch.arange(30)
+    a = attention.mha_chunked(q, k, v, pos, pos, block_q=8, block_kv=8)
+    b = attention.mha_direct(q, k, v, pos, pos)
+    torch.testing.assert_close(a, b)
+    ga = torch.autograd.grad(a.sum(), (q, k, v))
+    gb = torch.autograd.grad(b.sum(), (q, k, v))
+    for x, y in zip(ga, gb):
+        torch.testing.assert_close(x, y)
+
+
+def test_layers_and_loss_match_reference():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 7, 12)).astype(np.float32)
+    p = {"scale": rng.standard_normal(12).astype(np.float32),
+         "bias": rng.standard_normal(12).astype(np.float32)}
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    _close(layers.layernorm_apply(tp, torch.from_numpy(x)),
+           jlayers.layernorm_apply(p, jnp.asarray(x)), 1e-5)
+    mp = {"w_in": rng.standard_normal((12, 20)).astype(np.float32),
+          "b_in": rng.standard_normal(20).astype(np.float32),
+          "w_out": rng.standard_normal((20, 12)).astype(np.float32),
+          "b_out": rng.standard_normal(12).astype(np.float32)}
+    _close(layers.mlp_apply({k: torch.from_numpy(v) for k, v in mp.items()},
+                            torch.from_numpy(x)),
+           jlayers.mlp_apply(mp, jnp.asarray(x)), 1e-5)
+    table = rng.standard_normal((50, 12)).astype(np.float32)
+    labels = rng.integers(0, 50, (2, 7)).astype(np.int32)
+    labels[0, 2] = -1
+    for chunk in (3, 7, 512):
+        got = base.chunked_cross_entropy(
+            torch.from_numpy(x), torch.from_numpy(table),
+            torch.from_numpy(labels).long(), chunk=chunk)
+        want = jbase.chunked_cross_entropy(jnp.asarray(x),
+                                           jnp.asarray(table),
+                                           jnp.asarray(labels), chunk=chunk)
+        _close(got, want, 1e-5)
+
+
+def test_token_dataset_matches_reference():
+    got = TokenDataset(512, 16, seed=3).batch(2, 4)
+    want = JTokenDataset(512, 16, seed=3).batch(2, 4)
+    for k in ("tokens", "labels"):
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+# --- the CLI and the port's isolation --------------------------------------
+
+def test_train_cli_smoke_on_cpu(tmp_path, capsys):
+    metrics = tmp_path / "m.jsonl"
+    res = train.main(["--arch", "whisper-base", "--conv-frontend", "--smoke",
+                      "--device", "cpu", "--steps", "3", "--batch", "2",
+                      "--seq", "16", "--metrics-file", str(metrics)])
+    out = capsys.readouterr().out
+    assert "[train] done: loss" in out and "median step" in out
+    assert len(res.losses) == 3 and all(np.isfinite(res.losses))
+    assert len(metrics.read_text().splitlines()) == 3
+    assert res.trainer.state["step"] == 3
+    assert not _build.LIBRARY.loaded
+    assert engine.WINDOW_KERNEL.launches == engine.WGRAD_KERNEL.launches == 0
+
+
+def test_train_cli_rejects_what_is_not_ported(tmp_path):
+    base_args = ["--arch", "whisper-base", "--smoke", "--device", "cpu",
+                 "--steps", "1"]
+    with pytest.raises(NotImplementedError, match="item 10"):
+        train.main(base_args + ["--ckpt-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        train.main(base_args + ["--model-axis", "2"])
+    with pytest.raises(NotImplementedError, match="5d"):
+        train.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu",
+                    "--steps", "1"])
+
+
+NEW_MODULES = ["repro_torch.core.adjoint", "repro_torch.nn.attention",
+               "repro_torch.models.whisper",
+               "repro_torch.configs.whisper_base", "repro_torch.optim.adamw",
+               "repro_torch.data.pipeline", "repro_torch.launch.train"]
+
+
+def test_train_cli_runs_as_a_module_without_jax():
+    """``python -m repro_torch.launch.train`` on the CPU, in a fresh
+    interpreter that imports the new modules and never loads JAX."""
+    code = (
+        "import importlib, runpy, sys\n"
+        f"for m in {NEW_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "sys.argv = ['train', '--arch', 'whisper-base', '--conv-frontend',\n"
+        "            '--smoke', '--device', 'cpu', '--steps', '3']\n"
+        "runpy.run_module('repro_torch.launch.train', run_name='__main__')\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k == 'repro'\n"
+        "             or k.startswith(('jax.', 'repro.')))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "[train] done" in res.stdout

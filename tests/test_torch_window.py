@@ -218,8 +218,10 @@ def test_cpu_tensor_never_loads_the_kernel():
 
 def test_nvcc_command_targets_sm_90a():
     src = _build.sources()
-    assert [p.name for p in src] == ["ssam_scan.cu", "ssam_window.cu",
-                                     "ssam_window_2d.cu", "ssam_window_3d.cu"]
+    assert [p.name for p in src] == ["ssam_scan.cu", "ssam_wgrad.cu",
+                                     "ssam_window.cu", "ssam_window_2d.cu",
+                                     "ssam_window_3d.cu",
+                                     "ssam_window_reduce.cu"]
     cmd = _build.compile_command(src[0], _build.BUILD_DIR / "k.o")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" not in cmd
     assert "arch=compute_90a,code=sm_90a" in _build.link_command(
@@ -242,8 +244,10 @@ def test_out_of_slice_raises_not_implemented(case):
     x = torch.zeros((20, 40))
     w = torch.ones((3, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "nchw":
-            ops.conv2d(torch.zeros((1, 2, 20, 40)), torch.ones((3, 2, 3, 3)))
+        if case == "nchw":      # NCHW runs; its residual_add epilogue not
+            ops.conv2d(torch.zeros((1, 2, 20, 40)), torch.ones((3, 2, 3, 3)),
+                       epilogue="residual_add",
+                       epilogue_args=(torch.zeros((1, 3, 20, 40)),))
         elif case == "groups":
             ops.conv2d(x, w, groups=2)
         elif case == "stride":
@@ -258,11 +262,11 @@ def test_out_of_slice_raises_not_implemented(case):
         elif case == "mxu":
             engine.run_window_plan(x, w, plan=dataclasses.replace(
                 plan.conv2d_plan(3, 3), strategy="mxu"))
-        else:
-            engine.run_window_plan(torch.zeros((1, 2, 20, 40)),
-                                   torch.ones((3, 2, 3, 3)),
-                                   plan=ssam_conv2d.plan_for_nchw(
-                                       (1, 2, 20, 40), (3, 2, 3, 3)))
+        else:                   # one reduce axis runs; two do not
+            engine.run_window_plan(
+                torch.zeros((1, 2, 2, 20, 40)), torch.ones((3, 2, 2, 3, 3)),
+                plan=dataclasses.replace(ssam_conv2d.plan_for_nchw(
+                    (1, 2, 20, 40), (3, 2, 3, 3)), reduce_axes=2))
 
 
 def test_tap_table_and_shared_memory_layout():
