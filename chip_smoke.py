@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR]
 
-Three paths. The first is the paper's experiment: the 15 Table-3
+Four paths. The first is the paper's experiment: the 15 Table-3
 stencils at 8192² (2-D) and 512³ (3-D) in fp32, both schedule variants,
 t ∈ {1, 2}, one bf16 case, and 2-D convolution ('same' and 'valid') at
 8192² over the Fig. 4 filter sweep plus a (16, 2048, 2048) batched 5×5,
@@ -14,9 +14,12 @@ whose prefill runs the WKV recurrence through K5, the CUDA scan kernel.
 The third trains whisper-base with the mel conv stem at full width
 through ``repro_torch.launch.train``: the stem's forward runs K1's
 channel-reduce path, its backward K1 on the input-adjoint plan and K3,
-the CUDA weight-gradient kernel. Phases, one JSON line each:
+the CUDA weight-gradient kernel. The fourth runs the same stencil,
+convolution and stem calls with ``strategy="mxu"``, i.e. through K2, the
+tensor-core kernel, and trains whisper-base with the stem pinned to it.
+Phases, one JSON line each:
 
-1. build: compile K1, K3 and K5 from ``src/repro_torch/csrc`` (nvcc,
+1. build: compile K1, K2, K3 and K5 from ``src/repro_torch/csrc`` (nvcc,
    sm_90a);
 2. stencils and 3. convolution: every case against the plain torch
    version on the card, ``rtol=3e-5, atol=3e-5·max|plain|`` (bf16:
@@ -65,7 +68,31 @@ the CUDA weight-gradient kernel. Phases, one JSON line each:
    times beside their bound, the plain versions and the library
    yardsticks (``F.conv2d`` + tanh-GELU, ``torch.nn.grad.conv2d_input``
    / ``conv2d_weight``, TF32 off, never called by the port), and the
-   profiler's top device ops of one step with the stem's share.
+   profiler's top device ops of one step with the stem's share;
+9. tensor cores: (a) the 15 stencils at 8192² / 512³, t ∈ {1, 2}, and
+   the 'same' filter sweep at 8192² with ``strategy="mxu"`` through K2,
+   each against the plain mxu version on the card (fp32 rtol 3e-5; one
+   bf16 2d9pt at 3e-2) and against K1's lanes result (1e-4, the
+   reference's own lanes-versus-mxu tolerance); (b) the stem's conv1 and
+   conv2 forwards and conv2's dx through K2 against the plain version and
+   K1 (1e-4; one bf16 forward at 3e-2), and the stem's gradients through
+   K2 and K3 against torch autograd through the plain mxu versions
+   (1e-4); K2's counter, zeroed before (a), must equal the calls of (a)
+   and (b); (c) whisper-base with ``conv_strategy="mxu"`` (the JAX CLI
+   has no flag for it, so the script builds the config and drives
+   ``launch.train.Trainer``), batch 8, 128 tokens, 6 steps: every loss
+   finite, K2 at 5 launches per step, K3 at 2 and K1 at 0; before it, the
+   first step's loss with the stem on K2 and on K1, same weights and
+   batch, within 1e-5 relative with the weight matrices scaled by 0.3,
+   and recorded at the reference's init beside the change a 1e-7
+   relative perturbation of the weights makes there (ROADMAP R4); (d) K2's times at the stem's shapes
+   and for 2d5pt, 2d121pt, 3d125pt and the 20×20 'same' convolution at
+   t = 1, beside two bounds (bytes over 3.35 TB/s against fp32
+   operations over 67 TFLOP/s, and against the same operations counted
+   once over 495 TFLOP/s of TF32), K1's time, the plain version's and
+   the cuDNN yardstick with TF32 off and, labelled as less precise, on;
+   the mxu train step's time, samples/s and the stem's share of a
+   profiled step.
 
 It exits non-zero if there is no card, if a build, launch or check fails,
 and when run outside a checkout of the repository. The full results go
@@ -104,6 +131,14 @@ TRAIN_BATCH = 8
 TRAIN_SEQ = 128
 N_MELS, N_FRAMES, D_MODEL = 80, 1500, 512
 STEM_RTOL = 1e-4                # K1 reduce path and K3 against plain, fp32
+TF32_FLOPS = 495e12             # dense TF32 on the tensor cores
+MXU_RTOL = 3e-5                 # K2 single-channel against plain, fp32
+MXU_VS_LANES = 1e-4             # K2 against K1: the reference's own tolerance
+MXU_TIMED = ("2d5pt", "2d121pt", "3d125pt")
+GRID_2D, GRID_3D = 8192, 512    # phase 9's grids: 8192², 512³
+LOSS_RTOL = 1e-5                # first-step loss, mxu against lanes
+SOFT_SCALE = 0.3                # weight matrices' scale of the softer point
+PERTURB_REL = 1e-7              # relative parameter change of the spread probe
 
 
 def emit(obj) -> None:
@@ -116,11 +151,18 @@ def require(ok: bool, what) -> None:
 
 
 def ptxas_summary(log: str) -> dict:
-    """Most registers and most spill bytes over the kernels ptxas built."""
-    regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(v) for v in re.findall(r"(\d+) bytes spill stores", log)]
-    return {"kernels": len(regs), "max_registers": max(regs, default=0),
-            "max_spill_store_bytes": max(spills, default=0)}
+    """Most registers and most spill bytes over the kernels ptxas built,
+    in all and per source file (the build log's ``== name`` sections)."""
+    def summary(text):
+        regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(v)
+                  for v in re.findall(r"(\d+) bytes spill stores", text)]
+        return {"kernels": len(regs), "max_registers": max(regs, default=0),
+                "max_spill_store_bytes": max(spills, default=0)}
+
+    parts = re.split(r"^== (\S+)$", log, flags=re.M)
+    return {**summary(log), "by_source": {
+        name: summary(text) for name, text in zip(parts[1::2], parts[2::2])}}
 
 
 def event_ms(fn, reps):
@@ -702,10 +744,405 @@ def train_phase(args, dev, card, results) -> dict:
     results["train_profile"] = rec
     emit({"phase": "train_profile", **rec})
     return {"k1_launches": k1, "k3_launches": k3, "worst": worst,
+            "first_loss": res.losses[0], "step_ms": step_ms,
             "k3_headline": next(r for r in results["times"]
                                 if r["case"].startswith("K3 conv2 dW")),
             "k1_headline": next(r for r in results["times"]
                                 if r["case"].startswith("K1 conv2 dx"))}
+
+
+def mxu_phase(args, dev, card, results, lanes) -> dict:
+    """Phase 9: K2, the tensor-core kernel, on the stencil and convolution
+    path and the Whisper stem, then whisper-base trained with the stem
+    pinned to it. ``lanes`` is phase 8's result (its first loss)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import convert
+    from repro_torch.config import get_config
+    from repro_torch.core import adjoint, engine
+    from repro_torch.core.plan import normalize_epilogue
+    from repro_torch.data import TokenDataset
+    from repro_torch.kernels import ops, ssam_conv2d, ssam_stencil2d
+    from repro_torch.kernels import ssam_stencil3d, stencils
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    K1, K2 = engine.WINDOW_KERNEL, engine.MXU_KERNEL
+    K3, K5 = engine.WGRAD_KERNEL, engine.SCAN_KERNEL
+    ref = engine.run_window_plan_reference
+    rng = np.random.default_rng(args.seed + 5)
+
+    def randn(*shape):
+        return convert.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32), dev)
+
+    def mxu(p):
+        return dataclasses.replace(p, strategy="mxu")
+
+    def stencil_plan(sd):
+        mod = ssam_stencil2d if sd.ndim == 2 else ssam_stencil3d
+        return mxu(mod.plan_for(sd))
+
+    worst = {"abs": 0.0, "stem": 0.0}
+
+    def check(tag, y, plain, lanes_y, rtol, key="abs"):
+        err = compare(f"K2 {tag}", y, plain, rtol, results)
+        worst[key] = max(worst[key], err)
+        if lanes_y is not None:
+            compare(f"K2 {tag} vs K1", y, lanes_y, MXU_VS_LANES, results)
+
+    # -- (a) the stencil and convolution path through K2 -------------------
+    K1.launches = K2.launches = K3.launches = K5.launches = 0
+    calls = 0
+    grids = {2: randn(GRID_2D, GRID_2D), 3: randn(GRID_3D, GRID_3D, GRID_3D)}
+    for name, sd in stencils.BENCHMARKS.items():
+        x = grids[sd.ndim]
+        for t in (1, 2):
+            y = ops.stencil(x, name, time_steps=t, strategy="mxu")
+            calls += 1
+            check(f"{name} t={t}", y, ref(x, plan=stencil_plan(sd),
+                                          time_steps=t),
+                  ops.stencil(x, name, time_steps=t), MXU_RTOL)
+            del y
+    xb16 = grids[2].to(torch.bfloat16)
+    y = ops.stencil(xb16, "2d9pt", time_steps=2, strategy="mxu")
+    calls += 1
+    check("2d9pt bf16 t=2", y, ref(xb16, plan=stencil_plan(
+        stencils.BENCHMARKS["2d9pt"]), time_steps=2), None, 3e-2)
+    del xb16, y
+    x = grids[2]
+    filters = {k: randn(k, k) for k in CONV_SIZES}
+    for k, w in filters.items():
+        y = ops.conv2d(x, w, mode="same", strategy="mxu")
+        calls += 1
+        check(f"conv2d {k}x{k} same", y,
+              ref(x, w, plan=mxu(ssam_conv2d.plan_for((k, k), "same"))),
+              ops.conv2d(x, w, mode="same"), MXU_RTOL)
+        del y
+    torch.cuda.synchronize()
+
+    # -- (b) the stem's full-width calls through K2 --------------------------
+    c = stem_cases(dev, args.seed + 3)
+    epi = ("bias", "gelu")
+
+    def nchw(x, w, stride=None, epilogue=None):
+        return mxu(dataclasses.replace(
+            ssam_conv2d.plan_for_nchw(x.shape, w.shape, "same"),
+            stride=stride, epilogue=normalize_epilogue(epilogue)))
+
+    p1 = nchw(c["mel"], c["w1"], None, epi)
+    p2 = nchw(c["x2"], c["w2"], (1, 2), epi)
+    lin2 = nchw(c["x2"], c["w2"])
+    adj2 = adjoint.input_adjoint_plan(lin2)
+    require(adj2.strategy == "mxu", "the adjoint plan keeps strategy='mxu'")
+    wa2 = adjoint.adjoint_coeff_array(lin2, c["w2"])
+    g2d = torch.zeros_like(c["g1"])
+    g2d[..., ::2] = c["g2"]
+    run = engine.run_window_plan
+    B, T, D = TRAIN_BATCH, 2 * N_FRAMES, D_MODEL
+    # (tag, K2 call, K1 call, plain call, rtol, fp32 operations, bytes,
+    #  library call)
+    stem = [
+        ("conv1 forward (8,80,1,3000)->(8,512,1,3000) bias+gelu",
+         lambda: run(c["mel"], c["w1"], plan=p1, epilogue_args=(c["b1"],)),
+         lambda: run(c["mel"], c["w1"], plan=p1, epilogue_args=(c["b1"],),
+                     strategy="lanes"),
+         lambda: ref(c["mel"], c["w1"], plan=p1, epilogue_args=(c["b1"],)),
+         STEM_RTOL, 2 * D * N_MELS * 3 * B * T,
+         4 * (B * N_MELS * T + D * N_MELS * 3 + D + B * D * T),
+         lambda: F.gelu(F.conv2d(c["mel"], c["w1"], c["b1"], padding=(0, 1)),
+                        approximate="tanh")),
+        ("conv2 forward stride (1,2) (8,512,1,3000)->(8,512,1,1500) "
+         "bias+gelu",
+         lambda: run(c["x2"], c["w2"], plan=p2, epilogue_args=(c["b2"],)),
+         lambda: run(c["x2"], c["w2"], plan=p2, epilogue_args=(c["b2"],),
+                     strategy="lanes"),
+         lambda: ref(c["x2"], c["w2"], plan=p2, epilogue_args=(c["b2"],)),
+         STEM_RTOL, 2 * D * D * 3 * B * (T // 2),
+         4 * (B * D * T + D * D * 3 + D + B * D * T // 2),
+         lambda: F.gelu(F.conv2d(c["x2"], c["w2"], c["b2"], stride=(1, 2),
+                                 padding=(0, 1)), approximate="tanh")),
+        ("conv2 dx, adjoint plan on the scattered cotangent (8,512,1,3000)",
+         lambda: run(g2d, wa2, plan=adj2),
+         lambda: run(g2d, wa2, plan=adj2, strategy="lanes"),
+         lambda: ref(g2d, wa2, plan=adj2), STEM_RTOL, 2 * D * D * 3 * B * T,
+         4 * (2 * B * D * T + D * D * 3),
+         lambda: torch.nn.grad.conv2d_input(
+             c["x2"].shape, c["w2"], c["g2"], stride=(1, 2), padding=(0, 1))),
+    ]
+    for tag, kern, lanes_fn, plain, rtol, *_ in stem:
+        got = kern()
+        calls += 1
+        check(tag, got, plain(), lanes_fn(), rtol, "stem")
+        del got
+    x2_bf16 = c["x2"].to(torch.bfloat16)
+    y = run(x2_bf16, c["w2"], plan=p2, epilogue_args=(c["b2"],))
+    calls += 1
+    check("conv2 forward bf16 I/O", y,
+          ref(x2_bf16, c["w2"], plan=p2, epilogue_args=(c["b2"],)), None, 3e-2)
+    del y, x2_bf16
+    torch.cuda.empty_cache()
+
+    # the stem's autograd: K2 (forwards, recomputed pre-activations, dx) and
+    # K3 (dW) against torch autograd through the plain mxu versions
+    grads = {}
+    for path in ("kernel", "plain"):
+        p = {k: c[k].detach().clone().requires_grad_() for k in
+             ("w1", "b1", "w2", "b2")}
+        if path == "kernel":
+            y1 = ops.conv2d(c["mel"], p["w1"], epilogue=epi,
+                            epilogue_args=(p["b1"],), strategy="mxu")
+            y1.retain_grad()
+            y2 = ops.conv2d(y1, p["w2"], stride=(1, 2), epilogue=epi,
+                            epilogue_args=(p["b2"],), strategy="mxu")
+            calls += 5
+        else:
+            y1 = ref(c["mel"], p["w1"], plan=p1, epilogue_args=(p["b1"],))
+            y1.retain_grad()
+            y2 = ref(y1, p["w2"], plan=p2, epilogue_args=(p["b2"],))
+        (y2 * c["g2"]).sum().backward()
+        grads[path] = {**{k: v.grad for k, v in p.items()}, "x2": y1.grad}
+    for k in ("w1", "b1", "w2", "b2", "x2"):
+        compare(f"K2 stem autograd d{k}: kernel path vs plain path",
+                grads["kernel"][k], grads["plain"][k], STEM_RTOL, results)
+    del grads
+    torch.cuda.synchronize()
+    rec = {"kernel": K2.name, "launches": K2.launches, "calls": calls}
+    results["mxu_launches"] = rec
+    emit({"phase": "mxu_launches", **rec})
+    require(K2.launches == calls, rec)
+    launches = K2.launches
+    torch.cuda.empty_cache()
+
+    # -- (c) the main path: whisper-base trained with the stem on K2 ---------
+    cfg = dataclasses.replace(get_config("whisper-base"), conv_frontend=True,
+                              n_mels=N_MELS, conv_strategy="mxu",
+                              dtype="float32")
+    ds = TokenDataset(cfg.vocab, TRAIN_SEQ, seed=args.seed)
+    first = first_loss_parity(cfg, ds, dev, args.seed, card, results)
+    model = build_model(cfg, device=dev, seed=args.seed)
+    trainer = train.Trainer(model, lr=3e-4,
+                            warmup=max(TRAIN_STEPS // 10, 10),
+                            total=max(TRAIN_STEPS, 100))
+    n_params = sum(p.numel() for p in model.parameters())
+    losses, step_s = [], []
+    torch.cuda.synchronize()
+    K1.launches = K2.launches = K3.launches = K5.launches = 0
+    for step in range(TRAIN_STEPS):
+        batch = train.make_batch(model, ds, step, TRAIN_BATCH, dev)
+        t0 = time.perf_counter()
+        loss, _ = trainer.step(batch)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    k1, k2, k3, k5 = K1.launches, K2.launches, K3.launches, K5.launches
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    rel = abs(losses[0] - lanes["first_loss"]) / abs(lanes["first_loss"])
+    init_spread = first[1.0]["lanes_perturbed_rel"]
+    rec = {"arch": cfg.name, "conv_strategy": cfg.conv_strategy,
+           "params": n_params, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "losses": losses,
+           "step_ms": [t * 1e3 for t in step_s],
+           "step_ms_median_after_first": step_ms,
+           "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
+           "lanes_first_loss": lanes["first_loss"],
+           "first_loss_rel_diff": rel,
+           "lanes_perturbed_rel_at_init": init_spread,
+           "lanes_step_ms_median_after_first": lanes["step_ms"],
+           "k1_launches": k1, "k2_launches": k2, "k3_launches": k3,
+           "k5_launches": k5, "card": card}
+    results["train_mxu"] = rec
+    emit({"phase": "train_mxu", **rec})
+    require(n_params == TRAIN_PARAMS, ("whisper-base parameters", n_params))
+    require(all(np.isfinite(losses)), ("non-finite loss", losses))
+    require(first[SOFT_SCALE]["mxu_vs_lanes_rel"] <= LOSS_RTOL,
+            ("first-step loss, mxu against lanes, weights x "
+             f"{SOFT_SCALE}", first[SOFT_SCALE]))
+    # At the reference's init the loss moves by more than LOSS_RTOL under a
+    # rounding-level change of the weights (ROADMAP R4), so there the two
+    # strategies can only agree to that spread's order: it is recorded.
+    require(k2 == 5 * TRAIN_STEPS and k3 == 2 * TRAIN_STEPS
+            and k1 == k5 == 0,
+            ("mxu train launches (K2 5/step, K3 2/step, K1 0)", k1, k2, k3))
+
+    # -- (d) times: K2 beside both bounds, K1, plain and cuDNN ---------------
+    def record(tag, kern, lanes_fn, plain, flops, nbytes, lib):
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / FP32_FLOPS * 1e3
+        tc_ms = flops / TF32_FLOPS * 1e3
+        ms = device_ms(kern, 20)
+        rec = {"case": tag, "ms": ms, "call_ms": event_ms(kern, 20),
+               "k1_ms": device_ms(lanes_fn, 20),
+               "plain_ms": device_ms(plain, 3),
+               "library_ms": device_ms(lib, 20),
+               "library_tf32_ms": device_ms(cudnn_tf32(lib), 20),
+               "bound_ms": max(b_ms, tc_ms),
+               "bound_by": "bytes" if b_ms >= tc_ms else "operations",
+               "fp32_bound_ms": max(b_ms, f_ms),
+               "fp32_bound_by": "bytes" if b_ms >= f_ms else "operations",
+               "bytes_ms": b_ms, "tensor_core_ms": tc_ms, "fp32_ms": f_ms,
+               "gflop": flops / 1e9, "bytes": nbytes,
+               "roofline_share": max(b_ms, tc_ms) / ms, "card": card}
+        results["times"].append(rec)
+        emit({"phase": "mxu_time", **rec})
+        return rec
+
+    timed = {}
+    for tag, kern, lanes_fn, plain, _, flops, nbytes, lib in stem:
+        timed[tag[:14]] = record(f"K2 {tag}", kern, lanes_fn, plain, flops,
+                                 nbytes, lib)
+    for name in MXU_TIMED:
+        sd = stencils.BENCHMARKS[name]
+        x = grids[sd.ndim]
+        wt, pads = dense_filter(sd, dev)
+        cells = x.numel()
+        timed[name] = record(
+            f"K2 {name} t=1", lambda: ops.stencil(x, name, strategy="mxu"),
+            lambda: ops.stencil(x, name),
+            lambda: ref(x, plan=stencil_plan(sd)),
+            (2 * len(sd.offsets) - 1) * cells, 8 * cells,
+            lambda: library(x, wt, pads))
+    x, w = grids[2], filters[20]
+    pads = [(9, 10), (9, 10)]
+    timed["conv20"] = record(
+        "K2 conv2d 20x20 same t=1",
+        lambda: ops.conv2d(x, w, mode="same", strategy="mxu"),
+        lambda: ops.conv2d(x, w, mode="same"),
+        lambda: ref(x, w, plan=mxu(ssam_conv2d.plan_for((20, 20), "same"))),
+        (2 * 400 - 1) * x.numel(), 8 * x.numel(),
+        lambda: library(x, w, pads))
+    del grids, filters, x, w
+    torch.cuda.empty_cache()
+
+    batch = train.make_batch(model, ds, TRAIN_STEPS, TRAIN_BATCH, dev)
+    trainer.step(batch)
+    torch.cuda.synchronize()
+    before = K2.launches, K3.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss, _ = trainer.step(batch)
+        float(loss)
+        torch.cuda.synchronize()
+    rec = {**device_ops(prof, match={"k2": "mxu_reduce_kernel",
+                                     "k3": "wgrad"}),
+           "k2_launches": K2.launches - before[0],
+           "k3_launches": K3.launches - before[1], "card": card}
+    rec["stem_share"] = ((rec["k2_ms"] + rec["k3_ms"]) / rec["device_ms"]
+                         if rec["device_ms"] else None)
+    results["train_mxu_profile"] = rec
+    emit({"phase": "train_mxu_profile", **rec})
+    return {"launches": launches, "train_launches": k2, "worst": worst,
+            "headline": timed["2d5pt"],
+            "stem_headline": timed["conv2 dx, adjo"]}
+
+
+def first_loss_parity(cfg, ds, dev, seed, card, results) -> dict:
+    """The first step's loss of whisper-base with the stem on K2 (``cfg``)
+    and on K1 (the same config with ``conv_strategy=None``), on the same
+    weights (from ``seed``) and batch, at the reference's init and with
+    the weight matrices scaled by SOFT_SCALE, where the attention is no
+    longer nearly one-hot (ROADMAP R4). Beside each pair: how far the
+    lanes loss moves when every parameter moves by a relative
+    PERTURB_REL, the conditioning that a rounding difference in the stem
+    meets. No gradient is taken; the kernels' counters move."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.nn import spec
+
+    out = {}
+    for scale in (1.0, SOFT_SCALE):
+        losses = {}
+        for name, c in (("mxu", cfg),
+                        ("lanes", dataclasses.replace(cfg,
+                                                      conv_strategy=None))):
+            model = build_model(c, device=dev, seed=seed)
+            batch = train.make_batch(model, ds, 0, TRAIN_BATCH, dev)
+            with torch.no_grad():
+                for path, p in spec.module_leaves(model.params):
+                    if p.ndim >= 2 and path[-1].startswith("w"):
+                        p.mul_(scale)
+                losses[name] = float(model.loss(batch))
+                if name == "lanes":
+                    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+                    for _, p in spec.module_leaves(model.params):
+                        p.mul_(1 + PERTURB_REL * torch.randn(
+                            p.shape, generator=gen, device=dev))
+                    losses["lanes_perturbed"] = float(model.loss(batch))
+            del model
+            torch.cuda.empty_cache()
+        lanes_loss = losses["lanes"]
+        rec = {"weight_scale": scale, **{f"{k}_loss": v for k, v in
+                                        losses.items()},
+               "mxu_vs_lanes_rel": abs(losses["mxu"] - lanes_loss)
+               / abs(lanes_loss),
+               "lanes_perturbed_rel": abs(losses["lanes_perturbed"]
+                                          - lanes_loss) / abs(lanes_loss),
+               "perturbation": PERTURB_REL, "card": card}
+        out[scale] = rec
+        results.setdefault("first_loss_parity", []).append(rec)
+        emit({"phase": "first_loss_parity", **rec})
+    return out
+
+
+def dense_filter(sd, dev):
+    """A stencil's taps as a dense filter, and the (lo, hi) zero padding per
+    axis that makes one correlation with it the stencil."""
+    import torch
+
+    los = [min(o[a] for o in sd.offsets) for a in range(sd.ndim)]
+    his = [max(o[a] for o in sd.offsets) for a in range(sd.ndim)]
+    wt = torch.zeros([h - l + 1 for l, h in zip(los, his)], device=dev)
+    for off, c in zip(sd.offsets, sd.coeffs):
+        wt[tuple(d - l for d, l in zip(off, los))] = c
+    return wt, [(-l, h) for l, h in zip(los, his)]
+
+
+def library(x, wt, pads):
+    """The same zero-boundary correlation as one cuDNN call. Only 2d64pt's
+    corner-anchored pad has no padding= form: it pays an F.pad first."""
+    import torch.nn.functional as F
+
+    conv = F.conv2d if x.ndim == 2 else F.conv3d
+    if all(lo == hi for lo, hi in pads):
+        return conv(x[None, None], wt[None, None],
+                    padding=tuple(lo for lo, _ in pads))[0, 0]
+    if all(lo == (lo + hi) // 2 for lo, hi in pads):
+        return conv(x[None, None], wt[None, None], padding="same")[0, 0]
+    return library_padded(x, wt, pads)
+
+
+def library_padded(x, wt, pads):
+    """F.pad, then a valid cuDNN correlation: two calls, but cuDNN picks
+    faster algorithms for them than for a padded call."""
+    import torch.nn.functional as F
+
+    conv = F.conv2d if x.ndim == 2 else F.conv3d
+    flat = [v for lo_hi in reversed(pads) for v in lo_hi]
+    return conv(F.pad(x[None, None], flat), wt[None, None])[0, 0]
+
+
+def cudnn_tf32(fn):
+    """``fn`` run with cuDNN's TF32 on (less precise: three digits), the
+    setting restored after."""
+    import torch
+
+    def run():
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+    return run
 
 
 def card_line() -> str:
@@ -749,6 +1186,7 @@ def main() -> int:
 
     card = card_line()
     K1, K3, K5 = engine.WINDOW_KERNEL, engine.WGRAD_KERNEL, engine.SCAN_KERNEL
+    K2 = engine.MXU_KERNEL
     results = {"card": card, "seed": args.seed, "checks": [], "times": []}
 
     # -- 1. build --------------------------------------------------------
@@ -770,7 +1208,7 @@ def main() -> int:
         worst["abs"] = max(worst["abs"], compare(tag, y, plain, rtol, results))
 
     # -- 2./3. the main path ----------------------------------------------
-    K1.launches = K3.launches = K5.launches = 0
+    K1.launches = K2.launches = K3.launches = K5.launches = 0
     calls = 0
     grids = {2: randn(8192, 8192), 3: randn(512, 512, 512)}
     for name, sd in stencils.BENCHMARKS.items():
@@ -830,44 +1268,18 @@ def main() -> int:
     # -- 4. launch count --------------------------------------------------
     launches = K1.launches
     results["launches"] = {"kernel": K1.name, "launches": launches,
-                           "calls": calls, "k3_launches": K3.launches,
+                           "calls": calls, "k2_launches": K2.launches,
+                           "k3_launches": K3.launches,
                            "k5_launches": K5.launches}
     emit({"phase": "launches", **results["launches"]})
-    require(launches == calls and K3.launches == K5.launches == 0,
-            results["launches"])
+    require(launches == calls and K2.launches == K3.launches == K5.launches
+            == 0, results["launches"])
 
     # -- 5. times at t = 1 --------------------------------------------------
     def bound(in_elems, out_elems, elem_bytes, flops):
         b_ms = (in_elems + out_elems) * elem_bytes / HBM_BYTES_PER_S * 1e3
         f_ms = flops / FP32_FLOPS * 1e3
         return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
-
-    def dense_filter(sd):
-        los = [min(o[a] for o in sd.offsets) for a in range(sd.ndim)]
-        his = [max(o[a] for o in sd.offsets) for a in range(sd.ndim)]
-        wt = torch.zeros([h - l + 1 for l, h in zip(los, his)], device=dev)
-        for off, c in zip(sd.offsets, sd.coeffs):
-            wt[tuple(d - l for d, l in zip(off, los))] = c
-        return wt, [(-l, h) for l, h in zip(los, his)]
-
-    def library(x, wt, pads):
-        """The same zero-boundary correlation as one cuDNN call. Only
-        2d64pt's corner-anchored pad has no padding= form: it pays an
-        F.pad first."""
-        conv = F.conv2d if x.ndim == 2 else F.conv3d
-        if all(lo == hi for lo, hi in pads):
-            return conv(x[None, None], wt[None, None],
-                        padding=tuple(lo for lo, _ in pads))[0, 0]
-        if all(lo == (lo + hi) // 2 for lo, hi in pads):
-            return conv(x[None, None], wt[None, None], padding="same")[0, 0]
-        return library_padded(x, wt, pads)
-
-    def library_padded(x, wt, pads):
-        """F.pad, then a valid cuDNN correlation: two calls, but cuDNN
-        picks faster algorithms for them than for a padded call."""
-        conv = F.conv2d if x.ndim == 2 else F.conv3d
-        flat = [v for lo_hi in reversed(pads) for v in lo_hi]
-        return conv(F.pad(x[None, None], flat), wt[None, None])[0, 0]
 
     def record(tag, kernel_fn, plain_fn, x, wt, pads, in_elems, out_elems,
                flops):
@@ -890,7 +1302,7 @@ def main() -> int:
     for name, sd in stencils.BENCHMARKS.items():
         x = grids[sd.ndim]
         plan = stencil_plan(sd)
-        wt, pads = dense_filter(sd)
+        wt, pads = dense_filter(sd, dev)
         cells = x.numel()
         for variant in engine.VARIANTS:
             rec = record(
@@ -916,12 +1328,15 @@ def main() -> int:
     served = serve_phase(args, dev, card, results)
     torch.cuda.empty_cache()
     trained = train_phase(args, dev, card, results)
+    torch.cuda.empty_cache()
+    mxu = mxu_phase(args, dev, card, results, trained)
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
     wkv = scan["headline"]
     k3h, k1t = trained["k3_headline"], trained["k1_headline"]
+    k2h, k2t = mxu["headline"], mxu["stem_headline"]
     emit({"kernels": [{
         "name": K1.name, "route": "cuda", "source": K1.source,
         "replaces": K1.replaces, "launches": launches,
@@ -946,7 +1361,18 @@ def main() -> int:
         "max_abs_err": trained["worst"]["K3"], "ms": k3h["ms"],
         "plain_ms": k3h["plain_ms"], "bound_ms": k3h["bound_ms"],
         "bound_by": k3h["bound_by"], "library_ms": k3h["library_ms"],
-        "case": k3h["case"]}]})
+        "case": k3h["case"]}, {
+        "name": K2.name, "route": "cuda", "source": K2.source,
+        "replaces": K2.replaces, "launches": mxu["launches"],
+        "max_abs_err": mxu["worst"]["abs"], "ms": k2h["ms"],
+        "plain_ms": k2h["plain_ms"], "bound_ms": k2h["bound_ms"],
+        "bound_by": k2h["bound_by"], "library_ms": k2h["library_ms"],
+        "case": k2h["case"] + " 8192x8192 fp32",
+        "train": {"launches": mxu["train_launches"],
+                  "max_abs_err": mxu["worst"]["stem"], "ms": k2t["ms"],
+                  "plain_ms": k2t["plain_ms"], "bound_ms": k2t["bound_ms"],
+                  "bound_by": k2t["bound_by"],
+                  "library_ms": k2t["library_ms"], "case": k2t["case"]}}]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

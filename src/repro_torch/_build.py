@@ -125,6 +125,12 @@ class Library:
         lib.ssam_window_reduce_launch.restype = i
         lib.ssam_wgrad_launch.argtypes = [p, p, i, p, p] + [i] * 22 + [p]
         lib.ssam_wgrad_launch.restype = i
+        lib.ssam_mxu_reduce_launch.argtypes = (
+            [p, p, i, p, p, i, p, ctypes.POINTER(ctypes.c_int),
+             ctypes.POINTER(ctypes.c_float), i] + [i] * 19 + [p])
+        lib.ssam_mxu_reduce_launch.restype = i
+        lib.ssam_mxu_window_launch.argtypes = [p, p, i, p, p] + [i] * 20 + [p]
+        lib.ssam_mxu_window_launch.restype = i
         return lib
 
 

@@ -3,7 +3,8 @@
 [arXiv:2212.04356] 6L enc + 6L dec, d_model=512 8H (MHA) d_ff=2048
 vocab=51865; 1500 encoder frames. ``CONFIG`` takes precomputed frame
 embeddings; ``--conv-frontend`` (``n_mels=80``) trains the real mel
-stem, whose convolutions run through K1 and K3.
+stem, whose convolutions run through K1 and K3 (K2 and K3 under
+``conv_strategy="mxu"``).
 """
 import dataclasses
 
@@ -25,6 +26,6 @@ SMOKE = dataclasses.replace(
 # The real mel stem at smoke size (whisper-base uses n_mels=80).
 SMOKE_CONV = dataclasses.replace(SMOKE, conv_frontend=True, n_mels=8)
 
-# The same stem pinned to the tensor-core lowering (K2): building a model
-# from it raises until K2 is ported (ROADMAP Queue 1 item 8).
+# The same stem pinned to the tensor-core lowering: its convolutions run
+# the im2row contraction (K2 on the card) forward and for dx, K3 for dW.
 SMOKE_CONV_MXU = dataclasses.replace(SMOKE_CONV, conv_strategy="mxu")

@@ -1,5 +1,5 @@
-"""The plan engine: windowed plans (K1, K3) and scan plans (K5), each a
-CUDA kernel beside its plain version.
+"""The plan engine: windowed plans (K1, K2, K3) and scan plans (K5), each
+a CUDA kernel beside its plain version.
 
 :func:`run_window_plan` runs a windowed :class:`SystolicPlan` (2-D and
 3-D stencils, dense 2-D convolution, with leading batch axes, and NCHW
@@ -9,12 +9,15 @@ decides how:
 
 * a CUDA tensor launches K1, the hand-written kernel in
   ``csrc/ssam_window*.cu`` (it replaces the JAX package's
-  ``core/engine.py::_window_kernel``); a failure raises, it never
-  falls back;
+  ``core/engine.py::_window_kernel``), or, for a plan whose
+  ``strategy`` is ``'mxu'``, K2, the tensor-core kernel in
+  ``csrc/ssam_mxu.cu`` (it replaces ``_apply_plan_mxu``); a failure
+  raises, it never falls back, and an mxu plan never retreats to K1;
 * a CPU tensor runs :func:`run_window_plan_reference`, the plain torch
   version: the reference's ``_apply_plan_once`` block walk, both
-  variants and the strided read, over overlapped blocks padded per
-  :func:`origin_pads`, then the epilogue at the flush.
+  variants and the strided read (or, for mxu plans,
+  :func:`apply_plan_mxu`, its im2row contraction), over overlapped
+  blocks padded per :func:`origin_pads`, then the epilogue at the flush.
 
 The geometry is the reference ``_window_call``'s: output shape
 ``(in + t·(lead+trail) − t·(ext−1) − 1) // stride + 1`` per axis,
@@ -50,6 +53,8 @@ from .halo import origin_pads
 from .plan import EPILOGUE_OPERANDS, SystolicPlan, epilogue_operand_stages
 
 VARIANTS = ("shift_psum", "shift_data")
+STRATEGIES = (None, "lanes", "mxu")
+MXU_TAP_ALIGN = 8            # K2's im2row taps pad to a multiple of 8
 WARP = 32
 SMEM_LIMIT = 232448          # bytes of shared memory one H100 block may use
 TABLE_SLOTS = 1024           # the kernel's tap-table limit (steps · D · N)
@@ -81,8 +86,9 @@ def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
         todo.append("fused stages (ROADMAP Queue 1 item 7)")
     if plan.coeff_mode == "perlane":
         todo.append("per-lane coefficients (ROADMAP Queue 1 item 5c)")
-    if plan.strategy == "mxu":
-        todo.append("strategy='mxu' (K2, ROADMAP Queue 1 item 8)")
+        if plan.strategy == "mxu":
+            todo.append("strategy='mxu' on per-lane coefficients, the "
+                        "lane-batched mat-vec (ROADMAP Queue 1 item 5c)")
     if plan.combine != "fma":
         raise ValueError(f"{plan.kind!r} plan has combine={plan.combine!r}: "
                          "scan plans run through run_scan_plan")
@@ -91,8 +97,9 @@ def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
             f"{plan.kind!r} plan: {', '.join(todo)} not ported yet")
     if plan.coeff_mode not in ("table", "dense"):
         raise ValueError(f"unknown coeff_mode {plan.coeff_mode!r}")
-    if plan.strategy not in (None, "lanes"):
-        raise ValueError(f"unknown lowering strategy {plan.strategy!r}")
+    if plan.strategy not in STRATEGIES:
+        raise ValueError(f"unknown lowering strategy {plan.strategy!r}: "
+                         f"expected one of {STRATEGIES}")
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if int(time_steps) != time_steps or time_steps < 1:
@@ -243,11 +250,91 @@ def apply_plan_once(xb: torch.Tensor, plan: SystolicPlan, w,
     raise ValueError(variant)
 
 
+def flat_taps(plan: SystolicPlan) -> list:
+    """The tap set flattened to ``(cumulative_shift, tap)`` pairs, in plan
+    order. The cumulative lane shift is the tap's column: output lane
+    ``l`` reads input lane ``l + cum`` (strided plans: ``l·stride +
+    cum``)."""
+    out, cum = [], 0
+    for step in plan.steps:
+        cum += step.shift
+        for tap in step.taps:
+            out.append((cum, tap))
+    return out
+
+
+def _mxu_view(xb, plan: SystolicPlan, cum: int, tap, out_sp):
+    """One tap's shifted crop of the blocks ``xb``: the tap's row of the
+    im2row operand, output-shaped (strided plans read every
+    ``stride``-th input)."""
+    if len(out_sp) == 3:
+        return xb[..., tap.z_offset:tap.z_offset + out_sp[0],
+                  tap.row_offset:tap.row_offset + out_sp[1],
+                  cum:cum + out_sp[2]]
+    sh, sw = plan.stride_per_axis()
+    return xb[..., tap.row_offset:tap.row_offset + (out_sp[0] - 1) * sh + 1:sh,
+              cum:cum + (out_sp[1] - 1) * sw + 1:sw]
+
+
+def apply_plan_mxu(xb: torch.Tensor, plan: SystolicPlan, w) -> torch.Tensor:
+    """One valid application of ``plan`` on blocks ``xb`` as an im2row
+    contraction: the plain version of K2, the torch twin of the
+    reference's ``_apply_plan_mxu`` for 'table' and 'dense' coefficients.
+
+    Each tap's shifted crop of the block (:func:`_mxu_view`) is a row of
+    a ``(taps padded to 8, out_elems)`` operand, contracted with the
+    coefficient row in the accumulator's dtype. 'table' coefficients
+    fold into their rows against a ones row, as the reference does. For
+    NCHW reduce plans (axis 0 of ``xb`` the batch, axis 1 ``C_in``) the
+    contraction runs over ``C_in·taps`` against ``w[:, :, tap]`` into the
+    same sum. Leading axes are independent blocks, so the operand of all
+    blocks at once would be ``taps`` times the input; it is built and
+    contracted in groups of :data:`MXU_TAP_ALIGN` taps (zero rows pad the
+    last group), each group's product added to the fp32 sum in plan
+    order. The reference contracts all taps in one dot: the sums agree
+    to fp32 rounding, not bit for bit.
+    """
+    nd = plan.ndim_spatial
+    out_sp = tuple((n - e) // v + 1 for n, e, v in zip(
+        xb.shape[-nd:], plan.exts, plan.stride_per_axis()))
+    taps = flat_taps(plan)
+    reduce = _is_reduce(plan)
+    acc = None
+    for g0 in range(0, len(taps), MXU_TAP_ALIGN):
+        group = taps[g0:g0 + MXU_TAP_ALIGN]
+        views = [_mxu_view(xb, plan, cum, tap, out_sp) for cum, tap in group]
+        if plan.coeff_mode == "table":
+            rows = [v * plan.coeffs[tap.coeff_id[-1]]
+                    for v, (_, tap) in zip(views, group)]
+            c = xb.new_ones(MXU_TAP_ALIGN)      # zero rows contribute 0
+        elif reduce:
+            rows = views
+            c = torch.stack([w[(slice(None), slice(None))
+                               + tuple(tap.coeff_id)]
+                             for _, tap in group]).to(xb.dtype)
+        else:
+            rows = views
+            c = torch.stack([w[tuple(tap.coeff_id)]
+                             for _, tap in group]).to(xb.dtype)
+        A = torch.stack(rows)
+        pad = MXU_TAP_ALIGN - len(group)
+        if pad:
+            A = torch.cat([A, A.new_zeros((pad,) + tuple(A.shape[1:]))])
+        if len(c) < MXU_TAP_ALIGN:
+            c = torch.cat([c, c.new_zeros((pad,) + tuple(c.shape[1:]))])
+        if reduce:
+            part = torch.einsum("tbc...,toc->bo...", A, c)
+        else:
+            part = torch.tensordot(c, A, dims=1)
+        acc = part if acc is None else acc + part
+    return acc
+
+
 def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                               block=None, time_steps: int = 1,
                               variant: str = "shift_psum",
                               epilogue_args=()) -> torch.Tensor:
-    """The plain version of K1, on any device.
+    """The plain version of K1 and K2, on any device.
 
     Pads ``x`` per :func:`origin_pads` (``t·lead`` zeros ahead, enough
     behind for the last block), cuts it into the overlapped input blocks
@@ -256,7 +343,9 @@ def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     :func:`apply_plan_once` on every block at once, crops each block to
     its output tile, stitches the tiles and applies the epilogue to the
     sum, as the reference does at the accumulator flush. Accumulates in
-    fp32 (fp64 for fp64 inputs); returns ``x``'s dtype.
+    fp32 (fp64 for fp64 inputs); returns ``x``'s dtype. A plan whose
+    ``strategy`` is ``'mxu'`` applies :func:`apply_plan_mxu` instead (the
+    plain version of K2; ``variant`` is then moot, as in the reference).
     """
     check_supported(plan, time_steps, variant)
     _check_operands(plan, x, w, epilogue_args)
@@ -279,7 +368,10 @@ def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
         blocks = blocks.unfold(lead_in + a, in_block[a], B[a] * stride[a])
     blocks = blocks[(slice(None),) * lead_in + tuple(slice(0, gi) for gi in g)]
     for _ in range(t):
-        blocks = apply_plan_once(blocks, plan, w, variant)
+        if plan.strategy == "mxu":
+            blocks = apply_plan_mxu(blocks, plan, w)
+        else:
+            blocks = apply_plan_once(blocks, plan, w, variant)
     blocks = blocks[(...,) + tuple(slice(0, b) for b in B)]
     lead_out = lead_in                    # C_in is replaced by C_out in place
     perm = list(range(lead_out)) + [d for a in range(nd)
@@ -299,6 +391,102 @@ def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
 # K1: the CUDA kernel
 # ---------------------------------------------------------------------------
 
+def _epilogue_codes(plan: SystolicPlan, epilogue_args, device):
+    """A reduce plan's epilogue as the kernels read it: ``(ops, values,
+    count, bias)``, ``ops`` and ``values`` ctypes arrays of
+    :data:`MAX_EPILOGUE` entries (codes of :data:`EPILOGUE_CODES`), ``bias``
+    the fp32 per-C_out row or None."""
+    ops_, vals, bias = [], [], None
+    args = iter(epilogue_args)
+    for st in plan.epilogue:
+        ops_.append(EPILOGUE_CODES[st.op])
+        vals.append(st.value or 0.0)
+        if st.op in EPILOGUE_OPERANDS:
+            arr = next(args)
+            if arr.device != device:
+                raise ValueError("epilogue operands must lie on x's device")
+            bias = arr.detach().to(torch.float32).contiguous()
+    if len(ops_) > MAX_EPILOGUE:
+        raise ValueError(f"the kernels apply at most {MAX_EPILOGUE} "
+                         "epilogue stages")
+    return ((ctypes.c_int * MAX_EPILOGUE)(*ops_),
+            (ctypes.c_float * MAX_EPILOGUE)(*vals), len(ops_), bias)
+
+
+def _check_kernel_operands(kernel: str, x, w, plan: SystolicPlan) -> None:
+    """Device and dtype checks every windowed kernel (K1, K2) makes."""
+    if not x.is_cuda:
+        raise ValueError(f"{kernel} takes a CUDA tensor, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{kernel} takes float32 or bfloat16, got {x.dtype}")
+    if plan.coeff_mode == "dense" and w.device != x.device:
+        raise ValueError("a dense plan takes its filter w on the same "
+                         "device as x")
+
+
+def _tile_launch(plan: SystolicPlan, x, block, t: int):
+    """A single-channel launch's geometry, padded to 3-D as both K1 and K2
+    read it: ``(x, out, B, head, tile)``, ``x`` contiguous, ``out`` empty,
+    ``B`` the output tile, ``head`` the ints ``(batch, zin, hin, win, zo,
+    ho, wo, lz, ly, lx)`` (``l*`` the ``t``-fold lead) and ``tile`` ``(bz,
+    bh, bw)``."""
+    nb, nd = plan.batch_axes, plan.ndim_spatial
+    spatial_in, out_sp, B, _ = _geometry(plan, x.shape, block, t)
+    x = x.contiguous()
+    batch = 1
+    for d in x.shape[:nb]:
+        batch *= d
+    out = torch.empty(tuple(x.shape[:nb]) + out_sp, dtype=x.dtype,
+                      device=x.device)
+    pad3 = (1,) * (3 - nd)
+    lead, _ = plan.lead_trail()
+    head = ((batch,) + pad3 + spatial_in + pad3 + out_sp
+            + (0,) * (3 - nd) + tuple(t * v for v in lead))
+    return x, out, B, head, pad3 + B
+
+
+@dataclasses.dataclass
+class _ReduceLaunch:
+    """What both channel-reduce paths (K1's, K2's) launch with: ``args``
+    the leading arguments of their C entries (through the plan's ``N``,
+    ``M``), ``out`` the empty output, ``keep`` the tensors ``args`` point
+    into (alive until the launch is enqueued)."""
+
+    args: list
+    out: torch.Tensor
+    keep: tuple
+    ntaps: int
+    c_in: int
+
+
+def _reduce_launch(kernel: str, plan: SystolicPlan, x, w, epilogue_args,
+                   co_tile: int) -> _ReduceLaunch:
+    """``x (B, C_in, H, W)`` against ``w (C_out, C_in, N, M)``: the tap
+    table, the fp32 filter, the epilogue and the output of one reduce
+    launch, the grid checked against CUDA's limits."""
+    x4 = (x if plan.batch_axes else x[None]).contiguous()
+    Bn, Cr, H, W = x4.shape
+    Co = w.shape[0]
+    Ho, Wo = plan.out_shape((H, W))
+    if Ho > 65535 or Bn * -(-Co // co_tile) > 65535:
+        raise ValueError(f"{kernel}'s reduce grid cannot hold {Ho} rows or "
+                         f"{Bn} x {Co} channels")
+    taps = reduce_tap_table(plan)
+    dtaps = _device_ints(taps, x.device)
+    wf = w.detach().to(torch.float32).contiguous()
+    c_ops, c_vals, n_epi, bias = _epilogue_codes(plan, epilogue_args,
+                                                 x.device)
+    out = torch.empty((Bn, Co, Ho, Wo), dtype=x.dtype, device=x.device)
+    (ly, lx), _ = plan.lead_trail()
+    sh, sw = plan.stride_per_axis()
+    args = [x4.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
+            wf.data_ptr(), dtaps.data_ptr(), len(taps) // 3,
+            None if bias is None else bias.data_ptr(), c_ops, c_vals, n_epi,
+            Bn, Cr, Co, H, W, Ho, Wo, ly, lx, sh, sw, plan.N * plan.M,
+            plan.N, plan.M]
+    return _ReduceLaunch(args, out, (x4, wf, bias), len(taps) // 3, Cr)
+
+
 class WindowKernel:
     """Wrapper of K1. ``launches`` counts the kernel launches it made:
     one per call, on the single-channel path (``ssam_window_launch``) and
@@ -315,45 +503,24 @@ class WindowKernel:
     def __call__(self, x: torch.Tensor, w, *, plan: SystolicPlan, block,
                  time_steps: int, variant: str,
                  epilogue_args=()) -> torch.Tensor:
-        if not x.is_cuda:
-            raise ValueError(f"K1 takes a CUDA tensor, got {x.device}")
-        if x.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"K1 takes float32 or bfloat16, got {x.dtype}")
-        if plan.coeff_mode == "dense" and w.device != x.device:
-            raise ValueError("a dense plan takes its filter w on the same "
-                             "device as x")
+        _check_kernel_operands("K1", x, w, plan)
         if _is_reduce(plan):
             return self._reduce(x, w, plan, epilogue_args)
-        t = time_steps
-        nb, nd = plan.batch_axes, plan.ndim_spatial
-        spatial_in, out_sp, B, _ = _geometry(plan, x.shape, block, t)
+        t, nd = time_steps, plan.ndim_spatial
         table = tap_table(plan, None if w is None else tuple(w.shape))
         cidx, shifts, cvals = _device_table(table, x.device)
         if plan.coeff_mode == "dense":
             cvals = w.detach().to(torch.float32).contiguous()
+        x, out, B, head, tile = _tile_launch(plan, x, block, t)
         smem = smem_bytes(plan, B, t)
         if smem > SMEM_LIMIT:
             raise ValueError(f"block {B} needs {smem} bytes of shared memory "
                              f"(limit {SMEM_LIMIT}); pass a smaller block")
-        x = x.contiguous()
-        batch = 1
-        for d in x.shape[:nb]:
-            batch *= d
-        out = torch.empty(tuple(x.shape[:nb]) + out_sp, dtype=x.dtype,
-                          device=x.device)
-        pad3 = (1,) * (3 - nd)
-        zin, hin, win = pad3 + spatial_in
-        zo, ho, wo = pad3 + out_sp
-        lead, _ = plan.lead_trail()
-        lz, ly, lx = (0,) * (3 - nd) + tuple(t * v for v in lead)
-        bz, bh, bw = pad3 + B
-        lib = self.library.get()
-        err = lib.ssam_window_launch(
+        err = self.library.get().ssam_window_launch(
             x.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-            cvals.data_ptr(), cidx.data_ptr(), shifts.data_ptr(),
-            batch, zin, hin, win, zo, ho, wo, lz, ly, lx, nd,
+            cvals.data_ptr(), cidx.data_ptr(), shifts.data_ptr(), *head, nd,
             plan.depth if nd == 3 else 1, plan.N, len(plan.steps),
-            table.lanes_used, t, VARIANTS.index(variant), bz, bh, bw, smem,
+            table.lanes_used, t, VARIANTS.index(variant), *tile, smem,
             torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"K1 launch failed: CUDA error {err} "
@@ -364,49 +531,17 @@ class WindowKernel:
     def _reduce(self, x, w, plan, epilogue_args):
         """The channel-reduce path: ``x (B, C_in, H, W)`` against
         ``w (C_out, C_in, N, M)``, output stride and epilogue."""
-        x4 = (x if plan.batch_axes else x[None]).contiguous()
-        Bn, Cr, H, W = x4.shape
-        Co = w.shape[0]
-        Ho, Wo = plan.out_shape((H, W))
-        if Ho > 65535 or Bn * -(-Co // REDUCE_CO_TILE) > 65535:
-            raise ValueError(f"K1's reduce grid cannot hold {Ho} rows or "
-                             f"{Bn} x {Co} channels")
-        taps = reduce_tap_table(plan)
-        dtaps = _device_ints(taps, x.device)
-        ntaps = len(taps) // 3
-        ci_t, smem = reduce_smem_plan(plan, ntaps, Cr)
-        wf = w.detach().to(torch.float32).contiguous()
-        ops_, vals, bias = [], [], None
-        args = iter(epilogue_args)
-        for st in plan.epilogue:
-            ops_.append(EPILOGUE_CODES[st.op])
-            vals.append(st.value or 0.0)
-            if st.op in EPILOGUE_OPERANDS:
-                arr = next(args)
-                if arr.device != x.device:
-                    raise ValueError("epilogue operands must lie on x's "
-                                     "device")
-                bias = arr.detach().to(torch.float32).contiguous()
-        if len(ops_) > MAX_EPILOGUE:
-            raise ValueError(f"K1 applies at most {MAX_EPILOGUE} epilogue "
-                             "stages")
-        c_ops = (ctypes.c_int * MAX_EPILOGUE)(*ops_)
-        c_vals = (ctypes.c_float * MAX_EPILOGUE)(*vals)
-        out = torch.empty((Bn, Co, Ho, Wo), dtype=x.dtype, device=x.device)
-        lead, _ = plan.lead_trail()
-        sh, sw = plan.stride_per_axis()
+        r = _reduce_launch("K1", plan, x, w, epilogue_args, REDUCE_CO_TILE)
+        ci_t, smem = reduce_smem_plan(plan, r.ntaps, r.c_in)
         err = self.library.get().ssam_window_reduce_launch(
-            x4.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-            wf.data_ptr(), dtaps.data_ptr(), ntaps,
-            None if bias is None else bias.data_ptr(), c_ops, c_vals,
-            len(ops_), Bn, Cr, Co, H, W, Ho, Wo, lead[0], lead[1], sh, sw,
-            plan.N * plan.M, plan.N, plan.M, ci_t, smem,
+            *r.args, ci_t, smem,
             torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"K1 launch failed: CUDA error {err} "
-                               f"({plan.kind}, reduce {Cr} -> {Co})")
+                               f"({plan.kind}, reduce {r.c_in} -> "
+                               f"{w.shape[0]})")
         self.launches += 1
-        return out if plan.batch_axes else out[0]
+        return r.out if plan.batch_axes else r.out[0]
 
 
 WINDOW_KERNEL = WindowKernel(_build.LIBRARY)
@@ -442,6 +577,11 @@ def reduce_tap_table(plan: SystolicPlan) -> tuple[int, ...]:
 @functools.lru_cache(maxsize=256)
 def _device_ints(values: tuple[int, ...], device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_floats(values: tuple[float, ...], device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def reduce_smem_plan(plan: SystolicPlan, ntaps: int, c_in: int):
@@ -552,14 +692,16 @@ def smem_bytes(plan: SystolicPlan, block, time_steps: int) -> int:
 def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
     """The output tile of the block walk: four warp-widths of valid lanes
     across, 64 rows (2-D) or 16 rows by 8 slices (3-D), halved until a
-    single-channel K1 block fits in shared memory. (K1's reduce path
-    tiles its output itself: 32 channels x 1 row x 128 columns.)"""
+    single-channel K1 block (K2 block, for an mxu plan) takes at most
+    half of the shared memory. (The reduce paths tile their output
+    themselves: K1 32 channels x 1 row x 128 columns, K2 64 x 1 x 128.)"""
+    need = mxu_smem_bytes if plan.strategy == "mxu" else smem_bytes
     V = max(1, WARP - (plan.M - 1))
     if plan.ndim_spatial == 3:
         block = [8, 16, 2 * V]
     else:
         block = [64, 4 * V]
-    while smem_bytes(plan, block, time_steps) > SMEM_LIMIT // 2:
+    while need(plan, block, time_steps) > SMEM_LIMIT // 2:
         i = max(range(len(block) - 1), key=lambda a: block[a])
         if block[i] == 1:
             break
@@ -567,12 +709,187 @@ def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
     return tuple(block)
 
 
+# ---------------------------------------------------------------------------
+# K2: the tensor-core kernel (strategy='mxu')
+# ---------------------------------------------------------------------------
+
+MXU_MAX_TAPS = 1024           # single-channel taps K2 holds (padded to 8)
+# The reduce path's block: 64 output channels x 1 row x 128 columns, the
+# GEMM's M x N tile; K = C_in·taps is staged MXU_CI_MAX channels at most.
+MXU_CO_TILE = 64
+MXU_COLS = 128
+MXU_CI_MAX = 32
+MXU_SMEM_TARGET = 64 * 1024
+
+
+def _round8(n: int) -> int:
+    return -(-n // MXU_TAP_ALIGN) * MXU_TAP_ALIGN
+
+
+def mxu_tap_table(plan: SystolicPlan, w_shape) -> tuple[int, ...]:
+    """The taps of a single-channel plan as K2 reads them: ``(dz, row,
+    col, cidx)`` quadruples in plan order, ``cidx`` an index into the
+    plan's immediates ('table') or the flattened filter ('dense')."""
+    nd = plan.ndim_spatial
+    D = plan.depth if nd == 3 else 1
+    out = []
+    for cum, tap in flat_taps(plan):
+        dz = tap.z_offset if nd == 3 else 0
+        if not (0 <= dz < D and 0 <= tap.row_offset < plan.N
+                and 0 <= cum < plan.M):
+            raise ValueError(f"tap {tap} at column {cum} lies outside the "
+                             f"{plan.exts} footprint")
+        if plan.coeff_mode == "table":
+            if not 0 <= tap.coeff_id[-1] < len(plan.coeffs or ()):
+                raise ValueError(f"tap {tap} has no coefficient in the "
+                                 "plan's table")
+            cidx = tap.coeff_id[-1]
+        else:
+            if len(tap.coeff_id) != len(w_shape) or not all(
+                    0 <= i < n for i, n in zip(tap.coeff_id, w_shape)):
+                raise ValueError(f"tap {tap} lies outside the filter of "
+                                 f"shape {w_shape}")
+            cidx = 0
+            for i, n in zip(tap.coeff_id, w_shape):
+                cidx = cidx * n + i
+        out += [dz, tap.row_offset, cum, cidx]
+    if not out or _round8(len(out) // 4) > MXU_MAX_TAPS:
+        raise ValueError(f"K2 takes 1..{MXU_MAX_TAPS} taps, got "
+                         f"{len(out) // 4}")
+    return tuple(out)
+
+
+def mxu_smem_bytes(plan: SystolicPlan, block, time_steps: int) -> int:
+    """Dynamic shared memory of one single-channel K2 block: the tap
+    offsets and coefficients (taps padded to 8), the staged skirt and,
+    for ``t > 1``, the buffer of the first intermediate iterate (layout
+    of ``ssam_mxu.cu``)."""
+    nd = plan.ndim_spatial
+    D = plan.depth if nd == 3 else 1
+    N, M = plan.N, plan.M
+    bz, bh, bw = (1,) * (3 - nd) + tuple(block)
+    taps = sum(len(st.taps) for st in plan.steps)
+
+    def tile(k):
+        return (bz + k * (D - 1)) * (bh + k * (N - 1)) * (bw + k * (M - 1))
+
+    t = time_steps
+    return 4 * (2 * _round8(taps) + tile(t) + (tile(t - 1) if t > 1 else 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class MxuReduceLayout:
+    """K2's reduce-path geometry: ``ci_t`` input channels staged per pass,
+    ``kc`` the pass's contraction depth ``ci_t·taps`` padded to 8, ``lda``
+    the row pitch of the staged filter tile (``≡ 4 mod 32``: the A
+    fragment's 32 loads fall in 32 banks), ``span`` the staged columns of
+    an input row, ``smem`` bytes."""
+
+    ci_t: int
+    kc: int
+    lda: int
+    span: int
+    smem: int
+
+
+def mxu_reduce_layout(plan: SystolicPlan, ntaps: int,
+                      c_in: int) -> MxuReduceLayout:
+    sw = plan.stride_per_axis()[1]
+    span = (MXU_COLS - 1) * sw + plan.M
+
+    def layout(ci_t):
+        kc = _round8(ci_t * ntaps)
+        lda = kc + (36 - kc % 32) % 32
+        words = 2 * kc + MXU_CO_TILE * lda + ci_t * plan.N * span
+        return MxuReduceLayout(ci_t, kc, lda, span, 4 * words)
+
+    ci_t = max(1, min(MXU_CI_MAX, c_in))
+    while ci_t > 1 and layout(ci_t).smem > MXU_SMEM_TARGET:
+        ci_t -= 1
+    lay = layout(ci_t)
+    if lay.smem > SMEM_LIMIT:
+        raise ValueError(f"K2's reduce block needs {lay.smem} bytes of "
+                         f"shared memory (limit {SMEM_LIMIT})")
+    return lay
+
+
+class MxuKernel:
+    """Wrapper of K2. ``launches`` counts the kernel launches it made: one
+    per call, on the single-channel path (``ssam_mxu_window_launch``) and
+    on the channel-reduce path (``ssam_mxu_reduce_launch``) alike."""
+
+    name = "ssam_mxu"
+    source = "src/repro_torch/csrc/ssam_mxu.cu"
+    replaces = ("src/repro/core/engine.py:189 (_apply_plan_mxu, "
+                "strategy='mxu' at pallas_call 587)")
+
+    def __init__(self, library: _build.Library):
+        self.library = library
+        self.launches = 0
+
+    def __call__(self, x: torch.Tensor, w, *, plan: SystolicPlan, block,
+                 time_steps: int, epilogue_args=()) -> torch.Tensor:
+        _check_kernel_operands("K2", x, w, plan)
+        if plan.strategy != "mxu":
+            raise ValueError(f"K2 runs mxu plans, got strategy="
+                             f"{plan.strategy!r}")
+        if _is_reduce(plan):
+            return self._reduce(x, w, plan, epilogue_args)
+        t, nd = time_steps, plan.ndim_spatial
+        taps = mxu_tap_table(plan, None if w is None else tuple(w.shape))
+        dtaps = _device_ints(taps, x.device)
+        ntaps = len(taps) // 4
+        if plan.coeff_mode == "dense":
+            cvals = w.detach().to(torch.float32).contiguous()
+        else:
+            cvals = _device_floats(plan.coeffs, x.device)
+        x, out, B, head, tile = _tile_launch(plan, x, block, t)
+        smem = mxu_smem_bytes(plan, B, t)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"block {B} needs {smem} bytes of shared memory "
+                             f"(limit {SMEM_LIMIT}); pass a smaller block")
+        batch, ho, zo = head[0], head[5], head[4]
+        if -(-ho // tile[1]) > 65535 or batch * -(-zo // tile[0]) > 65535:
+            raise ValueError(f"K2's grid cannot hold {tuple(out.shape)} in "
+                             f"blocks of {B}")
+        err = self.library.get().ssam_mxu_window_launch(
+            x.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
+            cvals.data_ptr(), dtaps.data_ptr(), ntaps, _round8(ntaps), *head,
+            plan.depth if nd == 3 else 1, plan.N, plan.M, t, *tile, smem,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"K2 launch failed: CUDA error {err} "
+                               f"({plan.kind}, block {B}, t={t})")
+        self.launches += 1
+        return out
+
+    def _reduce(self, x, w, plan, epilogue_args):
+        """The channel-reduce path: the implicit GEMM of ``w (C_out,
+        C_in·taps)`` against the im2row operand of ``x (B, C_in, H, W)``,
+        output stride and epilogue."""
+        r = _reduce_launch("K2", plan, x, w, epilogue_args, MXU_CO_TILE)
+        lay = mxu_reduce_layout(plan, r.ntaps, r.c_in)
+        err = self.library.get().ssam_mxu_reduce_launch(
+            *r.args, lay.ci_t, lay.kc, lay.lda, lay.span, lay.smem,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"K2 launch failed: CUDA error {err} "
+                               f"({plan.kind}, reduce {r.c_in} -> "
+                               f"{w.shape[0]})")
+        self.launches += 1
+        return r.out if plan.batch_axes else r.out[0]
+
+
+MXU_KERNEL = MxuKernel(_build.LIBRARY)
+
+
 def run_window_plan(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                     block=None, time_steps: int = 1,
                     variant: str = "shift_psum",
-                    epilogue_args=()) -> torch.Tensor:
-    """Run a windowed plan: K1 for a CUDA tensor, the plain version for a
-    CPU tensor, an error for anything else.
+                    epilogue_args=(), strategy: str | None = None
+                    ) -> torch.Tensor:
+    """Run a windowed plan: K1 (K2 for an mxu plan) for a CUDA tensor,
+    the plain version for a CPU tensor, an error for anything else.
 
     Args:
       x: ``batch_axes + reduce_axes + ndim_spatial``-dim input, lane axis
@@ -583,14 +900,25 @@ def run_window_plan(x: torch.Tensor, w=None, *, plan: SystolicPlan,
       block: output tile per windowed axis of the block walk (default
         :func:`default_block`).
       time_steps: fused applications (§6.4), pad-once semantics.
-      variant: ``'shift_psum'`` (paper) or ``'shift_data'``.
+      variant: ``'shift_psum'`` (paper) or ``'shift_data'``; moot for an
+        mxu plan.
       epilogue_args: runtime operands of the plan's epilogue (a per-C_out
         bias row).
+      strategy: pin the lowering for this call, ``'lanes'`` (K1) or
+        ``'mxu'`` (K2, the im2row contraction on the tensor cores); None
+        keeps whatever the plan carries. An mxu plan that K2 cannot run
+        raises; it never retreats to K1.
     """
+    if strategy is not None:
+        plan = dataclasses.replace(plan, strategy=strategy)
     check_supported(plan, time_steps, variant)
     _check_operands(plan, x, w, epilogue_args)
     block = tuple(block or default_block(plan, time_steps))
     if x.device.type == "cuda":
+        if plan.strategy == "mxu":
+            return MXU_KERNEL(x, w, plan=plan, block=block,
+                              time_steps=time_steps,
+                              epilogue_args=epilogue_args)
         return WINDOW_KERNEL(x, w, plan=plan, block=block,
                              time_steps=time_steps, variant=variant,
                              epilogue_args=epilogue_args)
@@ -600,6 +928,16 @@ def run_window_plan(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                                          variant=variant,
                                          epilogue_args=epilogue_args)
     raise ValueError(f"no windowed engine for device {x.device}")
+
+
+def run_window_plan_mxu(x: torch.Tensor, w=None, *, plan: SystolicPlan,
+                        **kw) -> torch.Tensor:
+    """:func:`run_window_plan` with the tap-set contraction pinned to the
+    im2row lowering (K2 on the card): equivalent to ``strategy='mxu'``
+    on the plan. Same signature, same output to fp32 tolerance as the
+    lanes schedule."""
+    return run_window_plan(
+        x, w, plan=dataclasses.replace(plan, strategy="mxu"), **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ssam_epilogue.cuh"
+
 namespace ssam {
 
 constexpr int kRThreads = 256;
@@ -53,7 +55,6 @@ constexpr int kRCoTile = 32;   // output channels per block
 constexpr int kRCoWarp = 4;    // output channels per thread
 constexpr int kRColsLane = 4;  // output columns per thread
 constexpr int kRCols = 128;    // output columns per block
-constexpr int kMaxEpi = 8;
 
 struct ReduceArgs {
   const void* x;        // (batch, cr, hin, win), fp32 or bf16
@@ -76,32 +77,6 @@ __device__ __forceinline__ float load_in(const ReduceArgs& a, size_t i) {
   return a.io_bf16
              ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.x)[i])
              : static_cast<const float*>(a.x)[i];
-}
-
-__device__ __forceinline__ float epilogue(const ReduceArgs& a, float v,
-                                          int co) {
-  for (int s = 0; s < a.n_epi; ++s) {
-    switch (a.epi_op[s]) {
-      case 1:
-        v += a.bias[co];
-        break;
-      case 2: {  // 0.5 v (1 + tanh(sqrt(2/pi) (v + 0.044715 v^3)))
-        const float u = 0.7978845608028654f * (v + 0.044715f * v * v * v);
-        v = 0.5f * v * (1.f + tanhf(u));
-        break;
-      }
-      case 3:
-        v = v / (1.f + expf(-v));
-        break;
-      case 4:
-        v = fmaxf(v, 0.f);
-        break;
-      case 5:
-        v *= a.epi_val[s];
-        break;
-    }
-  }
-  return v;
 }
 
 __global__ void __launch_bounds__(kRThreads) window_reduce_kernel(ReduceArgs a) {
@@ -181,7 +156,8 @@ __global__ void __launch_bounds__(kRThreads) window_reduce_kernel(ReduceArgs a) 
     for (int j = 0; j < kRColsLane; ++j) {
       const int ox = ox0 + lane + 32 * j;
       if (ox >= a.wo) continue;
-      const float v = epilogue(a, acc[k][j], co);
+      const float v =
+          apply_epilogue(a.epi_op, a.epi_val, a.n_epi, a.bias, acc[k][j], co);
       if (a.io_bf16)
         static_cast<__nv_bfloat16*>(a.out)[obase + ox] = __float2bfloat16(v);
       else

@@ -1,5 +1,6 @@
 """Public ops of the port: ``stencil`` and ``conv2d`` (windowed plans,
-K1, with gradients through K1 and K3) and the scan family ``cumsum``,
+K1, or K2 under ``strategy='mxu'``, with gradients through the same
+kernel and K3) and the scan family ``cumsum``,
 ``sat``, ``linear_recurrence``, ``linear_recurrence_carry`` and
 ``chunked_linear_recurrence`` (K5).
 
@@ -18,7 +19,8 @@ The windowed ops are differentiable: :class:`WindowOp` is the
 the linear plan, differentiates the epilogue there (which also gives the
 bias gradient), scatters the cotangent of a strided plan into the dense
 output lattice, runs the input-adjoint plan through the engine for
-``dx`` (K1) and the weight-gradient correlation for ``dW`` (K3).
+``dx`` (K1, or K2: the adjoint plan keeps the forward's strategy) and
+the weight-gradient correlation for ``dW`` (K3).
 """
 from __future__ import annotations
 
@@ -119,6 +121,21 @@ class WindowOp(torch.autograd.Function):
         return (None, dx, dw, *depi)
 
 
+def _strategy_plan(plan: SystolicPlan, strategy, op: str) -> SystolicPlan:
+    """Pin a lowering strategy onto the plan, as the reference's
+    ``_strategy_plan`` does: the strategy lives on the plan, so the
+    backward's plans (``dataclasses.replace`` of it) inherit it and an mxu
+    forward transposes to an mxu dx. ``None``/``'auto'`` leave the plan as
+    it is (lanes: the tuner that would choose is not ported)."""
+    if strategy in (None, "auto"):
+        return plan
+    if strategy not in ("lanes", "mxu"):
+        raise ValueError(
+            f"ops.{op}: strategy must be 'lanes', 'mxu', 'auto' or None, "
+            f"got {strategy!r}")
+    return dataclasses.replace(plan, strategy=strategy)
+
+
 def window_op(plan: SystolicPlan, x, w=None, epilogue_args=(), *, block=None,
               time_steps: int = 1, variant: str = "shift_psum"):
     """``run_window_plan`` under autograd (:class:`WindowOp`)."""
@@ -129,10 +146,12 @@ def window_op(plan: SystolicPlan, x, w=None, epilogue_args=(), *, block=None,
 
 def stencil(x: torch.Tensor, sdef: StencilDef | str, *, time_steps: int = 1,
             variant: str = "shift_psum", block=None, epilogue=None,
-            mesh=None) -> torch.Tensor:
+            mesh=None, strategy: str | None = None) -> torch.Tensor:
     """Apply a Table-3 stencil ``time_steps`` times to an ``(H, W)`` or
     ``(D, H, W)`` grid (zero boundary, same shape, pad-once semantics).
-    Differentiable in ``x`` (the input-adjoint plan through K1)."""
+    ``strategy='mxu'`` runs the im2row contraction (K2 on the card)
+    instead of the lanes schedule (K1). Differentiable in ``x`` (the
+    input-adjoint plan, under the same strategy)."""
     if epilogue is not None:
         raise NotImplementedError(
             "stencil epilogues are ROADMAP Queue 1 item 4")
@@ -145,8 +164,9 @@ def stencil(x: torch.Tensor, sdef: StencilDef | str, *, time_steps: int = 1,
         raise ValueError(f"{sdef.name} is {sdef.ndim}-D, x has shape "
                          f"{tuple(x.shape)}")
     mod = _s2 if sdef.ndim == 2 else _s3
-    return window_op(mod.plan_for(sdef), x, block=block,
-                     time_steps=time_steps, variant=variant)
+    plan = _strategy_plan(mod.plan_for(sdef), strategy, "stencil")
+    return window_op(plan, x, block=block, time_steps=time_steps,
+                     variant=variant)
 
 
 def _normalize_stride(stride):
@@ -162,7 +182,7 @@ def _normalize_stride(stride):
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, mode: str = "same",
            variant: str = "shift_psum", block=None, groups: int = 1,
            stride=None, epilogue=None, epilogue_args=(),
-           mesh=None) -> torch.Tensor:
+           mesh=None, strategy: str | None = None) -> torch.Tensor:
     """2-D cross-correlation, by input rank:
 
     * ``(H, W)`` — one image against an ``(N, M)`` filter;
@@ -177,7 +197,11 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, mode: str = "same",
     output, and ``epilogue=`` fuses elementwise output stages
     (``bias``/``gelu``/``silu``/``relu``/``scale``) applied to the summed
     value before the store; a per-C_out bias row rides in
-    ``epilogue_args``. Differentiable in ``x``, ``w`` and the bias.
+    ``epilogue_args``. ``strategy='mxu'`` pins the tap-set contraction to
+    the im2row lowering (K2, the tensor cores; NCHW contracts over
+    ``C_in·taps``), ``'lanes'`` or None to the lanes schedule (K1).
+    Differentiable in ``x``, ``w`` and the bias: ``dx`` under the same
+    strategy, ``dW`` through K3.
     """
     if mesh is not None:
         raise NotImplementedError("sharded conv2d is ROADMAP Queue 1 item 12")
@@ -214,6 +238,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, mode: str = "same",
                              f"(B, C, H, W), got {tuple(x.shape)}")
     if stride is not None or epi_stages:
         plan = dataclasses.replace(plan, stride=stride, epilogue=epi_stages)
+    plan = _strategy_plan(plan, strategy, "conv2d")
     return window_op(plan, x, w, tuple(epilogue_args), block=block,
                      variant=variant)
 

@@ -3,10 +3,11 @@
 The mel stem (``conv_frontend=True``) is the real Whisper stem: two k=3
 'same' convolutions with a bias+GELU epilogue, the second at stride 2,
 each an NCHW minibatch ``(B, C, 1, T)`` through the engine's reduce-axes
-plan (K1 on the card; time on the lane axis, the mel→d_model channel mix
-the plan's C_in reduction). Their backward runs the input-adjoint plan
-through K1 and the weight gradient through K3. Without the stem,
-``frames`` are precomputed frame embeddings.
+plan (on the card K1, or K2 under ``conv_strategy="mxu"``; time on the
+lane axis, the mel→d_model channel mix the plan's C_in reduction). Their
+backward runs the input-adjoint plan through the same kernel and the
+weight gradient through K3. Without the stem, ``frames`` are
+precomputed frame embeddings.
 
 Encoder: bidirectional self-attention; decoder: causal self-attention and
 cross-attention to the encoder output. LayerNorm, biases, GELU MLP and
@@ -80,10 +81,6 @@ class Whisper(nn.Module):
         super().__init__()
         if cfg.conv_frontend and not cfg.n_mels:
             raise ValueError(f"{cfg.name}: the conv stem needs n_mels")
-        if cfg.conv_frontend and cfg.conv_strategy == "mxu":
-            raise NotImplementedError(
-                "the mxu lowering of the conv stem is K2, not ported yet "
-                "(ROADMAP Queue 1 item 8)")
         self.cfg = cfg
         if params is None:
             device = torch.device("cuda" if device is None else device)
@@ -111,7 +108,7 @@ class Whisper(nn.Module):
                 "tokens": ((batch, seq), torch.int64),
                 "labels": ((batch, seq), torch.int64)}
 
-    # ---- conv stem (K1 forward and dx, K3 dW) -------------------------------
+    # ---- conv stem (K1, or K2 for mxu: forward and dx; K3 dW) --------------
     def frontend(self, p, mel: torch.Tensor) -> torch.Tensor:
         """``mel (B, n_mels, T)`` → frames ``(B, T//2, d_model)``."""
         c = self.cfg

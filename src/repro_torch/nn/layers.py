@@ -94,20 +94,16 @@ def conv2d_specs(c_in: int, c_out: int, k, *, bias: bool = True) -> dict:
 def conv2d_apply(p, x: torch.Tensor, *, mode: str = "same", stride=1,
                  activation: str | None = None,
                  strategy: str | None = None) -> torch.Tensor:
-    """NCHW convolution through the engine's reduce-axes plan (K1 on the
-    card): ``x (B, C_in, H, W) → (B, C_out, H', W')``. The per-channel
-    bias and ``activation`` ('gelu'/'silu'/'relu') are the kernel's fused
-    epilogue, and a stride computes only the kept outputs. Differentiable:
-    the backward runs the adjoint plans (K1 for ``dx``, K3 for ``dW``).
-    ``strategy='mxu'`` (the tensor-core lowering, K2) is not ported."""
+    """NCHW convolution through the engine's reduce-axes plan:
+    ``x (B, C_in, H, W) → (B, C_out, H', W')``. The per-channel bias and
+    ``activation`` ('gelu'/'silu'/'relu') are the kernel's fused
+    epilogue, and a stride computes only the kept outputs. ``strategy``
+    picks the lowering on the card: None, 'auto' or 'lanes' K1, 'mxu'
+    K2 (the im2row contraction on the tensor cores). Differentiable: the
+    backward runs the adjoint plans (``dx`` under the same strategy, K3
+    for ``dW``)."""
     from ..kernels import ops
 
-    if strategy == "mxu":
-        raise NotImplementedError(
-            "the mxu lowering of the conv stem is K2, not ported yet "
-            "(ROADMAP Queue 1 item 8)")
-    if strategy not in (None, "auto", "lanes"):
-        raise ValueError(f"unknown conv strategy {strategy!r}")
     epilogue, args = [], []
     if "b" in p:
         epilogue.append("bias")
@@ -115,4 +111,5 @@ def conv2d_apply(p, x: torch.Tensor, *, mode: str = "same", stride=1,
     if activation is not None:
         epilogue.append(activation)
     return ops.conv2d(x, p["w"], mode=mode, stride=stride,
-                      epilogue=tuple(epilogue) or None, epilogue_args=args)
+                      epilogue=tuple(epilogue) or None, epilogue_args=args,
+                      strategy=strategy)

@@ -1,5 +1,5 @@
-"""K1, K3 and K5 on the card against their plain versions (needs a CUDA
-card).
+"""K1, K2, K3 and K5 on the card against their plain versions (needs a
+CUDA card).
 
 This file imports only torch and the port, so it also runs on a machine
 without JAX:
@@ -12,7 +12,9 @@ path and K3 fp32 rtol 1e-4 with atol 1e-4·max|plain| (sums over up to a
 few thousand products taken in another order than the plain version's
 per-tap contractions); K5 fp32 rtol 1e-5 with atol 1e-5·max|plain| (the
 kernel and the plain version differ only in the order of the prefix
-products), bf16 3e-2.
+products), bf16 3e-2. K2 (3xTF32 on the tensor cores) against its plain
+version at K1's tolerances (3e-5 single-channel, 1e-4 NCHW), and against
+K1 at 1e-4, the reference's lanes-versus-mxu tolerance.
 """
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from repro_torch import convert
 from repro_torch.config import get_config
 from repro_torch.configs import whisper_base
 from repro_torch.core import adjoint, engine, plan
+from repro_torch.data import TokenDataset
 from repro_torch.kernels import ops, ref, ssam_conv2d, ssam_stencil2d
 from repro_torch.kernels import ssam_stencil3d, stencils
 from repro_torch.launch import serve, train
@@ -361,5 +364,152 @@ def test_whisper_train_steps_go_through_k1_and_k3(cuda):
     assert all(np.isfinite(res.losses))
     assert engine.WINDOW_KERNEL.launches == before[0] + 5 * 2
     assert engine.WGRAD_KERNEL.launches == before[1] + 2 * 2
-    with pytest.raises(NotImplementedError, match="K2"):
-        build_model(whisper_base.SMOKE_CONV_MXU, device=cuda)
+    # the same stem pinned to mxu runs K2 where it ran K1
+    before = (engine.WINDOW_KERNEL.launches, engine.MXU_KERNEL.launches,
+              engine.WGRAD_KERNEL.launches)
+    model = build_model(whisper_base.SMOKE_CONV_MXU, device=cuda, seed=0)
+    batch = train.make_batch(model, TokenDataset(model.cfg.vocab, 16), 0, 2,
+                             cuda)
+    loss = model.loss(batch)
+    torch.autograd.grad(loss, [p for _, p in spec.module_leaves(
+        model.params)])
+    assert np.isfinite(loss.item())
+    assert engine.WINDOW_KERNEL.launches == before[0]
+    assert engine.MXU_KERNEL.launches == before[1] + 5
+    assert engine.WGRAD_KERNEL.launches == before[2] + 2
+
+
+# --- K2: the tensor-core kernel (strategy='mxu') ---------------------------
+
+def _mxu_and_lanes(run, **kw):
+    """``run`` under both strategies, with K2's and K1's launches."""
+    k1, k2 = engine.WINDOW_KERNEL.launches, engine.MXU_KERNEL.launches
+    got = run(strategy="mxu", **kw)
+    assert engine.MXU_KERNEL.launches == k2 + 1
+    assert engine.WINDOW_KERNEL.launches == k1
+    return got, run(strategy="lanes", **kw)
+
+
+@pytest.mark.parametrize("name", sorted(stencils.BENCHMARKS))
+def test_mxu_stencil_matches_plain_version(cuda, name):
+    sd = stencils.BENCHMARKS[name]
+    mod = ssam_stencil2d if sd.ndim == 2 else ssam_stencil3d
+    p = dataclasses.replace(mod.plan_for(sd), strategy="mxu")
+    x = _grid((97, 203) if sd.ndim == 2 else (21, 30, 75), cuda)
+    for t in (1, 2):
+        got, lanes = _mxu_and_lanes(
+            lambda **kw: ops.stencil(x, name, time_steps=t, **kw))
+        _close(got, engine.run_window_plan_reference(x, plan=p,
+                                                     time_steps=t))
+        _close(got, lanes, 1e-4)
+        _close(got, ref.stencil_iterate(x, sd, t), 1e-4)
+
+
+@pytest.mark.parametrize("fshape", [(1, 1), (3, 3), (1, 7), (5, 2), (7, 7),
+                                    (20, 20), (32, 32)], ids=str)
+@pytest.mark.parametrize("mode", ["valid", "same"])
+def test_mxu_conv2d_matches_plain_version(cuda, mode, fshape):
+    """Tap counts that are and are not multiples of 8, on a grid whose
+    edges are not multiples of the tile, with several block shapes."""
+    x = _grid((131, 259), cuda, 31)
+    w = _grid(fshape, cuda, 32)
+    p = dataclasses.replace(ssam_conv2d.plan_for(fshape, mode),
+                            strategy="mxu")
+    for block in (None, (7, 13)):
+        got, lanes = _mxu_and_lanes(
+            lambda **kw: ops.conv2d(x, w, mode=mode, block=block, **kw))
+        _close(got, engine.run_window_plan_reference(x, w, plan=p))
+        _close(got, lanes, 1e-4)
+    xs = _grid((3, 50, 90), cuda, 33)
+    got = ops.conv2d(xs, w[:5, :5], mode=mode, strategy="mxu")
+    _close(got, ref.conv2d_batched(xs, w[:5, :5], mode), 1e-4)
+
+
+@pytest.mark.parametrize("xs,ws,mode,stride,epi", REDUCE_CASES, ids=str)
+def test_mxu_reduce_matches_plain_version(cuda, xs, ws, mode, stride, epi):
+    x, w = _grid(xs, cuda, 11), _grid(ws, cuda, 12)
+    b = _grid(ws[:1], cuda, 13)
+    p = dataclasses.replace(ssam_conv2d.plan_for_nchw(xs, ws, mode),
+                            stride=None if stride == (1, 1) else stride,
+                            epilogue=plan.normalize_epilogue(epi),
+                            strategy="mxu")
+    args = (b,) if epi and "bias" in epi else ()
+    got, lanes = _mxu_and_lanes(
+        lambda **kw: engine.run_window_plan(x, w, plan=p, epilogue_args=args,
+                                            **kw))
+    _close(got, engine.run_window_plan_reference(x, w, plan=p,
+                                                 epilogue_args=args), 1e-4)
+    _close(got, lanes, 1e-4)
+    lin = dataclasses.replace(p, stride=None, epilogue=())
+    a = adjoint.input_adjoint_plan(lin)
+    assert a.strategy == "mxu"
+    g = _grid((xs[0], ws[0]) + lin.out_shape(xs[2:]), cuda, 14)
+    wa = adjoint.adjoint_coeff_array(lin, w)
+    _close(engine.run_window_plan(g, wa, plan=a),
+           engine.run_window_plan_reference(g, wa, plan=a), 1e-4)
+
+
+def test_mxu_bf16(cuda):
+    xs, ws = (2, 24, 1, 200), (16, 24, 1, 3)
+    x = _grid(xs, cuda, 15).to(torch.bfloat16)
+    w, b = _grid(ws, cuda, 16), _grid((16,), cuda, 17)
+    got = ops.conv2d(x, w, stride=(1, 2), epilogue=("bias", "gelu"),
+                     epilogue_args=(b,), strategy="mxu")
+    assert got.dtype == torch.bfloat16
+    p = dataclasses.replace(ssam_conv2d.plan_for_nchw(xs, ws, "same"),
+                            stride=(1, 2), strategy="mxu",
+                            epilogue=plan.normalize_epilogue(("bias", "gelu")))
+    _close(got.float(), engine.run_window_plan_reference(
+        x, w, plan=p, epilogue_args=(b,)).float(), 3e-2)
+    s = _grid((64, 300), cuda, 5).to(torch.bfloat16)
+    sd = stencils.BENCHMARKS["2d13pt"]
+    got = ops.stencil(s, sd, time_steps=2, strategy="mxu")
+    assert got.dtype == torch.bfloat16
+    _close(got, engine.run_window_plan_reference(
+        s, plan=dataclasses.replace(ssam_stencil2d.plan_for(sd),
+                                    strategy="mxu"), time_steps=2), 3e-2)
+
+
+def test_mxu_never_retreats(cuda, monkeypatch):
+    """K2 counts its launches; an mxu plan on the card never reaches K1 or
+    the plain version, and a launch K2 refuses raises."""
+    def boom(*a, **k):
+        raise AssertionError("K1 or the plain version reached on the card")
+
+    monkeypatch.setattr(engine, "run_window_plan_reference", boom)
+    monkeypatch.setattr(engine, "WINDOW_KERNEL", boom)
+    before = engine.MXU_KERNEL.launches
+    ops.stencil(_grid((40, 80), cuda), "2d9pt", strategy="mxu")
+    ops.conv2d(_grid((40, 80), cuda), _grid((3, 3), cuda), strategy="mxu")
+    x = _grid((2, 6, 1, 90), cuda, 20).requires_grad_()
+    w = _grid((8, 6, 1, 3), cuda, 21).requires_grad_()
+    y = ops.conv2d(x, w, stride=(1, 2), epilogue="gelu", strategy="mxu")
+    y.square().sum().backward()          # recomputed pre-activation, dx
+    assert engine.MXU_KERNEL.launches == before + 5
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.stencil(_grid((600, 600), cuda), "2d121pt", block=(512, 512),
+                    strategy="mxu")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.stencil(_grid((40, 80), cuda).double(), "2d5pt", strategy="mxu")
+    with pytest.raises(NotImplementedError, match="5c"):
+        engine.run_window_plan(_grid((20, 40), cuda), _grid((3, 40), cuda),
+                               plan=plan.depthwise_conv1d_plan(3),
+                               strategy="mxu")
+    assert engine.MXU_KERNEL.launches == before + 5
+
+
+def test_mxu_gradients_on_the_card_match_the_cpu(cuda):
+    xs, ws = (2, 12, 1, 150), (16, 12, 1, 3)
+    xc = _grid(xs, "cpu", 24)
+    wc, bc = _grid(ws, "cpu", 25), _grid((16,), "cpu", 26)
+    grads = []
+    for dev in ("cpu", cuda):
+        x, w, b = (t.detach().to(dev).requires_grad_()
+                   for t in (xc, wc, bc))
+        y = ops.conv2d(x, w, stride=(1, 2), epilogue=("bias", "gelu"),
+                       epilogue_args=(b,), strategy="mxu")
+        (y * y).sum().backward()
+        grads.append([t.grad.cpu() for t in (x, w, b)])
+    for got, want in zip(grads[1], grads[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * want.abs().max().item())

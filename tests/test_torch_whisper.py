@@ -143,12 +143,51 @@ def test_train_inputs_match_reference(conv):
     assert got["mel" if conv else "frames"][1] == torch.float32
 
 
+@functools.lru_cache(maxsize=None)
+def _run_mxu(weight_scale: float = 1.0):
+    """Loss, gradients and backward lowerings of SMOKE_CONV_MXU (the stem
+    pinned to the mxu plans) on the parameters of :func:`_run`."""
+    jp = _run(weight_scale)[0]
+    model = build_model(cfgs.SMOKE_CONV_MXU, convert.params_from_reference(
+        jax.tree.map(np.asarray, jp)))
+    assert model.cfg.conv_strategy == "mxu"
+    adjoint.reset_lowering_counts()
+    loss = model.loss(_jax_side()[2])
+    leaves = list(spec.module_leaves(model.params))
+    grads = torch.autograd.grad(loss, [p for _, p in leaves])
+    return loss.item(), leaves, grads, dict(adjoint.BACKWARD_LOWERINGS)
+
+
 def test_mxu_stem_raises_naming_k2():
-    with pytest.raises(NotImplementedError, match="K2"):
-        build_model(cfgs.SMOKE_CONV_MXU, device="cpu")
-    with pytest.raises(NotImplementedError, match="K2"):
-        layers.conv2d_apply({"w": torch.ones(2, 2, 1, 3)},
-                            torch.ones(1, 2, 1, 8), strategy="mxu")
+    """K2 is ported, so the mxu-pinned stem no longer raises: SMOKE_CONV_MXU
+    builds, runs the mxu plans forward and for conv2's dx, and its loss
+    equals the JAX composed loss (stem at ``impl="xla"``) within 1e-5
+    relative at the reference's init and at the softer point. Its
+    gradient leaves are held at the softer point, at the 1e-4·max|leaf|
+    the lanes stem is held to there: at the reference's init a 1e-7
+    relative change of the parameters already moves them by 1e-3 of
+    their scale (R4), so a change of the stem's summation order there is
+    amplified past what fp32 can discriminate."""
+    for weight_scale in (1.0, 0.3):
+        _, jl, jg, _, lanes_loss, _, _, _ = _run(weight_scale)
+        loss, leaves, grads, lowerings = _run_mxu(weight_scale)
+        assert lowerings == {"adj_conv2d_nchw": 1, "wgrad_conv2d_nchw": 2}
+        assert abs(loss - jl) <= 1e-5 * abs(jl)
+        assert abs(loss - lanes_loss) <= 1e-5 * abs(jl)
+    for (path, _), g in zip(leaves, grads):
+        want = _jleaf(jg, path)
+        scale = float(np.abs(want).max())
+        if path[-1] == "bk":
+            scale = float(np.abs(_jleaf(jg, path[:-1] + ("bq",))).max())
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=1e-4 * scale, err_msg=str(path))
+    p = {"w": torch.ones(2, 2, 1, 3), "b": torch.zeros(2)}
+    x = torch.ones(1, 2, 1, 8)
+    torch.testing.assert_close(
+        layers.conv2d_apply(p, x, activation="gelu", strategy="mxu"),
+        layers.conv2d_apply(p, x, activation="gelu"))
+    with pytest.raises(ValueError, match="strategy"):
+        layers.conv2d_apply(p, x, strategy="tensor")
 
 
 def test_converted_params_unstack_both_stacks():

@@ -218,9 +218,9 @@ def test_cpu_tensor_never_loads_the_kernel():
 
 def test_nvcc_command_targets_sm_90a():
     src = _build.sources()
-    assert [p.name for p in src] == ["ssam_scan.cu", "ssam_wgrad.cu",
-                                     "ssam_window.cu", "ssam_window_2d.cu",
-                                     "ssam_window_3d.cu",
+    assert [p.name for p in src] == ["ssam_mxu.cu", "ssam_scan.cu",
+                                     "ssam_wgrad.cu", "ssam_window.cu",
+                                     "ssam_window_2d.cu", "ssam_window_3d.cu",
                                      "ssam_window_reduce.cu"]
     cmd = _build.compile_command(src[0], _build.BUILD_DIR / "k.o")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" not in cmd
@@ -259,9 +259,10 @@ def test_out_of_slice_raises_not_implemented(case):
         elif case == "perlane":
             engine.run_window_plan(x, torch.ones((3, 40)),
                                    plan=plan.depthwise_conv1d_plan(3))
-        elif case == "mxu":
-            engine.run_window_plan(x, w, plan=dataclasses.replace(
-                plan.conv2d_plan(3, 3), strategy="mxu"))
+        elif case == "mxu":     # mxu runs; its per-lane mat-vec does not
+            engine.run_window_plan(
+                x, torch.ones((3, 40)), plan=dataclasses.replace(
+                    plan.depthwise_conv1d_plan(3), strategy="mxu"))
         else:                   # one reduce axis runs; two do not
             engine.run_window_plan(
                 torch.zeros((1, 2, 2, 20, 40)), torch.ones((3, 2, 2, 3, 3)),
