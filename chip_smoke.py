@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR]
 
-Four paths. The first is the paper's experiment: the 15 Table-3
+Five paths. The first is the paper's experiment: the 15 Table-3
 stencils at 8192² (2-D) and 512³ (3-D) in fp32, both schedule variants,
 t ∈ {1, 2}, one bf16 case, and 2-D convolution ('same' and 'valid') at
 8192² over the Fig. 4 filter sweep plus a (16, 2048, 2048) batched 5×5,
@@ -17,10 +17,14 @@ channel-reduce path, its backward K1 on the input-adjoint plan and K3,
 the CUDA weight-gradient kernel. The fourth runs the same stencil,
 convolution and stem calls with ``strategy="mxu"``, i.e. through K2, the
 tensor-core kernel, and trains whisper-base with the stem pinned to it.
+The fifth trains hymba-1.5b at full width through
+``repro_torch.launch.train``: its Mamba branch runs the depthwise conv1d
+through K1's per-lane path, the conv's weight gradient through K4 and
+the selective scan, forward and backward, through K5.
 Phases, one JSON line each:
 
-1. build: compile K1, K2, K3 and K5 from ``src/repro_torch/csrc`` (nvcc,
-   sm_90a);
+1. build: compile K1, K2, K3, K4 and K5 from ``src/repro_torch/csrc``
+   (nvcc, sm_90a, one process per source, all started together);
 2. stencils and 3. convolution: every case against the plain torch
    version on the card, ``rtol=3e-5, atol=3e-5·max|plain|`` (bf16:
    3e-2), and small cases against the torch oracles;
@@ -64,7 +68,8 @@ Phases, one JSON line each:
    ``--seed``, TF32 off), batch 8, 128 tokens, 6 steps of
    ``launch.train.main``: every loss finite, K1's counter (zeroed before)
    at 5 per step (2 forwards, 2 recomputed pre-activations, 1 dx) and
-   K3's at 2 per step; (d) step time and samples/s, K1 and K3 device
+   K3's at its launches for the 2 dW calls of a step (4: each call splits
+   its reduction and adds the partials in a second launch); (d) step time and samples/s, K1 and K3 device
    times beside their bound, the plain versions and the library
    yardsticks (``F.conv2d`` + tanh-GELU, ``torch.nn.grad.conv2d_input``
    / ``conv2d_weight``, TF32 off, never called by the port), and the
@@ -81,7 +86,8 @@ Phases, one JSON line each:
    and (b); (c) whisper-base with ``conv_strategy="mxu"`` (the JAX CLI
    has no flag for it, so the script builds the config and drives
    ``launch.train.Trainer``), batch 8, 128 tokens, 6 steps: every loss
-   finite, K2 at 5 launches per step, K3 at 2 and K1 at 0; before it, the
+   finite, K2 at 5 launches per step, K3 as in phase 8 and K1 at 0;
+   before it, the
    first step's loss with the stem on K2 and on K1, same weights and
    batch, within 1e-5 relative with the weight matrices scaled by 0.3,
    and recorded at the reference's init beside the change a 1e-7
@@ -92,7 +98,27 @@ Phases, one JSON line each:
    once over 495 TFLOP/s of TF32), K1's time, the plain version's and
    the cuDNN yardstick with TF32 off and, labelled as less precise, on;
    the mxu train step's time, samples/s and the stem's share of a
-   profiled step.
+   profiled step;
+10. Hymba: (a) K1's per-lane path at (2, 2048, 3200) — the conv1d
+   forward with bias+SiLU and its input adjoint (trail-only, reflected
+   coefficient rows) — at fp32 rtol 3e-5, K4 at 1e-4, bf16 cases at 3e-2,
+   the odd shape (3, 37, 100), the λ-recurrence through K5 and
+   ``LinrecCarryOp``'s backward at (102400, 128) at 1e-5, each against
+   its plain version on the card (atol rtol·max|plain|); (b) layer 0 of
+   the seeded full-width model, its gradients through the kernels
+   against autograd through the plain versions at 1e-4·max|leaf|, beside
+   the spread a 1e-7 relative change of the layer's parameters makes;
+   (c) hymba-1.5b (1,611,062,400 parameters, weights from ``--seed``,
+   TF32 off), batch 2 × 2048 tokens, 6 steps of ``launch.train.main``:
+   every loss finite, the counters (zeroed before) at
+   ``models.hymba.train_launches`` per step (K1 128, K4 64: 32 calls of
+   two launches each, K5 2048) and
+   K2, K3 at 0, step time, samples/s and peak memory; (d) K1 (forward,
+   dx), K4 and the reversed K5 chunk timed beside their byte bounds, the
+   plain versions and the library calls (``F.conv1d(groups=D)`` + SiLU,
+   ``torch.nn.grad.conv1d_input`` / ``conv1d_weight`` on the (B, D, T)
+   layout, never called by the port), and one profiled step with its top
+   device ops, the share of K1/K4/K5 and of copies.
 
 It exits non-zero if there is no card, if a build, launch or check fails,
 and when run outside a checkout of the repository. The full results go
@@ -139,6 +165,15 @@ GRID_2D, GRID_3D = 8192, 512    # phase 9's grids: 8192², 512³
 LOSS_RTOL = 1e-5                # first-step loss, mxu against lanes
 SOFT_SCALE = 0.3                # weight matrices' scale of the softer point
 PERTURB_REL = 1e-7              # relative parameter change of the spread probe
+TIME_REPS = 10                  # timed calls of phases 5 and 9 (others: 20)
+HYMBA_PARAMS = 1_611_062_400    # hymba-1.5b
+HYMBA_STEPS = 6
+HYMBA_BATCH, HYMBA_SEQ = 2, 2048
+HYMBA_DI, HYMBA_K, HYMBA_N = 3200, 4, 16   # d_inner, conv taps, ssm_state
+HYMBA_CHUNK = 128               # selective-scan chunk: rows x 128 per K5 call
+PERLANE_RTOL = 3e-5             # K1 per-lane against plain, fp32
+K4_RTOL = 1e-4                  # K4 against plain: sums of 4096 products
+LAYER_RTOL = 1e-4               # a layer's gradients, kernels against plain
 
 
 def emit(obj) -> None:
@@ -627,6 +662,9 @@ def train_phase(args, dev, card, results) -> dict:
          3e-2, 2 * D * D * 3 * B * (T // 2),
          2 * (B * D * T + B * D * T // 2) + 4 * (D * D * 3 + D), None, K1),
     ]
+    # K3's launches per train step: the stem's two dW calls at these shapes
+    k3_step = (K3.launches_for(c["mel"], c["g1"], plan=p1)
+               + K3.launches_for(c["x2"], g2d, plan=lin2))
     # -- (a) each kernel against its plain version at the stem's shapes ----
     worst = {"K1": 0.0, "K3": 0.0}
     for tag, kern, plain, rtol, *_ in cases:
@@ -694,8 +732,9 @@ def train_phase(args, dev, card, results) -> dict:
     emit({"phase": "train", **rec})
     require(n_params == TRAIN_PARAMS, ("whisper-base parameters", n_params))
     require(all(np.isfinite(res.losses)), ("non-finite loss", res.losses))
-    require(k1 == 5 * TRAIN_STEPS and k3 == 2 * TRAIN_STEPS and k5 == 0,
-            ("train launches (K1 5/step, K3 2/step)", k1, k3, k5))
+    require(k1 == 5 * TRAIN_STEPS and k3 == k3_step * TRAIN_STEPS
+            and k5 == 0,
+            (f"train launches (K1 5/step, K3 {k3_step}/step)", k1, k3, k5))
 
     # -- (d) times at the stem's shapes, and one profiled step --------------
     for tag, kern, plain, _, flops, nbytes, lib, _ in cases:
@@ -743,8 +782,8 @@ def train_phase(args, dev, card, results) -> dict:
     rec["stem_kernel_events"] = kernels
     results["train_profile"] = rec
     emit({"phase": "train_profile", **rec})
-    return {"k1_launches": k1, "k3_launches": k3, "worst": worst,
-            "first_loss": res.losses[0], "step_ms": step_ms,
+    return {"k1_launches": k1, "k3_launches": k3, "k3_step": k3_step,
+            "worst": worst, "first_loss": res.losses[0], "step_ms": step_ms,
             "k3_headline": next(r for r in results["times"]
                                 if r["case"].startswith("K3 conv2 dW")),
             "k1_headline": next(r for r in results["times"]
@@ -966,21 +1005,22 @@ def mxu_phase(args, dev, card, results, lanes) -> dict:
     # At the reference's init the loss moves by more than LOSS_RTOL under a
     # rounding-level change of the weights (ROADMAP R4), so there the two
     # strategies can only agree to that spread's order: it is recorded.
-    require(k2 == 5 * TRAIN_STEPS and k3 == 2 * TRAIN_STEPS
+    require(k2 == 5 * TRAIN_STEPS and k3 == lanes["k3_step"] * TRAIN_STEPS
             and k1 == k5 == 0,
-            ("mxu train launches (K2 5/step, K3 2/step, K1 0)", k1, k2, k3))
+            (f"mxu train launches (K2 5/step, K3 {lanes['k3_step']}/step, "
+             "K1 0)", k1, k2, k3))
 
     # -- (d) times: K2 beside both bounds, K1, plain and cuDNN ---------------
     def record(tag, kern, lanes_fn, plain, flops, nbytes, lib):
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         f_ms = flops / FP32_FLOPS * 1e3
         tc_ms = flops / TF32_FLOPS * 1e3
-        ms = device_ms(kern, 20)
-        rec = {"case": tag, "ms": ms, "call_ms": event_ms(kern, 20),
-               "k1_ms": device_ms(lanes_fn, 20),
+        ms = device_ms(kern, TIME_REPS)
+        rec = {"case": tag, "ms": ms, "call_ms": event_ms(kern, TIME_REPS),
+               "k1_ms": device_ms(lanes_fn, TIME_REPS),
                "plain_ms": device_ms(plain, 3),
-               "library_ms": device_ms(lib, 20),
-               "library_tf32_ms": device_ms(cudnn_tf32(lib), 20),
+               "library_ms": device_ms(lib, TIME_REPS),
+               "library_tf32_ms": device_ms(cudnn_tf32(lib), TIME_REPS),
                "bound_ms": max(b_ms, tc_ms),
                "bound_by": "bytes" if b_ms >= tc_ms else "operations",
                "fp32_bound_ms": max(b_ms, f_ms),
@@ -1039,6 +1079,296 @@ def mxu_phase(args, dev, card, results, lanes) -> dict:
     return {"launches": launches, "train_launches": k2, "worst": worst,
             "headline": timed["2d5pt"],
             "stem_headline": timed["conv2 dx, adjo"]}
+
+
+class _PlainKernels:
+    """Within the block the engine's wrappers of K1, K4 and K5 are replaced
+    by the plain versions, so the same model code runs autograd through
+    them on the card (the kernels' counters stay put)."""
+
+    def __enter__(self):
+        from repro_torch.core import engine
+
+        self.saved = (engine.WINDOW_KERNEL, engine.PERLANE_WGRAD_KERNEL,
+                      engine.SCAN_KERNEL)
+        engine.WINDOW_KERNEL = engine.run_window_plan_reference
+        engine.PERLANE_WGRAD_KERNEL = engine.run_weight_grad_plan_reference
+        engine.SCAN_KERNEL = engine.run_scan_plan_reference
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine
+
+        (engine.WINDOW_KERNEL, engine.PERLANE_WGRAD_KERNEL,
+         engine.SCAN_KERNEL) = self.saved
+        return False
+
+
+def hymba_phase(args, dev, card, results) -> dict:
+    """Phase 10: train hymba-1.5b at full width; its Mamba branch runs K1's
+    per-lane path (the conv1d forward, its recomputed pre-activation and
+    dx), K4 (the conv's dW) and K5 (the selective scan forward and its
+    reversed λ-recurrence)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import convert
+    from repro_torch.config import get_config
+    from repro_torch.core import adjoint, engine, plan
+    from repro_torch.core.plan import normalize_epilogue
+    from repro_torch.kernels import ops, ssam_conv1d
+    from repro_torch.launch import train
+    from repro_torch.models import build_model, hymba
+    from repro_torch.nn import spec
+
+    K1, K2, K3 = engine.WINDOW_KERNEL, engine.MXU_KERNEL, engine.WGRAD_KERNEL
+    K4, K5 = engine.PERLANE_WGRAD_KERNEL, engine.SCAN_KERNEL
+    rng = np.random.default_rng(args.seed + 7)
+
+    def put(*shape, scale=1.0, low=None):
+        a = (rng.uniform(low, 1.0, shape) if low is not None
+             else scale * rng.standard_normal(shape))
+        return convert.from_numpy(a.astype(np.float32), dev)
+
+    B, T, D, K = HYMBA_BATCH, HYMBA_SEQ, HYMBA_DI, HYMBA_K
+    x, g = put(B, T, D), put(B, T, D)
+    w, b = put(K, D, scale=K ** -0.5), put(D, scale=0.1)
+    p = ssam_conv1d.plan_for(K)
+    pe = dataclasses.replace(p, epilogue=normalize_epilogue(("bias", "silu")))
+    adj = adjoint.input_adjoint_plan(p)
+    xo, go = put(3, 37, 100), put(3, 37, 100)
+    wo, bo = put(K, 100, scale=0.5), put(100, scale=0.1)
+    xb16, gb16 = x.bfloat16(), g.bfloat16()
+    R, L = B * D * HYMBA_N, HYMBA_CHUNK
+    sa, sb, sg = put(R, L, low=0.5), put(R, L), put(R, L)
+    sh0, sgc = put(R, 1), put(R, 1)
+    lin = plan.linear_recurrence_plan(L)
+    run, ref = engine.run_window_plan, engine.run_window_plan_reference
+    wrun, wref = engine.run_weight_grad_plan, engine.run_weight_grad_plan_reference
+    # the library's layout: channels ahead of time, (B, D, T)
+    xt, wt = x.transpose(1, 2).contiguous(), w.T[:, None, :].contiguous()
+    gt = F.pad(g.transpose(1, 2), (0, K - 1)).contiguous()
+    abar = adjoint.time_reversed(adjoint.reversed_recurrence_coeffs(sa))
+    grev = adjoint.time_reversed(sg)
+    elems = B * T * D
+    # (tag, kernel, plain, rtol, bytes, operations, library, counted)
+    cases = [
+        ("K1 per-lane conv1d forward (2,2048,3200) K=4 bias+silu fp32",
+         lambda: run(x, w, plan=pe, epilogue_args=(b,)),
+         lambda: ref(x, w, plan=pe, epilogue_args=(b,)), PERLANE_RTOL,
+         4 * (2 * elems + K * D + D), 2 * K * elems,
+         lambda: F.silu(F.conv1d(xt, wt, b, padding=K - 1,
+                                 groups=D)[..., :T]), True),
+        ("K1 per-lane conv1d dx, the input-adjoint plan (2,2048,3200)",
+         lambda: run(g, w, plan=adj), lambda: ref(g, w, plan=adj),
+         PERLANE_RTOL, 4 * (2 * elems + K * D), 2 * K * elems,
+         lambda: torch.nn.grad.conv1d_input(xt.shape, wt, gt, padding=K - 1,
+                                            groups=D), True),
+        ("K4 per-lane dW (2,2048,3200) -> (4,3200)",
+         lambda: wrun(x, g, plan=p), lambda: wref(x, g, plan=p), K4_RTOL,
+         4 * (2 * elems + K * D), 2 * K * elems,
+         lambda: torch.nn.grad.conv1d_weight(xt, wt.shape, gt,
+                                             padding=K - 1, groups=D), True),
+        ("K5 reversed chunk, the lambda-recurrence (102400,128)",
+         lambda: engine.run_scan_plan(abar, grev, plan=lin),
+         lambda: engine.run_scan_plan_reference(abar, grev, plan=lin), 1e-5,
+         12 * R * L, 3 * R * L, None, True),
+        ("K1 per-lane conv1d forward (3,37,100) bias+silu fp32",
+         lambda: run(xo, wo, plan=pe, epilogue_args=(bo,)),
+         lambda: ref(xo, wo, plan=pe, epilogue_args=(bo,)), PERLANE_RTOL,
+         0, 0, None, False),
+        ("K1 per-lane conv1d dx (3,37,100)", lambda: run(go, wo, plan=adj),
+         lambda: ref(go, wo, plan=adj), PERLANE_RTOL, 0, 0, None, False),
+        ("K4 per-lane dW (3,37,100)", lambda: wrun(xo, go, plan=p),
+         lambda: wref(xo, go, plan=p), K4_RTOL, 0, 0, None, False),
+        ("K1 per-lane conv1d forward bf16 I/O (2,2048,3200)",
+         lambda: run(xb16, w, plan=pe, epilogue_args=(b,)),
+         lambda: ref(xb16, w, plan=pe, epilogue_args=(b,)), 3e-2, 0, 0, None,
+         False),
+        ("K4 per-lane dW bf16 inputs (2,2048,3200)",
+         lambda: wrun(xb16, gb16, plan=p), lambda: wref(xb16, gb16, plan=p),
+         3e-2, 0, 0, None, False),
+    ]
+    # -- (a) each kernel against its plain version at the slice's shapes ----
+    worst = {"K1": 0.0, "K4": 0.0, "K5": 0.0}
+    K1.launches = K4.launches = K5.launches = 0
+    for tag, kern, plain, rtol, *_ in cases:
+        err = compare(tag, kern(), plain(), rtol, results)
+        if rtol < 3e-2:
+            worst[tag[:2]] = max(worst[tag[:2]], err)
+    k4_want = sum(K4.launches_for(xx, gg, plan=p)
+                  for xx, gg in ((x, g), (xo, go), (xb16, gb16)))
+    require((K1.launches, K4.launches, K5.launches) == (5, k4_want, 1),
+            ("phase 10 (a) launches", K1.launches, K4.launches, K5.launches))
+    # the scan adjoint: LinrecCarryOp's backward through K5 against the same
+    # adjoint spelled out with the plain version
+    ta, tb, th = (t.clone().requires_grad_() for t in (sa, sb, sh0))
+    h, hT = ops.linear_recurrence_carry(ta, tb, th)
+    got = torch.autograd.grad((h, hT), (ta, tb, th), (sg, sgc))
+    hp = engine.run_scan_plan_reference(sa, sb, plan=lin, carry=sh0)
+    gg = sg.clone()
+    gg[:, -1:] += sgc
+    lam = adjoint.time_reversed(engine.run_scan_plan_reference(
+        abar, adjoint.time_reversed(gg), plan=lin))
+    want = (lam * adjoint.shifted_state(hp, sh0), lam,
+            adjoint.chunk_carry_cotangent(sa, lam))
+    for name, gv, wv in zip(("da", "db", "dh0"), got, want):
+        worst["K5"] = max(worst["K5"], compare(
+            f"K5 scan adjoint {name}, LinrecCarryOp backward (102400,128)",
+            gv, wv, 1e-5, results))
+    del ta, tb, th, h, hT, got, hp, gg, lam, want
+    torch.cuda.empty_cache()
+
+    # -- (b) one full-width layer: kernels against the plain versions -------
+    cfg = get_config("hymba-1.5b")
+    model = build_model(cfg, device=dev, seed=args.seed)
+    n_params = sum(q.numel() for q in model.parameters())
+    require(n_params == spec.param_count(hymba.specs(cfg)) == HYMBA_PARAMS,
+            ("hymba-1.5b parameters", n_params))
+    p0 = model.params["layers"][0]
+    leaves0 = list(spec.module_leaves(p0))
+    xl = put(B, T, cfg.d_model)
+    gl = put(B, T, cfg.d_model)
+    pos = torch.arange(T, device=dev)
+
+    def layer_grads():
+        xx = xl.clone().requires_grad_()
+        y = model.layer(p0, xx, positions=pos, is_global=True)
+        return torch.autograd.grad(y, [xx] + [q for _, q in leaves0], gl)
+
+    before = K1.launches, K4.launches, K5.launches
+    kern_g = layer_grads()
+    layer_launches = tuple(k.launches - v for k, v in
+                           zip((K1, K4, K5), before))
+    with _PlainKernels():
+        plain_g = layer_grads()
+    k4_layer = engine.perlane_wgrad_launches(B, T, cfg.d_inner)
+    require(layer_launches == (3, k4_layer, 3 * (T // L)),
+            (f"one layer's launches (K1 3, K4 {k4_layer}, K5 3 per chunk)",
+             layer_launches))
+    # conditioning: the same gradients after a relative 1e-7 change of the
+    # layer's parameters (kernels again)
+    with torch.no_grad():
+        saved = [q.clone() for _, q in leaves0]
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 8)
+        for _, q in leaves0:
+            q.mul_(1 + PERTURB_REL * torch.randn(q.shape, generator=gen,
+                                                 device=dev))
+    moved_g = layer_grads()
+    with torch.no_grad():
+        for (_, q), s0 in zip(leaves0, saved):
+            q.copy_(s0)
+    names = ["x"] + [".".join(map(str, path)) for path, _ in leaves0]
+    spread = max(float((m - k).abs().max() / k.abs().max().clamp_min(1e-30))
+                 for m, k in zip(moved_g, kern_g))
+    layer_worst = 0.0
+    for name, kg, pg in zip(names, kern_g, plain_g):
+        scale = pg.abs().max().item()
+        err = (kg - pg).abs().max().item()
+        layer_worst = max(layer_worst, err / max(scale, 1e-30))
+        torch.testing.assert_close(
+            kg, pg, rtol=0, atol=LAYER_RTOL * scale,
+            msg=lambda m, n=name: f"layer 0 d{n}: {m}")
+    rec = {"case": "hymba-1.5b layer 0, full width (2,2048,1600), is_global",
+           "leaves": len(names), "worst_rel_to_scale": layer_worst,
+           "perturbed_spread_rel": spread, "perturbation": PERTURB_REL,
+           "rtol": LAYER_RTOL, "launches": dict(zip(("k1", "k4", "k5"),
+                                                   layer_launches)),
+           "card": card}
+    results["hymba_layer"] = rec
+    emit({"phase": "hymba_layer", **rec})
+    del kern_g, plain_g, moved_g, saved, model, p0, leaves0
+    torch.cuda.empty_cache()
+
+    # -- (c) the main path: the trainer at full width -------------------------
+    argv = ["--arch", "hymba-1.5b", "--steps", str(HYMBA_STEPS), "--batch",
+            str(HYMBA_BATCH), "--seq", str(HYMBA_SEQ), "--seed",
+            str(args.seed), "--log-every", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K1.launches = K2.launches = K3.launches = K4.launches = K5.launches = 0
+    t0 = time.perf_counter()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = {"k1": K1.launches, "k2": K2.launches, "k3": K3.launches,
+           "k4": K4.launches, "k5": K5.launches}
+    per_step = hymba.train_launches(cfg, HYMBA_SEQ, HYMBA_BATCH)
+    want = {"k1": HYMBA_STEPS * per_step["k1"], "k2": 0, "k3": 0,
+            "k4": HYMBA_STEPS * per_step["k4"],
+            "k5": HYMBA_STEPS * per_step["k5"]}
+    model = res.trainer.model
+    step_ms = statistics.median(res.step_seconds[1:]) * 1e3
+    rec = {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+           "window": cfg.window, "steps": HYMBA_STEPS, "batch": HYMBA_BATCH,
+           "seq": HYMBA_SEQ, "losses": res.losses,
+           "grad_norms": res.grad_norms,
+           "step_ms": [t * 1e3 for t in res.step_seconds],
+           "step_ms_median_after_first": step_ms,
+           "samples_per_s": HYMBA_BATCH / step_ms * 1e3,
+           "tokens_per_s": HYMBA_BATCH * HYMBA_SEQ / step_ms * 1e3,
+           "run_s": run_s, "peak_mem_gb_per_step": res.peak_mem_gb,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": got, "launches_expected": want,
+           "launches_per_step": per_step, "card": card}
+    results["train_hymba"] = rec
+    emit({"phase": "train_hymba", **rec})
+    require(all(np.isfinite(res.losses)), ("non-finite loss", res.losses))
+    require(got == want, ("hymba train launches", got, want))
+
+    # -- (d) times at the slice's shapes, and one profiled step --------------
+    timed = {}
+    for tag, kern, plain, _, nbytes, flops, lib, counted in cases:
+        if not counted:
+            continue
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / FP32_FLOPS * 1e3
+        ms = device_ms(kern, 20)
+        rec = {"case": tag, "ms": ms, "call_ms": event_ms(kern, 20),
+               "plain_ms": device_ms(plain, 3),
+               "library_ms": None if lib is None else device_ms(lib, 20),
+               "bound_ms": max(b_ms, f_ms),
+               "bound_by": "bytes" if b_ms >= f_ms else "operations",
+               "bytes": nbytes, "roofline_share": max(b_ms, f_ms) / ms,
+               "card": card}
+        results["times"].append(rec)
+        emit({"phase": "hymba_time", **rec})
+        timed[tag[:2] + (" dx" if " dx" in tag else "")] = rec
+    from repro_torch.data import TokenDataset
+
+    ds = TokenDataset(cfg.vocab, HYMBA_SEQ, seed=args.seed)
+    batch = train.make_batch(model, ds, HYMBA_STEPS, HYMBA_BATCH, dev)
+    before = K1.launches, K4.launches, K5.launches
+    # device activity only: the step's ~10⁵ host-side ops would cost the
+    # profiler more than the step
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loss, _ = res.trainer.step(batch)
+        float(loss)
+        torch.cuda.synchronize()
+    rec = {**device_ops(prof, match={"k1": "window_perlane_kernel",
+                                     "k4": "wgrad_perlane",
+                                     "k5": "ssam_scan_kernel",
+                                     "copies": "copy"}),
+           "launches": {k: v.launches - n for k, v, n in
+                        zip(("k1", "k4", "k5"), (K1, K4, K5), before)},
+           "card": card}
+    rec["k1_k4_k5_share"] = ((rec["k1_ms"] + rec["k4_ms"] + rec["k5_ms"])
+                             / rec["device_ms"] if rec["device_ms"] else None)
+    results["train_hymba_profile"] = rec
+    emit({"phase": "train_hymba_profile", **rec})
+    if rec["device_ms"]:
+        # the counters count launches: the profiler sees as many kernels
+        seen = {k: rec[f"{k}_calls"] for k in ("k1", "k4", "k5")}
+        require(seen == rec["launches"],
+                ("profiled launches against the counters", seen,
+                 rec["launches"]))
+    return {"launches": got, "worst": worst, "timed": timed,
+            "step_ms": step_ms}
 
 
 def first_loss_parity(cfg, ds, dev, seed, card, results) -> dict:
@@ -1145,6 +1475,12 @@ def cudnn_tf32(fn):
     return run
 
 
+def _row(rec) -> dict:
+    """A timed case's numbers as the kernel line carries them."""
+    return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "case")}
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1186,8 +1522,10 @@ def main() -> int:
 
     card = card_line()
     K1, K3, K5 = engine.WINDOW_KERNEL, engine.WGRAD_KERNEL, engine.SCAN_KERNEL
-    K2 = engine.MXU_KERNEL
+    K2, K4 = engine.MXU_KERNEL, engine.PERLANE_WGRAD_KERNEL
     results = {"card": card, "seed": args.seed, "checks": [], "times": []}
+
+    marks = [("1-5 build, stencils, convolution", time.perf_counter())]
 
     # -- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -1284,11 +1622,12 @@ def main() -> int:
     def record(tag, kernel_fn, plain_fn, x, wt, pads, in_elems, out_elems,
                flops):
         b_ms, by = bound(in_elems, out_elems, 4, flops)
-        k_ms = event_ms(kernel_fn, 20)
+        k_ms = event_ms(kernel_fn, TIME_REPS)
         rec = {"case": tag, "ms": k_ms, "plain_ms": event_ms(plain_fn, 3),
-               "library_ms": event_ms(lambda: library(x, wt, pads), 20),
+               "library_ms": event_ms(lambda: library(x, wt, pads),
+                                      TIME_REPS),
                "library_pad_then_conv_ms": event_ms(
-                   lambda: library_padded(x, wt, pads), 20),
+                   lambda: library_padded(x, wt, pads), TIME_REPS),
                "bound_ms": b_ms,
                "bound_by": by, "gcells_per_s": out_elems / k_ms / 1e6,
                "hbm_share": (in_elems + out_elems) * 4
@@ -1324,12 +1663,23 @@ def main() -> int:
 
     del grids, filters, x
     torch.cuda.empty_cache()
+    marks.append(("6 scan ops", time.perf_counter()))
     scan = scan_phase(args, dev, card, results)
+    marks.append(("7 serve rwkv6-1.6b", time.perf_counter()))
     served = serve_phase(args, dev, card, results)
     torch.cuda.empty_cache()
+    marks.append(("8 train whisper-base", time.perf_counter()))
     trained = train_phase(args, dev, card, results)
     torch.cuda.empty_cache()
+    marks.append(("9 tensor cores", time.perf_counter()))
     mxu = mxu_phase(args, dev, card, results, trained)
+    torch.cuda.empty_cache()
+    marks.append(("10 train hymba-1.5b", time.perf_counter()))
+    hy = hymba_phase(args, dev, card, results)
+    marks.append(("end", time.perf_counter()))
+    results["phase_seconds"] = {name: t1 - t0 for (name, t0), (_, t1)
+                                in zip(marks, marks[1:])}
+    emit({"phase": "phase_seconds", **results["phase_seconds"]})
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
@@ -1349,13 +1699,20 @@ def main() -> int:
                   "max_abs_err": trained["worst"]["K1"], "ms": k1t["ms"],
                   "plain_ms": k1t["plain_ms"], "bound_ms": k1t["bound_ms"],
                   "bound_by": k1t["bound_by"],
-                  "library_ms": k1t["library_ms"], "case": k1t["case"]}}, {
+                  "library_ms": k1t["library_ms"], "case": k1t["case"]},
+        "hymba": {"launches": hy["launches"]["k1"],
+                  "max_abs_err": hy["worst"]["K1"],
+                  **_row(hy["timed"]["K1"]),
+                  "dx": _row(hy["timed"]["K1 dx"])}}, {
         "name": K5.name, "route": "cuda", "source": K5.source,
         "replaces": K5.replaces, "launches": served["k5_launches"],
         "max_abs_err": scan["worst_abs"], "ms": wkv["ms"],
         "plain_ms": wkv["plain_ms"], "bound_ms": wkv["bound_ms"],
         "bound_by": wkv["bound_by"], "library_ms": wkv["library_ms"],
-        "case": wkv["case"]}, {
+        "case": wkv["case"],
+        "hymba": {"launches": hy["launches"]["k5"],
+                  "max_abs_err": hy["worst"]["K5"],
+                  **_row(hy["timed"]["K5"])}}, {
         "name": K3.name, "route": "cuda", "source": K3.source,
         "replaces": K3.replaces, "launches": trained["k3_launches"],
         "max_abs_err": trained["worst"]["K3"], "ms": k3h["ms"],
@@ -1372,7 +1729,10 @@ def main() -> int:
                   "max_abs_err": mxu["worst"]["stem"], "ms": k2t["ms"],
                   "plain_ms": k2t["plain_ms"], "bound_ms": k2t["bound_ms"],
                   "bound_by": k2t["bound_by"],
-                  "library_ms": k2t["library_ms"], "case": k2t["case"]}}]})
+                  "library_ms": k2t["library_ms"], "case": k2t["case"]}}, {
+        "name": K4.name, "route": "cuda", "source": K4.source,
+        "replaces": K4.replaces, "launches": hy["launches"]["k4"],
+        "max_abs_err": hy["worst"]["K4"], **_row(hy["timed"]["K4"])}]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

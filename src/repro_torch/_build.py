@@ -131,6 +131,13 @@ class Library:
         lib.ssam_mxu_reduce_launch.restype = i
         lib.ssam_mxu_window_launch.argtypes = [p, p, i, p, p] + [i] * 20 + [p]
         lib.ssam_mxu_window_launch.restype = i
+        lib.ssam_window_perlane_launch.argtypes = (
+            [p, p, i, p, ctypes.POINTER(ctypes.c_int), i, p,
+             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), i]
+            + [i] * 5 + [p])
+        lib.ssam_window_perlane_launch.restype = i
+        lib.ssam_wgrad_perlane_launch.argtypes = [p, p, i, p, p] + [i] * 8 + [p]
+        lib.ssam_wgrad_perlane_launch.restype = i
         return lib
 
 

@@ -10,7 +10,8 @@ import importlib
 from .models.base import ArchConfig
 
 # canonical ids of the ported architectures → module names
-ARCH_IDS = {"rwkv6-1.6b": "rwkv6_1g6b", "whisper-base": "whisper_base"}
+ARCH_IDS = {"rwkv6-1.6b": "rwkv6_1g6b", "whisper-base": "whisper_base",
+            "hymba-1.5b": "hymba_1g5b"}
 
 
 def normalize_arch(arch: str) -> str:

@@ -70,6 +70,27 @@ def params_from_reference(tree, device="cpu"):
     return out
 
 
+def params_to_reference(tree) -> dict:
+    """The port's parameter tree (or a tree of its gradients) as the
+    reference lays it out: numpy arrays, each list of per-layer trees
+    stacked on a leading axis again. The inverse of
+    :func:`params_from_reference`."""
+    def arrays(t):
+        if isinstance(t, torch.Tensor):
+            return t.detach().cpu().numpy()
+        if isinstance(t, (list, torch.nn.ModuleList)):
+            return _stack([arrays(v) for v in t])
+        return {k: arrays(v) for k, v in t.items()}
+
+    return arrays(tree)
+
+
+def _stack(layers: list):
+    if isinstance(layers[0], dict):
+        return {k: _stack([l[k] for l in layers]) for k in layers[0]}
+    return np.stack(layers)
+
+
 def state_from_reference(tree, device="cpu"):
     """A reference decode state (numpy arrays, stacked ``(L, B, …)``) as
     the port's: the same layout, torch tensors on ``device``."""

@@ -20,11 +20,16 @@ family:
   'table' plans (stencils) have no runtime coefficients and no weight
   gradient.
 
+* **scan plans** transpose to the same scan in reversed time
+  (:func:`time_reversed`): the adjoint state of ``h_t = a_t·h_{t−1} +
+  b_t`` is ``λ_t = g_t + a_{t+1}·λ_{t+1}``, run through the same engine
+  (K5 on the card) on :func:`reversed_recurrence_coeffs`; the
+  coefficient gradient reads :func:`shifted_state`, and a streamed
+  chunk's carry-in cotangent is :func:`chunk_carry_cotangent`.
+
 The adjoint of an adjoint is the original plan. Backward lowerings are
 counted in :data:`BACKWARD_LOWERINGS` (plan kind → count), so a test can
-show that a gradient went through the engine. The scan adjoints
-(time-reversed recurrences) come with RWKV6 training (ROADMAP Queue 1
-item 5d).
+show that a gradient went through the engine.
 """
 from __future__ import annotations
 
@@ -203,3 +208,41 @@ def weight_adjoint_plan(plan: SystolicPlan) -> SystolicPlan:
             f"{plan.kind!r} has compile-time 'table' coefficients — no "
             "runtime coefficient array, hence no weight gradient")
     return dataclasses.replace(plan, kind="wgrad_" + plan.kind)
+
+
+# ---------------------------------------------------------------------------
+# Scan plans: time reversal
+# ---------------------------------------------------------------------------
+
+def time_reversed(x: torch.Tensor) -> torch.Tensor:
+    """Reverse the systolic time (lane) axis: the data movement of a
+    transposed scan plan (the Kogge–Stone schedule itself is symmetric)."""
+    return torch.flip(x, dims=(-1,))
+
+
+def reversed_recurrence_coeffs(a: torch.Tensor) -> torch.Tensor:
+    """Coefficients of the adjoint recurrence, in forward-time layout.
+
+    The adjoint state of ``h_t = a_t·h_{t−1} + b_t`` obeys
+    ``λ_t = g_t + a_{t+1}·λ_{t+1}`` (``λ`` at the last step = ``g``
+    there): the same affine recurrence in reversed time with ``a``
+    shifted one step toward the past. Returns ``ā_t = a_{t+1}`` (the
+    identity 1 in the final slot); ``λ = rev(linrec(rev(ā), rev(g)))``.
+    """
+    return torch.cat([a[..., 1:], torch.ones_like(a[..., :1])], dim=-1)
+
+
+def shifted_state(h: torch.Tensor, h0=None) -> torch.Tensor:
+    """The ``h_{t−1}`` stream of ``∂a_t = λ_t·h_{t−1}``: ``h0`` (the carry
+    entering the block, ``(..., 1)``; None: the zero initial state) ahead
+    of ``h`` without its last step."""
+    if h0 is None:
+        h0 = torch.zeros_like(h[..., :1])
+    return torch.cat([h0.to(h.dtype), h[..., :-1]], dim=-1)
+
+
+def chunk_carry_cotangent(a: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Cotangent of a chunk's carry-in state: only the first step reads
+    the carry, so ``∂L/∂h₋₁ = a₀·λ₀``. Streamed over chunks it flows
+    backward as the next-older chunk's carry-out cotangent."""
+    return a[..., :1] * lam[..., :1]

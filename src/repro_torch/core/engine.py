@@ -1,11 +1,12 @@
-"""The plan engine: windowed plans (K1, K2, K3) and scan plans (K5), each
-a CUDA kernel beside its plain version.
+"""The plan engine: windowed plans (K1, K2, K3, K4) and scan plans (K5),
+each a CUDA kernel beside its plain version.
 
 :func:`run_window_plan` runs a windowed :class:`SystolicPlan` (2-D and
-3-D stencils, dense 2-D convolution, with leading batch axes, and NCHW
+3-D stencils, dense 2-D convolution, with leading batch axes, NCHW
 convolution with a channel reduction, an output stride and a fused
-epilogue) over an input whose lane axis is last. The tensor's device
-decides how:
+epilogue, and depthwise (per-lane) conv1d with a per-lane bias and an
+activation fused) over an input whose lane axis is last. The tensor's
+device decides how:
 
 * a CUDA tensor launches K1, the hand-written kernel in
   ``csrc/ssam_window*.cu`` (it replaces the JAX package's
@@ -27,9 +28,12 @@ port's reach raise ``NotImplementedError`` naming the ROADMAP item that
 ports them.
 
 :func:`run_weight_grad_plan` is the backward-weight correlation
-``∂L/∂w[n,m] = Σ_{b,o} g[b,o]·xp[b,o+(n,m)]`` of a dense plan: K3
-(``csrc/ssam_wgrad.cu``, replacing ``_wgrad_dense_kernel``) for CUDA
-tensors, :func:`run_weight_grad_plan_reference` for CPU tensors.
+``∂L/∂w[n,m] = Σ_{b,o} g[b,o]·xp[b,o+(n,m)]`` of a dense plan, K3
+(``csrc/ssam_wgrad.cu``, replacing ``_wgrad_dense_kernel``), and
+``∂L/∂w[k,d] = Σ_{b,t} g[b,t,d]·xp[b,t+k,d]`` of a per-lane plan, K4
+(``csrc/ssam_wgrad_perlane.cu``, replacing ``_wgrad_perlane_kernel``),
+for CUDA tensors; :func:`run_weight_grad_plan_reference` for CPU
+tensors.
 
 :func:`run_scan_plan` runs a scan plan (``combine='add'``: prefix sum;
 ``'linrec'``: ``h_t = a_t·h_{t−1} + b_t``) over ``(R, T)`` rows, with an
@@ -77,26 +81,33 @@ def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
     if any(v > 1 for v in plan.stride_per_axis()) and not reduce:
         todo.append("output strides on single-channel plans (ROADMAP "
                     "Queue 1 item 4)")
-    if plan.epilogue and not reduce:
+    perlane = plan.coeff_mode == "perlane"
+    if plan.epilogue and not reduce and not perlane:
         todo.append("epilogues on single-channel and stencil plans "
                     "(ROADMAP Queue 1 item 4)")
     if any(st.op == "residual_add" for st in plan.epilogue):
         todo.append("residual_add epilogues (ROADMAP Queue 1 item 4)")
     if plan.stages:
         todo.append("fused stages (ROADMAP Queue 1 item 7)")
-    if plan.coeff_mode == "perlane":
-        todo.append("per-lane coefficients (ROADMAP Queue 1 item 5c)")
-        if plan.strategy == "mxu":
-            todo.append("strategy='mxu' on per-lane coefficients, the "
-                        "lane-batched mat-vec (ROADMAP Queue 1 item 5c)")
+    if perlane and plan.strategy == "mxu":
+        todo.append("strategy='mxu' on per-lane coefficients, the "
+                    "lane-batched mat-vec (ROADMAP Queue 1 item 5c)")
+    if perlane and time_steps != 1:
+        todo.append("temporal blocking of per-lane plans (ROADMAP Queue 1 "
+                    "item 4)")
     if plan.combine != "fma":
         raise ValueError(f"{plan.kind!r} plan has combine={plan.combine!r}: "
                          "scan plans run through run_scan_plan")
     if todo:
         raise NotImplementedError(
             f"{plan.kind!r} plan: {', '.join(todo)} not ported yet")
-    if plan.coeff_mode not in ("table", "dense"):
+    if plan.coeff_mode not in ("table", "dense", "perlane"):
         raise ValueError(f"unknown coeff_mode {plan.coeff_mode!r}")
+    if perlane and (reduce or plan.ndim_spatial != 2 or plan.M != 1
+                    or len(plan.steps) != 1 or plan.steps[0].shift):
+        raise ValueError(f"{plan.kind!r}: per-lane plans are 2-D plans with "
+                         "one unshifted column step (M = 1) and no reduce "
+                         "axes, as depthwise_conv1d_plan builds them")
     if plan.strategy not in STRATEGIES:
         raise ValueError(f"unknown lowering strategy {plan.strategy!r}: "
                          f"expected one of {STRATEGIES}")
@@ -120,13 +131,25 @@ def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
 
 def _check_operands(plan: SystolicPlan, x, w, epilogue_args) -> None:
     """Shapes of the filter and the epilogue operands against the plan."""
-    if plan.coeff_mode == "dense" and w is None:
-        raise ValueError("a dense plan needs its filter w")
+    if plan.coeff_mode in ("dense", "perlane") and w is None:
+        raise ValueError(f"a {plan.coeff_mode} plan needs its filter w")
     need = epilogue_operand_stages(plan.epilogue)
     if len(epilogue_args) != len(need):
         raise ValueError(
             f"epilogue {tuple(s.op for s in plan.epilogue)} needs "
             f"{len(need)} runtime operand(s), got {len(epilogue_args)}")
+    if plan.coeff_mode == "perlane":
+        rows = 1 + max(t.coeff_id[-1] for t in plan.steps[0].taps)
+        if w.ndim != 2 or w.shape[1] != x.shape[-1] or w.shape[0] < rows:
+            raise ValueError(
+                f"{plan.kind!r}: per-lane filter {tuple(w.shape)} must be "
+                f"(>= {rows}, D) with D = x's lane axis {x.shape[-1]}")
+        for st, arr in zip(need, epilogue_args):
+            if st.op == "bias" and tuple(arr.shape) != (x.shape[-1],):
+                raise ValueError(f"bias epilogue wants a per-lane "
+                                 f"({x.shape[-1]},) row, got "
+                                 f"{tuple(arr.shape)}")
+        return
     if not _is_reduce(plan):
         return
     nb = plan.batch_axes
@@ -163,7 +186,7 @@ def _geometry(plan, x_shape, block, time_steps):
     return spatial_in, out_sp, B, g
 
 
-def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+def acc_dtype(x: torch.Tensor) -> torch.dtype:
     """fp32 accumulation, fp64 for fp64 inputs (so that fp64 gradcheck
     holds the plain path to its own precision)."""
     return torch.promote_types(x.dtype, torch.float32)
@@ -179,6 +202,9 @@ def _term(plan: SystolicPlan, w, tap, view):
     reference's reduce grid done as one contraction per tap."""
     if plan.coeff_mode == "table":
         return view * plan.coeffs[tap.coeff_id[-1]]
+    if plan.coeff_mode == "perlane":
+        # the reference's _coeff: row coeff_id of w, one value per lane
+        return view * w[tap.coeff_id[-1]].to(view.dtype)
     if _is_reduce(plan):
         wt = w[(slice(None), slice(None)) + tuple(tap.coeff_id)]
         return torch.einsum("bc...,oc->bo...", view, wt.to(view.dtype))
@@ -359,7 +385,7 @@ def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
         dataclasses.replace(plan, batch_axes=lead_in - plan.reduce_axes),
         xx.shape, block, t)
     pads = origin_pads(plan, spatial_in, g, B, t)
-    xp = F.pad(xx.to(_acc_dtype(x)),
+    xp = F.pad(xx.to(acc_dtype(x)),
                [v for lo_hi in reversed(pads) for v in lo_hi])
     in_block = plan.block_in_shape(B, t)
     stride = plan.stride_per_axis()
@@ -367,6 +393,12 @@ def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     for a in range(nd):
         blocks = blocks.unfold(lead_in + a, in_block[a], B[a] * stride[a])
     blocks = blocks[(slice(None),) * lead_in + tuple(slice(0, gi) for gi in g)]
+    if plan.coeff_mode == "perlane":
+        # each block reads its own lanes of w, as the reference's (K, B[-1])
+        # BlockSpec cuts the lane-padded filter: (K, gd, 1, bd) broadcasts
+        # against blocks (..., gt, gd, rows, bd)
+        wp = F.pad(w, (0, g[-1] * B[-1] - w.shape[-1]))
+        w = wp.reshape(w.shape[0], g[-1], 1, B[-1])
     for _ in range(t):
         if plan.strategy == "mxu":
             blocks = apply_plan_mxu(blocks, plan, w)
@@ -419,9 +451,9 @@ def _check_kernel_operands(kernel: str, x, w, plan: SystolicPlan) -> None:
         raise ValueError(f"{kernel} takes a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{kernel} takes float32 or bfloat16, got {x.dtype}")
-    if plan.coeff_mode == "dense" and w.device != x.device:
-        raise ValueError("a dense plan takes its filter w on the same "
-                         "device as x")
+    if plan.coeff_mode in ("dense", "perlane") and w.device != x.device:
+        raise ValueError(f"a {plan.coeff_mode} plan takes its filter w on "
+                         "the same device as x")
 
 
 def _tile_launch(plan: SystolicPlan, x, block, t: int):
@@ -506,6 +538,8 @@ class WindowKernel:
         _check_kernel_operands("K1", x, w, plan)
         if _is_reduce(plan):
             return self._reduce(x, w, plan, epilogue_args)
+        if plan.coeff_mode == "perlane":
+            return self._perlane(x, w, plan, epilogue_args)
         t, nd = time_steps, plan.ndim_spatial
         table = tap_table(plan, None if w is None else tuple(w.shape))
         cidx, shifts, cvals = _device_table(table, x.device)
@@ -543,8 +577,65 @@ class WindowKernel:
         self.launches += 1
         return r.out if plan.batch_axes else r.out[0]
 
+    def _perlane(self, x, w, plan, epilogue_args):
+        """The per-lane (depthwise) path: ``x (…, T, D)`` against ``w (K,
+        D)``, one thread per lane streaming down time, with the per-lane
+        bias and the activations fused (``ssam_window_perlane.cu``)."""
+        rows = perlane_row_table(plan)
+        nb = plan.batch_axes
+        x = x.contiguous()
+        batch = 1
+        for d in x.shape[:nb]:
+            batch *= d
+        T, D = x.shape[nb:]
+        To = plan.out_shape((T, D))[0]
+        if -(-To // PERLANE_ROWS) > 65535 or batch > 65535:
+            raise ValueError(f"K1's per-lane grid cannot hold {To} rows of "
+                             f"{batch} sequences")
+        (lead, _), _ = plan.lead_trail()
+        wf = w.detach().to(torch.float32).contiguous()
+        c_ops, c_vals, n_epi, bias = _epilogue_codes(plan, epilogue_args,
+                                                     x.device)
+        out = torch.empty(tuple(x.shape[:nb]) + (To, D), dtype=x.dtype,
+                          device=x.device)
+        err = self.library.get().ssam_window_perlane_launch(
+            x.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
+            wf.data_ptr(), (ctypes.c_int * PERLANE_MAX_ROWS)(*rows),
+            plan.N, None if bias is None else bias.data_ptr(), c_ops, c_vals,
+            n_epi, batch, T, D, To, lead,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"K1 launch failed: CUDA error {err} "
+                               f"({plan.kind}, per-lane {tuple(x.shape)})")
+        self.launches += 1
+        return out
+
 
 WINDOW_KERNEL = WindowKernel(_build.LIBRARY)
+
+# The per-lane path's block: 128 lanes (one thread each) x 64 output rows.
+PERLANE_LANES = 128
+PERLANE_ROWS = 64
+PERLANE_MAX_ROWS = 8          # footprint rows (filter taps) it holds
+
+
+def perlane_row_table(plan: SystolicPlan) -> tuple[int, ...]:
+    """A per-lane plan's taps as K1 and K4 read them: per footprint row,
+    the row of ``w`` its tap multiplies (``-1``: no tap), padded to
+    :data:`PERLANE_MAX_ROWS`. The rows are summed in row order, which is
+    the plan's order for the depthwise builder and its input adjoint."""
+    if plan.N > PERLANE_MAX_ROWS:
+        raise ValueError(f"K1's per-lane path holds filters of up to "
+                         f"{PERLANE_MAX_ROWS} taps, got N={plan.N}")
+    rows = [-1] * PERLANE_MAX_ROWS
+    prev = -1
+    for tap in plan.steps[0].taps:
+        r = tap.row_offset
+        if not 0 <= r < plan.N or rows[r] != -1 or r < prev:
+            raise ValueError(f"per-lane taps must sit on distinct rows of "
+                             f"the footprint in row order, got {tap}")
+        rows[r], prev = tap.coeff_id[-1], r
+    return tuple(rows)
 
 # The reduce path's block: 8 warps x 4 output channels, 1 row x 128 columns
 # (4 per lane); input channels are staged REDUCE_CI_MAX at a time at most.
@@ -951,10 +1042,9 @@ def _wgrad_operands(x, g, plan: SystolicPlan):
         raise ValueError(
             f"no weight gradient for {plan.kind!r} "
             f"(combine={plan.combine!r}, coeff_mode={plan.coeff_mode!r})")
-    if plan.coeff_mode == "perlane":
-        raise NotImplementedError(
-            "the per-lane weight gradient (K4) is not ported yet (ROADMAP "
-            "Queue 1 item 5c)")
+    if plan.coeff_mode != "dense":
+        raise ValueError(f"{plan.kind!r}: the dense weight gradient takes "
+                         "dense plans; per-lane plans run through K4")
     if plan.ndim_spatial != 2 or plan.reduce_axes != plan.out_axes:
         raise ValueError(f"{plan.kind!r}: the dense weight gradient takes "
                          "2-D plans, single-channel or NCHW")
@@ -980,14 +1070,56 @@ def _wgrad_operands(x, g, plan: SystolicPlan):
     return x4, g4
 
 
+def _wgrad_perlane_operands(x, g, plan: SystolicPlan):
+    """``x`` and ``g`` of a per-lane plan as ``(B, T, D)`` and ``(B, Tg,
+    D)`` (leading batch axes flattened), checked as the reference checks
+    them: ``Tg = T + lead + trail − (K − 1)``. The gradient's row ``k``
+    pairs with footprint row ``k``, as in the depthwise builder."""
+    if plan.combine != "fma" or plan.ndim_spatial != 2 or plan.M != 1:
+        raise ValueError(f"{plan.kind!r} is not a per-lane windowed plan")
+    if any(t.coeff_id[-1] != t.row_offset for st in plan.steps
+           for t in st.taps):
+        raise ValueError(f"{plan.kind!r}: the per-lane weight gradient takes "
+                         "the forward plan (tap k on footprint row k)")
+    nb = plan.batch_axes
+    if x.ndim != nb + 2 or g.ndim != nb + 2 or x.shape[:nb] != g.shape[:nb] \
+            or x.shape[-1] != g.shape[-1]:
+        raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} do not "
+                         f"fit the {plan.kind!r} plan")
+    x3 = x.reshape((-1,) + tuple(x.shape[nb:]))
+    g3 = g.reshape((-1,) + tuple(g.shape[nb:]))
+    (lead, _), (trail, _) = plan.lead_trail()
+    if g3.shape[1] != x3.shape[1] + lead + trail - (plan.N - 1):
+        raise ValueError(f"cotangent {tuple(g.shape)} is not the output of "
+                         f"the {plan.kind!r} plan on {tuple(x.shape)}")
+    return x3, g3
+
+
+def _wgrad_perlane_reference(x, g, plan: SystolicPlan) -> torch.Tensor:
+    """The plain version of K4: ``dW[k, d] = Σ_{b,t} g[b,t,d]·xp[b,t+k,d]``,
+    ``xp`` the input padded by the plan's lead and trail; ``(K, D)``."""
+    x3, g3 = _wgrad_perlane_operands(x, g, plan)
+    acc = acc_dtype(x)
+    K = plan.N
+    (lead, _), (trail, _) = plan.lead_trail()
+    Tg = g3.shape[1]
+    xp = F.pad(x3.to(acc), (0, 0, lead, trail))
+    gf = g3.to(acc)
+    return torch.stack([(gf * xp[:, k:k + Tg]).sum(dim=(0, 1))
+                        for k in range(K)])
+
+
 def run_weight_grad_plan_reference(x: torch.Tensor, g: torch.Tensor, *,
                                    plan: SystolicPlan) -> torch.Tensor:
-    """The plain version of K3, on any device: one correlation per filter
-    tap, ``dW[:, :, n, m] = Σ_{b,o} g[b, :, o]·xp[b, :, o + (n, m)]`` over
-    the input padded by the plan's lead (and trail). Returns fp32 (fp64
-    for fp64 inputs), ``(N, M)`` or ``(C_out, C_in, N, M)``."""
+    """The plain version of K3 and K4, on any device: one correlation per
+    filter tap, ``dW[:, :, n, m] = Σ_{b,o} g[b, :, o]·xp[b, :, o + (n,
+    m)]`` over the input padded by the plan's lead (and trail); per-lane
+    plans ``dW[k, d] = Σ_{b,t} g[b,t,d]·xp[b,t+k,d]``. Returns fp32 (fp64
+    for fp64 inputs), ``(N, M)``, ``(C_out, C_in, N, M)`` or ``(K, D)``."""
+    if plan.coeff_mode == "perlane":
+        return _wgrad_perlane_reference(x, g, plan)
     x4, g4 = _wgrad_operands(x, g, plan)
-    acc = _acc_dtype(x)
+    acc = acc_dtype(x)
     N, M = plan.exts
     (ly, lx), _ = plan.lead_trail()
     H, W = x4.shape[2:]
@@ -1058,9 +1190,18 @@ def wgrad_layout(B, c_in, c_out, Ho, Wo, N, M) -> WgradLayout:
                        span, lp, smem)
 
 
+def _wgrad_geometry(x, g, plan: SystolicPlan):
+    """K3's operands as 4-D tensors and its :func:`wgrad_layout`."""
+    x4, g4 = _wgrad_operands(x, g, plan)
+    B, Ci = x4.shape[:2]
+    Co, Ho, Wo = g4.shape[1:]
+    return x4, g4, wgrad_layout(B, Ci, Co, Ho, Wo, *plan.exts)
+
+
 class WgradKernel:
-    """Wrapper of K3. ``launches`` counts its calls: one per gradient, the
-    partial-sum pass (when the reduce is split) included."""
+    """Wrapper of K3. ``launches`` counts the kernel launches it made: one
+    per gradient, or two when the reduction is split (the partial sums,
+    then the pass that adds them; :meth:`launches_for`)."""
 
     name = "ssam_wgrad"
     source = "src/repro_torch/csrc/ssam_wgrad.cu"
@@ -1080,13 +1221,12 @@ class WgradKernel:
                 or g.dtype != x.dtype:
             raise TypeError(f"K3 takes float32 or bfloat16 x and g of one "
                             f"dtype, got {x.dtype} and {g.dtype}")
-        x4, g4 = _wgrad_operands(x, g, plan)
+        x4, g4, lay = _wgrad_geometry(x, g, plan)
         x4, g4 = x4.contiguous(), g4.contiguous()
         B, Ci, H, W = x4.shape
         Co, Ho, Wo = g4.shape[1:]
         N, M = plan.exts
         (ly, lx), _ = plan.lead_trail()
-        lay = wgrad_layout(B, Ci, Co, Ho, Wo, N, M)
         out = torch.empty((Co, Ci, N, M), dtype=torch.float32,
                           device=x.device)
         part = (torch.empty((lay.slices, Co, Ci * N * M), dtype=torch.float32,
@@ -1100,21 +1240,108 @@ class WgradKernel:
         if err:
             raise RuntimeError(f"K3 launch failed: CUDA error {err} "
                                f"({plan.kind}, {Co}x{Ci}x{N}x{M})")
-        self.launches += 1
+        self.launches += 1 + (lay.slices > 1)
         return out if plan.out_axes else out[0, 0]
+
+    @staticmethod
+    def launches_for(x, g, *, plan: SystolicPlan) -> int:
+        """The launches one call on ``x`` and ``g`` makes (any device)."""
+        return 1 + (_wgrad_geometry(x, g, plan)[2].slices > 1)
 
 
 WGRAD_KERNEL = WgradKernel(_build.LIBRARY)
 
+PERLANE_WGRAD_TARGET_BLOCKS = 4 * 132   # enough blocks for every SM
+
+
+def perlane_wgrad_layout(batch: int, Tg: int, D: int) -> tuple[int, int]:
+    """K4's split of the reduction: ``(rows, slices)``, each block summing
+    ``rows`` cotangent rows (a multiple of 4) of one sequence for 128
+    lanes, ``slices`` blocks along time, so that lane tiles × sequences ×
+    slices fill the card."""
+    lane_tiles = -(-D // PERLANE_LANES)
+    want = -(-PERLANE_WGRAD_TARGET_BLOCKS // (lane_tiles * batch))
+    slices = max(1, min(want, -(-Tg // 32)))
+    rows = -(-(-(-Tg // slices)) // 4) * 4
+    return rows, -(-Tg // rows)
+
+
+def perlane_wgrad_launches(batch: int, Tg: int, D: int) -> int:
+    """K4's launches for one gradient: the partial sums, and the pass that
+    adds them when more than one block shares a lane tile."""
+    _, slices = perlane_wgrad_layout(batch, Tg, D)
+    return 1 + (batch * slices > 1)
+
+
+class PerlaneWgradKernel:
+    """Wrapper of K4. ``launches`` counts the kernel launches it made: one
+    per gradient, or two when the reduction is split
+    (:func:`perlane_wgrad_launches`)."""
+
+    name = "ssam_wgrad_perlane"
+    source = "src/repro_torch/csrc/ssam_wgrad_perlane.cu"
+    replaces = ("src/repro/core/engine.py:757 (_wgrad_perlane_kernel, "
+                "pallas_call at 835)")
+
+    def __init__(self, library: _build.Library):
+        self.library = library
+        self.launches = 0
+
+    def __call__(self, x: torch.Tensor, g: torch.Tensor, *,
+                 plan: SystolicPlan) -> torch.Tensor:
+        if not (x.is_cuda and g.device == x.device):
+            raise ValueError(f"K4 takes CUDA tensors on one device, got "
+                             f"{x.device} and {g.device}")
+        if x.dtype not in (torch.float32, torch.bfloat16) \
+                or g.dtype != x.dtype:
+            raise TypeError(f"K4 takes float32 or bfloat16 x and g of one "
+                            f"dtype, got {x.dtype} and {g.dtype}")
+        if plan.N > PERLANE_MAX_ROWS:
+            raise ValueError(f"K4 holds filters of up to {PERLANE_MAX_ROWS} "
+                             f"taps, got N={plan.N}")
+        x3, g3 = _wgrad_perlane_operands(x, g, plan)
+        x3, g3 = x3.contiguous(), g3.contiguous()
+        Bn, T, D = x3.shape
+        Tg, K = g3.shape[1], plan.N
+        (lead, _), _ = plan.lead_trail()
+        rows, slices = perlane_wgrad_layout(Bn, Tg, D)
+        if Bn > 65535 or slices > 65535:
+            raise ValueError(f"K4's grid cannot hold {Bn} sequences")
+        out = torch.empty((K, D), dtype=torch.float32, device=x.device)
+        parts = Bn * slices
+        part = (torch.empty((parts, K, D), dtype=torch.float32,
+                            device=x.device) if parts > 1 else out)
+        err = self.library.get().ssam_wgrad_perlane_launch(
+            x3.data_ptr(), g3.data_ptr(), int(x.dtype == torch.bfloat16),
+            part.data_ptr(), out.data_ptr(), Bn, T, D, Tg, K, lead, rows,
+            slices, torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"K4 launch failed: CUDA error {err} "
+                               f"({plan.kind}, {tuple(x.shape)})")
+        self.launches += 1 + (parts > 1)
+        return out
+
+    @staticmethod
+    def launches_for(x, g, *, plan: SystolicPlan) -> int:
+        """The launches one call on ``x`` and ``g`` makes (any device)."""
+        x3, g3 = _wgrad_perlane_operands(x, g, plan)
+        return perlane_wgrad_launches(x3.shape[0], g3.shape[1], x3.shape[2])
+
+
+PERLANE_WGRAD_KERNEL = PerlaneWgradKernel(_build.LIBRARY)
+
 
 def run_weight_grad_plan(x: torch.Tensor, g: torch.Tensor, *,
                          plan: SystolicPlan) -> torch.Tensor:
-    """Backward-weight of a dense windowed plan: ``∂L/∂w`` of
+    """Backward-weight of a dense or per-lane windowed plan: ``∂L/∂w`` of
     ``y = run_window_plan(x, w, plan=plan)`` given the cotangent ``g``
-    (shaped like the stride-free output). K3 for CUDA tensors, the plain
-    version for CPU tensors. Returns fp32 (the accumulator's dtype) in
-    the filter's layout: ``(N, M)`` or ``(C_out, C_in, N, M)``."""
+    (shaped like the stride-free output). K3 (K4 for a per-lane plan) for
+    CUDA tensors, the plain version for CPU tensors. Returns fp32 (the
+    accumulator's dtype) in the filter's layout: ``(N, M)``, ``(C_out,
+    C_in, N, M)`` or ``(K, D)``."""
     if x.device.type == "cuda":
+        if plan.coeff_mode == "perlane":
+            return PERLANE_WGRAD_KERNEL(x, g, plan=plan)
         return WGRAD_KERNEL(x, g, plan=plan)
     if x.device.type == "cpu":
         return run_weight_grad_plan_reference(x, g, plan=plan)
@@ -1170,8 +1397,9 @@ def run_scan_plan_reference(*operands: torch.Tensor, plan: SystolicPlan,
     scan at once. The carry then walks the T tiles in order: seeded from
     ``carry`` (else 0), ``add`` adds it after the scan, ``linrec`` applies
     the prefix to it (``h = A·carry + B``), and the tile's last lane is
-    the next carry. fp32 accumulation; the output, and the ``(R, 1)``
-    carry-out, in the operands' dtype.
+    the next carry. fp32 accumulation (fp64 for fp64 operands, so that
+    fp64 gradcheck holds the scan's gradients to its own precision); the
+    output, and the ``(R, 1)`` carry-out, in the operands' dtype.
     """
     check_scan_plan(plan, operands)
     x0 = operands[0]
@@ -1180,12 +1408,13 @@ def run_scan_plan_reference(*operands: torch.Tensor, plan: SystolicPlan,
     BR = min(block_r, R)
     gr, gt = -(-R // BR), -(-T // S)
     pad = (0, gt * S - T, 0, gr * BR - R)
+    acc = acc_dtype(x0)
     if plan.combine == "linrec":
-        A = F.pad(operands[0].float(), pad, value=1.0)
-        B = F.pad(operands[1].float(), pad)
+        A = F.pad(operands[0].to(acc), pad, value=1.0)
+        B = F.pad(operands[1].to(acc), pad)
     else:
         A = None
-        B = F.pad(operands[0].float(), pad)
+        B = F.pad(operands[0].to(acc), pad)
     tiles = (gr * BR, gt, S)
     B = B.reshape(tiles)
     if A is not None:
@@ -1199,8 +1428,8 @@ def run_scan_plan_reference(*operands: torch.Tensor, plan: SystolicPlan,
             continue
         As = torch.where(ctrl, torch.roll(A, step.shift, dims=-1), 1.0)
         A, B = A * As, A * Bs + B
-    c = (x0.new_zeros((R, 1), dtype=torch.float32) if carry is None
-         else _carry_rows(carry, R, x0).float())
+    c = (x0.new_zeros((R, 1), dtype=acc) if carry is None
+         else _carry_rows(carry, R, x0).to(acc))
     c = F.pad(c, (0, 0, 0, gr * BR - R))
     outs = []
     for j in range(gt):
@@ -1309,13 +1538,21 @@ def check_chunk_geometry(plan: SystolicPlan, chunk: int) -> None:
 
 def run_scan_plan_chunked(*operands: torch.Tensor, plan: SystolicPlan,
                           chunk: int, block_r: int = 8, carry=None,
-                          return_carry: bool = False):
+                          return_carry: bool = False, step=None):
     """Stream a scan plan over ``(R, chunk)`` slabs: one
     :func:`run_scan_plan` call per slab (one K5 launch on the card), the
     carry threaded from each slab to the next. T pads to whole chunks
-    with the combine's identity."""
+    with the combine's identity.
+
+    ``step(*slabs, carry) -> (out, carry)`` replaces the per-slab call,
+    for a caller that wraps it (``ops.chunked_linear_recurrence`` runs
+    each slab through its autograd Function under a checkpoint)."""
     check_chunk_geometry(plan, chunk)
     check_scan_plan(plan, operands)
+    if step is None:
+        def step(*slabs, carry):
+            return run_scan_plan(*slabs, plan=plan, block_r=block_r,
+                                 carry=carry, return_carry=True)
     x0 = operands[0]
     R, T = x0.shape
     nc = -(-T // chunk)
@@ -1327,9 +1564,8 @@ def run_scan_plan_chunked(*operands: torch.Tensor, plan: SystolicPlan,
     c = (x0.new_zeros((R, 1)) if carry is None else _carry_rows(carry, R, x0))
     outs = []
     for i in range(nc):
-        out, c = run_scan_plan(
-            *(o[:, i * chunk:(i + 1) * chunk] for o in padded), plan=plan,
-            block_r=block_r, carry=c, return_carry=True)
+        out, c = step(*(o[:, i * chunk:(i + 1) * chunk] for o in padded),
+                      carry=c)
         outs.append(out)
     out = torch.cat(outs, dim=1)[:, :T]
     return (out, c) if return_carry else out

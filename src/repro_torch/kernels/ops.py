@@ -1,8 +1,10 @@
 """Public ops of the port: ``stencil`` and ``conv2d`` (windowed plans,
 K1, or K2 under ``strategy='mxu'``, with gradients through the same
-kernel and K3) and the scan family ``cumsum``,
-``sat``, ``linear_recurrence``, ``linear_recurrence_carry`` and
-``chunked_linear_recurrence`` (K5).
+kernel and K3), ``conv1d_causal`` (K1's per-lane path, gradients through
+it and K4) and the scan family ``cumsum``, ``sat``,
+``linear_recurrence``, ``linear_recurrence_carry`` and
+``chunked_linear_recurrence`` (K5, gradients through K5 in reversed
+time).
 
 The device of the input decides the path: a CUDA tensor launches the
 hand-written kernel, and a CPU tensor runs its plain torch version
@@ -27,11 +29,13 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import adjoint as adj
 from ..core import engine as _engine
 from ..core.plan import (SystolicPlan, linear_recurrence_plan,
                          normalize_epilogue)
+from . import ssam_conv1d as _c1
 from . import ssam_conv2d as _c2
 from . import ssam_scan as _sc
 from . import ssam_stencil2d as _s2
@@ -243,6 +247,39 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, mode: str = "same",
                      variant=variant)
 
 
+def conv1d_causal(x: torch.Tensor, w: torch.Tensor, *, epilogue=None,
+                  epilogue_args=(), strategy: str | None = None,
+                  block=None) -> torch.Tensor:
+    """Depthwise causal conv through the D-optimal plan (§5.4):
+    ``y[b,t,d] = Σ_k x[b, t−K+1+k, d]·w[k, d]`` for ``x (B, T, D)`` and
+    ``w (K, D)``.
+
+    ``epilogue=`` fuses elementwise output stages into the kernel:
+    ``bias`` takes a per-channel ``(D,)`` row (channels are the plan's
+    lanes), which is Mamba's ``conv → +b → silu`` seam with no store
+    between the conv and the activation. ``block`` is the plain version's
+    ``(block_t, block_d)`` tile. On the card K1's per-lane path runs the
+    forward and ``dx`` (the input-adjoint plan), K4 ``dW``; differentiable
+    in ``x``, ``w`` and the bias. ``strategy='mxu'`` (K2's lane-batched
+    mat-vec) is not ported and raises.
+    """
+    if w.ndim != 2 or w.shape[-1] != x.shape[-1]:
+        # checked before anything runs: the oracle would otherwise
+        # broadcast a mismatched filter across channels
+        raise ValueError(f"conv1d_causal: filter lanes {tuple(w.shape)} do "
+                         f"not match input channels {tuple(x.shape)}")
+    if x.ndim != 3:
+        raise ValueError(f"conv1d_causal takes (B, T, D), got "
+                         f"{tuple(x.shape)}")
+    plan = _strategy_plan(_c1.plan_for(w.shape[0]), strategy,
+                          "conv1d_causal")
+    epi_stages = normalize_epilogue(epilogue)
+    if epi_stages:
+        plan = dataclasses.replace(plan, epilogue=epi_stages)
+    return window_op(plan, x, w, tuple(epilogue_args),
+                     block=block or _c1.BLOCK)
+
+
 # ---------------------------------------------------------------------------
 # Scan family (K5)
 # ---------------------------------------------------------------------------
@@ -282,10 +319,104 @@ def _scan_blocks(op: str, kw: dict, block_t: int = SCAN_BLOCK[1]):
     return block_r, block_t
 
 
+@dataclasses.dataclass(frozen=True)
+class ScanCfg:
+    """Static configuration of one scan-engine call: the plain version's
+    ``(block_r, block_t)`` tile (K5 walks each row whatever the tile)."""
+
+    block_r: int = SCAN_BLOCK[0]
+    block_t: int = SCAN_BLOCK[1]
+
+
+def _cumsum_run(cfg: ScanCfg, x):
+    return _sc.cumsum(x, block_r=cfg.block_r, block_t=cfg.block_t)
+
+
+def _linrec_run(cfg: ScanCfg, a, b, carry=None, return_carry=False):
+    return _sc.linear_recurrence(a, b, block_r=cfg.block_r,
+                                 block_t=cfg.block_t, carry=carry,
+                                 return_carry=return_carry)
+
+
+def _lambda(cfg: ScanCfg, a, g):
+    """The adjoint state ``λ_t = g_t + a_{t+1}·λ_{t+1}``: the forward
+    recurrence in reversed time through the same engine (K5 on the
+    card)."""
+    abar = adj.reversed_recurrence_coeffs(a)
+    return adj.time_reversed(_linrec_run(
+        cfg, adj.time_reversed(abar), adj.time_reversed(g.to(a.dtype))))
+
+
+class CumsumOp(torch.autograd.Function):
+    """The Kogge–Stone prefix sum; its transpose is the time-reversed scan
+    (the reference's ``_cumsum_op``)."""
+
+    @staticmethod
+    def forward(ctx, cfg: ScanCfg, x):
+        ctx.cfg = cfg
+        return _cumsum_run(cfg, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        adj.record_lowering("adj_scan")
+        return None, adj.time_reversed(_cumsum_run(ctx.cfg,
+                                                   adj.time_reversed(g)))
+
+
+class LinrecOp(torch.autograd.Function):
+    """``h_t = a_t·h_{t−1} + b_t`` from a zero state, with the reference's
+    ``_linrec_op`` VJP: ``db = λ``, ``da = λ·h_{t−1}``."""
+
+    @staticmethod
+    def forward(ctx, cfg: ScanCfg, a, b):
+        ctx.cfg = cfg
+        h = _linrec_run(cfg, a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        adj.record_lowering("adj_recurrence")
+        lam = _lambda(ctx.cfg, a, g)
+        acc = _engine.acc_dtype(a)
+        da = (lam.to(acc) * adj.shifted_state(h).to(acc)).to(a.dtype)
+        return None, da, lam.to(a.dtype)
+
+
+class LinrecCarryOp(torch.autograd.Function):
+    """One chunk of the streamed recurrence: ``(h, h_T)`` from the carry
+    ``h0`` ``(R, 1)``, with the reference's ``_linrec_carry_op`` VJP: the
+    carry-out cotangent folds into the last λ seed (``h_T`` is
+    ``h[:, -1]``), λ runs reversed through the engine, and the carry-in
+    cotangent ``a₀·λ₀`` leaves for the next-older chunk."""
+
+    @staticmethod
+    def forward(ctx, cfg: ScanCfg, a, b, h0):
+        ctx.cfg = cfg
+        h, hT = _linrec_run(cfg, a, b, carry=h0, return_carry=True)
+        ctx.save_for_backward(a, h, h0)
+        return h, hT
+
+    @staticmethod
+    def backward(ctx, g, gc):
+        a, h, h0 = ctx.saved_tensors
+        adj.record_lowering("adj_recurrence_chunk")
+        acc = _engine.acc_dtype(a)
+        g = g.to(acc, copy=True)           # the incoming cotangent stays
+        g[..., -1:] += gc.to(acc).reshape(g.shape[:-1] + (1,))
+        lam = _lambda(ctx.cfg, a, g)
+        da = (lam.to(acc) * adj.shifted_state(h, h0).to(acc)).to(a.dtype)
+        dh0 = adj.chunk_carry_cotangent(a, lam).to(h0.dtype).reshape(
+            h0.shape)
+        return None, da, lam.to(a.dtype), dh0
+
+
 def cumsum(x: torch.Tensor, **kw) -> torch.Tensor:
-    """Inclusive prefix sum along the last axis of ``(R, T)``."""
+    """Inclusive prefix sum along the last axis of ``(R, T)``;
+    differentiable (the time-reversed scan)."""
     block_r, block_t = _scan_blocks("cumsum", kw)
-    return _sc.cumsum(x, block_r=block_r, block_t=block_t)
+    return CumsumOp.apply(ScanCfg(block_r, block_t), x)
 
 
 def sat(x: torch.Tensor, **kw) -> torch.Tensor:
@@ -296,9 +427,10 @@ def sat(x: torch.Tensor, **kw) -> torch.Tensor:
 
 
 def linear_recurrence(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
-    """h_t = a_t·h_{t−1} + b_t along the last axis of (R, T)-shaped a, b."""
+    """h_t = a_t·h_{t−1} + b_t along the last axis of (R, T)-shaped a, b;
+    differentiable in both (λ through the engine in reversed time)."""
     block_r, block_t = _scan_blocks("linear_recurrence", kw)
-    return _sc.linear_recurrence(a, b, block_r=block_r, block_t=block_t)
+    return LinrecOp.apply(ScanCfg(block_r, block_t), a, b)
 
 
 def linear_recurrence_carry(a: torch.Tensor, b: torch.Tensor,
@@ -306,11 +438,11 @@ def linear_recurrence_carry(a: torch.Tensor, b: torch.Tensor,
     """``h_t = a_t·h_{t−1} + b_t`` over (R, T) rows with an explicit carry.
 
     Returns ``(h, h_T)``, ``h_T`` the final raw state ``(R, 1)``; ``h0``
-    is ``(R,)`` or ``(R, 1)``. One chunk of the streamed schedule."""
+    is ``(R,)`` or ``(R, 1)``. One chunk of the streamed schedule,
+    differentiable through ``h`` and through the carry pair."""
     block_r, block_t = _scan_blocks("linear_recurrence_carry", kw)
-    return _sc.linear_recurrence(a, b, block_r=block_r, block_t=block_t,
-                                 carry=h0.reshape(a.shape[0], 1),
-                                 return_carry=True)
+    return LinrecCarryOp.apply(ScanCfg(block_r, block_t), a, b,
+                               h0.reshape(a.shape[0], 1))
 
 
 def chunked_linear_recurrence(a: torch.Tensor, b: torch.Tensor, *,
@@ -321,7 +453,9 @@ def chunked_linear_recurrence(a: torch.Tensor, b: torch.Tensor, *,
     Leading axes flatten to the engine's rows. ``impl`` names the
     schedule: ``"engine"`` streams ``(R, chunk)`` slabs through the scan
     engine with the carry threaded between them (one K5 launch per slab
-    on the card); ``"engine_unchunked"`` runs all of T in one call.
+    on the card, each slab checkpointed under autograd);
+    ``"engine_unchunked"`` runs all of T in one call. Both are
+    differentiable.
     """
     if impl == "chunked":
         raise NotImplementedError(
@@ -338,13 +472,25 @@ def chunked_linear_recurrence(a: torch.Tensor, b: torch.Tensor, *,
     rows_a, rows_b = a.reshape(-1, T), b.reshape(-1, T)
     if impl == "engine":
         block_r, block_t = _scan_blocks("chunked_linear_recurrence", kw)
-        plan = linear_recurrence_plan(_sc._lane_tile(min(block_t, chunk),
-                                                     chunk))
-        out = _engine.run_scan_plan_chunked(rows_a, rows_b, plan=plan,
-                                            chunk=chunk, block_r=block_r)
+        cfg = ScanCfg(block_r, min(block_t, chunk))
+        grad = torch.is_grad_enabled() and (a.requires_grad
+                                            or b.requires_grad)
+
+        def step(a_c, b_c, carry):
+            # Checkpointed under autograd (the reference's jax.checkpoint
+            # per chunk): the backward keeps only the chunk-boundary
+            # carries and re-runs each slab, so live state is O(R·chunk).
+            if grad:
+                return checkpoint(LinrecCarryOp.apply, cfg, a_c, b_c, carry,
+                                  use_reentrant=False)
+            return LinrecCarryOp.apply(cfg, a_c, b_c, carry)
+
+        out = _engine.run_scan_plan_chunked(
+            rows_a, rows_b, plan=linear_recurrence_plan(
+                _sc._lane_tile(cfg.block_t, chunk)),
+            chunk=chunk, block_r=block_r, step=step)
     else:
         block_r, block_t = _scan_blocks("chunked_linear_recurrence", kw,
                                         block_t=chunk)
-        out = _sc.linear_recurrence(rows_a, rows_b, block_r=block_r,
-                                    block_t=block_t)
+        out = LinrecOp.apply(ScanCfg(block_r, block_t), rows_a, rows_b)
     return out.reshape(a.shape)

@@ -67,6 +67,19 @@ def conv2d_nchw(x: torch.Tensor, w: torch.Tensor, mode: str = "valid",
     return out.to(x.dtype)
 
 
+def conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv: y[b,t,d] = Σ_k x[b, t−K+1+k, d]·w[k,d], in
+    fp32 (fp64 for fp64 inputs)."""
+    T = x.shape[1]
+    K = w.shape[0]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x.to(acc), (0, 0, K - 1, 0))
+    out = xp.new_zeros(x.shape)
+    for k in range(K):
+        out = out + xp[:, k:k + T, :] * w[k, :].to(acc)
+    return out.to(x.dtype)
+
+
 def stencil_apply(x: torch.Tensor, sdef: StencilDef) -> torch.Tensor:
     """One same-shape stencil application with zeros outside the domain."""
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)

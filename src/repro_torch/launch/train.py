@@ -2,18 +2,22 @@
 
     python -m repro_torch.launch.train --arch whisper-base --conv-frontend \
         [--steps 100] [--batch 8] [--seq 128] [--lr 3e-4] [--device cuda]
+    python -m repro_torch.launch.train --arch hymba-1.5b --batch 2 \
+        --seq 2048 --steps 6 [--scan-impl engine]
 
 Config → model (weights from ``--seed``) → per step: a synthetic token
-batch (:class:`repro_torch.data.TokenDataset`) and a random-normal mel
-input from a ``torch.Generator`` seeded with the step, the loss, its
-gradients through autograd (the mel stem's backward through K1 and K3 on
-the card) and one AdamW update under the reference's warm-up/cosine
-schedule (warm-up ``max(steps // 10, 10)``, total ``max(steps, 100)``).
-A step-time watchdog flags stragglers (> EMA + 2.5σ and > 1.5× EMA).
-The flags and defaults are the JAX CLI's; ``--device`` (default
-``cuda``) is the port's. Checkpointing (``--ckpt-dir``, ROADMAP Queue 1
-item 10) and model parallelism (``--model-axis > 1``, item 12) are not
-ported and raise; only the audio family (whisper) trains so far.
+batch (:class:`repro_torch.data.TokenDataset`) and, for the audio
+family, a random-normal mel input from a ``torch.Generator`` seeded with
+the step, the loss, its gradients through autograd and one AdamW update
+under the reference's warm-up/cosine schedule (warm-up ``max(steps //
+10, 10)``, total ``max(steps, 100)``). On the card Whisper's mel stem
+runs backward through K1 and K3; Hymba's Mamba branch through K1's
+per-lane path, K4 and K5 (the λ-recurrence). A step-time watchdog flags
+stragglers (> EMA + 2.5σ and > 1.5× EMA). The flags and defaults are the
+JAX CLI's; ``--device`` (default ``cuda``) is the port's. Checkpointing
+(``--ckpt-dir``, ROADMAP Queue 1 item 10) and model parallelism
+(``--model-axis > 1``, item 12) are not ported and raise; the audio
+(whisper) and hybrid (hymba) families train, RWKV6 (item 5d) not yet.
 """
 from __future__ import annotations
 
@@ -72,6 +76,7 @@ class TrainResult:
     step_seconds: list
     stragglers: int
     trainer: Trainer
+    peak_mem_gb: list = dataclasses.field(default_factory=list)
 
 
 def main(argv=None) -> TrainResult:
@@ -91,6 +96,11 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the weights and the token stream")
+    ap.add_argument("--scan-impl", default=None,
+                    choices=("engine", "engine_unchunked", "chunked"),
+                    help="recurrence schedule for ssm/hybrid archs: "
+                         "'engine' streams (R, chunk) slabs through the "
+                         "scan engine (O(chunk) memory); default 'engine'")
     ap.add_argument("--metrics-file", default="")
     ap.add_argument("--device", default="cuda",
                     help="device of the weights and batches (default cuda)")
@@ -107,13 +117,17 @@ def main(argv=None) -> TrainResult:
     from ..models import build_model
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.family != "audio":
+    if cfg.family not in ("audio", "hybrid"):
         raise NotImplementedError(
             f"training the {cfg.family!r} family is not ported yet (ROADMAP "
-            "Queue 1 items 5d and 9)")
+            "Queue 1 item 5d)")
     if args.conv_frontend:
+        if cfg.family != "audio":
+            ap.error(f"--conv-frontend is for audio archs, not {cfg.family}")
         n_mels = cfg.n_mels or (8 if args.smoke else 80)
         cfg = dataclasses.replace(cfg, conv_frontend=True, n_mels=n_mels)
+    if args.scan_impl:
+        cfg = dataclasses.replace(cfg, scan_impl=args.scan_impl)
     cfg = dataclasses.replace(cfg, dtype=args.dtype)
     device = torch.device(args.device)
     model = build_model(cfg, device=device, seed=args.seed)
@@ -133,6 +147,11 @@ def main(argv=None) -> TrainResult:
             res.losses.append(loss)
             res.grad_norms.append(float(gnorm))
             res.step_seconds.append(dt)
+            peak = ""
+            if device.type == "cuda":
+                res.peak_mem_gb.append(
+                    torch.cuda.max_memory_allocated(device) / 1e9)
+                peak = f" peak {res.peak_mem_gb[-1]:.2f}GB"
             if ema is None:
                 ema = dt
             else:
@@ -146,8 +165,8 @@ def main(argv=None) -> TrainResult:
                           f"(ema {ema:.3f}s)", flush=True)
             if step % args.log_every == 0 or step == args.steps - 1:
                 print(f"[train] step {step:5d} loss {loss:8.4f} "
-                      f"gnorm {res.grad_norms[-1]:8.3f} {dt * 1e3:7.1f}ms",
-                      flush=True)
+                      f"gnorm {res.grad_norms[-1]:8.3f} {dt * 1e3:7.1f}ms"
+                      f"{peak}", flush=True)
             if metrics_f:
                 metrics_f.write(json.dumps(
                     {"step": step, "loss": loss, "dt": dt}) + "\n")

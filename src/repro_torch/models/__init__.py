@@ -12,6 +12,10 @@ def build_model(cfg: ArchConfig, params=None, *, device=None, seed: int = 0):
         from .rwkv6 import RWKV6
 
         return RWKV6(cfg, params, device=device, seed=seed)
+    if cfg.family == "hybrid":
+        from .hymba import Hymba
+
+        return Hymba(cfg, params, device=device, seed=seed)
     if cfg.family == "audio":
         from .whisper import Whisper
 

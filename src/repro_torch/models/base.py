@@ -1,12 +1,12 @@
 """Model base of the port: :class:`ArchConfig`, the fields of the
-reference's config (the same names and defaults), with torch dtypes, and
-the chunked language-model loss.
+reference's config (the same names and defaults), with torch dtypes,
+:func:`remat` and the chunked language-model loss.
 
 Attention, MoE, MLA, hybrid and audio fields are carried so configs
 compare field for field with the reference; only the families that
-``repro_torch.models.build_model`` builds use them. ``remat`` is carried
-and not acted on: in the reference it trades memory for recomputation
-(``jax.checkpoint`` of each layer) and changes no value.
+``repro_torch.models.build_model`` builds use them. ``remat`` trades
+memory for recomputation: a model that honours it (Hymba) runs each
+layer under :func:`remat`, which changes no value.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +95,33 @@ class ArchConfig:
     def scan_schedule(self) -> str:
         """The recurrence schedule: ``scan_impl``, or 'engine' when None."""
         return self.scan_impl or "engine"
+
+    def is_global_layers(self) -> tuple[bool, ...]:
+        """Per layer, whether it attends globally (no sliding window): all
+        layers when ``window == 0``, else every ``global_every``-th and the
+        ``global_layers``."""
+        if self.window == 0:
+            return (True,) * self.n_layers
+        return tuple(
+            bool(self.global_every and i % self.global_every
+                 == self.global_every - 1) or i in self.global_layers
+            for i in range(self.n_layers))
+
+
+def remat(fn, enabled: bool):
+    """``fn`` with its activations recomputed in the backward pass when
+    ``enabled``: ``torch.utils.checkpoint`` (non-reentrant) of each call
+    under autograd. The reference checkpoints each layer too (saving the
+    matmul outputs, a memory/time choice); here a layer keeps only its
+    inputs."""
+    if not enabled:
+        return fn
+
+    def run(*args, **kw):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kw)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
 
 
 def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Core layers of the port: norms, embeddings, the MLP and the NCHW
-convolution layer (the ones RWKV6 and Whisper use).
+"""Core layers of the port: norms, embeddings, RoPE, the plain and gated
+MLPs and the NCHW convolution layer (the ones RWKV6, Whisper and Hymba
+use).
 
 Functional style, as in the reference: ``<layer>_specs(...)`` returns a
 ParamSpec tree, ``<layer>_apply(params, ...)`` reads the materialized
@@ -37,6 +38,32 @@ def embedding_specs(vocab: int, d: int) -> dict:
 
 def embedding_apply(p, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens]
+
+
+def rope_table(positions: torch.Tensor, rot_dim: int,
+               base: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables: positions (…,) → (…, rot_dim/2), fp32."""
+    if rot_dim % 2:
+        raise ValueError(f"rot_dim must be even, got {rot_dim}")
+    inv = 1.0 / (base ** (torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                                       device=positions.device) / rot_dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               rot_dim: int) -> torch.Tensor:
+    """Rotate the first ``rot_dim`` features of ``x`` (…, S, H, hd),
+    half-split (NeoX) convention; cos/sin are (…, S, rot_dim/2) and
+    broadcast over the head axis."""
+    if rot_dim == 0:
+        return x
+    rot, rest = x[..., :rot_dim], x[..., rot_dim:]
+    half = rot_dim // 2
+    x1, x2 = rot[..., :half], rot[..., half:]
+    c = cos[..., None, :].to(x.dtype)
+    s = sin[..., None, :].to(x.dtype)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s, rest], dim=-1)
 
 
 def layernorm_specs(d: int) -> dict:
@@ -79,6 +106,28 @@ def mlp_apply(p, x: torch.Tensor, *, act: str = "gelu") -> torch.Tensor:
     h = linear(x, p["w_in"], p.get("b_in"))
     h = F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
     return linear(h, p["w_out"], p.get("b_out"))
+
+
+def gated_mlp_specs(d: int, ff: int) -> dict:
+    """SwiGLU/GeGLU style gated MLP (Hymba)."""
+    return {
+        "w_gate": ParamSpec((d, ff), ("embed", "ff")),
+        "w_up": ParamSpec((d, ff), ("embed", "ff")),
+        "w_down": ParamSpec((ff, d), ("ff", "embed")),
+    }
+
+
+def gated_mlp_apply(p, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+    """``(act(x W_gate) ⊙ x W_up) W_down``; gelu is the tanh form."""
+    g = x @ p["w_gate"].to(x.dtype)
+    u = x @ p["w_up"].to(x.dtype)
+    if act == "silu":
+        g = F.silu(g)
+    elif act == "gelu":
+        g = F.gelu(g, approximate="tanh")
+    else:
+        raise ValueError(f"unknown activation {act!r}")
+    return (g * u) @ p["w_down"].to(x.dtype)
 
 
 def conv2d_specs(c_in: int, c_out: int, k, *, bias: bool = True) -> dict:

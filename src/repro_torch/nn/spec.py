@@ -105,12 +105,39 @@ def unstack(tree, n: int) -> list:
     return [map_tree(lambda t: t[i], tree) for i in range(n)]
 
 
+class TreeNode(torch.nn.Module):
+    """A node of a parameter tree that holds tensors beside subtrees (a
+    Hymba layer: ``beta_attn`` next to ``attn``), indexed by name like a
+    dict."""
+
+    def __init__(self, tree: dict, *, requires_grad: bool = False):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(
+                    k, torch.nn.Parameter(v, requires_grad=requires_grad))
+            else:
+                self.add_module(k, as_module(v, requires_grad=requires_grad))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+    def keys(self) -> list:
+        return list(self._parameters) + list(self._modules)
+
+    def items(self) -> list:
+        return [(k, self[k]) for k in self.keys()]
+
+
 def as_module(tree, *, requires_grad: bool = False) -> torch.nn.Module:
     """A nested dict (and list) of tensors as ``nn.ModuleDict`` /
-    ``nn.ModuleList`` of ``nn.ParameterDict`` leaves, so that a model owns
-    its parameters and indexes them as the reference indexes its tree.
-    Served models freeze their parameters; trained ones pass
-    ``requires_grad=True``."""
+    ``nn.ModuleList`` of ``nn.ParameterDict`` leaves (a :class:`TreeNode`
+    where a node holds both), so that a model owns its parameters and
+    indexes them as the reference indexes its tree. Served models freeze
+    their parameters; trained ones pass ``requires_grad=True``."""
     if isinstance(tree, list):
         return torch.nn.ModuleList([as_module(t, requires_grad=requires_grad)
                                     for t in tree])
@@ -119,7 +146,7 @@ def as_module(tree, *, requires_grad: bool = False) -> torch.nn.Module:
             k: torch.nn.Parameter(v, requires_grad=requires_grad)
             for k, v in tree.items()})
     if any(isinstance(v, torch.Tensor) for v in tree.values()):
-        raise ValueError(f"a node mixes tensors and subtrees: {sorted(tree)}")
+        return TreeNode(tree, requires_grad=requires_grad)
     return torch.nn.ModuleDict({k: as_module(v, requires_grad=requires_grad)
                                 for k, v in tree.items()})
 
@@ -128,7 +155,9 @@ def module_leaves(module, prefix=()):
     """``(path, parameter)`` pairs of an :func:`as_module` tree in sorted-key
     order (list entries by index): a fixed order for optimizer state and
     gradients."""
-    if isinstance(module, torch.nn.ParameterDict):
+    if isinstance(module, torch.nn.Parameter):
+        yield prefix, module
+    elif isinstance(module, torch.nn.ParameterDict):
         for k in sorted(module.keys()):
             yield prefix + (k,), module[k]
     elif isinstance(module, torch.nn.ModuleList):

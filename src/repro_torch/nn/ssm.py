@@ -1,26 +1,194 @@
-"""RWKV6 ("Finch") blocks over the SSAM linear-recurrence plan.
+"""State-space blocks over the SSAM linear-recurrence plan: Mamba (the
+Hymba branch) and RWKV6 ("Finch").
 
-The WKV state recurrence ``S_t = diag(exp(logw_t))·S_{t−1} + k_tᵀv_t`` is
-diagonal per ``(head, k, v)`` channel, so it runs as scalar rows
-``h_t = a_t·h_{t−1} + b_t`` through the scan engine — K5 on the card.
-Schedules (:func:`wkv6_chunked`'s ``impl``):
+Both recurrences are diagonal, so they run as scalar rows ``h_t =
+a_t·h_{t−1} + b_t`` through the scan engine — K5 on the card, forward
+and, for training, the time-reversed λ-recurrence of the backward.
 
-* ``'engine'`` (the default) streams ``(B, chunk, H, K, V)`` slabs, one
-  engine call per chunk with the state as its carry;
-* ``'engine_unchunked'`` runs all of T in one engine call.
+* Mamba (:func:`mamba_apply`): in-projection, the depthwise causal conv1d
+  with its bias and SiLU fused (``ops.conv1d_causal``: K1's per-lane path,
+  K4 for its weight gradient), the selective scan
+  (:func:`selective_scan`) and the gated out-projection. Schedules:
+  ``'engine'`` (the default) streams ``(B, chunk, Di, N)`` slabs, one
+  engine call per chunk with the state as its carry, each chunk
+  checkpointed under autograd (O(chunk) live state);
+  ``'engine_unchunked'`` runs all of T in one call.
+* RWKV6 (:func:`wkv6_chunked`): the same two schedules over the WKV
+  state ``S_t = diag(exp(logw_t))·S_{t−1} + k_tᵀv_t``.
 
-The reference's ``'chunked'`` matmul (GLA) schedule and the Mamba half of
-the reference module are not ported yet (ROADMAP Queue 1 items 5b, 5c).
+The reference's ``'chunked'`` matmul schedules (ROADMAP Queue 1 item 5b)
+and the Mamba decode step (Hymba serving, item 9) are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from .spec import ParamSpec
 
-WKV_IMPLS = ("engine", "engine_unchunked")
+WKV_IMPLS = ("engine", "engine_unchunked")     # the schedules of both blocks
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM) — Hymba's parallel Mamba heads
+# ---------------------------------------------------------------------------
+
+def mamba_specs(d: int, *, d_inner: int, ssm_state: int, conv_k: int = 4,
+                dt_rank: int | None = None) -> dict:
+    dt_rank = dt_rank or max(d // 16, 1)
+    return {
+        "in_proj": ParamSpec((d, 2 * d_inner), ("embed", "ff")),
+        "conv_w": ParamSpec((conv_k, d_inner), ("conv", "ff")),
+        "conv_b": ParamSpec((d_inner,), ("ff",), init="zeros"),
+        "x_proj": ParamSpec((d_inner, dt_rank + 2 * ssm_state),
+                            ("ff", "lora")),
+        "dt_w": ParamSpec((dt_rank, d_inner), ("lora", "ff")),
+        "dt_b": ParamSpec((d_inner,), ("ff",), init="small"),
+        "A_log": ParamSpec((d_inner, ssm_state), ("ff", "state"),
+                           init="small"),
+        "D": ParamSpec((d_inner,), ("ff",), init="ones"),
+        "out_proj": ParamSpec((d_inner, d), ("ff", "embed")),
+    }
+
+
+def _transfer(A, delta, Bmat, x):
+    """The selective scan's transfer pairs ``a = exp(Δ·A)``, ``b = (Δ·x)·B``
+    as (B, L, Di, N) fp32."""
+    d32 = delta.float()
+    a = torch.exp(d32[..., None] * A)
+    b = (d32 * x.float())[..., None] * Bmat.float()[:, :, None, :]
+    return a, b
+
+
+def _selective_scan_engine(delta, A_log, Bmat, Cmat, x):
+    """The selective scan in one engine call over all of T: materializes
+    the (B, T, Di, N) transfer pairs and state history (the validation
+    schedule)."""
+    A = -torch.exp(A_log.float())                                 # (Di, N)
+    a, b = _transfer(A, delta, Bmat, x)
+    hs = ops.chunked_linear_recurrence(a.movedim(1, -1), b.movedim(1, -1),
+                                       impl="engine_unchunked")
+    hs = hs.movedim(-1, 1)                                        # (B,T,Di,N)
+    y = torch.einsum("btin,btn->bti", hs, Cmat.float())
+    return y.to(x.dtype), hs[:, -1]
+
+
+def _scan_chunk(A, h, delta, Bmat, Cmat, x):
+    """One chunk of the streamed selective scan: its ``B·Di·N`` rows through
+    one ``ops.linear_recurrence_carry`` call (one K5 launch on the card)
+    from the carry ``h``, contracted against ``C`` at once. Returns the
+    new carry and the chunk's ``y`` (B, L, Di) fp32. Building the rows
+    (time last) and reading them back are transposing copies, as in the
+    reference's ``moveaxis(…, 1, -1).reshape(-1, L)``."""
+    Bsz, L, Di = x.shape
+    N = A.shape[1]
+    a, b = _transfer(A, delta, Bmat, x)
+    rows_a = a.movedim(1, -1).reshape(-1, L)                      # (B·Di·N, L)
+    rows_b = b.movedim(1, -1).reshape(-1, L)
+    hs, h_new = ops.linear_recurrence_carry(rows_a, rows_b, h)
+    hs = hs.reshape(Bsz, Di, N, L).movedim(-1, 1)                 # (B,L,Di,N)
+    return h_new, torch.einsum("blin,bln->bli", hs, Cmat.float())
+
+
+def _selective_scan_engine_stream(delta, A_log, Bmat, Cmat, x, *, chunk):
+    """Chunk-streamed selective scan: ``(B, L, Di, N)`` slabs, each through
+    :func:`_scan_chunk` with the state as its carry. Under autograd each
+    chunk is checkpointed (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` of the chunk step): the backward keeps only the
+    chunk-boundary carries, re-runs each chunk's forward and then its
+    λ-recurrence, both through the engine. T pads to whole chunks with
+    Δ = 0: identity transfers."""
+    Bsz, T, Di = x.shape
+    N = A_log.shape[1]
+    L = min(chunk, T)
+    pad = (-T) % L
+    if pad:
+        delta, Bmat, Cmat, x = (F.pad(t, (0, 0, 0, pad))
+                                for t in (delta, Bmat, Cmat, x))
+    A = -torch.exp(A_log.float())                                 # (Di, N)
+    h = torch.zeros((Bsz * Di * N, 1), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(0, T + pad, L):
+        args = (A, h) + tuple(t[:, c:c + L] for t in (delta, Bmat, Cmat, x))
+        if torch.is_grad_enabled():
+            h, y = checkpoint(_scan_chunk, *args, use_reentrant=False)
+        else:
+            h, y = _scan_chunk(*args)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :T]
+    return y.to(x.dtype), h.reshape(Bsz, Di, N)
+
+
+def selective_scan(delta, A_log, Bmat, Cmat, x, *, chunk: int = 128,
+                   work_dtype=torch.float32, impl: str | None = None):
+    """Selective scan: ``h[t] = exp(Δ_t·A)⊙h[t−1] + (Δ_t·x_t)·B_t``,
+    ``y[t] = C_t·h[t]`` (the D term is the caller's).
+
+    delta, x: (B, T, Di); Bmat, Cmat: (B, T, N); A_log: (Di, N). Returns
+    ``(y, h_last)``, ``h_last`` (B, Di, N) fp32. ``impl``: None or
+    'engine' (chunk-streamed, the reference's TPU default), or
+    'engine_unchunked'; 'chunked' (the matmul schedule, where
+    ``work_dtype`` would apply) is not ported.
+    """
+    impl = impl or "engine"
+    if impl == "engine":
+        return _selective_scan_engine_stream(delta, A_log, Bmat, Cmat, x,
+                                             chunk=chunk)
+    if impl == "engine_unchunked":
+        return _selective_scan_engine(delta, A_log, Bmat, Cmat, x)
+    if impl == "chunked":
+        raise NotImplementedError(
+            "selective_scan(impl='chunked'), the matmul schedule, is not "
+            "ported yet (ROADMAP Queue 1 item 5b)")
+    raise ValueError(f"impl must be one of {WKV_IMPLS}, got {impl!r}")
+
+
+def _softplus(x):
+    """``log(1 + eˣ)`` as ``jax.nn.softplus`` computes it (no threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def mamba_apply(p, x, *, ssm_state: int, conv_k: int = 4, chunk: int = 128,
+                state=None, work_dtype=torch.float32,
+                scan_impl: str | None = None):
+    """Mamba block over x (B, T, d) for training and prefill
+    (``state=None``). The depthwise conv rides ``ops.conv1d_causal`` with
+    the bias and SiLU as its fused epilogue (the reference's engine path);
+    the selective scan runs :func:`selective_scan` (``scan_impl``).
+    Returns ``(out, {"h", "conv"})``. The single-token decode step
+    (``state`` given) is not ported yet and raises."""
+    if state is not None:
+        raise NotImplementedError(
+            "mamba_apply with a decode state (the O(1) Mamba step) is not "
+            "ported yet: Hymba serving, ROADMAP Queue 1 item 9")
+    T = x.shape[1]
+    Di = p["in_proj"].shape[1] // 2
+    dt_rank = p["dt_w"].shape[0]
+    xz = x @ p["in_proj"].to(x.dtype)
+    xs, z = xz[..., :Di], xz[..., Di:]
+    xs = ops.conv1d_causal(xs, p["conv_w"], epilogue=("bias", "silu"),
+                           epilogue_args=(p["conv_b"],))
+    dbc = xs @ p["x_proj"].to(x.dtype)
+    dt = _softplus(dbc[..., :dt_rank] @ p["dt_w"].to(x.dtype)
+                   + p["dt_b"].to(x.dtype))
+    Bmat = dbc[..., dt_rank:dt_rank + ssm_state]
+    Cmat = dbc[..., dt_rank + ssm_state:]
+    y, h_last = selective_scan(dt, p["A_log"], Bmat, Cmat, xs, chunk=chunk,
+                               work_dtype=work_dtype, impl=scan_impl)
+    y = y + xs * p["D"].to(x.dtype)
+    new_state = {"h": h_last,
+                 "conv": xs[:, -(conv_k - 1):, :] if T >= conv_k - 1
+                 else None}
+    out = (y * F.silu(z)) @ p["out_proj"].to(x.dtype)
+    return out, new_state
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 ("Finch"): data-dependent token shift + WKV recurrence
+# ---------------------------------------------------------------------------
 
 
 def rwkv6_timemix_specs(d: int, *, n_heads: int, head_k: int, head_v: int,

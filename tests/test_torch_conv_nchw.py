@@ -229,9 +229,16 @@ def test_weight_grad_reference_layouts():
                                     torch.from_numpy(g[0, 0]),
                                     plan=plan.stencil2d_plan(((0, 0),),
                                                              coeffs=(1.0,)))
-    with pytest.raises(NotImplementedError, match="5c"):
-        engine.run_weight_grad_plan(torch.zeros(1, 8, 4), torch.zeros(1, 8, 4),
-                                    plan=plan.depthwise_conv1d_plan(3))
+    # the per-lane layout (K4's plain version) runs since K4 is ported
+    xl = np.random.default_rng(10).standard_normal((2, 8, 4)).astype(
+        np.float32)
+    wl = np.random.default_rng(11).standard_normal((3, 4)).astype(np.float32)
+    got3 = engine.run_weight_grad_plan(torch.from_numpy(xl),
+                                       torch.from_numpy(xl[::-1].copy()),
+                                       plan=plan.depthwise_conv1d_plan(3))
+    want3 = jax.grad(lambda ww: jnp.sum(jref.conv1d_causal(
+        jnp.asarray(xl), ww) * xl[::-1]))(jnp.asarray(wl))
+    _close(got3, want3)
 
 
 # --- fp64 gradcheck on the plain path ------------------------------------

@@ -1,5 +1,5 @@
-"""K1, K2, K3 and K5 on the card against their plain versions (needs a
-CUDA card).
+"""K1, K2, K3, K4 and K5 on the card against their plain versions (needs
+a CUDA card).
 
 This file imports only torch and the port, so it also runs on a machine
 without JAX:
@@ -14,7 +14,10 @@ per-tap contractions); K5 fp32 rtol 1e-5 with atol 1e-5·max|plain| (the
 kernel and the plain version differ only in the order of the prefix
 products), bf16 3e-2. K2 (3xTF32 on the tensor cores) against its plain
 version at K1's tolerances (3e-5 single-channel, 1e-4 NCHW), and against
-K1 at 1e-4, the reference's lanes-versus-mxu tolerance.
+K1 at 1e-4, the reference's lanes-versus-mxu tolerance. K1's per-lane
+(depthwise conv1d) path at fp32 3e-5, bf16 3e-2; K4 (per-lane weight
+gradient, sums over B·T products in another order) at fp32 1e-4, bf16
+3e-2; gradients through K1, K4 and K5 against the CPU's at 1e-4.
 """
 import numpy as np
 import pytest
@@ -27,7 +30,10 @@ from repro_torch.config import get_config
 from repro_torch.configs import whisper_base
 from repro_torch.core import adjoint, engine, plan
 from repro_torch.data import TokenDataset
-from repro_torch.kernels import ops, ref, ssam_conv2d, ssam_stencil2d
+from repro_torch.configs import hymba_1g5b
+from repro_torch.core.plan import normalize_epilogue
+from repro_torch.kernels import ops, ref, ssam_conv1d, ssam_conv2d
+from repro_torch.kernels import ssam_stencil2d
 from repro_torch.kernels import ssam_stencil3d, stencils
 from repro_torch.launch import serve, train
 from repro_torch.models import build_model
@@ -304,7 +310,8 @@ def test_wgrad_kernel_matches_plain_version(cuda, xs, ws, mode):
     g = _grid(lead + p.out_shape(xs[-2:]), cuda, 19)
     before = engine.WGRAD_KERNEL.launches
     got = engine.run_weight_grad_plan(x, g, plan=p)
-    assert engine.WGRAD_KERNEL.launches == before + 1
+    assert engine.WGRAD_KERNEL.launches == before + \
+        engine.WGRAD_KERNEL.launches_for(x, g, plan=p)
     want = engine.run_weight_grad_plan_reference(x, g, plan=p)
     assert got.dtype == torch.float32 and got.shape == want.shape
     _close(got, want, 1e-4)
@@ -327,9 +334,12 @@ def test_conv_autograd_never_takes_the_plain_version(cuda, monkeypatch):
     y = ops.conv2d(x, w, stride=(1, 2), epilogue=("bias", "gelu"),
                    epilogue_args=(b,))
     y.square().sum().backward()
-    # forward, recomputed pre-activation, dx; dW
+    # forward, recomputed pre-activation, dx; dW (its split reduction)
     assert engine.WINDOW_KERNEL.launches == k1 + 3
-    assert engine.WGRAD_KERNEL.launches == k3 + 1
+    assert engine.WGRAD_KERNEL.launches == k3 + \
+        engine.WGRAD_KERNEL.launches_for(x, torch.empty(2, 8, 1, 90),
+                                         plan=ssam_conv2d.plan_for_nchw(
+                                             x.shape, w.shape, "same"))
     assert x.grad.is_cuda and w.grad.is_cuda and b.grad.is_cuda
     s = _grid((30, 40), cuda, 23).requires_grad_()
     ops.stencil(s, "2d9pt", time_steps=2).sum().backward()
@@ -357,13 +367,25 @@ def test_conv_gradients_on_the_card_match_the_cpu(cuda):
                                    atol=1e-4 * want.abs().max().item())
 
 
+def _stem_k3_launches(cfg, batch: int) -> int:
+    """K3's launches for one step of the whisper stem: its two dW calls
+    (conv1 and conv2, the latter on the scattered, stride-free cotangent)."""
+    T = 2 * cfg.n_frames
+    mel = torch.empty(batch, cfg.n_mels, 1, T)
+    h = torch.empty(batch, cfg.d_model, 1, T)
+    launches = engine.WGRAD_KERNEL.launches_for
+    return sum(launches(x, h, plan=ssam_conv2d.plan_for_nchw(
+        x.shape, (cfg.d_model, x.shape[1], 1, 3), "same")) for x in (mel, h))
+
+
 def test_whisper_train_steps_go_through_k1_and_k3(cuda):
+    k3_step = _stem_k3_launches(whisper_base.SMOKE_CONV, 2)
     before = engine.WINDOW_KERNEL.launches, engine.WGRAD_KERNEL.launches
     res = train.main(["--arch", "whisper-base", "--conv-frontend", "--smoke",
                       "--steps", "2", "--batch", "2", "--seq", "16"])
     assert all(np.isfinite(res.losses))
     assert engine.WINDOW_KERNEL.launches == before[0] + 5 * 2
-    assert engine.WGRAD_KERNEL.launches == before[1] + 2 * 2
+    assert engine.WGRAD_KERNEL.launches == before[1] + k3_step * 2
     # the same stem pinned to mxu runs K2 where it ran K1
     before = (engine.WINDOW_KERNEL.launches, engine.MXU_KERNEL.launches,
               engine.WGRAD_KERNEL.launches)
@@ -376,7 +398,7 @@ def test_whisper_train_steps_go_through_k1_and_k3(cuda):
     assert np.isfinite(loss.item())
     assert engine.WINDOW_KERNEL.launches == before[0]
     assert engine.MXU_KERNEL.launches == before[1] + 5
-    assert engine.WGRAD_KERNEL.launches == before[2] + 2
+    assert engine.WGRAD_KERNEL.launches == before[2] + k3_step
 
 
 # --- K2: the tensor-core kernel (strategy='mxu') ---------------------------
@@ -513,3 +535,145 @@ def test_mxu_gradients_on_the_card_match_the_cpu(cuda):
     for got, want in zip(grads[1], grads[0]):
         torch.testing.assert_close(got, want, rtol=1e-4,
                                    atol=1e-4 * want.abs().max().item())
+
+
+# --- K1's per-lane path and K4: the depthwise conv1d -------------------------
+
+# (B, T, D, K): D not a multiple of 128, T < K, T not a multiple of the
+# 64-row tile, B > 1, Hymba's (2, 2048, 3200)
+PERLANE = [(2, 24, 100, 4), (3, 37, 100, 4), (1, 2, 5, 4), (2, 130, 300, 3),
+           (1, 65, 129, 8), (2, 2048, 3200, 4)]
+PERLANE_IDS = [f"{b}x{t}x{d}-K{k}" for b, t, d, k in PERLANE]
+
+
+def _perlane_data(B, T, D, K, device, seed=0):
+    x = _grid((B, T, D), device, seed)
+    w = _grid((K, D), device, seed + 1) / K ** 0.5
+    b = _grid((D,), device, seed + 2) * 0.1
+    g = _grid((B, T, D), device, seed + 3)
+    return x, w, b, g
+
+
+@pytest.mark.parametrize("B,T,D,K", PERLANE, ids=PERLANE_IDS)
+def test_perlane_kernel_matches_plain_version(cuda, B, T, D, K):
+    """K1's per-lane path: the forward with bias+SiLU fused (lead K−1),
+    the linear forward, and the input adjoint (trail K−1, the reflected
+    coefficient rows), each against the plain version."""
+    x, w, b, g = _perlane_data(B, T, D, K, cuda)
+    p = ssam_conv1d.plan_for(K)
+    pe = dataclasses.replace(p, epilogue=normalize_epilogue(("bias", "silu")))
+    a = adjoint.input_adjoint_plan(p)
+    before = engine.WINDOW_KERNEL.launches
+    for pl, inp, epi in ((pe, x, (b,)), (p, x, ()), (a, g, ())):
+        got = engine.run_window_plan(inp, w, plan=pl, epilogue_args=epi)
+        _close(got, engine.run_window_plan_reference(inp, w, plan=pl,
+                                                     epilogue_args=epi))
+    assert engine.WINDOW_KERNEL.launches == before + 3
+    _close(engine.run_window_plan(x, w, plan=p), ref.conv1d_causal(x, w))
+
+
+@pytest.mark.parametrize("B,T,D,K", PERLANE, ids=PERLANE_IDS)
+def test_perlane_wgrad_kernel_matches_plain_version(cuda, B, T, D, K):
+    x, _, _, g = _perlane_data(B, T, D, K, cuda, 4)
+    p = ssam_conv1d.plan_for(K)
+    before = engine.PERLANE_WGRAD_KERNEL.launches
+    got = engine.run_weight_grad_plan(x, g, plan=p)
+    assert got.shape == (K, D) and got.dtype == torch.float32
+    _close(got, engine.run_weight_grad_plan_reference(x, g, plan=p),
+           rtol=1e-4)
+    assert engine.PERLANE_WGRAD_KERNEL.launches == before + \
+        engine.PERLANE_WGRAD_KERNEL.launches_for(x, g, plan=p)
+    again = engine.run_weight_grad_plan(x, g, plan=p)
+    assert torch.equal(got, again)           # a fixed order: deterministic
+
+
+def test_perlane_kernels_bf16(cuda):
+    x, w, b, g = _perlane_data(2, 77, 300, 4, cuda, 5)
+    xb, gb = x.bfloat16(), g.bfloat16()
+    pe = dataclasses.replace(ssam_conv1d.plan_for(4),
+                             epilogue=normalize_epilogue(("bias", "silu")))
+    got = engine.run_window_plan(xb, w, plan=pe, epilogue_args=(b,))
+    assert got.dtype == torch.bfloat16
+    _close(got.float(), engine.run_window_plan_reference(
+        xb, w, plan=pe, epilogue_args=(b,)).float(), rtol=3e-2)
+    p = ssam_conv1d.plan_for(4)
+    _close(engine.run_weight_grad_plan(xb, gb, plan=p),
+           engine.run_weight_grad_plan_reference(xb, gb, plan=p), rtol=3e-2)
+
+
+def test_conv1d_gradients_on_the_card_match_the_cpu(cuda, monkeypatch):
+    """``ops.conv1d_causal`` with bias+SiLU: forward, recomputed
+    pre-activation and dx through K1, dW through K4, never the plain
+    versions; the gradients equal the CPU's."""
+    xc, wc, bc, gc = _perlane_data(2, 150, 200, 4, "cpu", 6)
+    grads = {}
+    for dev in ("cpu", cuda):
+        x, w, b = (t.detach().to(dev).requires_grad_() for t in (xc, wc, bc))
+        if dev == cuda:
+            def boom(*a, **k):
+                raise AssertionError("plain version reached on the card")
+            for name in ("run_window_plan_reference",
+                         "run_weight_grad_plan_reference"):
+                monkeypatch.setattr(engine, name, boom)
+            before = (engine.WINDOW_KERNEL.launches,
+                      engine.PERLANE_WGRAD_KERNEL.launches,
+                      engine.WGRAD_KERNEL.launches)
+        y = ops.conv1d_causal(x, w, epilogue=("bias", "silu"),
+                              epilogue_args=(b,))
+        grads[str(dev)] = [v.cpu() for v in torch.autograd.grad(
+            y, (x, w, b), gc.to(dev))]
+    assert (engine.WINDOW_KERNEL.launches, engine.PERLANE_WGRAD_KERNEL.launches,
+            engine.WGRAD_KERNEL.launches) == (
+        before[0] + 3, before[1] + engine.PERLANE_WGRAD_KERNEL.launches_for(
+            xc, gc, plan=ssam_conv1d.plan_for(4)), before[2])
+    for got, want in zip(grads[str(cuda)], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * want.abs().max().item())
+
+
+def test_perlane_bad_calls_raise_on_the_card(cuda):
+    x = _grid((1, 20, 40), cuda)
+    with pytest.raises(ValueError, match="same device"):
+        ops.conv1d_causal(x, torch.ones(4, 40))
+    with pytest.raises(ValueError, match="up to 8 taps"):
+        ops.conv1d_causal(x, _grid((9, 40), cuda))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.conv1d_causal(x.double(), _grid((4, 40), cuda).double())
+    with pytest.raises(NotImplementedError, match="5c"):
+        ops.conv1d_causal(x, _grid((4, 40), cuda), strategy="mxu")
+
+
+def test_scan_gradients_on_the_card_go_through_k5(cuda):
+    """The streamed recurrence's backward on the card: per chunk K5 runs
+    the checkpoint's recomputed forward and the reversed λ-recurrence;
+    the gradients equal the CPU's."""
+    a, b = _scan_operands("linrec", (64, 300), "cpu", seed=7)
+    g = _grid((64, 300), "cpu", 8)
+    grads = {}
+    for dev in ("cpu", cuda):
+        ta, tb = (t.to(dev).requires_grad_() for t in (a, b))
+        out = ops.chunked_linear_recurrence(ta, tb, chunk=128)
+        before = engine.SCAN_KERNEL.launches
+        grads[str(dev)] = [v.cpu() for v in torch.autograd.grad(
+            out, (ta, tb), g.to(dev))]
+    assert engine.SCAN_KERNEL.launches == before + 2 * 3
+    for got, want in zip(grads[str(cuda)], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+def test_hymba_train_steps_go_through_k1_k4_and_k5(cuda):
+    """Two steps of the train CLI on Hymba's SMOKE config at 300 tokens
+    (three scan chunks): the counters move by ``hymba.train_launches`` per
+    step, K2 and K3 stay idle, and the losses are finite."""
+    from repro_torch.models import hymba
+
+    kernels = (engine.WINDOW_KERNEL, engine.PERLANE_WGRAD_KERNEL,
+               engine.SCAN_KERNEL, engine.MXU_KERNEL, engine.WGRAD_KERNEL)
+    before = [k.launches for k in kernels]
+    res = train.main(["--arch", "hymba-1.5b", "--smoke", "--steps", "2",
+                      "--batch", "2", "--seq", "300"])
+    assert all(np.isfinite(res.losses)) and len(res.peak_mem_gb) == 2
+    want = hymba.train_launches(hymba_1g5b.SMOKE, 300, 2)
+    got = [k.launches - b for k, b in zip(kernels, before)]
+    assert got == [2 * want["k1"], 2 * want["k4"], 2 * want["k5"], 0, 0]

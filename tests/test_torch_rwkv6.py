@@ -76,9 +76,9 @@ def test_config_matches_reference(smoke):
 
 def test_other_archs_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        config.get_config("hymba-1.5b")
+        config.get_config("gemma3-1b")
     cfg = dataclasses.replace(config.get_config("rwkv6-1.6b", smoke=True),
-                              family="hybrid")
+                              family="moe")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
         build_model(cfg, device="cpu")
 

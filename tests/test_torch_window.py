@@ -219,8 +219,10 @@ def test_cpu_tensor_never_loads_the_kernel():
 def test_nvcc_command_targets_sm_90a():
     src = _build.sources()
     assert [p.name for p in src] == ["ssam_mxu.cu", "ssam_scan.cu",
-                                     "ssam_wgrad.cu", "ssam_window.cu",
-                                     "ssam_window_2d.cu", "ssam_window_3d.cu",
+                                     "ssam_wgrad.cu", "ssam_wgrad_perlane.cu",
+                                     "ssam_window.cu", "ssam_window_2d.cu",
+                                     "ssam_window_3d.cu",
+                                     "ssam_window_perlane.cu",
                                      "ssam_window_reduce.cu"]
     cmd = _build.compile_command(src[0], _build.BUILD_DIR / "k.o")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" not in cmd
@@ -256,9 +258,10 @@ def test_out_of_slice_raises_not_implemented(case):
             ops.stencil(x, "2d5pt", epilogue="relu")
         elif case == "mesh":
             ops.conv2d(x, w, mesh=object())
-        elif case == "perlane":
-            engine.run_window_plan(x, torch.ones((3, 40)),
-                                   plan=plan.depthwise_conv1d_plan(3))
+        elif case == "perlane":  # per-lane runs; its temporal blocking not
+            engine.run_window_plan(x[None], torch.ones((3, 40)),
+                                   plan=plan.depthwise_conv1d_plan(3),
+                                   time_steps=2)
         elif case == "mxu":     # mxu runs; its per-lane mat-vec does not
             engine.run_window_plan(
                 x, torch.ones((3, 40)), plan=dataclasses.replace(
