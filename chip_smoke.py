@@ -24,7 +24,8 @@ the selective scan, forward and backward, through K5.
 Phases, one JSON line each:
 
 1. build: compile K1, K2, K3, K4 and K5 from ``src/repro_torch/csrc``
-   (nvcc, sm_90a, one process per source, all started together);
+   (nvcc, sm_90a, one process per source, all started together), with
+   the counts of ``HGMMA`` and ``UTMALDG`` in K3's channel kernel;
 2. stencils and 3. convolution: every case against the plain torch
    version on the card, ``rtol=3e-5, atol=3e-5·max|plain|`` (bf16:
    3e-2), and small cases against the torch oracles;
@@ -59,9 +60,12 @@ Phases, one JSON line each:
 8. training: (a) K1 and K3 at the stem's full-width shapes (batch 8,
    mel (8, 80, 1, 3000), d_model 512): conv1 and conv2 forward (conv2 at
    stride (1, 2), both with bias+GELU), conv2's dx on the input-adjoint
-   plan, the dW of both, one single-channel 5×5 dW at 8192² and one bf16
-   forward, each against its plain version on the card (fp32 rtol 1e-4,
-   atol 1e-4·max|plain|; bf16 3e-2); (b) the stem's gradients (both
+   plan, the dW of both (conv2's on the strided cotangent, and again on
+   the cotangent scattered onto the dense lattice; once more in bf16),
+   one single-channel 5×5 dW at 8192² and one bf16 forward, each against
+   its plain version on the card (fp32 rtol 1e-4, atol 1e-4·max|plain|;
+   bf16 3e-2), and each K3 call twice for equal bits; (b) the stem's
+   gradients (both
    filters and biases, and conv2's input) through the kernels against
    torch autograd through the plain versions, same tolerance;
    (c) whisper-base with the stem (89,150,976 parameters, weights from
@@ -70,10 +74,13 @@ Phases, one JSON line each:
    at 5 per step (2 forwards, 2 recomputed pre-activations, 1 dx) and
    K3's at its launches for the 2 dW calls of a step (4: each call splits
    its reduction and adds the partials in a second launch); (d) step time and samples/s, K1 and K3 device
-   times beside their bound, the plain versions and the library
-   yardsticks (``F.conv2d`` + tanh-GELU, ``torch.nn.grad.conv2d_input``
-   / ``conv2d_weight``, TF32 off, never called by the port), and the
-   profiler's top device ops of one step with the stem's share;
+   times beside their bound (K3's channel path as K2's: the operations
+   counted once at the TF32 rate, the fp32 bound beside it), the plain
+   versions and the library yardsticks (``F.conv2d`` + tanh-GELU,
+   ``torch.nn.grad.conv2d_input`` / ``conv2d_weight``, TF32 off, and for
+   K3 also on; never called by the port), and the profiler's top device
+   ops of one step with the stem's share, its ``wgrad`` kernels equal to
+   K3's counter;
 9. tensor cores: (a) the 15 stencils at 8192² / 512³, t ∈ {1, 2}, and
    the 'same' filter sweep at 8192² with ``strategy="mxu"`` through K2,
    each against the plain mxu version on the card (fp32 rtol 3e-5; one
@@ -198,6 +205,24 @@ def ptxas_summary(log: str) -> dict:
     parts = re.split(r"^== (\S+)$", log, flags=re.M)
     return {**summary(log), "by_source": {
         name: summary(text) for name, text in zip(parts[1::2], parts[2::2])}}
+
+
+def sass_counts(lib_path: str, kernel: str, opcodes) -> dict | None:
+    """How often each SASS opcode occurs in the functions of the built
+    library whose name holds ``kernel`` (``cuobjdump -sass``); None where
+    the toolkit has no cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if kernel in f.split("\n", 1)[0]]
+    return {"functions": len(funcs),
+            **{op: sum(len(re.findall(rf"\b{op}\b", f)) for f in funcs)
+               for op in opcodes}}
 
 
 def event_ms(fn, reps):
@@ -546,7 +571,7 @@ def serve_phase(args, dev, card, results) -> dict:
 def stem_cases(dev, seed):
     """The Whisper stem's full-width operands at batch 8 (fp32, from the
     numpy generator): mel, both filters and biases, conv1's output and
-    conv2's cotangent scattered onto the dense 3000-lane lattice."""
+    the cotangents of both convolutions (conv2's at its strided width)."""
     import numpy as np
 
     from repro_torch import convert
@@ -598,6 +623,7 @@ def train_phase(args, dev, card, results) -> dict:
     p1 = nchw(c["mel"], c["w1"], None, epi)
     p2 = nchw(c["x2"], c["w2"], (1, 2), epi)
     lin2 = nchw(c["x2"], c["w2"])
+    lin2s = nchw(c["x2"], c["w2"], (1, 2))       # conv2's linear plan
     adj2 = adjoint.input_adjoint_plan(lin2)
     wa2 = adjoint.adjoint_coeff_array(lin2, c["w2"])
     g2d = torch.zeros_like(c["g1"])
@@ -644,7 +670,19 @@ def train_phase(args, dev, card, results) -> dict:
          4 * (B * N_MELS * T + B * D * T + D * N_MELS * 3),
          lambda: torch.nn.grad.conv2d_weight(
              c["mel"], c["w1"].shape, c["g1"], padding=(0, 1)), K3),
-        ("K3 conv2 dW on the scattered cotangent -> (512,512,1,3)",
+        # the real positions only: 8 x 1500 per dW element
+        ("K3 conv2 dW on the strided cotangent (8,512,1,3000) x "
+         "(8,512,1,1500) -> (512,512,1,3)",
+         lambda: wrun(c["x2"], c["g2"], plan=lin2s),
+         lambda: wref(c["x2"], c["g2"], plan=lin2s),
+         F32, 2 * D * D * 3 * B * (T // 2),
+         4 * (B * D * T + B * D * T // 2 + D * D * 3),
+         lambda: torch.nn.grad.conv2d_weight(
+             c["x2"], c["w2"].shape, c["g2"], stride=(1, 2), padding=(0, 1)),
+         K3),
+        # the stride-free plan on the scattered cotangent: the same dW
+        ("K3 conv2 dW, the scattered cotangent (8,512,1,3000) -> "
+         "(512,512,1,3)",
          lambda: wrun(c["x2"], g2d, plan=lin2),
          lambda: wref(c["x2"], g2d, plan=lin2),
          F32, 2 * D * D * 3 * B * T, 4 * (2 * B * D * T + D * D * 3),
@@ -664,7 +702,7 @@ def train_phase(args, dev, card, results) -> dict:
     ]
     # K3's launches per train step: the stem's two dW calls at these shapes
     k3_step = (K3.launches_for(c["mel"], c["g1"], plan=p1)
-               + K3.launches_for(c["x2"], g2d, plan=lin2))
+               + K3.launches_for(c["x2"], c["g2"], plan=lin2s))
     # -- (a) each kernel against its plain version at the stem's shapes ----
     worst = {"K1": 0.0, "K3": 0.0}
     for tag, kern, plain, rtol, *_ in cases:
@@ -672,7 +710,15 @@ def train_phase(args, dev, card, results) -> dict:
         err = compare(tag, got, want, rtol, results)
         if rtol == F32:
             worst[tag[:2]] = max(worst[tag[:2]], err)
+        if tag.startswith("K3"):
+            # no atomics: a second call gives the same bits
+            require(torch.equal(got, kern()), (tag, "not deterministic"))
         del got, want
+    xb, gb = c["x2"].bfloat16(), c["g2"].bfloat16()
+    compare("K3 conv2 dW on the strided cotangent, bf16 in",
+            wrun(xb, gb, plan=lin2s), wref(xb, gb, plan=lin2s), 3e-2,
+            results)
+    del xb, gb
     torch.cuda.empty_cache()
 
     # -- (b) the stem's autograd against the plain path ---------------------
@@ -737,7 +783,7 @@ def train_phase(args, dev, card, results) -> dict:
             (f"train launches (K1 5/step, K3 {k3_step}/step)", k1, k3, k5))
 
     # -- (d) times at the stem's shapes, and one profiled step --------------
-    for tag, kern, plain, _, flops, nbytes, lib, _ in cases:
+    for tag, kern, plain, _, flops, nbytes, lib, kernel in cases:
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         f_ms = flops / FP32_FLOPS * 1e3
         if "bf16" in tag:
@@ -749,8 +795,30 @@ def train_phase(args, dev, card, results) -> dict:
                "bound_by": "bytes" if b_ms >= f_ms else "operations",
                "gflop": flops / 1e9, "bytes": nbytes,
                "roofline_share": max(b_ms, f_ms) / ms, "card": card}
+        if kernel is K3 and "(N, M)" not in tag:
+            # K3's channel path runs on the tensor cores: its bound as K2's,
+            # the operations counted once at the TF32 rate, the fp32 bound
+            # beside it; cuDNN also with TF32 on (less precise)
+            tc_ms = flops / TF32_FLOPS * 1e3
+            rec.update({
+                "bound_ms": max(b_ms, tc_ms),
+                "bound_by": "bytes" if b_ms >= tc_ms else "operations",
+                "fp32_bound_ms": max(b_ms, f_ms),
+                "fp32_bound_by": "bytes" if b_ms >= f_ms else "operations",
+                "roofline_share": max(b_ms, tc_ms) / ms,
+                "library_tf32_ms": device_ms(cudnn_tf32(lib), 20)})
         results["times"].append(rec)
         emit({"phase": "train_time", **rec})
+    # The pass K3's wrapper would make to split conv2's x into 2 column
+    # phases; it reads x in place instead (a wider, 16-byte aligned box).
+    nbytes = 2 * 4 * B * D * T
+    ms = device_ms(
+        lambda: engine._tma_operand(engine.phase_split(c["x2"], 2)), 20)
+    rec = {"case": "x of conv2 split in 2 column phases (not on the path)",
+           "ms": ms, "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "card": card}
+    results["times"].append(rec)
+    emit({"phase": "train_time", **rec})
     ds = TokenDataset(model.cfg.vocab, TRAIN_SEQ, seed=args.seed)
     batch = train.make_batch(model, ds, TRAIN_STEPS, TRAIN_BATCH, dev)
     res.trainer.step(batch)
@@ -767,6 +835,12 @@ def train_phase(args, dev, card, results) -> dict:
            "k3_launches": K3.launches - before[1], "card": card}
     rec["stem_share"] = ((rec["k1_ms"] + rec["k3_ms"]) / rec["device_ms"]
                          if rec["device_ms"] else None)
+    if rec["device_ms"]:
+        # every K3 launch (the partial sums and the pass that adds them)
+        # is a kernel whose name holds "wgrad"
+        require(rec["k3_calls"] == rec["k3_launches"] == k3_step,
+                ("profiled K3 kernels against the counter", rec["k3_calls"],
+                 rec["k3_launches"], k3_step))
     # The same step's stem from the timed calls of (d): each forward twice
     # (the backward recomputes the pre-activation), conv2's dx, both dW.
     timed = {r["case"][:14]: r["ms"] for r in results["times"]
@@ -785,7 +859,9 @@ def train_phase(args, dev, card, results) -> dict:
     return {"k1_launches": k1, "k3_launches": k3, "k3_step": k3_step,
             "worst": worst, "first_loss": res.losses[0], "step_ms": step_ms,
             "k3_headline": next(r for r in results["times"]
-                                if r["case"].startswith("K3 conv2 dW")),
+                                if r["case"].startswith("K3 conv2 dW on")),
+            "k3_conv1": next(r for r in results["times"]
+                             if r["case"].startswith("K3 conv1 dW")),
             "k1_headline": next(r for r in results["times"]
                                 if r["case"].startswith("K1 conv2 dx"))}
 
@@ -1074,6 +1150,10 @@ def mxu_phase(args, dev, card, results, lanes) -> dict:
            "k3_launches": K3.launches - before[1], "card": card}
     rec["stem_share"] = ((rec["k2_ms"] + rec["k3_ms"]) / rec["device_ms"]
                          if rec["device_ms"] else None)
+    if rec["device_ms"]:
+        require(rec["k3_calls"] == rec["k3_launches"] == lanes["k3_step"],
+                ("profiled K3 kernels against the counter", rec["k3_calls"],
+                 rec["k3_launches"], lanes["k3_step"]))
     results["train_mxu_profile"] = rec
     emit({"phase": "train_mxu_profile", **rec})
     return {"launches": launches, "train_launches": k2, "worst": worst,
@@ -1532,7 +1612,12 @@ def main() -> int:
     _build.LIBRARY.get()
     results["build"] = {"seconds": time.perf_counter() - t0,
                         "nvcc_seconds": _build.LIBRARY.build_seconds,
-                        **ptxas_summary(_build.LIBRARY.ptxas_log)}
+                        **ptxas_summary(_build.LIBRARY.ptxas_log),
+                        # K3's channel path: wgmma (HGMMA) fed by TMA
+                        # (UTMALDG) in its SASS
+                        "wgrad_tc_sass": sass_counts(
+                            str(_build.LIBRARY.path), "wgrad_tc_kernel",
+                            ("HGMMA", "UTMALDG"))}
     emit({"phase": "build", **results["build"], "card": card})
 
     def stencil_plan(sd):
@@ -1718,7 +1803,12 @@ def main() -> int:
         "max_abs_err": trained["worst"]["K3"], "ms": k3h["ms"],
         "plain_ms": k3h["plain_ms"], "bound_ms": k3h["bound_ms"],
         "bound_by": k3h["bound_by"], "library_ms": k3h["library_ms"],
-        "case": k3h["case"]}, {
+        "case": k3h["case"], "fp32_bound_ms": k3h["fp32_bound_ms"],
+        "library_tf32_ms": k3h["library_tf32_ms"],
+        "conv1": {**_row(trained["k3_conv1"]),
+                  "fp32_bound_ms": trained["k3_conv1"]["fp32_bound_ms"],
+                  "library_tf32_ms": trained["k3_conv1"]["library_tf32_ms"]}},
+        {
         "name": K2.name, "route": "cuda", "source": K2.source,
         "replaces": K2.replaces, "launches": mxu["launches"],
         "max_abs_err": mxu["worst"]["abs"], "ms": k2h["ms"],

@@ -57,13 +57,15 @@ def link_command(objs: list[Path], lib: Path, compiler: str = "nvcc") -> list[st
 class Library:
     """The compiled kernels of the port: built once, loaded once.
 
-    ``build_seconds`` is the wall time of the last build (0 when an
-    up-to-date library was found), ``ptxas_log`` what ``ptxas -v`` said
-    about registers, shared memory and spills.
+    ``path`` is the loaded library's file, ``build_seconds`` the wall
+    time of the last build (0 when an up-to-date library was found),
+    ``ptxas_log`` what ``ptxas -v`` said about registers, shared memory
+    and spills.
     """
 
     def __init__(self):
         self._lib = None
+        self.path = None
         self.build_seconds = 0.0
         self.ptxas_log = ""
 
@@ -73,7 +75,8 @@ class Library:
 
     def get(self) -> ctypes.CDLL:
         if self._lib is None:
-            self._lib = self._load(self._build())
+            self.path = self._build()
+            self._lib = self._load(self.path)
         return self._lib
 
     def _build(self) -> Path:
@@ -123,8 +126,12 @@ class Library:
             [p, p, i, p, p, i, p, ctypes.POINTER(ctypes.c_int),
              ctypes.POINTER(ctypes.c_float), i] + [i] * 16 + [p])
         lib.ssam_window_reduce_launch.restype = i
-        lib.ssam_wgrad_launch.argtypes = [p, p, i, p, p] + [i] * 22 + [p]
+        lib.ssam_wgrad_launch.argtypes = [p, p, i, p, p] + [i] * 21 + [p]
         lib.ssam_wgrad_launch.restype = i
+        lib.ssam_wgrad_tc_launch.argtypes = (
+            [p, p, i, p, p] + [i] * 24 + [ctypes.POINTER(ctypes.c_int)] * 4
+            + [i] * 4 + [p])
+        lib.ssam_wgrad_tc_launch.restype = i
         lib.ssam_mxu_reduce_launch.argtypes = (
             [p, p, i, p, p, i, p, ctypes.POINTER(ctypes.c_int),
              ctypes.POINTER(ctypes.c_float), i] + [i] * 19 + [p])

@@ -114,7 +114,7 @@ def input_adjoint_plan(plan: SystolicPlan) -> SystolicPlan:
         raise ValueError(
             f"input_adjoint_plan wants a windowed plan, got combine="
             f"{plan.combine!r}; scan plans transpose to time-reversed "
-            "scans (ROADMAP Queue 1 item 5d)")
+            "scans (see reversed_recurrence_coeffs)")
     if any(v > 1 for v in plan.stride_per_axis()):
         raise ValueError(
             "the transpose of an output-strided plan is input-dilated, "

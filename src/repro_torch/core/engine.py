@@ -28,8 +28,10 @@ port's reach raise ``NotImplementedError`` naming the ROADMAP item that
 ports them.
 
 :func:`run_weight_grad_plan` is the backward-weight correlation
-``∂L/∂w[n,m] = Σ_{b,o} g[b,o]·xp[b,o+(n,m)]`` of a dense plan, K3
-(``csrc/ssam_wgrad.cu``, replacing ``_wgrad_dense_kernel``), and
+``∂L/∂w[n,m] = Σ_{b,o} g[b,o]·xp[b,s·o+(n,m)]`` of a dense plan (``s``
+its output stride, ``g`` the strided output's cotangent), K3
+(``csrc/ssam_wgrad_tc.cu`` for channel plans, ``csrc/ssam_wgrad.cu``
+for single-channel ones, replacing ``_wgrad_dense_kernel``), and
 ``∂L/∂w[k,d] = Σ_{b,t} g[b,t,d]·xp[b,t+k,d]`` of a per-lane plan, K4
 (``csrc/ssam_wgrad_perlane.cu``, replacing ``_wgrad_perlane_kernel``),
 for CUDA tensors; :func:`run_weight_grad_plan_reference` for CPU
@@ -1037,7 +1039,10 @@ def run_window_plan_mxu(x: torch.Tensor, w=None, *, plan: SystolicPlan,
 
 def _wgrad_operands(x, g, plan: SystolicPlan):
     """``x`` and ``g`` as ``(B, C_in, H, W)`` and ``(B, C_out, H', W')``,
-    checked against the plan's geometry as the reference checks them."""
+    checked against the plan's geometry as the reference checks them. A
+    strided plan takes the cotangent the forward produced (the strided
+    output's shape); the stride-free plan takes one scattered onto the
+    dense lattice, with the same result."""
     if plan.combine != "fma" or plan.coeff_mode == "table":
         raise ValueError(
             f"no weight gradient for {plan.kind!r} "
@@ -1048,9 +1053,6 @@ def _wgrad_operands(x, g, plan: SystolicPlan):
     if plan.ndim_spatial != 2 or plan.reduce_axes != plan.out_axes:
         raise ValueError(f"{plan.kind!r}: the dense weight gradient takes "
                          "2-D plans, single-channel or NCHW")
-    if any(v > 1 for v in plan.stride_per_axis()):
-        raise ValueError("scatter the cotangent of a strided plan into the "
-                         "dense lattice and pass the stride-free plan")
     nb, nr = plan.batch_axes, plan.reduce_axes
     x4 = x if nb else x[None]
     x4 = x4 if nr else x4[:, None]
@@ -1059,12 +1061,7 @@ def _wgrad_operands(x, g, plan: SystolicPlan):
     if x4.ndim != 4 or g4.ndim != 4 or x4.shape[0] != g4.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} and g {tuple(g.shape)} do not "
                          f"fit the {plan.kind!r} plan")
-    N, M = plan.exts
-    lead, trail = plan.lead_trail()
-    H, W = x4.shape[2:]
-    Ho, Wo = g4.shape[2:]
-    if (Ho, Wo) != (H + lead[0] + trail[0] - (N - 1),
-                    W + lead[1] + trail[1] - (M - 1)):
+    if tuple(g4.shape[2:]) != plan.out_shape(tuple(x4.shape[2:])):
         raise ValueError(f"cotangent {tuple(g.shape)} is not the output of "
                          f"the {plan.kind!r} plan on {tuple(x.shape)}")
     return x4, g4
@@ -1112,8 +1109,9 @@ def _wgrad_perlane_reference(x, g, plan: SystolicPlan) -> torch.Tensor:
 def run_weight_grad_plan_reference(x: torch.Tensor, g: torch.Tensor, *,
                                    plan: SystolicPlan) -> torch.Tensor:
     """The plain version of K3 and K4, on any device: one correlation per
-    filter tap, ``dW[:, :, n, m] = Σ_{b,o} g[b, :, o]·xp[b, :, o + (n,
-    m)]`` over the input padded by the plan's lead (and trail); per-lane
+    filter tap, ``dW[:, :, n, m] = Σ_{b,o} g[b, :, o]·xp[b, :, s·o + (n,
+    m)]`` over the input padded by the plan's lead (and trail), ``s`` the
+    plan's output stride (``g`` the strided output's cotangent); per-lane
     plans ``dW[k, d] = Σ_{b,t} g[b,t,d]·xp[b,t+k,d]``. Returns fp32 (fp64
     for fp64 inputs), ``(N, M)``, ``(C_out, C_in, N, M)`` or ``(K, D)``."""
     if plan.coeff_mode == "perlane":
@@ -1122,15 +1120,17 @@ def run_weight_grad_plan_reference(x: torch.Tensor, g: torch.Tensor, *,
     acc = acc_dtype(x)
     N, M = plan.exts
     (ly, lx), _ = plan.lead_trail()
+    sy, sx = plan.stride_per_axis()
     H, W = x4.shape[2:]
     Ho, Wo = g4.shape[2:]
-    xp = F.pad(x4.to(acc), (lx, Wo + M - 1 - lx - W, ly, Ho + N - 1 - ly - H))
+    Hd, Wd = sy * (Ho - 1) + 1, sx * (Wo - 1) + 1   # the rows/columns read
+    xp = F.pad(x4.to(acc), (lx, Wd + M - 1 - lx - W, ly, Hd + N - 1 - ly - H))
     gf = g4.to(acc)
     out = xp.new_zeros((g4.shape[1], x4.shape[1], N, M))
     for n in range(N):
         for m in range(M):
             out[:, :, n, m] = torch.einsum(
-                "bohw,bchw->oc", gf, xp[..., n:n + Ho, m:m + Wo])
+                "bohw,bchw->oc", gf, xp[..., n:n + Hd:sy, m:m + Wd:sx])
     return out if plan.out_axes else out[0, 0]
 
 
@@ -1145,15 +1145,14 @@ def _pow2_ceil(n: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class WgradLayout:
-    """K3's launch geometry: a block of 256 threads owns ``co_tile``
-    output channels × ``rows_tile`` flattened ``(c_in, n, m)`` rows; its
-    threads split as ``cg`` channel groups (``cr`` channels each) ×
-    ``rg`` row groups (4 rows each) × ``ph`` position phases, whose
-    partial sums the block adds in a fixed order. The cotangent's
-    positions, in chunks of 64 along a row, split into ``slices``
-    reduce slices (a second kernel adds their partials in order)."""
+    """The single-channel K3's launch geometry: a block of 256 threads
+    owns ``cg`` output channels × ``rows_tile`` flattened ``(c_in, n,
+    m)`` rows; its threads split as ``cg`` channels × ``rg`` row groups
+    (4 rows each) × ``ph`` position phases, whose partial sums the block
+    adds in a fixed order. The cotangent's positions, in chunks of 64
+    along a row, split into ``slices`` reduce slices (a second kernel adds
+    their partials in order)."""
 
-    cr: int
     cg: int
     rg: int
     ph: int
@@ -1167,11 +1166,10 @@ class WgradLayout:
 
 def wgrad_layout(B, c_in, c_out, Ho, Wo, N, M) -> WgradLayout:
     rows = c_in * N * M
-    cr = 4 if c_out > 1 else 1
-    cg = min(8, _pow2_ceil(-(-c_out // cr)))
+    cg = min(8, _pow2_ceil(c_out))
     rg = min(WGRAD_THREADS // cg, _pow2_ceil(-(-rows // 4)))
     ph = WGRAD_THREADS // (cg * rg)
-    co_tile, rows_tile = cg * cr, 4 * rg
+    co_tile, rows_tile = cg, 4 * rg
     grid_xy = (-(-rows // rows_tile), -(-c_out // co_tile))
     chunks = B * Ho * -(-Wo // WGRAD_POSITIONS)
     slices = max(1, min(chunks, -(-WGRAD_TARGET_BLOCKS
@@ -1180,31 +1178,215 @@ def wgrad_layout(B, c_in, c_out, Ho, Wo, N, M) -> WgradLayout:
     span = min(c_in, rows_tile // (N * M) + 2)
     lp = (WGRAD_POSITIONS + M - 1) | 1
     staged = WGRAD_POSITIONS * co_tile + span * N * lp
-    smem = 4 * max(staged, WGRAD_THREADS * cr * 4)
+    smem = 4 * max(staged, WGRAD_THREADS * 4)
     if smem > SMEM_LIMIT:
         raise ValueError(f"K3 needs {smem} bytes of shared memory for a "
                          f"{N}x{M} filter (limit {SMEM_LIMIT})")
     if grid_xy[1] > 65535 or slices > 65535:
         raise ValueError(f"K3's grid cannot hold {c_out} channels")
-    return WgradLayout(cr, cg, rg, ph, grid_xy + (slices,), chunks, slices,
+    return WgradLayout(cg, rg, ph, grid_xy + (slices,), chunks, slices,
                        span, lp, smem)
 
 
 def _wgrad_geometry(x, g, plan: SystolicPlan):
-    """K3's operands as 4-D tensors and its :func:`wgrad_layout`."""
+    """The single-channel K3's operands as 4-D tensors and its
+    :func:`wgrad_layout`."""
+    if any(v > 1 for v in plan.stride_per_axis()):
+        raise NotImplementedError(
+            "K3's single-channel layout takes stride-free plans; strided "
+            "single-channel convolutions are ROADMAP Queue 1 item 4")
     x4, g4 = _wgrad_operands(x, g, plan)
     B, Ci = x4.shape[:2]
     Co, Ho, Wo = g4.shape[1:]
     return x4, g4, wgrad_layout(B, Ci, Co, Ho, Wo, *plan.exts)
 
 
+# K3's channel path (csrc/ssam_wgrad_tc.cu): wgmma on TMA-staged tiles
+WGRAD_TC_TILE = 128             # C_out x (tap, ci) columns per block
+WGRAD_TC_ROW_BYTES = 128        # a k-block: 128 bytes of one cotangent row
+WGRAD_TC_MAX_STAGES = 4         # the TMA ring
+WGRAD_TC_MAX_TAPS = 64
+WGRAD_TC_MIN_KBLOCKS = 8        # k-blocks a reduce slice takes at least
+WGRAD_TC_BLOCK_COST = 5         # a block's fixed cost (ring fill, partial
+                                # tile), in k-blocks
+H100_SMS = 132
+TMA_ALIGN = 16                  # bytes: TMA's base, row pitch and box start
+TMA_MAX_BOX = 256               # elements of a TMA box along one axis
+
+
+def tma_pitch(width: int, elem_bytes: int) -> int:
+    """The row pitch, in elements, of a TMA operand whose rows hold
+    ``width`` elements: the next multiple of 16 bytes."""
+    per = TMA_ALIGN // elem_bytes
+    return -(-width // per) * per
+
+
+def _tma_operand(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``t`` as TMA reads it: rows (its last axis) at a pitch of a multiple
+    of 16 bytes from a 16-byte aligned base. ``t`` itself where it already
+    is so; else a pitch-padded copy (``torch.empty``, then a narrow copy),
+    whose padding the map never reads (it is encoded with the logical
+    width). Returns the tensor and its pitch in elements."""
+    width = t.shape[-1]
+    pitch = tma_pitch(width, t.element_size())
+    if pitch == width and t.is_contiguous() \
+            and t.data_ptr() % TMA_ALIGN == 0:
+        return t, pitch
+    buf = torch.empty(t.shape[:-1] + (pitch,), dtype=t.dtype,
+                      device=t.device)
+    buf.narrow(-1, 0, width).copy_(t)
+    return buf, pitch
+
+
+def phase_split(x4: torch.Tensor, sx: int) -> torch.Tensor:
+    """``x``'s columns in ``sx`` phases, ``(B, C, H, sx, ⌈W/sx⌉)``: phase
+    ``p``, column ``j`` is ``x[..., sx·j + p]``, zero past ``W``. A view
+    of ``x`` (zero-padded to a multiple of ``sx`` columns where needed)."""
+    W = x4.shape[-1]
+    Wp = -(-W // sx)
+    if Wp * sx != W:
+        x4 = F.pad(x4, (0, Wp * sx - W))
+    return x4.unflatten(-1, (Wp, sx)).transpose(-1, -2)
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradTcLayout:
+    """K3's channel-path geometry. A block owns 128 output channels × one
+    N tile of ``taps_per_tile`` taps × ``ci_tile`` input channels (ordered
+    tap-major, so each tap's ci-slab is one TMA box), and walks the
+    cotangent's positions in k-blocks of ``kb`` positions (128 bytes) of
+    one ``(b, oy)`` row, ``kblocks_per_row`` per row. The k-blocks split
+    into ``slices`` reduce slices (as many as keep the waves of blocks
+    short) whose partial tiles a second launch adds in order. Tap ``t``'s
+    x box for the k-block at ``(b, oy, ox0)`` holds ``box_w`` columns
+    from :meth:`box` (a 16-byte aligned column, as TMA requires);
+    position ``j`` of the k-block is its column ``tap_shift[t] +
+    xstep·j``: x is read in place, every ``xstep = sx``-th column, where
+    such a box fits TMA's 256 columns and a ring of 3 stages, else in
+    ``phases = sx`` column phases (:func:`phase_split`; the map's rows are
+    ``(row, phase)`` pairs, ``xstep`` 1). ``stages`` of ``stage_bytes``
+    (the g tile and the x boxes) form the TMA ring."""
+
+    ci_tile: int
+    taps_per_tile: int
+    ci_tiles: int
+    tap_groups: int
+    kb: int
+    kblocks_per_row: int
+    kblocks: int
+    slices: int
+    grid: tuple[int, int, int]    # (N tiles, C_out tiles, slices)
+    row_stride: int               # sy
+    xstep: int                    # sx, or 1 when x is split in phases
+    phases: int                   # 1, or sx
+    box_w: int
+    stages: int
+    stage_bytes: int
+    smem: int
+    tap_col: tuple[int, ...]
+    tap_shift: tuple[int, ...]
+    tap_row: tuple[int, ...]
+    tap_phase: tuple[int, ...]
+
+    def box(self, tap: int, b: int, oy: int, ox0: int,
+            c0: int) -> tuple[int, int, int, int]:
+        """The x map coordinates (column, row, channel, batch) of ``tap``'s
+        box for the k-block at ``(b, oy, ox0)``, ci-slab ``c0``."""
+        row = self.row_stride * oy + self.tap_row[tap]
+        return (self.xstep * ox0 + self.tap_col[tap],
+                row * self.phases + self.tap_phase[tap], c0, b)
+
+
+def wgrad_tc_layout(B, c_in, c_out, Ho, Wo, N, M, *, lead=(0, 0),
+                    stride=(1, 1), elem_bytes=4) -> WgradTcLayout:
+    taps = N * M
+    if taps > WGRAD_TC_MAX_TAPS:
+        raise ValueError(f"K3's channel path holds filters of up to "
+                         f"{WGRAD_TC_MAX_TAPS} taps, got {N}x{M}")
+    (ly, lx), (sy, sx) = lead, stride
+    kb = WGRAD_TC_ROW_BYTES // elem_bytes
+    align = TMA_ALIGN // elem_bytes
+    # the N tile with the fewest tiles of 128 columns (ties: wider slabs)
+    best = None
+    for ci_tile in range(8, WGRAD_TC_TILE + 1, 8):
+        tpt = min(taps, WGRAD_TC_TILE // ci_tile)
+        ci_tiles, groups = -(-c_in // ci_tile), -(-taps // tpt)
+        key = (ci_tiles * groups, -ci_tile)
+        if best is None or key < best[0]:
+            best = (key, ci_tile, tpt, ci_tiles, groups)
+    _, ci_tile, tpt, ci_tiles, groups = best
+    kpr = -(-Wo // kb)
+    kblocks = B * Ho * kpr
+    co_tiles = -(-c_out // WGRAD_TC_TILE)
+    tiles = ci_tiles * groups * co_tiles
+
+    def span(s):
+        """The time of ``s`` slices in k-blocks of one SM: waves of one
+        block per SM (the shared memory a block takes), each a slice."""
+        return (-(-tiles * s // H100_SMS)
+                * (-(-kblocks // s) + WGRAD_TC_BLOCK_COST), s)
+
+    slices = min(range(1, max(1, kblocks // WGRAD_TC_MIN_KBLOCKS) + 1),
+                 key=span)
+    if co_tiles > 65535 or slices > 65535:
+        raise ValueError(f"K3's grid cannot hold {c_out} channels")
+    tile_bytes = WGRAD_TC_TILE * WGRAD_TC_ROW_BYTES
+    # beside the ring: two x operand buffers (fp32: big and small parts),
+    # the barriers, the x rows' shifts, and the slack that aligns the ring
+    # to the 1024-byte swizzle period
+    fixed = 2 * (2 if elem_bytes == 4 else 1) * tile_bytes \
+        + 8 * WGRAD_TC_MAX_STAGES + 4 * WGRAD_TC_TILE + 1024
+
+    def ring(box_w):
+        stage = tile_bytes + -(-tpt * ci_tile * box_w * elem_bytes
+                               // 1024) * 1024
+        return stage, min(WGRAD_TC_MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
+
+    # x read in place, every sx-th column of a wider box, where the box
+    # fits TMA and a ring of 3; else split in sx column phases
+    xstep, phases = sx, 1
+    box_w = -(-(sx * (kb - 1) + align) // align) * align
+    stage_bytes, stages = ring(box_w)
+    if box_w > TMA_MAX_BOX or stages < 3:
+        xstep, phases, box_w = 1, sx, kb + align
+        stage_bytes, stages = ring(box_w)
+    cols, shifts, rows, tap_phases = [], [], [], []
+    for tap in range(taps):
+        n, m = divmod(tap, M)
+        q, p = divmod(m - lx, phases)   # phase p, its column xstep·ox + q
+        shifts.append(q % align)
+        cols.append(q - shifts[-1])
+        rows.append(n - ly)
+        tap_phases.append(p)
+    return WgradTcLayout(ci_tile, tpt, ci_tiles, groups, kb, kpr, kblocks,
+                         slices, (ci_tiles * groups, co_tiles, slices), sy,
+                         xstep, phases, box_w, stages, stage_bytes,
+                         stages * stage_bytes + fixed, tuple(cols),
+                         tuple(shifts), tuple(rows), tuple(tap_phases))
+
+
+def _wgrad_tc_geometry(x, g, plan: SystolicPlan):
+    """K3's channel-path operands as 4-D tensors and its
+    :func:`wgrad_tc_layout`."""
+    x4, g4 = _wgrad_operands(x, g, plan)
+    B, Ci = x4.shape[:2]
+    Co, Ho, Wo = g4.shape[1:]
+    (ly, lx), _ = plan.lead_trail()
+    return x4, g4, wgrad_tc_layout(
+        B, Ci, Co, Ho, Wo, *plan.exts, lead=(ly, lx),
+        stride=plan.stride_per_axis(), elem_bytes=x.element_size())
+
+
 class WgradKernel:
-    """Wrapper of K3. ``launches`` counts the kernel launches it made: one
-    per gradient, or two when the reduction is split (the partial sums,
-    then the pass that adds them; :meth:`launches_for`)."""
+    """Wrapper of K3. Channel (NCHW) plans launch the tensor-core kernel
+    (``csrc/ssam_wgrad_tc.cu``), single-channel plans the CUDA-core one
+    (``csrc/ssam_wgrad.cu``). ``launches`` counts the kernel launches it
+    made: one per gradient, or two when the reduction is split (the
+    partial sums, then the pass that adds them; :meth:`launches_for`)."""
 
     name = "ssam_wgrad"
-    source = "src/repro_torch/csrc/ssam_wgrad.cu"
+    source = "src/repro_torch/csrc/ssam_wgrad_tc.cu"
+    single_channel_source = "src/repro_torch/csrc/ssam_wgrad.cu"
     replaces = ("src/repro/core/engine.py:737 (_wgrad_dense_kernel, "
                 "pallas_call at 873)")
 
@@ -1221,6 +1403,8 @@ class WgradKernel:
                 or g.dtype != x.dtype:
             raise TypeError(f"K3 takes float32 or bfloat16 x and g of one "
                             f"dtype, got {x.dtype} and {g.dtype}")
+        if plan.out_axes:
+            return self._channels(x, g, plan)
         x4, g4, lay = _wgrad_geometry(x, g, plan)
         x4, g4 = x4.contiguous(), g4.contiguous()
         B, Ci, H, W = x4.shape
@@ -1234,19 +1418,54 @@ class WgradKernel:
         err = self.library.get().ssam_wgrad_launch(
             x4.data_ptr(), g4.data_ptr(), int(x.dtype == torch.bfloat16),
             part.data_ptr(), out.data_ptr(), B, Ci, Co, H, W, Ho, Wo, N, M,
-            ly, lx, lay.cr, lay.cg, lay.rg, lay.ph, *lay.grid, lay.chunks,
+            ly, lx, lay.cg, lay.rg, lay.ph, *lay.grid, lay.chunks,
             lay.span, lay.lp, lay.smem,
             torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"K3 launch failed: CUDA error {err} "
                                f"({plan.kind}, {Co}x{Ci}x{N}x{M})")
         self.launches += 1 + (lay.slices > 1)
-        return out if plan.out_axes else out[0, 0]
+        return out[0, 0]
+
+    def _channels(self, x, g, plan):
+        x4, g4, lay = _wgrad_tc_geometry(x, g, plan)
+        B, Ci, H, W = x4.shape
+        Co, Ho, Wo = g4.shape[1:]
+        N, M = plan.exts
+        if lay.phases > 1:   # one pass over x: its columns in phases
+            xs, x_pitch = _tma_operand(phase_split(x4, lay.phases))
+            xs, xw = xs.flatten(2, 3), -(-W // lay.phases)
+        else:
+            (xs, x_pitch), xw = _tma_operand(x4), W
+        gs, g_pitch = _tma_operand(g4)
+        out = torch.empty((Co, Ci, N, M), dtype=torch.float32,
+                          device=x.device)
+        # a split reduction's partial tiles: (slice, N tile, C_out, 128)
+        part = (torch.empty((lay.slices, lay.grid[0], Co, WGRAD_TC_TILE),
+                            dtype=torch.float32, device=x.device)
+                if lay.slices > 1 else out)
+        taps = ctypes.c_int * (N * M)
+        err = self.library.get().ssam_wgrad_tc_launch(
+            xs.data_ptr(), gs.data_ptr(), int(x.dtype == torch.bfloat16),
+            part.data_ptr(), out.data_ptr(), xw, H * lay.phases, Ci, B,
+            x_pitch, Wo, Ho, Co, B, g_pitch, Co, Ci, N * M, lay.row_stride,
+            lay.xstep, lay.phases, lay.ci_tile, lay.taps_per_tile,
+            lay.ci_tiles, lay.kblocks_per_row, lay.kblocks, lay.box_w,
+            lay.stages, lay.stage_bytes, taps(*lay.tap_col),
+            taps(*lay.tap_shift),
+            taps(*lay.tap_row), taps(*lay.tap_phase), *lay.grid, lay.smem,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"K3 launch failed: CUDA error {err} "
+                               f"({plan.kind}, {Co}x{Ci}x{N}x{M})")
+        self.launches += 1 + (lay.slices > 1)
+        return out
 
     @staticmethod
     def launches_for(x, g, *, plan: SystolicPlan) -> int:
         """The launches one call on ``x`` and ``g`` makes (any device)."""
-        return 1 + (_wgrad_geometry(x, g, plan)[2].slices > 1)
+        geometry = _wgrad_tc_geometry if plan.out_axes else _wgrad_geometry
+        return 1 + (geometry(x, g, plan)[2].slices > 1)
 
 
 WGRAD_KERNEL = WgradKernel(_build.LIBRARY)

@@ -12,8 +12,8 @@
 // small*big is accumulated in fp32 (3xTF32; the dropped small*small term is
 // about 2^-22 of the product). The tensor core's own fp32 accumulation
 // truncates, so each k-step's big*big product is added outside it, with a
-// round-to-nearest fp32 add (mma_3xtf32). bf16 inputs are upcast on load
-// (their small part is 0) and the output is cast back.
+// round-to-nearest fp32 add (mma_3xtf32 in ssam_tf32.cuh). bf16 inputs are
+// upcast on load (their small part is 0) and the output is cast back.
 //
 // Channel-reduce path (NCHW plans: the Whisper stem and its input adjoint):
 //   out[b, co, oy, ox] = epi( sum_{ci, tap} w[co, ci, tap]
@@ -58,6 +58,7 @@
 #include <stdint.h>
 
 #include "ssam_epilogue.cuh"
+#include "ssam_tf32.cuh"
 
 namespace ssam {
 
@@ -65,46 +66,6 @@ constexpr int kMThreads = 256;
 constexpr int kMWarps = kMThreads / 32;
 constexpr int kMCoTile = 64;  // output channels per reduce block (GEMM M)
 constexpr int kMCols = 128;   // output columns per reduce block (GEMM N)
-
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
-                                           uint32_t& small) {
-  big = to_tf32(v);
-  small = to_tf32(v - __uint_as_float(big));
-}
-
-// d += a * b on one m16n8k8 tile: TF32 operands, fp32 accumulator.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 3xTF32 on one k-step. The tensor core's fp32 accumulation truncates, so
-// a long chain of big*big sums drifts: each step's big*big product starts
-// from zero and is added to acc with a round-to-nearest fp32 add, while
-// the two small cross terms, about 2^-11 of it, accumulate in the tensor
-// core in cor. The result is acc + cor.
-__device__ __forceinline__ void mma_3xtf32(float (&acc)[4], float (&cor)[4],
-                                           const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4],
-                                           const uint32_t (&bb)[2],
-                                           const uint32_t (&bs)[2]) {
-  float hi[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(hi, ab, bb);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i] += hi[i];
-  mma_tf32(cor, as, bb);
-  mma_tf32(cor, ab, bs);
-}
 
 __device__ __forceinline__ float load_x(const void* x, int bf16, size_t i) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i])

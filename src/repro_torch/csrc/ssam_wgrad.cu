@@ -1,4 +1,5 @@
-// K3 on Hopper: the weight gradient of a dense windowed plan.
+// K3 on Hopper: the weight gradient of a dense windowed plan, in the
+// single-channel (N, M) layout (channel plans run ssam_wgrad_tc.cu).
 //
 // Replaces src/repro/core/engine.py::_wgrad_dense_kernel (launched by
 // run_weight_grad_plan, pallas_call at line 873). It computes, in fp32,
@@ -7,16 +8,16 @@
 //                                          * xp[b, ci, oy + n, ox + m]
 //
 // where xp is x read at (oy + n - ly, ox + m - lx), zero outside the input
-// (the plan's lead padding is never materialised). The plain dense (N, M)
-// layout is the case C_in = C_out = 1.
+// (the plan's lead padding is never materialised). The wrapper runs it on
+// the plain dense (N, M) layout, the case C_in = C_out = 1.
 //
 // Design (a GEMM over the implicit im2col of x, C_out x (C_in*N*M), with
 // the cotangent's positions as the reduction):
 //  * A block of 256 threads owns co_tile output channels x rows_tile
-//    flattened (ci, n, m) rows of dW. Its threads split into cg channel
-//    groups (CR channels each) x rg row groups (4 rows each, strided by rg
-//    so that neighbouring lanes read neighbouring rows) x ph position
-//    phases; each thread keeps CR x 4 sums in fp32 registers.
+//    flattened (ci, n, m) rows of dW. Its threads split into cg channels x
+//    rg row groups (4 rows each, strided by rg so that neighbouring lanes
+//    read neighbouring rows) x ph position phases; each thread keeps 4
+//    sums in fp32 registers.
 //  * The reduction walks chunks of 64 cotangent positions along a row. Per
 //    chunk, g[b, co-tile, oy, chunk] and the input rows the block's taps
 //    reach, x[b, ci-span, oy + n - ly, chunk + m - lx] (64 + M - 1
@@ -30,10 +31,8 @@
 //    chunks split into slices that write partials, which a second kernel
 //    adds in slice order. The result is the same on every run.
 //
-// Bound on an H100: the Whisper stem's gradients (C_out 512, C_in 80 or
-// 512, 3 taps, 24000 positions) are bound by fp32 operations; the (N, M)
-// single-channel case by the bytes of x and g. Per position a warp issues
-// 4 shared loads and one broadcast float4 load for 16 FMAs (CR = 4), so
+// Bound on an H100: the single-channel case is bound by the bytes of x and
+// g. Per position a thread issues 5 shared loads for 4 FMAs, so
 // shared-memory issue is the limit of this simple version.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,12 +58,11 @@ __device__ __forceinline__ float load_io(const void* p, int bf16, size_t i) {
               : static_cast<const float*>(p)[i];
 }
 
-template <int CR>
 __global__ void __launch_bounds__(kWThreads) wgrad_kernel(WgradArgs a) {
   extern __shared__ float smem[];
   const int NM = a.N * a.M;
   const int rows = a.cin * NM;
-  const int co_tile = a.cg * CR;
+  const int co_tile = a.cg;
   const int rows_tile = 4 * a.rg;
   const int r0 = blockIdx.x * rows_tile;
   const int co0 = blockIdx.y * co_tile;
@@ -90,11 +88,7 @@ __global__ void __launch_bounds__(kWThreads) wgrad_kernel(WgradArgs a) {
       off[i] = 0;  // a valid cell; the sum is never stored
     }
   }
-  float acc[CR][4];
-#pragma unroll
-  for (int k = 0; k < CR; ++k)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[k][i] = 0.f;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
 
   const int ncx = (a.wo + kWPos - 1) / kWPos;
   const int c_begin = (int)((long long)slice * a.nchunks / a.slices);
@@ -126,25 +120,9 @@ __global__ void __launch_bounds__(kWThreads) wgrad_kernel(WgradArgs a) {
     }
     __syncthreads();
     for (int j = phi; j < kWPos; j += a.ph) {
-      float gv[CR];
-      if constexpr (CR == 4) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(&gs[j * co_tile + cgi * CR]);
-        gv[0] = v.x;
-        gv[1] = v.y;
-        gv[2] = v.z;
-        gv[3] = v.w;
-      } else {
+      const float gv = gs[j * co_tile + cgi];
 #pragma unroll
-        for (int k = 0; k < CR; ++k) gv[k] = gs[j * co_tile + cgi * CR + k];
-      }
-      float xv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xv[i] = xs[off[i] + j];
-#pragma unroll
-      for (int k = 0; k < CR; ++k)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[k][i] = fmaf(gv[k], xv[i], acc[k][i]);
+      for (int i = 0; i < 4; ++i) acc[i] = fmaf(gv, xs[off[i] + j], acc[i]);
     }
   }
 
@@ -152,11 +130,8 @@ __global__ void __launch_bounds__(kWThreads) wgrad_kernel(WgradArgs a) {
   __syncthreads();
   float* red = smem;  // ph x co_tile x rows_tile
 #pragma unroll
-  for (int k = 0; k < CR; ++k)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      red[(phi * co_tile + cgi * CR + k) * rows_tile + rgi + a.rg * i] =
-          acc[k][i];
+  for (int i = 0; i < 4; ++i)
+    red[(phi * co_tile + cgi) * rows_tile + rgi + a.rg * i] = acc[i];
   __syncthreads();
   for (int e = threadIdx.x; e < co_tile * rows_tile; e += kWThreads) {
     float s = 0.f;
@@ -184,10 +159,10 @@ __global__ void wgrad_sum_kernel(const float* part, float* out, int slices,
 extern "C" int ssam_wgrad_launch(
     const void* x, const void* g, int io_bf16, float* part, float* out,
     int batch, int cin, int cout, int hin, int win, int ho, int wo, int N,
-    int M, int ly, int lx, int cr, int cg, int rg, int ph, int gx, int gy,
-    int gz, int nchunks, int span, int lp, int smem_bytes, void* stream) {
-  if ((cr != 1 && cr != 4) || cg * rg * ph != ssam::kWThreads || gz < 1 ||
-      nchunks < 1 || lp < ssam::kWPos + M - 1)
+    int M, int ly, int lx, int cg, int rg, int ph, int gx, int gy, int gz,
+    int nchunks, int span, int lp, int smem_bytes, void* stream) {
+  if (cg * rg * ph != ssam::kWThreads || gz < 1 || nchunks < 1 ||
+      lp < ssam::kWPos + M - 1)
     return (int)cudaErrorInvalidValue;
   ssam::WgradArgs a;
   a.x = x;
@@ -212,15 +187,15 @@ extern "C" int ssam_wgrad_launch(
   a.slices = gz;
   a.span = span;
   a.lp = lp;
-  void (*fn)(ssam::WgradArgs) =
-      cr == 4 ? ssam::wgrad_kernel<4> : ssam::wgrad_kernel<1>;
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        ssam::wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fn<<<dim3(gx, gy, gz), ssam::kWThreads, smem_bytes, st>>>(a);
+  ssam::wgrad_kernel<<<dim3(gx, gy, gz), ssam::kWThreads, smem_bytes, st>>>(
+      a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || gz == 1) return (int)e;
   const size_t n = (size_t)cout * cin * N * M;

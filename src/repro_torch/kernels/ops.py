@@ -19,10 +19,11 @@ The windowed ops are differentiable: :class:`WindowOp` is the
 ``torch.autograd.Function`` of the reference's ``_window_op`` custom VJP
 (``ops.py:353-435``). Its backward recomputes the pre-activation with
 the linear plan, differentiates the epilogue there (which also gives the
-bias gradient), scatters the cotangent of a strided plan into the dense
-output lattice, runs the input-adjoint plan through the engine for
-``dx`` (K1, or K2: the adjoint plan keeps the forward's strategy) and
-the weight-gradient correlation for ``dW`` (K3).
+bias gradient), runs the weight-gradient correlation for ``dW`` (K3) on
+the cotangent as the strided forward produced it, then scatters that
+cotangent into the dense output lattice and runs the input-adjoint plan
+through the engine for ``dx`` (K1, or K2: the adjoint plan keeps the
+forward's strategy).
 """
 from __future__ import annotations
 
@@ -62,11 +63,12 @@ def _run(cfg: WindowCfg, plan: SystolicPlan, x, w, epi=()):
 def window_backward(cfg: WindowCfg, x, w, epi, g, *, need_x: bool = True,
                     need_w: bool = True):
     """``(dx, dw, depi)`` of ``y = run_window_plan(x, w, plan=cfg.plan,
-    epilogue_args=epi)`` given the cotangent ``g``, in the reference's
-    order: epilogue VJP at the recomputed pre-activation, the scatter of
-    a strided cotangent, ``dx`` through the input-adjoint plan (when
-    ``need_x``), ``dW`` through the weight-gradient correlation (when
-    ``need_w`` and the plan has runtime coefficients)."""
+    epilogue_args=epi)`` given the cotangent ``g``: the epilogue VJP at
+    the recomputed pre-activation, then ``dW`` through the weight-gradient
+    correlation of the (strided) linear plan on that cotangent (when
+    ``need_w`` and the plan has runtime coefficients), then, for ``dx``
+    (when ``need_x``), the scatter of a strided cotangent onto the dense
+    lattice and the input-adjoint plan of the stride-free plan."""
     plan = cfg.plan
     if cfg.time_steps != 1 and plan.coeff_mode != "table":
         raise ValueError(
@@ -84,26 +86,28 @@ def window_backward(cfg: WindowCfg, x, w, epi, g, *, need_x: bool = True,
             y = adj.apply_epilogue(cfg.plan, zz, aa)
             grads = torch.autograd.grad(y, [zz, *aa], g.to(z.dtype))
         g, depi = grads[0], tuple(grads[1:])
-    if any(v > 1 for v in plan.stride_per_axis()):
-        # the transpose of the output-strided grid: the cotangent lands on
-        # the kept lanes of the dense output lattice, zeros between them
-        plan = dataclasses.replace(plan, stride=None)
-        lead_in = plan.batch_axes + plan.reduce_axes
-        dense = plan.out_shape(tuple(x.shape[lead_in:]))
-        lead_nd = g.ndim - plan.ndim_spatial
-        gd = g.new_zeros(g.shape[:lead_nd] + dense)
-        gd[(...,) + tuple(slice(None, None, v)
-                          for v in cfg.plan.stride_per_axis())] = g
-        g = gd
     dx = dw = None
-    if need_x:
-        aplan = adj.input_adjoint_plan(plan)
-        adj.record_lowering(aplan.kind)
-        dx = _run(cfg, aplan, g, adj.adjoint_coeff_array(plan, w)).to(x.dtype)
     if need_w and w is not None and plan.coeff_mode != "table":
+        # on the cotangent as the strided forward produced it: the
+        # reduction runs over the real positions only
         adj.record_lowering(adj.weight_adjoint_plan(plan).kind)
         dw = _engine.run_weight_grad_plan(x, g.to(x.dtype),
                                           plan=plan).to(w.dtype)
+    if need_x:
+        if any(v > 1 for v in plan.stride_per_axis()):
+            # the transpose of the output-strided grid: the cotangent lands
+            # on the kept lanes of the dense output lattice, zeros between
+            plan = dataclasses.replace(plan, stride=None)
+            lead_in = plan.batch_axes + plan.reduce_axes
+            dense = plan.out_shape(tuple(x.shape[lead_in:]))
+            lead_nd = g.ndim - plan.ndim_spatial
+            gd = g.new_zeros(g.shape[:lead_nd] + dense)
+            gd[(...,) + tuple(slice(None, None, v)
+                              for v in cfg.plan.stride_per_axis())] = g
+            g = gd
+        aplan = adj.input_adjoint_plan(plan)
+        adj.record_lowering(aplan.kind)
+        dx = _run(cfg, aplan, g, adj.adjoint_coeff_array(plan, w)).to(x.dtype)
     return dx, dw, depi
 
 

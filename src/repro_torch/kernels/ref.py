@@ -39,16 +39,26 @@ def conv2d_batched(x: torch.Tensor, w: torch.Tensor,
 
 
 def conv2d_nchw(x: torch.Tensor, w: torch.Tensor, mode: str = "valid",
-                stride=(1, 1)) -> torch.Tensor:
+                groups: int = 1, *, stride=(1, 1)) -> torch.Tensor:
     """Batched multi-channel cross-correlation, then an output stride.
 
-    x: (B, C_in, H, W); w: (C_out, C_in, N, M) → (B, C_out, H', W'):
-    ``out[b,o,y,x] = Σ_{c,n,m} xp[b, c, y·sh + n, x·sw + m]·w[o,c,n,m]``.
-    'same' mode anchors at the filter centre (top = (N−1)//2), as
-    :func:`conv2d_same`; a stride keeps every ``s``-th output of the dense
-    result. The channel sum is one fp32 (fp64 for fp64 inputs)
-    contraction per tap.
+    x: (B, C_in, H, W); w: (C_out, C_in/groups, N, M) → (B, C_out, H', W'):
+    ``out[b,o,y,x] = Σ_{c,n,m} xp[b, c, y·sh + n, x·sw + m]·w[o,c,n,m]``,
+    ``c`` over the input channels of ``o``'s group. 'same' mode anchors at
+    the filter centre (top = (N−1)//2), as :func:`conv2d_same`; ``groups``
+    runs one correlation per channel slice and concatenates them on C_out
+    (the reference's ``feature_group_count``); a stride keeps every
+    ``s``-th output of the dense result. The channel sum is one fp32
+    (fp64 for fp64 inputs) contraction per tap.
     """
+    if int(groups) != groups or groups < 1 or x.shape[1] % groups \
+            or w.shape[0] % groups or w.shape[1] * groups != x.shape[1]:
+        raise ValueError(f"conv2d_nchw: groups={groups} does not split x "
+                         f"{tuple(x.shape)} and w {tuple(w.shape)}")
+    if groups > 1:
+        return torch.cat([conv2d_nchw(xg, wg, mode, stride=stride)
+                          for xg, wg in zip(x.chunk(groups, 1),
+                                            w.chunk(groups, 0))], dim=1)
     N, M = w.shape[2:]
     sh, sw = stride
     acc = torch.promote_types(x.dtype, torch.float32)

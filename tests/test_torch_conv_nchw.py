@@ -111,7 +111,7 @@ def test_ref_conv2d_nchw_matches_reference(mode):
         want = jref.conv2d_nchw(jnp.asarray(x), jnp.asarray(w), mode)
         want = np.asarray(want)[..., ::stride[0], ::stride[1]]
         _close(ref.conv2d_nchw(torch.from_numpy(x), torch.from_numpy(w),
-                               mode, stride), want)
+                               mode, stride=stride), want)
     _close(ssam_conv2d.conv2d_nchw(torch.from_numpy(x), torch.from_numpy(w),
                                    mode=mode),
            jref.conv2d_nchw(jnp.asarray(x), jnp.asarray(w), mode))
@@ -320,12 +320,17 @@ def test_reduce_and_wgrad_launch_geometry():
     from repro_torch.core import adjoint
     a = adjoint.input_adjoint_plan(dataclasses.replace(stem, stride=None))
     assert engine.reduce_tap_table(a) == (0, 0, 2, 0, 1, 1, 0, 2, 0)
-    lay = engine.wgrad_layout(8, 512, 512, 1, 3000, 1, 3)
-    assert (lay.cr, lay.cg, lay.rg, lay.ph) == (4, 8, 32, 1)
-    assert lay.grid == (12, 16, 3) and lay.chunks == 8 * 47
-    lay = engine.wgrad_layout(8, 80, 512, 1, 3000, 1, 3)
-    assert lay.grid == (2, 16, 17)
+    # K3's channel path: conv2's dW on the strided cotangent (1500 real
+    # positions a row) and on the scattered one, and conv1's
+    lay = engine.wgrad_tc_layout(8, 512, 512, 1, 1500, 1, 3, lead=(0, 1),
+                                 stride=(1, 2))
+    assert lay.grid == (12, 4, 8) and lay.kblocks == 8 * 47
+    lay = engine.wgrad_tc_layout(8, 512, 512, 1, 3000, 1, 3, lead=(0, 1))
+    assert lay.grid == (12, 4, 11) and lay.kblocks == 8 * 94
+    lay = engine.wgrad_tc_layout(8, 80, 512, 1, 3000, 1, 3, lead=(0, 1))
+    assert lay.grid == (2, 4, 16) and lay.smem <= engine.SMEM_LIMIT
+    # the single-channel layout stays on the CUDA-core kernel
     lay = engine.wgrad_layout(1, 1, 1, 8192, 8192, 5, 5)
-    assert (lay.cr, lay.cg, lay.rg, lay.ph) == (1, 1, 8, 32)
+    assert (lay.cg, lay.rg, lay.ph) == (1, 8, 32)
     assert lay.grid == (1, 1, engine.WGRAD_TARGET_BLOCKS)
     assert lay.smem <= engine.SMEM_LIMIT

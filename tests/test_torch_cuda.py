@@ -261,7 +261,7 @@ def test_reduce_kernel_matches_plain_version(cuda, xs, ws, mode, stride, epi):
     _close(got, engine.run_window_plan_reference(x, w, plan=p,
                                                  epilogue_args=args), 1e-4)
     if not epi:
-        _close(got, ref.conv2d_nchw(x, w, mode, stride), 1e-4)
+        _close(got, ref.conv2d_nchw(x, w, mode, stride=stride), 1e-4)
     # the input adjoint of the stride-free plan (a full-mode plan for
     # 'valid'), on the cotangent's shape
     lin = dataclasses.replace(p, stride=None, epilogue=())
@@ -287,27 +287,34 @@ def test_reduce_kernel_bf16(cuda):
 
 
 WGRAD_CASES = [
-    ((2, 5, 3, 300), (37, 5, 3, 3), "same"),
-    ((8, 80, 1, 700), (64, 80, 1, 3), "same"),
-    ((1, 1, 1, 1), (1, 1, 1, 1), "valid"),
-    ((2, 3, 9, 70), (130, 3, 2, 5), "valid"),
-    ((4, 130, 70), None, "same"),            # (N, M) layout, batched
-    ((500, 333), None, "valid"),             # (N, M) layout, one image
+    # (x shape, w shape or None for the (N, M) layout, mode, stride)
+    ((2, 5, 3, 300), (37, 5, 3, 3), "same", (1, 1)),
+    ((8, 80, 1, 700), (64, 80, 1, 3), "same", (1, 1)),
+    ((1, 1, 1, 1), (1, 1, 1, 1), "valid", (1, 1)),
+    ((2, 3, 9, 70), (130, 3, 2, 5), "valid", (1, 1)),
+    ((2, 512, 1, 3000), (512, 512, 1, 3), "same", (1, 2)),  # conv2, batch 2
+    ((3, 19, 5, 257), (37, 19, 3, 2), "valid", (2, 3)),     # strided, odd
+    ((4, 130, 70), None, "same", (1, 1)),     # (N, M) layout, batched
+    ((500, 333), None, "valid", (1, 1)),      # (N, M) layout, one image
 ]
 
 
-@pytest.mark.parametrize("xs,ws,mode", WGRAD_CASES, ids=str)
-def test_wgrad_kernel_matches_plain_version(cuda, xs, ws, mode):
-    x = _grid(xs, cuda, 18)
+def _wgrad_case(xs, ws, mode, stride, device):
+    x = _grid(xs, device, 18)
     if ws is None:
         p = (ssam_conv2d.plan_for_batched if len(xs) == 3
              else ssam_conv2d.plan_for)((5, 7), mode)
+        lead = xs[:len(xs) - 2]
     else:
-        p = ssam_conv2d.plan_for_nchw(xs, ws, mode)
-    lead = xs[:len(xs) - 2]
-    if ws is not None:
+        p = dataclasses.replace(ssam_conv2d.plan_for_nchw(xs, ws, mode),
+                                stride=None if stride == (1, 1) else stride)
         lead = (xs[0], ws[0])
-    g = _grid(lead + p.out_shape(xs[-2:]), cuda, 19)
+    return x, _grid(lead + p.out_shape(xs[-2:]), device, 19), p
+
+
+@pytest.mark.parametrize("xs,ws,mode,stride", WGRAD_CASES, ids=str)
+def test_wgrad_kernel_matches_plain_version(cuda, xs, ws, mode, stride):
+    x, g, p = _wgrad_case(xs, ws, mode, stride, cuda)
     before = engine.WGRAD_KERNEL.launches
     got = engine.run_weight_grad_plan(x, g, plan=p)
     assert engine.WGRAD_KERNEL.launches == before + \
@@ -319,6 +326,21 @@ def test_wgrad_kernel_matches_plain_version(cuda, xs, ws, mode):
         xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
         _close(engine.run_weight_grad_plan(xb, gb, plan=p),
                engine.run_weight_grad_plan_reference(xb, gb, plan=p), 3e-2)
+    if stride != (1, 1):
+        # the stride-free plan on the scattered cotangent, as before
+        dense = dataclasses.replace(p, stride=None)
+        gd = g.new_zeros(g.shape[:2] + dense.out_shape(xs[2:]))
+        gd[..., ::stride[0], ::stride[1]] = g
+        _close(engine.run_weight_grad_plan(x, gd, plan=dense), want, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_wgrad_kernel_is_deterministic(cuda, dtype):
+    for case in (WGRAD_CASES[1], WGRAD_CASES[4], WGRAD_CASES[5]):
+        x, g, p = _wgrad_case(*case, cuda)
+        x, g = x.to(dtype), g.to(dtype)
+        first = engine.run_weight_grad_plan(x, g, plan=p)
+        assert torch.equal(first, engine.run_weight_grad_plan(x, g, plan=p))
 
 
 def test_conv_autograd_never_takes_the_plain_version(cuda, monkeypatch):
@@ -327,27 +349,27 @@ def test_conv_autograd_never_takes_the_plain_version(cuda, monkeypatch):
 
     monkeypatch.setattr(engine, "run_window_plan_reference", boom)
     monkeypatch.setattr(engine, "run_weight_grad_plan_reference", boom)
-    x = _grid((2, 6, 1, 90), cuda, 20).requires_grad_()
-    w = _grid((8, 6, 1, 3), cuda, 21).requires_grad_()
-    b = _grid((8,), cuda, 22).requires_grad_()
     k1, k3 = engine.WINDOW_KERNEL.launches, engine.WGRAD_KERNEL.launches
-    y = ops.conv2d(x, w, stride=(1, 2), epilogue=("bias", "gelu"),
-                   epilogue_args=(b,))
-    y.square().sum().backward()
-    # forward, recomputed pre-activation, dx; dW (its split reduction)
-    assert engine.WINDOW_KERNEL.launches == k1 + 3
-    assert engine.WGRAD_KERNEL.launches == k3 + \
-        engine.WGRAD_KERNEL.launches_for(x, torch.empty(2, 8, 1, 90),
-                                         plan=ssam_conv2d.plan_for_nchw(
-                                             x.shape, w.shape, "same"))
-    assert x.grad.is_cuda and w.grad.is_cuda and b.grad.is_cuda
+    for i, stride in enumerate(((1, 2), (2, 2))):
+        x = _grid((2, 6, 3, 90), cuda, 20).requires_grad_()
+        w = _grid((8, 6, 1, 3), cuda, 21).requires_grad_()
+        b = _grid((8,), cuda, 22).requires_grad_()
+        y = ops.conv2d(x, w, stride=stride, epilogue=("bias", "gelu"),
+                       epilogue_args=(b,))
+        y.square().sum().backward()
+        # forward, recomputed pre-activation, dx; dW on the strided
+        # cotangent (its split reduction)
+        p = dataclasses.replace(ssam_conv2d.plan_for_nchw(
+            x.shape, w.shape, "same"), stride=stride)
+        k3 += engine.WGRAD_KERNEL.launches_for(x, y, plan=p)
+        assert engine.WINDOW_KERNEL.launches == k1 + 3 * (i + 1)
+        assert engine.WGRAD_KERNEL.launches == k3
+        assert x.grad.is_cuda and w.grad.is_cuda and b.grad.is_cuda
     s = _grid((30, 40), cuda, 23).requires_grad_()
     ops.stencil(s, "2d9pt", time_steps=2).sum().backward()
-    assert engine.WINDOW_KERNEL.launches == k1 + 5
+    assert engine.WINDOW_KERNEL.launches == k1 + 8
     with pytest.raises(ValueError, match="CUDA tensors on one device"):
-        engine.run_weight_grad_plan(x.detach(), y.detach().cpu(),
-                                    plan=ssam_conv2d.plan_for_nchw(
-                                        x.shape, w.shape, "same"))
+        engine.run_weight_grad_plan(x.detach(), y.detach().cpu(), plan=p)
 
 
 def test_conv_gradients_on_the_card_match_the_cpu(cuda):
@@ -369,13 +391,17 @@ def test_conv_gradients_on_the_card_match_the_cpu(cuda):
 
 def _stem_k3_launches(cfg, batch: int) -> int:
     """K3's launches for one step of the whisper stem: its two dW calls
-    (conv1 and conv2, the latter on the scattered, stride-free cotangent)."""
+    (conv1, and conv2 on its strided cotangent)."""
     T = 2 * cfg.n_frames
     mel = torch.empty(batch, cfg.n_mels, 1, T)
     h = torch.empty(batch, cfg.d_model, 1, T)
+    p1 = ssam_conv2d.plan_for_nchw(mel.shape, (cfg.d_model, cfg.n_mels, 1, 3),
+                                   "same")
+    p2 = dataclasses.replace(ssam_conv2d.plan_for_nchw(
+        h.shape, (cfg.d_model, cfg.d_model, 1, 3), "same"), stride=(1, 2))
     launches = engine.WGRAD_KERNEL.launches_for
-    return sum(launches(x, h, plan=ssam_conv2d.plan_for_nchw(
-        x.shape, (cfg.d_model, x.shape[1], 1, 3), "same")) for x in (mel, h))
+    return (launches(mel, h, plan=p1)
+            + launches(h, h[..., ::2], plan=p2))
 
 
 def test_whisper_train_steps_go_through_k1_and_k3(cuda):

@@ -220,6 +220,7 @@ def test_nvcc_command_targets_sm_90a():
     src = _build.sources()
     assert [p.name for p in src] == ["ssam_mxu.cu", "ssam_scan.cu",
                                      "ssam_wgrad.cu", "ssam_wgrad_perlane.cu",
+                                     "ssam_wgrad_tc.cu",
                                      "ssam_window.cu", "ssam_window_2d.cu",
                                      "ssam_window_3d.cu",
                                      "ssam_window_perlane.cu",
