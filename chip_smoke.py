@@ -25,7 +25,8 @@ Phases, one JSON line each:
 
 1. build: compile K1, K2, K3, K4 and K5 from ``src/repro_torch/csrc``
    (nvcc, sm_90a, one process per source, all started together), with
-   the counts of ``HGMMA`` and ``UTMALDG`` in K3's channel kernel;
+   the counts of ``HGMMA`` and ``UTMALDG`` in K3's channel kernel and
+   the registers and spills of K1's reduce kernel (none may spill);
 2. stencils and 3. convolution: every case against the plain torch
    version on the card, ``rtol=3e-5, atol=3e-5·max|plain|`` (bf16:
    3e-2), and small cases against the torch oracles;
@@ -59,8 +60,13 @@ Phases, one JSON line each:
    tolerance;
 8. training: (a) K1 and K3 at the stem's full-width shapes (batch 8,
    mel (8, 80, 1, 3000), d_model 512): conv1 and conv2 forward (conv2 at
-   stride (1, 2), both with bias+GELU), conv2's dx on the input-adjoint
-   plan, the dW of both (conv2's on the strided cotangent, and again on
+   stride (1, 2), both with bias+GELU), conv2's dx through the phases of
+   the strided adjoint (one launch, the cotangent read as the forward
+   produced it) and on the input-adjoint plan of the cotangent scattered
+   onto the dense lattice (the two held against each other too), K1's
+   reduce path on small edge cases (C_out 4, 37, 129, 130; strides up to
+   (3, 3); rows of 17 and 257 fp32 columns; bf16 rows of 1500), each
+   forward and phased dx, the dW of both (conv2's on the strided cotangent, and again on
    the cotangent scattered onto the dense lattice; once more in bf16),
    one single-channel 5×5 dW at 8192² and one bf16 forward, each against
    its plain version on the card (fp32 rtol 1e-4, atol 1e-4·max|plain|;
@@ -73,14 +79,20 @@ Phases, one JSON line each:
    ``launch.train.main``: every loss finite, K1's counter (zeroed before)
    at 5 per step (2 forwards, 2 recomputed pre-activations, 1 dx) and
    K3's at its launches for the 2 dW calls of a step (4: each call splits
-   its reduction and adds the partials in a second launch); (d) step time and samples/s, K1 and K3 device
-   times beside their bound (K3's channel path as K2's: the operations
+   its reduction and adds the partials in a second launch); (d) step time
+   and samples/s, K1 (conv1 and conv2 forward, conv2's dx through the
+   phases and on the scattered cotangent) and K3 device times beside their
+   bound (K3's channel path as K2's: the operations
    counted once at the TF32 rate, the fp32 bound beside it), the plain
    versions and the library yardsticks (``F.conv2d`` + tanh-GELU,
    ``torch.nn.grad.conv2d_input`` / ``conv2d_weight``, TF32 off, and for
    K3 also on; never called by the port), and the profiler's top device
-   ops of one step with the stem's share, its ``wgrad`` kernels equal to
-   K3's counter;
+   ops of one step (host and device activity traced) with the stem's
+   share, its ``window_reduce`` kernels equal to K1's counter (5) and
+   its ``wgrad`` kernels to K3's, then the same step traced on the device
+   only (its K3 kernels equal to the counter, its K1 kernels recorded);
+   these steps run in a fresh process (``--profile-train-step``), since
+   after phase 7 this process's traces lose some of K1's launches;
 9. tensor cores: (a) the 15 stencils at 8192² / 512³, t ∈ {1, 2}, and
    the 'same' filter sweep at 8192² with ``strategy="mxu"`` through K2,
    each against the plain mxu version on the card (fp32 rtol 3e-5; one
@@ -181,6 +193,27 @@ HYMBA_CHUNK = 128               # selective-scan chunk: rows x 128 per K5 call
 PERLANE_RTOL = 3e-5             # K1 per-lane against plain, fp32
 K4_RTOL = 1e-4                  # K4 against plain: sums of 4096 products
 LAYER_RTOL = 1e-4               # a layer's gradients, kernels against plain
+# K1's reduce path on small edge cases (x, w, mode, stride, epilogue, dtype):
+# tests/test_torch_cuda.py's REDUCE_CASES and bf16 rows of 1500
+REDUCE_EDGE_CASES = [
+    ((2, 5, 3, 300), (37, 5, 3, 3), "same", (1, 1), None, "float32"),
+    ((2, 5, 3, 300), (37, 5, 3, 3), "valid", (1, 2), ("bias", "gelu"),
+     "float32"),
+    ((3, 19, 1, 257), (40, 19, 1, 3), "same", (1, 2), ("bias", "gelu"),
+     "float32"),
+    ((1, 33, 6, 70), (8, 33, 2, 5), "same", (2, 2), ("relu", ("scale", 2.0)),
+     "float32"),
+    ((2, 4, 5, 129), (3, 4, 4, 1), "valid", (2, 1), ("bias", "silu"),
+     "float32"),
+    ((2, 7, 2, 17), (4, 7, 1, 3), "same", (1, 1), None, "float32"),
+    ((1, 64, 1, 1000), (130, 64, 1, 3), "same", (1, 2), ("bias", "gelu"),
+     "float32"),
+    ((2, 9, 3, 257), (129, 9, 3, 3), "valid", (1, 3), ("relu",), "float32"),
+    ((1, 20, 4, 500), (16, 20, 2, 5), "same", (3, 3), None, "float32"),
+    ((2, 24, 1, 1500), (40, 24, 1, 3), "same", (1, 1), ("bias", "gelu"),
+     "bfloat16"),
+    ((2, 24, 1, 3000), (40, 24, 1, 3), "same", (1, 2), None, "bfloat16"),
+]
 
 
 def emit(obj) -> None:
@@ -601,12 +634,9 @@ def train_phase(args, dev, card, results) -> dict:
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import adjoint, engine
     from repro_torch.core.plan import normalize_epilogue
-    from repro_torch.data import TokenDataset
     from repro_torch.kernels import ops, ssam_conv2d
     from repro_torch.launch import train
 
@@ -626,6 +656,8 @@ def train_phase(args, dev, card, results) -> dict:
     lin2s = nchw(c["x2"], c["w2"], (1, 2))       # conv2's linear plan
     adj2 = adjoint.input_adjoint_plan(lin2)
     wa2 = adjoint.adjoint_coeff_array(lin2, c["w2"])
+    phased = engine.run_adjoint_phases
+    phased_ref = engine.run_adjoint_phases_reference
     g2d = torch.zeros_like(c["g1"])
     g2d[..., ::2] = c["g2"]                      # the scattered cotangent
     rng = np.random.default_rng(args.seed + 4)
@@ -656,10 +688,23 @@ def train_phase(args, dev, card, results) -> dict:
          4 * (B * D * T + D * D * 3 + D + B * D * T // 2),
          lambda: F.gelu(F.conv2d(c["x2"], c["w2"], c["b2"], stride=(1, 2),
                                  padding=(0, 1)), approximate="tanh"), K1),
-        ("K1 conv2 dx, adjoint plan on the scattered cotangent "
+        # the real products only: 8 x 1500 cotangent positions x 3 taps
+        ("K1 conv2 dx, phases of the strided adjoint (8,512,1,1500) -> "
          "(8,512,1,3000)",
+         lambda: phased(c["g2"], wa2, plan=lin2s, in_spatial=(1, T)),
+         lambda: phased_ref(c["g2"], wa2, plan=lin2s, in_spatial=(1, T)),
+         F32, 2 * D * D * 3 * B * (T // 2),
+         4 * (B * D * T // 2 + D * D * 3 + B * D * T),
+         lambda: torch.nn.grad.conv2d_input(
+             c["x2"].shape, c["w2"], c["g2"], stride=(1, 2), padding=(0, 1)),
+         K1),
+        # the formulation before: the stride-free adjoint on the cotangent
+        # scattered onto the dense lattice, half its products with zeros;
+        # its bound counts what the function needs, as the phases' does
+        ("K1 conv2 dx, scattered cotangent, adjoint plan (8,512,1,3000)",
          lambda: run(g2d, wa2, plan=adj2), lambda: ref(g2d, wa2, plan=adj2),
-         F32, 2 * D * D * 3 * B * T, 4 * (2 * B * D * T + D * D * 3),
+         F32, 2 * D * D * 3 * B * (T // 2),
+         4 * (B * D * T // 2 + D * D * 3 + B * D * T),
          lambda: torch.nn.grad.conv2d_input(
              c["x2"].shape, c["w2"], c["g2"], stride=(1, 2), padding=(0, 1)),
          K1),
@@ -710,10 +755,44 @@ def train_phase(args, dev, card, results) -> dict:
         err = compare(tag, got, want, rtol, results)
         if rtol == F32:
             worst[tag[:2]] = max(worst[tag[:2]], err)
-        if tag.startswith("K3"):
+        if tag.startswith(("K3", "K1 conv2")):
             # no atomics: a second call gives the same bits
             require(torch.equal(got, kern()), (tag, "not deterministic"))
+        if tag.startswith("K1 conv2 dx, phases"):
+            dx_phases = got
+        if tag.startswith("K1 conv2 dx, scattered"):
+            compare("K1 conv2 dx: phases against the scattered cotangent",
+                    dx_phases, got, F32, results)
+            del dx_phases
         del got, want
+    # K1's reduce path on the edge cases: forward, and the phased dx of the
+    # linear plan (one launch) against its plain version
+    for xs, ws, mode, stride, epi_e, dt in REDUCE_EDGE_CASES:
+        gen = np.random.default_rng(args.seed + 5)
+        dtype = getattr(torch, dt)
+        xe = torch.as_tensor(gen.standard_normal(xs, np.float32),
+                             device=dev).to(dtype)
+        we = torch.as_tensor(gen.standard_normal(ws, np.float32), device=dev)
+        be = torch.as_tensor(gen.standard_normal(ws[:1], np.float32),
+                             device=dev)
+        pe = dataclasses.replace(
+            ssam_conv2d.plan_for_nchw(xs, ws, mode),
+            stride=None if stride == (1, 1) else stride,
+            epilogue=normalize_epilogue(epi_e))
+        eargs = (be,) if epi_e and "bias" in epi_e else ()
+        tol = F32 if dt == "float32" else 3e-2
+        tag = f"K1 edge {xs} x {ws} {mode} stride {stride} {epi_e} {dt}"
+        compare(tag + " forward", run(xe, we, plan=pe, epilogue_args=eargs),
+                ref(xe, we, plan=pe, epilogue_args=eargs), tol, results)
+        le = dataclasses.replace(pe, epilogue=())
+        ge = torch.as_tensor(gen.standard_normal(
+            (xs[0], ws[0]) + le.out_shape(xs[2:]), np.float32),
+            device=dev).to(dtype)
+        wae = adjoint.adjoint_coeff_array(le, we)
+        compare(tag + " phased dx",
+                phased(ge, wae, plan=le, in_spatial=xs[2:]),
+                phased_ref(ge, wae, plan=le, in_spatial=xs[2:]), tol,
+                results)
     xb, gb = c["x2"].bfloat16(), c["g2"].bfloat16()
     compare("K3 conv2 dW on the strided cotangent, bf16 in",
             wrun(xb, gb, plan=lin2s), wref(xb, gb, plan=lin2s), 3e-2,
@@ -789,9 +868,12 @@ def train_phase(args, dev, card, results) -> dict:
         if "bf16" in tag:
             continue
         ms = device_ms(kern, 20)
+        # cuDNN's single-channel 5x5 weight gradient takes seconds a call
+        lib_reps = 3 if "(N, M)" in tag else 20
         rec = {"case": tag, "ms": ms, "call_ms": event_ms(kern, 20),
                "plain_ms": device_ms(plain, 3),
-               "library_ms": device_ms(lib, 20), "bound_ms": max(b_ms, f_ms),
+               "library_ms": device_ms(lib, lib_reps),
+               "bound_ms": max(b_ms, f_ms),
                "bound_by": "bytes" if b_ms >= f_ms else "operations",
                "gflop": flops / 1e9, "bytes": nbytes,
                "roofline_share": max(b_ms, f_ms) / ms, "card": card}
@@ -819,43 +901,32 @@ def train_phase(args, dev, card, results) -> dict:
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "card": card}
     results["times"].append(rec)
     emit({"phase": "train_time", **rec})
-    ds = TokenDataset(model.cfg.vocab, TRAIN_SEQ, seed=args.seed)
-    batch = train.make_batch(model, ds, TRAIN_STEPS, TRAIN_BATCH, dev)
-    res.trainer.step(batch)
-    torch.cuda.synchronize()
-    before = K1.launches, K3.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        loss, _ = res.trainer.step(batch)
-        float(loss)
-        torch.cuda.synchronize()
-    rec = {**device_ops(prof, match={"k1": "window_reduce_kernel",
-                                     "k3": "wgrad"}),
-           "k1_launches": K1.launches - before[0],
-           "k3_launches": K3.launches - before[1], "card": card}
-    rec["stem_share"] = ((rec["k1_ms"] + rec["k3_ms"]) / rec["device_ms"]
-                         if rec["device_ms"] else None)
-    if rec["device_ms"]:
-        # every K3 launch (the partial sums and the pass that adds them)
-        # is a kernel whose name holds "wgrad"
-        require(rec["k3_calls"] == rec["k3_launches"] == k3_step,
-                ("profiled K3 kernels against the counter", rec["k3_calls"],
-                 rec["k3_launches"], k3_step))
+    # One profiled step, in a fresh process: after phase 7 this process's
+    # traces lose some of K1's launches (PERF.md §7); a fresh process's
+    # host-and-device trace has held all of them in every run so far.
+    rec = {**profiled_train_step(args.seed), "card": card}
     # The same step's stem from the timed calls of (d): each forward twice
     # (the backward recomputes the pre-activation), conv2's dx, both dW.
     timed = {r["case"][:14]: r["ms"] for r in results["times"]
              if r["case"].startswith(("K1 conv", "K3 conv"))}
     rec["stem_ms_from_timed_calls"] = (
         2 * timed["K1 conv1 forwa"] + 2 * timed["K1 conv2 forwa"]
-        + timed["K1 conv2 dx, a"] + timed["K3 conv1 dW (8"]
+        + timed["K1 conv2 dx, p"] + timed["K3 conv1 dW (8"]
         + timed["K3 conv2 dW on"])
-    kernels = {}
-    for e in prof.events():
-        if "ssam" in e.name and e.device_type == DeviceType.CUDA:
-            kernels[e.name[:60]] = kernels.get(e.name[:60], 0) + 1
-    rec["stem_kernel_events"] = kernels
     results["train_profile"] = rec
     emit({"phase": "train_profile", **rec})
+    # every K1 launch (2 forwards, 2 recomputed pre-activations, the phased
+    # dx) is a kernel whose name holds "window_reduce_kernel", every K3
+    # launch (partial sums, the pass that adds them) one with "wgrad"; the
+    # device-only trace is recorded beside (it has dropped the stem's
+    # forwards in some runs, PERF.md §7)
+    require(rec["k1_calls"] == rec["k1_launches"] == 5,
+            ("profiled K1 kernels against the counter", rec["k1_calls"],
+             rec["k1_launches"]))
+    for trace in (rec, rec["device_only"]):
+        require(trace["k3_calls"] == trace["k3_launches"] == k3_step,
+                ("profiled K3 kernels against the counter",
+                 trace["k3_calls"], trace["k3_launches"], k3_step))
     return {"k1_launches": k1, "k3_launches": k3, "k3_step": k3_step,
             "worst": worst, "first_loss": res.losses[0], "step_ms": step_ms,
             "k3_headline": next(r for r in results["times"]
@@ -863,7 +934,63 @@ def train_phase(args, dev, card, results) -> dict:
             "k3_conv1": next(r for r in results["times"]
                              if r["case"].startswith("K3 conv1 dW")),
             "k1_headline": next(r for r in results["times"]
-                                if r["case"].startswith("K1 conv2 dx"))}
+                                if r["case"].startswith(
+                                    "K1 conv2 dx, phases"))}
+
+
+def profile_step_main(seed: int) -> int:
+    """``--profile-train-step``: one whisper-base train step (the shapes of
+    phase 8's main path) after a warm-up step, traced twice, host and
+    device activity, then the device only; prints one JSON line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import engine
+    from repro_torch.data import TokenDataset
+    from repro_torch.launch import train
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    K1, K3 = engine.WINDOW_KERNEL, engine.WGRAD_KERNEL
+    res = train.main(["--arch", "whisper-base", "--conv-frontend", "--steps",
+                      "1", "--batch", str(TRAIN_BATCH), "--seq",
+                      str(TRAIN_SEQ), "--seed", str(seed), "--log-every",
+                      "1000"])
+    model = res.trainer.model
+    ds = TokenDataset(model.cfg.vocab, TRAIN_SEQ, seed=seed)
+    batch = train.make_batch(model, ds, TRAIN_STEPS, TRAIN_BATCH,
+                             torch.device("cuda", 0))
+    res.trainer.step(batch)
+    torch.cuda.synchronize()
+
+    def traced(activities):
+        before = K1.launches, K3.launches
+        with profile(activities=activities) as prof:
+            loss, _ = res.trainer.step(batch)
+            float(loss)
+            torch.cuda.synchronize()
+        return {**device_ops(prof, match={"k1": "window_reduce_kernel",
+                                          "k3": "wgrad"}),
+                "k1_launches": K1.launches - before[0],
+                "k3_launches": K3.launches - before[1]}
+
+    out = traced([ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    out["device_only"] = traced([ProfilerActivity.CUDA])
+    out["stem_share"] = ((out["k1_ms"] + out["k3_ms"]) / out["device_ms"]
+                         if out["device_ms"] else None)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def profiled_train_step(seed: int) -> dict:
+    """Run :func:`profile_step_main` in a fresh process; its JSON line."""
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--profile-train-step", "--seed", str(seed)],
+        capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0,
+            ("profiled train step", proc.stdout[-2000:], proc.stderr[-4000:]))
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def mxu_phase(args, dev, card, results, lanes) -> dict:
@@ -1576,6 +1703,8 @@ def main() -> int:
     parser.add_argument("--out", default=os.path.join(ROOT, "build",
                                                       "chip_smoke"),
                         help="directory for chip_smoke.json")
+    parser.add_argument("--profile-train-step", action="store_true",
+                        help=argparse.SUPPRESS)   # phase 8's fresh process
     args = parser.parse_args()
     import numpy as np
     import torch
@@ -1584,6 +1713,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    if args.profile_train_step:
+        return profile_step_main(args.seed)
     import torch.nn.functional as F
 
     from repro_torch import _build, convert
@@ -1618,7 +1749,16 @@ def main() -> int:
                         "wgrad_tc_sass": sass_counts(
                             str(_build.LIBRARY.path), "wgrad_tc_kernel",
                             ("HGMMA", "UTMALDG"))}
+    # K1's reduce path: its registers and spills (ptxas -v), and its FFMAs
+    # and shared loads in SASS (every instantiation summed)
+    reduce_build = results["build"]["by_source"]["ssam_window_reduce.cu"]
+    results["build"]["window_reduce_sass"] = sass_counts(
+        str(_build.LIBRARY.path), "window_reduce_kernel",
+        ("FFMA", "LDS", "LDGSTS"))
     emit({"phase": "build", **results["build"], "card": card})
+    require(reduce_build["kernels"] >= 1
+            and reduce_build["max_spill_store_bytes"] == 0,
+            ("K1's reduce kernel spills", reduce_build))
 
     def stencil_plan(sd):
         mod = ssam_stencil2d if sd.ndim == 2 else ssam_stencil3d
@@ -1784,7 +1924,13 @@ def main() -> int:
                   "max_abs_err": trained["worst"]["K1"], "ms": k1t["ms"],
                   "plain_ms": k1t["plain_ms"], "bound_ms": k1t["bound_ms"],
                   "bound_by": k1t["bound_by"],
-                  "library_ms": k1t["library_ms"], "case": k1t["case"]},
+                  "library_ms": k1t["library_ms"], "case": k1t["case"],
+                  **{key: _row(next(r for r in results["times"]
+                                    if r["case"].startswith(prefix)))
+                     for key, prefix in (
+                         ("conv2_forward", "K1 conv2 forward"),
+                         ("conv1_forward", "K1 conv1 forward"),
+                         ("dx_scattered", "K1 conv2 dx, scattered"))}},
         "hymba": {"launches": hy["launches"]["k1"],
                   "max_abs_err": hy["worst"]["K1"],
                   **_row(hy["timed"]["K1"]),

@@ -124,7 +124,7 @@ class Library:
         lib.ssam_scan_launch.restype = i
         lib.ssam_window_reduce_launch.argtypes = (
             [p, p, i, p, p, i, p, ctypes.POINTER(ctypes.c_int),
-             ctypes.POINTER(ctypes.c_float), i] + [i] * 16 + [p])
+             ctypes.POINTER(ctypes.c_float), i] + [i] * 22 + [p])
         lib.ssam_window_reduce_launch.restype = i
         lib.ssam_wgrad_launch.argtypes = [p, p, i, p, p] + [i] * 21 + [p]
         lib.ssam_wgrad_launch.restype = i

@@ -147,6 +147,97 @@ def input_adjoint_plan(plan: SystolicPlan) -> SystolicPlan:
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class AdjointPhase:
+    """One output phase of a strided plan's input adjoint.
+
+    ``offset`` ``(py, px)``: the phase holds ``dx``'s positions ``(sh·q +
+    py, sw·u + px)``. ``taps`` are ``(dr, dc, coeff_id)`` in the forward's
+    plan order: ``dx[sh·q + py, sw·u + px]`` sums ``g[q + dr, u + dc]``
+    times the adjoint coefficient at ``coeff_id`` (zero where ``g`` has no
+    such position). ``plan`` is the same sum as a stride-1 windowed plan
+    on ``g`` (taps at ``(dr, dc) + lead``, its own ``(N', M')`` footprint,
+    coefficients read from :meth:`filter`), None for a phase no tap
+    reaches: its ``dx`` is zero."""
+
+    offset: tuple[int, int]
+    stride: tuple[int, int]
+    taps: tuple[tuple[int, int, tuple[int, ...]], ...]
+    plan: SystolicPlan | None
+
+    def extent(self, in_spatial) -> tuple[int, int]:
+        """The phase's ``(rows, columns)`` in ``dx`` of spatial shape
+        ``in_spatial``."""
+        return tuple(max(0, -(-(n - p) // s)) for n, p, s in zip(
+            in_spatial, self.offset, self.stride))
+
+    def filter(self, wa):
+        """The adjoint coefficient array ``wa`` (``adjoint_coeff_array``'s
+        layout) gathered onto the phase plan's footprint, zeros where no
+        tap sits."""
+        p = self.plan
+        (lr, lc), _ = p.lead_trail()
+        out = wa.new_zeros(tuple(wa.shape[:-2]) + (p.N, p.M))
+        for dr, dc, cid in self.taps:
+            out[..., dr + lr, dc + lc] = wa[(...,) + tuple(cid)]
+        return out
+
+
+def strided_input_adjoint_phases(plan: SystolicPlan) -> tuple[AdjointPhase, ...]:
+    """The input adjoint of an output-strided 2-D plan, phase by phase.
+
+    For stride ``(sh, sw)`` the forward reads ``x[oy·sh + n − ly, ox·sw + m
+    − lx]``, so ``dx`` splits into ``sh·sw`` output phases ``(py, px)``.
+    On each axis a phase ``p`` receives exactly the taps ``m ≡ p + lead
+    (mod s)``, each reading the cotangent at ``q + (p + lead − m)/s``
+    (zero outside it), with the coefficient ``adjoint_coeff_array`` gives
+    today. This is :func:`input_adjoint_plan` of the stride-free plan on
+    the cotangent scattered onto the dense lattice, without the scatter
+    and without multiplying the inserted zeros. Phases in row-major
+    ``(py, px)`` order; a phase's taps in the forward's plan order.
+    """
+    if plan.combine != "fma" or plan.ndim_spatial != 2:
+        raise ValueError("strided_input_adjoint_phases takes 2-D windowed "
+                         f"plans, got {plan.kind!r}")
+    if plan.stages:
+        raise NotImplementedError(
+            "the adjoint of a fused pipeline is the reversed chain of stage "
+            "adjoints, which needs core/fuse.py (ROADMAP Queue 1 item 7)")
+    stride = plan.stride_per_axis()
+    (ly, lx), _ = plan.lead_trail()
+    sh, sw = stride
+    phases = []
+    for py in range(sh):
+        for px in range(sw):
+            taps = tuple(((py + ly - n) // sh, (px + lx - m) // sw, cid)
+                         for (n, m), cid in iter_tap_offsets(plan)
+                         if (n - py - ly) % sh == 0
+                         and (m - px - lx) % sw == 0)
+            phases.append(AdjointPhase((py, px), stride, taps,
+                                       _phase_plan(plan, taps)))
+    return tuple(phases)
+
+
+def _phase_plan(plan: SystolicPlan, taps) -> SystolicPlan | None:
+    """The stride-1 windowed plan of one adjoint phase on the cotangent:
+    its taps at ``(dr, dc) + lead``, ``lead`` the most negative offset
+    (none positive), channel roles flipped as in the input adjoint."""
+    if not taps:
+        return None
+    lr = max(0, -min(t[0] for t in taps))
+    lc = max(0, -min(t[1] for t in taps))
+    offs = [((dr + lr, dc + lc), (dr + lr, dc + lc)) for dr, dc, _ in taps]
+    N = 1 + max(o[0] for o, _ in offs)
+    M = 1 + max(o[1] for o, _ in offs)
+    kind = plan.kind[4:] if plan.kind.startswith("adj_") else \
+        "adj_" + plan.kind
+    return dataclasses.replace(
+        plan, kind=kind, N=N, M=M, C=N + plan.P - 1,
+        steps=_steps_from_offsets(offs, M),
+        lead=(lr, lc) if lr or lc else None, trail=None, stride=None,
+        reduce_axes=plan.out_axes, out_axes=plan.reduce_axes, epilogue=())
+
+
 def adjoint_coeff_array(plan: SystolicPlan, w):
     """The forward coefficient array in the adjoint plan's layout (out and
     reduce axes swapped); ``w`` itself for plans without them."""

@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from . import adjoint
 from .adjoint import apply_epilogue
 from .halo import origin_pads
 from .plan import EPILOGUE_OPERANDS, SystolicPlan, epilogue_operand_stages
@@ -481,10 +482,11 @@ def _tile_launch(plan: SystolicPlan, x, block, t: int):
 
 @dataclasses.dataclass
 class _ReduceLaunch:
-    """What both channel-reduce paths (K1's, K2's) launch with: ``args``
-    the leading arguments of their C entries (through the plan's ``N``,
-    ``M``), ``out`` the empty output, ``keep`` the tensors ``args`` point
-    into (alive until the launch is enqueued)."""
+    """What K2's channel-reduce path launches with: ``args`` the leading
+    arguments of its C entry (through the plan's ``N``, ``M``), ``out``
+    the empty output, ``keep`` the tensors ``args`` point into (alive
+    until the launch is enqueued). K1's path has its own tap table and
+    filter layout (:meth:`WindowKernel._launch_phases`)."""
 
     args: list
     out: torch.Tensor
@@ -493,8 +495,7 @@ class _ReduceLaunch:
     c_in: int
 
 
-def _reduce_launch(kernel: str, plan: SystolicPlan, x, w, epilogue_args,
-                   co_tile: int) -> _ReduceLaunch:
+def _reduce_launch(plan: SystolicPlan, x, w, epilogue_args) -> _ReduceLaunch:
     """``x (B, C_in, H, W)`` against ``w (C_out, C_in, N, M)``: the tap
     table, the fp32 filter, the epilogue and the output of one reduce
     launch, the grid checked against CUDA's limits."""
@@ -502,8 +503,8 @@ def _reduce_launch(kernel: str, plan: SystolicPlan, x, w, epilogue_args,
     Bn, Cr, H, W = x4.shape
     Co = w.shape[0]
     Ho, Wo = plan.out_shape((H, W))
-    if Ho > 65535 or Bn * -(-Co // co_tile) > 65535:
-        raise ValueError(f"{kernel}'s reduce grid cannot hold {Ho} rows or "
+    if Ho > 65535 or Bn * -(-Co // MXU_CO_TILE) > 65535:
+        raise ValueError(f"K2's reduce grid cannot hold {Ho} rows or "
                          f"{Bn} x {Co} channels")
     taps = reduce_tap_table(plan)
     dtaps = _device_ints(taps, x.device)
@@ -524,7 +525,9 @@ def _reduce_launch(kernel: str, plan: SystolicPlan, x, w, epilogue_args,
 class WindowKernel:
     """Wrapper of K1. ``launches`` counts the kernel launches it made:
     one per call, on the single-channel path (``ssam_window_launch``) and
-    on the channel-reduce path (``ssam_window_reduce_launch``) alike."""
+    on the channel-reduce path (``ssam_window_reduce_launch``) alike; a
+    strided plan's input adjoint (:meth:`adjoint_phases`) is one launch
+    for all its phases."""
 
     name = "ssam_window"
     source = "src/repro_torch/csrc/ssam_window.cu"
@@ -566,18 +569,65 @@ class WindowKernel:
 
     def _reduce(self, x, w, plan, epilogue_args):
         """The channel-reduce path: ``x (B, C_in, H, W)`` against
-        ``w (C_out, C_in, N, M)``, output stride and epilogue."""
-        r = _reduce_launch("K1", plan, x, w, epilogue_args, REDUCE_CO_TILE)
-        ci_t, smem = reduce_smem_plan(plan, r.ntaps, r.c_in)
+        ``w (C_out, C_in, N, M)``, output stride and epilogue, one phase."""
+        x4 = x if plan.batch_axes else x[None]
+        phase = forward_phase(plan, tuple(x4.shape[2:]))
+        out = self._launch_phases(x4, w, plan, (phase,),
+                                  plan.stride_per_axis(), (1, 1),
+                                  phase.extent, epilogue_args)
+        return out if plan.batch_axes else out[0]
+
+    def adjoint_phases(self, g, wa, *, plan: SystolicPlan, in_spatial):
+        """``dx`` of a strided reduce plan in one launch: every output
+        phase of :func:`adjoint_reduce_phases` reads the cotangent ``g``
+        at stride 1 and writes its positions of ``dx`` in place."""
+        _check_kernel_operands("K1", g, wa, plan)
+        g4 = g if plan.batch_axes else g[None]
+        lin = dataclasses.replace(plan, epilogue=())
+        phases = adjoint_reduce_phases(lin, in_spatial)
+        out = self._launch_phases(g4, wa, lin, phases, (1, 1),
+                                  plan.stride_per_axis(), tuple(in_spatial),
+                                  ())
+        return out if plan.batch_axes else out[0]
+
+    def _launch_phases(self, x4, w, plan, phases, read_stride, out_stride,
+                       out_spatial, epilogue_args):
+        """Launch ``ssam_window_reduce.cu`` on ``x4 (B, C_r, H, W)`` and
+        ``w (C_o, C_r, N, M)``: the filter as the kernel stages it (C_out
+        minor, padded to the block's 128 channels), the tap table, the
+        layout of :func:`reduce_layout`."""
+        x4 = x4.contiguous()
+        if x4.data_ptr() % CP_ASYNC_BYTES:
+            x4 = x4.clone()     # the staging copies start 16-byte aligned
+        Bn, Cr, H, W = x4.shape
+        Co, fsz = w.shape[0], plan.N * plan.M
+        lay = reduce_layout(phases, batch=Bn, c_in=Cr, c_out=Co,
+                            read_stride=read_stride,
+                            elem_bytes=x4.element_size())
+        wt = torch.zeros((Cr, fsz, lay.co_pad), dtype=torch.float32,
+                         device=x4.device)
+        wt[..., :Co] = w.detach().to(torch.float32).reshape(
+            Co, Cr, fsz).permute(1, 2, 0)
+        table = _device_ints(lay.table, x4.device)
+        c_ops, c_vals, n_epi, bias = _epilogue_codes(plan, epilogue_args,
+                                                     x4.device)
+        out = torch.empty((Bn, Co) + tuple(out_spatial), dtype=x4.dtype,
+                          device=x4.device)
         err = self.library.get().ssam_window_reduce_launch(
-            *r.args, ci_t, smem,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x4.data_ptr(), out.data_ptr(), int(x4.dtype == torch.bfloat16),
+            wt.data_ptr(), table.data_ptr(), len(lay.table),
+            None if bias is None else bias.data_ptr(), c_ops, c_vals, n_epi,
+            Bn, Cr, Co, lay.co_pad, H, W, *out_spatial, *read_stride,
+            *out_stride, fsz, len(phases), lay.cols, lay.ci_slab,
+            lay.row_elems, lay.x_bytes, lay.stage_bytes, *lay.grid[:2],
+            lay.smem,
+            torch.cuda.current_stream(x4.device).cuda_stream)
         if err:
             raise RuntimeError(f"K1 launch failed: CUDA error {err} "
-                               f"({plan.kind}, reduce {r.c_in} -> "
-                               f"{w.shape[0]})")
+                               f"({plan.kind}, reduce {Cr} -> {Co}, "
+                               f"{len(phases)} phase(s))")
         self.launches += 1
-        return r.out if plan.batch_axes else r.out[0]
+        return out
 
     def _perlane(self, x, w, plan, epilogue_args):
         """The per-lane (depthwise) path: ``x (…, T, D)`` against ``w (K,
@@ -639,12 +689,23 @@ def perlane_row_table(plan: SystolicPlan) -> tuple[int, ...]:
         rows[r], prev = tap.coeff_id[-1], r
     return tuple(rows)
 
-# The reduce path's block: 8 warps x 4 output channels, 1 row x 128 columns
-# (4 per lane); input channels are staged REDUCE_CI_MAX at a time at most.
-REDUCE_CO_TILE = 32
-REDUCE_COLS = 128
-REDUCE_CI_MAX = 16
-REDUCE_SMEM_TARGET = 48 * 1024
+# K1's channel-reduce path (csrc/ssam_window_reduce.cu): a register-tiled
+# implicit GEMM on the CUDA cores. A thread holds 8 output channels x 8
+# consecutive output columns of fp32 sums, a block 128 channels x ``cols``
+# columns (2·cols threads); the input channels stream through a ring of
+# REDUCE_STAGES cp.async stages of ``ci_slab`` channels each.
+REDUCE_CO_TILE = 128
+REDUCE_COLS = (128, 96, 64)       # column tiles the wave model picks from
+REDUCE_MW = 3                     # columns of one tap group's register window
+REDUCE_STAGES = 3
+REDUCE_STAGE_TARGET = 24 * 1024   # bytes of one ring stage (at least 1 channel)
+REDUCE_CI_SLAB_MAX = 16
+REDUCE_REGS = 128                 # registers a thread may use (launch bounds)
+REDUCE_PHASE_INTS = 10            # one phase's header in the tap table
+REDUCE_TABLE_INTS = 4096
+CP_ASYNC_BYTES = 16               # the staging copies' width
+H100_SM_SMEM = 233472             # shared memory of one SM (bytes)
+H100_SM_REGS = 65536
 
 
 def reduce_tap_table(plan: SystolicPlan) -> tuple[int, ...]:
@@ -677,22 +738,181 @@ def _device_floats(values: tuple[float, ...], device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 
-def reduce_smem_plan(plan: SystolicPlan, ntaps: int, c_in: int):
-    """``(ci_t, bytes)``: input channels staged per pass and the dynamic
-    shared memory of one reduce block (layout of
-    ``ssam_window_reduce.cu``: tap table, ``ci_t × taps × 32`` filter
-    values, ``ci_t × N`` staged input rows)."""
-    sw = plan.stride_per_axis()[1]
-    span = (REDUCE_COLS - 1) * sw + plan.M
-    table = (3 * ntaps + 3) & ~3
-    per_ci = ntaps * REDUCE_CO_TILE + plan.N * span
-    ci_t = (REDUCE_SMEM_TARGET // 4 - table) // per_ci
-    ci_t = max(1, min(REDUCE_CI_MAX, c_in, ci_t))
-    smem = 4 * (table + ci_t * per_ci)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"K1's reduce block needs {smem} bytes of shared "
-                         f"memory (limit {SMEM_LIMIT})")
-    return ci_t, smem
+@dataclasses.dataclass(frozen=True)
+class ReducePhase:
+    """One output phase of a K1 reduce launch: output rows ``oy·osh + py``
+    and columns ``ox·osw + px`` for ``oy < rows``, ``ox < cols`` (``offset
+    = (py, px)``, ``extent = (rows, cols)``), each the sum over the input
+    channels of ``x[oy·sh + dr, ox·sw + dc]·w[coeff]`` over ``taps``
+    ``(dr, dc, coeff)`` (``coeff`` flat into one ``(N, M)`` filter slice),
+    zero where the read leaves ``x``. A forward is one phase; a strided
+    plan's input adjoint one per output phase."""
+
+    offset: tuple[int, int]
+    extent: tuple[int, int]
+    taps: tuple[tuple[int, int, int], ...]
+
+
+def forward_phase(plan: SystolicPlan, in_spatial) -> ReducePhase:
+    """A reduce plan's forward as K1's one phase: taps at ``(row − ly,
+    col − lx)`` in plan order."""
+    (ly, lx), _ = plan.lead_trail()
+    t = reduce_tap_table(plan)
+    taps = tuple((t[i] - ly, t[i + 1] - lx, t[i + 2])
+                 for i in range(0, len(t), 3))
+    return ReducePhase((0, 0), plan.out_shape(tuple(in_spatial)), taps)
+
+
+def adjoint_reduce_phases(plan: SystolicPlan, in_spatial
+                          ) -> tuple[ReducePhase, ...]:
+    """The input adjoint of a strided reduce plan as K1's phases
+    (:func:`adjoint.strided_input_adjoint_phases`), read at stride 1 from
+    the cotangent and written at the plan's stride into ``dx``; phases
+    that hold no position of ``dx`` are left out, phases no tap reaches
+    kept (they write zeros)."""
+    out = []
+    for ph in adjoint.strided_input_adjoint_phases(plan):
+        ext = ph.extent(in_spatial)
+        if all(ext):
+            out.append(ReducePhase(ph.offset, ext, tuple(
+                (dr, dc, n * plan.M + m) for dr, dc, (n, m) in ph.taps)))
+    return tuple(out)
+
+
+def reduce_groups(phase: ReducePhase):
+    """``(dcmin, rows, groups)`` of a phase as K1 reads it: ``rows`` the
+    distinct ``dr`` (one staged input row each per channel), ``groups``
+    ``(row index, window column, tap of column 0, 1, …)`` with window
+    column relative to ``dcmin`` and ``-1`` where no tap sits. A group is
+    one register window of a thread: ``8·sw + REDUCE_MW − sw`` staged
+    values that serve the taps of up to REDUCE_MW adjacent columns of one
+    row. Groups in the order their first tap has in ``taps``; inside a
+    group the taps by column (the kernel's summation order)."""
+    if not phase.taps:
+        return 0, (), ()
+    dcmin = min(t[1] for t in phase.taps)
+    rows, groups = [], {}
+    for t, (dr, dc, _) in enumerate(phase.taps):
+        if dr not in rows:
+            rows.append(dr)
+        wo = (dc - dcmin) // REDUCE_MW * REDUCE_MW
+        g = groups.setdefault((rows.index(dr), wo), [-1] * REDUCE_MW)
+        g[dc - dcmin - wo] = t
+    return dcmin, tuple(rows), tuple((r, wo, *g)
+                                     for (r, wo), g in groups.items())
+
+
+def reduce_table(phases) -> tuple[int, ...]:
+    """The tap table of a K1 reduce launch: per phase a header of
+    :data:`REDUCE_PHASE_INTS` ints ``(py, px, rows, cols, ntaps, nrows,
+    ngroups, dcmin, data offset, 0)``, then each phase's data: its taps'
+    coefficient indices, its rows' ``dr`` and its groups
+    (:func:`reduce_groups`)."""
+    head, data = [], []
+    base = REDUCE_PHASE_INTS * len(phases)
+    for ph in phases:
+        dcmin, rows, groups = reduce_groups(ph)
+        head += [*ph.offset, *ph.extent, len(ph.taps), len(rows),
+                 len(groups), dcmin, base + len(data), 0]
+        data += [t[2] for t in ph.taps] + list(rows)
+        data += [v for g in groups for v in g]
+    table = tuple(head + data)
+    if len(table) > REDUCE_TABLE_INTS:
+        raise ValueError(f"K1's reduce tap table holds {REDUCE_TABLE_INTS} "
+                         f"ints, the plan needs {len(table)}")
+    return table
+
+
+def staged_row_start(g0: int, elem_bytes: int) -> tuple[int, int]:
+    """Where K1 stages an input row whose first needed element has the
+    flat index ``g0``: ``(a0, shift)``, ``a0`` the 16-byte aligned element
+    at or below ``g0`` (the cp.async copies start there), ``shift = g0 −
+    a0`` the offset the reads apply."""
+    per = CP_ASYNC_BYTES // elem_bytes
+    return g0 - g0 % per, g0 % per
+
+
+@dataclasses.dataclass(frozen=True)
+class ReduceLayout:
+    """K1's reduce-path geometry. A block owns 128 output channels (of
+    ``co_pad``, the filter's padded C_out) × one output row × ``cols``
+    columns of one phase, with ``2·cols`` threads; the grid is (column
+    tiles, rows, batch × C_out tiles × phases). Each ring stage holds
+    ``ci_slab`` input channels: per channel the phase's input rows of
+    ``row_elems`` elements each (the row's span from its 16-byte aligned
+    start, ``x_bytes`` for the slab) and its taps' 128 filter values;
+    :data:`REDUCE_STAGES` stages after the tap table (``table``) make
+    ``smem`` bytes.
+    ``blocks_per_sm`` is what the registers and shared memory allow at
+    once."""
+
+    cols: int
+    ci_slab: int
+    row_elems: int
+    x_bytes: int
+    stage_bytes: int
+    smem: int
+    blocks_per_sm: int
+    co_pad: int
+    grid: tuple[int, int, int]
+    table: tuple[int, ...]
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def reduce_layout(phases, *, batch: int, c_in: int, c_out: int,
+                  read_stride=(1, 1), elem_bytes: int = 4) -> ReduceLayout:
+    """K1's reduce-path layout for ``phases`` (:class:`ReducePhase`). The
+    column tile (one of :data:`REDUCE_COLS`) comes from a wave model: each
+    SM runs ``blocks_per_sm`` blocks at a time, and a wave of them takes
+    as long as ``blocks_per_sm·cols`` columns of work whether it is full
+    or not; the tile with the fewest such columns wins, the wider on a
+    tie."""
+    sh, sw = read_stride
+    per = CP_ASYNC_BYTES // elem_bytes
+    table = reduce_table(phases)
+    groups = [reduce_groups(ph) for ph in phases]
+    rows_max = max(1, max(len(r) for _, r, _ in groups))
+    taps_max = max(1, max(len(ph.taps) for ph in phases))
+    wo_max = max((g[1] for _, _, gs in groups for g in gs), default=0)
+    co_pad = _round_up(c_out, REDUCE_CO_TILE)
+    table_bytes = _round_up(4 * len(table), 16)
+    rows_out = max(ph.extent[0] for ph in phases)
+    cols_out = max(ph.extent[1] for ph in phases)
+    z = batch * (co_pad // REDUCE_CO_TILE) * len(phases)
+    if rows_out > 65535 or z > 65535:
+        raise ValueError(f"K1's reduce grid cannot hold {rows_out} rows or "
+                         f"{batch} x {c_out} channels x {len(phases)} phases")
+
+    def layout(cb):
+        need = (cb - 1) * sw + wo_max + REDUCE_MW
+        lp = _round_up(need + per - 1, per)
+        w_per = taps_max * REDUCE_CO_TILE * 4
+        x_per = rows_max * lp * elem_bytes
+        slab = max(1, min(REDUCE_CI_SLAB_MAX, c_in,
+                          REDUCE_STAGE_TARGET // (w_per + x_per)))
+        x_bytes = _round_up(slab * x_per, 16)
+        stage = x_bytes + slab * w_per
+        smem = table_bytes + REDUCE_STAGES * stage
+        threads = 2 * cb
+        bps = max(1, min(H100_SM_REGS // (threads * REDUCE_REGS),
+                         H100_SM_SMEM // (smem + 1024), 2048 // threads))
+        return ReduceLayout(cb, slab, lp, x_bytes, stage,
+                            smem, bps, co_pad,
+                            (-(-cols_out // cb), rows_out, z), table)
+
+    def cost(lay):
+        blocks = lay.grid[0] * lay.grid[1] * lay.grid[2]
+        waves = -(-blocks // (H100_SMS * lay.blocks_per_sm))
+        return waves * lay.blocks_per_sm * lay.cols, -lay.cols
+
+    lay = min((layout(cb) for cb in REDUCE_COLS), key=cost)
+    if lay.smem > SMEM_LIMIT:
+        raise ValueError(f"K1's reduce block needs {lay.smem} bytes of "
+                         f"shared memory (limit {SMEM_LIMIT})")
+    return lay
 
 
 @dataclasses.dataclass(frozen=True)
@@ -787,7 +1007,7 @@ def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
     across, 64 rows (2-D) or 16 rows by 8 slices (3-D), halved until a
     single-channel K1 block (K2 block, for an mxu plan) takes at most
     half of the shared memory. (The reduce paths tile their output
-    themselves: K1 32 channels x 1 row x 128 columns, K2 64 x 1 x 128.)"""
+    themselves: K1 128 channels x 1 row x 64-128 columns, K2 64 x 1 x 128.)"""
     need = mxu_smem_bytes if plan.strategy == "mxu" else smem_bytes
     V = max(1, WARP - (plan.M - 1))
     if plan.ndim_spatial == 3:
@@ -960,7 +1180,7 @@ class MxuKernel:
         """The channel-reduce path: the implicit GEMM of ``w (C_out,
         C_in·taps)`` against the im2row operand of ``x (B, C_in, H, W)``,
         output stride and epilogue."""
-        r = _reduce_launch("K2", plan, x, w, epilogue_args, MXU_CO_TILE)
+        r = _reduce_launch(plan, x, w, epilogue_args)
         lay = mxu_reduce_layout(plan, r.ntaps, r.c_in)
         err = self.library.get().ssam_mxu_reduce_launch(
             *r.args, lay.ci_t, lay.kc, lay.lda, lay.span, lay.smem,
@@ -1031,6 +1251,73 @@ def run_window_plan_mxu(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     lanes schedule."""
     return run_window_plan(
         x, w, plan=dataclasses.replace(plan, strategy="mxu"), **kw)
+
+
+def _check_adjoint_phase_operands(g, wa, plan: SystolicPlan, in_spatial):
+    """``g`` and ``wa`` of a strided reduce plan's input adjoint, checked
+    against the plan and the input's spatial shape."""
+    if not _is_reduce(plan) or plan.ndim_spatial != 2 \
+            or plan.coeff_mode != "dense":
+        raise ValueError(f"{plan.kind!r}: the phased input adjoint takes "
+                         "dense 2-D reduce plans")
+    nb = plan.batch_axes
+    want = plan.out_shape(tuple(in_spatial))
+    if g.ndim != nb + 3 or wa.ndim != 4 or wa.shape[1] != g.shape[nb] \
+            or tuple(g.shape[nb + 1:]) != want \
+            or tuple(wa.shape[2:]) != plan.exts:
+        raise ValueError(
+            f"cotangent {tuple(g.shape)} and adjoint filter "
+            f"{tuple(wa.shape)} do not fit the {plan.kind!r} plan on a "
+            f"{tuple(in_spatial)} input (cotangent spatial {want})")
+
+
+def run_adjoint_phases_reference(g: torch.Tensor, wa: torch.Tensor, *,
+                                 plan: SystolicPlan,
+                                 in_spatial) -> torch.Tensor:
+    """The plain version of K1's phased input adjoint: ``dx`` of the
+    strided reduce plan ``plan`` (its linear part) on an input of spatial
+    shape ``in_spatial``, given the cotangent ``g`` of the strided output
+    and ``wa = adjoint_coeff_array(plan, w)``. Each phase of
+    :func:`adjoint.strided_input_adjoint_phases` runs as its stride-1
+    plan through :func:`run_window_plan_reference` and is written to
+    ``dx[..., py::sh, px::sw]``; phases no tap reaches stay zero."""
+    _check_adjoint_phase_operands(g, wa, plan, in_spatial)
+    sh, sw = plan.stride_per_axis()
+    Ho, Wo = g.shape[-2:]
+    dx = g.new_zeros(tuple(g.shape[:-3]) + (wa.shape[0],)
+                     + tuple(in_spatial), dtype=acc_dtype(g))
+    for ph in adjoint.strided_input_adjoint_phases(plan):
+        hq, wq = ph.extent(in_spatial)
+        if ph.plan is None or not hq or not wq:
+            continue
+        p = ph.plan
+        (lr, lc), _ = p.lead_trail()
+        trail = (max(0, hq - (Ho + lr - p.N + 1)),
+                 max(0, wq - (Wo + lc - p.M + 1)))
+        p = dataclasses.replace(p, trail=trail if any(trail) else None)
+        y = run_window_plan_reference(g, ph.filter(wa), plan=p)
+        py, px = ph.offset
+        dx[..., py::sh, px::sw] = y[..., :hq, :wq]
+    return dx.to(g.dtype)
+
+
+def run_adjoint_phases(g: torch.Tensor, wa: torch.Tensor, *,
+                       plan: SystolicPlan, in_spatial) -> torch.Tensor:
+    """``dx`` of a strided reduce plan, phase by phase, without scattering
+    the cotangent: K1 (:meth:`WindowKernel.adjoint_phases`, one launch)
+    for a CUDA tensor, :func:`run_adjoint_phases_reference` for a CPU
+    tensor. The mxu strategy takes the scattered cotangent instead."""
+    if plan.strategy == "mxu":
+        raise ValueError("K2 runs the input adjoint on the scattered "
+                         "cotangent; the phased adjoint is K1's (lanes)")
+    _check_adjoint_phase_operands(g, wa, plan, in_spatial)
+    if g.device.type == "cuda":
+        return WINDOW_KERNEL.adjoint_phases(g, wa, plan=plan,
+                                            in_spatial=in_spatial)
+    if g.device.type == "cpu":
+        return run_adjoint_phases_reference(g, wa, plan=plan,
+                                            in_spatial=in_spatial)
+    raise ValueError(f"no windowed engine for device {g.device}")
 
 
 # ---------------------------------------------------------------------------

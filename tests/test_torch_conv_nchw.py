@@ -314,9 +314,35 @@ def test_reduce_and_wgrad_launch_geometry():
         ssam_conv2d.plan_for_nchw((8, 512, 1, 3000), (512, 512, 1, 3),
                                   "same"), stride=(1, 2))
     assert engine.reduce_tap_table(stem) == (0, 0, 0, 0, 1, 1, 0, 2, 2)
-    ci_t, smem = engine.reduce_smem_plan(stem, 3, 512)
-    assert ci_t == 16 and smem == 4 * (12 + 16 * (3 * 32 + 257))
-    # the input adjoint reads the reflected taps of the same filter
+    # K1's reduce path: conv2's forward is one phase, its taps at (row -
+    # ly, col - lx); 128 channels x 96 columns a block (the wave model:
+    # 16 x 32 = 512 blocks fill 2 waves of 2 blocks on 132 SMs, where 128
+    # columns' 384 blocks would leave the second wave half empty)
+    fwd = engine.forward_phase(stem, (1, 3000))
+    assert fwd.taps == ((0, -1, 0), (0, 0, 1), (0, 1, 2))
+    assert fwd.extent == (1, 1500)
+    lay = engine.reduce_layout((fwd,), batch=8, c_in=512, c_out=512,
+                               read_stride=(1, 2))
+    assert lay.cols == 96 and engine.REDUCE_STAGES == 3
+    assert lay.grid == (16, 1, 8 * 4) and lay.blocks_per_sm == 2
+    assert lay.smem <= engine.SMEM_LIMIT
+    assert 2 * (lay.smem + 1024) <= engine.H100_SM_SMEM
+    # a staged row starts at the 16-byte aligned element at or below the
+    # first one read (lx = 1: column ox0*2 - 1) and spans 2*95 + 3 columns
+    assert engine.staged_row_start(-1, 4) == (-4, 3)
+    assert engine.staged_row_start(96 * 2 - 1, 4) == (188, 3)
+    assert engine.staged_row_start(2999, 2) == (2992, 7)
+    assert lay.row_elems >= 95 * 2 + 3 + 3 and lay.row_elems % 4 == 0
+    # conv2's dx: two column phases of the strided adjoint in one launch;
+    # phase 0 takes tap 1, phase 1 taps 0 and 2 at cotangent offsets +1, 0
+    phases = engine.adjoint_reduce_phases(stem, (1, 3000))
+    assert [(p.offset, p.extent, p.taps) for p in phases] == [
+        ((0, 0), (1, 1500), ((0, 0, 1),)),
+        ((0, 1), (1, 1500), ((0, 1, 0), (0, 0, 2)))]
+    lay = engine.reduce_layout(phases, batch=8, c_in=512, c_out=512)
+    assert lay.grid == (12, 1, 8 * 4 * 2) and lay.cols == 128
+    assert lay.smem <= engine.SMEM_LIMIT
+    # the input adjoint of the stride-free plan reads the reflected taps
     from repro_torch.core import adjoint
     a = adjoint.input_adjoint_plan(dataclasses.replace(stem, stride=None))
     assert engine.reduce_tap_table(a) == (0, 0, 2, 0, 1, 1, 0, 2, 0)

@@ -244,6 +244,13 @@ REDUCE_CASES = [
     ((3, 19, 1, 257), (40, 19, 1, 3), "same", (1, 2), ("bias", "gelu")),
     ((1, 33, 6, 70), (8, 33, 2, 5), "same", (2, 2), ("relu", ("scale", 2.0))),
     ((2, 4, 5, 129), (3, 4, 4, 1), "valid", (2, 1), ("bias", "silu")),
+    # C_out of 4, 130 and 129 (one partial 128-channel tile or two), widths
+    # that are no multiple of a column tile, fp32 rows of 17 and 257
+    # columns (no multiple of 16 bytes), stride 3
+    ((2, 7, 2, 17), (4, 7, 1, 3), "same", (1, 1), None),
+    ((1, 64, 1, 1000), (130, 64, 1, 3), "same", (1, 2), ("bias", "gelu")),
+    ((2, 9, 3, 257), (129, 9, 3, 3), "valid", (1, 3), ("relu",)),
+    ((1, 20, 4, 500), (16, 20, 2, 5), "same", (3, 3), None),
 ]
 
 
@@ -270,6 +277,69 @@ def test_reduce_kernel_matches_plain_version(cuda, xs, ws, mode, stride, epi):
     wa = adjoint.adjoint_coeff_array(lin, w)
     _close(engine.run_window_plan(g, wa, plan=a),
            engine.run_window_plan_reference(g, wa, plan=a), 1e-4)
+
+
+@pytest.mark.parametrize("xs,ws,mode,stride,epi", REDUCE_CASES, ids=str)
+def test_reduce_phased_dx_matches_plain_version(cuda, xs, ws, mode, stride,
+                                                epi):
+    """dx of the (strided) linear plan through K1's phases, one launch,
+    against the plain version's phases and the scattered formulation (K1
+    on the stride-free plan's adjoint of the cotangent scattered onto the
+    dense lattice)."""
+    w = _grid(ws, cuda, 12)
+    p = dataclasses.replace(ssam_conv2d.plan_for_nchw(xs, ws, mode),
+                            stride=None if stride == (1, 1) else stride)
+    g = _grid((xs[0], ws[0]) + p.out_shape(xs[2:]), cuda, 14)
+    wa = adjoint.adjoint_coeff_array(p, w)
+    before = engine.WINDOW_KERNEL.launches
+    got = engine.run_adjoint_phases(g, wa, plan=p, in_spatial=xs[2:])
+    assert engine.WINDOW_KERNEL.launches == before + 1
+    assert got.shape == (xs[0],) + xs[1:]
+    _close(got, engine.run_adjoint_phases_reference(
+        g, wa, plan=p, in_spatial=xs[2:]), 1e-4)
+    dense = dataclasses.replace(p, stride=None)
+    gd = g.new_zeros(g.shape[:2] + dense.out_shape(xs[2:]))
+    gd[..., ::stride[0], ::stride[1]] = g
+    _close(got, engine.run_window_plan(
+        gd, wa, plan=adjoint.input_adjoint_plan(dense)), 1e-4)
+
+
+def test_reduce_kernel_is_deterministic(cuda):
+    """No atomics, no split of C_in: two calls give the same bits, forward
+    and phased dx, fp32 and bf16."""
+    xs, ws = (2, 512, 1, 3000), (512, 512, 1, 3)
+    p = dataclasses.replace(ssam_conv2d.plan_for_nchw(xs, ws, "same"),
+                            stride=(1, 2))
+    w = _grid(ws, cuda, 40)
+    wa = adjoint.adjoint_coeff_array(p, w)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _grid(xs, cuda, 41).to(dtype)
+        g = _grid((2, 512, 1, 1500), cuda, 42).to(dtype)
+        for run in (lambda: engine.run_window_plan(x, w, plan=p),
+                    lambda: engine.run_adjoint_phases(g, wa, plan=p,
+                                                      in_spatial=(1, 3000))):
+            assert torch.equal(run(), run())
+
+
+def test_reduce_kernel_bf16_rows_of_1500(cuda):
+    """bf16 rows of 1500 (3000 bytes, no multiple of 16): the forward at
+    stride 1 on them, and the phased dx reading a cotangent of 1500."""
+    x = _grid((2, 24, 1, 1500), cuda, 43).to(torch.bfloat16)
+    w, b = _grid((40, 24, 1, 3), cuda, 44), _grid((40,), cuda, 45)
+    p = dataclasses.replace(
+        ssam_conv2d.plan_for_nchw(x.shape, w.shape, "same"),
+        epilogue=plan.normalize_epilogue(("bias", "gelu")))
+    got = engine.run_window_plan(x, w, plan=p, epilogue_args=(b,))
+    assert got.dtype == torch.bfloat16
+    _close(got.float(), engine.run_window_plan_reference(
+        x, w, plan=p, epilogue_args=(b,)).float(), 3e-2)
+    ps = dataclasses.replace(ssam_conv2d.plan_for_nchw(
+        (2, 24, 1, 3000), w.shape, "same"), stride=(1, 2))
+    g = _grid((2, 40, 1, 1500), cuda, 46).to(torch.bfloat16)
+    wa = adjoint.adjoint_coeff_array(ps, w)
+    got = engine.run_adjoint_phases(g, wa, plan=ps, in_spatial=(1, 3000))
+    _close(got.float(), engine.run_adjoint_phases_reference(
+        g, wa, plan=ps, in_spatial=(1, 3000)).float(), 3e-2)
 
 
 def test_reduce_kernel_bf16(cuda):
@@ -348,6 +418,7 @@ def test_conv_autograd_never_takes_the_plain_version(cuda, monkeypatch):
         raise AssertionError("plain version reached on the card")
 
     monkeypatch.setattr(engine, "run_window_plan_reference", boom)
+    monkeypatch.setattr(engine, "run_adjoint_phases_reference", boom)
     monkeypatch.setattr(engine, "run_weight_grad_plan_reference", boom)
     k1, k3 = engine.WINDOW_KERNEL.launches, engine.WGRAD_KERNEL.launches
     for i, stride in enumerate(((1, 2), (2, 2))):
@@ -357,8 +428,8 @@ def test_conv_autograd_never_takes_the_plain_version(cuda, monkeypatch):
         y = ops.conv2d(x, w, stride=stride, epilogue=("bias", "gelu"),
                        epilogue_args=(b,))
         y.square().sum().backward()
-        # forward, recomputed pre-activation, dx; dW on the strided
-        # cotangent (its split reduction)
+        # forward, recomputed pre-activation, dx (its phases in one
+        # launch); dW on the strided cotangent (its split reduction)
         p = dataclasses.replace(ssam_conv2d.plan_for_nchw(
             x.shape, w.shape, "same"), stride=stride)
         k3 += engine.WGRAD_KERNEL.launches_for(x, y, plan=p)
