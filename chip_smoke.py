@@ -25,8 +25,10 @@ Phases, one JSON line each:
 
 1. build: compile K1, K2, K3, K4 and K5 from ``src/repro_torch/csrc``
    (nvcc, sm_90a, one process per source, all started together), with
-   the counts of ``HGMMA`` and ``UTMALDG`` in K3's channel kernel and
-   the registers and spills of K1's reduce kernel (none may spill);
+   the counts of ``HGMMA`` and ``UTMALDG`` in K3's channel kernel and of
+   ``HGMMA``, ``UTMALDG``, ``LDS`` and ``STS`` in K2's, and the registers
+   and spills of K1's reduce kernel and K2's channel kernel (neither may
+   spill; K2's must hold ``HGMMA``);
 2. stencils and 3. convolution: every case against the plain torch
    version on the card, ``rtol=3e-5, atol=3e-5·max|plain|`` (bf16:
    3e-2), and small cases against the torch oracles;
@@ -98,11 +100,17 @@ Phases, one JSON line each:
    each against the plain mxu version on the card (fp32 rtol 3e-5; one
    bf16 2d9pt at 3e-2) and against K1's lanes result (1e-4, the
    reference's own lanes-versus-mxu tolerance); (b) the stem's conv1 and
-   conv2 forwards and conv2's dx through K2 against the plain version and
-   K1 (1e-4; one bf16 forward at 3e-2), and the stem's gradients through
-   K2 and K3 against torch autograd through the plain mxu versions
-   (1e-4); K2's counter, zeroed before (a), must equal the calls of (a)
-   and (b); (c) whisper-base with ``conv_strategy="mxu"`` (the JAX CLI
+   conv2 forwards, conv2's dx through the phases of the strided adjoint
+   (one launch, the cotangent read as the forward produced it) and on the
+   cotangent scattered onto the dense lattice (the two held against each
+   other), each through K2's channel kernel against the plain version and
+   K1 (1e-4) and twice for equal bits, one bf16 forward and one bf16
+   phased dx at 3e-2, K2's forward and phased dx on phase 8's edge cases
+   plus C_out 200 on 23 rows (a second channel tile 72 wide) and a 9×9
+   filter at stride 3, and the stem's gradients through K2 and K3 against torch
+   autograd through the plain mxu versions (1e-4); K2's counter, zeroed
+   before (a), must equal the calls of (a) and (b); (c) whisper-base with
+   ``conv_strategy="mxu"`` (the JAX CLI
    has no flag for it, so the script builds the config and drives
    ``launch.train.Trainer``), batch 8, 128 tokens, 6 steps: every loss
    finite, K2 at 5 launches per step, K3 as in phase 8 and K1 at 0;
@@ -115,9 +123,15 @@ Phases, one JSON line each:
    t = 1, beside two bounds (bytes over 3.35 TB/s against fp32
    operations over 67 TFLOP/s, and against the same operations counted
    once over 495 TFLOP/s of TF32), K1's time, the plain version's and
-   the cuDNN yardstick with TF32 off and, labelled as less precise, on;
-   the mxu train step's time, samples/s and the stem's share of a
-   profiled step;
+   the cuDNN yardstick with TF32 off and, labelled as less precise, on
+   (conv2's dx counted at the 18.87 GFLOP of its real products, on the
+   scattered cotangent too), and conv2's forward and phased dx with bf16
+   x and cotangent beside a bound at 989 TFLOP/s of bf16 and cuDNN in
+   bf16; the mxu train step's time and samples/s;
+   one pinned step profiled in a fresh process (``--profile-train-step
+   --profile-strategy mxu``): its ``mxu_tc`` kernels equal to K2's
+   counter (5) in the host-and-device trace, its ``wgrad`` kernels to
+   K3's in both traces, and the stem's share;
 10. Hymba: (a) K1's per-lane path at (2, 2048, 3200) — the conv1d
    forward with bias+SiLU and its input adjoint (trail-only, reflected
    coefficient rows) — at fp32 rtol 3e-5, K4 at 1e-4, bf16 cases at 3e-2,
@@ -177,6 +191,7 @@ TRAIN_SEQ = 128
 N_MELS, N_FRAMES, D_MODEL = 80, 1500, 512
 STEM_RTOL = 1e-4                # K1 reduce path and K3 against plain, fp32
 TF32_FLOPS = 495e12             # dense TF32 on the tensor cores
+BF16_FLOPS = 989e12             # dense bf16 on the tensor cores
 MXU_RTOL = 3e-5                 # K2 single-channel against plain, fp32
 MXU_VS_LANES = 1e-4             # K2 against K1: the reference's own tolerance
 MXU_TIMED = ("2d5pt", "2d121pt", "3d125pt")
@@ -213,6 +228,14 @@ REDUCE_EDGE_CASES = [
     ((2, 24, 1, 1500), (40, 24, 1, 3), "same", (1, 1), ("bias", "gelu"),
      "bfloat16"),
     ((2, 24, 1, 3000), (40, 24, 1, 3), "same", (1, 2), None, "bfloat16"),
+]
+# K2's channel path on the same edge cases, C_out 200 on 23 rows (a second
+# channel tile 72 wide) and a 9x9 filter at stride 3 whose forward stages x
+# a k-block at a time (tests/test_torch_cuda.py)
+MXU_EDGE_CASES = REDUCE_EDGE_CASES + [
+    ((1, 16, 23, 300), (200, 16, 1, 3), "same", (1, 1), ("bias", "gelu"),
+     "float32"),
+    ((1, 2, 12, 40), (3, 2, 9, 9), "same", (3, 3), None, "float32"),
 ]
 
 
@@ -905,14 +928,6 @@ def train_phase(args, dev, card, results) -> dict:
     # traces lose some of K1's launches (PERF.md §7); a fresh process's
     # host-and-device trace has held all of them in every run so far.
     rec = {**profiled_train_step(args.seed), "card": card}
-    # The same step's stem from the timed calls of (d): each forward twice
-    # (the backward recomputes the pre-activation), conv2's dx, both dW.
-    timed = {r["case"][:14]: r["ms"] for r in results["times"]
-             if r["case"].startswith(("K1 conv", "K3 conv"))}
-    rec["stem_ms_from_timed_calls"] = (
-        2 * timed["K1 conv1 forwa"] + 2 * timed["K1 conv2 forwa"]
-        + timed["K1 conv2 dx, p"] + timed["K3 conv1 dW (8"]
-        + timed["K3 conv2 dW on"])
     results["train_profile"] = rec
     emit({"phase": "train_profile", **rec})
     # every K1 launch (2 forwards, 2 recomputed pre-activations, the phased
@@ -938,58 +953,78 @@ def train_phase(args, dev, card, results) -> dict:
                                     "K1 conv2 dx, phases"))}
 
 
-def profile_step_main(seed: int) -> int:
+def profile_step_main(seed: int, strategy: str) -> int:
     """``--profile-train-step``: one whisper-base train step (the shapes of
-    phase 8's main path) after a warm-up step, traced twice, host and
-    device activity, then the device only; prints one JSON line."""
+    phase 8's main path, or with ``--profile-strategy mxu`` phase 9's: the
+    stem pinned to K2) after a warm-up step, traced twice, host and device
+    activity, then the device only; prints one JSON line."""
+    import dataclasses
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.config import get_config
     from repro_torch.core import engine
     from repro_torch.data import TokenDataset
     from repro_torch.launch import train
+    from repro_torch.models import build_model
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    K1, K3 = engine.WINDOW_KERNEL, engine.WGRAD_KERNEL
-    res = train.main(["--arch", "whisper-base", "--conv-frontend", "--steps",
-                      "1", "--batch", str(TRAIN_BATCH), "--seq",
-                      str(TRAIN_SEQ), "--seed", str(seed), "--log-every",
-                      "1000"])
-    model = res.trainer.model
-    ds = TokenDataset(model.cfg.vocab, TRAIN_SEQ, seed=seed)
-    batch = train.make_batch(model, ds, TRAIN_STEPS, TRAIN_BATCH,
-                             torch.device("cuda", 0))
-    res.trainer.step(batch)
+    K1, K2, K3 = engine.WINDOW_KERNEL, engine.MXU_KERNEL, engine.WGRAD_KERNEL
+    dev = torch.device("cuda", 0)
+    if strategy == "mxu":
+        cfg = dataclasses.replace(get_config("whisper-base"),
+                                  conv_frontend=True, n_mels=N_MELS,
+                                  conv_strategy="mxu", dtype="float32")
+        model = build_model(cfg, device=dev, seed=seed)
+        trainer = train.Trainer(model, lr=3e-4,
+                                warmup=max(TRAIN_STEPS // 10, 10),
+                                total=max(TRAIN_STEPS, 100))
+        ds = TokenDataset(cfg.vocab, TRAIN_SEQ, seed=seed)
+        trainer.step(train.make_batch(model, ds, 0, TRAIN_BATCH, dev))
+    else:
+        res = train.main(["--arch", "whisper-base", "--conv-frontend",
+                          "--steps", "1", "--batch", str(TRAIN_BATCH),
+                          "--seq", str(TRAIN_SEQ), "--seed", str(seed),
+                          "--log-every", "1000"])
+        trainer, model = res.trainer, res.trainer.model
+        ds = TokenDataset(model.cfg.vocab, TRAIN_SEQ, seed=seed)
+    batch = train.make_batch(model, ds, TRAIN_STEPS, TRAIN_BATCH, dev)
+    trainer.step(batch)
     torch.cuda.synchronize()
 
     def traced(activities):
-        before = K1.launches, K3.launches
+        before = K1.launches, K2.launches, K3.launches
         with profile(activities=activities) as prof:
-            loss, _ = res.trainer.step(batch)
+            loss, _ = trainer.step(batch)
             float(loss)
             torch.cuda.synchronize()
         return {**device_ops(prof, match={"k1": "window_reduce_kernel",
+                                          "k2": "mxu_tc_kernel",
                                           "k3": "wgrad"}),
                 "k1_launches": K1.launches - before[0],
-                "k3_launches": K3.launches - before[1]}
+                "k2_launches": K2.launches - before[1],
+                "k3_launches": K3.launches - before[2]}
 
     out = traced([ProfilerActivity.CPU, ProfilerActivity.CUDA])
     out["device_only"] = traced([ProfilerActivity.CUDA])
-    out["stem_share"] = ((out["k1_ms"] + out["k3_ms"]) / out["device_ms"]
-                         if out["device_ms"] else None)
+    out["strategy"] = strategy
+    out["stem_share"] = ((out["k1_ms"] + out["k2_ms"] + out["k3_ms"])
+                         / out["device_ms"] if out["device_ms"] else None)
     print(json.dumps(out), flush=True)
     return 0
 
 
-def profiled_train_step(seed: int) -> dict:
+def profiled_train_step(seed: int, strategy: str = "lanes") -> dict:
     """Run :func:`profile_step_main` in a fresh process; its JSON line."""
     proc = subprocess.run(
         [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-         "--profile-train-step", "--seed", str(seed)],
-        capture_output=True, text=True, timeout=600)
+         "--profile-train-step", "--profile-strategy", strategy, "--seed",
+         str(seed)], capture_output=True, text=True, timeout=600)
     require(proc.returncode == 0,
-            ("profiled train step", proc.stdout[-2000:], proc.stderr[-4000:]))
+            ("profiled train step", strategy, proc.stdout[-2000:],
+             proc.stderr[-4000:]))
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
@@ -1002,7 +1037,6 @@ def mxu_phase(args, dev, card, results, lanes) -> dict:
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import convert
     from repro_torch.config import get_config
@@ -1030,7 +1064,7 @@ def mxu_phase(args, dev, card, results, lanes) -> dict:
         mod = ssam_stencil2d if sd.ndim == 2 else ssam_stencil3d
         return mxu(mod.plan_for(sd))
 
-    worst = {"abs": 0.0, "stem": 0.0}
+    worst = {"abs": 0.0, "stem": 0.0, "edge": 0.0}
 
     def check(tag, y, plain, lanes_y, rtol, key="abs"):
         err = compare(f"K2 {tag}", y, plain, rtol, results)
@@ -1080,15 +1114,22 @@ def mxu_phase(args, dev, card, results, lanes) -> dict:
     p1 = nchw(c["mel"], c["w1"], None, epi)
     p2 = nchw(c["x2"], c["w2"], (1, 2), epi)
     lin2 = nchw(c["x2"], c["w2"])
+    lin2s = nchw(c["x2"], c["w2"], (1, 2))       # conv2's linear plan
+    lanes2s = dataclasses.replace(lin2s, strategy="lanes")
     adj2 = adjoint.input_adjoint_plan(lin2)
     require(adj2.strategy == "mxu", "the adjoint plan keeps strategy='mxu'")
     wa2 = adjoint.adjoint_coeff_array(lin2, c["w2"])
     g2d = torch.zeros_like(c["g1"])
     g2d[..., ::2] = c["g2"]
     run = engine.run_window_plan
+    phased = engine.run_adjoint_phases
+    phased_ref = engine.run_adjoint_phases_reference
     B, T, D = TRAIN_BATCH, 2 * N_FRAMES, D_MODEL
-    # (tag, K2 call, K1 call, plain call, rtol, fp32 operations, bytes,
-    #  library call)
+    dx_lib = (lambda: torch.nn.grad.conv2d_input(
+        c["x2"].shape, c["w2"], c["g2"], stride=(1, 2), padding=(0, 1)))
+    # (tag, K2 call, K1 call, plain call, rtol, operations, bytes, library
+    #  call); conv2's dx counts the real products only, 8 x 1500 cotangent
+    # positions x 3 taps, also on the scattered cotangent
     stem = [
         ("conv1 forward (8,80,1,3000)->(8,512,1,3000) bias+gelu",
          lambda: run(c["mel"], c["w1"], plan=p1, epilogue_args=(c["b1"],)),
@@ -1109,26 +1150,82 @@ def mxu_phase(args, dev, card, results, lanes) -> dict:
          4 * (B * D * T + D * D * 3 + D + B * D * T // 2),
          lambda: F.gelu(F.conv2d(c["x2"], c["w2"], c["b2"], stride=(1, 2),
                                  padding=(0, 1)), approximate="tanh")),
-        ("conv2 dx, adjoint plan on the scattered cotangent (8,512,1,3000)",
+        ("conv2 dx, phases of the strided adjoint (8,512,1,1500) -> "
+         "(8,512,1,3000)",
+         lambda: phased(c["g2"], wa2, plan=lin2s, in_spatial=(1, T)),
+         lambda: phased(c["g2"], wa2, plan=lanes2s, in_spatial=(1, T)),
+         lambda: phased_ref(c["g2"], wa2, plan=lin2s, in_spatial=(1, T)),
+         STEM_RTOL, 2 * D * D * 3 * B * (T // 2),
+         4 * (B * D * T // 2 + D * D * 3 + B * D * T), dx_lib),
+        # the formulation before: the stride-free adjoint on the cotangent
+        # scattered onto the dense lattice, half its products with zeros
+        ("conv2 dx, scattered cotangent, adjoint plan (8,512,1,3000)",
          lambda: run(g2d, wa2, plan=adj2),
          lambda: run(g2d, wa2, plan=adj2, strategy="lanes"),
-         lambda: ref(g2d, wa2, plan=adj2), STEM_RTOL, 2 * D * D * 3 * B * T,
-         4 * (2 * B * D * T + D * D * 3),
-         lambda: torch.nn.grad.conv2d_input(
-             c["x2"].shape, c["w2"], c["g2"], stride=(1, 2), padding=(0, 1))),
+         lambda: ref(g2d, wa2, plan=adj2), STEM_RTOL,
+         2 * D * D * 3 * B * (T // 2),
+         4 * (B * D * T // 2 + D * D * 3 + B * D * T), dx_lib),
     ]
     for tag, kern, lanes_fn, plain, rtol, *_ in stem:
         got = kern()
-        calls += 1
         check(tag, got, plain(), lanes_fn(), rtol, "stem")
+        # no atomics: a second call gives the same bits
+        require(torch.equal(got, kern()), (f"K2 {tag}", "not deterministic"))
+        calls += 2
+        if tag.startswith("conv2 dx, phases"):
+            dx_phases = got
+        if tag.startswith("conv2 dx, scattered"):
+            compare("K2 conv2 dx: phases against the scattered cotangent",
+                    dx_phases, got, STEM_RTOL, results)
+            del dx_phases
         del got
-    x2_bf16 = c["x2"].to(torch.bfloat16)
+    x2_bf16, g2_bf16 = c["x2"].to(torch.bfloat16), c["g2"].to(torch.bfloat16)
     y = run(x2_bf16, c["w2"], plan=p2, epilogue_args=(c["b2"],))
     calls += 1
     check("conv2 forward bf16 I/O", y,
           ref(x2_bf16, c["w2"], plan=p2, epilogue_args=(c["b2"],)), None, 3e-2)
-    del y, x2_bf16
+    y = phased(g2_bf16, wa2, plan=lin2s, in_spatial=(1, T))
+    calls += 1
+    check("conv2 dx, phases, bf16 I/O", y,
+          phased_ref(g2_bf16, wa2, plan=lin2s, in_spatial=(1, T)), None, 3e-2)
+    del y, x2_bf16, g2_bf16
     torch.cuda.empty_cache()
+    # K2's channel path on the edge cases: forward and the phased dx of the
+    # linear plan (one launch), against the plain mxu version and K1
+    for xs, ws, mode, stride, epi_e, dt in MXU_EDGE_CASES:
+        gen = np.random.default_rng(args.seed + 6)
+        dtype = getattr(torch, dt)
+        xe = torch.as_tensor(gen.standard_normal(xs, np.float32),
+                             device=dev).to(dtype)
+        we = torch.as_tensor(gen.standard_normal(ws, np.float32), device=dev)
+        be = torch.as_tensor(gen.standard_normal(ws[:1], np.float32),
+                             device=dev)
+        pe = mxu(dataclasses.replace(
+            ssam_conv2d.plan_for_nchw(xs, ws, mode),
+            stride=None if stride == (1, 1) else stride,
+            epilogue=normalize_epilogue(epi_e)))
+        eargs = (be,) if epi_e and "bias" in epi_e else ()
+        f32 = dt == "float32"
+        tag = f"edge {xs} x {ws} {mode} stride {stride} {epi_e} {dt}"
+        y = run(xe, we, plan=pe, epilogue_args=eargs)
+        calls += 1
+        check(tag + " forward", y, ref(xe, we, plan=pe, epilogue_args=eargs),
+              run(xe, we, plan=pe, epilogue_args=eargs, strategy="lanes")
+              if f32 else None, STEM_RTOL if f32 else 3e-2, "edge")
+        le = dataclasses.replace(pe, epilogue=())
+        ge = torch.as_tensor(gen.standard_normal(
+            (xs[0], ws[0]) + le.out_shape(xs[2:]), np.float32),
+            device=dev).to(dtype)
+        wae = adjoint.adjoint_coeff_array(le, we)
+        y = phased(ge, wae, plan=le, in_spatial=xs[2:])
+        calls += 1
+        check(tag + " phased dx", y,
+              phased_ref(ge, wae, plan=le, in_spatial=xs[2:]),
+              phased(ge, wae, plan=dataclasses.replace(le, strategy="lanes"),
+                     in_spatial=xs[2:]) if f32 else None,
+              STEM_RTOL if f32 else 3e-2, "edge")
+        del y
+    torch.cuda.synchronize()
 
     # the stem's autograd: K2 (forwards, recomputed pre-activations, dx) and
     # K3 (dW) against torch autograd through the plain mxu versions
@@ -1214,10 +1311,11 @@ def mxu_phase(args, dev, card, results, lanes) -> dict:
              "K1 0)", k1, k2, k3))
 
     # -- (d) times: K2 beside both bounds, K1, plain and cuDNN ---------------
-    def record(tag, kern, lanes_fn, plain, flops, nbytes, lib):
+    def record(tag, kern, lanes_fn, plain, flops, nbytes, lib,
+               tc_flops=TF32_FLOPS):
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         f_ms = flops / FP32_FLOPS * 1e3
-        tc_ms = flops / TF32_FLOPS * 1e3
+        tc_ms = flops / tc_flops * 1e3
         ms = device_ms(kern, TIME_REPS)
         rec = {"case": tag, "ms": ms, "call_ms": event_ms(kern, TIME_REPS),
                "k1_ms": device_ms(lanes_fn, TIME_REPS),
@@ -1239,6 +1337,35 @@ def mxu_phase(args, dev, card, results, lanes) -> dict:
     for tag, kern, lanes_fn, plain, _, flops, nbytes, lib in stem:
         timed[tag[:14]] = record(f"K2 {tag}", kern, lanes_fn, plain, flops,
                                  nbytes, lib)
+    # conv2 with x and the cotangent in bf16 (the filter fp32: K2 runs its
+    # TF32 path with two products, K1 its fp32 sums), bound at the bf16
+    # tensor-core rate; cuDNN on bf16 x, filter and bias
+    xb, gb = c["x2"].to(torch.bfloat16), c["g2"].to(torch.bfloat16)
+    w2b, b2b = c["w2"].to(torch.bfloat16), c["b2"].to(torch.bfloat16)
+    conv2_flops = 2 * D * D * 3 * B * (T // 2)
+    bf16_stem = [
+        ("conv2 bf16 forward stride (1,2) (8,512,1,3000)->(8,512,1,1500) "
+         "bias+gelu",
+         lambda: run(xb, c["w2"], plan=p2, epilogue_args=(c["b2"],)),
+         lambda: run(xb, c["w2"], plan=p2, epilogue_args=(c["b2"],),
+                     strategy="lanes"),
+         lambda: ref(xb, c["w2"], plan=p2, epilogue_args=(c["b2"],)),
+         2 * (B * D * T + B * D * T // 2) + 4 * (D * D * 3 + D),
+         lambda: F.gelu(F.conv2d(xb, w2b, b2b, stride=(1, 2),
+                                 padding=(0, 1)), approximate="tanh")),
+        ("conv2 bf16 dx, phases of the strided adjoint (8,512,1,1500) -> "
+         "(8,512,1,3000)",
+         lambda: phased(gb, wa2, plan=lin2s, in_spatial=(1, T)),
+         lambda: phased(gb, wa2, plan=lanes2s, in_spatial=(1, T)),
+         lambda: phased_ref(gb, wa2, plan=lin2s, in_spatial=(1, T)),
+         2 * (B * D * T // 2 + B * D * T) + 4 * D * D * 3,
+         lambda: torch.nn.grad.conv2d_input(xb.shape, w2b, gb, stride=(1, 2),
+                                            padding=(0, 1))),
+    ]
+    for tag, kern, lanes_fn, plain, nbytes, lib in bf16_stem:
+        timed[tag[:14]] = record(f"K2 {tag}", kern, lanes_fn, plain,
+                                 conv2_flops, nbytes, lib, BF16_FLOPS)
+    del xb, gb, w2b, b2b, bf16_stem
     for name in MXU_TIMED:
         sd = stencils.BENCHMARKS[name]
         x = grids[sd.ndim]
@@ -1262,30 +1389,32 @@ def mxu_phase(args, dev, card, results, lanes) -> dict:
     del grids, filters, x, w
     torch.cuda.empty_cache()
 
-    batch = train.make_batch(model, ds, TRAIN_STEPS, TRAIN_BATCH, dev)
-    trainer.step(batch)
-    torch.cuda.synchronize()
-    before = K2.launches, K3.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        loss, _ = trainer.step(batch)
-        float(loss)
-        torch.cuda.synchronize()
-    rec = {**device_ops(prof, match={"k2": "mxu_reduce_kernel",
-                                     "k3": "wgrad"}),
-           "k2_launches": K2.launches - before[0],
-           "k3_launches": K3.launches - before[1], "card": card}
-    rec["stem_share"] = ((rec["k2_ms"] + rec["k3_ms"]) / rec["device_ms"]
-                         if rec["device_ms"] else None)
-    if rec["device_ms"]:
-        require(rec["k3_calls"] == rec["k3_launches"] == lanes["k3_step"],
-                ("profiled K3 kernels against the counter", rec["k3_calls"],
-                 rec["k3_launches"], lanes["k3_step"]))
+    # One profiled step of the pinned stem in a fresh process, as phase 8
+    # traces its own (after phase 7 this process's traces lose kernels,
+    # PERF.md §7): every K2 launch (2 forwards, 2 recomputed
+    # pre-activations, the phased dx) is a kernel whose name holds
+    # "mxu_tc_kernel", every K3 launch one with "wgrad"
+    del trainer, model
+    torch.cuda.empty_cache()
+    rec = {**profiled_train_step(args.seed, "mxu"), "card": card}
     results["train_mxu_profile"] = rec
     emit({"phase": "train_mxu_profile", **rec})
+    require(rec["k2_calls"] == rec["k2_launches"] == 5
+            and rec["k1_launches"] == 0,
+            ("profiled K2 kernels against the counter", rec["k2_calls"],
+             rec["k2_launches"], rec["k1_launches"]))
+    for trace in (rec, rec["device_only"]):
+        require(trace["k3_calls"] == trace["k3_launches"] == lanes["k3_step"],
+                ("profiled K3 kernels against the counter",
+                 trace["k3_calls"], trace["k3_launches"], lanes["k3_step"]))
     return {"launches": launches, "train_launches": k2, "worst": worst,
             "headline": timed["2d5pt"],
-            "stem_headline": timed["conv2 dx, adjo"]}
+            "stem_headline": timed["conv2 dx, phas"],
+            "stem_rows": {"conv2_forward": timed["conv2 forward "],
+                          "conv1_forward": timed["conv1 forward "],
+                          "dx_scattered": timed["conv2 dx, scat"],
+                          "conv2_forward_bf16": timed["conv2 bf16 for"],
+                          "conv2_dx_phases_bf16": timed["conv2 bf16 dx,"]}}
 
 
 class _PlainKernels:
@@ -1704,7 +1833,9 @@ def main() -> int:
                                                       "chip_smoke"),
                         help="directory for chip_smoke.json")
     parser.add_argument("--profile-train-step", action="store_true",
-                        help=argparse.SUPPRESS)   # phase 8's fresh process
+                        help=argparse.SUPPRESS)   # phases 8/9's fresh process
+    parser.add_argument("--profile-strategy", default="lanes",
+                        choices=("lanes", "mxu"), help=argparse.SUPPRESS)
     args = parser.parse_args()
     import numpy as np
     import torch
@@ -1714,7 +1845,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     if args.profile_train_step:
-        return profile_step_main(args.seed)
+        return profile_step_main(args.seed, args.profile_strategy)
     import torch.nn.functional as F
 
     from repro_torch import _build, convert
@@ -1755,10 +1886,21 @@ def main() -> int:
     results["build"]["window_reduce_sass"] = sass_counts(
         str(_build.LIBRARY.path), "window_reduce_kernel",
         ("FFMA", "LDS", "LDGSTS"))
+    # K2's channel path: wgmma (HGMMA) on TMA-staged tiles (UTMALDG), the
+    # fragments gathered by shared loads (LDS), no spills
+    mxu_build = results["build"]["by_source"]["ssam_mxu_tc.cu"]
+    mxu_sass = sass_counts(str(_build.LIBRARY.path), "mxu_tc_kernel",
+                           ("HGMMA", "UTMALDG", "LDS", "STS"))
+    results["build"]["mxu_tc_sass"] = mxu_sass
     emit({"phase": "build", **results["build"], "card": card})
     require(reduce_build["kernels"] >= 1
             and reduce_build["max_spill_store_bytes"] == 0,
             ("K1's reduce kernel spills", reduce_build))
+    require(mxu_build["kernels"] >= 1
+            and mxu_build["max_spill_store_bytes"] == 0
+            and mxu_sass is not None and mxu_sass["HGMMA"] > 0,
+            ("K2's channel kernel spills or has no HGMMA", mxu_build,
+             mxu_sass))
 
     def stencil_plan(sd):
         mod = ssam_stencil2d if sd.ndim == 2 else ssam_stencil3d
@@ -1956,16 +2098,20 @@ def main() -> int:
                   "library_tf32_ms": trained["k3_conv1"]["library_tf32_ms"]}},
         {
         "name": K2.name, "route": "cuda", "source": K2.source,
-        "replaces": K2.replaces, "launches": mxu["launches"],
-        "max_abs_err": mxu["worst"]["abs"], "ms": k2h["ms"],
-        "plain_ms": k2h["plain_ms"], "bound_ms": k2h["bound_ms"],
-        "bound_by": k2h["bound_by"], "library_ms": k2h["library_ms"],
-        "case": k2h["case"] + " 8192x8192 fp32",
-        "train": {"launches": mxu["train_launches"],
-                  "max_abs_err": mxu["worst"]["stem"], "ms": k2t["ms"],
-                  "plain_ms": k2t["plain_ms"], "bound_ms": k2t["bound_ms"],
-                  "bound_by": k2t["bound_by"],
-                  "library_ms": k2t["library_ms"], "case": k2t["case"]}}, {
+        "replaces": K2.replaces, "launches": mxu["train_launches"],
+        "max_abs_err": max(mxu["worst"]["stem"], mxu["worst"]["edge"]),
+        "ms": k2t["ms"], "plain_ms": k2t["plain_ms"],
+        "bound_ms": k2t["bound_ms"], "bound_by": k2t["bound_by"],
+        "library_ms": k2t["library_ms"], "case": k2t["case"],
+        "fp32_bound_ms": k2t["fp32_bound_ms"],
+        "library_tf32_ms": k2t["library_tf32_ms"], "k1_ms": k2t["k1_ms"],
+        **{key: {**_row(rec), "k1_ms": rec["k1_ms"],
+                 "library_tf32_ms": rec["library_tf32_ms"]}
+           for key, rec in mxu["stem_rows"].items()},
+        "single_channel": {"source": K2.single_channel_source,
+                           "launches_checks": mxu["launches"],
+                           "max_abs_err": mxu["worst"]["abs"], **_row(k2h),
+                           "case": k2h["case"] + " 8192x8192 fp32"}}, {
         "name": K4.name, "route": "cuda", "source": K4.source,
         "replaces": K4.replaces, "launches": hy["launches"]["k4"],
         "max_abs_err": hy["worst"]["K4"], **_row(hy["timed"]["K4"])}]})

@@ -132,10 +132,10 @@ class Library:
             [p, p, i, p, p] + [i] * 24 + [ctypes.POINTER(ctypes.c_int)] * 4
             + [i] * 4 + [p])
         lib.ssam_wgrad_tc_launch.restype = i
-        lib.ssam_mxu_reduce_launch.argtypes = (
-            [p, p, i, p, p, i, p, ctypes.POINTER(ctypes.c_int),
-             ctypes.POINTER(ctypes.c_float), i] + [i] * 19 + [p])
-        lib.ssam_mxu_reduce_launch.restype = i
+        lib.ssam_mxu_tc_launch.argtypes = (
+            [p, p, i, p, p, p, ctypes.POINTER(ctypes.c_int),
+             ctypes.POINTER(ctypes.c_float), i] + [i] * 24 + [p])
+        lib.ssam_mxu_tc_launch.restype = i
         lib.ssam_mxu_window_launch.argtypes = [p, p, i, p, p] + [i] * 20 + [p]
         lib.ssam_mxu_window_launch.restype = i
         lib.ssam_window_perlane_launch.argtypes = (

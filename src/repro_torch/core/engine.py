@@ -11,8 +11,9 @@ device decides how:
 * a CUDA tensor launches K1, the hand-written kernel in
   ``csrc/ssam_window*.cu`` (it replaces the JAX package's
   ``core/engine.py::_window_kernel``), or, for a plan whose
-  ``strategy`` is ``'mxu'``, K2, the tensor-core kernel in
-  ``csrc/ssam_mxu.cu`` (it replaces ``_apply_plan_mxu``); a failure
+  ``strategy`` is ``'mxu'``, K2, the tensor-core kernels in
+  ``csrc/ssam_mxu_tc.cu`` (channel plans) and ``csrc/ssam_mxu.cu``
+  (single-channel plans; both replace ``_apply_plan_mxu``); a failure
   raises, it never falls back, and an mxu plan never retreats to K1;
 * a CPU tensor runs :func:`run_window_plan_reference`, the plain torch
   version: the reference's ``_apply_plan_once`` block walk, both
@@ -478,48 +479,6 @@ def _tile_launch(plan: SystolicPlan, x, block, t: int):
     head = ((batch,) + pad3 + spatial_in + pad3 + out_sp
             + (0,) * (3 - nd) + tuple(t * v for v in lead))
     return x, out, B, head, pad3 + B
-
-
-@dataclasses.dataclass
-class _ReduceLaunch:
-    """What K2's channel-reduce path launches with: ``args`` the leading
-    arguments of its C entry (through the plan's ``N``, ``M``), ``out``
-    the empty output, ``keep`` the tensors ``args`` point into (alive
-    until the launch is enqueued). K1's path has its own tap table and
-    filter layout (:meth:`WindowKernel._launch_phases`)."""
-
-    args: list
-    out: torch.Tensor
-    keep: tuple
-    ntaps: int
-    c_in: int
-
-
-def _reduce_launch(plan: SystolicPlan, x, w, epilogue_args) -> _ReduceLaunch:
-    """``x (B, C_in, H, W)`` against ``w (C_out, C_in, N, M)``: the tap
-    table, the fp32 filter, the epilogue and the output of one reduce
-    launch, the grid checked against CUDA's limits."""
-    x4 = (x if plan.batch_axes else x[None]).contiguous()
-    Bn, Cr, H, W = x4.shape
-    Co = w.shape[0]
-    Ho, Wo = plan.out_shape((H, W))
-    if Ho > 65535 or Bn * -(-Co // MXU_CO_TILE) > 65535:
-        raise ValueError(f"K2's reduce grid cannot hold {Ho} rows or "
-                         f"{Bn} x {Co} channels")
-    taps = reduce_tap_table(plan)
-    dtaps = _device_ints(taps, x.device)
-    wf = w.detach().to(torch.float32).contiguous()
-    c_ops, c_vals, n_epi, bias = _epilogue_codes(plan, epilogue_args,
-                                                 x.device)
-    out = torch.empty((Bn, Co, Ho, Wo), dtype=x.dtype, device=x.device)
-    (ly, lx), _ = plan.lead_trail()
-    sh, sw = plan.stride_per_axis()
-    args = [x4.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-            wf.data_ptr(), dtaps.data_ptr(), len(taps) // 3,
-            None if bias is None else bias.data_ptr(), c_ops, c_vals, n_epi,
-            Bn, Cr, Co, H, W, Ho, Wo, ly, lx, sh, sw, plan.N * plan.M,
-            plan.N, plan.M]
-    return _ReduceLaunch(args, out, (x4, wf, bias), len(taps) // 3, Cr)
 
 
 class WindowKernel:
@@ -1007,7 +966,8 @@ def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
     across, 64 rows (2-D) or 16 rows by 8 slices (3-D), halved until a
     single-channel K1 block (K2 block, for an mxu plan) takes at most
     half of the shared memory. (The reduce paths tile their output
-    themselves: K1 128 channels x 1 row x 64-128 columns, K2 64 x 1 x 128.)"""
+    themselves: K1 128 channels x 1 row x 64-128 columns, K2 128 or 256
+    channels x 1 row x 128 or 64 columns.)"""
     need = mxu_smem_bytes if plan.strategy == "mxu" else smem_bytes
     V = max(1, WARP - (plan.M - 1))
     if plan.ndim_spatial == 3:
@@ -1027,12 +987,6 @@ def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
 # ---------------------------------------------------------------------------
 
 MXU_MAX_TAPS = 1024           # single-channel taps K2 holds (padded to 8)
-# The reduce path's block: 64 output channels x 1 row x 128 columns, the
-# GEMM's M x N tile; K = C_in·taps is staged MXU_CI_MAX channels at most.
-MXU_CO_TILE = 64
-MXU_COLS = 128
-MXU_CI_MAX = 32
-MXU_SMEM_TARGET = 64 * 1024
 
 
 def _round8(n: int) -> int:
@@ -1090,49 +1044,151 @@ def mxu_smem_bytes(plan: SystolicPlan, block, time_steps: int) -> int:
     return 4 * (2 * _round8(taps) + tile(t) + (tile(t - 1) if t > 1 else 0))
 
 
+# K2's channel-reduce path (csrc/ssam_mxu_tc.cu): an implicit GEMM on the
+# tensor cores, M = output positions, N = C_out, K = C_in·taps in k-blocks
+# of 32 input channels of one tap. A block of two warpgroups owns 128
+# positions (64 each) x 128 channels; the filter tiles and x's staged rows
+# come by TMA.
+MXU_TC_POS = 128                # positions of a block (2 x wgmma M)
+MXU_TC_CO = 128                 # channels of a block (wgmma N)
+MXU_TC_KB = 32                  # a k-block: 32 input channels of one tap
+MXU_TC_ROW_BYTES = 128          # bytes of a filter row of one k-block
+MXU_TC_STAGES = ((4, 2), (3, 2), (4, 1), (2, 2), (3, 1), (2, 1))
+MXU_TC_PHASE_INTS = 8           # one phase's header in the table
+MXU_TC_MAX_CHUNKS = 256         # 16-byte chunks of a staged row (TMA box)
+
+
+def gather_wavefronts(pitch: int, sw: int, elem_bytes: int) -> int:
+    """Shared-memory wavefronts of one A-fragment load of K2's channel
+    kernel: lane ``4g + t`` reads channel ``t`` (``pitch`` elements apart)
+    at position ``g`` (``sw`` elements apart); the most distinct 4-byte
+    words any of the 32 banks serves."""
+    banks: dict[int, set] = {}
+    for lane in range(WARP):
+        g, t = divmod(lane, 4)
+        word = (t * pitch + g * sw) * elem_bytes // 4
+        banks.setdefault(word % 32, set()).add(word)
+    return max(len(v) for v in banks.values())
+
+
 @dataclasses.dataclass(frozen=True)
-class MxuReduceLayout:
-    """K2's reduce-path geometry: ``ci_t`` input channels staged per pass,
-    ``kc`` the pass's contraction depth ``ci_t·taps`` padded to 8, ``lda``
-    the row pitch of the staged filter tile (``≡ 4 mod 32``: the A
-    fragment's 32 loads fall in 32 banks), ``span`` the staged columns of
-    an input row, ``smem`` bytes."""
+class MxuTcLayout:
+    """K2's channel-path geometry. A block owns :data:`MXU_TC_POS` output
+    columns of one output row of one phase × :data:`MXU_TC_CO` channels;
+    the grid is (column tiles, rows, batch × C_out tiles × phases). K runs
+    over ``slabs`` slabs of 32 input channels (zero past C_in) × a phase's
+    taps, one k-block each, in the filter operand's columns ``kcols`` (indices into the flat filter
+    ``(C_out, C_in·N·M)`` with one zero column appended at its end). Each
+    x stage holds, for 32 channels, ``rows`` staged rows of ``row_len``
+    elements starting at the 16-byte chunk at or below a tile's first
+    column: the rows of all a phase's taps (one stage per slab), or
+    (``x_per_kblock``) the row of one tap. ``table``: per phase ``(py, px,
+    rows, cols, taps, dcmin, first k-block, tap data offset)``, then per
+    tap ``(x row offset, offset in the stage)``."""
 
-    ci_t: int
-    kc: int
-    lda: int
-    span: int
+    co_tiles: int
+    slabs: int
+    row_len: int
+    rows: int
+    x_per_kblock: bool
+    b_stages: int
+    x_stages: int
+    b_bytes: int
+    x_bytes: int
     smem: int
+    grid: tuple[int, int, int]
+    table: tuple[int, ...]
+    kcols: tuple[int, ...]
 
 
-def mxu_reduce_layout(plan: SystolicPlan, ntaps: int,
-                      c_in: int) -> MxuReduceLayout:
-    sw = plan.stride_per_axis()[1]
-    span = (MXU_COLS - 1) * sw + plan.M
+@functools.lru_cache(maxsize=64)
+def mxu_tc_layout(phases, *, batch: int, c_in: int, c_out: int, fsz: int,
+                  read_stride=(1, 1), elem_bytes: int = 4) -> MxuTcLayout:
+    """K2's channel-path layout for ``phases`` (:class:`ReducePhase`). The
+    rings take the deepest stages that fit in :data:`SMEM_LIMIT`, x staged
+    a slab at a time (the rows of all a phase's taps) where that fits, else
+    a k-block at a time (one tap's row). The row length is padded so that
+    a fragment load meets the fewest bank conflicts
+    (:func:`gather_wavefronts`)."""
+    sw = read_stride[1]
+    per = TMA_ALIGN // elem_bytes
+    slabs = -(-c_in // MXU_TC_KB)
+    live = [ph for ph in phases if ph.taps]
+    rows_out = max(ph.extent[0] for ph in phases)
+    cols_out = max(ph.extent[1] for ph in phases)
+    span = max((max(t[1] for t in ph.taps) - min(t[1] for t in ph.taps)
+                for ph in live), default=0)
+    slab_rows = max((max(t[0] for t in ph.taps) - min(t[0] for t in ph.taps)
+                     + 1 for ph in live), default=1)
 
-    def layout(ci_t):
-        kc = _round8(ci_t * ntaps)
-        lda = kc + (36 - kc % 32) % 32
-        words = 2 * kc + MXU_CO_TILE * lda + ci_t * plan.N * span
-        return MxuReduceLayout(ci_t, kc, lda, span, 4 * words)
+    def row_len(rows):
+        need = (MXU_TC_POS - 1) * sw + span + 1 + per - 1
+        first = _round_up(need, per)
+        return min(range(first, first + 32 * per, per),
+                   key=lambda n: (gather_wavefronts(rows * n, sw,
+                                                    elem_bytes), n))
 
-    ci_t = max(1, min(MXU_CI_MAX, c_in))
-    while ci_t > 1 and layout(ci_t).smem > MXU_SMEM_TARGET:
-        ci_t -= 1
-    lay = layout(ci_t)
-    if lay.smem > SMEM_LIMIT:
-        raise ValueError(f"K2's reduce block needs {lay.smem} bytes of "
-                         f"shared memory (limit {SMEM_LIMIT})")
-    return lay
+    def fit(per_kblock):
+        rows = 1 if per_kblock else slab_rows
+        L = row_len(rows)
+        x_bytes = _round_up(MXU_TC_KB * rows * L * elem_bytes, 1024)
+        if L // per > MXU_TC_MAX_CHUNKS:
+            return None
+        for bs, xs in MXU_TC_STAGES:
+            smem = (1024 + max((bs + 2) * b_bytes + xs * x_bytes, tile)
+                    + 8 * (4 + 2))
+            if smem <= SMEM_LIMIT:
+                return per_kblock, L, rows, bs, xs, x_bytes, smem
+        return None
+
+    b_bytes = MXU_TC_CO * MXU_TC_ROW_BYTES
+    # the flush stages the fp32 output tile (its channels 4 words mod 32
+    # apart) where the rings were
+    tile = 4 * MXU_TC_CO * (MXU_TC_POS + 4)
+    best = fit(False) or fit(True)
+    if best is None:
+        raise ValueError(f"K2's channel path cannot stage the rows of "
+                         f"{len(phases)} phase(s) at stride {read_stride} "
+                         f"in {SMEM_LIMIT} bytes of shared memory")
+    per_kblock, L, rows, bs, xs, x_bytes, smem = best
+    co_tiles = -(-c_out // MXU_TC_CO)
+    grid = (-(-cols_out // MXU_TC_POS), rows_out,
+            batch * co_tiles * len(phases))
+    if grid[1] > 65535 or grid[2] > 65535:
+        raise ValueError(f"K2's reduce grid cannot hold {rows_out} rows or "
+                         f"{batch} x {c_out} channels x {len(phases)} phases")
+    head, data, kcols = [], [], []
+    base = MXU_TC_PHASE_INTS * len(phases)
+    zero = c_in * fsz                     # the appended zero column
+    for ph in phases:
+        dcmin = min((t[1] for t in ph.taps), default=0)
+        drmin = min((t[0] for t in ph.taps), default=0)
+        head += [*ph.offset, *ph.extent, len(ph.taps), dcmin,
+                 len(kcols) // MXU_TC_KB, base + len(data)]
+        for dr, dc, _ in ph.taps:
+            if per_kblock:
+                data += [dr, dc - dcmin]
+            else:
+                data += [drmin, (dr - drmin) * L + dc - dcmin]
+        for s in range(slabs):
+            for _, _, coeff in ph.taps:
+                kcols += [coeff + c * fsz if c < c_in else zero
+                          for c in range(s * MXU_TC_KB, (s + 1) * MXU_TC_KB)]
+    return MxuTcLayout(co_tiles, slabs, L, rows, per_kblock, bs, xs, b_bytes, x_bytes, smem, grid,
+                       tuple(head + data), tuple(kcols))
 
 
 class MxuKernel:
-    """Wrapper of K2. ``launches`` counts the kernel launches it made: one
-    per call, on the single-channel path (``ssam_mxu_window_launch``) and
-    on the channel-reduce path (``ssam_mxu_reduce_launch``) alike."""
+    """Wrapper of K2. Channel (NCHW) plans launch the tensor-core kernel
+    of ``csrc/ssam_mxu_tc.cu`` (``ssam_mxu_tc_launch``), single-channel
+    plans ``csrc/ssam_mxu.cu`` (``ssam_mxu_window_launch``). ``launches``
+    counts the kernel launches it made: one per call on either path; a
+    strided plan's input adjoint (:meth:`adjoint_phases`) is one launch
+    for all its phases."""
 
     name = "ssam_mxu"
-    source = "src/repro_torch/csrc/ssam_mxu.cu"
+    source = "src/repro_torch/csrc/ssam_mxu_tc.cu"
+    single_channel_source = "src/repro_torch/csrc/ssam_mxu.cu"
     replaces = ("src/repro/core/engine.py:189 (_apply_plan_mxu, "
                 "strategy='mxu' at pallas_call 587)")
 
@@ -1177,20 +1233,64 @@ class MxuKernel:
         return out
 
     def _reduce(self, x, w, plan, epilogue_args):
-        """The channel-reduce path: the implicit GEMM of ``w (C_out,
-        C_in·taps)`` against the im2row operand of ``x (B, C_in, H, W)``,
-        output stride and epilogue."""
-        r = _reduce_launch(plan, x, w, epilogue_args)
-        lay = mxu_reduce_layout(plan, r.ntaps, r.c_in)
-        err = self.library.get().ssam_mxu_reduce_launch(
-            *r.args, lay.ci_t, lay.kc, lay.lda, lay.span, lay.smem,
-            torch.cuda.current_stream(x.device).cuda_stream)
+        """The channel-reduce path: the implicit GEMM of the im2row operand
+        of ``x (B, C_in, H, W)`` against ``w (C_out, C_in, N, M)``, output
+        stride and epilogue, one phase."""
+        x4 = x if plan.batch_axes else x[None]
+        phase = forward_phase(plan, tuple(x4.shape[2:]))
+        out = self._launch_phases(x4, w, plan, (phase,),
+                                  plan.stride_per_axis(), (1, 1),
+                                  phase.extent, epilogue_args)
+        return out if plan.batch_axes else out[0]
+
+    def adjoint_phases(self, g, wa, *, plan: SystolicPlan, in_spatial):
+        """``dx`` of a strided reduce plan in one launch: every output
+        phase of :func:`adjoint_reduce_phases` reads the cotangent ``g``
+        at stride 1 and writes its positions of ``dx`` in place."""
+        _check_kernel_operands("K2", g, wa, plan)
+        g4 = g if plan.batch_axes else g[None]
+        lin = dataclasses.replace(plan, epilogue=())
+        phases = adjoint_reduce_phases(lin, in_spatial)
+        out = self._launch_phases(g4, wa, lin, phases, (1, 1),
+                                  plan.stride_per_axis(), tuple(in_spatial),
+                                  ())
+        return out if plan.batch_axes else out[0]
+
+    def _launch_phases(self, x4, w, plan, phases, read_stride, out_stride,
+                       out_spatial, epilogue_args):
+        """Launch ``ssam_mxu_tc.cu`` on ``x4 (B, C_r, H, W)`` and ``w (C_o,
+        C_r, N, M)``: x's rows in 16-byte chunks (:func:`_tma_operand`),
+        the filter gathered into its k-blocks (:attr:`MxuTcLayout.kcols`),
+        the layout of :func:`mxu_tc_layout`."""
+        Bn, Cr, H, W = x4.shape
+        Co, fsz = w.shape[0], plan.N * plan.M
+        lay = mxu_tc_layout(tuple(phases), batch=Bn, c_in=Cr, c_out=Co,
+                            fsz=fsz, read_stride=tuple(read_stride),
+                            elem_bytes=x4.element_size())
+        xs, pitch = _tma_operand(x4)
+        wf = w.detach().to(torch.float32).reshape(Co, Cr * fsz)
+        wb = F.pad(wf, (0, 1)).index_select(
+            1, _device_ints(lay.kcols, x4.device))
+        table = _device_ints(lay.table, x4.device)
+        c_ops, c_vals, n_epi, bias = _epilogue_codes(plan, epilogue_args,
+                                                     x4.device)
+        out = torch.empty((Bn, Co) + tuple(out_spatial), dtype=x4.dtype,
+                          device=x4.device)
+        err = self.library.get().ssam_mxu_tc_launch(
+            xs.data_ptr(), out.data_ptr(), int(x4.dtype == torch.bfloat16),
+            wb.data_ptr(), table.data_ptr(),
+            None if bias is None else bias.data_ptr(), c_ops, c_vals, n_epi,
+            H, Cr, Bn, pitch, wb.shape[1], Co, *out_spatial, *read_stride,
+            *out_stride, len(phases), lay.co_tiles, lay.slabs,
+            lay.row_len, lay.rows, int(lay.x_per_kblock), lay.b_stages,
+            lay.x_stages, lay.x_bytes, *lay.grid[:2], lay.smem,
+            torch.cuda.current_stream(x4.device).cuda_stream)
         if err:
             raise RuntimeError(f"K2 launch failed: CUDA error {err} "
-                               f"({plan.kind}, reduce {r.c_in} -> "
-                               f"{w.shape[0]})")
+                               f"({plan.kind}, reduce {Cr} -> {Co}, "
+                               f"{len(phases)} phase(s))")
         self.launches += 1
-        return r.out if plan.batch_axes else r.out[0]
+        return out
 
 
 MXU_KERNEL = MxuKernel(_build.LIBRARY)
@@ -1274,10 +1374,10 @@ def _check_adjoint_phase_operands(g, wa, plan: SystolicPlan, in_spatial):
 def run_adjoint_phases_reference(g: torch.Tensor, wa: torch.Tensor, *,
                                  plan: SystolicPlan,
                                  in_spatial) -> torch.Tensor:
-    """The plain version of K1's phased input adjoint: ``dx`` of the
-    strided reduce plan ``plan`` (its linear part) on an input of spatial
-    shape ``in_spatial``, given the cotangent ``g`` of the strided output
-    and ``wa = adjoint_coeff_array(plan, w)``. Each phase of
+    """The plain version of K1's and K2's phased input adjoint: ``dx`` of
+    the strided reduce plan ``plan`` (its linear part) on an input of
+    spatial shape ``in_spatial``, given the cotangent ``g`` of the strided
+    output and ``wa = adjoint_coeff_array(plan, w)``. Each phase of
     :func:`adjoint.strided_input_adjoint_phases` runs as its stride-1
     plan through :func:`run_window_plan_reference` and is written to
     ``dx[..., py::sh, px::sw]``; phases no tap reaches stay zero."""
@@ -1304,16 +1404,15 @@ def run_adjoint_phases_reference(g: torch.Tensor, wa: torch.Tensor, *,
 def run_adjoint_phases(g: torch.Tensor, wa: torch.Tensor, *,
                        plan: SystolicPlan, in_spatial) -> torch.Tensor:
     """``dx`` of a strided reduce plan, phase by phase, without scattering
-    the cotangent: K1 (:meth:`WindowKernel.adjoint_phases`, one launch)
-    for a CUDA tensor, :func:`run_adjoint_phases_reference` for a CPU
-    tensor. The mxu strategy takes the scattered cotangent instead."""
-    if plan.strategy == "mxu":
-        raise ValueError("K2 runs the input adjoint on the scattered "
-                         "cotangent; the phased adjoint is K1's (lanes)")
+    the cotangent: for a CUDA tensor one launch of K2 for an mxu plan
+    (:meth:`MxuKernel.adjoint_phases`), else of K1
+    (:meth:`WindowKernel.adjoint_phases`); for a CPU tensor
+    :func:`run_adjoint_phases_reference`, whose phase plans keep the
+    plan's strategy (an mxu plan runs the plain version of K2)."""
     _check_adjoint_phase_operands(g, wa, plan, in_spatial)
     if g.device.type == "cuda":
-        return WINDOW_KERNEL.adjoint_phases(g, wa, plan=plan,
-                                            in_spatial=in_spatial)
+        kernel = MXU_KERNEL if plan.strategy == "mxu" else WINDOW_KERNEL
+        return kernel.adjoint_phases(g, wa, plan=plan, in_spatial=in_spatial)
     if g.device.type == "cpu":
         return run_adjoint_phases_reference(g, wa, plan=plan,
                                             in_spatial=in_spatial)
@@ -1511,9 +1610,10 @@ def tma_pitch(width: int, elem_bytes: int) -> int:
 def _tma_operand(t: torch.Tensor) -> tuple[torch.Tensor, int]:
     """``t`` as TMA reads it: rows (its last axis) at a pitch of a multiple
     of 16 bytes from a 16-byte aligned base. ``t`` itself where it already
-    is so; else a pitch-padded copy (``torch.empty``, then a narrow copy),
-    whose padding the map never reads (it is encoded with the logical
-    width). Returns the tensor and its pitch in elements."""
+    is so; else a pitch-padded copy whose padding holds zeros (K3's maps
+    are encoded with the logical width and never read it; K2's channel
+    kernel reads rows in 16-byte chunks, so the last chunk's tail must be
+    zero). Returns the tensor and its pitch in elements."""
     width = t.shape[-1]
     pitch = tma_pitch(width, t.element_size())
     if pitch == width and t.is_contiguous() \
@@ -1522,6 +1622,8 @@ def _tma_operand(t: torch.Tensor) -> tuple[torch.Tensor, int]:
     buf = torch.empty(t.shape[:-1] + (pitch,), dtype=t.dtype,
                       device=t.device)
     buf.narrow(-1, 0, width).copy_(t)
+    if pitch > width:
+        buf.narrow(-1, width, pitch - width).zero_()
     return buf, pitch
 
 

@@ -1,38 +1,20 @@
 // K2 on Hopper: the tensor-core strategy of the windowed-plan engine
-// (strategy="mxu").
+// (strategy="mxu"), single-channel plans.
 //
 // Replaces src/repro/core/engine.py::_apply_plan_mxu, the strategy="mxu"
 // body of _window_kernel (launched at the same pallas_call as K1): im2row
 // over the plan's tap set, contracted with the coefficients on the matrix
-// unit with an fp32 accumulator.
+// unit with an fp32 accumulator. Channel (NCHW) plans run K2's wgmma
+// kernel, ssam_mxu_tc.cu.
 //
-// Both paths run on the tensor cores, mma.sync.m16n8k8 in TF32. TF32 keeps
-// 10 mantissa bits, about three digits, so for fp32 parity each operand is
-// split, big = tf32(a) and small = tf32(a - big), and big*big + big*small +
-// small*big is accumulated in fp32 (3xTF32; the dropped small*small term is
-// about 2^-22 of the product). The tensor core's own fp32 accumulation
-// truncates, so each k-step's big*big product is added outside it, with a
+// mma.sync.m16n8k8 in TF32. TF32 keeps 10 mantissa bits, about three
+// digits, so for fp32 parity each operand is split, big = tf32(a) and
+// small = tf32(a - big), and big*big + big*small + small*big is
+// accumulated in fp32 (3xTF32; the dropped small*small term is about 2^-22
+// of the product). The tensor core's own fp32 accumulation truncates, so
+// each k-step's big*big product is added outside it, with a
 // round-to-nearest fp32 add (mma_3xtf32 in ssam_tf32.cuh). bf16 inputs are
 // upcast on load (their small part is 0) and the output is cast back.
-//
-// Channel-reduce path (NCHW plans: the Whisper stem and its input adjoint):
-//   out[b, co, oy, ox] = epi( sum_{ci, tap} w[co, ci, tap]
-//                              * x[b, ci, oy*sh + row - ly, ox*sw + col - lx] )
-// is a GEMM with M = C_out, N = output positions and K = C_in*taps. A block
-// of 8 warps owns 64 output channels x 1 output row x 128 columns of one
-// batch row; warp (wm, wn) keeps 32 channels x 32 columns as 2 x 4 m16n8 fp32
-// accumulator tiles for the whole reduction. K streams through shared memory
-// ci_t input channels per pass: the pass stages the filter tile (A,
-// row-major, pitch lda = 4 mod 32, so the 32 loads of an A fragment fall in
-// 32 banks) and the halo-overlapped input rows the taps reach ((127*sw + M)
-// columns each, zero outside the domain: the plan's padding is never
-// materialised). The im2row operand B[k = ci*taps + tap][n] =
-// xs[ci][row][n*sw + col] is read from that staged tile through a per-k
-// offset table, so it exists only in shared memory, never in device memory.
-// A strided plan reads lane n*sw + col and computes only the kept outputs.
-// The epilogue (ssam_epilogue.cuh) applies to the fp32 sum before the store.
-// Nothing is skipped: taps that read only padding rows (a 3x3 filter on
-// H = 1) are multiplied like the others.
 //
 // Single-channel path (Table-3 stencils 2-D and 3-D, conv2d valid, same and
 // batched): no channel axis fills M, so M = the tile's output positions (16
@@ -46,26 +28,21 @@
 // last to device memory.
 //
 // Bound on an H100: the stencils and small filters are bound by
-// device-memory bytes (each input read once, each output written once), the
-// stem by tensor-core operations (2*C_in*taps per output: conv2's forward is
-// 18.9 GFLOP, 0.038 ms at 495 TFLOP/s of TF32 counted once). This simple
-// version spends 3 mma.sync per product on the split, gathers every fragment
-// with scalar shared loads, and wastes 7/8 of the single-channel path's
-// columns; wgmma with TMA-staged tiles, and more useful columns (several
-// output shifts per B column), are the next steps.
+// device-memory bytes (each input read once, each output written once).
+// This simple version spends 3 mma.sync per product on the split, gathers
+// every fragment with scalar shared loads, and wastes 7/8 of the columns;
+// more useful columns (several output shifts per B column, a Toeplitz B)
+// are the next step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "ssam_epilogue.cuh"
 #include "ssam_tf32.cuh"
 
 namespace ssam {
 
 constexpr int kMThreads = 256;
 constexpr int kMWarps = kMThreads / 32;
-constexpr int kMCoTile = 64;  // output channels per reduce block (GEMM M)
-constexpr int kMCols = 128;   // output columns per reduce block (GEMM N)
 
 __device__ __forceinline__ float load_x(const void* x, int bf16, size_t i) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i])
@@ -78,136 +55,6 @@ __device__ __forceinline__ void store_out(void* out, int bf16, size_t i,
     static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
   else
     static_cast<float*>(out)[i] = v;
-}
-
-// ---------------------------------------------------------------------------
-// Channel-reduce path
-// ---------------------------------------------------------------------------
-
-struct MxuReduceArgs {
-  const void* x;        // (batch, cr, hin, win), fp32 or bf16
-  void* out;            // (batch, co, ho, wo), x's dtype
-  int io_bf16;
-  const float* w;       // (co, cr, fsz) fp32
-  const int* taps;      // ntaps (row, col, coeff) triples, plan order
-  int ntaps;
-  const float* bias;    // co values, or null
-  int epi_op[kMaxEpi];
-  float epi_val[kMaxEpi];
-  int n_epi;
-  int batch, cr, co, hin, win, ho, wo;
-  int ly, lx, sh, sw;
-  int fsz, rows, M;     // filter slice size N*M, plan rows N, plan columns M
-  int ci_t, kc, lda, span;  // channels per pass, its K padded to 8, A pitch,
-                            // staged columns per input row
-};
-
-__global__ void __launch_bounds__(kMThreads) mxu_reduce_kernel(MxuReduceArgs a) {
-  extern __shared__ float smem[];
-  int* koff = reinterpret_cast<int*>(smem);  // k -> its row's offset in xs
-  int* kwid = koff + a.kc;                   // k -> ci*fsz + coeff
-  float* ws = smem + 2 * a.kc;               // kMCoTile x lda filter tile
-  float* xs = ws + kMCoTile * a.lda;         // ci_t x rows x span input rows
-  const int T = a.ntaps;
-
-  const int co_tiles = (a.co + kMCoTile - 1) / kMCoTile;
-  const int b = blockIdx.z / co_tiles;
-  const int co0 = (blockIdx.z % co_tiles) * kMCoTile;
-  const int oy = blockIdx.y;
-  const int ox0 = blockIdx.x * kMCols;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, q = lane & 3;  // the mma's group and thread in it
-  const int wm = warp >> 2, wn = warp & 3;
-  const int iy0 = oy * a.sh - a.ly;
-  const int ix0 = ox0 * a.sw - a.lx;
-
-  for (int k = tid; k < a.kc; k += kMThreads) {
-    const bool real = k < a.ci_t * T;
-    const int c = real ? k / T : 0, t = real ? k % T : 0;
-    koff[k] = real ? (c * a.rows + a.taps[3 * t]) * a.span + a.taps[3 * t + 1]
-                   : 0;
-    kwid[k] = real ? c * a.fsz + a.taps[3 * t + 2] : 0;
-  }
-
-  float acc[2][4][4], cor[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = cor[mi][ni][i] = 0.f;
-
-  for (int c0 = 0; c0 < a.cr; c0 += a.ci_t) {
-    const int nc = min(a.ci_t, a.cr - c0);
-    const int kv = nc * T;           // this pass's contraction depth
-    const int kp = (kv + 7) & ~7;    // padded to the mma's k = 8
-    __syncthreads();  // the tables are in; the last pass is read
-    for (int i = tid; i < kMCoTile * kp; i += kMThreads) {
-      const int m = i / kp, k = i % kp;
-      const int co = co0 + m;
-      ws[m * a.lda + k] =
-          (co < a.co && k < kv)
-              ? a.w[((size_t)co * a.cr + c0) * a.fsz + kwid[k]]
-              : 0.f;
-    }
-    for (int row = warp; row < nc * a.rows; row += kMWarps) {
-      const int c = row / a.rows, r = row % a.rows;
-      const int gy = iy0 + r;
-      const bool in = gy >= 0 && gy < a.hin;
-      const size_t base =
-          (((size_t)b * a.cr + c0 + c) * a.hin + (in ? gy : 0)) * a.win;
-      for (int j = lane; j < a.span; j += 32) {
-        const int gx = ix0 + j;
-        xs[row * a.span + j] = (in && gx >= 0 && gx < a.win)
-                                   ? load_x(a.x, a.io_bf16, base + gx)
-                                   : 0.f;
-      }
-    }
-    __syncthreads();
-    for (int k0 = 0; k0 < kp; k0 += 8) {
-      uint32_t ab[2][4], as[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        // A fragment: rows g and g+8, columns q and q+4 of the 16 x 8 tile
-        const float* wr = ws + (wm * 32 + mi * 16 + g) * a.lda + k0 + q;
-        split_tf32(wr[0], ab[mi][0], as[mi][0]);
-        split_tf32(wr[8 * a.lda], ab[mi][1], as[mi][1]);
-        split_tf32(wr[4], ab[mi][2], as[mi][2]);
-        split_tf32(wr[8 * a.lda + 4], ab[mi][3], as[mi][3]);
-      }
-      // B fragment: rows (k) q and q+4, column (position) g
-      const int ka = k0 + q, kb = ka + 4;
-      const bool va = ka < kv, vb = kb < kv;
-      const float* xa = xs + koff[ka];
-      const float* xb = xs + koff[kb];
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = (wn * 32 + ni * 8 + g) * a.sw;
-        uint32_t bb[2], bs[2];
-        split_tf32(va ? xa[n] : 0.f, bb[0], bs[0]);
-        split_tf32(vb ? xb[n] : 0.f, bb[1], bs[1]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          mma_3xtf32(acc[mi][ni], cor[mi][ni], ab[mi], as[mi], bb, bs);
-      }
-    }
-  }
-
-  // Accumulator tile: rows g (i < 2) and g+8, columns 2q and 2q+1.
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int co = co0 + wm * 32 + mi * 16 + g + (i >= 2 ? 8 : 0);
-        const int ox = ox0 + wn * 32 + ni * 8 + 2 * q + (i & 1);
-        if (co >= a.co || ox >= a.wo) continue;
-        const float v = apply_epilogue(a.epi_op, a.epi_val, a.n_epi, a.bias,
-                                       acc[mi][ni][i] + cor[mi][ni][i], co);
-        store_out(a.out, a.io_bf16,
-                  (((size_t)b * a.co + co) * a.ho + oy) * a.wo + ox, v);
-      }
 }
 
 // ---------------------------------------------------------------------------
@@ -338,63 +185,7 @@ __global__ void __launch_bounds__(kMThreads) mxu_window_kernel(MxuWindowArgs a) 
 
 }  // namespace ssam
 
-// Plain C entries of K2, loaded with ctypes. epi_ops and epi_vals are host
-// arrays of kMaxEpi entries.
-extern "C" int ssam_mxu_reduce_launch(
-    const void* x, void* out, int io_bf16, const float* w, const int* taps,
-    int ntaps, const float* bias, const int* epi_ops, const float* epi_vals,
-    int n_epi, int batch, int cr, int co, int hin, int win, int ho, int wo,
-    int ly, int lx, int sh, int sw, int fsz, int rows, int M, int ci_t,
-    int kc, int lda, int span, int smem_bytes, void* stream) {
-  if (ntaps < 1 || n_epi < 0 || n_epi > ssam::kMaxEpi || ci_t < 1 ||
-      kc < ci_t * ntaps || kc % 8 || lda < kc || sh < 1 || sw < 1 ||
-      span < (ssam::kMCols - 1) * sw + M || ho < 1 || wo < 1 || ho > 65535)
-    return (int)cudaErrorInvalidValue;
-  ssam::MxuReduceArgs a;
-  a.x = x;
-  a.out = out;
-  a.io_bf16 = io_bf16;
-  a.w = w;
-  a.taps = taps;
-  a.ntaps = ntaps;
-  a.bias = bias;
-  for (int s = 0; s < ssam::kMaxEpi; ++s) {
-    a.epi_op[s] = s < n_epi ? epi_ops[s] : 0;
-    a.epi_val[s] = s < n_epi ? epi_vals[s] : 0.f;
-    if (a.epi_op[s] == 1 && bias == nullptr) return (int)cudaErrorInvalidValue;
-  }
-  a.n_epi = n_epi;
-  a.batch = batch;
-  a.cr = cr;
-  a.co = co;
-  a.hin = hin;
-  a.win = win;
-  a.ho = ho;
-  a.wo = wo;
-  a.ly = ly;
-  a.lx = lx;
-  a.sh = sh;
-  a.sw = sw;
-  a.fsz = fsz;
-  a.rows = rows;
-  a.M = M;
-  a.ci_t = ci_t;
-  a.kc = kc;
-  a.lda = lda;
-  a.span = span;
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ssam::mxu_reduce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int co_tiles = (co + ssam::kMCoTile - 1) / ssam::kMCoTile;
-  dim3 grid((wo + ssam::kMCols - 1) / ssam::kMCols, ho, batch * co_tiles);
-  ssam::mxu_reduce_kernel<<<grid, ssam::kMThreads, smem_bytes,
-                            static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
-}
-
+// Plain C entry of K2's single-channel path, loaded with ctypes.
 extern "C" int ssam_mxu_window_launch(
     const void* x, void* out, int io_bf16, const float* cvals, const int* taps,
     int ntaps, int tp, int batch, int zin, int hin, int win, int zo, int ho,

@@ -1,5 +1,6 @@
 // 3xTF32: fp32 products on the TF32 tensor cores, shared by K2
-// (ssam_mxu.cu, mma.sync) and K3's channel path (ssam_wgrad_tc.cu, wgmma).
+// (ssam_mxu.cu, mma.sync; ssam_mxu_tc.cu, wgmma) and K3's channel path
+// (ssam_wgrad_tc.cu, wgmma).
 //
 // TF32 keeps 10 mantissa bits, about three digits. For fp32 parity each
 // operand is split, big = tf32(a) and small = tf32(a - big), and big*big +

@@ -21,11 +21,9 @@ The windowed ops are differentiable: :class:`WindowOp` is the
 the linear plan, differentiates the epilogue there (which also gives the
 bias gradient), runs the weight-gradient correlation for ``dW`` (K3) on
 the cotangent as the strided forward produced it, then runs the
-input adjoint through the engine for ``dx``: K1 computes a strided
-plan's dx phase by phase on that cotangent, one launch
-(``engine.run_adjoint_phases``); K2 (the adjoint keeps the forward's
-strategy) runs the stride-free plan's adjoint on the cotangent scattered
-into the dense output lattice.
+input adjoint through the engine for ``dx``: a strided plan's dx phase
+by phase on that cotangent, one launch of the forward's strategy's
+kernel (K1, or K2 under ``strategy='mxu'``; ``engine.run_adjoint_phases``).
 """
 from __future__ import annotations
 
@@ -70,9 +68,8 @@ def window_backward(cfg: WindowCfg, x, w, epi, g, *, need_x: bool = True,
     correlation of the (strided) linear plan on that cotangent (when
     ``need_w`` and the plan has runtime coefficients), then, for ``dx``
     (when ``need_x``), the input-adjoint plan; a strided plan's dx runs
-    phase by phase on the cotangent as it is (K1), or, under the mxu
-    strategy, the stride-free plan's adjoint on the cotangent scattered
-    onto the dense lattice (K2)."""
+    phase by phase on the cotangent as it is (K1, or K2 under the mxu
+    strategy)."""
     plan = cfg.plan
     if cfg.time_steps != 1 and plan.coeff_mode != "table":
         raise ValueError(
@@ -98,27 +95,16 @@ def window_backward(cfg: WindowCfg, x, w, epi, g, *, need_x: bool = True,
         dw = _engine.run_weight_grad_plan(x, g.to(x.dtype),
                                           plan=plan).to(w.dtype)
     if need_x:
-        strided = any(v > 1 for v in plan.stride_per_axis())
-        if strided and plan.strategy != "mxu":
+        if any(v > 1 for v in plan.stride_per_axis()):
             # each output phase of dx from the taps that reach it, written
-            # in place: no scatter, no inserted zeros multiplied
+            # in place: no scatter, no inserted zeros multiplied (one launch
+            # of the plan's strategy's kernel: K1, or K2 under mxu)
             adj.record_lowering("adj_" + plan.kind)
             nb = plan.batch_axes + plan.reduce_axes
             dx = _engine.run_adjoint_phases(
                 g, adj.adjoint_coeff_array(plan, w), plan=plan,
                 in_spatial=tuple(x.shape[nb:])).to(x.dtype)
             return dx, dw, depi
-        if strided:
-            # K2 (mxu) transposes the output-strided grid by scattering the
-            # cotangent onto the kept lanes of the dense output lattice
-            plan = dataclasses.replace(plan, stride=None)
-            lead_in = plan.batch_axes + plan.reduce_axes
-            dense = plan.out_shape(tuple(x.shape[lead_in:]))
-            lead_nd = g.ndim - plan.ndim_spatial
-            gd = g.new_zeros(g.shape[:lead_nd] + dense)
-            gd[(...,) + tuple(slice(None, None, v)
-                              for v in cfg.plan.stride_per_axis())] = g
-            g = gd
         aplan = adj.input_adjoint_plan(plan)
         adj.record_lowering(aplan.kind)
         dx = _run(cfg, aplan, g, adj.adjoint_coeff_array(plan, w)).to(x.dtype)

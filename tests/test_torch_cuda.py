@@ -13,8 +13,9 @@ few thousand products taken in another order than the plain version's
 per-tap contractions); K5 fp32 rtol 1e-5 with atol 1e-5·max|plain| (the
 kernel and the plain version differ only in the order of the prefix
 products), bf16 3e-2. K2 (3xTF32 on the tensor cores) against its plain
-version at K1's tolerances (3e-5 single-channel, 1e-4 NCHW), and against
-K1 at 1e-4, the reference's lanes-versus-mxu tolerance. K1's per-lane
+version at K1's tolerances (3e-5 single-channel, 1e-4 NCHW and its
+phased dx, bf16 3e-2), and against K1 at 1e-4, the reference's
+lanes-versus-mxu tolerance. K1's per-lane
 (depthwise conv1d) path at fp32 3e-5, bf16 3e-2; K4 (per-lane weight
 gradient, sums over B·T products in another order) at fp32 1e-4, bf16
 3e-2; gradients through K1, K4 and K5 against the CPU's at 1e-4.
@@ -544,14 +545,27 @@ def test_mxu_conv2d_matches_plain_version(cuda, mode, fshape):
     _close(got, ref.conv2d_batched(xs, w[:5, :5], mode), 1e-4)
 
 
-@pytest.mark.parametrize("xs,ws,mode,stride,epi", REDUCE_CASES, ids=str)
+# K2's channel path: REDUCE_CASES, C_out 200 on 23 rows (a second channel
+# tile 72 wide) and a 9x9 filter at stride 3, whose forward stages x a
+# k-block at a time
+MXU_REDUCE_CASES = REDUCE_CASES + [
+    ((1, 16, 23, 300), (200, 16, 1, 3), "same", (1, 1), ("bias", "gelu")),
+    ((1, 2, 12, 40), (3, 2, 9, 9), "same", (3, 3), None),
+]
+
+
+def _mxu_case_plan(xs, ws, mode, stride, epi=None):
+    return dataclasses.replace(ssam_conv2d.plan_for_nchw(xs, ws, mode),
+                               stride=None if stride == (1, 1) else stride,
+                               epilogue=plan.normalize_epilogue(epi),
+                               strategy="mxu")
+
+
+@pytest.mark.parametrize("xs,ws,mode,stride,epi", MXU_REDUCE_CASES, ids=str)
 def test_mxu_reduce_matches_plain_version(cuda, xs, ws, mode, stride, epi):
     x, w = _grid(xs, cuda, 11), _grid(ws, cuda, 12)
     b = _grid(ws[:1], cuda, 13)
-    p = dataclasses.replace(ssam_conv2d.plan_for_nchw(xs, ws, mode),
-                            stride=None if stride == (1, 1) else stride,
-                            epilogue=plan.normalize_epilogue(epi),
-                            strategy="mxu")
+    p = _mxu_case_plan(xs, ws, mode, stride, epi)
     args = (b,) if epi and "bias" in epi else ()
     got, lanes = _mxu_and_lanes(
         lambda **kw: engine.run_window_plan(x, w, plan=p, epilogue_args=args,
@@ -566,6 +580,72 @@ def test_mxu_reduce_matches_plain_version(cuda, xs, ws, mode, stride, epi):
     wa = adjoint.adjoint_coeff_array(lin, w)
     _close(engine.run_window_plan(g, wa, plan=a),
            engine.run_window_plan_reference(g, wa, plan=a), 1e-4)
+
+
+@pytest.mark.parametrize("xs,ws,mode,stride,epi", MXU_REDUCE_CASES, ids=str)
+def test_mxu_phased_dx_matches_plain_version(cuda, xs, ws, mode, stride,
+                                             epi):
+    """dx of the (strided) linear plan through K2's phases, one launch,
+    against the plain mxu phases and K1's phased dx."""
+    w = _grid(ws, cuda, 12)
+    p = _mxu_case_plan(xs, ws, mode, stride)
+    g = _grid((xs[0], ws[0]) + p.out_shape(xs[2:]), cuda, 14)
+    wa = adjoint.adjoint_coeff_array(p, w)
+    k1, k2 = engine.WINDOW_KERNEL.launches, engine.MXU_KERNEL.launches
+    got = engine.run_adjoint_phases(g, wa, plan=p, in_spatial=xs[2:])
+    assert engine.MXU_KERNEL.launches == k2 + 1
+    assert engine.WINDOW_KERNEL.launches == k1
+    assert got.shape == (xs[0],) + xs[1:]
+    _close(got, engine.run_adjoint_phases_reference(
+        g, wa, plan=p, in_spatial=xs[2:]), 1e-4)
+    _close(got, engine.run_adjoint_phases(
+        g, wa, plan=dataclasses.replace(p, strategy="lanes"),
+        in_spatial=xs[2:]), 1e-4)
+
+
+def test_mxu_reduce_kernel_is_deterministic(cuda):
+    """No atomics, no split of K: two calls give the same bits, forward and
+    phased dx at the stem's conv2 (batch 2), fp32 and bf16; bf16 against
+    the plain version at 3e-2."""
+    xs, ws = (2, 512, 1, 3000), (512, 512, 1, 3)
+    p = _mxu_case_plan(xs, ws, "same", (1, 2))
+    w = _grid(ws, cuda, 40)
+    wa = adjoint.adjoint_coeff_array(p, w)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _grid(xs, cuda, 41).to(dtype)
+        g = _grid((2, 512, 1, 1500), cuda, 42).to(dtype)
+        for run, plain in (
+                (lambda: engine.run_window_plan(x, w, plan=p),
+                 lambda: engine.run_window_plan_reference(x, w, plan=p)),
+                (lambda: engine.run_adjoint_phases(g, wa, plan=p,
+                                                   in_spatial=(1, 3000)),
+                 lambda: engine.run_adjoint_phases_reference(
+                     g, wa, plan=p, in_spatial=(1, 3000)))):
+            first = run()
+            assert torch.equal(first, run())
+            _close(first.float(), plain().float(),
+                   1e-4 if dtype == torch.float32 else 3e-2)
+
+
+def test_mxu_strided_backward_counts_k2(cuda, monkeypatch):
+    """A strided mxu conv's forward and backward launch K2 three times
+    (forward, recomputed pre-activation, the phased dx) and K3 for dW;
+    never K1 or a plain version."""
+    def boom(*a, **k):
+        raise AssertionError("K1 or a plain version reached on the card")
+
+    for name in ("run_window_plan_reference", "run_adjoint_phases_reference",
+                 "WINDOW_KERNEL"):
+        monkeypatch.setattr(engine, name, boom)
+    x = _grid((2, 40, 1, 300), cuda, 47).requires_grad_()
+    w = _grid((24, 40, 1, 3), cuda, 48).requires_grad_()
+    b = _grid((24,), cuda, 49).requires_grad_()
+    k2 = engine.MXU_KERNEL.launches
+    y = ops.conv2d(x, w, stride=(1, 2), epilogue=("bias", "gelu"),
+                   epilogue_args=(b,), strategy="mxu")
+    y.square().sum().backward()
+    assert engine.MXU_KERNEL.launches == k2 + 3
+    assert x.grad.is_cuda and w.grad.is_cuda and b.grad.is_cuda
 
 
 def test_mxu_bf16(cuda):

@@ -310,22 +310,34 @@ def test_stencil_mxu_gradients(name):
 
 
 def test_mxu_backward_runs_mxu_plans(monkeypatch):
-    """dx of an mxu forward runs the mxu adjoint plan (the engine sees it
-    pinned), dW the weight-gradient correlation."""
-    seen = []
-    real = engine.run_window_plan
+    """dx of an mxu forward runs the mxu adjoint (the engine sees it
+    pinned): a strided plan's through the phases, dW the weight-gradient
+    correlation."""
+    seen, phased = [], []
+    real, real_phases = engine.run_window_plan, engine.run_adjoint_phases
 
     def spy(*a, **kw):
         seen.append(kw["plan"].strategy)
         return real(*a, **kw)
 
+    def spy_phases(*a, **kw):
+        phased.append(kw["plan"].strategy)
+        return real_phases(*a, **kw)
+
     monkeypatch.setattr(engine, "run_window_plan", spy)
+    monkeypatch.setattr(engine, "run_adjoint_phases", spy_phases)
     x = torch.randn(2, 3, 1, 20, requires_grad=True)
     w = torch.randn(5, 3, 1, 3, requires_grad=True)
     ops.conv2d(x, w, stride=(1, 2), epilogue="gelu",
                strategy="mxu").sum().backward()
-    # forward, recomputed pre-activation, dx
-    assert seen == ["mxu", "mxu", "mxu"]
+    # forward and recomputed pre-activation; dx by the phases
+    assert seen == ["mxu", "mxu"]
+    assert phased == ["mxu"]
+    # a stride-free mxu plan's dx runs its adjoint plan, pinned too
+    seen.clear()
+    x.grad = None
+    ops.conv2d(x, w, epilogue="gelu", strategy="mxu").sum().backward()
+    assert seen == ["mxu", "mxu", "mxu"] and phased == ["mxu"]
 
 
 def _f64(*shape, seed=0):
@@ -334,7 +346,8 @@ def _f64(*shape, seed=0):
                        requires_grad=True)
 
 
-@pytest.mark.parametrize("stride", [(1, 1), (1, 2)], ids=str)
+@pytest.mark.parametrize("stride", [(1, 1), (1, 2), (2, 2), (1, 3)],
+                         ids=str)
 def test_gradcheck_nchw_mxu(stride):
     x, w, b = _f64(2, 3, 4, 9), _f64(2, 3, 2, 3, seed=1), _f64(2, seed=2)
     assert torch.autograd.gradcheck(
@@ -360,14 +373,19 @@ def test_gradcheck_single_channel_and_stencils_mxu():
 # --- K2's launch geometry, computed on the CPU ------------------------------
 
 def test_mxu_launch_geometry():
+    """K2's channel path at the Whisper stem's shapes (its layout, see
+    also tests/test_torch_mxu_tc.py), and the single-channel path's."""
     stem = dataclasses.replace(
         ssam_conv2d.plan_for_nchw((8, 512, 1, 3000), (512, 512, 1, 3),
                                   "same"), stride=(1, 2), strategy="mxu")
-    lay = engine.mxu_reduce_layout(stem, 3, 512)
-    assert lay.span == 127 * 2 + 3 and lay.kc % 8 == 0
-    assert lay.kc >= lay.ci_t * 3 and lay.lda % 32 == 4 and lay.lda >= lay.kc
-    assert lay.smem == 4 * (2 * lay.kc + 64 * lay.lda + lay.ci_t * lay.span)
-    assert lay.smem <= engine.MXU_SMEM_TARGET and lay.ci_t == 32
+    lay = engine.mxu_tc_layout((engine.forward_phase(stem, (1, 3000)),),
+                               batch=8, c_in=512, c_out=512, fsz=3,
+                               read_stride=(1, 2))
+    assert (engine.MXU_TC_POS, engine.MXU_TC_CO, lay.co_tiles) == (128, 128, 4)
+    assert lay.grid == (12, 1, 8 * 4) and lay.slabs == 16
+    assert len(lay.kcols) == 16 * 3 * 32 and lay.smem <= engine.SMEM_LIMIT
+    # 127 positions at stride 2, 3 taps, up to 3 columns of alignment
+    assert lay.row_len == 264 and lay.rows == 1 and not lay.x_per_kblock
     # taps in plan order: (dz, row, col, coefficient index)
     p = dataclasses.replace(_plans("2d5pt")[1], strategy="mxu")
     tab = engine.mxu_tap_table(p, None)

@@ -4,7 +4,8 @@ package.
 
 * ``dx`` of a strided NCHW convolution split into its ``sh·sw`` output
   phases (``adjoint.strided_input_adjoint_phases``), each run as a
-  stride-1 plan through the plain version, equals the scatter-then-adjoint
+  stride-1 plan through the plain version (of K1, or of K2 under
+  ``strategy='mxu'``: both strategies), equals the scatter-then-adjoint
   formulation (the cotangent scattered onto the dense lattice, then the
   stride-free plan's input adjoint; kept here as the oracle) and
   ``jax.grad`` of ``repro.kernels.ops.conv2d(..., impl="xla")``, across
@@ -51,9 +52,10 @@ def _close(got, want, rtol=3e-5):
                                atol=rtol * float(np.abs(want).max()))
 
 
-def _plan(xs, ws, mode, stride):
+def _plan(xs, ws, mode, stride, strategy=None):
     return dataclasses.replace(ssam_conv2d.plan_for_nchw(xs, ws, mode),
-                               stride=None if stride == (1, 1) else stride)
+                               stride=None if stride == (1, 1) else stride,
+                               strategy=strategy)
 
 
 def _scattered_dx(g, wa, plan, in_spatial):
@@ -67,17 +69,21 @@ def _scattered_dx(g, wa, plan, in_spatial):
         gd, wa, plan=adjoint.input_adjoint_plan(dense))
 
 
+@pytest.mark.parametrize("strategy", ["lanes", "mxu"])
 @pytest.mark.parametrize("epi", EPILOGUES, ids=str)
 @pytest.mark.parametrize("mode", ["same", "valid"])
 @pytest.mark.parametrize("fil", FILTERS, ids=str)
 @pytest.mark.parametrize("stride", STRIDES, ids=str)
-def test_phased_dx_matches_scatter_and_jax_grad(stride, fil, mode, epi):
+def test_phased_dx_matches_scatter_and_jax_grad(stride, fil, mode, epi,
+                                                strategy):
+    """Under either strategy (the phase plans keep it: mxu phases run the
+    plain version of K2, lanes phases K1's)."""
     ws = (C_OUT, X_SHAPE[1]) + fil
     rng = np.random.default_rng(40)
     x = rng.standard_normal(X_SHAPE).astype(np.float32)
     w = rng.standard_normal(ws).astype(np.float32)
     b = rng.standard_normal(C_OUT).astype(np.float32)
-    p = _plan(X_SHAPE, ws, mode, stride)
+    p = _plan(X_SHAPE, ws, mode, stride, strategy)
     gy = rng.standard_normal((X_SHAPE[0], C_OUT) + p.out_shape(
         X_SHAPE[2:])).astype(np.float32)
     has_b = epi is not None
@@ -86,10 +92,14 @@ def test_phased_dx_matches_scatter_and_jax_grad(stride, fil, mode, epi):
         p, torch.from_numpy(w))
     dx = engine.run_adjoint_phases(g, wa, plan=p, in_spatial=X_SHAPE[2:])
     _close(dx, _scattered_dx(g, wa, p, X_SHAPE[2:]))
+    if strategy == "mxu":
+        _close(dx, engine.run_adjoint_phases(
+            g, wa, plan=dataclasses.replace(p, strategy="lanes"),
+            in_spatial=X_SHAPE[2:]))
     # the op's gradient (its dx through the phases) against jax.grad
     xt = torch.from_numpy(x).requires_grad_()
     y = ops.conv2d(xt, torch.from_numpy(w), mode=mode, stride=stride,
-                   epilogue=epi,
+                   epilogue=epi, strategy=strategy,
                    epilogue_args=(torch.from_numpy(b),) if has_b else ())
     y.backward(torch.from_numpy(gy))
 
@@ -136,10 +146,15 @@ def test_phase_tables():
     p = _plan((1, 2, 8, 8), (3, 2, 2, 2), "valid", (3, 3))
     assert [len(ph.taps) for ph in adjoint.strided_input_adjoint_phases(
         p)] == [1, 1, 0, 1, 1, 0, 0, 0, 0]
-    with pytest.raises(ValueError, match="scattered"):
-        engine.run_adjoint_phases(torch.zeros(1, 3, 3, 3), torch.zeros(
-            2, 3, 2, 2), plan=dataclasses.replace(p, strategy="mxu"),
-            in_spatial=(8, 8))
+    # the mxu strategy takes the same phases (the plain version of K2 on
+    # each phase plan): equal to the lanes phases
+    g = torch.randn(1, 3, 3, 3)
+    wa = adjoint.adjoint_coeff_array(p, torch.randn(3, 2, 2, 2))
+    mxu = dataclasses.replace(p, strategy="mxu")
+    got = engine.run_adjoint_phases(g, wa, plan=mxu, in_spatial=(8, 8))
+    _close(got, engine.run_adjoint_phases(g, wa, plan=p, in_spatial=(8, 8)))
+    assert {ph.plan.strategy for ph in adjoint.strided_input_adjoint_phases(
+        mxu) if ph.plan} == {"mxu"}
 
 
 def test_groups_of_a_wide_filter():

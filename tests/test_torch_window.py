@@ -8,6 +8,7 @@ its executor, on the same numpy inputs. Tolerance: fp32 3e-5
 """
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -218,7 +219,8 @@ def test_cpu_tensor_never_loads_the_kernel():
 
 def test_nvcc_command_targets_sm_90a():
     src = _build.sources()
-    assert [p.name for p in src] == ["ssam_mxu.cu", "ssam_scan.cu",
+    assert [p.name for p in src] == ["ssam_mxu.cu", "ssam_mxu_tc.cu",
+                                     "ssam_scan.cu",
                                      "ssam_wgrad.cu", "ssam_wgrad_perlane.cu",
                                      "ssam_wgrad_tc.cu",
                                      "ssam_window.cu", "ssam_window_2d.cu",
@@ -229,6 +231,32 @@ def test_nvcc_command_targets_sm_90a():
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" not in cmd
     assert "arch=compute_90a,code=sm_90a" in _build.link_command(
         [_build.BUILD_DIR / "k.o"], _build.BUILD_DIR / "k.so")
+
+
+def _c_entries():
+    """Every plain C entry of the CUDA sources: (name, parameter count)."""
+    out = []
+    for src in _build.sources():
+        text = src.read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            out.append((m.group(1), len(m.group(2).split(","))))
+    return out
+
+
+@pytest.mark.parametrize("entry,nparams", _c_entries(), ids=str)
+def test_ctypes_binding_matches_c_entry(entry, nparams, monkeypatch):
+    """The argument types the loader binds for each C entry are as many as
+    its parameters: a mismatch is a TypeError at the first launch, which
+    only the card would show."""
+    bound = {}
+
+    class Library:
+        def __getattr__(self, name):
+            return bound.setdefault(name, type("Fn", (), {})())
+
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: Library())
+    _build.Library._load(_build.BUILD_DIR / "k.so")
+    assert len(bound[entry].argtypes) == nparams
 
 
 def test_other_devices_raise():
