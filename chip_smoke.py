@@ -26,19 +26,30 @@ Phases, one JSON line each:
 1. build: compile K1, K2, K3, K4 and K5 from ``src/repro_torch/csrc``
    (nvcc, sm_90a, one process per source, all started together), with
    the counts of ``HGMMA`` and ``UTMALDG`` in K3's channel kernel and of
-   ``HGMMA``, ``UTMALDG``, ``LDS`` and ``STS`` in K2's, and the registers
+   ``HGMMA``, ``UTMALDG``, ``LDS`` and ``STS`` in K2's, the registers
    and spills of K1's reduce kernel and K2's channel kernel (neither may
-   spill; K2's must hold ``HGMMA``);
+   spill; K2's must hold ``HGMMA``), and, per K1 single-channel
+   instantiation that phases 2–5 launch, its registers, spills and
+   ``UTMALDG``, ``LDGSTS``, ``SHFL``, ``FFMA`` and ``BRX`` counts (none
+   may spill; each must hold ``UTMALDG``);
 2. stencils and 3. convolution: every case against the plain torch
    version on the card, ``rtol=3e-5, atol=3e-5·max|plain|`` (bf16:
    3e-2), and small cases against the torch oracles;
 4. launch count: K1's counter, zeroed before the main path, must equal
    the number of calls the main path made;
-5. times at t = 1: kernel, plain version and the library yardstick
-   (``F.conv2d``/``F.conv3d`` with TF32 off, never called by the port):
-   one call with ``padding=``, and ``F.pad`` then a valid call, each the
+5. times of the stencils at t = 1 and 2 and of the 'same' filter sweep:
+   the kernel's device time ``ms`` (events on a card kept busy while the
+   host enqueues the call, ``device_ms``) and its call time ``call_ms``
+   (events on an idle card: the wrapper's host time in, ``event_ms``),
+   the plain version and the library yardstick (``F.conv2d``/``F.conv3d``
+   with TF32 off, never called by the port): one call with ``padding=``
+   (t = 1 only), and ``F.pad`` then one valid call per step, each the
    median of CUDA-event timed calls, beside the card's bound (bytes over
-   3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is larger);
+   3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is larger).
+   Where ``build/k1_parent/probe.py`` exists (an uncommitted probe that
+   builds an earlier K1 from its own sources), that kernel's device and
+   call times stand beside, from the same process on the same card,
+   after its output is held to this kernel's at 3e-5;
 6. scan ops at (8192, 8192) fp32 (cumsum, sat, linear_recurrence,
    chunked_linear_recurrence with chunk 128; one bf16
    linear_recurrence) and linear_recurrence_carry at the WKV chunk shape
@@ -263,19 +274,38 @@ def ptxas_summary(log: str) -> dict:
         name: summary(text) for name, text in zip(parts[1::2], parts[2::2])}}
 
 
+_SASS = {}
+
+
+def ptxas_entries(log: str, pattern: str) -> dict:
+    """Registers and spill stores of each kernel entry whose mangled name
+    matches ``pattern`` (its groups joined by 'x' name the entry)."""
+    out = {}
+    for block in log.split("Compiling entry function '")[1:]:
+        m = re.match(pattern, block.split("'", 1)[0])
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        if m and regs:
+            out["x".join(m.groups())] = {
+                "registers": int(regs.group(1)),
+                "spill_store_bytes": int(spill.group(1)) if spill else 0}
+    return out
+
+
 def sass_counts(lib_path: str, kernel: str, opcodes) -> dict | None:
     """How often each SASS opcode occurs in the functions of the built
-    library whose name holds ``kernel`` (``cuobjdump -sass``); None where
-    the toolkit has no cuobjdump."""
+    library whose name holds ``kernel`` (``cuobjdump -sass``, run once per
+    library); None where the toolkit has no cuobjdump."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                          text=True).stdout
-    funcs = [f for f in sass.split("Function : ")[1:]
-             if kernel in f.split("\n", 1)[0]]
+    if lib_path not in _SASS:
+        _SASS[lib_path] = subprocess.run(
+            [tool, "-sass", lib_path], capture_output=True,
+            text=True).stdout.split("Function : ")[1:]
+    funcs = [f for f in _SASS[lib_path] if kernel in f.split("\n", 1)[0]]
     return {"functions": len(funcs),
             **{op: sum(len(re.findall(rf"\b{op}\b", f)) for f in funcs)
                for op in opcodes}}
@@ -1786,14 +1816,33 @@ def library(x, wt, pads):
     return library_padded(x, wt, pads)
 
 
-def library_padded(x, wt, pads):
-    """F.pad, then a valid cuDNN correlation: two calls, but cuDNN picks
-    faster algorithms for them than for a padded call."""
+def library_padded(x, wt, pads, t: int = 1):
+    """F.pad (t-fold), then t valid cuDNN correlations: the pad-once
+    semantics of t fused steps; at t = 1 two calls, but cuDNN picks faster
+    algorithms for them than for a padded call."""
     import torch.nn.functional as F
 
     conv = F.conv2d if x.ndim == 2 else F.conv3d
-    flat = [v for lo_hi in reversed(pads) for v in lo_hi]
-    return conv(F.pad(x[None, None], flat), wt[None, None])[0, 0]
+    flat = [t * v for lo_hi in reversed(pads) for v in lo_hi]
+    y = F.pad(x[None, None], flat)
+    for _ in range(t):
+        y = conv(y, wt[None, None])
+    return y[0, 0]
+
+
+def parent_probe():
+    """The module ``build/k1_parent/probe.py`` where a probe of an earlier
+    K1 was built into the checkout (never committed), else None. It
+    offers ``run(x, w, plan, time_steps, variant)``."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "build", "k1_parent", "probe.py")
+    if not os.path.exists(path):
+        return None
+    spec = importlib.util.spec_from_file_location("k1_parent_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def cudnn_tf32(fn):
@@ -1906,6 +1955,29 @@ def main() -> int:
         mod = ssam_stencil2d if sd.ndim == 2 else ssam_stencil3d
         return mod.plan_for(sd)
 
+    # K1's single-channel path: each instantiation (N, D, P) that phases
+    # 2-5 launch, its registers and spills (ptxas -v), and its TMA loads,
+    # shuffles, FMAs and jump-table branches in SASS
+    k1_plans = [stencil_plan(sd) for sd in stencils.BENCHMARKS.values()] + [
+        ssam_conv2d.plan_for((k, k), "same") for k in CONV_SIZES]
+    k1_used = sorted({(p.N, p.depth if p.ndim_spatial == 3 else 1,
+                       engine.window_p(p)) for p in k1_plans})
+    k1_regs = ptxas_entries(_build.LIBRARY.ptxas_log,
+                            r".*window_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
+    k1_build = {}
+    for n, d, pr in k1_used:
+        key = f"{n}x{d}x{pr}"
+        k1_build[key] = {**k1_regs.get(key, {}), "sass": sass_counts(
+            str(_build.LIBRARY.path), f"window_kernelILi{n}ELi{d}ELi{pr}E",
+            ("UTMALDG", "LDGSTS", "SHFL", "FFMA", "BRX"))}
+    results["build"]["window_single_channel"] = k1_build
+    emit({"phase": "build_k1", "instantiations": k1_build, "card": card})
+    for key, rec in k1_build.items():
+        require("registers" in rec and rec["spill_store_bytes"] == 0
+                and (rec["sass"] is None or rec["sass"]["UTMALDG"] > 0),
+                (f"K1 single-channel kernel {key} (N x D x P) spills or "
+                 "has no TMA load", rec))
+
     worst = {"abs": 0.0}
 
     def check(tag, y, plain, rtol, shape):
@@ -1980,26 +2052,42 @@ def main() -> int:
     require(launches == calls and K2.launches == K3.launches == K5.launches
             == 0, results["launches"])
 
-    # -- 5. times at t = 1 --------------------------------------------------
+    # -- 5. times --------------------------------------------------------------
+    probe = parent_probe()
+
     def bound(in_elems, out_elems, elem_bytes, flops):
         b_ms = (in_elems + out_elems) * elem_bytes / HBM_BYTES_PER_S * 1e3
         f_ms = flops / FP32_FLOPS * 1e3
         return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
 
     def record(tag, kernel_fn, plain_fn, x, wt, pads, in_elems, out_elems,
-               flops):
+               flops, t=1, parent_fn=None):
         b_ms, by = bound(in_elems, out_elems, 4, flops)
-        k_ms = event_ms(kernel_fn, TIME_REPS)
-        rec = {"case": tag, "ms": k_ms, "plain_ms": event_ms(plain_fn, 3),
-               "library_ms": event_ms(lambda: library(x, wt, pads),
-                                      TIME_REPS),
-               "library_pad_then_conv_ms": event_ms(
-                   lambda: library_padded(x, wt, pads), TIME_REPS),
-               "bound_ms": b_ms,
-               "bound_by": by, "gcells_per_s": out_elems / k_ms / 1e6,
-               "hbm_share": (in_elems + out_elems) * 4
-               / (k_ms * 1e-3) / HBM_BYTES_PER_S,
-               "roofline_share": b_ms / k_ms, "card": card}
+        rec = {"case": tag, "parent_ms": None, "parent_call_ms": None}
+        if parent_fn is None:
+            k_ms = device_ms(kernel_fn, TIME_REPS)
+        else:           # in turns: kernel, parent, parent, kernel
+            y, y_parent = kernel_fn(), parent_fn()
+            compare(tag + " parent kernel", y_parent, y, 3e-5, results)
+            del y, y_parent
+            half = TIME_REPS // 2
+            k0 = device_ms(kernel_fn, half)
+            p0, p1 = device_ms(parent_fn, half), device_ms(parent_fn, half)
+            k_ms = (k0 + device_ms(kernel_fn, half)) / 2
+            rec["parent_ms"] = (p0 + p1) / 2
+            rec["parent_call_ms"] = event_ms(parent_fn, TIME_REPS)
+        rec.update({
+            "ms": k_ms, "call_ms": event_ms(kernel_fn, TIME_REPS),
+            "plain_ms": event_ms(plain_fn, 3),
+            "library_ms": (event_ms(lambda: library(x, wt, pads), TIME_REPS)
+                           if t == 1 else None),
+            "library_pad_then_conv_ms": event_ms(
+                lambda: library_padded(x, wt, pads, t), TIME_REPS),
+            "bound_ms": b_ms, "bound_by": by,
+            "gcells_per_s": out_elems / k_ms / 1e6,
+            "hbm_share": (in_elems + out_elems) * 4
+            / (k_ms * 1e-3) / HBM_BYTES_PER_S,
+            "roofline_share": b_ms / k_ms, "card": card})
         results["times"].append(rec)
         emit({"phase": "time", **rec})
         return rec
@@ -2010,15 +2098,19 @@ def main() -> int:
         plan = stencil_plan(sd)
         wt, pads = dense_filter(sd, dev)
         cells = x.numel()
-        for variant in engine.VARIANTS:
-            rec = record(
-                f"{name} {variant} t=1",
-                lambda: ops.stencil(x, name, variant=variant),
-                lambda: engine.run_window_plan_reference(
-                    x, plan=plan, variant=variant),
-                x, wt, pads, cells, cells, (2 * len(sd.offsets) - 1) * cells)
-            if name == "2d5pt" and variant == "shift_psum":
-                headline = rec
+        for t in (1, 2):
+            for variant in engine.VARIANTS:
+                rec = record(
+                    f"{name} {variant} t={t}",
+                    lambda: ops.stencil(x, name, time_steps=t,
+                                        variant=variant),
+                    lambda: engine.run_window_plan_reference(
+                        x, plan=plan, time_steps=t, variant=variant),
+                    x, wt, pads, cells, cells,
+                    t * (2 * len(sd.offsets) - 1) * cells, t,
+                    probe and (lambda: probe.run(x, None, plan, t, variant)))
+                if name == "2d5pt" and variant == "shift_psum" and t == 1:
+                    headline = rec
     x = grids[2]
     for k, w in filters.items():
         plan = ssam_conv2d.plan_for((k, k), "same")
@@ -2026,7 +2118,8 @@ def main() -> int:
         record(f"conv2d {k}x{k} same",
                lambda: ops.conv2d(x, w, mode="same"),
                lambda: engine.run_window_plan_reference(x, w, plan=plan),
-               x, w, pads, x.numel(), x.numel(), (2 * k * k - 1) * x.numel())
+               x, w, pads, x.numel(), x.numel(), (2 * k * k - 1) * x.numel(),
+               1, probe and (lambda: probe.run(x, w, plan, 1, "shift_psum")))
 
     del grids, filters, x
     torch.cuda.empty_cache()
@@ -2058,6 +2151,7 @@ def main() -> int:
         "name": K1.name, "route": "cuda", "source": K1.source,
         "replaces": K1.replaces, "launches": launches,
         "max_abs_err": worst["abs"], "ms": headline["ms"],
+        "call_ms": headline["call_ms"], "parent_ms": headline["parent_ms"],
         "plain_ms": headline["plain_ms"], "bound_ms": headline["bound_ms"],
         "bound_by": headline["bound_by"],
         "library_ms": headline["library_ms"],

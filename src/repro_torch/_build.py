@@ -117,8 +117,8 @@ class Library:
     def _load(path: Path) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssam_window_launch.argtypes = (
-            [p, p, i, p, p, p] + [i] * 20 + [i, p])
+        lib.ssam_window_launch.argtypes = [p, p, i, p, p,
+                                           ctypes.POINTER(ctypes.c_int), i, p]
         lib.ssam_window_launch.restype = i
         lib.ssam_scan_launch.argtypes = [p] * 5 + [i] * 4 + [p]
         lib.ssam_scan_launch.restype = i

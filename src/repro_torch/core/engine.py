@@ -50,6 +50,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -504,21 +505,21 @@ class WindowKernel:
             return self._reduce(x, w, plan, epilogue_args)
         if plan.coeff_mode == "perlane":
             return self._perlane(x, w, plan, epilogue_args)
-        t, nd = time_steps, plan.ndim_spatial
+        t = time_steps
         table = tap_table(plan, None if w is None else tuple(w.shape))
-        cidx, shifts, cvals = _device_table(table, x.device)
+        ints, cvals = _device_table(table, x.device)
         if plan.coeff_mode == "dense":
             cvals = w.detach().to(torch.float32).contiguous()
         x, out, B, head, tile = _tile_launch(plan, x, block, t)
-        smem = smem_bytes(plan, B, t)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"block {B} needs {smem} bytes of shared memory "
-                             f"(limit {SMEM_LIMIT}); pass a smaller block")
+        # TMA reads rows at a pitch of a multiple of 16 bytes: other widths
+        # take a pitch-padded copy (the map keeps the logical width)
+        xt, pitch = _tma_operand(x)
+        lay = window_layout(plan, head, tile, t, x.element_size(), pitch,
+                            variant)
         err = self.library.get().ssam_window_launch(
-            x.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-            cvals.data_ptr(), cidx.data_ptr(), shifts.data_ptr(), *head, nd,
-            plan.depth if nd == 3 else 1, plan.N, len(plan.steps),
-            table.lanes_used, t, VARIANTS.index(variant), *tile, smem,
+            xt.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
+            cvals.data_ptr(), ints.data_ptr(),
+            (ctypes.c_int * len(lay.geom))(*lay.geom), len(lay.geom),
             torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"K1 launch failed: CUDA error {err} "
@@ -665,6 +666,7 @@ REDUCE_TABLE_INTS = 4096
 CP_ASYNC_BYTES = 16               # the staging copies' width
 H100_SM_SMEM = 233472             # shared memory of one SM (bytes)
 H100_SM_REGS = 65536
+H100_SMS = 132
 
 
 def reduce_tap_table(plan: SystolicPlan) -> tuple[int, ...]:
@@ -874,16 +876,38 @@ def reduce_layout(phases, *, batch: int, c_in: int, c_out: int,
     return lay
 
 
+# K1's single-channel path (csrc/ssam_window.cuh): persistent blocks walk
+# the output tiles in order, fed by a ring of TMA stages; each warp is a
+# 32-lane systolic array over P output rows. 2-D plans run blocks of 256
+# threads, two an SM where shared memory allows (the launch bounds' 128
+# registers); 3-D plans blocks of 512, one an SM.
+WINDOW_BLOCKS_PER_SM = {2: 2, 3: 1}
+WINDOW_MAX_STAGES = 3
+WINDOW_SMEM_TARGET = H100_SM_SMEM // 2 - 1024   # two blocks an SM
+TMA_ALIGN = 16                    # bytes: TMA's base, row pitch and box start
+TMA_MAX_BOX = 256                 # elements of a TMA box along one axis
+
+
 @dataclasses.dataclass(frozen=True)
 class TapTable:
-    """A plan's taps as the kernel reads them: ``cidx`` holds, per slot
-    ``(step, dz, row)``, an index into the coefficient array (the plan's
-    immediates or the flattened dense filter), ``-1`` for no tap."""
+    """A plan's taps as K1's single-channel kernel walks them. Per column
+    step ``(shift, first, count, dense)`` (``steps``): the lane shift, the
+    step's first tap and tap count in the compacted lists, and whether its
+    taps fill every footprint slot (a branch-free body runs it). Per tap,
+    in (dz, row) order within its step: its slot ``dz·N + row``
+    (``slots``) and its index into the coefficient array (``cidx``: the
+    plan's immediates, or the flattened dense filter)."""
 
+    steps: tuple[tuple[int, int, int, int], ...]
+    slots: tuple[int, ...]
     cidx: tuple[int, ...]
-    shifts: tuple[int, ...]
     coeffs: tuple[float, ...] | None
-    lanes_used: int           # M: the lanes one output's column steps span
+
+    def ints(self) -> tuple[int, ...]:
+        """The table as the kernel reads it: the step records, the slots,
+        then the coefficient indices."""
+        return (tuple(v for st in self.steps for v in st) + self.slots
+                + self.cidx)
 
 
 @functools.lru_cache(maxsize=256)
@@ -905,20 +929,21 @@ def tap_table(plan: SystolicPlan, w_shape) -> TapTable:
     if steps * D * N > TABLE_SLOTS:
         raise ValueError(f"plan has {steps * D * N} tap slots, K1 holds "
                          f"{TABLE_SLOTS}")
-    cidx = [-1] * (steps * D * N)
+    slots, cidx = [], []
     for m, step in enumerate(plan.steps):
+        taps = {}
         for tap in step.taps:
             if not (0 <= tap.row_offset < N and 0 <= tap.z_offset < D):
                 raise ValueError(f"tap {tap} lies outside the footprint")
-            slot = (m * D + tap.z_offset) * N + tap.row_offset
-            if cidx[slot] != -1:
+            slot = tap.z_offset * N + tap.row_offset
+            if slot in taps:
                 raise ValueError(f"two taps of step {m} read the same "
                                  f"cell {tap}")
             if plan.coeff_mode == "table":
                 if not 0 <= tap.coeff_id[-1] < len(plan.coeffs or ()):
                     raise ValueError(f"tap {tap} has no coefficient in the "
                                      "plan's table")
-                cidx[slot] = tap.coeff_id[-1]
+                taps[slot] = tap.coeff_id[-1]
             else:
                 if len(tap.coeff_id) != len(w_shape) or not all(
                         0 <= i < n for i, n in zip(tap.coeff_id, w_shape)):
@@ -927,59 +952,397 @@ def tap_table(plan: SystolicPlan, w_shape) -> TapTable:
                 flat = 0
                 for i, n in zip(tap.coeff_id, w_shape):
                     flat = flat * n + i
-                cidx[slot] = flat
-    shifts = [s.shift for s in plan.steps]
-    return TapTable(tuple(cidx), tuple(shifts), plan.coeffs, plan.M)
+                taps[slot] = flat
+        for slot in sorted(taps):
+            slots.append(slot)
+            cidx.append(taps[slot])
+    return TapTable(tap_steps(plan), tuple(slots), tuple(cidx), plan.coeffs)
+
+
+def tap_steps(plan: SystolicPlan) -> tuple[tuple[int, int, int, int], ...]:
+    """The step records ``(shift, first, count, dense)`` of
+    :func:`tap_table`, which depend on the plan's taps only."""
+    nd = plan.ndim_spatial
+    D = plan.depth if nd == 3 else 1
+    out, first = [], 0
+    for step in plan.steps:
+        n = len({(t.z_offset, t.row_offset) for t in step.taps})
+        out.append((step.shift, first, n, int(n == D * plan.N)))
+        first += n
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=256)
 def _device_table(table: TapTable, device):
-    """Device copies of a tap table (slot indices, shifts and the plan's
-    immediates), kept per (table, device)."""
-    cidx = torch.tensor(table.cidx, dtype=torch.int32, device=device)
-    shifts = torch.tensor(table.shifts, dtype=torch.int32, device=device)
+    """Device copies of a tap table (:meth:`TapTable.ints`) and the plan's
+    immediates, kept per (table, device)."""
+    ints = torch.tensor(table.ints(), dtype=torch.int32, device=device)
     const = torch.tensor(table.coeffs or (0.0,), dtype=torch.float32,
                          device=device)
-    return cidx, shifts, const
+    return ints, const
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowLayout:
+    """K1's single-channel geometry for one call. Output tiles ``tile``
+    ``(bz, bh, bw)`` (``tiles`` per axis: batch, z, y, x; x fastest in
+    the walk); ``grid`` persistent blocks, block ``g`` taking tiles ``g,
+    g + grid, …``. A tile's input, widened by the t footprints, is staged
+    by TMA boxes ``box`` ``(z, y, x)``,
+    ``boxes`` of them per axis (each axis at most 256 elements; the x
+    extent from the 16-byte aligned column at or below the tile's first
+    input column): a stage holds ``boxes[2]`` blocks of ``sz × sy ×
+    box_x`` elements. ``stages`` stages of ``stage_bytes`` make the ring;
+    then ``bufs`` fp32 words (the widened bf16 stage, the odd and the
+    even iterates: the last application writes the output tile into the
+    even buffer), the tap table, the barriers and the slack the register
+    cache's discarded rows read past the last buffer: ``smem`` bytes.
+    ``geom`` is what the C entry takes."""
+
+    tile: tuple[int, int, int]
+    tiles: tuple[int, int, int, int]
+    box: tuple[int, int, int]
+    boxes: tuple[int, int, int]
+    stage_bytes: int
+    stages: int
+    bufs: tuple[int, int, int]
+    smem: int
+    blocks_per_sm: int
+    grid: int
+    geom: tuple[int, ...]
+
+    @property
+    def ntiles(self) -> int:
+        return self.tiles[0] * self.tiles[1] * self.tiles[2] * self.tiles[3]
+
+    @property
+    def staged(self) -> tuple[int, int]:
+        """Staged (slices, rows) of one x-block: ``(sz, sy)``."""
+        return (self.boxes[0] * self.box[0], self.boxes[1] * self.box[1])
+
+    def tile_origin(self, tile: int) -> tuple[int, int, int, int]:
+        """``(b, oz0, oy0, ox0)`` of tile number ``tile``."""
+        _, tz, ty, tx = self.tiles
+        b, r = divmod(tile, tz * ty * tx)
+        iz, r = divmod(r, ty * tx)
+        iy, ix = divmod(r, tx)
+        bz, bh, bw = self.tile
+        return b, iz * bz, iy * bh, ix * bw
+
+
+def window_p(plan: SystolicPlan) -> int:
+    """Output rows a thread of K1's single-channel kernel holds (its
+    instantiation tables in ``csrc/ssam_window_{2d,2d_wide,3d}.cu``, each
+    chosen by paired runs on the card): 32 for 2-D plans of up to 13 rows,
+    16 for wider ones; 16 for 3-D plans whose register cache then holds at
+    most 54 values (``D·(N + 15) ≤ 54``: the 3×3 footprints), else 8."""
+    if plan.ndim_spatial == 2:
+        return 32 if plan.N <= 13 else 16
+    return 16 if plan.depth * (plan.N + 15) <= 54 else 8
+
+
+def _xblock(sz: int, sy: int, box_x: int, elem_bytes: int) -> int:
+    """Elements of one x-block of a K1 stage: ``sz × sy × box_x`` padded
+    to 128 bytes, where TMA's next box may land."""
+    return _round_up(sz * sy * box_x, 128 // elem_bytes)
+
+
+def _window_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
+                 stages: int):
+    """``(box, boxes, stage_bytes, bufs, smem)`` of a K1 single-channel
+    block at a ring of ``stages``."""
+    nd = plan.ndim_spatial
+    D = plan.depth if nd == 3 else 1
+    N, M = plan.N, plan.M
+    bz, bh, bw = tile
+    per = TMA_ALIGN // elem_bytes
+    zs, hs = bz + t * (D - 1), bh + t * (N - 1)
+    wneed = _round_up(bw + t * (M - 1) + per - 1, per)
+    nbx = -(-wneed // TMA_MAX_BOX)
+    box_x = _round_up(-(-wneed // nbx), per)
+    # every box lands at a 128-byte aligned address: stacked y- and z-boxes
+    # take a few more rows or slices, each x-block is padded to 128 bytes
+    row = box_x * elem_bytes
+    nby = -(-hs // TMA_MAX_BOX)
+    box_y = -(-hs // nby)
+    if nby > 1:
+        box_y = _round_up(box_y, 128 // math.gcd(128, row))
+    if nby > 1 and zs > 1:      # a box per slice: y-boxes stack in a slice
+        nbz, box_z = zs, 1
+    else:
+        nbz = -(-zs // TMA_MAX_BOX)
+        box_z = -(-zs // nbz)
+        if nbz > 1:
+            box_z = _round_up(box_z, 128 // math.gcd(128, nby * box_y * row))
+    elems = nbx * _xblock(nbz * box_z, nby * box_y, box_x, elem_bytes)
+    stage_bytes = _round_up(elems * elem_bytes, 128)
+
+    def tile_words(j):
+        return (bz + j * (D - 1)) * (bh + j * (N - 1)) * (bw + j * (M - 1))
+
+    c0 = _round_up(elems, 4) if elem_bytes == 2 else 0
+    odd = max((tile_words(j) for j in range(1, t, 2)), default=0)
+    even = max(tile_words(j) for j in range(0, t, 2))
+    bufs = (c0, _round_up(odd, 4), _round_up(even, 4))
+    taps = sum(len(s.taps) for s in plan.steps)
+    table = 8 * (taps + 1) + 8 * WINDOW_MAX_STAGES
+    slack = 4 * window_p(plan) * nbx * box_x
+    smem = (128 + stages * stage_bytes + 4 * sum(bufs) + table + slack)
+    return ((box_z, box_y, box_x), (nbz, nby, nbx), stage_bytes, bufs,
+            _round_up(smem, 16))
+
+
+def window_layout(plan: SystolicPlan, head, tile, t: int,
+                  elem_bytes: int = 4, pitch: int | None = None,
+                  variant: str = "shift_psum") -> WindowLayout:
+    """K1's single-channel layout for a call of :func:`_tile_launch`'s
+    ``head`` and ``tile``. The ring takes the most stages (up to 3) that
+    leave two blocks an SM (2-D plans); failing that, or for 3-D plans,
+    the most that fit one block; failing that, the call raises."""
+    batch, zin, hin, win, zo, ho, wo, lz, ly, lx = head
+    nd = plan.ndim_spatial
+    D = plan.depth if nd == 3 else 1
+    tile = tuple(tile)
+    fits = [(s, _window_smem(plan, tile, t, elem_bytes, s))
+            for s in range(WINDOW_MAX_STAGES, 0, -1)]
+    two = WINDOW_BLOCKS_PER_SM[nd] == 2
+    pick = next(((s, f) for s, f in fits
+                 if two and f[4] <= WINDOW_SMEM_TARGET), None) or next(
+        ((s, f) for s, f in fits if f[4] <= SMEM_LIMIT), None)
+    if pick is None:
+        raise ValueError(
+            f"block {tile[3 - nd:]} needs {fits[-1][1][4]} bytes of shared "
+            f"memory (limit {SMEM_LIMIT}); pass a smaller block")
+    stages, (box, boxes, stage_bytes, bufs, smem) = pick
+    bz, bh, bw = tile
+    tiles = (batch, -(-zo // bz), -(-ho // bh), -(-wo // bw))
+    ntiles = tiles[0] * tiles[1] * tiles[2] * tiles[3]
+    if ntiles >= 2 ** 31:
+        raise ValueError(f"K1's tile walk cannot count {ntiles} tiles")
+    bps = max(1, min(WINDOW_BLOCKS_PER_SM[nd],
+                     H100_SM_SMEM // (smem + 1024)))
+    grid = min(ntiles, bps * H100_SMS)
+    ntaps = sum(len(s.taps) for s in plan.steps)
+    geom = (nd, D, plan.N, plan.M, len(plan.steps), ntaps, t,
+            VARIANTS.index(variant), batch, zin, hin, win,
+            pitch or tma_pitch(win, elem_bytes),
+            zo, ho, wo, lz, ly, lx, bz, bh, bw,
+            box[2], box[1], box[0], boxes[2], boxes[1], boxes[0],
+            stages, stage_bytes, *bufs, smem, grid) + tuple(
+                v for st in tap_steps(plan) for v in st)
+    return WindowLayout(tile, tiles, box, boxes, stage_bytes, stages,
+                        bufs, smem, bps, grid, geom)
 
 
 def smem_bytes(plan: SystolicPlan, block, time_steps: int) -> int:
-    """Dynamic shared memory of one single-channel K1 block: the tap
-    table, the staged skirt and, for ``t > 1``, the buffer of the first
-    intermediate iterate (layout of ``ssam_window.cuh``)."""
-    nd = plan.ndim_spatial
-    D = plan.depth if nd == 3 else 1
-    N, M, steps = plan.N, plan.M, len(plan.steps)
-    bz, bh, bw = (1,) * (3 - nd) + tuple(block)
-    words = (steps * D * N + steps * D + steps + 3) & ~3
-
-    def tile(k):
-        return (bz + k * (D - 1)) * (bh + k * (N - 1)) * (bw + k * (M - 1))
-
-    t = time_steps
-    words += tile(t) + (tile(t - 1) if t > 1 else 0)
-    return 4 * words
+    """Dynamic shared memory of one fp32 single-channel K1 block with one
+    ring stage (layout of ``ssam_window.cuh``, :func:`window_layout`)."""
+    tile = (1,) * (3 - plan.ndim_spatial) + tuple(block)
+    return _window_smem(plan, tile, time_steps, 4, 1)[4]
 
 
 def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
     """The output tile of the block walk: four warp-widths of valid lanes
     across, 64 rows (2-D) or 16 rows by 8 slices (3-D), halved until a
-    single-channel K1 block (K2 block, for an mxu plan) takes at most
-    half of the shared memory. (The reduce paths tile their output
-    themselves: K1 128 channels x 1 row x 64-128 columns, K2 128 or 256
-    channels x 1 row x 128 or 64 columns.)"""
-    need = mxu_smem_bytes if plan.strategy == "mxu" else smem_bytes
+    single-channel K1 block with one stage fits (:func:`window_layout`
+    then deepens the ring and packs two 2-D blocks an SM where shared
+    memory allows: paired runs on the card found these large tiles faster
+    than smaller ones at t > 1, whose halo the fused steps recompute), or
+    until a K2 block, for an mxu plan, takes at most half of the shared
+    memory. (The reduce paths tile their output themselves: K1 128
+    channels x 1 row x 64-128 columns, K2 128 or 256 channels x 1 row x
+    128 or 64 columns.)"""
+    if plan.strategy == "mxu":
+        need, limit = mxu_smem_bytes, SMEM_LIMIT // 2
+    else:
+        need, limit = smem_bytes, SMEM_LIMIT
     V = max(1, WARP - (plan.M - 1))
     if plan.ndim_spatial == 3:
         block = [8, 16, 2 * V]
     else:
         block = [64, 4 * V]
-    while need(plan, block, time_steps) > SMEM_LIMIT // 2:
+    while need(plan, block, time_steps) > limit:
         i = max(range(len(block) - 1), key=lambda a: block[a])
         if block[i] == 1:
             break
         block[i] = max(1, block[i] // 2)
     return tuple(block)
+
+
+def _shfl_up(v: torch.Tensor, d: int) -> torch.Tensor:
+    """``__shfl_up_sync(full, v, d)`` over the last (lane) axis of 32:
+    lane ``l ≥ d`` takes lane ``l − d``'s value, lanes below ``d`` keep
+    their own."""
+    return torch.cat([v[..., :d], v[..., :-d]], dim=-1) if d else v
+
+
+def _shfl_down(v: torch.Tensor, d: int) -> torch.Tensor:
+    """``__shfl_down_sync(full, v, d)``: lane ``l < 32 − d`` takes lane
+    ``l + d``'s value, the top ``d`` lanes keep their own."""
+    return torch.cat([v[..., d:], v[..., -d:]], dim=-1) if d else v
+
+
+def _tma_box(xm: torch.Tensor, win: int, b: int, corner, box) -> torch.Tensor:
+    """One TMA box of the map over ``xm (batch, Z, H, pitch)`` with the
+    logical width ``win``: ``box (z, y, x)`` elements from ``corner (z0,
+    y0, x0)``, zeros outside the tensor (negative coordinates too). The
+    rules the card enforces are asserted: at most 256 elements per axis,
+    the innermost start and extent multiples of 16 bytes."""
+    es = xm.element_size()
+    assert all(1 <= n <= TMA_MAX_BOX for n in box), box
+    assert (corner[2] * es) % TMA_ALIGN == 0 and (box[2] * es) % TMA_ALIGN == 0
+    out = xm.new_zeros(box)
+    src, dst = [], []
+    for c, n, size in zip(corner, box, (xm.shape[1], xm.shape[2], win)):
+        lo, hi = max(c, 0), min(c + n, size)
+        if hi <= lo:
+            return out
+        src.append(slice(lo, hi))
+        dst.append(slice(lo - c, hi - c))
+    out[tuple(dst)] = xm[(b,) + tuple(src)]
+    return out
+
+
+def _emulate_apply(src: torch.Tensor, addr, ext, table: TapTable, coef,
+                   plan: SystolicPlan, variant: str, P: int) -> torch.Tensor:
+    """One application of ``ssam_window.cuh::apply_once`` on the emulated
+    shared memory ``src`` (flat fp32; NaN past the source, where the
+    kernel reads whatever lies there): the warp items of ``V = 33 − M``
+    valid lanes and ``P`` rows (every slice at once), the register cache
+    read through ``addr (pitch, plane, bw, bstride, shift)`` with the
+    lane's column clamped to the source's last, the compacted column
+    steps with 32-lane shuffles, the valid lanes written once each to a
+    dense ``(zs−D+1, hs−N+1, ws−M+1)`` result."""
+    pitch, plane, bw, bstride, shift = addr
+    zs, hs, ws = ext
+    nd = plan.ndim_spatial
+    D = plan.depth if nd == 3 else 1
+    N, M = plan.N, plan.M
+    C = N + P - 1
+    V = WARP - (M - 1)
+    zd, hd, wd = zs - (D - 1), hs - (N - 1), ws - (M - 1)
+    nwc, nyc = -(-wd // V), -(-hd // P)
+    lane = torch.arange(WARP)
+    col = torch.arange(nwc)[:, None] * V + lane               # (nwc, 32)
+    sc = col.clamp(max=ws - 1) + shift
+    cbase = (sc // bw) * bstride + sc % bw
+    rows = torch.arange(nyc)[:, None] * P + torch.arange(C)  # (nyc, C)
+    zz = torch.arange(zd)[:, None] + torch.arange(D)         # (zd, D)
+    addr = (zz[:, :, None, None, None, None] * plane
+            + rows[None, None, None, :, :, None] * pitch
+            + cbase[None, None, :, None, None, :])
+    assert int(addr.max()) < src.numel()
+    c = src[addr]                                # (zd, D, nwc, nyc, C, 32)
+    s = c.new_zeros((zd, nwc, nyc, P, WARP))
+    cum = 0
+    for shift_m, first, count, dense in table.steps:
+        cum += shift_m
+        if variant == "shift_psum":
+            s = _shfl_up(s, shift_m)
+        if dense:
+            assert table.slots[first:first + count] == tuple(range(D * N))
+        for k in range(first, first + count):
+            dz, r = divmod(table.slots[k], N)
+            v = c[:, dz, :, :, r:r + P, :]
+            if variant == "shift_data":
+                v = _shfl_down(v, cum)
+            s = s + v * coef[k]
+    if variant == "shift_psum":
+        oc, ok_lane = col - (M - 1), lane >= M - 1
+    else:
+        oc, ok_lane = col, lane < V
+    y = torch.arange(nyc)[:, None] * P + torch.arange(P)     # (nyc, P)
+    ok = (ok_lane & (oc < wd))[:, None, None, :] & (y < hd)[None, :, :, None]
+    idx = torch.nonzero(ok.expand(nwc, nyc, P, WARP), as_tuple=True)
+    oy, ox = y[idx[1], idx[2]], oc[idx[0], idx[3]]
+    dst = s.new_full((zd, hd, wd), float("nan"))
+    hits = torch.zeros((hd, wd), dtype=torch.int64)
+    hits.index_put_((oy, ox), torch.ones_like(oy), accumulate=True)
+    assert bool((hits == 1).all()), "an output is not written exactly once"
+    dst[:, oy, ox] = s[:, idx[0], idx[1], idx[2], idx[3]]
+    return dst
+
+
+def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
+                          block=None, time_steps: int = 1,
+                          variant: str = "shift_psum") -> torch.Tensor:
+    """K1's single-channel schedule walked in plain torch on the CPU: the
+    spec of ``csrc/ssam_window.cuh`` that the CPU tests hold to the plain
+    version. The wrapper's operand (a pitch-padded copy where x's rows are
+    not a multiple of 16 bytes), :func:`window_layout`, the persistent
+    walk (block ``g`` takes tiles ``g, g + grid, …``; a stage is waited
+    for by the tile it was filled with, and refilled after the tile's
+    first application), each stage's TMA boxes (:func:`_tma_box`), the
+    t applications (:func:`_emulate_apply`: the stage, then the fp32
+    iterates in two ping-pong buffers, the last into the even one) and
+    the output tile stored from it. Returns ``x``'s shape and dtype."""
+    check_supported(plan, time_steps, variant)
+    _check_operands(plan, x, w, ())
+    if _is_reduce(plan) or plan.coeff_mode == "perlane" \
+            or plan.strategy == "mxu":
+        raise ValueError("the emulation walks K1's single-channel path")
+    block = tuple(block or default_block(plan, time_steps))
+    t, nd = time_steps, plan.ndim_spatial
+    D = plan.depth if nd == 3 else 1
+    N, M = plan.N, plan.M
+    P = window_p(plan)
+    table = tap_table(plan, None if w is None else tuple(w.shape))
+    cvals = (torch.tensor(plan.coeffs, dtype=torch.float32)
+             if plan.coeff_mode == "table"
+             else w.detach().to(torch.float32).flatten())
+    coef = cvals[list(table.cidx)]
+    xc, out, _, head, tile = _tile_launch(plan, x, block, t)
+    xt, pitch = _tma_operand(xc)
+    batch, zin, hin, win, zo, ho, wo, lz, ly, lx = head
+    es = x.element_size()
+    lay = window_layout(plan, head, tile, t, es, pitch, variant)
+    assert lay.smem <= SMEM_LIMIT
+    xm = xt.reshape(batch, zin, hin, pitch)
+    out4 = out.reshape(batch, zo, ho, wo)
+    (box_z, box_y, box_x), (nbz, nby, nbx) = lay.box, lay.boxes
+    sz, sy = lay.staged
+    bstride = _xblock(sz, sy, box_x, es)
+    slack = torch.full((P * nbx * box_x + WARP,), float("nan"))
+    done = torch.zeros(lay.ntiles, dtype=torch.int64)
+    for g in range(lay.grid):
+        mine = list(range(g, lay.ntiles, lay.grid))
+        ring = mine[:lay.stages] + [None] * (lay.stages - len(mine))
+        for i, tile_no in enumerate(mine):
+            s = i % lay.stages
+            assert ring[s] == tile_no, "a stage holds another tile"
+            b, oz0, oy0, ox0 = lay.tile_origin(tile_no)
+            x0, shift = staged_row_start(ox0 - lx, es)
+            stage = torch.empty(nbx * bstride)
+            for jx in range(nbx):
+                for jz in range(nbz):
+                    for jy in range(nby):
+                        box = _tma_box(xm, win, b, (oz0 - lz + jz * box_z,
+                                                    oy0 - ly + jy * box_y,
+                                                    x0 + jx * box_x),
+                                       lay.box)
+                        off = (jx * bstride
+                               + (jz * box_z * sy + jy * box_y) * box_x)
+                        assert (off * es) % 128 == 0, "a box lands unaligned"
+                        stage[off:off + box.numel()] = box.flatten().float()
+            tz, ty, tx = (min(a, n - o) for a, n, o in
+                          zip(lay.tile, (zo, ho, wo), (oz0, oy0, ox0)))
+            ext = (tz + t * (D - 1), ty + t * (N - 1), tx + t * (M - 1))
+            src = torch.cat([stage, slack])
+            addr = (box_x, sy * box_x, box_x, bstride, shift)
+            for k in range(t):
+                dst = _emulate_apply(src, addr, ext, table, coef, plan,
+                                     variant, P)
+                if k == 0:      # the stage is read: refill it
+                    nxt = i + lay.stages
+                    ring[s] = mine[nxt] if nxt < len(mine) else None
+                ext = tuple(dst.shape)
+                addr = (ext[2], ext[1] * ext[2], 1 << 30, 0, 0)
+                src = torch.cat([dst.flatten(), slack])
+            assert ext == (tz, ty, tx)
+            out4[b, oz0:oz0 + tz, oy0:oy0 + ty, ox0:ox0 + tx] = dst
+            done[tile_no] += 1
+    assert bool((done == 1).all()), "a tile is not walked exactly once"
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1595,9 +1958,6 @@ WGRAD_TC_MAX_TAPS = 64
 WGRAD_TC_MIN_KBLOCKS = 8        # k-blocks a reduce slice takes at least
 WGRAD_TC_BLOCK_COST = 5         # a block's fixed cost (ring fill, partial
                                 # tile), in k-blocks
-H100_SMS = 132
-TMA_ALIGN = 16                  # bytes: TMA's base, row pitch and box start
-TMA_MAX_BOX = 256               # elements of a TMA box along one axis
 
 
 def tma_pitch(width: int, elem_bytes: int) -> int:

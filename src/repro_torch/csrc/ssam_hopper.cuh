@@ -1,10 +1,11 @@
-// Hopper building blocks of the tensor-core kernels: K3's channel path
-// (ssam_wgrad_tc.cu) and K2's channel-reduce path (ssam_mxu_tc.cu).
+// Hopper building blocks of the TMA-fed kernels: K3's channel path
+// (ssam_wgrad_tc.cu), K2's channel-reduce path (ssam_mxu_tc.cu) and K1's
+// single-channel path (ssam_window.cuh).
 //
 //  * mbarriers that TMA completes, with a wait that traps after ~10 s, so
 //    a load that never lands (a refused map, a wrong byte count) fails the
 //    launch instead of hanging the card;
-//  * TMA tile loads (cp.async.bulk.tensor) of 2, 4 and 5 dimensions;
+//  * TMA tile loads (cp.async.bulk.tensor) of 2 to 5 dimensions;
 //  * wgmma: the shared-memory descriptor of a K-major tile in the 128-byte
 //    swizzle, fences, and m64n128 products in TF32 (A from registers) and
 //    bf16 (both operands through descriptors);
@@ -76,6 +77,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 

@@ -1,47 +1,134 @@
-// Plain C entry of K1 (see ssam_window.cuh), loaded with ctypes.
+// Plain C entry of K1's single-channel path (see ssam_window.cuh), loaded
+// with ctypes. `geom` holds core/engine.py::WindowLayout.geom: kGeomInts
+// ints
+//   ndim, D, N, M, steps, ntaps, t, variant,
+//   batch, zin, hin, win, pitch (x's row pitch, elements),
+//   zo, ho, wo, lz, ly, lx, bz, bh, bw,
+//   box_x, box_y, box_z, nbx, nby, nbz,
+//   stages, stage_bytes, buf_c0, buf_a, buf_b, smem_bytes, grid,
+// then the steps' records (shift, first tap, taps, dense), 4 ints each;
+// `table` on the card holds the records too, then the taps' slots and
+// coefficient indices.
+// Returns a cudaError_t, or kTmaError + the CUresult where the tensor map
+// cannot be encoded.
 #include "ssam_window.cuh"
 
-extern "C" int ssam_window_launch(
-    const void* x, void* out, int io_bf16, const float* cvals,
-    const int* cidx, const int* shifts, int batch, int zin, int hin, int win,
-    int zo, int ho, int wo, int lz, int ly, int lx, int ndim, int D, int N,
-    int steps, int M, int t, int variant, int bz, int bh, int bw,
-    int smem_bytes, void* stream) {
-  ssam::KernelFn fn = ndim == 2 ? ssam::pick_2d(N) : ssam::pick_3d(N, D);
-  if (fn == nullptr || steps < 1 || steps > ssam::kMaxSteps ||
-      steps * D * N > ssam::kMaxSlots || M < 1 || M > ssam::kWarp || t < 1)
+extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
+                                  const float* cvals, const int* table,
+                                  const int* geom, int ngeom, void* stream) {
+  using namespace ssam;
+  if (ngeom < kGeomInts || geom[4] < 1 || geom[4] > kMaxSteps ||
+      ngeom != kGeomInts + 4 * geom[4])
     return (int)cudaErrorInvalidValue;
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  ssam::WindowArgs a;
-  a.x = x;
+  const int* g = geom;
+  WindowArgs a;
   a.out = out;
   a.io_bf16 = io_bf16;
   a.cvals = cvals;
-  a.cidx = cidx;
-  a.shifts = shifts;
-  a.batch = batch;
-  a.zin = zin;
-  a.hin = hin;
-  a.win = win;
-  a.zo = zo;
-  a.ho = ho;
-  a.wo = wo;
-  a.lz = lz;
-  a.ly = ly;
-  a.lx = lx;
-  a.steps = steps;
-  a.M = M;
-  a.t = t;
-  a.variant = variant;
-  a.bz = bz;
-  a.bh = bh;
-  a.bw = bw;
-  const int tiles_z = (zo + bz - 1) / bz;
-  dim3 grid((wo + bw - 1) / bw, (ho + bh - 1) / bh, batch * tiles_z);
-  fn<<<grid, ssam::kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  a.table = table;
+  a.ndim = g[0];
+  a.D = g[1];
+  a.N = g[2];
+  a.M = g[3];
+  a.steps = g[4];
+  a.ntaps = g[5];
+  a.t = g[6];
+  a.variant = g[7];
+  a.batch = g[8];
+  const int zin = g[9], hin = g[10], win = g[11], pitch = g[12];
+  a.zo = g[13];
+  a.ho = g[14];
+  a.wo = g[15];
+  a.lz = g[16];
+  a.ly = g[17];
+  a.lx = g[18];
+  a.bz = g[19];
+  a.bh = g[20];
+  a.bw = g[21];
+  a.box_x = g[22];
+  a.box_y = g[23];
+  a.box_z = g[24];
+  a.nbx = g[25];
+  a.nby = g[26];
+  a.nbz = g[27];
+  a.stages = g[28];
+  a.stage_bytes = g[29];
+  a.buf_c0 = g[30];
+  a.buf_a = g[31];
+  a.buf_b = g[32];
+  const int smem_bytes = g[33], grid = g[34];
+  for (int m = 0; m < kMaxSteps; ++m) {
+    const int* r = geom + kGeomInts + 4 * (m < a.steps ? m : 0);
+    a.step[m] = make_int4(r[0], r[1], r[2], r[3]);
+  }
+  a.sy = a.nby * a.box_y;
+  a.sz = a.nbz * a.box_z;
+  const int es = io_bf16 ? 2 : 4;
+  a.xblock = ((a.sz * a.sy * a.box_x * es + 127) & ~127) / es;
+  a.tiles_x = (a.wo + a.bw - 1) / a.bw;
+  a.tiles_y = (a.ho + a.bh - 1) / a.bh;
+  a.tiles_z = (a.zo + a.bz - 1) / a.bz;
+  const long long ntiles = (long long)a.batch * a.tiles_z * a.tiles_y *
+                           a.tiles_x;
+  a.ntiles = (int)ntiles;
+  KernelFn fn = a.ndim == 3   ? pick_3d(a.N, a.D)
+                : a.N <= 16   ? pick_2d_narrow(a.N)
+                              : pick_2d_wide(a.N);
+  const long long box_bytes =
+      (long long)a.box_x * a.box_y * a.box_z * es * a.nbx * a.nby * a.nbz;
+  if (fn == nullptr || (a.ndim != 2 && a.ndim != 3) ||
+      (a.ndim == 2 && a.D != 1) || a.steps < 1 || a.steps > kMaxSteps ||
+      a.ntaps < 1 || a.ntaps > kMaxTaps || a.M < 1 || a.M > kWarp ||
+      a.t < 1 || a.variant < 0 || a.variant > 1 || a.batch < 1 ||
+      a.zo < 1 || a.ho < 1 || a.wo < 1 || a.bz < 1 || a.bh < 1 ||
+      a.bw < 1 || ntiles > 0x7fffffffLL || grid < 1 || grid > a.ntiles ||
+      a.box_x < 1 || a.box_x > 256 || a.box_y < 1 || a.box_y > 256 ||
+      a.box_z < 1 || a.box_z > 256 || (a.box_x * es) % 16 ||
+      (a.nbz > 1 && a.nby > 1 && a.box_z > 1) ||
+      a.sy < a.bh + a.t * (a.N - 1) || a.sz < a.bz + a.t * (a.D - 1) ||
+      a.nbx * a.box_x < a.bw + a.t * (a.M - 1) + 16 / es - 1 ||
+      a.stages < 1 || a.stages > kMaxStages || a.stage_bytes % 128 ||
+      a.stage_bytes < a.nbx * a.xblock * es ||
+      (a.nby > 1 && (a.box_y * a.box_x * es) % 128) ||
+      (a.nbz > 1 && (a.box_z * a.sy * a.box_x * es) % 128) ||
+      a.stage_bytes < box_bytes || (pitch * es) % 16 || pitch < win ||
+      (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (reinterpret_cast<uintptr_t>(out) & 15))
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const CUtensorMapDataType dt = io_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const cuuint64_t row = (cuuint64_t)pitch * es;
+  CUtensorMap xmap;
+  CUresult r;
+  if (a.ndim == 2) {
+    const cuuint64_t dim[3] = {(cuuint64_t)win, (cuuint64_t)hin,
+                               (cuuint64_t)a.batch};
+    const cuuint64_t str[2] = {row, row * hin};
+    const cuuint32_t box[3] = {(cuuint32_t)a.box_x, (cuuint32_t)a.box_y, 1};
+    r = encode(&xmap, dt, 3, const_cast<void*>(x), dim, str, box, ones,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    const cuuint64_t dim[4] = {(cuuint64_t)win, (cuuint64_t)hin,
+                               (cuuint64_t)zin, (cuuint64_t)a.batch};
+    const cuuint64_t str[3] = {row, row * hin, row * hin * zin};
+    const cuuint32_t box[4] = {(cuuint32_t)a.box_x, (cuuint32_t)a.box_y,
+                               (cuuint32_t)a.box_z, 1};
+    r = encode(&xmap, dt, 4, const_cast<void*>(x), dim, str, box, ones,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+  if (r != CUDA_SUCCESS) return kTmaError + (int)r;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int threads = a.ndim == 3 ? kThreads3d : kThreads2d;
+  fn<<<grid, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(xmap,
+                                                                       a);
   return (int)cudaGetLastError();
 }

@@ -1,279 +1,478 @@
-// K1 on Hopper: the windowed-plan kernel of the SSAM execution model.
+// K1 on Hopper, single-channel path: the windowed-plan kernel of the SSAM
+// execution model for 2-D and 3-D stencils and single-channel 2-D
+// convolution.
 //
 // Replaces src/repro/core/engine.py::_window_kernel (its block body
 // _apply_plan_once, launched by _window_call) for plans with table or
-// dense coefficients, 2-D or 3-D, both schedule variants and t >= 1 fused
-// time steps.
+// dense coefficients, 2-D (N, M <= 32) or 3-D (up to 5 x 5, depth x rows),
+// both schedule variants, t >= 1 fused time steps with pad-once semantics,
+// fp32 or bf16 input and output with fp32 sums, and batch axes.
 //
-// Design (paper Listings 1 and 2):
-//  * One thread block computes one disjoint output tile (bz, bh, bw). Its
-//    t-widened input skirt, (bz + t(D-1)) x (bh + t(N-1)) x (bw + t(M-1)),
-//    is read from global memory once, in place, with zeros where the skirt
-//    leaves the domain (the plan's lead/trail padding is never
-//    materialised), and staged in shared memory.
-//  * Each warp is a 32-lane systolic array walking the W (lane) axis. A
-//    thread keeps a register cache of C = N + P - 1 rows (times D slices
-//    for 3-D plans) of its column and produces P output rows.
-//  * shift_psum: partial sums move one column step with __shfl_up_sync;
-//    after the M column steps lane l holds the output of column
-//    l - (M-1). shift_data: the data moves down with __shfl_down_sync and
-//    the partial sums stay put; lane l holds the output of column l.
-//  * Warp edges: a shuffle loses the lanes that would cross the warp, so a
-//    warp only keeps V = 33 - M outputs and neighbouring warps overlap by
-//    M - 1 columns (the paper's halo; no shared-memory hand-off).
-//  * 3-D plans walk Z inside the thread: the register cache rolls down one
-//    slice per output slice, and Z taps are reads of other cached slices.
-//  * t > 1: every application but the last writes its (smaller) iterate
-//    back to shared memory, ping-ponging two buffers; the iterate is not
-//    re-zeroed at the domain edge (pad-once semantics of
-//    ref.stencil_iterate). The last application stores to global memory.
-//  * Taps and coefficients come as one table per plan: slot (m, dz, r)
-//    holds an index into a coefficient array (the plan's immediates for
-//    'table' plans, the (N, M) filter for 'dense' plans) or -1 for no tap.
-//    Each column step sums its taps in (dz, r) order, the plan's order.
+// Bound on an H100: the Table-3 stencils up to 2d64pt, the 3-D ones but
+// 3d125pt, and filters up to 7 x 7 are bound by bytes, each input element
+// read once and each output written once (8192^2 fp32: 537 MB, 0.160 ms
+// at 3.35 TB/s; 512^3: 0.321 ms); 2d81pt, 2d121pt, 3d125pt and filters of
+// 9 x 9 and more by fp32 FMAs at 67 TFLOP/s.
 //
-// Bound on an H100: 2-D stencils with few taps and small filters are
-// bound by device-memory bytes (each input element read once from HBM,
-// each output written once); wide boxes (2d121pt, 13x13 and larger
-// filters) are bound by fp32 FMAs. This simple version keeps the FMAs in
-// registers and the re-reads of the halo in shared memory; the warp
-// overlap spends 32/V of the FMAs, which is the cost to take down next.
+// The paper's algorithm, kept: each warp is a 32-lane systolic array
+// walking the W (lane) axis; a thread keeps a register cache of
+// C = N + P - 1 rows of its column (times D slices for 3-D plans) and
+// produces P output rows. shift_psum moves the partial sums one column
+// step with __shfl_up_sync (lane l then holds column l - (M-1)); shift_data
+// moves the data with __shfl_down_sync and keeps the sums (lane l holds
+// column l). A shuffle loses the lanes that would cross the warp, so a
+// warp keeps V = 33 - M outputs and neighbouring warps overlap by M - 1
+// columns.
+//
+// What the design before this one (one 256-thread block per output tile)
+// lost, and what this one does about it. Paired runs on the card (PERF.md
+// §6) found the tile's arithmetic, not its loads, the limit:
+// with the loads removed a 2d5pt tile took 93 % of its time, with the
+// arithmetic removed 71 %.
+//  * Nothing was in flight while a block computed. Here blocks are
+//    persistent, each walking the output tiles in a fixed order (tile g,
+//    g + grid, ...): 2-D plans two 256-thread blocks an SM where shared
+//    memory allows, 3-D plans one 512-thread block (their tiles are large:
+//    a 3-D tile's halo is recomputed at t > 1). One thread keeps the next
+//    tiles' input boxes in flight with TMA (cp.async.bulk.tensor,
+//    completion on an mbarrier per stage) into a ring of 1-3 stages while
+//    the warps compute; a stage is refilled as soon as the tile's first
+//    application has read it.
+//  * TMA zero-fills coordinates outside the tensor, negative ones included,
+//    so the plan's lead and trail padding costs nothing. A box's innermost
+//    start must be a multiple of 16 bytes (else an illegal instruction), so
+//    a tile's box starts at the aligned column at or below its first input
+//    column and the reads add the difference (`shift`). Boxes are at most
+//    256 elements per axis; a wider stage takes several boxes along x, each
+//    landing as its own [z][y][x] block (reads map a column to its block).
+//    A box lands 128-byte aligned: x-blocks are padded to 128 bytes, and
+//    boxes stacked along y or z take a few more rows or slices. Rows whose
+//    pitch is not a multiple of 16 bytes take a pitch-padded copy in the
+//    wrapper (the map keeps the logical width).
+//  * The tap walk cost D * N slot tests and shared-memory coefficient reads
+//    per column step. Here the wrapper's table lists, per column step, its
+//    shift and its taps compacted in (dz, row) order. The step records sit
+//    in the kernel's parameters (uniform loads); each tap is one 8-byte
+//    record {slot, coefficient} in shared memory, read one tap ahead. A
+//    step whose taps fill every slot (a box, a dense filter) runs a
+//    branch-free body unrolled over the D * N slots; any other step walks
+//    its taps, each dispatched by a switch on its slot, so the register
+//    index stays a compile-time constant and the cache never leaves
+//    registers. A step costs P shuffles plus P FMAs per tap and nothing per
+//    empty slot. shift_data shuffles only what a step reads: a sparse step
+//    the P values of each tap, a dense one the cache (2-D: in place, by the
+//    shift since the last in-place shift; 3-D: a copy of one slice at a
+//    time, since the cache rolls on to the next slice unshifted).
+//  * P, the rows a thread holds, amortises each step's shuffles and
+//    dispatch over more FMAs: 32 for 2-D plans of up to 13 rows, 16 for
+//    wider ones, 16 for 3-D plans whose cache then holds at most 54 values
+//    (the 3 x 3 footprints), 8 for the others (the instantiation files
+//    record the paired runs that chose them). No instantiation spills.
+//  * Stores were single floats from the V valid lanes of each warp, rows
+//    misaligned. Here the last application writes its output tile to
+//    shared memory and the block stores it row by row, coalesced, as
+//    16-byte vectors where the row allows.
+//  * t > 1: every application but the last writes its iterate, fp32, to
+//    one of two shared buffers (ping-pong); the iterate is not re-zeroed at
+//    the domain edge (pad-once semantics of ref.stencil_iterate).
+//  * 3-D plans walk Z inside the thread: the register cache rolls one slice
+//    per output slice. Where a tile's row and column items are too few for
+//    the warps, Z is split into chunks.
+//  * bf16 input is staged by TMA as bf16 and widened once into an fp32
+//    buffer of the stage's layout.
+// The register cache reads past a source's last row (into the next buffer,
+// or the slack the wrapper adds at the end of shared memory) only for rows
+// whose outputs are discarded; lanes past its last column read that column.
+// What still costs (PERF.md §6): the arithmetic's issue and latency,
+// spread over the shuffles, the dispatch and the coefficient loads (none
+// above a tenth alone), and the warp edges: a warp keeps 33 - M of its
+// lanes, so wide footprints pay 32/V of their FMAs (2.46x at 20 x 20).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ssam_hopper.cuh"
+
 namespace ssam {
 
 constexpr int kWarp = 32;
-constexpr int kThreads = 256;
+constexpr int kThreads2d = 256;  // two blocks share an SM (launch bounds)
+constexpr int kThreads3d = 512;  // one block an SM
 constexpr int kMaxSteps = 32;
-constexpr int kMaxSlots = 1024;
+constexpr int kMaxTaps = 1024;
+constexpr int kMaxStages = 3;
+constexpr int kGeomInts = 35;  // core/engine.py::WindowLayout.geom
 constexpr unsigned kFull = 0xffffffffu;
 
 struct WindowArgs {
-  const void* x;       // batch x (zin) x hin x win input, lane axis last
-  void* out;           // batch x (zo) x ho x wo output
+  void* out;           // batch x zo x ho x wo output
   int io_bf16;         // 1: bf16 input and output, 0: fp32
   const float* cvals;  // coefficient values
-  const int* cidx;     // steps * D * N slots: index into cvals, -1 = no tap
-  const int* shifts;   // per column step
-  int batch, zin, hin, win, zo, ho, wo;
+  const int* table;    // steps x (shift, first, taps, dense), taps x slot,
+                       // taps x index into cvals
+  int ndim, D, N, M, steps, ntaps, t, variant;
+  int4 step[kMaxSteps];  // the step records, read uniformly from here
+  int batch, zo, ho, wo;
   int lz, ly, lx;      // t * lead per axis: input index of output 0 is -lead
-  int steps, M, t, variant;
   int bz, bh, bw;      // output tile
+  int box_x, box_y, box_z, nbx, nby, nbz;  // TMA boxes of a stage
+  int sy, sz;          // staged rows per slice, slices
+  int xblock;          // elements of one x-block, padded to 128 bytes
+  int stages, stage_bytes;
+  int buf_c0, buf_a, buf_b;  // fp32 words: widened bf16 stage, iterates
+  int tiles_x, tiles_y, tiles_z, ntiles;
 };
 
-// Words of shared memory before the first staging buffer: the tap table.
-__host__ __device__ inline int table_words(int steps, int D, int N) {
-  int w = steps * D * N + steps * D + steps;
-  return (w + 3) & ~3;
+// A source of one application: element (z, y, col) lies at
+// p[(c / bw) * bstride + c % bw + y * pitch + z * plane], c = col + shift
+// (c / bw is the x-box the column landed in; the dense iterates and a
+// stage of one x-box have bstride 0 and read p[c + ...]; shift is the
+// tile's offset from its aligned box start in the stage, 0 for the
+// iterates).
+struct Src {
+  const float* p;
+  int pitch, plane, bw, bstride, shift;
+};
+
+// s[p] += c[dz][r + p] * w, p < P: the taps of one footprint slot.
+template <int N, int D, int P, int DZ, int R>
+__device__ __forceinline__ void fma_slot(const float (&c)[D][N + P - 1],
+                                         float (&s)[P], float w) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) s[p] = fmaf(c[DZ][R + p], w, s[p]);
 }
 
-template <int N, int D, int P>
-__device__ __forceinline__ void accumulate(const float (&c)[D][N + P - 1],
-                                           float (&s)[P], const float* coef,
-                                           const unsigned* mask, int m) {
+// The same with the data shifted down `cum` lanes first.
+template <int N, int D, int P, int DZ, int R>
+__device__ __forceinline__ void fma_slot_shfl(const float (&c)[D][N + P - 1],
+                                              float (&s)[P], float w,
+                                              int cum) {
 #pragma unroll
-  for (int dz = 0; dz < D; ++dz) {
-    const unsigned mk = mask[m * D + dz];
-    const float* cf = coef + (m * D + dz) * N;
+  for (int p = 0; p < P; ++p)
+    s[p] = fmaf(__shfl_down_sync(kFull, c[DZ][R + p], cum), w, s[p]);
+}
+
+// One tap of a sparse step, dispatched on its slot dz * N + r, its data
+// shifted down `cum` lanes first where cum > 0.
+template <int N, int D, int P>
+__device__ __forceinline__ void tap_fma(int slot,
+                                        const float (&c)[D][N + P - 1],
+                                        float (&s)[P], float w, int cum) {
+  switch (slot) {
+#define SSAM_SLOT(k)                                                   \
+  case k:                                                              \
+    if constexpr (k < D * N) {                                         \
+      if (cum)                                                         \
+        fma_slot_shfl<N, D, P, k / N, k % N>(c, s, w, cum);            \
+      else                                                             \
+        fma_slot<N, D, P, k / N, k % N>(c, s, w);                      \
+    }                                                                  \
+    break;
+    SSAM_SLOT(0) SSAM_SLOT(1) SSAM_SLOT(2) SSAM_SLOT(3) SSAM_SLOT(4)
+    SSAM_SLOT(5) SSAM_SLOT(6) SSAM_SLOT(7) SSAM_SLOT(8) SSAM_SLOT(9)
+    SSAM_SLOT(10) SSAM_SLOT(11) SSAM_SLOT(12) SSAM_SLOT(13) SSAM_SLOT(14)
+    SSAM_SLOT(15) SSAM_SLOT(16) SSAM_SLOT(17) SSAM_SLOT(18) SSAM_SLOT(19)
+    SSAM_SLOT(20) SSAM_SLOT(21) SSAM_SLOT(22) SSAM_SLOT(23) SSAM_SLOT(24)
+    SSAM_SLOT(25) SSAM_SLOT(26) SSAM_SLOT(27) SSAM_SLOT(28) SSAM_SLOT(29)
+    SSAM_SLOT(30) SSAM_SLOT(31)
+#undef SSAM_SLOT
+    default:
+      break;
+  }
+}
+
+// A dense step: every slot in (dz, r) order, its taps' records at tp.
+template <int N, int D, int P>
+__device__ __forceinline__ void dense_fma(const float (&c)[D][N + P - 1],
+                                          float (&s)[P], const int2* tp) {
+#pragma unroll
+  for (int dz = 0; dz < D; ++dz)
 #pragma unroll
     for (int r = 0; r < N; ++r) {
-      if (mk & (1u << r)) {
-        const float w = cf[r];
+      const float w = __int_as_float(tp[dz * N + r].y);
 #pragma unroll
-        for (int p = 0; p < P; ++p) s[p] = fmaf(c[dz][p + r], w, s[p]);
+      for (int p = 0; p < P; ++p) s[p] = fmaf(c[dz][r + p], w, s[p]);
+    }
+}
+
+// One column step's taps. `cum` is the step's cumulative shift under
+// shift_data (0 under shift_psum), `done` how far the cache itself has
+// been shifted down already: a 2-D dense step shifts the cache in place
+// (valid lanes l < V read lanes l + cum <= 31, so chained shifts are
+// exact for them); a 3-D one shuffles a copy of one slice at a time, since
+// the cache rolls on to the next slice unshifted. A sparse step shuffles
+// each tap's P values.
+template <int N, int D, int P>
+__device__ __forceinline__ void step_taps(float (&c)[D][N + P - 1],
+                                          float (&s)[P], int4 st,
+                                          const int2* taps, int cum,
+                                          int& done) {
+  constexpr int C = N + P - 1;
+  if (st.w) {
+    if (cum == done) {
+      dense_fma<N, D, P>(c, s, taps + st.y);
+    } else if constexpr (D == 1) {
+#pragma unroll
+      for (int i = 0; i < C; ++i)
+        c[0][i] = __shfl_down_sync(kFull, c[0][i], cum - done);
+      done = cum;
+      dense_fma<N, D, P>(c, s, taps + st.y);
+    } else {  // one slice at a time, in (dz, r) order
+#pragma unroll
+      for (int dz = 0; dz < D; ++dz) {
+        float xs[C];
+#pragma unroll
+        for (int i = 0; i < C; ++i)
+          xs[i] = __shfl_down_sync(kFull, c[dz][i], cum - done);
+#pragma unroll
+        for (int r = 0; r < N; ++r) {
+          const float w = __int_as_float(taps[st.y + dz * N + r].y);
+#pragma unroll
+          for (int p = 0; p < P; ++p) s[p] = fmaf(xs[r + p], w, s[p]);
+        }
       }
+    }
+  } else {
+    // one LDS.64 per tap, the next one read ahead of the dispatch
+    int2 tp = taps[st.y];
+    for (int k = st.y; k < st.y + st.z; ++k) {
+      const int2 nx = taps[k + 1];
+      tap_fma<N, D, P>(tp.x, c, s, __int_as_float(tp.y), cum - done);
+      tp = nx;
     }
   }
 }
 
-// One valid application of the plan on a shared-memory iterate of extent
-// (zs, hs, ws). The result, of extent (zs-D+1, hs-N+1, ws-M+1), goes to
-// shared memory (dst) or, for the last application, to global memory.
-template <int N, int D, int P>
-__device__ __forceinline__ void apply_once(
-    const WindowArgs& a, const float* src, int zs, int hs, int ws,
-    float* dst, bool last, int b, int oz0, int oy0, int ox0,
-    const float* coef, const unsigned* mask, const int* shift) {
+// One valid application of the plan on a source of extent (zs, hs, ws).
+// The result, (zs-D+1, hs-N+1, ws-M+1), is written densely to dst.
+template <int N, int D, int P, int T>
+__device__ __forceinline__ void apply_once(const WindowArgs& a, const Src& src,
+                                           int zs, int hs, int ws, float* dst,
+                                           const int2* taps) {
   constexpr int C = N + P - 1;
+  constexpr int kWarps = T / kWarp;
   const int M = a.M;
   const int V = kWarp - (M - 1);
   const int zd = zs - (D - 1), hd = hs - (N - 1), wd = ws - (M - 1);
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nwarps = blockDim.x / kWarp;
   const int nwc = (wd + V - 1) / V;
   const int nyc = (hd + P - 1) / P;
   const int base_items = nwc * nyc;
   // Split Z into chunks when the W x H items alone cannot feed the warps.
-  int zsplit = (2 * nwarps + base_items - 1) / base_items;
+  int zsplit = (kWarps + base_items - 1) / base_items;
   zsplit = max(1, min(zsplit, zd));
   const int zlen = (zd + zsplit - 1) / zsplit;
   const int items = base_items * zsplit;
-  const size_t oplane = (size_t)a.ho * a.wo;
-  const size_t obase = (size_t)b * a.zo * oplane;
 
-  for (int it = warp; it < items; it += nwarps) {
-    const int wc = it % nwc;
-    const int yc = (it / nwc) % nyc;
+  for (int it = warp; it < items; it += kWarps) {
     const int zc = it / base_items;
+    const int r = it - zc * base_items;
+    const int yc = r / nwc, wc = r - yc * nwc;
     const int col = wc * V + lane;  // source column this lane holds
     const int y0 = yc * P;
     const int zb = zc * zlen, ze = min(zd, zb + zlen);
+    // lanes past the source's last column read it again (their outputs
+    // are discarded)
+    const int sc = min(col, ws - 1) + src.shift;
+    const int xoff = src.bstride ? (sc / src.bw) * src.bstride + sc % src.bw
+                                 : sc;
+    const float* p0 = src.p + xoff + y0 * src.pitch;
     float c[D][C];
+    // slices zb .. zb + D - 2 into c[1 ..]; each output slice rolls one in
+#pragma unroll
+    for (int dz = 1; dz < D; ++dz)
+#pragma unroll
+      for (int i = 0; i < C; ++i)
+        c[dz][i] = p0[(zb + dz - 1) * src.plane + i * src.pitch];
     for (int z = zb; z < ze; ++z) {
-      if (z == zb) {
 #pragma unroll
-        for (int dz = 0; dz < D; ++dz)
+      for (int dz = 0; dz + 1 < D; ++dz)
 #pragma unroll
-          for (int i = 0; i < C; ++i)
-            c[dz][i] = (y0 + i < hs && col < ws)
-                           ? src[((z + dz) * hs + y0 + i) * ws + col] : 0.f;
-      } else {
+        for (int i = 0; i < C; ++i) c[dz][i] = c[dz + 1][i];
 #pragma unroll
-        for (int dz = 0; dz + 1 < D; ++dz)
-#pragma unroll
-          for (int i = 0; i < C; ++i) c[dz][i] = c[dz + 1][i];
-#pragma unroll
-        for (int i = 0; i < C; ++i)
-          c[D - 1][i] = (y0 + i < hs && col < ws)
-                            ? src[((z + D - 1) * hs + y0 + i) * ws + col] : 0.f;
-      }
+      for (int i = 0; i < C; ++i)
+        c[D - 1][i] = p0[(z + D - 1) * src.plane + i * src.pitch];
       float s[P];
 #pragma unroll
       for (int p = 0; p < P; ++p) s[p] = 0.f;
       int oc;
       bool valid;
       if (a.variant == 0) {  // shift_psum
+        int done = 0;
         for (int m = 0; m < a.steps; ++m) {
-          const int sh = shift[m];
-          if (sh) {
+          const int4 st = a.step[m];
+          if (st.x) {
 #pragma unroll
-            for (int p = 0; p < P; ++p) s[p] = __shfl_up_sync(kFull, s[p], sh);
+            for (int p = 0; p < P; ++p)
+              s[p] = __shfl_up_sync(kFull, s[p], st.x);
           }
-          accumulate<N, D, P>(c, s, coef, mask, m);
+          step_taps<N, D, P>(c, s, st, taps, 0, done);
         }
         oc = col - (M - 1);
         valid = lane >= M - 1 && oc < wd;
       } else {  // shift_data
-        float xs[D][C];
-#pragma unroll
-        for (int dz = 0; dz < D; ++dz)
-#pragma unroll
-          for (int i = 0; i < C; ++i) xs[dz][i] = c[dz][i];
+        int cum = 0, done = 0;
         for (int m = 0; m < a.steps; ++m) {
-          const int sh = shift[m];
-          if (sh) {
-#pragma unroll
-            for (int dz = 0; dz < D; ++dz)
-#pragma unroll
-              for (int i = 0; i < C; ++i)
-                xs[dz][i] = __shfl_down_sync(kFull, xs[dz][i], sh);
-          }
-          accumulate<N, D, P>(xs, s, coef, mask, m);
+          const int4 st = a.step[m];
+          cum += st.x;
+          step_taps<N, D, P>(c, s, st, taps, cum, done);
         }
         oc = col;
         valid = lane < V && oc < wd;
       }
       if (!valid) continue;
+      float* d = dst + ((size_t)z * hd + y0) * wd + oc;
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const int y = y0 + p;
-        if (y >= hd) break;
-        if (last) {
-          const size_t off = obase + (size_t)(oz0 + z) * oplane +
-                             (size_t)(oy0 + y) * a.wo + (ox0 + oc);
-          if (a.io_bf16)
-            static_cast<__nv_bfloat16*>(a.out)[off] = __float2bfloat16(s[p]);
-          else
-            static_cast<float*>(a.out)[off] = s[p];
-        } else {
-          dst[(z * hd + y) * wd + oc] = s[p];
-        }
-      }
+      for (int p = 0; p < P; ++p)
+        if (y0 + p < hd) d[p * wd] = s[p];
     }
   }
 }
 
-template <int N, int D, int P>
-__global__ void __launch_bounds__(kThreads) window_kernel(WindowArgs a) {
-  extern __shared__ float smem[];
-  const int steps = a.steps;
-  const int nslots = steps * D * N;
-  float* coef = smem;
-  unsigned* mask = reinterpret_cast<unsigned*>(coef + nslots);
-  int* shift = reinterpret_cast<int*>(mask + steps * D);
-  float* buf0 = smem + table_words(steps, D, N);
-  const int t = a.t;
-  float* buf1 = buf0 + (a.bz + t * (D - 1)) * (a.bh + t * (N - 1)) *
-                           (a.bw + t * (a.M - 1));
-
-  for (int i = threadIdx.x; i < nslots; i += blockDim.x) {
-    const int k = a.cidx[i];
-    coef[i] = k >= 0 ? a.cvals[k] : 0.f;
-  }
-  for (int i = threadIdx.x; i < steps * D; i += blockDim.x) {
-    unsigned mk = 0;
-    for (int r = 0; r < N; ++r)
-      if (a.cidx[i * N + r] >= 0) mk |= 1u << r;
-    mask[i] = mk;
-  }
-  for (int i = threadIdx.x; i < steps; i += blockDim.x) shift[i] = a.shifts[i];
-
-  // This block's output tile, trimmed at the ragged edge of the domain.
-  const int tiles_z = (a.zo + a.bz - 1) / a.bz;
-  const int b = blockIdx.z / tiles_z;
-  const int oz0 = (blockIdx.z % tiles_z) * a.bz;
-  const int oy0 = blockIdx.y * a.bh, ox0 = blockIdx.x * a.bw;
-  const int tz = min(a.bz, a.zo - oz0), ty = min(a.bh, a.ho - oy0);
-  const int tx = min(a.bw, a.wo - ox0);
-  int zs = tz + t * (D - 1), hs = ty + t * (N - 1), ws = tx + t * (a.M - 1);
-
-  // Stage the skirt once, reading x in place; zeros outside the domain.
-  const int iz0 = oz0 - a.lz, iy0 = oy0 - a.ly, ix0 = ox0 - a.lx;
-  const size_t iplane = (size_t)a.hin * a.win;
-  const size_t ibase = (size_t)b * a.zin * iplane;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int nwarps = blockDim.x / kWarp;
-  for (int row = warp; row < zs * hs; row += nwarps) {
-    const int gz = iz0 + row / hs, gy = iy0 + row % hs;
-    const bool row_in = gz >= 0 && gz < a.zin && gy >= 0 && gy < a.hin;
-    const size_t rbase = ibase + (size_t)gz * iplane + (size_t)gy * a.win;
-    for (int xx = lane; xx < ws; xx += kWarp) {
-      const int gx = ix0 + xx;
-      float v = 0.f;
-      if (row_in && gx >= 0 && gx < a.win) {
-        v = a.io_bf16
-                ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.x)[rbase + gx])
-                : static_cast<const float*>(a.x)[rbase + gx];
+// Thread 0: the TMA boxes of tile `tile` into the stage at dst, completing
+// on bar. A 2-D plan's map is (W, H, batch), a 3-D plan's (W, H, Z, batch).
+__device__ __forceinline__ void issue_tile(const CUtensorMap* xmap,
+                                           const WindowArgs& a, int tile,
+                                           uint32_t dst, uint32_t bar) {
+  const int tx = tile % a.tiles_x;
+  int r = tile / a.tiles_x;
+  const int ty = r % a.tiles_y;
+  r /= a.tiles_y;
+  const int tz = r % a.tiles_z, b = r / a.tiles_z;
+  const int per = a.io_bf16 ? 8 : 4;  // elements of 16 bytes
+  const int ix0 = tx * a.bw - a.lx;
+  const int x0 = ix0 - ((ix0 % per) + per) % per;  // aligned at or below
+  const int y0 = ty * a.bh - a.ly, z0 = tz * a.bz - a.lz;
+  const int es = a.io_bf16 ? 2 : 4;
+  const uint32_t box = a.box_x * a.box_y * a.box_z * es;
+  mbar_expect_tx(bar, box * a.nbx * a.nby * a.nbz);
+  for (int jx = 0; jx < a.nbx; ++jx)
+    for (int jz = 0; jz < a.nbz; ++jz)
+      for (int jy = 0; jy < a.nby; ++jy) {
+        const uint32_t off =
+            (jx * a.xblock + (jz * a.box_z * a.sy + jy * a.box_y) * a.box_x) *
+            es;
+        if (a.ndim == 2)
+          tma_load_3d(dst + off, xmap, bar, x0 + jx * a.box_x,
+                      y0 + jy * a.box_y, b);
+        else
+          tma_load_4d(dst + off, xmap, bar, x0 + jx * a.box_x,
+                      y0 + jy * a.box_y, z0 + jz * a.box_z, b);
       }
-      buf0[row * ws + xx] = v;
-    }
+}
+
+template <int N, int D, int P, int T>
+__global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
+    window_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ WindowArgs a) {
+  constexpr int kWarps = T / kWarp;
+  extern __shared__ uint8_t smem_raw[];
+  // the ring first, 128-byte aligned; then the fp32 buffers, the table and
+  // the barriers (the register cache's over-reads land in those)
+  uint8_t* ring = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
+  float* c0 = reinterpret_cast<float*>(ring + a.stages * a.stage_bytes);
+  float* bufa = c0 + a.buf_c0;
+  float* bufb = bufa + a.buf_a;
+  int2* taps = reinterpret_cast<int2*>(bufb + a.buf_b);  // {slot, coef}
+  uint64_t* full = reinterpret_cast<uint64_t*>(taps + a.ntaps + 1);
+
+  const int tid = threadIdx.x;
+  for (int k = tid; k < a.ntaps; k += T)
+    taps[k] = make_int2(
+        a.table[4 * a.steps + k],
+        __float_as_int(a.cvals[a.table[4 * a.steps + a.ntaps + k]]));
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) mbar_init(smem_addr(&full[s]), 1);
+    fence_mbarrier_init();
   }
   __syncthreads();
 
-  float* src = buf0;
-  float* dst = buf1;
-  for (int k = 0; k < t; ++k) {
-    const bool last = k == t - 1;
-    apply_once<N, D, P>(a, src, zs, hs, ws, dst, last, b, oz0, oy0, ox0,
-                        coef, mask, shift);
-    __syncthreads();
-    zs -= D - 1;
-    hs -= N - 1;
-    ws -= a.M - 1;
-    float* tmp = src;
-    src = dst;
-    dst = tmp;
+  const int G = gridDim.x;
+  if (tid == 0)
+    for (int s = 0; s < a.stages; ++s) {
+      const int tile = blockIdx.x + s * G;
+      if (tile < a.ntiles)
+        issue_tile(&xmap, a, tile, smem_addr(ring + s * a.stage_bytes),
+                   smem_addr(&full[s]));
+    }
+
+  const int t = a.t;
+  const int per = a.io_bf16 ? 8 : 4;
+  const int warp = tid / kWarp, lane = tid % kWarp;
+  int i = 0;
+  for (int tile = blockIdx.x; tile < a.ntiles; tile += G, ++i) {
+    const int s = i % a.stages;
+    uint8_t* stage = ring + s * a.stage_bytes;
+    const int txi = tile % a.tiles_x;
+    int r = tile / a.tiles_x;
+    const int tyi = r % a.tiles_y;
+    r /= a.tiles_y;
+    const int tzi = r % a.tiles_z, b = r / a.tiles_z;
+    const int oz0 = tzi * a.bz, oy0 = tyi * a.bh, ox0 = txi * a.bw;
+    const int tz = min(a.bz, a.zo - oz0), ty = min(a.bh, a.ho - oy0);
+    const int tx = min(a.bw, a.wo - ox0);
+    const int ix0 = ox0 - a.lx;
+    const int shift = ((ix0 % per) + per) % per;
+    int zs = tz + t * (D - 1), hs = ty + t * (N - 1), ws = tx + t * (a.M - 1);
+
+    mbar_wait(smem_addr(&full[s]), (i / a.stages) & 1);
+    // the stage as the first application reads it (x-boxes as blocks)
+    Src src{reinterpret_cast<const float*>(stage), a.box_x,
+            a.sy * a.box_x, a.box_x,
+            a.nbx > 1 ? a.xblock : 0, shift};
+    if (a.io_bf16) {  // widen once into c0, in the stage's layout
+      const __nv_bfloat16* sb = reinterpret_cast<const __nv_bfloat16*>(stage);
+      for (int k = tid; k < a.nbx * a.xblock; k += T)
+        c0[k] = __bfloat162float(sb[k]);
+      __syncthreads();
+      src.p = c0;
+    }
+    for (int k = 0; k < t; ++k) {
+      float* dst = ((t - 1 - k) & 1) ? bufa : bufb;  // the last one: bufb
+      apply_once<N, D, P, T>(a, src, zs, hs, ws, dst, taps);
+      __syncthreads();
+      if (k == 0 && tid == 0 && tile + a.stages * G < a.ntiles)
+        issue_tile(&xmap, a, tile + a.stages * G, smem_addr(stage),
+                   smem_addr(&full[s]));  // the stage is read: refill it
+      zs -= D - 1;
+      hs -= N - 1;
+      ws -= a.M - 1;
+      src = Src{dst, ws, hs * ws, 1, 0, 0};
+    }
+    // the output tile (tz, ty, tx), dense in bufb, row by row
+    const bool vec = !a.io_bf16 && a.wo % 4 == 0 && ox0 % 4 == 0 && tx % 4 == 0;
+    for (int rr = warp; rr < tz * ty; rr += kWarps) {
+      const int z = rr / ty, y = rr % ty;
+      const float* srow = bufb + rr * tx;
+      const size_t go =
+          (((size_t)b * a.zo + oz0 + z) * a.ho + oy0 + y) * a.wo + ox0;
+      if (a.io_bf16) {
+        __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(a.out) + go;
+        for (int x = lane; x < tx; x += kWarp)
+          orow[x] = __float2bfloat16(srow[x]);
+      } else if (vec) {
+        float4* orow =
+            reinterpret_cast<float4*>(static_cast<float*>(a.out) + go);
+        const float4* s4 = reinterpret_cast<const float4*>(srow);
+        for (int q = lane; q < tx / 4; q += kWarp) orow[q] = s4[q];
+      } else {
+        float* orow = static_cast<float*>(a.out) + go;
+        for (int x = lane; x < tx; x += kWarp) orow[x] = srow[x];
+      }
+    }
+    __syncthreads();  // bufb is free for the next tile
   }
 }
 
-typedef void (*KernelFn)(WindowArgs);
+using KernelFn = decltype(&window_kernel<1, 1, 8, kThreads2d>);
 
-// Instantiation tables, one translation unit each so they build in parallel.
-KernelFn pick_2d(int N);          // D = 1, P = 8, N in [1, 32]
-KernelFn pick_3d(int N, int D);   // P = 4, N and D in [1, 5]
+// Instantiation tables, one translation unit each so they build in
+// parallel; P as core/engine.py::window_p states it.
+KernelFn pick_2d_narrow(int N);  // N in [1, 16]: P = 32 to 13 rows, then 16
+KernelFn pick_2d_wide(int N);    // N in [17, 32], P = 16
+KernelFn pick_3d(int N, int D);  // N, D in [1, 5]: P = 16 or 8
 
 }  // namespace ssam

@@ -108,6 +108,59 @@ def test_bf16_io(cuda):
         x, plan=ssam_stencil2d.plan_for(sd), time_steps=2), rtol=3e-2)
 
 
+# K1's single-channel ring on its edges: pitches that are not a multiple of
+# 16 bytes (a pitch-padded copy for TMA), a one-tile grid, t = 3, bf16 at
+# odd widths, a 32 x 32 filter, the 3-D 5 x 5 x 5 box, several x-boxes.
+RING_CASES = [
+    ("2d5pt", (37, 41), None, 1),          # rows of 164 bytes
+    ("2d9pt", (3, 45), None, 3),           # odd in every axis, t = 3
+    ("2d121pt", (20, 33), (20, 33), 2),    # one tile: the whole output
+    ("3d125pt", (9, 11, 13), None, 3),     # 5 x 5 x 5, ragged, t = 3
+    ("poisson", (5, 6, 7), (5, 6, 7), 1),  # a one-tile 3-D grid
+    ("2d13pt", (40, 700), (6, 600), 1),    # a tile of 3 x-boxes
+]
+
+
+@pytest.mark.parametrize("name,shape,block,t", RING_CASES, ids=str)
+def test_ring_edge_cases(cuda, name, shape, block, t):
+    sd = stencils.BENCHMARKS[name]
+    mod = ssam_stencil2d if sd.ndim == 2 else ssam_stencil3d
+    x = _grid(shape, cuda, 7)
+    p = mod.plan_for(sd)
+    for variant in VARIANTS:
+        got = engine.run_window_plan(x, plan=p, block=block, time_steps=t,
+                                     variant=variant)
+        _close(got, engine.run_window_plan_reference(
+            x, plan=p, block=block, time_steps=t, variant=variant))
+        _close(got, engine.emulate_window_kernel(
+            x.cpu(), plan=p, block=block, time_steps=t,
+            variant=variant).to(cuda))
+
+
+@pytest.mark.parametrize("shape", [(33, 77), (2, 19, 101)])
+def test_ring_bf16_at_odd_widths(cuda, shape):
+    x = _grid(shape, cuda, 8).to(torch.bfloat16)
+    w = _grid((5, 4), cuda, 9)
+    for mode in ("same", "valid"):
+        got = ops.conv2d(x, w, mode=mode)
+        assert got.dtype == torch.bfloat16
+        p = (ssam_conv2d.plan_for_batched((5, 4), mode) if len(shape) == 3
+             else ssam_conv2d.plan_for((5, 4), mode))
+        _close(got.float(), engine.run_window_plan_reference(
+            x, w, plan=p).float(), rtol=3e-2)
+
+
+def test_ring_thirty_two_by_thirty_two_filter(cuda):
+    x = _grid((70, 97), cuda, 10)
+    w = _grid((32, 32), cuda, 11)
+    for mode in ("same", "valid"):
+        for variant in VARIANTS:
+            got = ops.conv2d(x, w, mode=mode, variant=variant)
+            _close(got, engine.run_window_plan_reference(
+                x, w, plan=ssam_conv2d.plan_for((32, 32), mode),
+                variant=variant))
+
+
 def test_cuda_never_takes_the_plain_version(cuda, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version reached on the card")

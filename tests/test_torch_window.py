@@ -224,6 +224,7 @@ def test_nvcc_command_targets_sm_90a():
                                      "ssam_wgrad.cu", "ssam_wgrad_perlane.cu",
                                      "ssam_wgrad_tc.cu",
                                      "ssam_window.cu", "ssam_window_2d.cu",
+                                     "ssam_window_2d_wide.cu",
                                      "ssam_window_3d.cu",
                                      "ssam_window_perlane.cu",
                                      "ssam_window_reduce.cu"]
@@ -305,16 +306,23 @@ def test_out_of_slice_raises_not_implemented(case):
 def test_tap_table_and_shared_memory_layout():
     _, p = _plans("2d5pt")
     tab = engine.tap_table(p, None)
-    # (step, row) slots of {West}, {North, Current, South}, {East}
-    assert tab.cidx == (-1, 3, -1, 1, 0, 2, -1, 4, -1)
-    assert tab.shifts == (0, 1, 1) and tab.lanes_used == 3
+    # steps {West}, {North, Current, South}, {East}: (shift, first tap,
+    # taps, dense); the taps' slots (rows) and coefficient indices
+    assert tab.steps == ((0, 0, 1, 0), (1, 1, 3, 1), (1, 4, 1, 0))
+    assert tab.slots == (1, 0, 1, 2, 1) and tab.cidx == (3, 1, 0, 2, 4)
     dense = engine.tap_table(plan.conv2d_plan(2, 3), (3, 2))
     assert dense.cidx == (0, 2, 4, 1, 3, 5)
-    assert engine.smem_bytes(p, (64, 120), 1) == 4 * (16 + 66 * 122)
+    assert all(d for *_, d in dense.steps)
+    # one stage of 66 x 128 fp32, the 64 x 120 output tile, the 5 taps'
+    # records and one more, the barriers, and the slack (P = 32 rows of
+    # 128), from a 128-byte aligned start, rounded up to 16 bytes
+    need = 128 + 4 * 66 * 128 + 4 * 64 * 120 + (8 * 6 + 8 * 3) \
+        + 4 * 32 * 128
+    assert engine.smem_bytes(p, (64, 120), 1) == -(-need // 16) * 16
     for name in NAMES:
         for t in (1, 2):
             pl = _plans(name)[1]
             assert engine.smem_bytes(pl, engine.default_block(pl, t), t) \
-                <= engine.SMEM_LIMIT // 2
+                <= engine.SMEM_LIMIT
     with pytest.raises(ValueError, match="warp"):
         engine.tap_table(plan.conv2d_plan(33, 1), (1, 33))
