@@ -28,10 +28,15 @@ Phases, one JSON line each:
    the counts of ``HGMMA`` and ``UTMALDG`` in K3's channel kernel and of
    ``HGMMA``, ``UTMALDG``, ``LDS`` and ``STS`` in K2's, the registers
    and spills of K1's reduce kernel and K2's channel kernel (neither may
-   spill; K2's must hold ``HGMMA``), and, per K1 single-channel
+   spill; K2's must hold ``HGMMA``), per K1 single-channel
    instantiation that phases 2–5 launch, its registers, spills and
    ``UTMALDG``, ``LDGSTS``, ``SHFL``, ``FFMA`` and ``BRX`` counts (none
-   may spill; each must hold ``UTMALDG``);
+   may spill; each must hold ``UTMALDG``), per instantiation of K2's
+   single-channel kernel (1–4 k-steps an entry) its registers, spills and
+   ``HMMA``, ``HGMMA``, ``UTMALDG`` and ``LDS`` counts (none may spill;
+   each must hold ``HMMA`` and ``UTMALDG``), and per instance of K1's
+   per-lane kernel its registers (none may spill), with the path's
+   ``LDG.E.128``, ``STG.E.128``, ``LDGSTS`` and ``LDS.128`` counts;
 2. stencils and 3. convolution: every case against the plain torch
    version on the card, ``rtol=3e-5, atol=3e-5·max|plain|`` (bf16:
    3e-2), and small cases against the torch oracles;
@@ -46,10 +51,11 @@ Phases, one JSON line each:
    (t = 1 only), and ``F.pad`` then one valid call per step, each the
    median of CUDA-event timed calls, beside the card's bound (bytes over
    3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is larger).
-   Where ``build/k1_parent/probe.py`` exists (an uncommitted probe that
-   builds an earlier K1 from its own sources), that kernel's device and
-   call times stand beside, from the same process on the same card,
-   after its output is held to this kernel's at 3e-5;
+   Where ``build/parent/probe.py`` exists (an uncommitted probe that
+   builds earlier kernels from their own sources) and offers an earlier
+   K1, that kernel's device and call times stand beside, from the same
+   process on the same card, after its output is held to this kernel's
+   at 3e-5;
 6. scan ops at (8192, 8192) fp32 (cumsum, sat, linear_recurrence,
    chunked_linear_recurrence with chunk 128; one bf16
    linear_recurrence) and linear_recurrence_carry at the WKV chunk shape
@@ -130,15 +136,20 @@ Phases, one JSON line each:
    batch, within 1e-5 relative with the weight matrices scaled by 0.3,
    and recorded at the reference's init beside the change a 1e-7
    relative perturbation of the weights makes there (ROADMAP R4); (d) K2's times at the stem's shapes
-   and for 2d5pt, 2d121pt, 3d125pt and the 20×20 'same' convolution at
-   t = 1, beside two bounds (bytes over 3.35 TB/s against fp32
-   operations over 67 TFLOP/s, and against the same operations counted
-   once over 495 TFLOP/s of TF32), K1's time, the plain version's and
-   the cuDNN yardstick with TF32 off and, labelled as less precise, on
-   (conv2's dx counted at the 18.87 GFLOP of its real products, on the
-   scattered cotangent too), and conv2's forward and phased dx with bf16
-   x and cotangent beside a bound at 989 TFLOP/s of bf16 and cuDNN in
-   bf16; the mxu train step's time and samples/s;
+   beside two bounds (bytes over 3.35 TB/s against fp32 operations over
+   67 TFLOP/s, and against the same operations counted once over 495
+   TFLOP/s of TF32), K1's time, the plain version's and the cuDNN
+   yardstick with TF32 off and, labelled as less precise, on (conv2's dx
+   counted at the 18.87 GFLOP of its real products, on the scattered
+   cotangent too), and conv2's forward and phased dx with bf16 x and
+   cotangent beside a bound at 989 TFLOP/s of bf16 and cuDNN in bf16;
+   K2's single-channel device and call times on every Table-3 stencil
+   (t = 1 and 2) and every 'same' filter of the sweep, beside both bounds
+   and phase 5's K1, plain, cuDNN ``padding=`` and ``F.pad`` + valid
+   times of the same case and input (not timed again), and, where the
+   probe offers an earlier K2, that kernel's device and call times in
+   turns after its output is held to K2's at 1e-4; the mxu train step's
+   time and samples/s;
    one pinned step profiled in a fresh process (``--profile-train-step
    --profile-strategy mxu``): its ``mxu_tc`` kernels equal to K2's
    counter (5) in the host-and-device trace, its ``wgrad`` kernels to
@@ -157,12 +168,15 @@ Phases, one JSON line each:
    every loss finite, the counters (zeroed before) at
    ``models.hymba.train_launches`` per step (K1 128, K4 64: 32 calls of
    two launches each, K5 2048) and
-   K2, K3 at 0, step time, samples/s and peak memory; (d) K1 (forward,
-   dx), K4 and the reversed K5 chunk timed beside their byte bounds, the
-   plain versions and the library calls (``F.conv1d(groups=D)`` + SiLU,
+   K2, K3 at 0, step time, samples/s and peak memory; (d) K1 (the
+   forward with bias+SiLU and without an epilogue, the chains the port
+   launches, and the dx), K4 and the reversed K5 chunk timed beside their
+   byte bounds, the plain versions and the library calls
+   (``F.conv1d(groups=D)`` with and without SiLU,
    ``torch.nn.grad.conv1d_input`` / ``conv1d_weight`` on the (B, D, T)
-   layout, never called by the port), and one profiled step with its top
-   device ops, the share of K1/K4/K5 and of copies.
+   layout, never called by the port), K1's beside an earlier per-lane
+   kernel in turns where the probe offers one, and one profiled step with
+   its top device ops, the share of K1/K4/K5 and of copies.
 
 It exits non-zero if there is no card, if a build, launch or check fails,
 and when run outside a checkout of the repository. The full results go
@@ -205,7 +219,6 @@ TF32_FLOPS = 495e12             # dense TF32 on the tensor cores
 BF16_FLOPS = 989e12             # dense bf16 on the tensor cores
 MXU_RTOL = 3e-5                 # K2 single-channel against plain, fp32
 MXU_VS_LANES = 1e-4             # K2 against K1: the reference's own tolerance
-MXU_TIMED = ("2d5pt", "2d121pt", "3d125pt")
 GRID_2D, GRID_3D = 8192, 512    # phase 9's grids: 8192², 512³
 LOSS_RTOL = 1e-5                # first-step loss, mxu against lanes
 SOFT_SCALE = 0.3                # weight matrices' scale of the softer point
@@ -1058,10 +1071,12 @@ def profiled_train_step(seed: int, strategy: str = "lanes") -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def mxu_phase(args, dev, card, results, lanes) -> dict:
+def mxu_phase(args, dev, card, results, lanes, single) -> dict:
     """Phase 9: K2, the tensor-core kernel, on the stencil and convolution
     path and the Whisper stem, then whisper-base trained with the stem
-    pinned to it. ``lanes`` is phase 8's result (its first loss)."""
+    pinned to it. ``lanes`` is phase 8's result (its first loss),
+    ``single`` phase 5's timed rows by case (K1, plain and cuDNN beside
+    K2's single-channel times)."""
     import dataclasses
 
     import numpy as np
@@ -1094,6 +1109,12 @@ def mxu_phase(args, dev, card, results, lanes) -> dict:
         mod = ssam_stencil2d if sd.ndim == 2 else ssam_stencil3d
         return mxu(mod.plan_for(sd))
 
+    def plain_block(p, t):
+        # the plain version's tiles as phase 2 cuts them (its result does
+        # not depend on them; K2's small 3-D tiles at t = 2 would make it
+        # stack 8 taps' views of ~4x the grid)
+        return engine.default_block(dataclasses.replace(p, strategy=None), t)
+
     worst = {"abs": 0.0, "stem": 0.0, "edge": 0.0}
 
     def check(tag, y, plain, lanes_y, rtol, key="abs"):
@@ -1111,8 +1132,9 @@ def mxu_phase(args, dev, card, results, lanes) -> dict:
         for t in (1, 2):
             y = ops.stencil(x, name, time_steps=t, strategy="mxu")
             calls += 1
-            check(f"{name} t={t}", y, ref(x, plan=stencil_plan(sd),
-                                          time_steps=t),
+            p = stencil_plan(sd)
+            check(f"{name} t={t}", y, ref(x, plan=p, time_steps=t,
+                                          block=plain_block(p, t)),
                   ops.stencil(x, name, time_steps=t), MXU_RTOL)
             del y
     xb16 = grids[2].to(torch.bfloat16)
@@ -1396,26 +1418,64 @@ def mxu_phase(args, dev, card, results, lanes) -> dict:
         timed[tag[:14]] = record(f"K2 {tag}", kern, lanes_fn, plain,
                                  conv2_flops, nbytes, lib, BF16_FLOPS)
     del xb, gb, w2b, b2b, bf16_stem
-    for name in MXU_TIMED:
-        sd = stencils.BENCHMARKS[name]
+    # K2's single-channel path over the whole suite: its device and call
+    # times (and the parent's K2 where the probe exists, in turns) beside
+    # phase 5's K1, plain and cuDNN times of the same case and input
+    probe = parent_probe()
+
+    def record_single(tag, kern, p5, flops, nbytes, parent_fn):
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        tc_ms = flops / TF32_FLOPS * 1e3
+        f_ms = flops / FP32_FLOPS * 1e3
+        rec = {"case": f"K2 {tag}", "parent_ms": None, "parent_call_ms": None}
+        if not parent_fn:
+            ms = device_ms(kern, TIME_REPS)
+        else:           # in turns: kernel, parent, parent, kernel
+            compare(f"K2 {tag} parent kernel", parent_fn(), kern(),
+                    MXU_VS_LANES, results)
+            half = TIME_REPS // 2
+            k0 = device_ms(kern, half)
+            p0, p1 = device_ms(parent_fn, half), device_ms(parent_fn, half)
+            ms = (k0 + device_ms(kern, half)) / 2
+            rec["parent_ms"] = (p0 + p1) / 2
+            rec["parent_call_ms"] = event_ms(parent_fn, half)
+        rec.update({
+            "ms": ms, "call_ms": event_ms(kern, TIME_REPS),
+            "k1_ms": p5["ms"], "k1_call_ms": p5["call_ms"],
+            "plain_ms": p5["plain_ms"], "library_ms": p5["library_ms"],
+            "library_pad_then_conv_ms": p5["library_pad_then_conv_ms"],
+            "yardsticks_from": p5["case"],
+            "bound_ms": max(b_ms, tc_ms),
+            "bound_by": "bytes" if b_ms >= tc_ms else "operations",
+            "fp32_bound_ms": max(b_ms, f_ms),
+            "fp32_bound_by": "bytes" if b_ms >= f_ms else "operations",
+            "bytes_ms": b_ms, "tensor_core_ms": tc_ms, "fp32_ms": f_ms,
+            "gflop": flops / 1e9, "bytes": nbytes,
+            "roofline_share": max(b_ms, tc_ms) / ms, "card": card})
+        results["times"].append(rec)
+        emit({"phase": "mxu_time", **rec})
+        return rec
+
+    for name, sd in stencils.BENCHMARKS.items():
         x = grids[sd.ndim]
-        wt, pads = dense_filter(sd, dev)
         cells = x.numel()
-        timed[name] = record(
-            f"K2 {name} t=1", lambda: ops.stencil(x, name, strategy="mxu"),
-            lambda: ops.stencil(x, name),
-            lambda: ref(x, plan=stencil_plan(sd)),
-            (2 * len(sd.offsets) - 1) * cells, 8 * cells,
-            lambda: library(x, wt, pads))
-    x, w = grids[2], filters[20]
-    pads = [(9, 10), (9, 10)]
-    timed["conv20"] = record(
-        "K2 conv2d 20x20 same t=1",
-        lambda: ops.conv2d(x, w, mode="same", strategy="mxu"),
-        lambda: ops.conv2d(x, w, mode="same"),
-        lambda: ref(x, w, plan=mxu(ssam_conv2d.plan_for((20, 20), "same"))),
-        (2 * 400 - 1) * x.numel(), 8 * x.numel(),
-        lambda: library(x, w, pads))
+        for t in (1, 2):
+            timed[f"{name} t={t}"] = record_single(
+                f"{name} t={t}",
+                lambda: ops.stencil(x, name, time_steps=t, strategy="mxu"),
+                single[f"{name} shift_psum t={t}"],
+                t * (2 * len(sd.offsets) - 1) * cells, 8 * cells,
+                probe and hasattr(probe, "run_mxu") and (
+                    lambda: probe.run_mxu(x, None, stencil_plan(sd), t)))
+    x = grids[2]
+    for k, w in filters.items():
+        timed[f"conv{k}"] = record_single(
+            f"conv2d {k}x{k} same t=1",
+            lambda: ops.conv2d(x, w, mode="same", strategy="mxu"),
+            single[f"conv2d {k}x{k} same"], (2 * k * k - 1) * x.numel(),
+            8 * x.numel(), probe and hasattr(probe, "run_mxu") and (
+                lambda: probe.run_mxu(
+                    x, w, mxu(ssam_conv2d.plan_for((k, k), "same")), 1)))
     del grids, filters, x, w
     torch.cuda.empty_cache()
 
@@ -1438,7 +1498,7 @@ def mxu_phase(args, dev, card, results, lanes) -> dict:
                 ("profiled K3 kernels against the counter",
                  trace["k3_calls"], trace["k3_launches"], lanes["k3_step"]))
     return {"launches": launches, "train_launches": k2, "worst": worst,
-            "headline": timed["2d5pt"],
+            "headline": timed["2d5pt t=1"],
             "stem_headline": timed["conv2 dx, phas"],
             "stem_rows": {"conv2_forward": timed["conv2 forward "],
                           "conv1_forward": timed["conv1 forward "],
@@ -1534,6 +1594,11 @@ def hymba_phase(args, dev, card, results) -> dict:
          PERLANE_RTOL, 4 * (2 * elems + K * D), 2 * K * elems,
          lambda: torch.nn.grad.conv1d_input(xt.shape, wt, gt, padding=K - 1,
                                             groups=D), True),
+        # the recomputed pre-activation: the forward without an epilogue
+        ("K1 per-lane conv1d forward linear (2,2048,3200) K=4 fp32",
+         lambda: run(x, w, plan=p), lambda: ref(x, w, plan=p), PERLANE_RTOL,
+         4 * (2 * elems + K * D), 2 * K * elems,
+         lambda: F.conv1d(xt, wt, padding=K - 1, groups=D)[..., :T], True),
         ("K4 per-lane dW (2,2048,3200) -> (4,3200)",
          lambda: wrun(x, g, plan=p), lambda: wref(x, g, plan=p), K4_RTOL,
          4 * (2 * elems + K * D), 2 * K * elems,
@@ -1568,7 +1633,7 @@ def hymba_phase(args, dev, card, results) -> dict:
             worst[tag[:2]] = max(worst[tag[:2]], err)
     k4_want = sum(K4.launches_for(xx, gg, plan=p)
                   for xx, gg in ((x, g), (xo, go), (xb16, gb16)))
-    require((K1.launches, K4.launches, K5.launches) == (5, k4_want, 1),
+    require((K1.launches, K4.launches, K5.launches) == (6, k4_want, 1),
             ("phase 10 (a) launches", K1.launches, K4.launches, K5.launches))
     # the scan adjoint: LinrecCarryOp's backward through K5 against the same
     # adjoint spelled out with the plain version
@@ -1688,14 +1753,32 @@ def hymba_phase(args, dev, card, results) -> dict:
     require(got == want, ("hymba train launches", got, want))
 
     # -- (d) times at the slice's shapes, and one profiled step --------------
+    # K1's per-lane path for each epilogue chain the port launches (bias +
+    # SiLU, none) and its dx, beside the parent's per-lane kernel where the
+    # probe exists (in turns: kernel, parent, parent, kernel)
+    probe = parent_probe()
+    parents = {cases[0][0]: (x, pe, (b,)), cases[1][0]: (g, adj, ()),
+               cases[2][0]: (x, p, ())}
     timed = {}
     for tag, kern, plain, _, nbytes, flops, lib, counted in cases:
         if not counted:
             continue
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         f_ms = flops / FP32_FLOPS * 1e3
-        ms = device_ms(kern, 20)
-        rec = {"case": tag, "ms": ms, "call_ms": event_ms(kern, 20),
+        rec = {"parent_ms": None}
+        if probe is not None and hasattr(probe, "run_perlane") \
+                and tag in parents:
+            xi, pl, ea = parents[tag]
+            parent_fn = (lambda: probe.run_perlane(xi, w, pl, ea))
+            compare(tag + " parent kernel", parent_fn(), kern(),
+                    PERLANE_RTOL, results)
+            k0 = device_ms(kern, 10)
+            p0, p1 = device_ms(parent_fn, 10), device_ms(parent_fn, 10)
+            ms = (k0 + device_ms(kern, 10)) / 2
+            rec["parent_ms"] = (p0 + p1) / 2
+        else:
+            ms = device_ms(kern, 20)
+        rec = {"case": tag, **rec, "ms": ms, "call_ms": event_ms(kern, 20),
                "plain_ms": device_ms(plain, 3),
                "library_ms": None if lib is None else device_ms(lib, 20),
                "bound_ms": max(b_ms, f_ms),
@@ -1704,7 +1787,8 @@ def hymba_phase(args, dev, card, results) -> dict:
                "card": card}
         results["times"].append(rec)
         emit({"phase": "hymba_time", **rec})
-        timed[tag[:2] + (" dx" if " dx" in tag else "")] = rec
+        timed[tag[:2] + (" dx" if " dx" in tag
+                         else " linear" if " linear" in tag else "")] = rec
     from repro_torch.data import TokenDataset
 
     ds = TokenDataset(cfg.vocab, HYMBA_SEQ, seed=args.seed)
@@ -1831,15 +1915,18 @@ def library_padded(x, wt, pads, t: int = 1):
 
 
 def parent_probe():
-    """The module ``build/k1_parent/probe.py`` where a probe of an earlier
-    K1 was built into the checkout (never committed), else None. It
-    offers ``run(x, w, plan, time_steps, variant)``."""
+    """The module ``build/parent/probe.py`` where a probe of earlier kernels
+    was built into the checkout (never committed), else None. It may offer
+    ``run(x, w, plan, time_steps, variant)`` (an earlier K1 single-channel
+    kernel, phase 5), ``run_mxu(x, w, plan, time_steps)`` (an earlier K2
+    single-channel kernel, phase 9) and ``run_perlane(x, w, plan,
+    epilogue_args)`` (an earlier K1 per-lane kernel, phase 10)."""
     import importlib.util
 
-    path = os.path.join(ROOT, "build", "k1_parent", "probe.py")
+    path = os.path.join(ROOT, "build", "parent", "probe.py")
     if not os.path.exists(path):
         return None
-    spec = importlib.util.spec_from_file_location("k1_parent_probe", path)
+    spec = importlib.util.spec_from_file_location("parent_probe", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1941,7 +2028,35 @@ def main() -> int:
     mxu_sass = sass_counts(str(_build.LIBRARY.path), "mxu_tc_kernel",
                            ("HGMMA", "UTMALDG", "LDS", "STS"))
     results["build"]["mxu_tc_sass"] = mxu_sass
+    # K2's single-channel path: each instantiation (the plan's largest
+    # entry, 1-4 k-steps), its registers and spills, its mma.sync (HMMA)
+    # on TMA-staged tiles (UTMALDG) and its fragment loads (LDS), no spills;
+    # K1's per-lane path: each instance's registers and its 16-byte global
+    # accesses (the cp.async ring's LDGSTS, STG.E.128, LDG.E.128)
+    mxu_single = {}
+    for key, rec in ptxas_entries(_build.LIBRARY.ptxas_log,
+                                  r".*mxu_window_kernelILi(\d)E").items():
+        mxu_single[key] = {**rec, "sass": sass_counts(
+            str(_build.LIBRARY.path), f"mxu_window_kernelILi{key}E",
+            ("HMMA", "HGMMA", "UTMALDG", "LDS"))}
+    results["build"]["mxu_single_channel"] = mxu_single
+    perlane = ptxas_entries(_build.LIBRARY.ptxas_log,
+                            r".*window_perlane_kernelILi(\d)ELi(\d)E"
+                            r"NS_\d+(Epi\w*?)E+vNS_11PerlaneArgsE")
+    results["build"]["window_perlane"] = {
+        "instances": perlane, "sass": sass_counts(
+            str(_build.LIBRARY.path), "window_perlane_kernel",
+            ("LDG.E.128", "STG.E.128", "LDGSTS", "LDS.128"))}
     emit({"phase": "build", **results["build"], "card": card})
+    require(len(mxu_single) == 4 and all(
+        r["spill_store_bytes"] == 0 and (r["sass"] is None or (
+            r["sass"]["HMMA"] > 0 and r["sass"]["UTMALDG"] > 0))
+        for r in mxu_single.values()),
+        ("K2's single-channel kernel spills, lacks HMMA or TMA loads",
+         mxu_single))
+    require(len(perlane) >= 4 and all(r["spill_store_bytes"] == 0
+                                       for r in perlane.values()),
+            ("K1's per-lane kernel spills", perlane))
     require(reduce_build["kernels"] >= 1
             and reduce_build["max_spill_store_bytes"] == 0,
             ("K1's reduce kernel spills", reduce_build))
@@ -2064,7 +2179,7 @@ def main() -> int:
                flops, t=1, parent_fn=None):
         b_ms, by = bound(in_elems, out_elems, 4, flops)
         rec = {"case": tag, "parent_ms": None, "parent_call_ms": None}
-        if parent_fn is None:
+        if not parent_fn:
             k_ms = device_ms(kernel_fn, TIME_REPS)
         else:           # in turns: kernel, parent, parent, kernel
             y, y_parent = kernel_fn(), parent_fn()
@@ -2090,8 +2205,10 @@ def main() -> int:
             "roofline_share": b_ms / k_ms, "card": card})
         results["times"].append(rec)
         emit({"phase": "time", **rec})
+        single[tag] = rec
         return rec
 
+    single = {}     # phase 5's rows by case, K2's yardsticks in phase 9
     headline = None
     for name, sd in stencils.BENCHMARKS.items():
         x = grids[sd.ndim]
@@ -2108,7 +2225,8 @@ def main() -> int:
                         x, plan=plan, time_steps=t, variant=variant),
                     x, wt, pads, cells, cells,
                     t * (2 * len(sd.offsets) - 1) * cells, t,
-                    probe and (lambda: probe.run(x, None, plan, t, variant)))
+                    probe and hasattr(probe, "run") and (
+                        lambda: probe.run(x, None, plan, t, variant)))
                 if name == "2d5pt" and variant == "shift_psum" and t == 1:
                     headline = rec
     x = grids[2]
@@ -2119,7 +2237,8 @@ def main() -> int:
                lambda: ops.conv2d(x, w, mode="same"),
                lambda: engine.run_window_plan_reference(x, w, plan=plan),
                x, w, pads, x.numel(), x.numel(), (2 * k * k - 1) * x.numel(),
-               1, probe and (lambda: probe.run(x, w, plan, 1, "shift_psum")))
+               1, probe and hasattr(probe, "run") and (
+                   lambda: probe.run(x, w, plan, 1, "shift_psum")))
 
     del grids, filters, x
     torch.cuda.empty_cache()
@@ -2132,7 +2251,7 @@ def main() -> int:
     trained = train_phase(args, dev, card, results)
     torch.cuda.empty_cache()
     marks.append(("9 tensor cores", time.perf_counter()))
-    mxu = mxu_phase(args, dev, card, results, trained)
+    mxu = mxu_phase(args, dev, card, results, trained, single)
     torch.cuda.empty_cache()
     marks.append(("10 train hymba-1.5b", time.perf_counter()))
     hy = hymba_phase(args, dev, card, results)
@@ -2170,7 +2289,13 @@ def main() -> int:
         "hymba": {"launches": hy["launches"]["k1"],
                   "max_abs_err": hy["worst"]["K1"],
                   **_row(hy["timed"]["K1"]),
-                  "dx": _row(hy["timed"]["K1 dx"])}}, {
+                  "parent_ms": hy["timed"]["K1"]["parent_ms"],
+                  "dx": {**_row(hy["timed"]["K1 dx"]),
+                         "parent_ms": hy["timed"]["K1 dx"]["parent_ms"]},
+                  "forward_linear": {
+                      **_row(hy["timed"]["K1 linear"]),
+                      "parent_ms": hy["timed"]["K1 linear"]["parent_ms"]}}},
+        {
         "name": K5.name, "route": "cuda", "source": K5.source,
         "replaces": K5.replaces, "launches": served["k5_launches"],
         "max_abs_err": scan["worst_abs"], "ms": wkv["ms"],
@@ -2205,6 +2330,8 @@ def main() -> int:
         "single_channel": {"source": K2.single_channel_source,
                            "launches_checks": mxu["launches"],
                            "max_abs_err": mxu["worst"]["abs"], **_row(k2h),
+                           "call_ms": k2h["call_ms"], "k1_ms": k2h["k1_ms"],
+                           "parent_ms": k2h["parent_ms"],
                            "case": k2h["case"] + " 8192x8192 fp32"}}, {
         "name": K4.name, "route": "cuda", "source": K4.source,
         "replaces": K4.replaces, "launches": hy["launches"]["k4"],

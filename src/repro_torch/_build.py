@@ -136,7 +136,9 @@ class Library:
             [p, p, i, p, p, p, ctypes.POINTER(ctypes.c_int),
              ctypes.POINTER(ctypes.c_float), i] + [i] * 24 + [p])
         lib.ssam_mxu_tc_launch.restype = i
-        lib.ssam_mxu_window_launch.argtypes = [p, p, i, p, p] + [i] * 20 + [p]
+        lib.ssam_mxu_window_launch.argtypes = [p, p, i, p, p,
+                                               ctypes.POINTER(ctypes.c_int),
+                                               i, p]
         lib.ssam_mxu_window_launch.restype = i
         lib.ssam_window_perlane_launch.argtypes = (
             [p, p, i, p, ctypes.POINTER(ctypes.c_int), i, p,

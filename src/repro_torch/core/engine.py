@@ -591,8 +591,9 @@ class WindowKernel:
 
     def _perlane(self, x, w, plan, epilogue_args):
         """The per-lane (depthwise) path: ``x (…, T, D)`` against ``w (K,
-        D)``, one thread per lane streaming down time, with the per-lane
-        bias and the activations fused (``ssam_window_perlane.cu``)."""
+        D)``, each thread 16 bytes of lanes streaming down time, with the
+        per-lane bias and the activations fused (``ssam_window_perlane.cu``,
+        :func:`perlane_layout`)."""
         rows = perlane_row_table(plan)
         nb = plan.batch_axes
         x = x.contiguous()
@@ -601,7 +602,8 @@ class WindowKernel:
             batch *= d
         T, D = x.shape[nb:]
         To = plan.out_shape((T, D))[0]
-        if -(-To // PERLANE_ROWS) > 65535 or batch > 65535:
+        lay = perlane_layout(plan, batch, T, D, x.element_size())
+        if lay.grid[1] > 65535 or batch > 65535:
             raise ValueError(f"K1's per-lane grid cannot hold {To} rows of "
                              f"{batch} sequences")
         (lead, _), _ = plan.lead_trail()
@@ -625,10 +627,123 @@ class WindowKernel:
 
 WINDOW_KERNEL = WindowKernel(_build.LIBRARY)
 
-# The per-lane path's block: 128 lanes (one thread each) x 64 output rows.
+# K1's per-lane path (csrc/ssam_window_perlane.cu): a block of 128 threads,
+# each 16 bytes of channels (4 fp32 or 8 bf16) of one sequence, streaming 32
+# output rows through a cp.async ring of 8 rows a thread. (K4 tiles its lanes
+# 128 a block, PERLANE_LANES.)
 PERLANE_LANES = 128
-PERLANE_ROWS = 64
+PERLANE_THREADS = 128
+PERLANE_ROWS = 32
+PERLANE_STAGES = 8            # rows in flight a thread
 PERLANE_MAX_ROWS = 8          # footprint rows (filter taps) it holds
+# the epilogue chains K1's per-lane path has an instance for (codes of
+# EPILOGUE_CODES); any other chain runs the generic instance
+PERLANE_CHAINS = {(): "none", (1, 3): "bias+silu", (4,): "relu",
+                  (1, 2, 5): "bias+gelu+scale"}
+
+
+@dataclasses.dataclass(frozen=True)
+class PerlaneLayout:
+    """K1's per-lane geometry for one call: ``vec`` channels a thread (16
+    bytes), ``window`` input rows in registers (4 for filters of up to 4
+    taps, else 8), whether rows take 16-byte copies (``aligned``: D a
+    multiple of ``vec``, operands 16-byte aligned) or element-wise masked
+    ones, the epilogue instance ``chain`` (a name of
+    :data:`PERLANE_CHAINS`, or ``"generic"``) and the grid (lane tiles,
+    row tiles, sequences)."""
+
+    vec: int
+    window: int
+    aligned: bool
+    chain: str
+    grid: tuple[int, int, int]
+
+
+def perlane_layout(plan: SystolicPlan, batch: int, T: int, D: int,
+                   elem_bytes: int, ptrs_aligned: bool = True
+                   ) -> PerlaneLayout:
+    """K1's per-lane layout of a call on ``(batch, T, D)`` (the choices
+    ``ssam_window_perlane_launch`` makes from the same arguments)."""
+    vec = CP_ASYNC_BYTES // elem_bytes
+    To = plan.out_shape((T, D))[0]
+    codes = tuple(EPILOGUE_CODES[st.op] for st in plan.epilogue)
+    threads = -(-D // vec)
+    grid = (-(-threads // PERLANE_THREADS), -(-To // PERLANE_ROWS), batch)
+    return PerlaneLayout(vec, 4 if plan.N <= 4 else 8,
+                         D % vec == 0 and ptrs_aligned,
+                         PERLANE_CHAINS.get(codes, "generic"), grid)
+
+
+def emulate_perlane_kernel(x: torch.Tensor, w: torch.Tensor, *,
+                           plan: SystolicPlan,
+                           epilogue_args=()) -> torch.Tensor:
+    """K1's per-lane schedule walked in plain torch on the CPU, the spec of
+    ``csrc/ssam_window_perlane.cu``: :func:`perlane_layout`'s grid, each
+    thread's ``vec`` channels (masked at D), its stream of input rows
+    (rows of the zero-weight window slots never loaded, zeros outside [0,
+    T)) through a ring of :data:`PERLANE_STAGES` slots, the window of
+    ``window`` rows, the sum over its slots in row order and the epilogue
+    at the store. Every (b, t, d) is written exactly once (asserted).
+    Returns ``x``'s shape and dtype."""
+    check_supported(plan, 1, "shift_psum")
+    _check_operands(plan, x, w, epilogue_args)
+    if plan.coeff_mode != "perlane":
+        raise ValueError("the emulation walks K1's per-lane path")
+    rows = perlane_row_table(plan)
+    nb = plan.batch_axes
+    xs = x.reshape((-1,) + tuple(x.shape[nb:]))
+    batch, T, D = xs.shape
+    (lead, _), _ = plan.lead_trail()
+    lay = perlane_layout(plan, batch, T, D, x.element_size())
+    To = plan.out_shape((T, D))[0]
+    NM, V = lay.window, lay.vec
+    skip = NM - plan.N
+    wf = w.detach().to(torch.float32)
+    wr = torch.zeros((NM, D))
+    for j in range(skip, NM):
+        if rows[j - skip] >= 0:
+            wr[j] = wf[rows[j - skip]]
+    sums = torch.zeros((batch, To, D))
+    hits = torch.zeros((batch, To, D), dtype=torch.int64)
+    xf = xs.float()
+    for bx in range(lay.grid[0]):
+        d0 = bx * PERLANE_THREADS * V
+        d1 = min(D, d0 + PERLANE_THREADS * V)   # the threads' masked lanes
+        for by in range(lay.grid[1]):
+            t0 = by * PERLANE_ROWS
+            t1 = min(t0 + PERLANE_ROWS, To)
+            r0 = t0 - lead - skip
+            total = t1 - t0 + NM - 1
+            slot = torch.zeros((PERLANE_STAGES, batch, d1 - d0))
+            held = [None] * PERLANE_STAGES
+
+            def issue(i):
+                row = r0 + i
+                held[i % PERLANE_STAGES] = i
+                slot[i % PERLANE_STAGES] = (
+                    xf[:, row, d0:d1] if (skip <= i < total
+                                          and 0 <= row < T) else 0.0)
+
+            for i in range(PERLANE_STAGES):
+                issue(i)
+            c = torch.zeros((NM, batch, d1 - d0))
+            for i in range(total):
+                assert held[i % PERLANE_STAGES] == i, "a slot holds another row"
+                c = torch.cat([c[1:], slot[i % PERLANE_STAGES][None]])
+                issue(i + PERLANE_STAGES)
+                t = t0 + i - (NM - 1)
+                if t < t0:
+                    continue
+                s = torch.zeros((batch, d1 - d0))
+                for j in range(NM):           # row order, fp32
+                    s = s + c[j] * wr[j, d0:d1]
+                sums[:, t, d0:d1] = s
+                hits[:, t, d0:d1] += 1
+    assert bool((hits == 1).all()), "an output is not written exactly once"
+    out = sums.reshape(tuple(x.shape[:nb]) + (To, D))
+    if plan.epilogue:
+        out = apply_epilogue(plan, out, epilogue_args)
+    return out.to(x.dtype)
 
 
 def perlane_row_table(plan: SystolicPlan) -> tuple[int, ...]:
@@ -1147,15 +1262,13 @@ def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
     single-channel K1 block with one stage fits (:func:`window_layout`
     then deepens the ring and packs two 2-D blocks an SM where shared
     memory allows: paired runs on the card found these large tiles faster
-    than smaller ones at t > 1, whose halo the fused steps recompute), or
-    until a K2 block, for an mxu plan, takes at most half of the shared
-    memory. (The reduce paths tile their output themselves: K1 128
-    channels x 1 row x 64-128 columns, K2 128 or 256 channels x 1 row x
-    128 or 64 columns.)"""
+    than smaller ones at t > 1, whose halo the fused steps recompute); an
+    mxu plan takes K2's tile (:func:`_mxu_block`). (The reduce paths tile
+    their output themselves: K1 128 channels x 1 row x 64-128 columns, K2
+    128 or 256 channels x 1 row x 128 or 64 columns.)"""
     if plan.strategy == "mxu":
-        need, limit = mxu_smem_bytes, SMEM_LIMIT // 2
-    else:
-        need, limit = smem_bytes, SMEM_LIMIT
+        return _mxu_block(plan, time_steps)
+    need, limit = smem_bytes, SMEM_LIMIT
     V = max(1, WARP - (plan.M - 1))
     if plan.ndim_spatial == 3:
         block = [8, 16, 2 * V]
@@ -1389,22 +1502,433 @@ def mxu_tap_table(plan: SystolicPlan, w_shape) -> tuple[int, ...]:
     return tuple(out)
 
 
-def mxu_smem_bytes(plan: SystolicPlan, block, time_steps: int) -> int:
-    """Dynamic shared memory of one single-channel K2 block: the tap
-    offsets and coefficients (taps padded to 8), the staged skirt and,
-    for ``t > 1``, the buffer of the first intermediate iterate (layout
-    of ``ssam_mxu.cu``)."""
+# K2's single-channel path (csrc/ssam_mxu.cu): Toeplitz coefficient tiles
+# on the tensor cores. A tapped footprint row (dz, r) is cut into entries of
+# at most MXU_SPAN consecutive columns; an entry's k-steps s < KK hold B_s[k,
+# n] = c(dz, r, cmin + 8s + k − n) for 8 consecutive output columns n. A
+# warp item is MXU_ROWS output rows × MXU_CHUNKS chunks of 8 columns of one
+# slice; persistent blocks of 256 threads stage their tiles' input by TMA
+# into a ring of up to MXU_MAX_STAGES stages.
+MXU_ROWS = 16                 # output rows of an item (mma.m16n8k8's M)
+MXU_CHUNKS = 4                # 8-column chunks of an item
+MXU_KSTEPS = 4                # k-steps of one entry
+MXU_FLUSH = 8                 # k-steps of big·big summed in the tensor core
+MXU_SPAN = 8 * MXU_KSTEPS - 7  # columns of one entry: KK = ⌈(span + 7)/8⌉
+MXU_MAX_STAGES = 3
+MXU_SLACK = 64                # zeroed words past the last buffer (over-reads)
+MXU_ENT_INTS = 8              # one entry's record in the table
+
+
+@dataclasses.dataclass(frozen=True)
+class MxuEntries:
+    """A single-channel plan's taps as K2 walks them. ``entries``: per
+    entry ``(dz, r, cmin, span, kk, boff, toff)``, in (dz, r, cmin) order:
+    the footprint row, its first column and column span (at most
+    :data:`MXU_SPAN`), its k-steps ``kk = ⌈(span + 7)/8⌉``, the offset of
+    its B tiles (``kk`` tiles of 8 × 8 fp32, ``[k][n]``) and of its column
+    table in ``table``. ``table``: the entry records (:data:`MXU_ENT_INTS`
+    ints each), then per entry per column of its span the coefficient's
+    index (the plan's immediates, or the flattened filter), ``-1`` where no
+    tap sits. ``b_words``: the B tiles' fp32 words."""
+
+    entries: tuple[tuple[int, ...], ...]
+    table: tuple[int, ...]
+    b_words: int
+
+
+def _mxu_segments(rows) -> list:
+    """The entries of a footprint: ``rows`` maps each tapped row ``(dz, r)``
+    to its tapped columns; each row's sorted columns are cut, from the
+    left, into runs whose span is at most :data:`MXU_SPAN`. Returns ``(dz,
+    r, columns)`` in (dz, r, column) order."""
+    out = []
+    for dz, r in sorted(rows):
+        cols = sorted(rows[(dz, r)])
+        i = 0
+        while i < len(cols):
+            j = i
+            while j + 1 < len(cols) and cols[j + 1] - cols[i] < MXU_SPAN:
+                j += 1
+            out.append((dz, r, cols[i:j + 1]))
+            i = j + 1
+    return out
+
+
+def _mxu_b_shape(plan: SystolicPlan) -> tuple[int, int]:
+    """``(entries, B tile words)`` of a plan, from its tap positions."""
+    rows: dict = {}
+    for cum, tap in flat_taps(plan):
+        dz = tap.z_offset if plan.ndim_spatial == 3 else 0
+        rows.setdefault((dz, tap.row_offset), set()).add(cum)
+    segs = _mxu_segments(rows)
+    return len(segs), sum(64 * -(-(c[-1] - c[0] + 8) // 8)
+                          for _, _, c in segs)
+
+
+@functools.lru_cache(maxsize=256)
+def mxu_entries(plan: SystolicPlan, w_shape) -> MxuEntries:
+    quads = mxu_tap_table(plan, w_shape)
+    rows: dict = {}
+    for i in range(0, len(quads), 4):
+        dz, r, col, ci = quads[i:i + 4]
+        cols = rows.setdefault((dz, r), {})
+        if col in cols:
+            raise ValueError(f"two taps of {plan.kind!r} read the cell "
+                             f"({dz}, {r}, {col})")
+        cols[col] = ci
+    ents, tabs, boff = [], [], 0
+    for dz, r, cols in _mxu_segments(rows):
+        cmin, span = cols[0], cols[-1] - cols[0] + 1
+        kk = -(-(span + 7) // 8)
+        tab = [-1] * span
+        for c in cols:
+            tab[c - cmin] = rows[(dz, r)][c]
+        ents.append((dz, r, cmin, span, kk, boff))
+        tabs.append(tab)
+        boff += 64 * kk
+    head, tail, out = [], [], []
+    for (dz, r, cmin, span, kk, bo), tab in zip(ents, tabs):
+        toff = MXU_ENT_INTS * len(ents) + len(tail)
+        head += [dz, r, cmin, span, kk, bo, toff, 0]
+        out.append((dz, r, cmin, span, kk, bo, toff))
+        tail += tab
+    return MxuEntries(tuple(out), tuple(head + tail), boff)
+
+
+def mxu_btiles(ents: MxuEntries, cvals: torch.Tensor) -> torch.Tensor:
+    """The Toeplitz B tiles K2 builds in shared memory at a block's start:
+    ``b_words`` fp32 words, entry ``e``'s k-step ``s`` at ``boff + 64·s``,
+    ``B_s[k][n] = c(cmin + 8s + k − n)`` (0 where no tap sits)."""
+    bt = torch.zeros(ents.b_words, dtype=torch.float32)
+    s = torch.arange(MXU_KSTEPS * 64)
+    qq = 8 * (s // 64) + (s // 8) % 8 - s % 8
+    for _, _, _, span, kk, boff, toff in ents.entries:
+        col = torch.tensor(ents.table[toff:toff + span] + (-1,))
+        q = qq[:64 * kk]
+        ci = col[torch.where((q >= 0) & (q < span), q, span)]
+        bt[boff:boff + 64 * kk] = torch.where(
+            ci >= 0, cvals.float()[ci.clamp(min=0)], 0.0)
+    return bt
+
+
+def mxu_pitch(width: int) -> int:
+    """The row pitch, in words, of K2's fp32 iterate buffers: at least
+    ``width`` and 4 mod 8, so that a fragment's 8 rows × 4 columns fall
+    in 32 banks."""
+    return (width + 4) // 8 * 8 + 4
+
+
+@dataclasses.dataclass(frozen=True)
+class MxuLayout:
+    """K2's single-channel geometry for one call. Output tiles ``tile``
+    ``(bz, bh, bw)`` (``tiles`` per axis: batch, z, y, x; x fastest),
+    ``grid`` persistent blocks, block ``g`` taking tiles ``g, g + grid,
+    …``. A tile's input, widened by the t footprints, is one TMA box along
+    x (``box`` ``(z, y, x)``, x from the 16-byte aligned column at or below
+    the first input column, its pitch 4 mod 8 words for fp32) and
+    ``boxes`` ``(nbz, nby)`` along z and y. ``stages`` stages of
+    ``stage_bytes`` make the ring; then ``bufs`` fp32 words (the widened
+    bf16 stage at pitch ``pc``, the even and the odd iterates), the
+    :data:`MXU_SLACK` words the over-reads reach, the B tiles, the entries
+    and the barriers: ``smem`` bytes. ``geom`` is what the C entry
+    takes."""
+
+    tile: tuple[int, int, int]
+    tiles: tuple[int, int, int, int]
+    box: tuple[int, int, int]
+    boxes: tuple[int, int]
+    stage_bytes: int
+    stages: int
+    pc: int
+    bufs: tuple[int, int, int]
+    smem: int
+    grid: int
+    geom: tuple[int, ...]
+
+    @property
+    def ntiles(self) -> int:
+        return self.tiles[0] * self.tiles[1] * self.tiles[2] * self.tiles[3]
+
+    @property
+    def staged(self) -> tuple[int, int]:
+        """Staged (slices, rows): ``(sz, sy)``."""
+        return (self.boxes[0] * self.box[0], self.boxes[1] * self.box[1])
+
+    def tile_origin(self, tile: int) -> tuple[int, int, int, int]:
+        """``(b, oz0, oy0, ox0)`` of tile number ``tile``."""
+        _, tz, ty, tx = self.tiles
+        b, r = divmod(tile, tz * ty * tx)
+        iz, r = divmod(r, ty * tx)
+        iy, ix = divmod(r, tx)
+        bz, bh, bw = self.tile
+        return b, iz * bz, iy * bh, ix * bw
+
+
+def _mxu_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
+              stages: int):
+    """``(box, boxes, stage_bytes, pc, bufs, smem)`` of a K2 single-channel
+    block at a ring of ``stages`` (``box[2]`` above :data:`TMA_MAX_BOX`
+    where a tile's input row is wider than one TMA box)."""
     nd = plan.ndim_spatial
     D = plan.depth if nd == 3 else 1
     N, M = plan.N, plan.M
-    bz, bh, bw = (1,) * (3 - nd) + tuple(block)
-    taps = sum(len(st.taps) for st in plan.steps)
+    bz, bh, bw = tile
+    es = elem_bytes
+    per = TMA_ALIGN // es
+    zs, hs = bz + t * (D - 1), bh + t * (N - 1)
+    box_x = _round_up(bw + t * (M - 1) + per - 1, per)
+    if es == 4 and box_x % 8 != 4:
+        box_x += 4                      # fp32 rows at a pitch 4 mod 8
+    row = box_x * es
+    nby = -(-hs // TMA_MAX_BOX)
+    box_y = -(-hs // nby)
+    if nby > 1:
+        box_y = _round_up(box_y, 128 // math.gcd(128, row))
+    if nby > 1 and zs > 1:      # a box per slice: y-boxes stack in a slice
+        nbz, box_z = zs, 1
+    else:
+        nbz = -(-zs // TMA_MAX_BOX)
+        box_z = -(-zs // nbz)
+        if nbz > 1:
+            box_z = _round_up(box_z, 128 // math.gcd(128, nby * box_y * row))
+    sz, sy = nbz * box_z, nby * box_y
+    stage_bytes = _round_up(sz * sy * box_x * es, 128)
+    pc = box_x + 4 if es == 2 else 0    # bf16 box_x is a multiple of 8
+    c0 = _round_up(sz * sy * pc, 4)
 
-    def tile(k):
-        return (bz + k * (D - 1)) * (bh + k * (N - 1)) * (bw + k * (M - 1))
+    def iterate(k):             # words of application k's result
+        j = t - 1 - k
+        return ((bz + j * (D - 1)) * (bh + j * (N - 1))
+                * mxu_pitch(bw + j * (M - 1)))
 
-    t = time_steps
-    return 4 * (2 * _round8(taps) + tile(t) + (tile(t - 1) if t > 1 else 0))
+    even = max((iterate(k) for k in range(0, t - 1, 2)), default=0)
+    odd = max((iterate(k) for k in range(1, t - 1, 2)), default=0)
+    bufs = (c0, _round_up(even, 4), _round_up(odd, 4))
+    nent, b_words = _mxu_b_shape(plan)
+    smem = (128 + stages * stage_bytes
+            + 4 * (sum(bufs) + MXU_SLACK + b_words) + 32 * nent + 8 * stages)
+    return ((box_z, box_y, box_x), (nbz, nby), stage_bytes, pc, bufs,
+            _round_up(smem, 16))
+
+
+def mxu_layout(plan: SystolicPlan, head, tile, t: int, elem_bytes: int,
+               pitch: int, ents: MxuEntries) -> MxuLayout:
+    """K2's single-channel layout for a call of :func:`_tile_launch`'s
+    ``head`` and ``tile``. The ring takes the most stages (up to 3) that
+    leave two blocks an SM; failing that, the most that fit one block;
+    failing that, the call raises."""
+    batch, zin, hin, win, zo, ho, wo, lz, ly, lx = head
+    nd = plan.ndim_spatial
+    D = plan.depth if nd == 3 else 1
+    tile = tuple(tile)
+    fits = [(s, _mxu_smem(plan, tile, t, elem_bytes, s))
+            for s in range(MXU_MAX_STAGES, 0, -1)]
+    pick = next(((s, f) for s, f in fits if f[5] <= WINDOW_SMEM_TARGET),
+                None) or next(((s, f) for s, f in fits
+                               if f[5] <= SMEM_LIMIT), None)
+    if pick is None:
+        raise ValueError(
+            f"block {tile[3 - nd:]} needs {fits[-1][1][5]} bytes of shared "
+            f"memory (limit {SMEM_LIMIT}); pass a smaller block")
+    stages, (box, boxes, stage_bytes, pc, bufs, smem) = pick
+    if box[2] > TMA_MAX_BOX:
+        raise ValueError(f"block {tile[3 - nd:]}: a tile's input row is "
+                         f"wider than one TMA box ({TMA_MAX_BOX}); pass a "
+                         "narrower block")
+    bz, bh, bw = tile
+    tiles = (batch, -(-zo // bz), -(-ho // bh), -(-wo // bw))
+    ntiles = tiles[0] * tiles[1] * tiles[2] * tiles[3]
+    if ntiles >= 2 ** 31:
+        raise ValueError(f"K2's tile walk cannot count {ntiles} tiles")
+    bps = max(1, min(2, H100_SM_SMEM // (smem + 1024)))
+    grid = min(ntiles, bps * H100_SMS)
+    geom = (nd, D, plan.N, plan.M, t, len(ents.entries), batch, zin, hin,
+            win, pitch, zo, ho, wo, lz, ly, lx, bz, bh, bw, box[2], box[1],
+            box[0], boxes[1], boxes[0], stages, stage_bytes, pc, *bufs,
+            ents.b_words, len(ents.table), smem, grid, MXU_SLACK,
+            max(e[4] for e in ents.entries))
+    return MxuLayout(tile, tiles, box, boxes, stage_bytes, stages, pc, bufs,
+                     smem, grid, geom)
+
+
+def mxu_smem_bytes(plan: SystolicPlan, block, time_steps: int) -> int:
+    """Dynamic shared memory of one fp32 single-channel K2 block with one
+    ring stage (layout of ``ssam_mxu.cu``, :func:`mxu_layout`), B tiles
+    included."""
+    tile = (1,) * (3 - plan.ndim_spatial) + tuple(block)
+    return _mxu_smem(plan, tile, time_steps, 4, 1)[5]
+
+
+def _mxu_block(plan: SystolicPlan, t: int) -> tuple[int, ...]:
+    """K2's default output tile: 64 × 128 (2-D) or 8 × 16 × 64 (3-D), cut
+    at t > 1 (by at most half) so that the first application's rows and
+    columns fill whole warp items (16 rows, 32 columns); slices, then
+    rows, then columns (or
+    the columns first where a tile's input row is wider than one TMA box)
+    halved until a block takes at most half of the shared memory, two
+    blocks an SM."""
+    base = [8, 16, 64] if plan.ndim_spatial == 3 else [64, 128]
+    grow = ((t - 1) * (plan.N - 1), (t - 1) * (plan.M - 1))
+    while True:
+        block = list(base)
+        for a, (unit, g) in enumerate(zip((MXU_ROWS, 8 * MXU_CHUNKS), grow)):
+            i = len(block) - 2 + a
+            cut = (block[i] + g) // unit * unit - g
+            block[i] = cut if 2 * cut >= block[i] else block[i]
+        tile = (1,) * (3 - len(block)) + tuple(block)
+        box, *_, smem = _mxu_smem(plan, tile, t, 4, 1)
+        wide = box[2] > TMA_MAX_BOX
+        if not wide and smem <= SMEM_LIMIT // 2:
+            return tuple(block)
+        i = next((a for a in range(len(base) - 1) if base[a] > 1),
+                 len(base) - 1)
+        if wide:
+            i = len(base) - 1
+        if base[i] == 1:
+            return tuple(block)
+        base[i] //= 2
+
+
+def _tf32_split(a: torch.Tensor):
+    """3xTF32's truncating split as K2 does it: ``big`` = ``a`` with the 13
+    low mantissa bits cleared, ``small = a − big`` as the tensor core
+    reads it (its own top 19 bits)."""
+    def trunc(v):
+        return (v.view(torch.int32) & -8192).view(torch.float32)
+    big = trunc(a)
+    return big, trunc(a - big)
+
+
+def _emulate_mxu_apply(mem: torch.Tensor, src, ext, ents: MxuEntries,
+                       btile: torch.Tensor, plan: SystolicPlan
+                       ) -> torch.Tensor:
+    """One application of ``ssam_mxu.cu::apply_mx`` on the emulated shared
+    memory ``mem`` (flat fp32 words) through ``src (base, pitch, plane,
+    shift)``: the warp items (16 rows, rows past the last clamped, × 4
+    chunks of 8 columns, per slice), each entry's shifted-row A (its k-step
+    windows read in place) split and multiplied with its Toeplitz tiles
+    (big·big summed over whole entries of at least :data:`MXU_FLUSH`
+    k-steps, then added to the fp32 sum; the cross terms beside).
+    Returns the dense fp32 ``(zs−D+1, hs−N+1, ws−M+1)`` result."""
+    base, pitch, plane, shift = src
+    zs, hs, ws = ext
+    nd = plan.ndim_spatial
+    D = plan.depth if nd == 3 else 1
+    zd, hd, wd = zs - (D - 1), hs - (plan.N - 1), ws - (plan.M - 1)
+    hp = _round_up(hd, MXU_ROWS)
+    nch = _round_up(wd, 8 * MXU_CHUNKS) // 8
+    y = torch.arange(hp).clamp(max=hd - 1)
+    acc = torch.zeros((zd, hp, nch, 8))
+    cor = torch.zeros((zd, hp, nch, 8))
+    hi = torch.zeros((zd, hp, nch, 8))
+    pend = 0
+    for e, (dz, r, cmin, _, kk, boff, _) in enumerate(ents.entries):
+        addr = (base + (torch.arange(zd)[:, None, None, None] + dz) * plane
+                + (y[None, :, None, None] + r) * pitch
+                + 8 * torch.arange(nch)[None, None, :, None] + cmin + shift
+                + torch.arange(8 * kk))
+        assert int(addr.min()) >= 0 and int(addr.max()) < mem.numel(), \
+            "a fragment load leaves shared memory"
+        ab, as_ = _tf32_split(mem[addr])
+        bb, bs = _tf32_split(btile[boff:boff + 64 * kk].view(8 * kk, 8))
+        hi = hi + ab @ bb
+        cor = cor + (as_ @ bb + ab @ bs)
+        pend += kk
+        if pend >= MXU_FLUSH or e == len(ents.entries) - 1:
+            acc, hi, pend = acc + hi, torch.zeros_like(hi), 0
+    return (acc + cor).reshape(zd, hp, nch * 8)[:, :hd, :wd]
+
+
+def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
+                       block=None, time_steps: int = 1) -> torch.Tensor:
+    """K2's single-channel schedule walked in plain torch on the CPU: the
+    spec of ``csrc/ssam_mxu.cu`` that the CPU tests hold to the plain
+    version. The wrapper's operand (a pitch-padded copy where x's rows are
+    not a multiple of 16 bytes), :func:`mxu_entries` and the Toeplitz tiles
+    (:func:`mxu_btiles`), :func:`mxu_layout`, the persistent walk (block
+    ``g`` takes tiles ``g, g + grid, …``; a stage is waited for by the
+    tile it was filled with), each stage's TMA boxes (:func:`_tma_box`),
+    one block's shared memory zeroed at its start and reused by its tiles
+    (a bf16 stage widened into its fp32 buffer), the t applications
+    (:func:`_emulate_mxu_apply`: the stage, then the fp32 iterates in two
+    ping-pong buffers at :func:`mxu_pitch`) and the last one stored.
+    Returns ``x``'s shape and dtype."""
+    check_supported(plan, time_steps, "shift_psum")
+    _check_operands(plan, x, w, ())
+    if _is_reduce(plan) or plan.coeff_mode == "perlane" \
+            or plan.strategy != "mxu":
+        raise ValueError("the emulation walks K2's single-channel path")
+    block = tuple(block or default_block(plan, time_steps))
+    t, nd = time_steps, plan.ndim_spatial
+    D = plan.depth if nd == 3 else 1
+    N, M = plan.N, plan.M
+    ents = mxu_entries(plan, None if w is None else tuple(w.shape))
+    cvals = (torch.tensor(plan.coeffs, dtype=torch.float32)
+             if plan.coeff_mode == "table"
+             else w.detach().to(torch.float32).flatten())
+    btile = mxu_btiles(ents, cvals)
+    xc, out, _, head, tile = _tile_launch(plan, x, block, t)
+    xt, pitch = _tma_operand(xc)
+    batch, zin, hin, win, zo, ho, wo, lz, ly, lx = head
+    es = x.element_size()
+    lay = mxu_layout(plan, head, tile, t, es, pitch, ents)
+    assert lay.smem <= SMEM_LIMIT
+    xm = xt.reshape(batch, zin, hin, pitch)
+    out4 = out.reshape(batch, zo, ho, wo)
+    (box_z, box_y, box_x), (nbz, nby) = lay.box, lay.boxes
+    sz, sy = lay.staged
+    c0, even, odd = lay.bufs
+    ring = lay.stages * lay.stage_bytes // 4
+    offs = (ring, ring + c0, ring + c0 + even)      # c0, even, odd buffers
+    words = offs[2] + odd + MXU_SLACK
+    done = torch.zeros(lay.ntiles, dtype=torch.int64)
+    for g in range(lay.grid):
+        mem = torch.zeros(words)                    # zeroed at block start
+        mine = list(range(g, lay.ntiles, lay.grid))
+        held = mine[:lay.stages] + [None] * (lay.stages - len(mine))
+        for i, tile_no in enumerate(mine):
+            s = i % lay.stages
+            assert held[s] == tile_no, "a stage holds another tile"
+            b, oz0, oy0, ox0 = lay.tile_origin(tile_no)
+            x0, shift = staged_row_start(ox0 - lx, es)
+            stage = torch.zeros(sz * sy * box_x)
+            for jz in range(nbz):
+                for jy in range(nby):
+                    box = _tma_box(xm, win, b, (oz0 - lz + jz * box_z,
+                                                oy0 - ly + jy * box_y, x0),
+                                   lay.box)
+                    off = (jz * box_z * sy + jy * box_y) * box_x
+                    assert (off * es) % 128 == 0, "a box lands unaligned"
+                    stage[off:off + box.numel()] = box.flatten().float()
+            if es == 4:
+                sbase = s * lay.stage_bytes // 4
+                mem[sbase:sbase + stage.numel()] = stage
+                src = (sbase, box_x, sy * box_x, shift)
+            else:                                   # widened at pitch pc
+                rows = mem[offs[0]:offs[0] + sz * sy * lay.pc]
+                rows.view(sz * sy, lay.pc)[:, :box_x] = stage.view(-1, box_x)
+                src = (offs[0], lay.pc, sy * lay.pc, shift)
+            nxt = i + lay.stages                    # the stage is read
+            held[s] = mine[nxt] if nxt < len(mine) else None
+            tz, ty, tx = (min(a, n - o) for a, n, o in
+                          zip(lay.tile, (zo, ho, wo), (oz0, oy0, ox0)))
+            ext = (tz + t * (D - 1), ty + t * (N - 1), tx + t * (M - 1))
+            for k in range(t):
+                res = _emulate_mxu_apply(mem, src, ext, ents, btile, plan)
+                ext = tuple(res.shape)
+                if k < t - 1:
+                    zd, hd, wd = ext
+                    dp = mxu_pitch(wd)
+                    base = offs[1 + (k & 1)]
+                    assert zd * hd * dp <= lay.bufs[1 + (k & 1)]
+                    mem[base:base + zd * hd * dp].view(zd, hd, dp)[
+                        ..., :wd] = res
+                    src = (base, dp, hd * dp, 0)
+            assert ext == (tz, ty, tx)
+            out4[b, oz0:oz0 + tz, oy0:oy0 + ty, ox0:ox0 + tx] = res
+            done[tile_no] += 1
+    assert bool((done == 1).all()), "a tile is not walked exactly once"
+    return out
 
 
 # K2's channel-reduce path (csrc/ssam_mxu_tc.cu): an implicit GEMM on the
@@ -1567,27 +2091,20 @@ class MxuKernel:
                              f"{plan.strategy!r}")
         if _is_reduce(plan):
             return self._reduce(x, w, plan, epilogue_args)
-        t, nd = time_steps, plan.ndim_spatial
-        taps = mxu_tap_table(plan, None if w is None else tuple(w.shape))
-        dtaps = _device_ints(taps, x.device)
-        ntaps = len(taps) // 4
+        t = time_steps
+        ents = mxu_entries(plan, None if w is None else tuple(w.shape))
+        table = _device_ints(ents.table, x.device)
         if plan.coeff_mode == "dense":
             cvals = w.detach().to(torch.float32).contiguous()
         else:
             cvals = _device_floats(plan.coeffs, x.device)
         x, out, B, head, tile = _tile_launch(plan, x, block, t)
-        smem = mxu_smem_bytes(plan, B, t)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"block {B} needs {smem} bytes of shared memory "
-                             f"(limit {SMEM_LIMIT}); pass a smaller block")
-        batch, ho, zo = head[0], head[5], head[4]
-        if -(-ho // tile[1]) > 65535 or batch * -(-zo // tile[0]) > 65535:
-            raise ValueError(f"K2's grid cannot hold {tuple(out.shape)} in "
-                             f"blocks of {B}")
+        xt, pitch = _tma_operand(x)
+        lay = mxu_layout(plan, head, tile, t, x.element_size(), pitch, ents)
         err = self.library.get().ssam_mxu_window_launch(
-            x.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-            cvals.data_ptr(), dtaps.data_ptr(), ntaps, _round8(ntaps), *head,
-            plan.depth if nd == 3 else 1, plan.N, plan.M, t, *tile, smem,
+            xt.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
+            cvals.data_ptr(), table.data_ptr(),
+            (ctypes.c_int * len(lay.geom))(*lay.geom), len(lay.geom),
             torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"K2 launch failed: CUDA error {err} "

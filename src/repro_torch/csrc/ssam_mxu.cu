@@ -1,5 +1,8 @@
-// K2 on Hopper: the tensor-core strategy of the windowed-plan engine
-// (strategy="mxu"), single-channel plans.
+// K2 on Hopper, single-channel path: the tensor-core strategy of the
+// windowed-plan engine (strategy="mxu") for table and dense single-channel
+// plans: 2-D and 3-D stencils, conv2d valid, same and batched, t >= 1
+// fused time steps with pad-once semantics, fp32 or bf16 input and output
+// with fp32 sums.
 //
 // Replaces src/repro/core/engine.py::_apply_plan_mxu, the strategy="mxu"
 // body of _window_kernel (launched at the same pallas_call as K1): im2row
@@ -7,227 +10,514 @@
 // unit with an fp32 accumulator. Channel (NCHW) plans run K2's wgmma
 // kernel, ssam_mxu_tc.cu.
 //
-// mma.sync.m16n8k8 in TF32. TF32 keeps 10 mantissa bits, about three
-// digits, so for fp32 parity each operand is split, big = tf32(a) and
-// small = tf32(a - big), and big*big + big*small + small*big is
-// accumulated in fp32 (3xTF32; the dropped small*small term is about 2^-22
-// of the product). The tensor core's own fp32 accumulation truncates, so
-// each k-step's big*big product is added outside it, with a
-// round-to-nearest fp32 add (mma_3xtf32 in ssam_tf32.cuh). bf16 inputs are
-// upcast on load (their small part is 0) and the output is cast back.
+// Bound on an H100: the stencils and filters up to about 13 x 13 by
+// device-memory bytes (8192^2 fp32: 537 MB, 0.160 ms at 3.35 TB/s), the
+// largest footprints by the tensor cores: per output and tapped row the
+// kernel does 8 * ceil((span + 7) / 8) products, three times (3xTF32),
+// so conv 20 x 20 does about 258 GFLOP of TF32 products, 0.52 ms at 495
+// TFLOP/s.
 //
-// Single-channel path (Table-3 stencils 2-D and 3-D, conv2d valid, same and
-// batched): no channel axis fills M, so M = the tile's output positions (16
-// per fragment), K = the taps padded to 8 and N = 1 padded to 8: the
-// coefficient column is B ('table' plans: the plan's immediates) and only
-// column 0 of the 8 does work. A block stages its t-widened skirt once, as
-// K1 does (same tiles, same pad-once geometry), and each application reads
-// A[p][tap] = src[pos(p) + off(tap)] from it: the im2row operand is the
-// staged tile seen through the tap offsets. Every application but the last
-// writes its iterate back to shared memory (two buffers, ping-pong), the
-// last to device memory.
-//
-// Bound on an H100: the stencils and small filters are bound by
-// device-memory bytes (each input read once, each output written once).
-// This simple version spends 3 mma.sync per product on the split, gathers
-// every fragment with scalar shared loads, and wastes 7/8 of the columns;
-// more useful columns (several output shifts per B column, a Toeplitz B)
-// are the next step.
+// The design before this one (PR 14) put the tap set on K: every A element
+// was a scalar shared-memory gather through a tap offset, the coefficient
+// vector was B's only useful column (7 of 8 tensor-core columns multiplied
+// zeros), and each block staged its skirt with 4-byte loads before any
+// product started. This one:
+//  * Toeplitz coefficient tiles. The footprint's tapped rows (dz, r) are
+//    split into entries of at most 25 consecutive columns [cmin, cmin +
+//    span). For an entry, B_s[k][n] = c(dz, r, cmin + 8s + k - n) for the
+//    k-steps s < KK = ceil((span + 7) / 8): K walks a window of input
+//    columns, N = 8 consecutive output columns, and every column of every
+//    product is an output. A is the staged input itself, offset by (dz, r)
+//    rows and a column block: row m of a fragment is output row y0 + m
+//    (M = 16 rows), its k-th column the input column x0 + cmin + 8j + k.
+//    No im2row gather: a lane reads A from shared memory at a fixed
+//    offset from its row, and the row pitch is 4 mod 8 words, so the 32
+//    lanes of a fragment load hit 32 banks. The block builds the B tiles
+//    from the tap table in shared memory at its start.
+//  * A warp item is 16 output rows x 4 chunks of 8 columns of one slice.
+//    Input block j (8 columns) feeds chunk c at k-step j - c, so a
+//    fragment, split once, serves up to 4 products: an entry loads 4 + KK
+//    - 1 fragments for 4 KK products per chunk.
+//  * mma.sync m16n8k8 in TF32, not wgmma: wgmma's A from shared memory
+//    must sit in its core-matrix layout (8 rows x 16 bytes, rows
+//    contiguous), and the shifted-row A of an entry starts at any column,
+//    so it would need a copy per entry and shift; from registers it needs
+//    the same fragment loads as mma.sync, with 64-row tiles that leave
+//    most of a small tile's rows idle.
+//  * fp32 parity by 3xTF32 (ssam_tf32.cuh): each operand is split by
+//    truncation into big + small; big*big is accumulated in the tensor
+//    core over whole entries, at least 8 k-steps, then added to the fp32
+//    sum with a round-to-nearest add; big*small + small*big accumulate in
+//    the tensor core. The kernel is instantiated for the plan's largest
+//    entry (1 to 4 k-steps), so its fragment arrays are no larger. The Toeplitz zeros split to zeros. bf16 inputs are widened once
+//    per tile into an fp32 buffer; the output is cast back.
+//  * Inputs by TMA into a ring of 1-3 stages, persistent blocks, as K1's
+//    single-channel path (ssam_window.cuh): one thread keeps the next
+//    tiles' boxes in flight while the warps compute. A box starts at the
+//    16-byte aligned column at or below the tile's first input column
+//    (reads add the difference, `shift`), lands 128-byte aligned, and
+//    coordinates outside the tensor read zeros, so the plan's padding
+//    costs nothing. Boxes stack along y and z where a tile's input is
+//    taller than 256 rows or slices.
+//  * t > 1: every application but the last writes its iterate, fp32, to
+//    one of two shared buffers (ping-pong, pitch 4 mod 8); the iterate is
+//    not re-zeroed at the domain edge (pad-once semantics). The last
+//    application stores from the accumulators to device memory.
+// Reads past a source's last column or row (the columns a ragged chunk's
+// window covers, clamped rows) stay in shared memory the block zeroed at
+// its start, so every A element is finite and meets a zero coefficient:
+// the outputs they reach are never stored.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ssam_hopper.cuh"
 #include "ssam_tf32.cuh"
 
 namespace ssam {
 
-constexpr int kMThreads = 256;
-constexpr int kMWarps = kMThreads / 32;
+constexpr int kMxThreads = 256;
+constexpr int kMxWarps = kMxThreads / 32;
+constexpr int kMxRows = 16;      // output rows of an item (mma's M)
+constexpr int kMxChunks = 4;     // 8-column chunks of an item (mma's N each)
+constexpr int kMxFlush = 8;      // k-steps big*big sums in the tensor core
+constexpr int kMxMaxStages = 3;
+constexpr int kMxSlack = 64;     // words the over-reads may reach past a source
+constexpr int kMxGeomInts = 37;  // core/engine.py::MxuLayout.geom
+constexpr int kMxEntInts = 8;    // one entry's record in the table
 
-__device__ __forceinline__ float load_x(const void* x, int bf16, size_t i) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i])
-              : static_cast<const float*>(x)[i];
-}
-
-__device__ __forceinline__ void store_out(void* out, int bf16, size_t i,
-                                          float v) {
-  if (bf16)
-    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
-  else
-    static_cast<float*>(out)[i] = v;
-}
-
-// ---------------------------------------------------------------------------
-// Single-channel path
-// ---------------------------------------------------------------------------
-
-struct MxuWindowArgs {
-  const void* x;       // batch x (zin) x hin x win input, lane axis last
-  void* out;           // batch x (zo) x ho x wo output
-  int io_bf16;
+struct MxuArgs {
+  void* out;           // batch x zo x ho x wo output
+  int io_bf16;         // 1: bf16 input and output, 0: fp32
   const float* cvals;  // coefficient values
-  const int* taps;     // ntaps (dz, row, col, cidx) quadruples, plan order
-  int ntaps, tp;       // taps, and taps padded to 8
-  int batch, zin, hin, win, zo, ho, wo;
+  const int* table;    // entries x 8 ints, then their column tables
+  int ndim, D, N, M, t, nent;
+  int batch, zo, ho, wo;
   int lz, ly, lx;      // t * lead per axis: input index of output 0 is -lead
-  int D, N, M, t;
   int bz, bh, bw;      // output tile
+  int box_x, box_y, box_z, nby, nbz, sy, sz;
+  int stages, stage_bytes;
+  int pc;              // row pitch of the widened bf16 stage (words)
+  int c0_words, bufa_words, bufb_words, b_words;
+  int tiles_x, tiles_y, tiles_z, ntiles;
 };
 
-__global__ void __launch_bounds__(kMThreads) mxu_window_kernel(MxuWindowArgs a) {
-  extern __shared__ float smem[];
-  int* toff = reinterpret_cast<int*>(smem);  // tp tap offsets in the iterate
-  float* coef = smem + a.tp;                 // tp coefficients, 0 past ntaps
-  float* buf0 = coef + a.tp;
-  const int t = a.t;
-  float* buf1 = buf0 + (a.bz + t * (a.D - 1)) * (a.bh + t * (a.N - 1)) *
-                           (a.bw + t * (a.M - 1));
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+// A source of one application: element (z, y, col) at
+// p[z * plane + y * pitch + col + shift].
+struct MxSrc {
+  const float* p;
+  int pitch, plane, shift;
+};
+
+// One valid application on a source of extent (zs, hs, ws): the result
+// (zs-D+1, hs-N+1, ws-M+1) goes to dst (pitch dpitch) or, for the last
+// application, to the output tile at (b, oz0, oy0, ox0). KKM: the most
+// k-steps of an entry of the plan.
+template <int KKM>
+__device__ __forceinline__ void apply_mx(const MxuArgs& a, const MxSrc& src,
+                                         int zs, int hs, int ws, float* dst,
+                                         int dpitch, bool last, int b,
+                                         int oz0, int oy0, int ox0,
+                                         const int4* ent,
+                                         const float* btile) {
+  const int zd = zs - (a.D - 1), hd = hs - (a.N - 1), wd = ws - (a.M - 1);
+  const int nyg = (hd + kMxRows - 1) / kMxRows;
+  const int nxg = (wd + 8 * kMxChunks - 1) / (8 * kMxChunks);
+  const int per_z = nyg * nxg;
+  const int items = zd * per_z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, q = lane & 3;
-
-  for (int i = tid; i < a.tp; i += kMThreads)
-    coef[i] = i < a.ntaps ? a.cvals[a.taps[4 * i + 3]] : 0.f;
-
-  // This block's output tile, trimmed at the ragged edge of the domain.
-  const int tiles_z = (a.zo + a.bz - 1) / a.bz;
-  const int b = blockIdx.z / tiles_z;
-  const int oz0 = (blockIdx.z % tiles_z) * a.bz;
-  const int oy0 = blockIdx.y * a.bh, ox0 = blockIdx.x * a.bw;
-  const int tz = min(a.bz, a.zo - oz0), ty = min(a.bh, a.ho - oy0);
-  const int tx = min(a.bw, a.wo - ox0);
-  int ez = tz + t * (a.D - 1), ey = ty + t * (a.N - 1),
-      ex = tx + t * (a.M - 1);
-
-  // Stage the skirt once, reading x in place; zeros outside the domain.
-  const int iz0 = oz0 - a.lz, iy0 = oy0 - a.ly, ix0 = ox0 - a.lx;
-  const size_t iplane = (size_t)a.hin * a.win;
-  const size_t ibase = (size_t)b * a.zin * iplane;
-  for (int row = warp; row < ez * ey; row += kMWarps) {
-    const int gz = iz0 + row / ey, gy = iy0 + row % ey;
-    const bool row_in = gz >= 0 && gz < a.zin && gy >= 0 && gy < a.hin;
-    const size_t rbase = ibase + (size_t)gz * iplane + (size_t)gy * a.win;
-    for (int xx = lane; xx < ex; xx += 32) {
-      const int gx = ix0 + xx;
-      buf0[row * ex + xx] = (row_in && gx >= 0 && gx < a.win)
-                                ? load_x(a.x, a.io_bf16, rbase + gx)
-                                : 0.f;
+  for (int it = warp; it < items; it += kMxWarps) {
+    const int z = it / per_z;
+    const int r0 = it - z * per_z;
+    const int y0 = (r0 / nxg) * kMxRows, x0 = (r0 % nxg) * 8 * kMxChunks;
+    // rows past the source's last output row read that row (their sums
+    // are not stored)
+    const int ya = min(y0 + g, hd - 1), yb = min(y0 + g + 8, hd - 1);
+    // acc: the fp32 sum; hi: big*big in the tensor core since the last
+    // flush (whole entries, kMxFlush k-steps or more); cor: the cross terms
+    float acc[kMxChunks][4], cor[kMxChunks][4], hi[kMxChunks][4];
+#pragma unroll
+    for (int c = 0; c < kMxChunks; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[c][i] = cor[c][i] = hi[c][i] = 0.f;
+    int pend = 0;
+    for (int e = 0; e < a.nent; ++e) {
+      const int4 h = ent[2 * e];       // dz, r, cmin, KK
+      const int boff = ent[2 * e + 1].x;
+      const int kk = h.w;
+      const float* row = src.p + (z + h.x) * src.plane + x0 + h.z +
+                         src.shift + q;
+      const float* pa = row + (ya + h.y) * src.pitch;
+      const float* pb = row + (yb + h.y) * src.pitch;
+      // B fragments of the entry's k-steps: b0 = B[q][g], b1 = B[q + 4][g]
+      uint32_t bb[KKM][2], bs[KKM][2];
+      const float* bt = btile + boff + q * 8 + g;
+#pragma unroll
+      for (int s = 0; s < KKM; ++s) {
+        bb[s][0] = bb[s][1] = bs[s][0] = bs[s][1] = 0u;
+        if (s < kk) {
+          split_tf32_trunc(__float_as_uint(bt[s * 64]), bb[s][0], bs[s][0]);
+          split_tf32_trunc(__float_as_uint(bt[s * 64 + 32]), bb[s][1],
+                           bs[s][1]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kMxChunks + KKM - 1; ++j) {
+        if (j < kMxChunks + kk - 1) {
+          // A rows g and g + 8, columns q and q + 4 of input block j
+          uint32_t ab[4], as[4];
+          split_tf32_trunc(__float_as_uint(pa[8 * j]), ab[0], as[0]);
+          split_tf32_trunc(__float_as_uint(pb[8 * j]), ab[1], as[1]);
+          split_tf32_trunc(__float_as_uint(pa[8 * j + 4]), ab[2], as[2]);
+          split_tf32_trunc(__float_as_uint(pb[8 * j + 4]), ab[3], as[3]);
+#pragma unroll
+          for (int c = 0; c < kMxChunks; ++c) {
+            const int s = j - c;  // the k-step block j is for chunk c
+            const int si = s < 0 ? 0 : (s < KKM ? s : 0);
+            if (s >= 0 && s < KKM && s < kk) {
+              mma_tf32(hi[c], ab, bb[si]);
+              mma_tf32(cor[c], as, bb[si]);
+              mma_tf32(cor[c], ab, bs[si]);
+            }
+          }
+        }
+      }
+      pend += kk;
+      if (pend >= kMxFlush || e == a.nent - 1) {
+        // the tensor core's fp32 sums truncate: big*big goes to the sum
+        // with a round-to-nearest add every few k-steps
+#pragma unroll
+        for (int c = 0; c < kMxChunks; ++c)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[c][i] += hi[c][i];
+            hi[c][i] = 0.f;
+          }
+        pend = 0;
+      }
     }
-  }
-
-  const size_t oplane = (size_t)a.ho * a.wo;
-  const size_t obase = (size_t)b * a.zo * oplane;
-  float* src = buf0;
-  float* dst = buf1;
-  for (int k = 0; k < t; ++k) {
-    const bool last = k == t - 1;
-    for (int i = tid; i < a.tp; i += kMThreads)
-      toff[i] = i < a.ntaps ? (a.taps[4 * i] * ey + a.taps[4 * i + 1]) * ex +
-                                  a.taps[4 * i + 2]
-                            : 0;
-    __syncthreads();  // the iterate and its tap offsets are in
-    const int dz = ez - (a.D - 1), dy = ey - (a.N - 1), dx = ex - (a.M - 1);
-    const int dplane = dy * dx;
-    const int npos = dz * dplane;
-    for (int p0 = warp * 16; p0 < npos; p0 += kMWarps * 16) {
-      // A rows g and g+8: output positions p0 + g and p0 + g + 8 (clamped
-      // in the last tile; their sums are not stored)
-      int off[2];
+    // the accumulator: d[0], d[1] row g, columns 2q, 2q + 1; d[2], d[3]
+    // row g + 8
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = min(p0 + g + 8 * h, npos - 1);
-        const int z = p / dplane, r = p - z * dplane;
-        const int y = r / dx;
-        off[h] = (z * ey + y) * ex + (r - y * dx);
-      }
-      float d[4] = {0.f, 0.f, 0.f, 0.f}, cor[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int k0 = 0; k0 < a.tp; k0 += 8) {
-        const int ka = k0 + q, kb = ka + 4;
-        const bool va = ka < a.ntaps, vb = kb < a.ntaps;
-        const int oa = toff[ka], ob = toff[kb];
-        uint32_t ab[4], as[4], bb[2], bs[2];
-        split_tf32(va ? src[off[0] + oa] : 0.f, ab[0], as[0]);
-        split_tf32(va ? src[off[1] + oa] : 0.f, ab[1], as[1]);
-        split_tf32(vb ? src[off[0] + ob] : 0.f, ab[2], as[2]);
-        split_tf32(vb ? src[off[1] + ob] : 0.f, ab[3], as[3]);
-        // B: the coefficient column is column 0 (held by group 0)
-        split_tf32(g == 0 ? coef[ka] : 0.f, bb[0], bs[0]);
-        split_tf32(g == 0 ? coef[kb] : 0.f, bb[1], bs[1]);
-        mma_3xtf32(d, cor, ab, as, bb, bs);
-      }
-      if (q == 0) {  // column 0 of the accumulator: d[0] row g, d[2] row g+8
+    for (int c = 0; c < kMxChunks; ++c) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int p = p0 + g + 8 * h;
-          if (p >= npos) continue;
-          const float v = d[2 * h] + cor[2 * h];
-          if (last) {
-            const int z = p / dplane, r = p - z * dplane;
-            const int y = r / dx;
-            store_out(a.out, a.io_bf16,
-                      obase + (size_t)(oz0 + z) * oplane +
-                          (size_t)(oy0 + y) * a.wo + (ox0 + r - y * dx),
-                      v);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int y = y0 + g + 8 * hh;
+        const int x = x0 + 8 * c + 2 * q;
+        if (y >= hd || x >= wd) continue;
+        const float v0 = acc[c][2 * hh] + cor[c][2 * hh];
+        const float v1 = acc[c][2 * hh + 1] + cor[c][2 * hh + 1];
+        const bool two = x + 1 < wd;
+        if (!last) {
+          float* d = dst + (z * hd + y) * dpitch + x;
+          d[0] = v0;
+          if (two) d[1] = v1;
+          continue;
+        }
+        const size_t go =
+            (((size_t)b * a.zo + oz0 + z) * a.ho + oy0 + y) * a.wo + ox0 + x;
+        if (a.io_bf16) {
+          __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.out) + go;
+          if (two && (go & 1) == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(o) =
+                __floats2bfloat162_rn(v0, v1);
           } else {
-            dst[p] = v;
+            o[0] = __float2bfloat16(v0);
+            if (two) o[1] = __float2bfloat16(v1);
+          }
+        } else {
+          float* o = static_cast<float*>(a.out) + go;
+          if (two && (go & 1) == 0) {
+            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          } else {
+            o[0] = v0;
+            if (two) o[1] = v1;
           }
         }
       }
     }
-    __syncthreads();  // the iterate is written before it is read
-    ez = dz;
-    ey = dy;
-    ex = dx;
-    float* tmp = src;
-    src = dst;
-    dst = tmp;
   }
+}
+
+// Thread 0: the TMA boxes of tile `tile` into the stage at dst, completing
+// on bar. A 2-D plan's map is (W, H, batch), a 3-D plan's (W, H, Z, batch).
+__device__ __forceinline__ void issue_mx_tile(const CUtensorMap* xmap,
+                                              const MxuArgs& a, int tile,
+                                              uint32_t dst, uint32_t bar) {
+  const int tx = tile % a.tiles_x;
+  int r = tile / a.tiles_x;
+  const int ty = r % a.tiles_y;
+  r /= a.tiles_y;
+  const int tz = r % a.tiles_z, b = r / a.tiles_z;
+  const int per = a.io_bf16 ? 8 : 4;  // elements of 16 bytes
+  const int ix0 = tx * a.bw - a.lx;
+  const int x0 = ix0 - ((ix0 % per) + per) % per;  // aligned at or below
+  const int y0 = ty * a.bh - a.ly, z0 = tz * a.bz - a.lz;
+  const int es = a.io_bf16 ? 2 : 4;
+  const uint32_t box = a.box_x * a.box_y * a.box_z * es;
+  mbar_expect_tx(bar, box * a.nby * a.nbz);
+  for (int jz = 0; jz < a.nbz; ++jz)
+    for (int jy = 0; jy < a.nby; ++jy) {
+      const uint32_t off =
+          (jz * a.box_z * a.sy + jy * a.box_y) * a.box_x * es;
+      if (a.ndim == 2)
+        tma_load_3d(dst + off, xmap, bar, x0, y0 + jy * a.box_y, b);
+      else
+        tma_load_4d(dst + off, xmap, bar, x0, y0 + jy * a.box_y,
+                    z0 + jz * a.box_z, b);
+    }
+}
+
+template <int KKM>
+__global__ void __launch_bounds__(kMxThreads, 2)
+    mxu_window_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ MxuArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  // the ring first, 128-byte aligned; then the fp32 buffers and the slack
+  // the over-reads reach (all zeroed here), the B tiles, the entries and
+  // the barriers
+  uint8_t* ring = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
+  float* c0 = reinterpret_cast<float*>(ring + a.stages * a.stage_bytes);
+  float* bufa = c0 + a.c0_words;
+  float* bufb = bufa + a.bufa_words;
+  float* btile = bufb + a.bufb_words + kMxSlack;
+  int4* ent = reinterpret_cast<int4*>(btile + a.b_words);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ent + 2 * a.nent);
+
+  const int tid = threadIdx.x;
+  {
+    float4* z4 = reinterpret_cast<float4*>(ring);
+    const int n4 = (a.stages * a.stage_bytes) / 16 +
+                   (a.c0_words + a.bufa_words + a.bufb_words + kMxSlack) / 4;
+    for (int k = tid; k < n4; k += kMxThreads)
+      z4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // the entries (dz, r, cmin, KK | B offset, span, column table) and
+  // their Toeplitz tiles B_s[k][n] = c(dz, r, cmin + 8s + k - n)
+  for (int e = tid; e < a.nent; e += kMxThreads) {
+    const int* h = a.table + kMxEntInts * e;
+    ent[2 * e] = make_int4(h[0], h[1], h[2], h[4]);
+    ent[2 * e + 1] = make_int4(h[5], h[3], h[6], 0);
+  }
+  for (int e = 0; e < a.nent; ++e) {
+    const int* h = a.table + kMxEntInts * e;
+    const int span = h[3], kk = h[4], boff = h[5];
+    const int* col = a.table + h[6];
+    for (int i = tid; i < kk * 64; i += kMxThreads) {
+      const int s = i >> 6, k = (i >> 3) & 7, n = i & 7;
+      const int qq = 8 * s + k - n;
+      const int ci = (qq >= 0 && qq < span) ? col[qq] : -1;
+      btile[boff + i] = ci >= 0 ? a.cvals[ci] : 0.f;
+    }
+  }
+  fence_proxy_async();  // the zeroed ring before TMA writes it
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) mbar_init(smem_addr(&full[s]), 1);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  const int G = gridDim.x;
+  if (tid == 0)
+    for (int s = 0; s < a.stages; ++s) {
+      const int tile = blockIdx.x + s * G;
+      if (tile < a.ntiles)
+        issue_mx_tile(&xmap, a, tile, smem_addr(ring + s * a.stage_bytes),
+                      smem_addr(&full[s]));
+    }
+
+  const int t = a.t;
+  const int per = a.io_bf16 ? 8 : 4;
+  int i = 0;
+  for (int tile = blockIdx.x; tile < a.ntiles; tile += G, ++i) {
+    const int s = i % a.stages;
+    uint8_t* stage = ring + s * a.stage_bytes;
+    const int txi = tile % a.tiles_x;
+    int r = tile / a.tiles_x;
+    const int tyi = r % a.tiles_y;
+    r /= a.tiles_y;
+    const int tzi = r % a.tiles_z, b = r / a.tiles_z;
+    const int oz0 = tzi * a.bz, oy0 = tyi * a.bh, ox0 = txi * a.bw;
+    const int tz = min(a.bz, a.zo - oz0), ty = min(a.bh, a.ho - oy0);
+    const int tx = min(a.bw, a.wo - ox0);
+    const int ix0 = ox0 - a.lx;
+    const int shift = ((ix0 % per) + per) % per;
+    int zs = tz + t * (a.D - 1), hs = ty + t * (a.N - 1),
+        ws = tx + t * (a.M - 1);
+
+    mbar_wait(smem_addr(&full[s]), (i / a.stages) & 1);
+    MxSrc src{reinterpret_cast<const float*>(stage), a.box_x,
+              a.sy * a.box_x, shift};
+    bool refilled = false;
+    if (a.io_bf16) {  // widen once into c0, rows at pitch pc
+      const __nv_bfloat16* sb = reinterpret_cast<const __nv_bfloat16*>(stage);
+      const int rows = a.sz * a.sy;
+      for (int k = tid; k < rows * a.box_x; k += kMxThreads) {
+        const int rr = k / a.box_x, xx = k - rr * a.box_x;
+        c0[rr * a.pc + xx] = __bfloat162float(sb[k]);
+      }
+      __syncthreads();  // the stage is read: refill it
+      if (tid == 0 && tile + a.stages * G < a.ntiles)
+        issue_mx_tile(&xmap, a, tile + a.stages * G, smem_addr(stage),
+                      smem_addr(&full[s]));
+      refilled = true;
+      src = MxSrc{c0, a.pc, a.sy * a.pc, shift};
+    }
+    for (int k = 0; k < t; ++k) {
+      const bool last = k == t - 1;
+      float* dst = (k & 1) ? bufb : bufa;
+      const int dpitch = (ws - (a.M - 1) + 4) / 8 * 8 + 4;  // >= width, 4 mod 8
+      apply_mx<KKM>(a, src, zs, hs, ws, dst, dpitch, last, b, oz0, oy0, ox0,
+                    ent, btile);
+      __syncthreads();
+      if (!refilled && tid == 0 && tile + a.stages * G < a.ntiles)
+        issue_mx_tile(&xmap, a, tile + a.stages * G, smem_addr(stage),
+                      smem_addr(&full[s]));  // the stage is read: refill it
+      refilled = true;
+      zs -= a.D - 1;
+      hs -= a.N - 1;
+      ws -= a.M - 1;
+      src = MxSrc{dst, dpitch, hs * dpitch, 0};
+    }
+  }
+}
+
+using MxuKernelFn = decltype(&mxu_window_kernel<1>);
+
+MxuKernelFn pick_mxu(int kkmax) {
+  switch (kkmax) {
+    case 1: return mxu_window_kernel<1>;
+    case 2: return mxu_window_kernel<2>;
+    case 3: return mxu_window_kernel<3>;
+    case 4: return mxu_window_kernel<4>;
+  }
+  return nullptr;
 }
 
 }  // namespace ssam
 
-// Plain C entry of K2's single-channel path, loaded with ctypes.
-extern "C" int ssam_mxu_window_launch(
-    const void* x, void* out, int io_bf16, const float* cvals, const int* taps,
-    int ntaps, int tp, int batch, int zin, int hin, int win, int zo, int ho,
-    int wo, int lz, int ly, int lx, int D, int N, int M, int t, int bz,
-    int bh, int bw, int smem_bytes, void* stream) {
-  if (ntaps < 1 || tp < ntaps || tp % 8 || t < 1 || D < 1 || N < 1 ||
-      M < 1 || bz < 1 || bh < 1 || bw < 1 || zo < 1 || ho < 1 || wo < 1)
-    return (int)cudaErrorInvalidValue;
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ssam::mxu_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  ssam::MxuWindowArgs a;
-  a.x = x;
+// Plain C entry of K2's single-channel path, loaded with ctypes. `geom`
+// holds core/engine.py::MxuLayout.geom, kMxGeomInts ints:
+//   ndim, D, N, M, t, nent, batch, zin, hin, win, pitch (x's row pitch),
+//   zo, ho, wo, lz, ly, lx, bz, bh, bw, box_x, box_y, box_z, nby, nbz,
+//   stages, stage_bytes, pc, c0_words, bufa_words, bufb_words, b_words,
+//   table_ints, smem_bytes, grid, slack, kkmax (the most k-steps of an
+//   entry);
+// `table` on the card holds the entries (dz, r, cmin, span, KK, B offset,
+// column table offset, 0) and their column tables (per column of the
+// span: an index into cvals, or -1). Returns a cudaError_t, or kTmaError +
+// the CUresult where the tensor map cannot be encoded.
+extern "C" int ssam_mxu_window_launch(const void* x, void* out, int io_bf16,
+                                      const float* cvals, const int* table,
+                                      const int* geom, int ngeom,
+                                      void* stream) {
+  using namespace ssam;
+  if (ngeom != kMxGeomInts) return (int)cudaErrorInvalidValue;
+  const int* g = geom;
+  MxuArgs a;
   a.out = out;
   a.io_bf16 = io_bf16;
   a.cvals = cvals;
-  a.taps = taps;
-  a.ntaps = ntaps;
-  a.tp = tp;
-  a.batch = batch;
-  a.zin = zin;
-  a.hin = hin;
-  a.win = win;
-  a.zo = zo;
-  a.ho = ho;
-  a.wo = wo;
-  a.lz = lz;
-  a.ly = ly;
-  a.lx = lx;
-  a.D = D;
-  a.N = N;
-  a.M = M;
-  a.t = t;
-  a.bz = bz;
-  a.bh = bh;
-  a.bw = bw;
-  const int tiles_z = (zo + bz - 1) / bz;
-  dim3 grid((wo + bw - 1) / bw, (ho + bh - 1) / bh, batch * tiles_z);
-  ssam::mxu_window_kernel<<<grid, ssam::kMThreads, smem_bytes,
-                            static_cast<cudaStream_t>(stream)>>>(a);
+  a.table = table;
+  a.ndim = g[0];
+  a.D = g[1];
+  a.N = g[2];
+  a.M = g[3];
+  a.t = g[4];
+  a.nent = g[5];
+  a.batch = g[6];
+  const int zin = g[7], hin = g[8], win = g[9], pitch = g[10];
+  a.zo = g[11];
+  a.ho = g[12];
+  a.wo = g[13];
+  a.lz = g[14];
+  a.ly = g[15];
+  a.lx = g[16];
+  a.bz = g[17];
+  a.bh = g[18];
+  a.bw = g[19];
+  a.box_x = g[20];
+  a.box_y = g[21];
+  a.box_z = g[22];
+  a.nby = g[23];
+  a.nbz = g[24];
+  a.stages = g[25];
+  a.stage_bytes = g[26];
+  a.pc = g[27];
+  a.c0_words = g[28];
+  a.bufa_words = g[29];
+  a.bufb_words = g[30];
+  a.b_words = g[31];
+  const int table_ints = g[32], smem_bytes = g[33], grid = g[34];
+  const int slack = g[35], kkmax = g[36];
+  MxuKernelFn fn = pick_mxu(kkmax);
+  a.sy = a.nby * a.box_y;
+  a.sz = a.nbz * a.box_z;
+  a.tiles_x = (a.wo + a.bw - 1) / a.bw;
+  a.tiles_y = (a.ho + a.bh - 1) / a.bh;
+  a.tiles_z = (a.zo + a.bz - 1) / a.bz;
+  const long long ntiles = (long long)a.batch * a.tiles_z * a.tiles_y *
+                           a.tiles_x;
+  a.ntiles = (int)ntiles;
+  const int es = io_bf16 ? 2 : 4;
+  const long long box_bytes =
+      (long long)a.box_x * a.box_y * a.box_z * es * a.nby * a.nbz;
+  if (fn == nullptr || (a.ndim != 2 && a.ndim != 3) ||
+      (a.ndim == 2 && a.D != 1) ||
+      a.nent < 1 || a.D < 1 || a.N < 1 || a.M < 1 || a.t < 1 ||
+      a.batch < 1 || a.zo < 1 || a.ho < 1 || a.wo < 1 || a.bz < 1 ||
+      a.bh < 1 || a.bw < 1 || ntiles > 0x7fffffffLL || grid < 1 ||
+      grid > a.ntiles || slack != kMxSlack || table_ints < kMxEntInts * a.nent ||
+      a.box_x < 1 || a.box_x > 256 || a.box_y < 1 || a.box_y > 256 ||
+      a.box_z < 1 || a.box_z > 256 || (a.box_x * es) % 16 ||
+      (a.nbz > 1 && a.nby > 1 && a.box_z > 1) ||
+      a.sy < a.bh + a.t * (a.N - 1) || a.sz < a.bz + a.t * (a.D - 1) ||
+      a.box_x < a.bw + a.t * (a.M - 1) + 16 / es - 1 ||
+      a.stages < 1 || a.stages > kMxMaxStages || a.stage_bytes % 128 ||
+      a.stage_bytes < box_bytes ||
+      (a.nby > 1 && (a.box_y * a.box_x * es) % 128) ||
+      (a.nbz > 1 && (a.box_z * a.sy * a.box_x * es) % 128) ||
+      (io_bf16 && (a.pc < a.box_x || a.c0_words < a.sz * a.sy * a.pc)) ||
+      a.c0_words % 4 || a.bufa_words % 4 || a.bufb_words % 4 ||
+      (pitch * es) % 16 || pitch < win ||
+      (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (reinterpret_cast<uintptr_t>(out) & 15))
+    return (int)cudaErrorInvalidValue;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const CUtensorMapDataType dt = io_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const cuuint64_t row = (cuuint64_t)pitch * es;
+  CUtensorMap xmap;
+  CUresult r;
+  if (a.ndim == 2) {
+    const cuuint64_t dim[3] = {(cuuint64_t)win, (cuuint64_t)hin,
+                               (cuuint64_t)a.batch};
+    const cuuint64_t str[2] = {row, row * hin};
+    const cuuint32_t box[3] = {(cuuint32_t)a.box_x, (cuuint32_t)a.box_y, 1};
+    r = encode(&xmap, dt, 3, const_cast<void*>(x), dim, str, box, ones,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  } else {
+    const cuuint64_t dim[4] = {(cuuint64_t)win, (cuuint64_t)hin,
+                               (cuuint64_t)zin, (cuuint64_t)a.batch};
+    const cuuint64_t str[3] = {row, row * hin, row * hin * zin};
+    const cuuint32_t box[4] = {(cuuint32_t)a.box_x, (cuuint32_t)a.box_y,
+                               (cuuint32_t)a.box_z, 1};
+    r = encode(&xmap, dt, 4, const_cast<void*>(x), dim, str, box, ones,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  }
+  if (r != CUDA_SUCCESS) return kTmaError + (int)r;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  fn<<<grid, kMxThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      xmap, a);
   return (int)cudaGetLastError();
 }

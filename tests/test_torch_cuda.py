@@ -598,6 +598,53 @@ def test_mxu_conv2d_matches_plain_version(cuda, mode, fshape):
     _close(got, ref.conv2d_batched(xs, w[:5, :5], mode), 1e-4)
 
 
+# K2's single-channel path (Toeplitz tiles, TMA ring): (tag, grid shape,
+# plan, filter shape or None, t, block, dtype); ragged edges, 3-D, t = 2,
+# bf16, a one-column filter and the 1024-tap footprint
+def _mxu_single_cases():
+    sd = stencils.BENCHMARKS
+    s2, s3 = ssam_stencil2d.plan_for, ssam_stencil3d.plan_for
+    return [
+        ("2d13pt ragged", (131, 259), s2(sd["2d13pt"]), None, 1, (13, 29),
+         "float32"),
+        ("3d125pt", (21, 30, 75), s3(sd["3d125pt"]), None, 1, None,
+         "float32"),
+        ("3d7pt t=2 ragged", (19, 23, 67), s3(sd["3d7pt"]), None, 2,
+         (3, 7, 21), "float32"),
+        ("conv 7x7 t=2", (131, 259), ssam_conv2d.plan_for((7, 7), "same"),
+         (7, 7), 2, None, "float32"),
+        ("2d25pt bf16 t=2", (131, 259), s2(sd["2d25pt"]), None, 2, None,
+         "bfloat16"),
+        ("conv 9x1 one column", (131, 259),
+         ssam_conv2d.plan_for((9, 1), "same"), (9, 1), 1, (16, 40),
+         "float32"),
+        ("conv 32x32 1024 taps", (131, 259),
+         ssam_conv2d.plan_for((32, 32), "same"), (32, 32), 1, None,
+         "float32"),
+    ]
+
+
+@pytest.mark.parametrize("case", _mxu_single_cases(), ids=lambda c: c[0])
+def test_mxu_single_channel_kernel_matches_plain_version(cuda, case):
+    """K2's single-channel kernel against its plain version (and the CPU
+    walk of its schedule), one launch a call, two calls equal bits."""
+    tag, shape, p, fshape, t, block, dt = case
+    p = dataclasses.replace(p, strategy="mxu")
+    x = _grid(shape, cuda, 41).to(getattr(torch, dt))
+    w = None if fshape is None else _grid(fshape, cuda, 42)
+    before = engine.MXU_KERNEL.launches
+    got = engine.run_window_plan(x, w, plan=p, block=block, time_steps=t)
+    assert engine.MXU_KERNEL.launches == before + 1
+    rtol = 3e-5 if dt == "float32" else 3e-2
+    _close(got.float(), engine.run_window_plan_reference(
+        x, w, plan=p, block=block, time_steps=t).float(), rtol)
+    _close(got.float().cpu(), engine.emulate_mxu_kernel(
+        x.cpu(), None if w is None else w.cpu(), plan=p, block=block,
+        time_steps=t).float(), rtol)
+    again = engine.run_window_plan(x, w, plan=p, block=block, time_steps=t)
+    assert torch.equal(got, again)           # no atomics: deterministic
+
+
 # K2's channel path: REDUCE_CASES, C_out 200 on 23 rows (a second channel
 # tile 72 wide) and a 9x9 filter at stride 3, whose forward stages x a
 # k-block at a time
@@ -859,6 +906,39 @@ def test_conv1d_gradients_on_the_card_match_the_cpu(cuda, monkeypatch):
     for got, want in zip(grads[str(cuda)], grads["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4,
                                    atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("chain", [(), ("bias", "silu"), ("relu",),
+                                   ("bias", "gelu", ("scale", 0.5)),
+                                   ("silu",)], ids=str)
+@pytest.mark.parametrize("D", [99, 3200])
+def test_perlane_rows_and_chains(cuda, D, chain):
+    """K1's per-lane path at an odd T (131) for D = 99 (masked element-wise
+    rows) and 3200 (16-byte rows), every epilogue instance (the last the
+    generic one), fp32 and bf16, forward and dx, each against the plain
+    version and twice for equal bits."""
+    x, w, b, g = _perlane_data(2, 131, D, 4, cuda, 9)
+    p = ssam_conv1d.plan_for(4)
+    pe = dataclasses.replace(p, epilogue=normalize_epilogue(chain) if chain
+                             else ())
+    args = (b,) if "bias" in chain else ()
+    a = adjoint.input_adjoint_plan(p)
+    for dt, rtol in (("float32", 3e-5), ("bfloat16", 3e-2)):
+        xx, gg = x.to(getattr(torch, dt)), g.to(getattr(torch, dt))
+        for pl, inp, ea in ((pe, xx, args), (a, gg, ())):
+            before = engine.WINDOW_KERNEL.launches
+            got = engine.run_window_plan(inp, w, plan=pl, epilogue_args=ea)
+            assert engine.WINDOW_KERNEL.launches == before + 1
+            assert got.dtype == inp.dtype
+            _close(got.float(), engine.run_window_plan_reference(
+                inp, w, plan=pl, epilogue_args=ea).float(), rtol)
+            assert torch.equal(got, engine.run_window_plan(
+                inp, w, plan=pl, epilogue_args=ea))
+    # inputs far into SiLU's tails: exp(-v) overflows to inf (gives 0)
+    xl = 60 * x
+    _close(engine.run_window_plan(xl, w, plan=pe, epilogue_args=args),
+           engine.run_window_plan_reference(xl, w, plan=pe,
+                                            epilogue_args=args))
 
 
 def test_perlane_bad_calls_raise_on_the_card(cuda):
