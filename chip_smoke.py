@@ -36,7 +36,11 @@ Phases, one JSON line each:
    ``HMMA``, ``HGMMA``, ``UTMALDG`` and ``LDS`` counts (none may spill;
    each must hold ``HMMA`` and ``UTMALDG``), and per instance of K1's
    per-lane kernel its registers (none may spill), with the path's
-   ``LDG.E.128``, ``STG.E.128``, ``LDGSTS`` and ``LDS.128`` counts;
+   ``LDG.E.128``, ``STG.E.128``, ``LDGSTS`` and ``LDS.128`` counts, and
+   per width bucket of K3's single-channel kernel (``engine.WGRAD_M_BUCKETS``,
+   fp32 and bf16) its
+   registers (none may spill), with the path's ``FFMA``, ``LDS``,
+   ``UTMALDG`` and ``SHFL`` counts;
 2. stencils and 3. convolution: every case against the plain torch
    version on the card, ``rtol=3e-5, atol=3e-5·max|plain|`` (bf16:
    3e-2), and small cases against the torch oracles;
@@ -87,7 +91,7 @@ Phases, one JSON line each:
    (3, 3); rows of 17 and 257 fp32 columns; bf16 rows of 1500), each
    forward and phased dx, the dW of both (conv2's on the strided cotangent, and again on
    the cotangent scattered onto the dense lattice; once more in bf16),
-   one single-channel 5×5 dW at 8192² and one bf16 forward, each against
+   and one bf16 forward, each against
    its plain version on the card (fp32 rtol 1e-4, atol 1e-4·max|plain|;
    bf16 3e-2), and each K3 call twice for equal bits; (b) the stem's
    gradients (both
@@ -112,6 +116,19 @@ Phases, one JSON line each:
    only (its K3 kernels equal to the counter, its K1 kernels recorded);
    these steps run in a fresh process (``--profile-train-step``), since
    after phase 7 this process's traces lose some of K1's launches;
+   (e) K3's single-channel path ('same' at 8192² fp32 with filters 5×5,
+   3×3, 9×9 and 20×20, a batched (16, 2048, 2048) 5×5 and a bf16 5×5):
+   each against its plain version (fp32 1e-4, bf16 3e-2), twice for equal
+   bits, K3's counter (zeroed before) at ``launches_for``, then its
+   device and call times beside its bound (fp32 FMAs, or the bytes), the
+   plain version, the earlier kernel in turns where the probe offers one,
+   and ``conv2d_weight`` on 5×5 fp32 (3 calls: seconds each); (f) a 1 GiB
+   device-to-device ``copy_``: the card's sustainable bandwidth beside
+   the published 3.35 TB/s; (g) the op path: one training step of a
+   learned 5×5 filter on an 8192² field (``ops.conv2d``, a squared
+   error, ``backward()``), its counters (zeroed before) at K1 1 and K3
+   ``launches_for``, ``w.grad`` against autograd through the plain
+   versions (1e-4), its device time and K3's share of it;
 9. tensor cores: (a) the 15 stencils at 8192² / 512³, t ∈ {1, 2}, and
    the 'same' filter sweep at 8192² with ``strategy="mxu"`` through K2,
    each against the plain mxu version on the card (fp32 rtol 3e-5; one
@@ -256,6 +273,22 @@ REDUCE_EDGE_CASES = [
 # K2's channel path on the same edge cases, C_out 200 on 23 rows (a second
 # channel tile 72 wide) and a 9x9 filter at stride 3 whose forward stages x
 # a k-block at a time (tests/test_torch_cuda.py)
+# K3's single-channel path in phase 8, 'same' mode: (tag, x shape,
+# filter, dtype); the first is the row of the kernel table
+WGRAD_ROWS_CASES = [
+    ("5x5 'same' 8192x8192 fp32", (8192, 8192), (5, 5), "float32"),
+    ("3x3 'same' 8192x8192 fp32", (8192, 8192), (3, 3), "float32"),
+    ("9x9 'same' 8192x8192 fp32", (8192, 8192), (9, 9), "float32"),
+    ("20x20 'same' 8192x8192 fp32", (8192, 8192), (20, 20), "float32"),
+    ("5x5 'same' batched (16,2048,2048) fp32", (16, 2048, 2048), (5, 5),
+     "float32"),
+    ("5x5 'same' 8192x8192 bf16 in", (8192, 8192), (5, 5), "bfloat16"),
+    ("32x32 'same' 8192x8192 fp32, two tiles", (8192, 8192), (32, 32),
+     "float32"),
+]
+WGRAD_ROWS_HEADLINE = "K3 single-channel " + WGRAD_ROWS_CASES[0][0]
+COPY_BYTES = 1 << 30            # the bandwidth probe's copy: 1 GiB each way
+STEP_SHAPE = (8192, 8192)       # the op path's field (phase 8 (g))
 MXU_EDGE_CASES = REDUCE_EDGE_CASES + [
     ((1, 16, 23, 300), (200, 16, 1, 3), "same", (1, 1), ("bias", "gelu"),
      "float32"),
@@ -726,12 +759,6 @@ def train_phase(args, dev, card, results) -> dict:
     phased_ref = engine.run_adjoint_phases_reference
     g2d = torch.zeros_like(c["g1"])
     g2d[..., ::2] = c["g2"]                      # the scattered cotangent
-    rng = np.random.default_rng(args.seed + 4)
-    x8k = torch.as_tensor(rng.standard_normal((8192, 8192), np.float32),
-                          device=dev)
-    g8k = torch.as_tensor(rng.standard_normal((8192, 8192), np.float32),
-                          device=dev)
-    p8k = ssam_conv2d.plan_for((5, 5), "same")
     ref = engine.run_window_plan_reference
     wref = engine.run_weight_grad_plan_reference
     run, wrun = engine.run_window_plan, engine.run_weight_grad_plan
@@ -800,11 +827,6 @@ def train_phase(args, dev, card, results) -> dict:
          lambda: torch.nn.grad.conv2d_weight(
              c["x2"], c["w2"].shape, c["g2"], stride=(1, 2), padding=(0, 1)),
          K3),
-        ("K3 dense (N, M) 5x5 'same' 8192x8192 -> (5,5)",
-         lambda: wrun(x8k, g8k, plan=p8k), lambda: wref(x8k, g8k, plan=p8k),
-         F32, 2 * 25 * 8192 * 8192, 4 * (2 * 8192 * 8192 + 25),
-         lambda: torch.nn.grad.conv2d_weight(
-             x8k[None, None], (1, 1, 5, 5), g8k[None, None], padding=2), K3),
         ("K1 conv2 forward bf16 I/O",
          lambda: run(x2_bf16, c["w2"], plan=p2, epilogue_args=(c["b2"],)),
          lambda: ref(x2_bf16, c["w2"], plan=p2, epilogue_args=(c["b2"],)),
@@ -934,16 +956,14 @@ def train_phase(args, dev, card, results) -> dict:
         if "bf16" in tag:
             continue
         ms = device_ms(kern, 20)
-        # cuDNN's single-channel 5x5 weight gradient takes seconds a call
-        lib_reps = 3 if "(N, M)" in tag else 20
         rec = {"case": tag, "ms": ms, "call_ms": event_ms(kern, 20),
                "plain_ms": device_ms(plain, 3),
-               "library_ms": device_ms(lib, lib_reps),
+               "library_ms": device_ms(lib, 20),
                "bound_ms": max(b_ms, f_ms),
                "bound_by": "bytes" if b_ms >= f_ms else "operations",
                "gflop": flops / 1e9, "bytes": nbytes,
                "roofline_share": max(b_ms, f_ms) / ms, "card": card}
-        if kernel is K3 and "(N, M)" not in tag:
+        if kernel is K3:
             # K3's channel path runs on the tensor cores: its bound as K2's,
             # the operations counted once at the TF32 rate, the fp32 bound
             # beside it; cuDNN also with TF32 on (less precise)
@@ -985,7 +1005,9 @@ def train_phase(args, dev, card, results) -> dict:
         require(trace["k3_calls"] == trace["k3_launches"] == k3_step,
                 ("profiled K3 kernels against the counter",
                  trace["k3_calls"], trace["k3_launches"], k3_step))
+    rows = wgrad_rows_phase(args, dev, card, results)
     return {"k1_launches": k1, "k3_launches": k3, "k3_step": k3_step,
+            "k3_rows": rows,
             "worst": worst, "first_loss": res.losses[0], "step_ms": step_ms,
             "k3_headline": next(r for r in results["times"]
                                 if r["case"].startswith("K3 conv2 dW on")),
@@ -994,6 +1016,148 @@ def train_phase(args, dev, card, results) -> dict:
             "k1_headline": next(r for r in results["times"]
                                 if r["case"].startswith(
                                     "K1 conv2 dx, phases"))}
+
+
+def copy_bandwidth(card) -> dict:
+    """The card's sustainable bandwidth: a 1 GiB device-to-device
+    ``copy_`` (1 GiB read, 1 GiB written) timed with CUDA events."""
+    import torch
+
+    src = torch.empty(COPY_BYTES // 4, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    src.fill_(1.0)
+    ms = event_ms(lambda: dst.copy_(src), 20)
+    rec = {"bytes": 2 * COPY_BYTES, "ms": ms,
+           "gb_per_s": 2 * COPY_BYTES / (ms * 1e-3) / 1e9,
+           "published_gb_per_s": HBM_BYTES_PER_S / 1e9, "card": card}
+    del src, dst
+    return rec
+
+
+def wgrad_rows_phase(args, dev, card, results) -> dict:
+    """Phase 8 (e)-(g): K3's single-channel path. Each case of
+    ``WGRAD_ROWS_CASES`` against the plain version (fp32 rtol 1e-4, atol
+    1e-4·max|plain|: sums of 67M products in another order; bf16 3e-2),
+    twice for equal bits, K3's counter at ``launches_for``, then timed
+    beside its bound, the plain version, the earlier kernel in turns where
+    the probe offers it (``run_wgrad``) and, on 5×5 fp32 only (seconds a
+    call), ``torch.nn.grad.conv2d_weight``; the card's copy bandwidth;
+    and the op path: one training step of a learned 5×5 filter on an
+    8192² field through ``ops.conv2d`` and ``backward()``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops, ssam_conv2d
+
+    K1, K3 = engine.WINDOW_KERNEL, engine.WGRAD_KERNEL
+    wrun = engine.run_weight_grad_plan
+    wref = engine.run_weight_grad_plan_reference
+    probe = parent_probe()
+    has_parent = probe is not None and hasattr(probe, "run_wgrad")
+    rng = np.random.default_rng(args.seed + 4)
+    rows, worst = {}, 0.0
+    for tag, xs, filt, dt in WGRAD_ROWS_CASES:
+        plan = (ssam_conv2d.plan_for_batched if len(xs) == 3
+                else ssam_conv2d.plan_for)(filt, "same")
+        x = torch.as_tensor(rng.standard_normal(xs, np.float32),
+                            device=dev).to(getattr(torch, dt))
+        g = torch.as_tensor(rng.standard_normal(xs, np.float32),
+                            device=dev).to(x.dtype)
+        tag = f"K3 single-channel {tag}"
+        K3.launches = 0
+        got = wrun(x, g, plan=plan)
+        torch.cuda.synchronize()
+        want_launches = K3.launches_for(x, g, plan=plan)
+        require(K3.launches == want_launches,
+                (tag, "launches", K3.launches, want_launches))
+        rtol = STEM_RTOL if dt == "float32" else 3e-2
+        err = compare(tag, got, wref(x, g, plan=plan), rtol, results)
+        worst = max(worst, err) if dt == "float32" else worst
+        require(torch.equal(got, wrun(x, g, plan=plan)),
+                (tag, "not deterministic"))
+        kern = (lambda: wrun(x, g, plan=plan))
+        N, M = filt
+        elems = x.numel()
+        nbytes = x.element_size() * 2 * elems + 4 * N * M
+        flops = 2 * N * M * elems
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / FP32_FLOPS * 1e3
+        rec = {"case": tag, "launches": want_launches, "max_abs_err": err,
+               "parent_ms": None, "parent_call_ms": None}
+        if has_parent:          # in turns: kernel, parent, parent, kernel
+            parent = (lambda: probe.run_wgrad(x, g, plan))
+            compare(tag + " earlier kernel", parent(), got, rtol, results)
+            k0 = device_ms(kern, 10)
+            p0, p1 = device_ms(parent, 5), device_ms(parent, 5)
+            ms = (k0 + device_ms(kern, 10)) / 2
+            rec["parent_ms"] = (p0 + p1) / 2
+            rec["parent_call_ms"] = event_ms(parent, 5)
+        else:
+            ms = device_ms(kern, 20)
+        lib = None
+        if filt == (5, 5) and len(xs) == 2 and dt == "float32":
+            lib = device_ms(lambda: torch.nn.grad.conv2d_weight(
+                x[None, None], (1, 1, N, M), g[None, None],
+                padding=(N // 2, M // 2)), 3)
+        rec.update({
+            "ms": ms, "call_ms": event_ms(kern, 20),
+            "plain_ms": device_ms(lambda: wref(x, g, plan=plan), 3),
+            "library_ms": lib, "bound_ms": max(b_ms, f_ms),
+            "bound_by": "bytes" if b_ms >= f_ms else "operations",
+            "bytes": nbytes, "gflop": flops / 1e9,
+            "roofline_share": max(b_ms, f_ms) / ms, "card": card})
+        results["times"].append(rec)
+        emit({"phase": "train_time", **rec})
+        rows[tag] = rec
+        del x, g, got
+        torch.cuda.empty_cache()
+
+    # -- (f) the card's sustainable bandwidth --------------------------------
+    rec = copy_bandwidth(card)
+    results["copy_bandwidth"] = rec
+    emit({"phase": "copy_bandwidth", **rec})
+
+    # -- (g) the op path: one step of a learned 5x5 filter -----------------
+    x = torch.as_tensor(rng.standard_normal(STEP_SHAPE, np.float32),
+                        device=dev)
+    target = torch.as_tensor(rng.standard_normal(STEP_SHAPE, np.float32),
+                             device=dev)
+    w0 = torch.as_tensor(rng.standard_normal((5, 5), np.float32) / 5,
+                         device=dev)
+    plan = ssam_conv2d.plan_for((5, 5), "same")
+    w = w0.clone().requires_grad_()
+
+    def step():
+        w.grad = None
+        ((ops.conv2d(x, w, mode="same") - target) ** 2).sum().backward()
+
+    torch.cuda.synchronize()
+    K1.launches = K3.launches = 0
+    step()
+    torch.cuda.synchronize()
+    k1, k3 = K1.launches, K3.launches
+    k3_want = K3.launches_for(x, x, plan=plan)
+    require(k1 == 1 and k3 == k3_want,
+            ("op-path step launches (K1 1, K3 launches_for)", k1, k3,
+             k3_want))
+    wp = w0.clone().requires_grad_()
+    ((engine.run_window_plan_reference(x, wp, plan=plan) - target)
+     ** 2).sum().backward()
+    err = compare("K3 single-channel op path: w.grad against autograd "
+                  "through the plain versions", w.grad, wp.grad, STEM_RTOL,
+                  results)
+    step_ms = device_ms(step, 5)
+    k3_ms = rows[WGRAD_ROWS_HEADLINE]["ms"]
+    rec = {"k1_launches": k1, "k3_launches": k3, "max_abs_err": err,
+           "step_ms": step_ms, "step_call_ms": event_ms(step, 5),
+           "k3_ms": k3_ms, "k3_share": k3_ms / step_ms, "card": card}
+    results["wgrad_rows_step"] = rec
+    emit({"phase": "train_wgrad_rows_step", **rec})
+    del x, target, wp
+    torch.cuda.empty_cache()
+    return {"rows": rows, "worst": worst, "step": rec,
+            "headline": rows[WGRAD_ROWS_HEADLINE]}
 
 
 def profile_step_main(seed: int, strategy: str) -> int:
@@ -1919,8 +2083,10 @@ def parent_probe():
     was built into the checkout (never committed), else None. It may offer
     ``run(x, w, plan, time_steps, variant)`` (an earlier K1 single-channel
     kernel, phase 5), ``run_mxu(x, w, plan, time_steps)`` (an earlier K2
-    single-channel kernel, phase 9) and ``run_perlane(x, w, plan,
-    epilogue_args)`` (an earlier K1 per-lane kernel, phase 10)."""
+    single-channel kernel, phase 9), ``run_perlane(x, w, plan,
+    epilogue_args)`` (an earlier K1 per-lane kernel, phase 10) and
+    ``run_wgrad(x, g, plan)`` (an earlier K3 single-channel kernel, phase
+    8)."""
     import importlib.util
 
     path = os.path.join(ROOT, "build", "parent", "probe.py")
@@ -2047,7 +2213,19 @@ def main() -> int:
         "instances": perlane, "sass": sass_counts(
             str(_build.LIBRARY.path), "window_perlane_kernel",
             ("LDG.E.128", "STG.E.128", "LDGSTS", "LDS.128"))}
+    # K3's single-channel path: each width bucket's registers and spills,
+    # and its FMAs, shared loads and TMA loads in SASS (all summed)
+    wgrad_rows = ptxas_entries(_build.LIBRARY.ptxas_log,
+                               r".*wgrad_rows_kernelILb(\d)ELi(\d+)E")
+    results["build"]["wgrad_rows"] = {
+        "instances": wgrad_rows, "sass": sass_counts(
+            str(_build.LIBRARY.path), "wgrad_rows_kernel",
+            ("FFMA", "LDS", "UTMALDG", "SHFL"))}
     emit({"phase": "build", **results["build"], "card": card})
+    require(len(wgrad_rows) == 2 * len(engine.WGRAD_M_BUCKETS) and all(
+        r["spill_store_bytes"] == 0 for r in wgrad_rows.values()),
+        ("K3's single-channel kernel spills or lacks an instance",
+         wgrad_rows))
     require(len(mxu_single) == 4 and all(
         r["spill_store_bytes"] == 0 and (r["sass"] is None or (
             r["sass"]["HMMA"] > 0 and r["sass"]["UTMALDG"] > 0))
@@ -2265,6 +2443,7 @@ def main() -> int:
         json.dump(results, f, indent=1)
     wkv = scan["headline"]
     k3h, k1t = trained["k3_headline"], trained["k1_headline"]
+    k3r = trained["k3_rows"]
     k2h, k2t = mxu["headline"], mxu["stem_headline"]
     emit({"kernels": [{
         "name": K1.name, "route": "cuda", "source": K1.source,
@@ -2314,7 +2493,16 @@ def main() -> int:
         "library_tf32_ms": k3h["library_tf32_ms"],
         "conv1": {**_row(trained["k3_conv1"]),
                   "fp32_bound_ms": trained["k3_conv1"]["fp32_bound_ms"],
-                  "library_tf32_ms": trained["k3_conv1"]["library_tf32_ms"]}},
+                  "library_tf32_ms": trained["k3_conv1"]["library_tf32_ms"]},
+        "single_channel": {
+            "source": K3.single_channel_source,
+            "launches": k3r["step"]["k3_launches"],
+            "max_abs_err": k3r["worst"], **_row(k3r["headline"]),
+            "call_ms": k3r["headline"]["call_ms"],
+            "parent_ms": k3r["headline"]["parent_ms"],
+            "case": k3r["headline"]["case"],
+            "cases": {tag: {**_row(r), "parent_ms": r["parent_ms"]}
+                      for tag, r in k3r["rows"].items()}}},
         {
         "name": K2.name, "route": "cuda", "source": K2.source,
         "replaces": K2.replaces, "launches": mxu["train_launches"],

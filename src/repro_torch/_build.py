@@ -6,7 +6,10 @@ root of the checkout; the objects are linked into one shared library with
 a plain C interface and loaded with :mod:`ctypes`. The build runs at the
 first launch of a kernel (never at import, so the CPU-only tests import
 every module without a compiler) and is reused while the sources are
-unchanged: the library's name carries a hash of them.
+unchanged: the library's name carries a hash of them. A table that both
+Python and the kernels need has one source, in Python: the module that
+owns it registers a header in :data:`GENERATED` at import, and the build
+writes it beside the objects.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# headers generated from Python tables: file name -> text
+GENERATED: dict[str, str] = {}
 
 
 def sources() -> list[Path]:
@@ -32,6 +37,9 @@ def _source_hash() -> str:
     for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
+    for name, text in sorted(GENERATED.items()):
+        h.update(name.encode())
+        h.update(text.encode())
     return h.hexdigest()[:16]
 
 
@@ -43,9 +51,12 @@ def nvcc() -> str:
     return found
 
 
-def compile_command(src: Path, obj: Path, compiler: str = "nvcc") -> list[str]:
-    """The ``nvcc`` line that compiles one source for Hopper (sm_90a)."""
-    return [compiler, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+def compile_command(src: Path, obj: Path, compiler: str = "nvcc",
+                    include: Path | None = None) -> list[str]:
+    """The ``nvcc`` line that compiles one source for Hopper (sm_90a),
+    finding the generated headers in ``include``."""
+    inc = ["-I", str(include)] if include is not None else []
+    return [compiler, *ARCH_FLAGS, "-std=c++17", "-O3", *inc, "-Xcompiler",
             "-fPIC", "-Xptxas", "-v", "-c", str(src), "-o", str(obj)]
 
 
@@ -80,18 +91,23 @@ class Library:
         return self._lib
 
     def _build(self) -> Path:
-        lib = BUILD_DIR / f"libssam_{_source_hash()}.so"
+        key = _source_hash()
+        lib = BUILD_DIR / f"libssam_{key}.so"
         if lib.exists():
             return lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         cc = nvcc()
+        include = BUILD_DIR / f"include_{key}_{os.getpid()}"
+        include.mkdir(parents=True, exist_ok=True)
+        for name, text in GENERATED.items():
+            (include / name).write_text(text)
         t0 = time.perf_counter()
         objs, procs = [], []
         for src in sources():
             obj = BUILD_DIR / f"{src.stem}_{os.getpid()}.o"
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                compile_command(src, obj, cc), stdout=subprocess.PIPE,
+                compile_command(src, obj, cc, include),
+                stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)))
         logs, failed = [], []
         for src, p in procs:
@@ -110,6 +126,7 @@ class Library:
         os.replace(tmp, lib)
         for obj in objs:
             obj.unlink()
+        shutil.rmtree(include)
         self.build_seconds = time.perf_counter() - t0
         return lib
 
@@ -126,7 +143,8 @@ class Library:
             [p, p, i, p, p, i, p, ctypes.POINTER(ctypes.c_int),
              ctypes.POINTER(ctypes.c_float), i] + [i] * 22 + [p])
         lib.ssam_window_reduce_launch.restype = i
-        lib.ssam_wgrad_launch.argtypes = [p, p, i, p, p] + [i] * 21 + [p]
+        lib.ssam_wgrad_launch.argtypes = ([p, p, i, p, p] + [i] * 22
+                                          + [ctypes.POINTER(ctypes.c_int), p])
         lib.ssam_wgrad_launch.restype = i
         lib.ssam_wgrad_tc_launch.argtypes = (
             [p, p, i, p, p] + [i] * 24 + [ctypes.POINTER(ctypes.c_int)] * 4

@@ -2400,71 +2400,344 @@ def run_weight_grad_plan_reference(x: torch.Tensor, g: torch.Tensor, *,
     return out if plan.out_axes else out[0, 0]
 
 
-WGRAD_POSITIONS = 64          # cotangent positions per staged chunk (K3)
-WGRAD_THREADS = 256
-WGRAD_TARGET_BLOCKS = 4 * 132  # enough blocks for every SM of an H100
+# K3's single-channel path (csrc/ssam_wgrad.cuh): the paper's systolic walk
+# turned onto the correlation. A lane owns 16 bytes of x's columns (V = 4
+# fp32 or 8 bf16 values), a warp a strip of 32·V columns; for each output
+# row it reads the cotangent's row shifted by its columns (the window of
+# V + M − 1 values g[oy, c − m]) and adds N·M·V products into per-tap sums
+# that stay in registers for the whole walk. Warps split the footprint's
+# rows into bands and a chunk's rows into row groups; persistent blocks walk
+# chunks (image, strip, rows) in a fixed order, fed by a TMA ring. A
+# footprint wider or taller than one block holds is cut into tiles of taps,
+# one launch each.
+WGRAD_LANE_BYTES = 16               # a lane's x columns: one 16-byte load
+WGRAD_WARPS = 16                    # warps of a block (bands × row groups)
+WGRAD_ROWS = 64                     # output rows of a chunk (one ring stage)
+WGRAD_MAX_STAGES = 4
+WGRAD_FLIGHT_BYTES = 32 * 1024      # bytes an SM keeps in flight
+WGRAD_REGS = 128                    # a narrow block's registers a thread
+# Instantiations: a tile of m ≤ 32 filter columns runs in the width bucket
+# MB ≥ m. A narrow one (MB below WGRAD_WIDE_FROM) runs a block of up to
+# 16 warps at 128 registers an SM; a wide one a block of up to 8 warps at
+# up to 255 registers, each warp loading the next row while it multiplies
+# this one. NB, the rows of a band a thread holds (NB·MB sums), is what
+# those registers allow without a spill. The kernels' instantiations are
+# generated from this table (wgrad_table_header). Paired runs on the card
+# kept each odd bucket from 3 to 9: the next even one was more than 3 %
+# slower on a filter it serves (a one-column filter runs in bucket 2).
+WGRAD_WIDE_FROM = 12
+WGRAD_M_BUCKETS = (2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 16, 20, 24, 32)
+WGRAD_BAND_ROWS = {
+    4: dict(zip(WGRAD_M_BUCKETS, (8, 8, 8, 8, 8, 7, 6, 6, 5, 8, 7, 6, 4, 3))),
+    8: dict(zip(WGRAD_M_BUCKETS, (8, 7, 7, 6, 5, 5, 4, 4, 4, 6, 5, 4, 3, 2))),
+}
 
 
-def _pow2_ceil(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
+def wgrad_table_header() -> str:
+    """``ssam_wgrad_table.h``, the kernels' view of the table above: the
+    (bucket, band rows) instantiations of each input type and the first
+    wide bucket."""
+    def table(V):
+        return " ".join(f"X({mb}, {nb})"
+                        for mb, nb in WGRAD_BAND_ROWS[V].items())
+    return ("// Generated from repro_torch/core/engine.py::WGRAD_BAND_ROWS.\n"
+            "#pragma once\n"
+            f"#define SSAM_WGRAD_WIDE_FROM {WGRAD_WIDE_FROM}\n"
+            f"#define SSAM_WGRAD_F32(X) {table(4)}\n"
+            f"#define SSAM_WGRAD_BF16(X) {table(8)}\n")
+
+
+_build.GENERATED["ssam_wgrad_table.h"] = wgrad_table_header()
+
+
+def wgrad_wide(mb: int) -> bool:
+    """Whether K3's single-channel instantiation of width bucket ``mb`` is
+    wide: a block of up to 8 warps at up to 255 registers (else up to 16
+    warps at 128 registers)."""
+    return mb >= WGRAD_WIDE_FROM
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradTile:
+    """One launch of K3's single-channel kernel: the ``n × m`` taps from
+    ``(n0, m0)`` of the filter, the weight gradient of an ``n × m`` filter
+    read at lead ``(ly, lx − m0)`` with ``ly`` the tile's lead row. The
+    lane's window of the cotangent starts ``d`` columns into the 16-byte
+    aligned column ``goff`` left of the strip."""
+
+    n0: int
+    m0: int
+    n: int
+    m: int
+    ly: int
+    goff: int
+    d: int
+
+    def ints(self) -> tuple[int, ...]:
+        """The seven ints the C entry takes for this tile."""
+        return dataclasses.astuple(self)
 
 
 @dataclasses.dataclass(frozen=True)
 class WgradLayout:
-    """The single-channel K3's launch geometry: a block of 256 threads
-    owns ``cg`` output channels × ``rows_tile`` flattened ``(c_in, n,
-    m)`` rows; its threads split as ``cg`` channels × ``rg`` row groups
-    (4 rows each) × ``ph`` position phases, whose partial sums the block
-    adds in a fixed order. The cotangent's positions, in chunks of 64
-    along a row, split into ``slices`` reduce slices (a second kernel adds
-    their partials in order)."""
+    """K3's single-channel geometry for one call. A lane holds ``V``
+    columns of x (16 bytes), a warp a strip of ``32·V``; ``strips`` strips
+    cover x's width. Output rows go in chunks of ``rows``; a unit of work
+    is one (image, chunk, strip), ``units`` of them, numbered strip
+    fastest, and persistent block ``k`` of ``grid`` takes units ``k, k +
+    grid, …``, each staged by TMA into a ring of ``stages`` stages of
+    ``stage_bytes``: the cotangent's ``rows`` rows from the tile's 16-byte
+    aligned column (``32·V`` columns, then a halo box of ``hw`` more), and
+    x's ``rows + n − 1`` rows of the strip. The footprint is cut into
+    ``tiles`` (:class:`WgradTile`, one launch each, each reading x and g
+    once); a tile's rows split into ``nbands`` bands of at most ``nb``
+    rows (the instantiation ``mb``, the width bucket, holds ``nb·mb`` sums
+    a thread); a block has ``warps = nbands·row_groups`` warps, warp ``w``
+    taking band ``w % nbands`` on the chunk's row group ``w // nbands``.
+    Each block writes one ``(N, M)`` partial; a second kernel adds the
+    ``grid`` partials in block order."""
 
-    cg: int
-    rg: int
-    ph: int
-    grid: tuple[int, int, int]
+    V: int
+    mb: int
+    nb: int
+    tiles: tuple[WgradTile, ...]
+    nbands: int
+    row_groups: int
+    warps: int
+    rows: int
+    strips: int
     chunks: int
-    slices: int
-    span: int                  # input channels one block stages
-    lp: int                    # staged columns per input row (odd)
+    units: int
+    hw: int
+    stage_bytes: int
+    stages: int
     smem: int
+    blocks_per_sm: int
+    grid: int
+
+    @property
+    def slices(self) -> int:
+        """Partial sums the first kernel writes (one a block)."""
+        return self.grid
+
+    @property
+    def launches(self) -> int:
+        """Kernel launches of one call: a tile each, then the pass that
+        adds the partials where there is more than one block."""
+        return len(self.tiles) + (self.grid > 1)
+
+    @property
+    def x_rows(self) -> int:
+        """x's rows in a stage: the chunk's and the tallest tile's halo."""
+        return self.rows + max(t.n for t in self.tiles) - 1
+
+    @property
+    def regions(self) -> tuple[int, int, int]:
+        """Byte offsets in a stage: the halo box, x, and the end of x."""
+        return _wgrad_regions(self.rows, self.hw, self.V, self.x_rows)
+
+    def bands(self, n: int) -> tuple[tuple[int, int], ...]:
+        """The bands ``(n0, rows)`` of a tile of ``n`` filter rows."""
+        return tuple((b * n // self.nbands,
+                      (b + 1) * n // self.nbands - b * n // self.nbands)
+                     for b in range(self.nbands))
+
+    def unit(self, u: int) -> tuple[int, int, int]:
+        """``(b, chunk, strip)`` of unit ``u``."""
+        r, sx = divmod(u, self.strips)
+        b, cy = divmod(r, self.chunks)
+        return b, cy, sx
 
 
-def wgrad_layout(B, c_in, c_out, Ho, Wo, N, M) -> WgradLayout:
-    rows = c_in * N * M
-    cg = min(8, _pow2_ceil(c_out))
-    rg = min(WGRAD_THREADS // cg, _pow2_ceil(-(-rows // 4)))
-    ph = WGRAD_THREADS // (cg * rg)
-    co_tile, rows_tile = cg, 4 * rg
-    grid_xy = (-(-rows // rows_tile), -(-c_out // co_tile))
-    chunks = B * Ho * -(-Wo // WGRAD_POSITIONS)
-    slices = max(1, min(chunks, -(-WGRAD_TARGET_BLOCKS
-                                  // (grid_xy[0] * grid_xy[1]))))
-    # channels a block's rows can touch (a tile may start mid-channel)
-    span = min(c_in, rows_tile // (N * M) + 2)
-    lp = (WGRAD_POSITIONS + M - 1) | 1
-    staged = WGRAD_POSITIONS * co_tile + span * N * lp
-    smem = 4 * max(staged, WGRAD_THREADS * 4)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"K3 needs {smem} bytes of shared memory for a "
-                         f"{N}x{M} filter (limit {SMEM_LIMIT})")
-    if grid_xy[1] > 65535 or slices > 65535:
-        raise ValueError(f"K3's grid cannot hold {c_out} channels")
-    return WgradLayout(cg, rg, ph, grid_xy + (slices,), chunks, slices,
-                       span, lp, smem)
+def _wgrad_regions(rows: int, hw: int, V: int, x_rows: int):
+    es = WGRAD_LANE_BYTES // V
+    gh = rows * WARP * V * es
+    x = gh + _round_up(rows * hw * es, 128)
+    return gh, x, x + x_rows * WARP * V * es
+
+
+def _cuts(n: int, parts: int) -> list[tuple[int, int]]:
+    """``n`` cut into ``parts`` runs ``(start, length)`` of near-equal
+    length."""
+    return [(k * n // parts, (k + 1) * n // parts - k * n // parts)
+            for k in range(parts)]
+
+
+def wgrad_layout(B, H, W, Ho, Wo, N, M, *, lead=(0, 0),
+                 elem_bytes=4) -> WgradLayout:
+    """K3's single-channel layout for x ``(B, H, W)``, the cotangent ``(B,
+    Ho, Wo)`` and an ``(N, M)`` filter whose lead padding is ``lead``.
+    Every footprint is held: one wider than the largest bucket, or taller
+    than a block's bands, is cut into tiles. Raises ``ValueError`` naming
+    the limit where the walk cannot count its units."""
+    ly, lx = lead
+    V = WGRAD_LANE_BYTES // elem_bytes
+    col_tiles = -(-M // WGRAD_M_BUCKETS[-1])
+    m_max = -(-M // col_tiles)
+    mb = next(b for b in WGRAD_M_BUCKETS if b >= m_max)
+    nb = WGRAD_BAND_ROWS[V][mb]
+    wide = wgrad_wide(mb)
+    max_bands = 8 if wide else 16
+    row_tiles = -(-N // (max_bands * nb))
+    n_max = -(-N // row_tiles)
+    nbands = -(-n_max // nb)
+    tiles = []
+    for n0, n in _cuts(N, row_tiles):
+        for m0, m in _cuts(M, col_tiles):
+            lead_c = lx - m0 - (m - 1)     # the window's first column
+            d = lead_c % V
+            tiles.append(WgradTile(n0, m0, n, m, ly - n0, lead_c - d, d))
+    row_groups = max(1, min(WGRAD_WARPS, max_bands) // nbands)
+    warps = nbands * row_groups
+    hw = _round_up(max(t.d + t.m - 1 for t in tiles), V)
+    red = 4 * warps * nb * mb            # the reduction reuses the ring
+    fixed = 256                          # alignment, the barriers
+
+    def stage(rows):
+        return _round_up(_wgrad_regions(rows, hw, V, rows + n_max - 1)[2],
+                         128)
+
+    def smem(rows, stages):
+        return _round_up(fixed + max(stages * stage(rows), red), 16)
+
+    # the chunk's rows: WGRAD_ROWS, halved until x's box (rows + n − 1
+    # rows, n ≤ 128) and a ring of two stages fit
+    rows = max(1, min(WGRAD_ROWS, Ho))
+    while rows > 1 and (rows + n_max - 1 > TMA_MAX_BOX
+                        or smem(rows, 2) > SMEM_LIMIT):
+        rows //= 2
+    strips = -(-W // (WARP * V))
+    chunks = -(-Ho // rows)
+    units = B * chunks * strips
+    if units >= 2 ** 31:
+        raise ValueError(f"K3's walk counts units in 31 bits, got {units}")
+    regs = 255 if wide else WGRAD_REGS
+    by_regs = H100_SM_REGS // (warps * WARP * regs)
+    stages = max(2, 1 + -(-WGRAD_FLIGHT_BYTES // stage(rows)))
+    stages = min(stages, WGRAD_MAX_STAGES)
+    while stages > 2 and smem(rows, stages) > SMEM_LIMIT:
+        stages -= 1
+    bps = max(1, min(by_regs, H100_SM_SMEM // (smem(rows, stages) + 1024)))
+    grid = min(units, bps * H100_SMS)
+    return WgradLayout(V, mb, nb, tuple(tiles), nbands, row_groups, warps,
+                       rows, strips, chunks, units, hw, stage(rows), stages,
+                       smem(rows, stages), bps, grid)
 
 
 def _wgrad_geometry(x, g, plan: SystolicPlan):
-    """The single-channel K3's operands as 4-D tensors and its
-    :func:`wgrad_layout`."""
+    """The single-channel K3's operands as ``(B, H, W)`` and ``(B, Ho,
+    Wo)`` tensors and its :func:`wgrad_layout`."""
     if any(v > 1 for v in plan.stride_per_axis()):
         raise NotImplementedError(
             "K3's single-channel layout takes stride-free plans; strided "
             "single-channel convolutions are ROADMAP Queue 1 item 4")
     x4, g4 = _wgrad_operands(x, g, plan)
-    B, Ci = x4.shape[:2]
-    Co, Ho, Wo = g4.shape[1:]
-    return x4, g4, wgrad_layout(B, Ci, Co, Ho, Wo, *plan.exts)
+    if x4.shape[1] != 1 or g4.shape[1] != 1:
+        raise ValueError("K3's single-channel path takes one channel")
+    x3, g3 = x4[:, 0], g4[:, 0]
+    (B, H, W), (Ho, Wo) = x3.shape, g3.shape[1:]
+    (ly, lx), _ = plan.lead_trail()
+    return x3, g3, wgrad_layout(B, H, W, Ho, Wo, *plan.exts, lead=(ly, lx),
+                                elem_bytes=x.element_size())
+
+
+def emulate_wgrad_kernel(x: torch.Tensor, g: torch.Tensor, *,
+                         plan: SystolicPlan, max_grid=None) -> torch.Tensor:
+    """K3's single-channel schedule walked in plain torch on the CPU: the
+    spec of ``csrc/ssam_wgrad.cuh`` that the CPU tests hold to the plain
+    version. The wrapper's operands (pitch-padded copies where a row is not
+    a multiple of 16 bytes), :func:`wgrad_layout`, each tile of the
+    footprint as its own launch, the persistent walk (block ``k`` takes
+    units ``k, k + grid, …``; a stage is waited for by the unit it was
+    filled with, refilled once the block has read it), each unit's three
+    TMA boxes (:func:`_tma_box`: zeros outside the tensors, which is every
+    mask the products need), each warp's band and row group, the register
+    cache's rows (asserted inside the staged rows for every row a band
+    multiplies), the lane's window of the cotangent ``d`` columns into its
+    16-byte chunk (its last lanes reading the halo box), the sums per lane,
+    band row and step ``k = m − 1 − j`` of tap ``j``, then the fixed-order
+    reduction: a butterfly over the 32 lanes, the row groups in order, the
+    tiles' rows and columns of each block's partial, the partials in block
+    order. ``max_grid`` caps the blocks, so that a small input walks
+    several units a block through the ring. Returns ``(N, M)`` fp32."""
+    x3, g3, lay = _wgrad_geometry(x, g, plan)
+    if max_grid is not None:    # fewer blocks: more units each
+        lay = dataclasses.replace(lay, grid=min(lay.grid, max_grid))
+    W = x3.shape[2]
+    Ho, Wo = g3.shape[1:]
+    N, M = plan.exts
+    V, SW = lay.V, WARP * lay.V
+    assert lay.smem <= SMEM_LIMIT and lay.warps * WARP <= 512
+    xt, _ = _tma_operand(x3)
+    gt, _ = _tma_operand(g3)
+    xm, gm = xt[:, None], gt[:, None]          # (B, 1, rows, pitch)
+    rows, lane = lay.rows, torch.arange(WARP)
+    partials = torch.zeros((lay.grid, N, M))
+    for tile in lay.tiles:
+        n, m = tile.n, tile.m
+        bands = lay.bands(n)
+        assert max(r for _, r in bands) <= lay.nb and m <= lay.mb
+        assert tile.goff % V == 0 and 0 <= tile.d < V
+        assert lay.hw >= tile.d + m - 1 and lay.hw % V == 0
+        xr = rows + n - 1
+        win = (lane[:, None] * V + tile.d
+               + torch.arange(V + m - 1)[None, :])              # (32, V+m-1)
+        done = torch.zeros(lay.units, dtype=torch.int64)
+        for k in range(lay.grid):
+            mine = list(range(k, lay.units, lay.grid))
+            ring = mine[:lay.stages] + [None] * (lay.stages - len(mine))
+            acc = torch.zeros((lay.warps, lay.nb, m, WARP))
+            for i, u in enumerate(mine):
+                s = i % lay.stages
+                assert ring[s] == u, "a stage holds another unit"
+                b, cy, sx = lay.unit(u)
+                j0, oy0 = sx * SW, cy * rows
+                a_g = j0 + tile.goff
+                assert (a_g * x.element_size()) % TMA_ALIGN == 0
+                g_main = _tma_box(gm, Wo, b, (0, oy0, a_g), (1, rows, SW))[0]
+                parts = [g_main.float()]
+                if lay.hw:
+                    parts.append(_tma_box(gm, Wo, b, (0, oy0, a_g + SW),
+                                          (1, rows, lay.hw))[0].float())
+                sg = torch.cat(parts, dim=1)                # (rows, SW+hw)
+                sxs = _tma_box(xm, W, b, (0, oy0 - tile.ly, j0),
+                               (1, xr, SW))[0].float()      # (xr, SW)
+                T = min(rows, Ho - oy0)
+                for w in range(lay.warps):
+                    band, rg = w % lay.nbands, w // lay.nbands
+                    n0, nbr = bands[band]
+                    r0 = rg * T // lay.row_groups
+                    r1 = (rg + 1) * T // lay.row_groups
+                    if r0 >= r1:
+                        continue
+                    t = torch.arange(r0, r1)
+                    # the register cache: band row i of row t is staged
+                    # row t + n0 + i; the kernel clamps its loads to the
+                    # last staged row, which only rows i >= nbr reach
+                    srow = t[:, None] + n0 + torch.arange(nbr)[None, :]
+                    assert int(srow.max()) < xr, "a band row is not staged"
+                    xv = sxs[srow].unflatten(-1, (WARP, V))  # (T, nbr, 32, V)
+                    gw = sg[t][:, win]                       # (T, 32, V+m-1)
+                    for kk in range(m):
+                        acc[w, :nbr, kk] += torch.einsum(
+                            "tlv,tnlv->nl", gw[..., kk:kk + V], xv)
+                done[u] += 1
+                nxt = i + lay.stages        # the block has read it: refill
+                ring[s] = mine[nxt] if nxt < len(mine) else None
+            for off in (16, 8, 4, 2, 1):    # the lanes' butterfly
+                acc = acc + acc[..., lane ^ off]
+            red = acc[..., 0]               # (warps, nb, m)
+            for band, (n0, nbr) in enumerate(bands):
+                s = torch.zeros((nbr, m))
+                for rg in range(lay.row_groups):
+                    s = s + red[rg * lay.nbands + band, :nbr]
+                r = tile.n0 + n0            # step k is tap m − 1 − k
+                partials[k, r:r + nbr, tile.m0:tile.m0 + m] = s.flip(-1)
+        assert bool((done == 1).all()), "a unit is not walked exactly once"
+    out = torch.zeros((N, M))
+    for part in partials:
+        out = out + part
+    return out
 
 
 # K3's channel path (csrc/ssam_wgrad_tc.cu): wgmma on TMA-staged tiles
@@ -2646,9 +2919,11 @@ def _wgrad_tc_geometry(x, g, plan: SystolicPlan):
 class WgradKernel:
     """Wrapper of K3. Channel (NCHW) plans launch the tensor-core kernel
     (``csrc/ssam_wgrad_tc.cu``), single-channel plans the CUDA-core one
-    (``csrc/ssam_wgrad.cu``). ``launches`` counts the kernel launches it
-    made: one per gradient, or two when the reduction is split (the
-    partial sums, then the pass that adds them; :meth:`launches_for`)."""
+    (``csrc/ssam_wgrad.cuh``, entry ``ssam_wgrad.cu``). ``launches``
+    counts the kernel launches it made: one per gradient, or two when the
+    reduction is split (the partial sums, then the pass that adds them);
+    on the single-channel path one per tile of the footprint, then that
+    pass (:meth:`launches_for`)."""
 
     name = "ssam_wgrad"
     source = "src/repro_torch/csrc/ssam_wgrad_tc.cu"
@@ -2671,27 +2946,29 @@ class WgradKernel:
                             f"dtype, got {x.dtype} and {g.dtype}")
         if plan.out_axes:
             return self._channels(x, g, plan)
-        x4, g4, lay = _wgrad_geometry(x, g, plan)
-        x4, g4 = x4.contiguous(), g4.contiguous()
-        B, Ci, H, W = x4.shape
-        Co, Ho, Wo = g4.shape[1:]
+        x3, g3, lay = _wgrad_geometry(x, g, plan)
+        (xs, x_pitch), (gs, g_pitch) = _tma_operand(x3), _tma_operand(g3)
+        B, H, W = x3.shape
+        Ho, Wo = g3.shape[1:]
         N, M = plan.exts
-        (ly, lx), _ = plan.lead_trail()
-        out = torch.empty((Co, Ci, N, M), dtype=torch.float32,
-                          device=x.device)
-        part = (torch.empty((lay.slices, Co, Ci * N * M), dtype=torch.float32,
-                            device=x.device) if lay.slices > 1 else out)
+        out = torch.empty((N, M), dtype=torch.float32, device=x.device)
+        part = (torch.empty((lay.grid, N, M), dtype=torch.float32,
+                            device=x.device) if lay.grid > 1 else out)
+        gh_off, x_off, _ = lay.regions
+        tiles = [v for t in lay.tiles for v in t.ints()]
         err = self.library.get().ssam_wgrad_launch(
-            x4.data_ptr(), g4.data_ptr(), int(x.dtype == torch.bfloat16),
-            part.data_ptr(), out.data_ptr(), B, Ci, Co, H, W, Ho, Wo, N, M,
-            ly, lx, lay.cg, lay.rg, lay.ph, *lay.grid, lay.chunks,
-            lay.span, lay.lp, lay.smem,
+            xs.data_ptr(), gs.data_ptr(), int(x.dtype == torch.bfloat16),
+            part.data_ptr(), out.data_ptr(), B, H, W, x_pitch, Ho, Wo,
+            g_pitch, N, M, lay.mb, lay.nb, lay.nbands, lay.row_groups,
+            lay.rows, lay.hw, lay.stages, lay.stage_bytes, gh_off, x_off,
+            lay.grid, lay.smem, len(lay.tiles),
+            (ctypes.c_int * len(tiles))(*tiles),
             torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"K3 launch failed: CUDA error {err} "
-                               f"({plan.kind}, {Co}x{Ci}x{N}x{M})")
-        self.launches += 1 + (lay.slices > 1)
-        return out[0, 0]
+                               f"({plan.kind}, {N}x{M}, {tuple(x.shape)})")
+        self.launches += lay.launches
+        return out
 
     def _channels(self, x, g, plan):
         x4, g4, lay = _wgrad_tc_geometry(x, g, plan)
@@ -2730,8 +3007,9 @@ class WgradKernel:
     @staticmethod
     def launches_for(x, g, *, plan: SystolicPlan) -> int:
         """The launches one call on ``x`` and ``g`` makes (any device)."""
-        geometry = _wgrad_tc_geometry if plan.out_axes else _wgrad_geometry
-        return 1 + (geometry(x, g, plan)[2].slices > 1)
+        if plan.out_axes:
+            return 1 + (_wgrad_tc_geometry(x, g, plan)[2].slices > 1)
+        return _wgrad_geometry(x, g, plan)[2].launches
 
 
 WGRAD_KERNEL = WgradKernel(_build.LIBRARY)

@@ -355,8 +355,11 @@ def test_reduce_and_wgrad_launch_geometry():
     assert lay.grid == (12, 4, 11) and lay.kblocks == 8 * 94
     lay = engine.wgrad_tc_layout(8, 80, 512, 1, 3000, 1, 3, lead=(0, 1))
     assert lay.grid == (2, 4, 16) and lay.smem <= engine.SMEM_LIMIT
-    # the single-channel layout stays on the CUDA-core kernel
-    lay = engine.wgrad_layout(1, 1, 1, 8192, 8192, 5, 5)
-    assert (lay.cg, lay.rg, lay.ph) == (1, 8, 32)
-    assert lay.grid == (1, 1, engine.WGRAD_TARGET_BLOCKS)
+    # the single-channel layout stays on the CUDA-core kernel: one tile,
+    # one band of the 5 filter rows, 16 row groups, one persistent block an
+    # SM
+    lay = engine.wgrad_layout(1, 8192, 8192, 8192, 8192, 5, 5, lead=(2, 2))
+    assert (len(lay.tiles), lay.bands(5), lay.row_groups, lay.V) == (
+        1, ((0, 5),), 16, 4)
+    assert lay.grid == engine.H100_SMS and lay.blocks_per_sm == 1
     assert lay.smem <= engine.SMEM_LIMIT

@@ -411,7 +411,8 @@ def test_reduce_kernel_bf16(cuda):
 
 
 WGRAD_CASES = [
-    # (x shape, w shape or None for the (N, M) layout, mode, stride)
+    # (x shape, w shape, or (N, M) or None (5 x 7) for the (N, M)
+    # layout, mode, stride)
     ((2, 5, 3, 300), (37, 5, 3, 3), "same", (1, 1)),
     ((8, 80, 1, 700), (64, 80, 1, 3), "same", (1, 1)),
     ((1, 1, 1, 1), (1, 1, 1, 1), "valid", (1, 1)),
@@ -420,14 +421,25 @@ WGRAD_CASES = [
     ((3, 19, 5, 257), (37, 19, 3, 2), "valid", (2, 3)),     # strided, odd
     ((4, 130, 70), None, "same", (1, 1)),     # (N, M) layout, batched
     ((500, 333), None, "valid", (1, 1)),      # (N, M) layout, one image
+    # the (N, M) layout's filters, widths 1 and 129, a batch of 3 (each
+    # also in bf16)
+    ((300, 129), (3, 3), "same", (1, 1)),
+    ((70, 333), (9, 9), "valid", (1, 1)),
+    ((90, 300), (20, 20), "same", (1, 1)),
+    ((40, 1), (1, 7), "same", (1, 1)),
+    ((3, 64, 129), (5, 5), "same", (1, 1)),
+    # footprints cut into tiles: 32 x 32 (two row tiles), 40 columns (two
+    # column tiles)
+    ((70, 300), (32, 32), "same", (1, 1)),
+    ((2, 50, 200), (9, 40), "valid", (1, 1)),
 ]
 
 
 def _wgrad_case(xs, ws, mode, stride, device):
     x = _grid(xs, device, 18)
-    if ws is None:
+    if ws is None or len(ws) == 2:
         p = (ssam_conv2d.plan_for_batched if len(xs) == 3
-             else ssam_conv2d.plan_for)((5, 7), mode)
+             else ssam_conv2d.plan_for)(ws or (5, 7), mode)
         lead = xs[:len(xs) - 2]
     else:
         p = dataclasses.replace(ssam_conv2d.plan_for_nchw(xs, ws, mode),
@@ -446,10 +458,9 @@ def test_wgrad_kernel_matches_plain_version(cuda, xs, ws, mode, stride):
     want = engine.run_weight_grad_plan_reference(x, g, plan=p)
     assert got.dtype == torch.float32 and got.shape == want.shape
     _close(got, want, 1e-4)
-    if len(xs) == 4:
-        xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
-        _close(engine.run_weight_grad_plan(xb, gb, plan=p),
-               engine.run_weight_grad_plan_reference(xb, gb, plan=p), 3e-2)
+    xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+    _close(engine.run_weight_grad_plan(xb, gb, plan=p),
+           engine.run_weight_grad_plan_reference(xb, gb, plan=p), 3e-2)
     if stride != (1, 1):
         # the stride-free plan on the scattered cotangent, as before
         dense = dataclasses.replace(p, stride=None)
@@ -460,7 +471,8 @@ def test_wgrad_kernel_matches_plain_version(cuda, xs, ws, mode, stride):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_wgrad_kernel_is_deterministic(cuda, dtype):
-    for case in (WGRAD_CASES[1], WGRAD_CASES[4], WGRAD_CASES[5]):
+    for case in (WGRAD_CASES[1], WGRAD_CASES[4], WGRAD_CASES[5],
+                 WGRAD_CASES[6], WGRAD_CASES[10], WGRAD_CASES[13]):
         x, g, p = _wgrad_case(*case, cuda)
         x, g = x.to(dtype), g.to(dtype)
         first = engine.run_weight_grad_plan(x, g, plan=p)

@@ -221,7 +221,9 @@ def test_nvcc_command_targets_sm_90a():
     src = _build.sources()
     assert [p.name for p in src] == ["ssam_mxu.cu", "ssam_mxu_tc.cu",
                                      "ssam_scan.cu",
-                                     "ssam_wgrad.cu", "ssam_wgrad_perlane.cu",
+                                     "ssam_wgrad.cu", "ssam_wgrad_bf16.cu",
+                                     "ssam_wgrad_f32.cu",
+                                     "ssam_wgrad_perlane.cu",
                                      "ssam_wgrad_tc.cu",
                                      "ssam_window.cu", "ssam_window_2d.cu",
                                      "ssam_window_2d_wide.cu",
