@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR]
 
-Five paths. The first is the paper's experiment: the 15 Table-3
+Six paths. The first is the paper's experiment: the 15 Table-3
 stencils at 8192² (2-D) and 512³ (3-D) in fp32, both schedule variants,
 t ∈ {1, 2}, one bf16 case, and 2-D convolution ('same' and 'valid') at
 8192² over the Fig. 4 filter sweep plus a (16, 2048, 2048) batched 5×5,
@@ -20,7 +20,10 @@ tensor-core kernel, and trains whisper-base with the stem pinned to it.
 The fifth trains hymba-1.5b at full width through
 ``repro_torch.launch.train``: its Mamba branch runs the depthwise conv1d
 through K1's per-lane path, the conv's weight gradient through K4 and
-the selective scan, forward and backward, through K5.
+the selective scan, forward and backward, through K5. The sixth runs the
+windowed ops' whole surface at full size: fused epilogues and residuals,
+output strides on single-channel convolution (forward, dx and dW) and
+grouped convolution, through K1, K2 and K3.
 Phases, one JSON line each:
 
 1. build: compile K1, K2, K3, K4 and K5 from ``src/repro_torch/csrc``
@@ -193,7 +196,33 @@ Phases, one JSON line each:
    ``torch.nn.grad.conv1d_input`` / ``conv1d_weight`` on the (B, D, T)
    layout, never called by the port), K1's beside an earlier per-lane
    kernel in turns where the probe offers one, and one profiled step with
-   its top device ops, the share of K1/K4/K5 and of copies.
+   its top device ops, the share of K1/K4/K5 and of copies;
+11. epilogues, residuals, strides, groups: (a) K1 and K2 single-channel
+   at 8192² fp32 with the chain fused at the store: 2d9pt with bias+ReLU
+   at t = 1 (K1 in both variants), 2d5pt with GELU at t = 2, a bf16
+   2d9pt with bias+ReLU, and conv 5×5 'same' with bias, GELU and the
+   residual x itself; (b) strided single-channel 5×5 ('same' at stride 2
+   and (1, 2), 'valid' at (3, 3), each at 8192², and 'same' stride 2 on
+   (16, 2048, 2048)): the forward (one launch, only the kept outputs) and
+   the phased dx (one launch a phase a tap reaches) through K1 and K2,
+   the dW through K3 (per phase of x); (c) ``residual_add`` with
+   bias+GELU on the whisper stem's conv2 shape through K1's reduce path
+   and K2's channel path, and with bias+SiLU on Hymba's conv1d shape (2,
+   2048, 3200) through K1's per-lane generic instance; (d) grouped NCHW
+   3×3 with bias+GELU, forward and backward: ResNeXt-like (8, 256, 56, 56)
+   at groups=32 and depthwise (8, 64, 256, 256) at groups=64 (one K1
+   launch a group, the gradients against cuDNN's autograd). Each case is
+   held to its plain version on the card (single-channel 3e-5, reduce
+   paths and K3 1e-4, bf16 3e-2; the grouped gradients to torch's
+   autograd at 1e-4), its launches counted (K1, K2 and K3 zeroed before
+   the phase and read after), and timed (``device_ms``) beside its bound
+   (the bytes read and written once, the residual included, or its fp32
+   operations), the unfused sequence (the same kernel without the
+   epilogue, then torch's elementwise ops), the library call
+   (``F.conv2d``/``F.conv1d`` with ``stride=``, ``padding=``,
+   ``groups=``, TF32 off, plus the elementwise ops; ``conv2d_input`` and
+   ``conv2d_weight`` for dx and dW; the grouped backward through cuDNN's
+   autograd) and the plain version.
 
 It exits non-zero if there is no card, if a build, launch or check fails,
 and when run outside a checkout of the repository. The full results go
@@ -241,6 +270,9 @@ LOSS_RTOL = 1e-5                # first-step loss, mxu against lanes
 SOFT_SCALE = 0.3                # weight matrices' scale of the softer point
 PERTURB_REL = 1e-7              # relative parameter change of the spread probe
 TIME_REPS = 10                  # timed calls of phases 5 and 9 (others: 20)
+SURFACE_REPS = 5                # timed calls of phase 11
+# phase 11's strided 5x5 cases at 8192² (the first also batched)
+SURFACE_STRIDES = (("same", (2, 2)), ("same", (1, 2)), ("valid", (3, 3)))
 HYMBA_PARAMS = 1_611_062_400    # hymba-1.5b
 HYMBA_STEPS = 6
 HYMBA_BATCH, HYMBA_SEQ = 2, 2048
@@ -416,6 +448,18 @@ def host_ms(fn, reps):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def moved_bytes(*tensors) -> int:
+    """Bytes of the distinct tensors among ``tensors``, each counted once:
+    a residual that is the input itself is read once."""
+    seen, total = set(), 0
+    for t in tensors:
+        key = (t.data_ptr(), t.numel(), t.dtype)
+        if key not in seen:
+            seen.add(key)
+            total += t.numel() * t.element_size()
+    return total
 
 
 def compare(tag, y, plain, rtol, results):
@@ -1985,6 +2029,432 @@ def hymba_phase(args, dev, card, results) -> dict:
             "step_ms": step_ms}
 
 
+def surface_phase(args, dev, card, results) -> dict:
+    """Phase 11: epilogues, residuals, strides and groups on K1, K2 and K3
+    at the port's full sizes, each against its plain version, its
+    launches counted, its times beside its bound, the unfused sequence,
+    the library call and the plain version."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import convert
+    from repro_torch.core import adjoint, engine
+    from repro_torch.core.plan import normalize_epilogue
+    from repro_torch.kernels import ops, ssam_conv1d, ssam_conv2d
+    from repro_torch.kernels import ssam_stencil2d, stencils
+
+    K1, K2, K3 = engine.WINDOW_KERNEL, engine.MXU_KERNEL, engine.WGRAD_KERNEL
+    rng = np.random.default_rng(args.seed + 11)
+
+    def randn(*shape, scale=1.0):
+        return convert.from_numpy(
+            (scale * rng.standard_normal(shape)).astype(np.float32), dev)
+
+    kernels = {"K1": K1, "K2": K2, "K3": K3}
+    worst = {name: 0.0 for name in kernels}
+    rows = {name: {} for name in kernels}
+    K1.launches = K2.launches = K3.launches = 0
+    expected = {name: 0 for name in kernels}
+
+    def run(kname, launches, fn):
+        """One call of ``fn`` that must launch ``kname`` ``launches``
+        times."""
+        before = kernels[kname].launches
+        out = fn()
+        torch.cuda.synchronize()
+        got = kernels[kname].launches - before
+        require(got == launches, (kname, "launches", got, launches))
+        expected[kname] += launches
+        return out
+
+    def held(kname, tag, y, plain, rtol):
+        worst[kname] = max(worst[kname], compare(
+            f"phase 11 {kname} {tag}", y, plain, rtol, results))
+
+    def time_case(kname, tag, fused, plain, bytes_, flops, *, unfused=None,
+                  lib=None, lib_reps=SURFACE_REPS):
+        """Device time of the kernel's call beside the bound, the plain
+        version, the unfused sequence and the library call (launches made
+        here are timing runs, not the main path's). K2's operations count
+        once at the TF32 rate (its 3xTF32 split is the kernel's choice),
+        the fp32 bound beside; K1's and K3's at the fp32 rate."""
+        b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / (TF32_FLOPS if kname == "K2" else FP32_FLOPS) * 1e3
+        counts = {k: v.launches for k, v in kernels.items()}
+        rec = {"case": tag, "kernel": kname,
+               "ms": device_ms(fused, SURFACE_REPS),
+               "unfused_ms": (device_ms(unfused, SURFACE_REPS)
+                              if unfused else None),
+               "library_ms": event_ms(lib, lib_reps) if lib else None,
+               "plain_ms": event_ms(plain, 1) if plain else None,
+               "bound_ms": max(b_ms, f_ms),
+               "bound_by": "bytes" if b_ms >= f_ms else "operations",
+               "fp32_bound_ms": max(b_ms, flops / FP32_FLOPS * 1e3),
+               "card": card}
+        for k, v in kernels.items():
+            v.launches = counts[k]
+        rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+        rows[kname][tag] = rec
+        results["times"].append(rec)
+        emit({"phase": "time", **rec})
+        return rec
+
+    # -- (a) epilogues and residuals on the single-channel paths --------
+    x = randn(8192, 8192)
+    cells = x.numel()
+    bias = torch.tensor([0.25], device=dev)
+    for strategy, kname in (("lanes", "K1"), ("mxu", "K2")):
+        variants = engine.VARIANTS if strategy == "lanes" else ("shift_psum",)
+        cases = [("2d9pt", ("bias", "relu"), 1, v, torch.float32)
+                 for v in variants]
+        cases += [("2d5pt", ("gelu",), 2, "shift_psum", torch.float32),
+                  ("2d9pt", ("bias", "relu"), 1, "shift_psum",
+                   torch.bfloat16)]
+        for name, chain, t, variant, dt in cases:
+            sd = stencils.BENCHMARKS[name]
+            xx = x.to(dt)
+            args_ = (bias,) if "bias" in chain else ()
+            p = dataclasses.replace(ssam_stencil2d.plan_for(sd),
+                                    strategy=strategy,
+                                    epilogue=normalize_epilogue(chain))
+            lin = dataclasses.replace(p, epilogue=())
+            tag = (f"{name} {'+'.join(chain)} t={t} {variant} "
+                   f"{str(dt)[6:]} 8192^2")
+
+            def fused(xx=xx, chain=chain, args_=args_, t=t, variant=variant,
+                      name=name):
+                return ops.stencil(xx, name, time_steps=t, variant=variant,
+                                   epilogue=chain, epilogue_args=args_,
+                                   strategy=strategy)
+
+            y = run(kname, 1, fused)
+            plain = engine.run_window_plan_reference(
+                xx, plan=p, time_steps=t, variant=variant,
+                epilogue_args=args_)
+            held(kname, tag, y, plain, 3e-5 if dt == torch.float32
+                 else 3e-2)
+            del y, plain
+            wt, pads = dense_filter(sd, dev)
+            es = xx.element_size()
+            time_case(
+                kname, tag, fused,
+                lambda xx=xx, p=p, t=t, variant=variant, args_=args_:
+                    engine.run_window_plan_reference(
+                        xx, plan=p, time_steps=t, variant=variant,
+                        epilogue_args=args_),
+                2 * cells * es,
+                t * (2 * len(sd.offsets) - 1) * cells
+                + len(normalize_epilogue(chain)) * cells,
+                unfused=lambda xx=xx, lin=lin, p=p, t=t, variant=variant,
+                args_=args_: adjoint.apply_epilogue(
+                    p, engine.run_window_plan(xx, plan=lin, time_steps=t,
+                                              variant=variant), args_),
+                lib=(lambda xx=xx, wt=wt, pads=pads, p=p, t=t, args_=args_:
+                     adjoint.apply_epilogue(
+                         p, (library(xx, wt.to(xx.dtype), pads) if t == 1
+                             else library_padded(xx, wt.to(xx.dtype), pads,
+                                                 t)), args_)))
+        # conv 5x5 'same' with bias, GELU and the residual x itself
+        w5 = randn(5, 5, scale=0.2)
+        chain = ("bias", "gelu", "residual_add")
+        p = dataclasses.replace(ssam_conv2d.plan_for((5, 5), "same"),
+                                strategy=strategy,
+                                epilogue=normalize_epilogue(chain))
+        lin = dataclasses.replace(p, epilogue=())
+        tag = "conv 5x5 same bias+gelu+residual(x) float32 8192^2"
+
+        def fused5(w5=w5, chain=chain):
+            return ops.conv2d(x, w5, mode="same", epilogue=chain,
+                              epilogue_args=(bias, x), strategy=strategy)
+
+        y = run(kname, 1, fused5)
+        held(kname, tag, y, engine.run_window_plan_reference(
+            x, w5, plan=p, epilogue_args=(bias, x)), 3e-5)
+        del y
+        time_case(
+            kname, tag, fused5,
+            lambda: engine.run_window_plan_reference(
+                x, w5, plan=p, epilogue_args=(bias, x)),
+            moved_bytes(x, w5, bias, x) + cells * 4,
+            (2 * 25 - 1 + 3) * cells,
+            unfused=lambda: adjoint.apply_epilogue(
+                p, engine.run_window_plan(x, w5, plan=lin), (bias, x)),
+            lib=lambda: adjoint.apply_epilogue(
+                p, F.conv2d(x[None, None], w5[None, None], padding=2)[0, 0],
+                (bias, x)))
+
+    # -- (b) output strides: forward, dx and dW --------------------------
+    xb = randn(16, 2048, 2048)
+    w5 = randn(5, 5, scale=0.2)
+    strided = [(mode, st, x) for mode, st in SURFACE_STRIDES] + [
+        (SURFACE_STRIDES[0][0], SURFACE_STRIDES[0][1], xb)]
+    for mode, stride, xin in strided:
+        shape = tuple(xin.shape)
+        base = (ssam_conv2d.plan_for if xin.ndim == 2
+                else ssam_conv2d.plan_for_batched)((5, 5), mode)
+        pad = 2 if mode == "same" else 0
+        x4 = xin.reshape((-1, 1) + shape[-2:])
+        label = f"5x5 {mode} stride {stride} {'x'.join(map(str, shape))}"
+        g = None
+        for strategy, kname in (("lanes", "K1"), ("mxu", "K2")):
+            p = dataclasses.replace(base, stride=stride, strategy=strategy)
+            y = run(kname, 1, lambda: engine.run_window_plan(xin, w5, plan=p))
+            held(kname, f"{label} forward", y,
+                 engine.run_window_plan_reference(xin, w5, plan=p), 3e-5)
+            outs = y.numel()
+            time_case(
+                kname, f"{label} forward",
+                lambda p=p: engine.run_window_plan(xin, w5, plan=p),
+                lambda p=p: engine.run_window_plan_reference(xin, w5,
+                                                             plan=p),
+                (xin.numel() + outs) * 4, (2 * 25 - 1) * outs,
+                lib=lambda: F.conv2d(x4, w5[None, None], stride=stride,
+                                     padding=pad))
+            if g is None:
+                g = randn(*y.shape)
+            del y
+            phases = [ph for ph in adjoint.strided_input_adjoint_phases(p)
+                      if ph.plan is not None and all(ph.extent(shape[-2:]))]
+            dx = run(kname, len(phases), lambda p=p: engine.run_adjoint_phases(
+                g, w5, plan=p, in_spatial=shape[-2:]))
+            held(kname, f"{label} dx", dx,
+                 engine.run_adjoint_phases_reference(
+                     g, w5, plan=p, in_spatial=shape[-2:]), 3e-5)
+            del dx
+            g4 = g.reshape((-1, 1) + tuple(g.shape[-2:]))
+            time_case(
+                kname, f"{label} dx",
+                lambda p=p: engine.run_adjoint_phases(
+                    g, w5, plan=p, in_spatial=shape[-2:]),
+                lambda p=p: engine.run_adjoint_phases_reference(
+                    g, w5, plan=p, in_spatial=shape[-2:]),
+                (g.numel() + xin.numel()) * 4, (2 * 25 - 1) * g.numel(),
+                lib=lambda: torch.nn.grad.conv2d_input(
+                    x4.shape, w5[None, None], g4, stride=stride,
+                    padding=pad))
+        p = dataclasses.replace(base, stride=stride)
+        n3 = engine.WgradKernel.launches_for(xin, g, plan=p)
+        dw = run("K3", n3, lambda: engine.run_weight_grad_plan(xin, g,
+                                                                plan=p))
+        held("K3", f"{label} dW", dw,
+             engine.run_weight_grad_plan_reference(xin, g, plan=p), 1e-4)
+        g4 = g.reshape((-1, 1) + tuple(g.shape[-2:]))
+        time_case(
+            "K3", f"{label} dW",
+            lambda: engine.run_weight_grad_plan(xin, g, plan=p),
+            lambda: engine.run_weight_grad_plan_reference(xin, g, plan=p),
+            (xin.numel() + g.numel()) * 4, 2 * 25 * g.numel(),
+            lib=lambda: torch.nn.grad.conv2d_weight(
+                x4, (1, 1, 5, 5), g4, stride=stride, padding=pad),
+            lib_reps=1)
+        del g, g4
+    del x, xb
+    torch.cuda.empty_cache()
+
+    # -- (c) residual_add on the reduce paths and the per-lane path ------
+    st = stem_cases(dev, args.seed + 11)
+    x2, w2, b2 = st["x2"], st["w2"], st["b2"]
+    chain = ("bias", "gelu", "residual_add")
+    r2 = randn(TRAIN_BATCH, D_MODEL, 1, N_FRAMES)
+    for strategy, kname in (("lanes", "K1"), ("mxu", "K2")):
+        p = dataclasses.replace(
+            ssam_conv2d.plan_for_nchw(x2.shape, w2.shape, "same"),
+            stride=(1, 2), strategy=strategy,
+            epilogue=normalize_epilogue(chain))
+        lin = dataclasses.replace(p, epilogue=())
+        tag = "whisper conv2 (8,512,1,3000) stride (1,2) bias+gelu+residual"
+
+        def fusedr(p=p):
+            return engine.run_window_plan(x2, w2, plan=p,
+                                          epilogue_args=(b2, r2))
+
+        y = run(kname, 1, fusedr)
+        held(kname, tag, y, engine.run_window_plan_reference(
+            x2, w2, plan=p, epilogue_args=(b2, r2)), 1e-4)
+        del y
+        outs = r2.numel()
+        time_case(
+            kname, tag, fusedr,
+            lambda p=p: engine.run_window_plan_reference(
+                x2, w2, plan=p, epilogue_args=(b2, r2)),
+            moved_bytes(x2, w2, b2, r2) + outs * 4,
+            2 * D_MODEL * 3 * outs + 3 * outs,
+            unfused=lambda p=p, lin=lin: adjoint.apply_epilogue(
+                p, engine.run_window_plan(x2, w2, plan=lin), (b2, r2)),
+            lib=lambda p=p: adjoint.apply_epilogue(
+                p, F.conv2d(x2, w2, stride=(1, 2), padding=(0, 1)),
+                (b2, r2)))
+    del st, x2, w2, b2, r2
+    xh = randn(2, 2048, 3200)
+    wh = randn(4, 3200, scale=0.5)
+    bh = randn(3200, scale=0.1)
+    rh = randn(2, 2048, 3200)
+    chain = ("bias", "silu", "residual_add")
+    p = dataclasses.replace(ssam_conv1d.plan_for(4),
+                            epilogue=normalize_epilogue(chain))
+    require(engine.perlane_layout(p, 2, 2048, 3200, 4).chain == "generic",
+            "the residual chain runs K1's generic per-lane instance")
+    lin = dataclasses.replace(p, epilogue=())
+    tag = "hymba conv1d (2,2048,3200) bias+silu+residual"
+    # the library's layout: channels ahead of time, (B, D, T)
+    xt, wt = xh.transpose(1, 2).contiguous(), wh.T[:, None, :].contiguous()
+    rt = rh.transpose(1, 2).contiguous()
+
+    def fusedh():
+        return ops.conv1d_causal(xh, wh, epilogue=chain,
+                                 epilogue_args=(bh, rh))
+
+    y = run("K1", 1, fusedh)
+    held("K1", tag, y, engine.run_window_plan_reference(
+        xh, wh, plan=p, epilogue_args=(bh, rh)), 3e-5)
+    del y
+    time_case(
+        "K1", tag, fusedh,
+        lambda: engine.run_window_plan_reference(xh, wh, plan=p,
+                                                 epilogue_args=(bh, rh)),
+        moved_bytes(xh, wh, bh, rh) + xh.numel() * 4,
+        (2 * 4 - 1 + 3) * xh.numel(),
+        unfused=lambda: adjoint.apply_epilogue(
+            p, engine.run_window_plan(xh, wh, plan=lin), (bh, rh)),
+        lib=lambda: F.silu(F.conv1d(xt, wt, bh, padding=3,
+                                    groups=3200)[..., :2048]) + rt)
+    del xh, wh, bh, rh, xt, wt, rt
+
+    # -- (d) grouped NCHW forward and backward ---------------------------
+    for xs, ws, groups, label in (
+            ((8, 256, 56, 56), (256, 8, 3, 3), 32, "ResNeXt-like"),
+            ((8, 64, 256, 256), (64, 1, 3, 3), 64, "depthwise")):
+        xg = randn(*xs).requires_grad_(True)
+        wg = randn(*ws, scale=ws[1] ** -0.5 / 3).requires_grad_(True)
+        bg = randn(ws[0], scale=0.1).requires_grad_(True)
+        gy = randn(xs[0], ws[0], xs[2], xs[3])
+        tag = (f"grouped {label} {'x'.join(map(str, xs))} 3x3 "
+               f"groups={groups} bias+gelu")
+
+        def fwd(xg=xg, wg=wg, bg=bg, groups=groups):
+            return ops.conv2d(xg, wg, groups=groups,
+                              epilogue=("bias", "gelu"), epilogue_args=(bg,))
+
+        def plain_fwd(xg=xg, wg=wg, bg=bg, groups=groups, xs=xs, ws=ws):
+            Cg, Og = xs[1] // groups, ws[0] // groups
+            p = dataclasses.replace(
+                ssam_conv2d.plan_for_nchw((xs[0], Cg) + xs[2:],
+                                          (Og,) + ws[1:], "same"),
+                epilogue=normalize_epilogue(("bias", "gelu")))
+            return torch.cat([engine.run_window_plan_reference(
+                xg[:, i * Cg:(i + 1) * Cg].detach(),
+                wg[i * Og:(i + 1) * Og].detach(), plan=p,
+                epilogue_args=(bg[i * Og:(i + 1) * Og].detach(),))
+                for i in range(groups)], dim=1)
+
+        with torch.no_grad():
+            y = run("K1", groups, fwd)
+            held("K1", f"{tag} forward", y, plain_fwd(), 1e-4)
+        with torch.enable_grad():
+            y = fwd()
+            before = {k: v.launches for k, v in kernels.items()}
+            grads = torch.autograd.grad(y, (xg, wg, bg), gy)
+            torch.cuda.synchronize()
+            k1_bwd = K1.launches - before["K1"]
+            k3_bwd = K3.launches - before["K3"]
+            require(k1_bwd == 2 * groups and k3_bwd >= groups,
+                    (tag, "backward launches", k1_bwd, k3_bwd))
+            expected["K1"] += groups + k1_bwd
+            expected["K3"] += k3_bwd
+            # against the port's plain per-group backward, and against
+            # cuDNN's autograd of the same function
+            plain = plain_grouped_backward(xg, wg, bg, gy, groups,
+                                           ("bias", "gelu"))
+            for name_, a, e in zip(("dx", "dW", "db"), grads, plain):
+                held("K3" if name_ == "dW" else "K1",
+                     f"{tag} {name_} vs plain", a, e, 1e-4)
+            del plain
+            xd, wd, bd = (t.detach().requires_grad_(True)
+                          for t in (xg, wg, bg))
+            yl = F.gelu(F.conv2d(xd, wd, bd, padding=1, groups=groups),
+                        approximate="tanh")
+            want = torch.autograd.grad(yl, (xd, wd, bd), gy)
+            for name_, a, e in zip(("dx", "dW", "db"), grads, want):
+                held("K3" if name_ == "dW" else "K1", f"{tag} {name_}", a, e,
+                     1e-4)
+            del y, yl, grads, want
+        outs = gy.numel()
+        flops = 2 * outs * ws[1] * 9
+        time_case("K1", f"{tag} forward", lambda: fwd().detach(),
+                  lambda: plain_fwd(),
+                  (xg.numel() + wg.numel() + outs) * 4, flops,
+                  unfused=lambda xg=xg, wg=wg, bg=bg, groups=groups: F.gelu(
+                      ops.conv2d(xg.detach(), wg.detach(), groups=groups)
+                      + bg.detach()[:, None, None], approximate="tanh"),
+                  lib=lambda xg=xg, wg=wg, bg=bg, groups=groups: F.gelu(
+                      F.conv2d(xg, wg, bg, padding=1, groups=groups),
+                      approximate="tanh"))
+
+        def bwd(fn):
+            def go():
+                with torch.enable_grad():
+                    return torch.autograd.grad(fn(), (xg, wg, bg), gy)
+            return go
+
+        # (the plain versions run no backward on the card: no plain_ms)
+        time_case("K1", f"{tag} backward", bwd(fwd), None,
+                  (2 * xg.numel() + 2 * outs + 2 * wg.numel()) * 4,
+                  2 * flops,
+                  lib=bwd(lambda xg=xg, wg=wg, bg=bg, groups=groups: F.gelu(
+                      F.conv2d(xg, wg, bg, padding=1, groups=groups),
+                      approximate="tanh")))
+        del xg, wg, bg, gy
+        torch.cuda.empty_cache()
+
+    launches = {k: v.launches for k, v in kernels.items()}
+    emit({"phase": "surface_launches", "launches": launches,
+          "expected": expected})
+    require(launches == expected and all(launches.values()),
+            ("phase 11 launches", launches, expected))
+    return {"launches": launches, "worst": worst, "rows": rows}
+
+
+def plain_grouped_backward(x, w, b, gy, groups: int, chain) -> tuple:
+    """``(dx, dW, db)`` of the grouped NCHW 'same' conv ``ops.conv2d(x, w,
+    groups=, epilogue=chain, epilogue_args=(b,))`` through the port's
+    plain versions, group by group as the op's backward runs: the
+    epilogue's VJP at the plain pre-activation, then the plain weight
+    gradient and the plain input-adjoint plan on that cotangent."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import adjoint, engine
+    from repro_torch.core.plan import normalize_epilogue
+    from repro_torch.kernels import ssam_conv2d
+
+    B, C, H, W = x.shape
+    Cg, Og = C // groups, w.shape[0] // groups
+    lin = ssam_conv2d.plan_for_nchw((B, Cg, H, W), (Og,) + tuple(w.shape[1:]),
+                                    "same")
+    p = dataclasses.replace(lin, epilogue=normalize_epilogue(chain))
+    aplan = adjoint.input_adjoint_plan(lin)
+    dxs, dws, dbs = [], [], []
+    for i in range(groups):
+        xi = x[:, i * Cg:(i + 1) * Cg].detach()
+        wi = w[i * Og:(i + 1) * Og].detach()
+        o = slice(i * Og, (i + 1) * Og)
+        z = engine.run_window_plan_reference(xi, wi, plan=lin)
+        with torch.enable_grad():
+            zz = z.requires_grad_(True)
+            bb = b[o].detach().requires_grad_(True)
+            gz, db = torch.autograd.grad(
+                adjoint.apply_epilogue(p, zz, (bb,)), (zz, bb), gy[:, o])
+        dws.append(engine.run_weight_grad_plan_reference(xi, gz, plan=lin))
+        dxs.append(engine.run_window_plan_reference(
+            gz, adjoint.adjoint_coeff_array(lin, wi), plan=aplan))
+        dbs.append(db)
+    return torch.cat(dxs, 1), torch.cat(dws, 0), torch.cat(dbs)
+
+
 def first_loss_parity(cfg, ds, dev, seed, card, results) -> dict:
     """The first step's loss of whisper-base with the stem on K2 (``cfg``)
     and on K1 (the same config with ``conv_strategy=None``), on the same
@@ -2119,6 +2589,15 @@ def _row(rec) -> dict:
                                 "library_ms", "case")}
 
 
+def _surface(surf, kname) -> dict:
+    """Phase 11's cases of one kernel as the kernel line carries them:
+    its launches and largest error there, and per case the times."""
+    return {"launches": surf["launches"][kname],
+            "max_abs_err": surf["worst"][kname],
+            "cases": {tag: {**_row(rec), "unfused_ms": rec["unfused_ms"]}
+                      for tag, rec in surf["rows"][kname].items()}}
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2139,6 +2618,8 @@ def main() -> int:
     parser.add_argument("--profile-strategy", default="lanes",
                         choices=("lanes", "mxu"), help=argparse.SUPPRESS)
     args = parser.parse_args()
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -2195,15 +2676,17 @@ def main() -> int:
                            ("HGMMA", "UTMALDG", "LDS", "STS"))
     results["build"]["mxu_tc_sass"] = mxu_sass
     # K2's single-channel path: each instantiation (the plan's largest
-    # entry, 1-4 k-steps), its registers and spills, its mma.sync (HMMA)
+    # entry, 1-4 k-steps; one of 4 for the strided plans), its registers and spills, its mma.sync (HMMA)
     # on TMA-staged tiles (UTMALDG) and its fragment loads (LDS), no spills;
     # K1's per-lane path: each instance's registers and its 16-byte global
     # accesses (the cp.async ring's LDGSTS, STG.E.128, LDG.E.128)
     mxu_single = {}
-    for key, rec in ptxas_entries(_build.LIBRARY.ptxas_log,
-                                  r".*mxu_window_kernelILi(\d)E").items():
+    for key, rec in ptxas_entries(
+            _build.LIBRARY.ptxas_log,
+            r".*mxu_window_kernelILi(\d)ELb(\d)E").items():
+        kk, s = key.split("x")
         mxu_single[key] = {**rec, "sass": sass_counts(
-            str(_build.LIBRARY.path), f"mxu_window_kernelILi{key}E",
+            str(_build.LIBRARY.path), f"mxu_window_kernelILi{kk}ELb{s}E",
             ("HMMA", "HGMMA", "UTMALDG", "LDS"))}
     results["build"]["mxu_single_channel"] = mxu_single
     perlane = ptxas_entries(_build.LIBRARY.ptxas_log,
@@ -2226,7 +2709,7 @@ def main() -> int:
         r["spill_store_bytes"] == 0 for r in wgrad_rows.values()),
         ("K3's single-channel kernel spills or lacks an instance",
          wgrad_rows))
-    require(len(mxu_single) == 4 and all(
+    require(len(mxu_single) == 5 and all(
         r["spill_store_bytes"] == 0 and (r["sass"] is None or (
             r["sass"]["HMMA"] > 0 and r["sass"]["UTMALDG"] > 0))
         for r in mxu_single.values()),
@@ -2251,24 +2734,35 @@ def main() -> int:
     # K1's single-channel path: each instantiation (N, D, P) that phases
     # 2-5 launch, its registers and spills (ptxas -v), and its TMA loads,
     # shuffles, FMAs and jump-table branches in SASS
+    # (and the output-strided instantiations phase 11 launches: N the
+    # bucket of the cache's ceil(N / sh) rows, engine.window_rows, key
+    # suffix 1)
     k1_plans = [stencil_plan(sd) for sd in stencils.BENCHMARKS.values()] + [
-        ssam_conv2d.plan_for((k, k), "same") for k in CONV_SIZES]
-    k1_used = sorted({(p.N, p.depth if p.ndim_spatial == 3 else 1,
-                       engine.window_p(p)) for p in k1_plans})
-    k1_regs = ptxas_entries(_build.LIBRARY.ptxas_log,
-                            r".*window_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
+        ssam_conv2d.plan_for((k, k), "same") for k in CONV_SIZES] + [
+        dataclasses.replace(ssam_conv2d.plan_for((5, 5), mode), stride=st)
+        for mode, st in SURFACE_STRIDES]
+    k1_used = sorted({
+        (engine.window_rows(p),
+         p.depth if p.ndim_spatial == 3 else 1, engine.window_p(p),
+         512 if p.ndim_spatial == 3 else 256,
+         int(any(v > 1 for v in p.stride_per_axis()))) for p in k1_plans})
+    k1_regs = ptxas_entries(
+        _build.LIBRARY.ptxas_log,
+        r".*window_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi\d+ELb(\d)E")
     k1_build = {}
-    for n, d, pr in k1_used:
-        key = f"{n}x{d}x{pr}"
+    for n, d, pr, threads, s in k1_used:
+        key = f"{n}x{d}x{pr}x{s}"
         k1_build[key] = {**k1_regs.get(key, {}), "sass": sass_counts(
-            str(_build.LIBRARY.path), f"window_kernelILi{n}ELi{d}ELi{pr}E",
+            str(_build.LIBRARY.path),
+            f"window_kernelILi{n}ELi{d}ELi{pr}ELi{threads}ELb{s}E",
             ("UTMALDG", "LDGSTS", "SHFL", "FFMA", "BRX"))}
     results["build"]["window_single_channel"] = k1_build
     emit({"phase": "build_k1", "instantiations": k1_build, "card": card})
     for key, rec in k1_build.items():
         require("registers" in rec and rec["spill_store_bytes"] == 0
                 and (rec["sass"] is None or rec["sass"]["UTMALDG"] > 0),
-                (f"K1 single-channel kernel {key} (N x D x P) spills or "
+                (f"K1 single-channel kernel {key} (N x D x P x strided) "
+                 "spills or "
                  "has no TMA load", rec))
 
     worst = {"abs": 0.0}
@@ -2433,6 +2927,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     marks.append(("10 train hymba-1.5b", time.perf_counter()))
     hy = hymba_phase(args, dev, card, results)
+    torch.cuda.empty_cache()
+    marks.append(("11 epilogues, residuals, strides, groups",
+                  time.perf_counter()))
+    surf = surface_phase(args, dev, card, results)
     marks.append(("end", time.perf_counter()))
     results["phase_seconds"] = {name: t1 - t0 for (name, t0), (_, t1)
                                 in zip(marks, marks[1:])}
@@ -2473,7 +2971,8 @@ def main() -> int:
                          "parent_ms": hy["timed"]["K1 dx"]["parent_ms"]},
                   "forward_linear": {
                       **_row(hy["timed"]["K1 linear"]),
-                      "parent_ms": hy["timed"]["K1 linear"]["parent_ms"]}}},
+                      "parent_ms": hy["timed"]["K1 linear"]["parent_ms"]}},
+        "surface": _surface(surf, "K1")},
         {
         "name": K5.name, "route": "cuda", "source": K5.source,
         "replaces": K5.replaces, "launches": served["k5_launches"],
@@ -2502,7 +3001,8 @@ def main() -> int:
             "parent_ms": k3r["headline"]["parent_ms"],
             "case": k3r["headline"]["case"],
             "cases": {tag: {**_row(r), "parent_ms": r["parent_ms"]}
-                      for tag, r in k3r["rows"].items()}}},
+                      for tag, r in k3r["rows"].items()}},
+        "surface": _surface(surf, "K3")},
         {
         "name": K2.name, "route": "cuda", "source": K2.source,
         "replaces": K2.replaces, "launches": mxu["train_launches"],
@@ -2520,7 +3020,8 @@ def main() -> int:
                            "max_abs_err": mxu["worst"]["abs"], **_row(k2h),
                            "call_ms": k2h["call_ms"], "k1_ms": k2h["k1_ms"],
                            "parent_ms": k2h["parent_ms"],
-                           "case": k2h["case"] + " 8192x8192 fp32"}}, {
+                           "case": k2h["case"] + " 8192x8192 fp32"},
+        "surface": _surface(surf, "K2")}, {
         "name": K4.name, "route": "cuda", "source": K4.source,
         "replaces": K4.replaces, "launches": hy["launches"]["k4"],
         "max_abs_err": hy["worst"]["K4"], **_row(hy["timed"]["K4"])}]})

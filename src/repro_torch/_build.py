@@ -134,14 +134,16 @@ class Library:
     def _load(path: Path) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssam_window_launch.argtypes = [p, p, i, p, p,
-                                           ctypes.POINTER(ctypes.c_int), i, p]
+        ints, floats = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(
+            ctypes.c_float)
+        # the epilogue: bias, residual, ops, values, count
+        epi = [p, p, ints, floats, i]
+        lib.ssam_window_launch.argtypes = [p, p, i, p, p, ints, i] + epi + [p]
         lib.ssam_window_launch.restype = i
         lib.ssam_scan_launch.argtypes = [p] * 5 + [i] * 4 + [p]
         lib.ssam_scan_launch.restype = i
         lib.ssam_window_reduce_launch.argtypes = (
-            [p, p, i, p, p, i, p, ctypes.POINTER(ctypes.c_int),
-             ctypes.POINTER(ctypes.c_float), i] + [i] * 22 + [p])
+            [p, p, i, p, p, i] + epi + [i] * 22 + [p])
         lib.ssam_window_reduce_launch.restype = i
         lib.ssam_wgrad_launch.argtypes = ([p, p, i, p, p] + [i] * 22
                                           + [ctypes.POINTER(ctypes.c_int), p])
@@ -151,17 +153,13 @@ class Library:
             + [i] * 4 + [p])
         lib.ssam_wgrad_tc_launch.restype = i
         lib.ssam_mxu_tc_launch.argtypes = (
-            [p, p, i, p, p, p, ctypes.POINTER(ctypes.c_int),
-             ctypes.POINTER(ctypes.c_float), i] + [i] * 24 + [p])
+            [p, p, i, p, p] + epi + [i] * 24 + [p])
         lib.ssam_mxu_tc_launch.restype = i
-        lib.ssam_mxu_window_launch.argtypes = [p, p, i, p, p,
-                                               ctypes.POINTER(ctypes.c_int),
-                                               i, p]
+        lib.ssam_mxu_window_launch.argtypes = ([p, p, i, p, p, ints, i]
+                                               + epi + [p])
         lib.ssam_mxu_window_launch.restype = i
         lib.ssam_window_perlane_launch.argtypes = (
-            [p, p, i, p, ctypes.POINTER(ctypes.c_int), i, p,
-             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), i]
-            + [i] * 5 + [p])
+            [p, p, i, p, ints, i] + epi + [i] * 5 + [p])
         lib.ssam_window_perlane_launch.restype = i
         lib.ssam_wgrad_perlane_launch.argtypes = [p, p, i, p, p] + [i] * 8 + [p]
         lib.ssam_wgrad_perlane_launch.restype = i

@@ -3,9 +3,9 @@ each a CUDA kernel beside its plain version.
 
 :func:`run_window_plan` runs a windowed :class:`SystolicPlan` (2-D and
 3-D stencils, dense 2-D convolution, with leading batch axes, NCHW
-convolution with a channel reduction, an output stride and a fused
-epilogue, and depthwise (per-lane) conv1d with a per-lane bias and an
-activation fused) over an input whose lane axis is last. The tensor's
+convolution with a channel reduction, and depthwise (per-lane) conv1d;
+an output stride on 2-D plans, and a fused epilogue, ``residual_add``
+included, on all of them) over an input whose lane axis is last. The tensor's
 device decides how:
 
 * a CUDA tensor launches K1, the hand-written kernel in
@@ -67,8 +67,9 @@ MXU_TAP_ALIGN = 8            # K2's im2row taps pad to a multiple of 8
 WARP = 32
 SMEM_LIMIT = 232448          # bytes of shared memory one H100 block may use
 TABLE_SLOTS = 1024           # the kernel's tap-table limit (steps · D · N)
-# K1's epilogue codes (csrc/ssam_window_reduce.cu), in the kernel's order
-EPILOGUE_CODES = {"bias": 1, "gelu": 2, "silu": 3, "relu": 4, "scale": 5}
+# the kernels' epilogue codes (csrc/ssam_epilogue.cuh), in their order
+EPILOGUE_CODES = {"bias": 1, "gelu": 2, "silu": 3, "relu": 4, "scale": 5,
+                  "residual_add": 6}
 MAX_EPILOGUE = 8
 
 
@@ -82,24 +83,16 @@ def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
     reduce = _is_reduce(plan)
     if reduce and (plan.reduce_axes, plan.out_axes) != (1, 1):
         todo.append("reduce/out axes other than one of each (ROADMAP "
-                    "Queue 1 item 4)")
-    if any(v > 1 for v in plan.stride_per_axis()) and not reduce:
-        todo.append("output strides on single-channel plans (ROADMAP "
-                    "Queue 1 item 4)")
-    perlane = plan.coeff_mode == "perlane"
-    if plan.epilogue and not reduce and not perlane:
-        todo.append("epilogues on single-channel and stencil plans "
-                    "(ROADMAP Queue 1 item 4)")
-    if any(st.op == "residual_add" for st in plan.epilogue):
-        todo.append("residual_add epilogues (ROADMAP Queue 1 item 4)")
+                    "Queue 1 item 4; no ops.* call reaches it)")
     if plan.stages:
         todo.append("fused stages (ROADMAP Queue 1 item 7)")
+    perlane = plan.coeff_mode == "perlane"
     if perlane and plan.strategy == "mxu":
         todo.append("strategy='mxu' on per-lane coefficients, the "
                     "lane-batched mat-vec (ROADMAP Queue 1 item 5c)")
     if perlane and time_steps != 1:
         todo.append("temporal blocking of per-lane plans (ROADMAP Queue 1 "
-                    "item 4)")
+                    "item 4; no ops.* call reaches it)")
     if plan.combine != "fma":
         raise ValueError(f"{plan.kind!r} plan has combine={plan.combine!r}: "
                          "scan plans run through run_scan_plan")
@@ -120,6 +113,7 @@ def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if int(time_steps) != time_steps or time_steps < 1:
         raise ValueError(f"time_steps must be an int >= 1, got {time_steps}")
+    strided = any(v > 1 for v in plan.stride_per_axis())
     if reduce:
         if plan.coeff_mode != "dense" or plan.ndim_spatial != 2 \
                 or plan.batch_axes > 1:
@@ -130,12 +124,27 @@ def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
                 "temporal blocking does not commute with a channel "
                 "reduction: iterate t must see the summed output of "
                 "iterate t-1")
-    elif time_steps != 1 and any(v > 1 for v in plan.stride_per_axis()):
-        raise ValueError("output strides support single plan applications")
+    elif strided and (time_steps != 1 or plan.ndim_spatial != 2
+                      or perlane):
+        raise ValueError("output strides support single 2-D plan "
+                         "applications")
 
 
-def _check_operands(plan: SystolicPlan, x, w, epilogue_args) -> None:
-    """Shapes of the filter and the epilogue operands against the plan."""
+def _out_dims(plan: SystolicPlan, x, w, time_steps: int = 1) -> tuple:
+    """The output's shape: x's batch axes, C_out for reduce plans, then
+    the windowed axes of :meth:`SystolicPlan.out_shape`."""
+    nb, nr = plan.batch_axes, plan.reduce_axes
+    return (tuple(x.shape[:nb])
+            + ((w.shape[0],) if _is_reduce(plan) else ())
+            + plan.out_shape(tuple(x.shape[nb + nr:]), time_steps))
+
+
+def _check_operands(plan: SystolicPlan, x, w, epilogue_args,
+                    time_steps: int = 1) -> None:
+    """Shapes of the filter and the epilogue operands against the plan:
+    a bias per C_out (reduce plans), per lane (per-lane plans) or a
+    scalar (any other plan), a residual shaped exactly like the output
+    (the reference's ``_check_epilogue_operands``)."""
     if plan.coeff_mode in ("dense", "perlane") and w is None:
         raise ValueError(f"a {plan.coeff_mode} plan needs its filter w")
     need = epilogue_operand_stages(plan.epilogue)
@@ -143,32 +152,43 @@ def _check_operands(plan: SystolicPlan, x, w, epilogue_args) -> None:
         raise ValueError(
             f"epilogue {tuple(s.op for s in plan.epilogue)} needs "
             f"{len(need)} runtime operand(s), got {len(epilogue_args)}")
-    if plan.coeff_mode == "perlane":
+    perlane = plan.coeff_mode == "perlane"
+    if perlane:
         rows = 1 + max(t.coeff_id[-1] for t in plan.steps[0].taps)
         if w.ndim != 2 or w.shape[1] != x.shape[-1] or w.shape[0] < rows:
             raise ValueError(
                 f"{plan.kind!r}: per-lane filter {tuple(w.shape)} must be "
                 f"(>= {rows}, D) with D = x's lane axis {x.shape[-1]}")
-        for st, arr in zip(need, epilogue_args):
-            if st.op == "bias" and tuple(arr.shape) != (x.shape[-1],):
-                raise ValueError(f"bias epilogue wants a per-lane "
-                                 f"({x.shape[-1]},) row, got "
-                                 f"{tuple(arr.shape)}")
-        return
-    if not _is_reduce(plan):
-        return
-    nb = plan.batch_axes
-    if x.ndim != nb + 3 or w.ndim != 4 or w.shape[1] != x.shape[nb]:
-        raise ValueError(
-            f"{plan.kind!r}: x {tuple(x.shape)} must be (B, C_in, H, W) "
-            f"against a (C_out, C_in, N, M) filter, got w {tuple(w.shape)}")
-    if tuple(w.shape[2:]) != plan.exts:
-        raise ValueError(f"filter {tuple(w.shape)} does not match the "
-                         f"plan's footprint {plan.exts}")
+    elif _is_reduce(plan):
+        nb = plan.batch_axes
+        if x.ndim != nb + 3 or w.ndim != 4 or w.shape[1] != x.shape[nb]:
+            raise ValueError(
+                f"{plan.kind!r}: x {tuple(x.shape)} must be (B, C_in, H, W) "
+                f"against a (C_out, C_in, N, M) filter, got w "
+                f"{tuple(w.shape)}")
+        if tuple(w.shape[2:]) != plan.exts:
+            raise ValueError(f"filter {tuple(w.shape)} does not match the "
+                             f"plan's footprint {plan.exts}")
     for st, arr in zip(need, epilogue_args):
-        if st.op == "bias" and tuple(arr.shape) != (w.shape[0],):
-            raise ValueError(f"bias epilogue wants a per-C_out "
-                             f"({w.shape[0]},) row, got {tuple(arr.shape)}")
+        shape = tuple(arr.shape)
+        if st.op == "residual_add":
+            want = _out_dims(plan, x, w, time_steps)
+            if shape != want:
+                raise ValueError(
+                    f"residual_add epilogue wants an output-shaped {want} "
+                    f"operand, got shape {shape}")
+        elif perlane:
+            if shape != (x.shape[-1],):
+                raise ValueError(f"bias epilogue wants a per-lane "
+                                 f"({x.shape[-1]},) row, got {shape}")
+        elif _is_reduce(plan):
+            if shape != (w.shape[0],):
+                raise ValueError(f"bias epilogue wants a per-C_out "
+                                 f"({w.shape[0]},) row, got {shape}")
+        elif arr.numel() != 1:
+            raise ValueError(
+                f"bias epilogue wants a scalar for {plan.kind!r} plans (no "
+                f"channel axis), got shape {shape}")
 
 
 def _geometry(plan, x_shape, block, time_steps):
@@ -379,7 +399,7 @@ def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     plain version of K2; ``variant`` is then moot, as in the reference).
     """
     check_supported(plan, time_steps, variant)
-    _check_operands(plan, x, w, epilogue_args)
+    _check_operands(plan, x, w, epilogue_args, time_steps)
     block = tuple(block or default_block(plan, time_steps))
     t = time_steps
     nd = plan.ndim_spatial
@@ -428,12 +448,33 @@ def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
 # K1: the CUDA kernel
 # ---------------------------------------------------------------------------
 
-def _epilogue_codes(plan: SystolicPlan, epilogue_args, device):
-    """A reduce plan's epilogue as the kernels read it: ``(ops, values,
-    count, bias)``, ``ops`` and ``values`` ctypes arrays of
-    :data:`MAX_EPILOGUE` entries (codes of :data:`EPILOGUE_CODES`), ``bias``
-    the fp32 per-C_out row or None."""
-    ops_, vals, bias = [], [], None
+@dataclasses.dataclass(frozen=True)
+class EpilogueCodes:
+    """A plan's epilogue as the kernels read it: ``ops`` and ``vals``
+    ctypes arrays of :data:`MAX_EPILOGUE` entries (codes of
+    :data:`EPILOGUE_CODES`), ``count`` stages, ``bias`` the fp32 bias (per
+    C_out, per lane, or one value) and ``resid`` the residual in the
+    output's dtype and layout, each contiguous on x's device or None."""
+
+    ops: object
+    vals: object
+    count: int
+    bias: torch.Tensor | None
+    resid: torch.Tensor | None
+
+    def args(self) -> tuple:
+        """The five epilogue arguments of the C entries."""
+        return (None if self.bias is None else self.bias.data_ptr(),
+                None if self.resid is None else self.resid.data_ptr(),
+                self.ops, self.vals, self.count)
+
+
+def _epilogue_codes(plan: SystolicPlan, epilogue_args, device,
+                    dtype) -> EpilogueCodes:
+    """The epilogue of ``plan`` for a kernel launch on ``device`` whose
+    output has ``dtype``: a residual of another dtype is converted once
+    here (a residual that is x itself is read in place)."""
+    ops_, vals, bias, resid = [], [], None, None
     args = iter(epilogue_args)
     for st in plan.epilogue:
         ops_.append(EPILOGUE_CODES[st.op])
@@ -442,12 +483,16 @@ def _epilogue_codes(plan: SystolicPlan, epilogue_args, device):
             arr = next(args)
             if arr.device != device:
                 raise ValueError("epilogue operands must lie on x's device")
-            bias = arr.detach().to(torch.float32).contiguous()
+            if st.op == "residual_add":
+                resid = arr.detach().to(dtype).contiguous()
+            else:
+                bias = arr.detach().to(torch.float32).reshape(-1).contiguous()
     if len(ops_) > MAX_EPILOGUE:
         raise ValueError(f"the kernels apply at most {MAX_EPILOGUE} "
                          "epilogue stages")
-    return ((ctypes.c_int * MAX_EPILOGUE)(*ops_),
-            (ctypes.c_float * MAX_EPILOGUE)(*vals), len(ops_), bias)
+    return EpilogueCodes((ctypes.c_int * MAX_EPILOGUE)(*ops_),
+                         (ctypes.c_float * MAX_EPILOGUE)(*vals), len(ops_),
+                         bias, resid)
 
 
 def _check_kernel_operands(kernel: str, x, w, plan: SystolicPlan) -> None:
@@ -461,20 +506,27 @@ def _check_kernel_operands(kernel: str, x, w, plan: SystolicPlan) -> None:
                          "the same device as x")
 
 
-def _tile_launch(plan: SystolicPlan, x, block, t: int):
+def _tile_launch(plan: SystolicPlan, x, block, t: int, out_sp=None):
     """A single-channel launch's geometry, padded to 3-D as both K1 and K2
-    read it: ``(x, out, B, head, tile)``, ``x`` contiguous, ``out`` empty,
-    ``B`` the output tile, ``head`` the ints ``(batch, zin, hin, win, zo,
-    ho, wo, lz, ly, lx)`` (``l*`` the ``t``-fold lead) and ``tile`` ``(bz,
-    bh, bw)``."""
+    read it: ``(x, out, B, head, tile)``, ``x`` contiguous, ``out`` empty
+    (None where the caller gives the output extent ``out_sp``, a crop of
+    the plan's output that it stores itself), ``B`` the output tile,
+    ``head`` the ints ``(batch, zin, hin, win, zo, ho, wo, lz, ly, lx)``
+    (``l*`` the ``t``-fold lead) and ``tile`` ``(bz, bh, bw)``."""
     nb, nd = plan.batch_axes, plan.ndim_spatial
-    spatial_in, out_sp, B, _ = _geometry(plan, x.shape, block, t)
+    spatial_in, full, B, _ = _geometry(plan, x.shape, block, t)
     x = x.contiguous()
     batch = 1
     for d in x.shape[:nb]:
         batch *= d
-    out = torch.empty(tuple(x.shape[:nb]) + out_sp, dtype=x.dtype,
-                      device=x.device)
+    out = None
+    if out_sp is None:
+        out_sp = full
+        out = torch.empty(tuple(x.shape[:nb]) + out_sp, dtype=x.dtype,
+                          device=x.device)
+    else:
+        out_sp = tuple(out_sp)
+        B = tuple(min(b, o) for b, o in zip(block, out_sp))
     pad3 = (1,) * (3 - nd)
     lead, _ = plan.lead_trail()
     head = ((batch,) + pad3 + spatial_in + pad3 + out_sp
@@ -482,12 +534,48 @@ def _tile_launch(plan: SystolicPlan, x, block, t: int):
     return x, out, B, head, pad3 + B
 
 
+def _dense_oaddr(head) -> tuple[int, int, int, int]:
+    """The output step ``(o_row, o_col, o_plane, o_img)`` of a dense
+    ``(batch, zo, ho, wo)`` output."""
+    zo, ho, wo = head[4:7]
+    return (wo, 1, ho * wo, zo * ho * wo)
+
+
+def _phase_launches(run, g, wa, plan: SystolicPlan, in_spatial):
+    """``dx`` of a strided single-channel plan through a single-channel
+    kernel (``run``, K1's or K2's): each output phase of
+    :func:`adjoint.strided_input_adjoint_phases` is one launch of its
+    stride-1 plan on the cotangent ``g`` as it is, storing its ``(hq,
+    wq)`` outputs in place at ``dx[..., py::sh, px::sw]`` through the
+    kernel's output step; phases no tap reaches stay zero."""
+    lin = dataclasses.replace(plan, epilogue=())
+    sh, sw = plan.stride_per_axis()
+    H, W = in_spatial
+    phases = [ph for ph in adjoint.strided_input_adjoint_phases(lin)
+              if all(ph.extent(in_spatial))]
+    g = g.contiguous()
+    make = torch.zeros if any(ph.plan is None for ph in phases) \
+        else torch.empty
+    dx = make(tuple(g.shape[:-2]) + (H, W), dtype=g.dtype, device=g.device)
+    for ph in phases:
+        if ph.plan is None:
+            continue
+        p = _phase_plan_on(ph, tuple(g.shape[-2:]), in_spatial)
+        py, px = ph.offset
+        run(g, ph.filter(wa), p, default_block(p, 1), 1, "shift_psum", (),
+            out=dx, out_sp=ph.extent(in_spatial), offset=py * W + px,
+            oaddr=(sh * W, sw, H * W, H * W))
+    return dx
+
+
 class WindowKernel:
     """Wrapper of K1. ``launches`` counts the kernel launches it made:
     one per call, on the single-channel path (``ssam_window_launch``) and
-    on the channel-reduce path (``ssam_window_reduce_launch``) alike; a
-    strided plan's input adjoint (:meth:`adjoint_phases`) is one launch
-    for all its phases."""
+    on the channel-reduce path (``ssam_window_reduce_launch``) alike, a
+    fused epilogue or residual included; a strided reduce plan's input
+    adjoint (:meth:`adjoint_phases`) is one launch for all its phases, a
+    strided single-channel plan's one launch a phase that a tap
+    reaches."""
 
     name = "ssam_window"
     source = "src/repro_torch/csrc/ssam_window.cu"
@@ -505,21 +593,32 @@ class WindowKernel:
             return self._reduce(x, w, plan, epilogue_args)
         if plan.coeff_mode == "perlane":
             return self._perlane(x, w, plan, epilogue_args)
-        t = time_steps
+        return self._single(x, w, plan, block, time_steps, variant,
+                            epilogue_args)
+
+    def _single(self, x, w, plan, block, t, variant, epilogue_args, *,
+                out=None, out_sp=None, offset=0, oaddr=None):
+        """The single-channel path (``ssam_window.cuh``): one launch,
+        strided or not, the epilogue at the store. ``out``, ``out_sp``,
+        ``offset`` and ``oaddr`` (the output step) store a crop of the
+        plan's output into a caller's tensor (an adjoint phase)."""
         table = tap_table(plan, None if w is None else tuple(w.shape))
         ints, cvals = _device_table(table, x.device)
         if plan.coeff_mode == "dense":
             cvals = w.detach().to(torch.float32).contiguous()
-        x, out, B, head, tile = _tile_launch(plan, x, block, t)
+        x, fresh, B, head, tile = _tile_launch(plan, x, block, t, out_sp)
+        out = fresh if out is None else out
         # TMA reads rows at a pitch of a multiple of 16 bytes: other widths
         # take a pitch-padded copy (the map keeps the logical width)
         xt, pitch = _tma_operand(x)
         lay = window_layout(plan, head, tile, t, x.element_size(), pitch,
-                            variant)
+                            variant, oaddr)
+        epi = _epilogue_codes(plan, epilogue_args, x.device, x.dtype)
         err = self.library.get().ssam_window_launch(
-            xt.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-            cvals.data_ptr(), ints.data_ptr(),
-            (ctypes.c_int * len(lay.geom))(*lay.geom), len(lay.geom),
+            xt.data_ptr(), out.data_ptr() + offset * x.element_size(),
+            int(x.dtype == torch.bfloat16), cvals.data_ptr(),
+            ints.data_ptr(), (ctypes.c_int * len(lay.geom))(*lay.geom),
+            len(lay.geom), *epi.args(),
             torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"K1 launch failed: CUDA error {err} "
@@ -538,10 +637,14 @@ class WindowKernel:
         return out if plan.batch_axes else out[0]
 
     def adjoint_phases(self, g, wa, *, plan: SystolicPlan, in_spatial):
-        """``dx`` of a strided reduce plan in one launch: every output
-        phase of :func:`adjoint_reduce_phases` reads the cotangent ``g``
-        at stride 1 and writes its positions of ``dx`` in place."""
+        """``dx`` of a strided plan: for a reduce plan one launch, every
+        output phase of :func:`adjoint_reduce_phases` reading the
+        cotangent ``g`` at stride 1 and writing its positions of ``dx``
+        in place; for a single-channel plan one launch a phase
+        (:func:`_phase_launches`)."""
         _check_kernel_operands("K1", g, wa, plan)
+        if not _is_reduce(plan):
+            return _phase_launches(self._single, g, wa, plan, in_spatial)
         g4 = g if plan.batch_axes else g[None]
         lin = dataclasses.replace(plan, epilogue=())
         phases = adjoint_reduce_phases(lin, in_spatial)
@@ -569,14 +672,12 @@ class WindowKernel:
         wt[..., :Co] = w.detach().to(torch.float32).reshape(
             Co, Cr, fsz).permute(1, 2, 0)
         table = _device_ints(lay.table, x4.device)
-        c_ops, c_vals, n_epi, bias = _epilogue_codes(plan, epilogue_args,
-                                                     x4.device)
+        epi = _epilogue_codes(plan, epilogue_args, x4.device, x4.dtype)
         out = torch.empty((Bn, Co) + tuple(out_spatial), dtype=x4.dtype,
                           device=x4.device)
         err = self.library.get().ssam_window_reduce_launch(
             x4.data_ptr(), out.data_ptr(), int(x4.dtype == torch.bfloat16),
-            wt.data_ptr(), table.data_ptr(), len(lay.table),
-            None if bias is None else bias.data_ptr(), c_ops, c_vals, n_epi,
+            wt.data_ptr(), table.data_ptr(), len(lay.table), *epi.args(),
             Bn, Cr, Co, lay.co_pad, H, W, *out_spatial, *read_stride,
             *out_stride, fsz, len(phases), lay.cols, lay.ci_slab,
             lay.row_elems, lay.x_bytes, lay.stage_bytes, *lay.grid[:2],
@@ -608,15 +709,13 @@ class WindowKernel:
                              f"{batch} sequences")
         (lead, _), _ = plan.lead_trail()
         wf = w.detach().to(torch.float32).contiguous()
-        c_ops, c_vals, n_epi, bias = _epilogue_codes(plan, epilogue_args,
-                                                     x.device)
+        epi = _epilogue_codes(plan, epilogue_args, x.device, x.dtype)
         out = torch.empty(tuple(x.shape[:nb]) + (To, D), dtype=x.dtype,
                           device=x.device)
         err = self.library.get().ssam_window_perlane_launch(
             x.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
             wf.data_ptr(), (ctypes.c_int * PERLANE_MAX_ROWS)(*rows),
-            plan.N, None if bias is None else bias.data_ptr(), c_ops, c_vals,
-            n_epi, batch, T, D, To, lead,
+            plan.N, *epi.args(), batch, T, D, To, lead,
             torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"K1 launch failed: CUDA error {err} "
@@ -1011,7 +1110,9 @@ class TapTable:
     taps fill every footprint slot (a branch-free body runs it). Per tap,
     in (dz, row) order within its step: its slot ``dz·N + row``
     (``slots``) and its index into the coefficient array (``cidx``: the
-    plan's immediates, or the flattened dense filter)."""
+    plan's immediates, or the flattened dense filter). An output-strided
+    plan's slot is ``rho << 8 | q`` for row ``sh·q + rho`` (its taps in
+    (rho, q) order, no step dense)."""
 
     steps: tuple[tuple[int, int, int, int], ...]
     slots: tuple[int, ...]
@@ -1044,13 +1145,16 @@ def tap_table(plan: SystolicPlan, w_shape) -> TapTable:
     if steps * D * N > TABLE_SLOTS:
         raise ValueError(f"plan has {steps * D * N} tap slots, K1 holds "
                          f"{TABLE_SLOTS}")
+    sh = plan.stride_per_axis()[0]
+    strided = _strided(plan)
     slots, cidx = [], []
     for m, step in enumerate(plan.steps):
         taps = {}
         for tap in step.taps:
             if not (0 <= tap.row_offset < N and 0 <= tap.z_offset < D):
                 raise ValueError(f"tap {tap} lies outside the footprint")
-            slot = tap.z_offset * N + tap.row_offset
+            slot = (((tap.row_offset % sh) << 8) | tap.row_offset // sh
+                    if strided else tap.z_offset * N + tap.row_offset)
             if slot in taps:
                 raise ValueError(f"two taps of step {m} read the same "
                                  f"cell {tap}")
@@ -1082,9 +1186,14 @@ def tap_steps(plan: SystolicPlan) -> tuple[tuple[int, int, int, int], ...]:
     out, first = [], 0
     for step in plan.steps:
         n = len({(t.z_offset, t.row_offset) for t in step.taps})
-        out.append((step.shift, first, n, int(n == D * plan.N)))
+        out.append((step.shift, first, n,
+                    int(n == D * plan.N and not _strided(plan))))
         first += n
     return tuple(out)
+
+
+def _strided(plan: SystolicPlan) -> bool:
+    return any(v > 1 for v in plan.stride_per_axis())
 
 
 @functools.lru_cache(maxsize=256)
@@ -1145,12 +1254,34 @@ class WindowLayout:
         return b, iz * bz, iy * bh, ix * bw
 
 
+# K1's output-strided instantiations (``csrc/ssam_window_2d_strided.cu``):
+# one a cache-row count ``⌈N/sh⌉`` up to WINDOW_STRIDED_EXACT, one of
+# WINDOW_STRIDED_BUCKET rows above it that loads only the rows its taps
+# read (a bucket for the exact counts cost the forward 30–75 %, PERF.md).
+WINDOW_STRIDED_EXACT, WINDOW_STRIDED_BUCKET = 16, 32
+
+
+def window_rows(plan: SystolicPlan) -> int:
+    """Cache rows ``N`` of the K1 single-channel instantiation that runs
+    ``plan``: the plan's own rows; for an output-strided plan ``⌈N/sh⌉``
+    up to :data:`WINDOW_STRIDED_EXACT`, else
+    :data:`WINDOW_STRIDED_BUCKET`."""
+    if not _strided(plan):
+        return plan.N
+    n = -(-plan.N // plan.stride_per_axis()[0])
+    return n if n <= WINDOW_STRIDED_EXACT else WINDOW_STRIDED_BUCKET
+
+
 def window_p(plan: SystolicPlan) -> int:
     """Output rows a thread of K1's single-channel kernel holds (its
     instantiation tables in ``csrc/ssam_window_{2d,2d_wide,3d}.cu``, each
     chosen by paired runs on the card): 32 for 2-D plans of up to 13 rows,
     16 for wider ones; 16 for 3-D plans whose register cache then holds at
-    most 54 values (``D·(N + 15) ≤ 54``: the 3×3 footprints), else 8."""
+    most 54 values (``D·(N + 15) ≤ 54``: the 3×3 footprints), else 8. An
+    output-strided plan's instantiation (:func:`window_rows`) holds 16,
+    8 in the one of 32 rows."""
+    if _strided(plan):
+        return 16 if window_rows(plan) <= 16 else 8
     if plan.ndim_spatial == 2:
         return 32 if plan.N <= 13 else 16
     return 16 if plan.depth * (plan.N + 15) <= 54 else 8
@@ -1170,9 +1301,10 @@ def _window_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
     D = plan.depth if nd == 3 else 1
     N, M = plan.N, plan.M
     bz, bh, bw = tile
+    sh, sw = plan.stride_per_axis()[-2:]
     per = TMA_ALIGN // elem_bytes
-    zs, hs = bz + t * (D - 1), bh + t * (N - 1)
-    wneed = _round_up(bw + t * (M - 1) + per - 1, per)
+    zs, hs = bz + t * (D - 1), sh * (bh - 1) + 1 + t * (N - 1)
+    wneed = _round_up(sw * (bw - 1) + 1 + t * (M - 1) + per - 1, per)
     nbx = -(-wneed // TMA_MAX_BOX)
     box_x = _round_up(-(-wneed // nbx), per)
     # every box lands at a 128-byte aligned address: stacked y- and z-boxes
@@ -1209,11 +1341,14 @@ def _window_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
 
 def window_layout(plan: SystolicPlan, head, tile, t: int,
                   elem_bytes: int = 4, pitch: int | None = None,
-                  variant: str = "shift_psum") -> WindowLayout:
+                  variant: str = "shift_psum",
+                  oaddr=None) -> WindowLayout:
     """K1's single-channel layout for a call of :func:`_tile_launch`'s
-    ``head`` and ``tile``. The ring takes the most stages (up to 3) that
-    leave two blocks an SM (2-D plans); failing that, or for 3-D plans,
-    the most that fit one block; failing that, the call raises."""
+    ``head`` and ``tile``, storing through the output step ``oaddr``
+    (``(o_row, o_col, o_plane, o_img)``; default the dense output). The
+    ring takes the most stages (up to 3) that leave two blocks an SM (2-D
+    plans); failing that, or for 3-D plans, the most that fit one block;
+    failing that, the call raises."""
     batch, zin, hin, win, zo, ho, wo, lz, ly, lx = head
     nd = plan.ndim_spatial
     D = plan.depth if nd == 3 else 1
@@ -1243,8 +1378,9 @@ def window_layout(plan: SystolicPlan, head, tile, t: int,
             pitch or tma_pitch(win, elem_bytes),
             zo, ho, wo, lz, ly, lx, bz, bh, bw,
             box[2], box[1], box[0], boxes[2], boxes[1], boxes[0],
-            stages, stage_bytes, *bufs, smem, grid) + tuple(
-                v for st in tap_steps(plan) for v in st)
+            stages, stage_bytes, *bufs, smem, grid,
+            *plan.stride_per_axis()[-2:], *(oaddr or _dense_oaddr(head))
+            ) + tuple(v for st in tap_steps(plan) for v in st)
     return WindowLayout(tile, tiles, box, boxes, stage_bytes, stages,
                         bufs, smem, bps, grid, geom)
 
@@ -1270,7 +1406,11 @@ def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
         return _mxu_block(plan, time_steps)
     need, limit = smem_bytes, SMEM_LIMIT
     V = max(1, WARP - (plan.M - 1))
-    if plan.ndim_spatial == 3:
+    if _strided(plan):
+        # items of P rows x 32 columns, 8 a tile, the tile's input small
+        # enough for two blocks an SM
+        block, limit = [4 * window_p(plan), 2 * WARP], WINDOW_SMEM_TARGET
+    elif plan.ndim_spatial == 3:
         block = [8, 16, 2 * V]
     else:
         block = [64, 4 * V]
@@ -1376,9 +1516,67 @@ def _emulate_apply(src: torch.Tensor, addr, ext, table: TapTable, coef,
     return dst
 
 
+def _emulate_strided(src: torch.Tensor, addr, hs: int, out_ext,
+                     table: TapTable, coef, plan: SystolicPlan,
+                     P: int) -> torch.Tensor:
+    """One application of ``ssam_window.cuh::apply_strided`` on the
+    emulated shared memory ``src`` through ``addr (pitch, plane, bw,
+    bstride, shift)``: items of ``P`` rows × 32 lanes, lane ``l`` on
+    output column ``l`` (clamped to the last) reading input column ``sw·l
+    + cum`` of each step, the register cache's ``⌈N/sh⌉ + P − 1`` rows
+    that the taps read (of :func:`window_rows`)
+    ``sh·(y0 + i) + rho`` (clamped to the source's last, ``hs − 1``)
+    loaded once per (step, row phase), the taps in (rho, q) order. Returns
+    the dense fp32 ``(hd, wd)`` outputs."""
+    pitch, _, bw, bstride, shift = addr
+    hd, wd = out_ext
+    sh, sw = plan.stride_per_axis()
+    C = -(-plan.N // sh) + P - 1
+    nwc, nyc = -(-wd // WARP), -(-hd // P)
+    oc = torch.arange(nwc)[:, None] * WARP + torch.arange(WARP)
+    colbase = sw * oc.clamp(max=wd - 1) + shift                 # (nwc, 32)
+    y0 = torch.arange(nyc)[:, None] * P
+    s = torch.zeros((nyc, P, nwc, WARP))
+    cum = 0
+    for shift_m, first, count, dense in table.steps:
+        assert not dense, "a strided step runs its taps' records"
+        cum += shift_m
+        sc = colbase + cum
+        xoff = (sc // bw) * bstride + sc % bw
+        k = first
+        while k < first + count:
+            rho = table.slots[k] >> 8
+            rows = (sh * (y0 + torch.arange(C)) + rho).clamp(max=hs - 1)
+            a = rows[:, :, None, None] * pitch + xoff[None, None]
+            assert int(a.max()) < src.numel(), "a read leaves the source"
+            c = src[a]                                  # (nyc, C, nwc, 32)
+            while k < first + count and table.slots[k] >> 8 == rho:
+                q = table.slots[k] & 255
+                s = s + c[:, q:q + P] * coef[k]
+                k += 1
+    return s.reshape(nyc * P, nwc * WARP)[:hd, :wd]
+
+
+def _tile_epilogue(plan: SystolicPlan, vals: torch.Tensor, epilogue_args,
+                   resid, b: int, origin) -> torch.Tensor:
+    """The epilogue as a kernel applies it at the store: the fp32 sums of
+    one output tile ``vals`` at ``origin`` of image ``b``, the residual
+    (the output's ``(batch, …)`` view ``resid``) read at the outputs'
+    positions."""
+    if not plan.epilogue:
+        return vals
+    sl = (b,) + tuple(slice(o, o + n) for o, n in
+                      zip(origin[-vals.ndim:], vals.shape))
+    args = [resid[sl].float() if st.op == "residual_add" else a
+            for st, a in zip(epilogue_operand_stages(plan.epilogue),
+                             epilogue_args)]
+    return apply_epilogue(plan, vals, args)
+
+
 def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                           block=None, time_steps: int = 1,
-                          variant: str = "shift_psum") -> torch.Tensor:
+                          variant: str = "shift_psum",
+                          epilogue_args=()) -> torch.Tensor:
     """K1's single-channel schedule walked in plain torch on the CPU: the
     spec of ``csrc/ssam_window.cuh`` that the CPU tests hold to the plain
     version. The wrapper's operand (a pitch-padded copy where x's rows are
@@ -1387,10 +1585,12 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     for by the tile it was filled with, and refilled after the tile's
     first application), each stage's TMA boxes (:func:`_tma_box`), the
     t applications (:func:`_emulate_apply`: the stage, then the fp32
-    iterates in two ping-pong buffers, the last into the even one) and
-    the output tile stored from it. Returns ``x``'s shape and dtype."""
+    iterates in two ping-pong buffers, the last into the even one; an
+    output-strided plan's one :func:`_emulate_strided`) and the output
+    tile stored from it through the epilogue (:func:`_tile_epilogue`).
+    Returns ``x``'s shape and dtype."""
     check_supported(plan, time_steps, variant)
-    _check_operands(plan, x, w, ())
+    _check_operands(plan, x, w, epilogue_args, time_steps)
     if _is_reduce(plan) or plan.coeff_mode == "perlane" \
             or plan.strategy == "mxu":
         raise ValueError("the emulation walks K1's single-channel path")
@@ -1412,6 +1612,10 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     assert lay.smem <= SMEM_LIMIT
     xm = xt.reshape(batch, zin, hin, pitch)
     out4 = out.reshape(batch, zo, ho, wo)
+    resid = next((a.reshape(batch, zo, ho, wo) for st, a in zip(
+        epilogue_operand_stages(plan.epilogue), epilogue_args)
+        if st.op == "residual_add"), None)
+    sh, sw = plan.stride_per_axis()[-2:]
     (box_z, box_y, box_x), (nbz, nby, nbx) = lay.box, lay.boxes
     sz, sy = lay.staged
     bstride = _xblock(sz, sy, box_x, es)
@@ -1424,13 +1628,14 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
             s = i % lay.stages
             assert ring[s] == tile_no, "a stage holds another tile"
             b, oz0, oy0, ox0 = lay.tile_origin(tile_no)
-            x0, shift = staged_row_start(ox0 - lx, es)
+            x0, shift = staged_row_start(sw * ox0 - lx, es)
             stage = torch.empty(nbx * bstride)
             for jx in range(nbx):
                 for jz in range(nbz):
                     for jy in range(nby):
                         box = _tma_box(xm, win, b, (oz0 - lz + jz * box_z,
-                                                    oy0 - ly + jy * box_y,
+                                                    sh * oy0 - ly
+                                                    + jy * box_y,
                                                     x0 + jx * box_x),
                                        lay.box)
                         off = (jx * bstride
@@ -1442,7 +1647,15 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
             ext = (tz + t * (D - 1), ty + t * (N - 1), tx + t * (M - 1))
             src = torch.cat([stage, slack])
             addr = (box_x, sy * box_x, box_x, bstride, shift)
-            for k in range(t):
+            if sh * sw > 1:
+                dst = _emulate_strided(src, addr, sh * (ty - 1) + N,
+                                       (ty, tx), table, coef, plan, P)[None]
+                nxt = i + lay.stages
+                ring[s] = mine[nxt] if nxt < len(mine) else None
+                ext, t_left = (1, ty, tx), 0
+            else:
+                t_left = t
+            for k in range(t_left):
                 dst = _emulate_apply(src, addr, ext, table, coef, plan,
                                      variant, P)
                 if k == 0:      # the stage is read: refill it
@@ -1452,7 +1665,9 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                 addr = (ext[2], ext[1] * ext[2], 1 << 30, 0, 0)
                 src = torch.cat([dst.flatten(), slack])
             assert ext == (tz, ty, tx)
-            out4[b, oz0:oz0 + tz, oy0:oy0 + ty, ox0:ox0 + tx] = dst
+            out4[b, oz0:oz0 + tz, oy0:oy0 + ty, ox0:ox0 + tx] = \
+                _tile_epilogue(plan, dst, epilogue_args, resid, b,
+                               (oz0, oy0, ox0))
             done[tile_no] += 1
     assert bool((done == 1).all()), "a tile is not walked exactly once"
     return out
@@ -1516,6 +1731,24 @@ MXU_FLUSH = 8                 # k-steps of big·big summed in the tensor core
 MXU_SPAN = 8 * MXU_KSTEPS - 7  # columns of one entry: KK = ⌈(span + 7)/8⌉
 MXU_MAX_STAGES = 3
 MXU_SLACK = 64                # zeroed words past the last buffer (over-reads)
+MXU_MAX_SW = 4                # column strides an entry's window holds
+
+
+def mxu_span(sw: int = 1) -> int:
+    """Columns an entry of K2's single-channel path spans at output column
+    stride ``sw``: its ``⌈(span + 7·sw)/8⌉`` k-steps are at most
+    :data:`MXU_KSTEPS` (:data:`MXU_SPAN` at stride 1)."""
+    if not 1 <= sw <= MXU_MAX_SW:
+        raise ValueError(f"K2's single-channel path takes column strides "
+                         f"up to {MXU_MAX_SW}, got {sw}")
+    return 8 * MXU_KSTEPS - 7 * sw
+
+
+def mxu_slack(sw: int = 1) -> int:
+    """Zeroed words past K2's last buffer: what a ragged item's fragment
+    loads reach past the source at column stride ``sw``
+    (:data:`MXU_SLACK` at stride 1)."""
+    return 24 * sw + 40
 MXU_ENT_INTS = 8              # one entry's record in the table
 
 
@@ -1536,18 +1769,20 @@ class MxuEntries:
     b_words: int
 
 
-def _mxu_segments(rows) -> list:
+def _mxu_segments(rows, sw: int = 1) -> list:
     """The entries of a footprint: ``rows`` maps each tapped row ``(dz, r)``
     to its tapped columns; each row's sorted columns are cut, from the
-    left, into runs whose span is at most :data:`MXU_SPAN`. Returns ``(dz,
-    r, columns)`` in (dz, r, column) order."""
+    left, into runs whose span is at most :func:`mxu_span` (``sw`` the
+    column stride). Returns ``(dz, r, columns)`` in (dz, r, column)
+    order."""
+    span = mxu_span(sw)
     out = []
     for dz, r in sorted(rows):
         cols = sorted(rows[(dz, r)])
         i = 0
         while i < len(cols):
             j = i
-            while j + 1 < len(cols) and cols[j + 1] - cols[i] < MXU_SPAN:
+            while j + 1 < len(cols) and cols[j + 1] - cols[i] < span:
                 j += 1
             out.append((dz, r, cols[i:j + 1]))
             i = j + 1
@@ -1560,8 +1795,9 @@ def _mxu_b_shape(plan: SystolicPlan) -> tuple[int, int]:
     for cum, tap in flat_taps(plan):
         dz = tap.z_offset if plan.ndim_spatial == 3 else 0
         rows.setdefault((dz, tap.row_offset), set()).add(cum)
-    segs = _mxu_segments(rows)
-    return len(segs), sum(64 * -(-(c[-1] - c[0] + 8) // 8)
+    sw = plan.stride_per_axis()[-1]
+    segs = _mxu_segments(rows, sw)
+    return len(segs), sum(64 * -(-(c[-1] - c[0] + 1 + 7 * sw) // 8)
                           for _, _, c in segs)
 
 
@@ -1576,10 +1812,11 @@ def mxu_entries(plan: SystolicPlan, w_shape) -> MxuEntries:
             raise ValueError(f"two taps of {plan.kind!r} read the cell "
                              f"({dz}, {r}, {col})")
         cols[col] = ci
+    sw = plan.stride_per_axis()[-1]
     ents, tabs, boff = [], [], 0
-    for dz, r, cols in _mxu_segments(rows):
+    for dz, r, cols in _mxu_segments(rows, sw):
         cmin, span = cols[0], cols[-1] - cols[0] + 1
-        kk = -(-(span + 7) // 8)
+        kk = -(-(span + 7 * sw) // 8)
         tab = [-1] * span
         for c in cols:
             tab[c - cmin] = rows[(dz, r)][c]
@@ -1595,13 +1832,15 @@ def mxu_entries(plan: SystolicPlan, w_shape) -> MxuEntries:
     return MxuEntries(tuple(out), tuple(head + tail), boff)
 
 
-def mxu_btiles(ents: MxuEntries, cvals: torch.Tensor) -> torch.Tensor:
+def mxu_btiles(ents: MxuEntries, cvals: torch.Tensor,
+               sw: int = 1) -> torch.Tensor:
     """The Toeplitz B tiles K2 builds in shared memory at a block's start:
     ``b_words`` fp32 words, entry ``e``'s k-step ``s`` at ``boff + 64·s``,
-    ``B_s[k][n] = c(cmin + 8s + k − n)`` (0 where no tap sits)."""
+    ``B_s[k][n] = c(cmin + 8s + k − sw·n)`` (0 where no tap sits; ``sw``
+    the output column stride: a steeper band)."""
     bt = torch.zeros(ents.b_words, dtype=torch.float32)
     s = torch.arange(MXU_KSTEPS * 64)
-    qq = 8 * (s // 64) + (s // 8) % 8 - s % 8
+    qq = 8 * (s // 64) + (s // 8) % 8 - sw * (s % 8)
     for _, _, _, span, kk, boff, toff in ents.entries:
         col = torch.tensor(ents.table[toff:toff + span] + (-1,))
         q = qq[:64 * kk]
@@ -1673,10 +1912,11 @@ def _mxu_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
     D = plan.depth if nd == 3 else 1
     N, M = plan.N, plan.M
     bz, bh, bw = tile
+    sh, sw = plan.stride_per_axis()[-2:]
     es = elem_bytes
     per = TMA_ALIGN // es
-    zs, hs = bz + t * (D - 1), bh + t * (N - 1)
-    box_x = _round_up(bw + t * (M - 1) + per - 1, per)
+    zs, hs = bz + t * (D - 1), sh * (bh - 1) + 1 + t * (N - 1)
+    box_x = _round_up(sw * (bw - 1) + 1 + t * (M - 1) + per - 1, per)
     if es == 4 and box_x % 8 != 4:
         box_x += 4                      # fp32 rows at a pitch 4 mod 8
     row = box_x * es
@@ -1706,17 +1946,20 @@ def _mxu_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
     bufs = (c0, _round_up(even, 4), _round_up(odd, 4))
     nent, b_words = _mxu_b_shape(plan)
     smem = (128 + stages * stage_bytes
-            + 4 * (sum(bufs) + MXU_SLACK + b_words) + 32 * nent + 8 * stages)
+            + 4 * (sum(bufs) + mxu_slack(sw) + b_words) + 32 * nent
+            + 8 * stages)
     return ((box_z, box_y, box_x), (nbz, nby), stage_bytes, pc, bufs,
             _round_up(smem, 16))
 
 
 def mxu_layout(plan: SystolicPlan, head, tile, t: int, elem_bytes: int,
-               pitch: int, ents: MxuEntries) -> MxuLayout:
+               pitch: int, ents: MxuEntries, oaddr=None) -> MxuLayout:
     """K2's single-channel layout for a call of :func:`_tile_launch`'s
-    ``head`` and ``tile``. The ring takes the most stages (up to 3) that
-    leave two blocks an SM; failing that, the most that fit one block;
-    failing that, the call raises."""
+    ``head`` and ``tile``, storing through the output step ``oaddr``
+    (``(o_row, o_col, o_plane, o_img)``; default the dense output). The
+    ring takes the most stages (up to 3) that leave two blocks an SM;
+    failing that, the most that fit one block; failing that, the call
+    raises."""
     batch, zin, hin, win, zo, ho, wo, lz, ly, lx = head
     nd = plan.ndim_spatial
     D = plan.depth if nd == 3 else 1
@@ -1745,8 +1988,10 @@ def mxu_layout(plan: SystolicPlan, head, tile, t: int, elem_bytes: int,
     geom = (nd, D, plan.N, plan.M, t, len(ents.entries), batch, zin, hin,
             win, pitch, zo, ho, wo, lz, ly, lx, bz, bh, bw, box[2], box[1],
             box[0], boxes[1], boxes[0], stages, stage_bytes, pc, *bufs,
-            ents.b_words, len(ents.table), smem, grid, MXU_SLACK,
-            max(e[4] for e in ents.entries))
+            ents.b_words, len(ents.table), smem, grid,
+            mxu_slack(plan.stride_per_axis()[-1]),
+            max(e[4] for e in ents.entries), *plan.stride_per_axis()[-2:],
+            *(oaddr or _dense_oaddr(head)))
     return MxuLayout(tile, tiles, box, boxes, stage_bytes, stages, pc, bufs,
                      smem, grid, geom)
 
@@ -1799,22 +2044,22 @@ def _tf32_split(a: torch.Tensor):
     return big, trunc(a - big)
 
 
-def _emulate_mxu_apply(mem: torch.Tensor, src, ext, ents: MxuEntries,
+def _emulate_mxu_apply(mem: torch.Tensor, src, out_ext, ents: MxuEntries,
                        btile: torch.Tensor, plan: SystolicPlan
                        ) -> torch.Tensor:
     """One application of ``ssam_mxu.cu::apply_mx`` on the emulated shared
     memory ``mem`` (flat fp32 words) through ``src (base, pitch, plane,
     shift)``: the warp items (16 rows, rows past the last clamped, × 4
     chunks of 8 columns, per slice), each entry's shifted-row A (its k-step
-    windows read in place) split and multiplied with its Toeplitz tiles
-    (big·big summed over whole entries of at least :data:`MXU_FLUSH`
-    k-steps, then added to the fp32 sum; the cross terms beside).
-    Returns the dense fp32 ``(zs−D+1, hs−N+1, ws−M+1)`` result."""
+    windows read in place: output row ``y`` reads row ``sh·y + r``, chunk
+    ``c`` its window from column ``sw·8c``) split and multiplied with its
+    Toeplitz tiles (big·big summed over whole entries of at least
+    :data:`MXU_FLUSH` k-steps, then added to the fp32 sum; the cross terms
+    beside). Returns the dense fp32 ``out_ext`` ``(zd, hd, wd)``
+    result."""
     base, pitch, plane, shift = src
-    zs, hs, ws = ext
-    nd = plan.ndim_spatial
-    D = plan.depth if nd == 3 else 1
-    zd, hd, wd = zs - (D - 1), hs - (plan.N - 1), ws - (plan.M - 1)
+    zd, hd, wd = out_ext
+    sh, sw = plan.stride_per_axis()[-2:]
     hp = _round_up(hd, MXU_ROWS)
     nch = _round_up(wd, 8 * MXU_CHUNKS) // 8
     y = torch.arange(hp).clamp(max=hd - 1)
@@ -1824,9 +2069,9 @@ def _emulate_mxu_apply(mem: torch.Tensor, src, ext, ents: MxuEntries,
     pend = 0
     for e, (dz, r, cmin, _, kk, boff, _) in enumerate(ents.entries):
         addr = (base + (torch.arange(zd)[:, None, None, None] + dz) * plane
-                + (y[None, :, None, None] + r) * pitch
-                + 8 * torch.arange(nch)[None, None, :, None] + cmin + shift
-                + torch.arange(8 * kk))
+                + (sh * y[None, :, None, None] + r) * pitch
+                + sw * 8 * torch.arange(nch)[None, None, :, None] + cmin
+                + shift + torch.arange(8 * kk))
         assert int(addr.min()) >= 0 and int(addr.max()) < mem.numel(), \
             "a fragment load leaves shared memory"
         ab, as_ = _tf32_split(mem[addr])
@@ -1840,7 +2085,8 @@ def _emulate_mxu_apply(mem: torch.Tensor, src, ext, ents: MxuEntries,
 
 
 def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
-                       block=None, time_steps: int = 1) -> torch.Tensor:
+                       block=None, time_steps: int = 1,
+                       epilogue_args=()) -> torch.Tensor:
     """K2's single-channel schedule walked in plain torch on the CPU: the
     spec of ``csrc/ssam_mxu.cu`` that the CPU tests hold to the plain
     version. The wrapper's operand (a pitch-padded copy where x's rows are
@@ -1851,10 +2097,11 @@ def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     one block's shared memory zeroed at its start and reused by its tiles
     (a bf16 stage widened into its fp32 buffer), the t applications
     (:func:`_emulate_mxu_apply`: the stage, then the fp32 iterates in two
-    ping-pong buffers at :func:`mxu_pitch`) and the last one stored.
-    Returns ``x``'s shape and dtype."""
+    ping-pong buffers at :func:`mxu_pitch`) and the last one stored
+    through the epilogue (:func:`_tile_epilogue`). Returns ``x``'s shape
+    and dtype."""
     check_supported(plan, time_steps, "shift_psum")
-    _check_operands(plan, x, w, ())
+    _check_operands(plan, x, w, epilogue_args, time_steps)
     if _is_reduce(plan) or plan.coeff_mode == "perlane" \
             or plan.strategy != "mxu":
         raise ValueError("the emulation walks K2's single-channel path")
@@ -1866,7 +2113,8 @@ def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     cvals = (torch.tensor(plan.coeffs, dtype=torch.float32)
              if plan.coeff_mode == "table"
              else w.detach().to(torch.float32).flatten())
-    btile = mxu_btiles(ents, cvals)
+    sh, sw = plan.stride_per_axis()[-2:]
+    btile = mxu_btiles(ents, cvals, sw)
     xc, out, _, head, tile = _tile_launch(plan, x, block, t)
     xt, pitch = _tma_operand(xc)
     batch, zin, hin, win, zo, ho, wo, lz, ly, lx = head
@@ -1875,12 +2123,15 @@ def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     assert lay.smem <= SMEM_LIMIT
     xm = xt.reshape(batch, zin, hin, pitch)
     out4 = out.reshape(batch, zo, ho, wo)
+    resid = next((a.reshape(batch, zo, ho, wo) for st, a in zip(
+        epilogue_operand_stages(plan.epilogue), epilogue_args)
+        if st.op == "residual_add"), None)
     (box_z, box_y, box_x), (nbz, nby) = lay.box, lay.boxes
     sz, sy = lay.staged
     c0, even, odd = lay.bufs
     ring = lay.stages * lay.stage_bytes // 4
     offs = (ring, ring + c0, ring + c0 + even)      # c0, even, odd buffers
-    words = offs[2] + odd + MXU_SLACK
+    words = offs[2] + odd + mxu_slack(sw)
     done = torch.zeros(lay.ntiles, dtype=torch.int64)
     for g in range(lay.grid):
         mem = torch.zeros(words)                    # zeroed at block start
@@ -1890,12 +2141,13 @@ def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
             s = i % lay.stages
             assert held[s] == tile_no, "a stage holds another tile"
             b, oz0, oy0, ox0 = lay.tile_origin(tile_no)
-            x0, shift = staged_row_start(ox0 - lx, es)
+            x0, shift = staged_row_start(sw * ox0 - lx, es)
             stage = torch.zeros(sz * sy * box_x)
             for jz in range(nbz):
                 for jy in range(nby):
                     box = _tma_box(xm, win, b, (oz0 - lz + jz * box_z,
-                                                oy0 - ly + jy * box_y, x0),
+                                                sh * oy0 - ly + jy * box_y,
+                                                x0),
                                    lay.box)
                     off = (jz * box_z * sy + jy * box_y) * box_x
                     assert (off * es) % 128 == 0, "a box lands unaligned"
@@ -1914,7 +2166,10 @@ def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                           zip(lay.tile, (zo, ho, wo), (oz0, oy0, ox0)))
             ext = (tz + t * (D - 1), ty + t * (N - 1), tx + t * (M - 1))
             for k in range(t):
-                res = _emulate_mxu_apply(mem, src, ext, ents, btile, plan)
+                res = _emulate_mxu_apply(
+                    mem, src, (tz, ty, tx) if sh * sw > 1 else
+                    (ext[0] - (D - 1), ext[1] - (N - 1), ext[2] - (M - 1)),
+                    ents, btile, plan)
                 ext = tuple(res.shape)
                 if k < t - 1:
                     zd, hd, wd = ext
@@ -1925,7 +2180,9 @@ def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                         ..., :wd] = res
                     src = (base, dp, hd * dp, 0)
             assert ext == (tz, ty, tx)
-            out4[b, oz0:oz0 + tz, oy0:oy0 + ty, ox0:ox0 + tx] = res
+            out4[b, oz0:oz0 + tz, oy0:oy0 + ty, ox0:ox0 + tx] = \
+                _tile_epilogue(plan, res, epilogue_args, resid, b,
+                               (oz0, oy0, ox0))
             done[tile_no] += 1
     assert bool((done == 1).all()), "a tile is not walked exactly once"
     return out
@@ -2069,9 +2326,11 @@ class MxuKernel:
     """Wrapper of K2. Channel (NCHW) plans launch the tensor-core kernel
     of ``csrc/ssam_mxu_tc.cu`` (``ssam_mxu_tc_launch``), single-channel
     plans ``csrc/ssam_mxu.cu`` (``ssam_mxu_window_launch``). ``launches``
-    counts the kernel launches it made: one per call on either path; a
-    strided plan's input adjoint (:meth:`adjoint_phases`) is one launch
-    for all its phases."""
+    counts the kernel launches it made: one per call on either path, a
+    fused epilogue or residual included; a strided reduce plan's input
+    adjoint (:meth:`adjoint_phases`) is one launch for all its phases, a
+    strided single-channel plan's one launch a phase that a tap
+    reaches."""
 
     name = "ssam_mxu"
     source = "src/repro_torch/csrc/ssam_mxu_tc.cu"
@@ -2091,20 +2350,31 @@ class MxuKernel:
                              f"{plan.strategy!r}")
         if _is_reduce(plan):
             return self._reduce(x, w, plan, epilogue_args)
-        t = time_steps
+        return self._single(x, w, plan, block, time_steps, None,
+                            epilogue_args)
+
+    def _single(self, x, w, plan, block, t, _variant, epilogue_args, *,
+                out=None, out_sp=None, offset=0, oaddr=None):
+        """The single-channel path (``ssam_mxu.cu``): one launch, strided
+        or not, the epilogue at the store; ``out``, ``out_sp``, ``offset``
+        and ``oaddr`` as :meth:`WindowKernel._single` takes them."""
         ents = mxu_entries(plan, None if w is None else tuple(w.shape))
         table = _device_ints(ents.table, x.device)
         if plan.coeff_mode == "dense":
             cvals = w.detach().to(torch.float32).contiguous()
         else:
             cvals = _device_floats(plan.coeffs, x.device)
-        x, out, B, head, tile = _tile_launch(plan, x, block, t)
+        x, fresh, B, head, tile = _tile_launch(plan, x, block, t, out_sp)
+        out = fresh if out is None else out
         xt, pitch = _tma_operand(x)
-        lay = mxu_layout(plan, head, tile, t, x.element_size(), pitch, ents)
+        lay = mxu_layout(plan, head, tile, t, x.element_size(), pitch, ents,
+                         oaddr)
+        epi = _epilogue_codes(plan, epilogue_args, x.device, x.dtype)
         err = self.library.get().ssam_mxu_window_launch(
-            xt.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-            cvals.data_ptr(), table.data_ptr(),
-            (ctypes.c_int * len(lay.geom))(*lay.geom), len(lay.geom),
+            xt.data_ptr(), out.data_ptr() + offset * x.element_size(),
+            int(x.dtype == torch.bfloat16), cvals.data_ptr(),
+            table.data_ptr(), (ctypes.c_int * len(lay.geom))(*lay.geom),
+            len(lay.geom), *epi.args(),
             torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"K2 launch failed: CUDA error {err} "
@@ -2124,10 +2394,14 @@ class MxuKernel:
         return out if plan.batch_axes else out[0]
 
     def adjoint_phases(self, g, wa, *, plan: SystolicPlan, in_spatial):
-        """``dx`` of a strided reduce plan in one launch: every output
-        phase of :func:`adjoint_reduce_phases` reads the cotangent ``g``
-        at stride 1 and writes its positions of ``dx`` in place."""
+        """``dx`` of a strided plan: for a reduce plan one launch, every
+        output phase of :func:`adjoint_reduce_phases` reading the
+        cotangent ``g`` at stride 1 and writing its positions of ``dx``
+        in place; for a single-channel plan one launch a phase
+        (:func:`_phase_launches`)."""
         _check_kernel_operands("K2", g, wa, plan)
+        if not _is_reduce(plan):
+            return _phase_launches(self._single, g, wa, plan, in_spatial)
         g4 = g if plan.batch_axes else g[None]
         lin = dataclasses.replace(plan, epilogue=())
         phases = adjoint_reduce_phases(lin, in_spatial)
@@ -2152,15 +2426,12 @@ class MxuKernel:
         wb = F.pad(wf, (0, 1)).index_select(
             1, _device_ints(lay.kcols, x4.device))
         table = _device_ints(lay.table, x4.device)
-        c_ops, c_vals, n_epi, bias = _epilogue_codes(plan, epilogue_args,
-                                                     x4.device)
+        epi = _epilogue_codes(plan, epilogue_args, x4.device, x4.dtype)
         out = torch.empty((Bn, Co) + tuple(out_spatial), dtype=x4.dtype,
                           device=x4.device)
         err = self.library.get().ssam_mxu_tc_launch(
             xs.data_ptr(), out.data_ptr(), int(x4.dtype == torch.bfloat16),
-            wb.data_ptr(), table.data_ptr(),
-            None if bias is None else bias.data_ptr(), c_ops, c_vals, n_epi,
-            H, Cr, Bn, pitch, wb.shape[1], Co, *out_spatial, *read_stride,
+            wb.data_ptr(), table.data_ptr(), *epi.args(), H, Cr, Bn, pitch, wb.shape[1], Co, *out_spatial, *read_stride,
             *out_stride, len(phases), lay.co_tiles, lay.slabs,
             lay.row_len, lay.rows, int(lay.x_per_kblock), lay.b_stages,
             lay.x_stages, lay.x_bytes, *lay.grid[:2], lay.smem,
@@ -2195,8 +2466,9 @@ def run_window_plan(x: torch.Tensor, w=None, *, plan: SystolicPlan,
       time_steps: fused applications (§6.4), pad-once semantics.
       variant: ``'shift_psum'`` (paper) or ``'shift_data'``; moot for an
         mxu plan.
-      epilogue_args: runtime operands of the plan's epilogue (a per-C_out
-        bias row).
+      epilogue_args: runtime operands of the plan's epilogue: a bias (a
+        per-C_out row for reduce plans, per lane for per-lane plans, else
+        a scalar) and an output-shaped residual.
       strategy: pin the lowering for this call, ``'lanes'`` (K1) or
         ``'mxu'`` (K2, the im2row contraction on the tensor cores); None
         keeps whatever the plan carries. An mxu plan that K2 cannot run
@@ -2205,7 +2477,7 @@ def run_window_plan(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     if strategy is not None:
         plan = dataclasses.replace(plan, strategy=strategy)
     check_supported(plan, time_steps, variant)
-    _check_operands(plan, x, w, epilogue_args)
+    _check_operands(plan, x, w, epilogue_args, time_steps)
     block = tuple(block or default_block(plan, time_steps))
     if x.device.type == "cuda":
         if plan.strategy == "mxu":
@@ -2234,47 +2506,59 @@ def run_window_plan_mxu(x: torch.Tensor, w=None, *, plan: SystolicPlan,
 
 
 def _check_adjoint_phase_operands(g, wa, plan: SystolicPlan, in_spatial):
-    """``g`` and ``wa`` of a strided reduce plan's input adjoint, checked
-    against the plan and the input's spatial shape."""
-    if not _is_reduce(plan) or plan.ndim_spatial != 2 \
-            or plan.coeff_mode != "dense":
+    """``g`` and ``wa`` of a strided plan's input adjoint (a dense 2-D
+    plan, NCHW or single-channel), checked against the plan and the
+    input's spatial shape."""
+    if plan.ndim_spatial != 2 or plan.coeff_mode != "dense" \
+            or plan.reduce_axes != plan.out_axes:
         raise ValueError(f"{plan.kind!r}: the phased input adjoint takes "
-                         "dense 2-D reduce plans")
-    nb = plan.batch_axes
+                         "dense 2-D plans, NCHW or single-channel")
+    nb, reduce = plan.batch_axes, _is_reduce(plan)
     want = plan.out_shape(tuple(in_spatial))
-    if g.ndim != nb + 3 or wa.ndim != 4 or wa.shape[1] != g.shape[nb] \
-            or tuple(g.shape[nb + 1:]) != want \
-            or tuple(wa.shape[2:]) != plan.exts:
+    fits = (wa.ndim == 4 and g.ndim == nb + 3 and wa.shape[1] == g.shape[nb]
+            if reduce else wa.ndim == 2 and g.ndim == nb + 2)
+    if not fits or tuple(g.shape[-2:]) != want \
+            or tuple(wa.shape[-2:]) != plan.exts:
         raise ValueError(
             f"cotangent {tuple(g.shape)} and adjoint filter "
             f"{tuple(wa.shape)} do not fit the {plan.kind!r} plan on a "
             f"{tuple(in_spatial)} input (cotangent spatial {want})")
 
 
+def _phase_plan_on(ph, g_spatial, in_spatial) -> SystolicPlan:
+    """An adjoint phase's stride-1 plan with the trail that makes its
+    output cover the phase's extent of ``dx`` (the plain version and the
+    kernels crop it to that extent)."""
+    p = ph.plan
+    hq, wq = ph.extent(in_spatial)
+    (lr, lc), _ = p.lead_trail()
+    Ho, Wo = g_spatial
+    trail = (max(0, hq - (Ho + lr - p.N + 1)),
+             max(0, wq - (Wo + lc - p.M + 1)))
+    return dataclasses.replace(p, trail=trail if any(trail) else None)
+
+
 def run_adjoint_phases_reference(g: torch.Tensor, wa: torch.Tensor, *,
                                  plan: SystolicPlan,
                                  in_spatial) -> torch.Tensor:
     """The plain version of K1's and K2's phased input adjoint: ``dx`` of
-    the strided reduce plan ``plan`` (its linear part) on an input of
-    spatial shape ``in_spatial``, given the cotangent ``g`` of the strided
-    output and ``wa = adjoint_coeff_array(plan, w)``. Each phase of
-    :func:`adjoint.strided_input_adjoint_phases` runs as its stride-1
-    plan through :func:`run_window_plan_reference` and is written to
-    ``dx[..., py::sh, px::sw]``; phases no tap reaches stay zero."""
+    the strided plan ``plan`` (its linear part; NCHW or single-channel)
+    on an input of spatial shape ``in_spatial``, given the cotangent
+    ``g`` of the strided output and ``wa = adjoint_coeff_array(plan,
+    w)``. Each phase of :func:`adjoint.strided_input_adjoint_phases`
+    runs as its stride-1 plan through :func:`run_window_plan_reference`
+    and is written to ``dx[..., py::sh, px::sw]``; phases no tap reaches
+    stay zero."""
     _check_adjoint_phase_operands(g, wa, plan, in_spatial)
     sh, sw = plan.stride_per_axis()
-    Ho, Wo = g.shape[-2:]
-    dx = g.new_zeros(tuple(g.shape[:-3]) + (wa.shape[0],)
-                     + tuple(in_spatial), dtype=acc_dtype(g))
+    lead = (tuple(g.shape[:-3]) + (wa.shape[0],) if _is_reduce(plan)
+            else tuple(g.shape[:-2]))
+    dx = g.new_zeros(lead + tuple(in_spatial), dtype=acc_dtype(g))
     for ph in adjoint.strided_input_adjoint_phases(plan):
         hq, wq = ph.extent(in_spatial)
         if ph.plan is None or not hq or not wq:
             continue
-        p = ph.plan
-        (lr, lc), _ = p.lead_trail()
-        trail = (max(0, hq - (Ho + lr - p.N + 1)),
-                 max(0, wq - (Wo + lc - p.M + 1)))
-        p = dataclasses.replace(p, trail=trail if any(trail) else None)
+        p = _phase_plan_on(ph, tuple(g.shape[-2:]), in_spatial)
         y = run_window_plan_reference(g, ph.filter(wa), plan=p)
         py, px = ph.offset
         dx[..., py::sh, px::sw] = y[..., :hq, :wq]
@@ -2624,21 +2908,69 @@ def wgrad_layout(B, H, W, Ho, Wo, N, M, *, lead=(0, 0),
                        smem(rows, stages), bps, grid)
 
 
+@dataclasses.dataclass(frozen=True)
+class WgradPhase:
+    """One phase of a strided single-channel weight gradient: the taps
+    ``dW[sh·q + pn, sw·u + pm]`` (``n × m`` of them) are the stride-1
+    gradient of an ``n × m`` filter at lead ``lead`` on x's phase image
+    ``X[i, j] = x[sh·i + a, sw·j + b]`` (``xphase = (a, b)``), since
+    ``xp[sh·(o + q) + pn] = X[o + q − lead]``. A stride-1 plan is one
+    phase: x itself, the whole filter."""
+
+    offset: tuple[int, int]
+    xphase: tuple[int, int]
+    n: int
+    m: int
+    lead: tuple[int, int]
+
+
+def wgrad_phases(plan: SystolicPlan) -> tuple[WgradPhase, ...]:
+    """The phases of :class:`WgradPhase` of a single-channel plan, in
+    row-major ``(pn, pm)`` order; every tap lies in exactly one."""
+    (sh, sw), (ly, lx) = plan.stride_per_axis(), plan.lead_trail()[0]
+    N, M = plan.exts
+    out = []
+    for pn in range(min(sh, N)):
+        for pm in range(min(sw, M)):
+            a, b = (pn - ly) % sh, (pm - lx) % sw
+            out.append(WgradPhase(
+                (pn, pm), (a, b), len(range(pn, N, sh)),
+                len(range(pm, M, sw)),
+                ((a - pn + ly) // sh, (b - pm + lx) // sw)))
+    return tuple(out)
+
+
+def wgrad_phase_images(x3: torch.Tensor, stride) -> torch.Tensor:
+    """x ``(B, H, W)`` as its phase images ``(sh, sw, B, ⌈H/sh⌉,
+    ⌈W/sw⌉)``, ``[a, b, :, i, j] = x[:, sh·i + a, sw·j + b]``, zero past
+    the edge: one copy of x (a view of x at stride 1). TMA cannot step
+    through x's columns (it refuses an innermost element stride), so the
+    column phases need the copy; the row phases ride along in it."""
+    sh, sw = stride
+    if (sh, sw) == (1, 1):
+        return x3[None, None]
+    B, H, W = x3.shape
+    Hq, Wq = -(-H // sh), -(-W // sw)
+    xp = F.pad(x3, (0, Wq * sw - W, 0, Hq * sh - H))
+    return xp.reshape(B, Hq, sh, Wq, sw).permute(2, 4, 0, 1, 3).contiguous()
+
+
 def _wgrad_geometry(x, g, plan: SystolicPlan):
     """The single-channel K3's operands as ``(B, H, W)`` and ``(B, Ho,
-    Wo)`` tensors and its :func:`wgrad_layout`."""
-    if any(v > 1 for v in plan.stride_per_axis()):
-        raise NotImplementedError(
-            "K3's single-channel layout takes stride-free plans; strided "
-            "single-channel convolutions are ROADMAP Queue 1 item 4")
+    Wo)`` tensors, its phases (:func:`wgrad_phases`) and each phase's
+    :func:`wgrad_layout` on its phase image."""
     x4, g4 = _wgrad_operands(x, g, plan)
     if x4.shape[1] != 1 or g4.shape[1] != 1:
         raise ValueError("K3's single-channel path takes one channel")
     x3, g3 = x4[:, 0], g4[:, 0]
     (B, H, W), (Ho, Wo) = x3.shape, g3.shape[1:]
-    (ly, lx), _ = plan.lead_trail()
-    return x3, g3, wgrad_layout(B, H, W, Ho, Wo, *plan.exts, lead=(ly, lx),
-                                elem_bytes=x.element_size())
+    sh, sw = plan.stride_per_axis()
+    phases = wgrad_phases(plan)
+    lays = tuple(wgrad_layout(B, -(-H // sh), -(-W // sw), Ho, Wo, ph.n,
+                              ph.m, lead=ph.lead,
+                              elem_bytes=x.element_size())
+                 for ph in phases)
+    return x3, g3, phases, lays
 
 
 def emulate_wgrad_kernel(x: torch.Tensor, g: torch.Tensor, *,
@@ -2658,14 +2990,31 @@ def emulate_wgrad_kernel(x: torch.Tensor, g: torch.Tensor, *,
     band row and step ``k = m − 1 − j`` of tap ``j``, then the fixed-order
     reduction: a butterfly over the 32 lanes, the row groups in order, the
     tiles' rows and columns of each block's partial, the partials in block
-    order. ``max_grid`` caps the blocks, so that a small input walks
-    several units a block through the ring. Returns ``(N, M)`` fp32."""
-    x3, g3, lay = _wgrad_geometry(x, g, plan)
-    if max_grid is not None:    # fewer blocks: more units each
-        lay = dataclasses.replace(lay, grid=min(lay.grid, max_grid))
+    order. A strided plan walks each of its phases (:func:`wgrad_phases`)
+    so, on its phase image (:func:`wgrad_phase_images`), into its taps of
+    the gradient. ``max_grid`` caps the blocks, so that a small input
+    walks several units a block through the ring. Returns ``(N, M)``
+    fp32."""
+    x3, g3, phases, lays = _wgrad_geometry(x, g, plan)
+    xph = wgrad_phase_images(x3, plan.stride_per_axis())
+    sh, sw = plan.stride_per_axis()
+    out = torch.zeros(plan.exts)
+    for ph, lay in zip(phases, lays):
+        if max_grid is not None:    # fewer blocks: more units each
+            lay = dataclasses.replace(lay, grid=min(lay.grid, max_grid))
+        pn, pm = ph.offset
+        out[pn::sh, pm::sw] = _emulate_wgrad_phase(
+            xph[ph.xphase], g3, lay, ph.n, ph.m, x.element_size())
+    return out
+
+
+def _emulate_wgrad_phase(x3, g3, lay: WgradLayout, N: int, M: int,
+                         es: int) -> torch.Tensor:
+    """One launch set of :func:`emulate_wgrad_kernel`: the ``(N, M)``
+    gradient of ``x3`` against ``g3`` through ``lay``."""
+
     W = x3.shape[2]
     Ho, Wo = g3.shape[1:]
-    N, M = plan.exts
     V, SW = lay.V, WARP * lay.V
     assert lay.smem <= SMEM_LIMIT and lay.warps * WARP <= 512
     xt, _ = _tma_operand(x3)
@@ -2693,7 +3042,7 @@ def emulate_wgrad_kernel(x: torch.Tensor, g: torch.Tensor, *,
                 b, cy, sx = lay.unit(u)
                 j0, oy0 = sx * SW, cy * rows
                 a_g = j0 + tile.goff
-                assert (a_g * x.element_size()) % TMA_ALIGN == 0
+                assert (a_g * es) % TMA_ALIGN == 0
                 g_main = _tma_box(gm, Wo, b, (0, oy0, a_g), (1, rows, SW))[0]
                 parts = [g_main.float()]
                 if lay.hw:
@@ -2923,7 +3272,8 @@ class WgradKernel:
     counts the kernel launches it made: one per gradient, or two when the
     reduction is split (the partial sums, then the pass that adds them);
     on the single-channel path one per tile of the footprint, then that
-    pass (:meth:`launches_for`)."""
+    pass, for each phase of a strided plan (:func:`wgrad_phases`;
+    :meth:`launches_for`)."""
 
     name = "ssam_wgrad"
     source = "src/repro_torch/csrc/ssam_wgrad_tc.cu"
@@ -2946,27 +3296,44 @@ class WgradKernel:
                             f"dtype, got {x.dtype} and {g.dtype}")
         if plan.out_axes:
             return self._channels(x, g, plan)
-        x3, g3, lay = _wgrad_geometry(x, g, plan)
+        x3, g3, phases, lays = _wgrad_geometry(x, g, plan)
+        if len(phases) == 1:
+            return self._single(x3, g3, lays[0], plan)
+        # a strided plan: each phase's taps from its phase image
+        xph = wgrad_phase_images(x3, plan.stride_per_axis())
+        sh, sw = plan.stride_per_axis()
+        out = torch.empty(plan.exts, dtype=torch.float32, device=x.device)
+        for ph, lay in zip(phases, lays):
+            pn, pm = ph.offset
+            out[pn::sh, pm::sw] = self._single(xph[ph.xphase], g3, lay,
+                                               plan, (ph.n, ph.m))
+        return out
+
+    def _single(self, x3, g3, lay: WgradLayout, plan: SystolicPlan,
+                exts=None):
+        """One gradient of an ``exts`` filter (default the plan's) of
+        ``x3`` against ``g3`` through ``lay``: a launch per tile, then the
+        pass that adds the partials."""
         (xs, x_pitch), (gs, g_pitch) = _tma_operand(x3), _tma_operand(g3)
         B, H, W = x3.shape
         Ho, Wo = g3.shape[1:]
-        N, M = plan.exts
-        out = torch.empty((N, M), dtype=torch.float32, device=x.device)
+        N, M = exts or plan.exts
+        out = torch.empty((N, M), dtype=torch.float32, device=x3.device)
         part = (torch.empty((lay.grid, N, M), dtype=torch.float32,
-                            device=x.device) if lay.grid > 1 else out)
+                            device=x3.device) if lay.grid > 1 else out)
         gh_off, x_off, _ = lay.regions
         tiles = [v for t in lay.tiles for v in t.ints()]
         err = self.library.get().ssam_wgrad_launch(
-            xs.data_ptr(), gs.data_ptr(), int(x.dtype == torch.bfloat16),
+            xs.data_ptr(), gs.data_ptr(), int(x3.dtype == torch.bfloat16),
             part.data_ptr(), out.data_ptr(), B, H, W, x_pitch, Ho, Wo,
             g_pitch, N, M, lay.mb, lay.nb, lay.nbands, lay.row_groups,
             lay.rows, lay.hw, lay.stages, lay.stage_bytes, gh_off, x_off,
             lay.grid, lay.smem, len(lay.tiles),
             (ctypes.c_int * len(tiles))(*tiles),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            torch.cuda.current_stream(x3.device).cuda_stream)
         if err:
             raise RuntimeError(f"K3 launch failed: CUDA error {err} "
-                               f"({plan.kind}, {N}x{M}, {tuple(x.shape)})")
+                               f"({plan.kind}, {N}x{M}, {tuple(x3.shape)})")
         self.launches += lay.launches
         return out
 
@@ -3009,7 +3376,7 @@ class WgradKernel:
         """The launches one call on ``x`` and ``g`` makes (any device)."""
         if plan.out_axes:
             return 1 + (_wgrad_tc_geometry(x, g, plan)[2].slices > 1)
-        return _wgrad_geometry(x, g, plan)[2].launches
+        return sum(lay.launches for lay in _wgrad_geometry(x, g, plan)[3])
 
 
 WGRAD_KERNEL = WgradKernel(_build.LIBRARY)
@@ -3127,7 +3494,8 @@ def check_scan_plan(plan: SystolicPlan, operands) -> None:
     if plan.epilogue:
         raise NotImplementedError(
             f"{plan.kind!r} plan: epilogues on scan plans are not ported "
-            "yet (ROADMAP Queue 1 item 4)")
+            "yet (ROADMAP Queue 1 item 4; no ops.* call reaches it: the "
+            "scan ops refuse epilogue=)")
     want = 2 if plan.combine == "linrec" else 1
     if len(operands) != want:
         raise ValueError(f"combine={plan.combine!r} takes {want} operand(s), "

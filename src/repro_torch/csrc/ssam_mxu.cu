@@ -2,7 +2,9 @@
 // windowed-plan engine (strategy="mxu") for table and dense single-channel
 // plans: 2-D and 3-D stencils, conv2d valid, same and batched, t >= 1
 // fused time steps with pad-once semantics, fp32 or bf16 input and output
-// with fp32 sums.
+// with fp32 sums, an output stride on 2-D plans (one application) and the
+// fused epilogue (scalar bias, GELU, SiLU, ReLU, scale, residual) applied
+// to the fp32 sum at the store.
 //
 // Replaces src/repro/core/engine.py::_apply_plan_mxu, the strategy="mxu"
 // body of _window_kernel (launched at the same pallas_call as K1): im2row
@@ -63,6 +65,20 @@
 //    one of two shared buffers (ping-pong, pitch 4 mod 8); the iterate is
 //    not re-zeroed at the domain edge (pad-once semantics). The last
 //    application stores from the accumulators to device memory.
+//  * Output-strided plans (2-D, t = 1): the Toeplitz tile stays a band,
+//    only steeper, B_s[k][n] = c(cmin + 8s + k - sw * n), so an entry's
+//    k-steps KK = ceil((span + 7 sw) / 8) walk the window of input columns
+//    that 8 outputs sw apart read (an entry spans at most 32 - 7 sw
+//    columns, so sw <= 4), and A reads rows sh * m + r of the stage. A
+//    chunk's window starts sw * 8 columns after the previous chunk's, so
+//    each chunk loads its own fragments (KK each). One instantiation (of
+//    4 k-steps) serves every strided plan.
+//  * The epilogue and the residual (read at the output's position) are
+//    applied to a thread's 16 fp32 sums in registers as the last
+//    application stores them, one dispatch a stage for the 16, before the
+//    bf16 cast. The store writes through an output step (row pitch,
+//    column step, image pitch), so the phases of a strided plan's input
+//    adjoint write their positions of dx in place.
 // Reads past a source's last column or row (the columns a ragged chunk's
 // window covers, clamped rows) stay in shared memory the block zeroed at
 // its start, so every A element is finite and meets a zero coefficient:
@@ -72,6 +88,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ssam_epilogue.cuh"
 #include "ssam_hopper.cuh"
 #include "ssam_tf32.cuh"
 
@@ -84,7 +101,8 @@ constexpr int kMxChunks = 4;     // 8-column chunks of an item (mma's N each)
 constexpr int kMxFlush = 8;      // k-steps big*big sums in the tensor core
 constexpr int kMxMaxStages = 3;
 constexpr int kMxSlack = 64;     // words the over-reads may reach past a source
-constexpr int kMxGeomInts = 37;  // core/engine.py::MxuLayout.geom
+                                 // (a strided plan's: 24 sw + 40)
+constexpr int kMxGeomInts = 43;  // core/engine.py::MxuLayout.geom
 constexpr int kMxEntInts = 8;    // one entry's record in the table
 
 struct MxuArgs {
@@ -101,6 +119,17 @@ struct MxuArgs {
   int pc;              // row pitch of the widened bf16 stage (words)
   int c0_words, bufa_words, bufb_words, b_words;
   int tiles_x, tiles_y, tiles_z, ntiles;
+  int slack;           // zeroed words past the last buffer
+  int sh, sw;          // output stride (strided instantiations; else 1)
+  // the output's element (b, z, y, x) at out + b * o_img + z * o_plane +
+  // y * o_row + x * o_col; the residual's in the dense output layout
+  long long o_img, o_plane;
+  int o_row, o_col;
+  const float* bias;   // the scalar bias, or null
+  const void* resid;   // the residual (the output's dtype), or null
+  int epi_op[kMaxEpi];
+  float epi_val[kMaxEpi];
+  int n_epi;
 };
 
 // A source of one application: element (z, y, col) at
@@ -111,23 +140,24 @@ struct MxSrc {
 };
 
 // One valid application on a source of extent (zs, hs, ws): the result
-// (zs-D+1, hs-N+1, ws-M+1) goes to dst (pitch dpitch) or, for the last
-// application, to the output tile at (b, oz0, oy0, ox0). KKM: the most
-// k-steps of an entry of the plan.
-template <int KKM>
+// (zd, hd, wd) goes to dst (pitch dpitch) or, for the last application, to
+// the output tile at (b, oz0, oy0, ox0) through the epilogue. KKM: the most
+// k-steps of an entry of the plan; S: an output-strided instantiation
+// (zd = 1, the caller's (hd, wd) the tile's outputs).
+template <int KKM, bool S>
 __device__ __forceinline__ void apply_mx(const MxuArgs& a, const MxSrc& src,
-                                         int zs, int hs, int ws, float* dst,
+                                         int zd, int hd, int wd, float* dst,
                                          int dpitch, bool last, int b,
                                          int oz0, int oy0, int ox0,
                                          const int4* ent,
                                          const float* btile) {
-  const int zd = zs - (a.D - 1), hd = hs - (a.N - 1), wd = ws - (a.M - 1);
   const int nyg = (hd + kMxRows - 1) / kMxRows;
   const int nxg = (wd + 8 * kMxChunks - 1) / (8 * kMxChunks);
   const int per_z = nyg * nxg;
   const int items = zd * per_z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, q = lane & 3;
+  const int sh = S ? a.sh : 1, sw = S ? a.sw : 1;
   for (int it = warp; it < items; it += kMxWarps) {
     const int z = it / per_z;
     const int r0 = it - z * per_z;
@@ -147,10 +177,10 @@ __device__ __forceinline__ void apply_mx(const MxuArgs& a, const MxSrc& src,
       const int4 h = ent[2 * e];       // dz, r, cmin, KK
       const int boff = ent[2 * e + 1].x;
       const int kk = h.w;
-      const float* row = src.p + (z + h.x) * src.plane + x0 + h.z +
+      const float* row = src.p + (z + h.x) * src.plane + sw * x0 + h.z +
                          src.shift + q;
-      const float* pa = row + (ya + h.y) * src.pitch;
-      const float* pb = row + (yb + h.y) * src.pitch;
+      const float* pa = row + (sh * ya + h.y) * src.pitch;
+      const float* pb = row + (sh * yb + h.y) * src.pitch;
       // B fragments of the entry's k-steps: b0 = B[q][g], b1 = B[q + 4][g]
       uint32_t bb[KKM][2], bs[KKM][2];
       const float* bt = btile + boff + q * 8 + g;
@@ -163,6 +193,25 @@ __device__ __forceinline__ void apply_mx(const MxuArgs& a, const MxSrc& src,
                            bs[s][1]);
         }
       }
+      if constexpr (S) {
+        // chunk c's window starts sw * 8c columns in: its own fragments
+#pragma unroll
+        for (int c = 0; c < kMxChunks; ++c)
+#pragma unroll
+          for (int s = 0; s < KKM; ++s) {
+            if (s < kk) {
+              const int o = sw * 8 * c + 8 * s;
+              uint32_t ab[4], as[4];
+              split_tf32_trunc(__float_as_uint(pa[o]), ab[0], as[0]);
+              split_tf32_trunc(__float_as_uint(pb[o]), ab[1], as[1]);
+              split_tf32_trunc(__float_as_uint(pa[o + 4]), ab[2], as[2]);
+              split_tf32_trunc(__float_as_uint(pb[o + 4]), ab[3], as[3]);
+              mma_tf32(hi[c], ab, bb[s]);
+              mma_tf32(cor[c], as, bb[s]);
+              mma_tf32(cor[c], ab, bs[s]);
+            }
+          }
+      } else {
 #pragma unroll
       for (int j = 0; j < kMxChunks + KKM - 1; ++j) {
         if (j < kMxChunks + kk - 1) {
@@ -184,6 +233,7 @@ __device__ __forceinline__ void apply_mx(const MxuArgs& a, const MxSrc& src,
           }
         }
       }
+      }
       pend += kk;
       if (pend >= kMxFlush || e == a.nent - 1) {
         // the tensor core's fp32 sums truncate: big*big goes to the sum
@@ -200,6 +250,35 @@ __device__ __forceinline__ void apply_mx(const MxuArgs& a, const MxSrc& src,
     }
     // the accumulator: d[0], d[1] row g, columns 2q, 2q + 1; d[2], d[3]
     // row g + 8
+    if (last && a.n_epi) {
+      // the chain on the thread's 16 sums in registers, one dispatch a
+      // stage for all of them; the residual at each output's position;
+      // the scalar bias loaded here so that no register holds it while
+      // the products run
+      const float bias0 = a.bias ? a.bias[0] : 0.f;
+      float v[kMxChunks * 4];
+#pragma unroll
+      for (int c = 0; c < kMxChunks; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          v[4 * c + i] = acc[c][i] + cor[c][i];
+          cor[c][i] = 0.f;
+        }
+      apply_epilogue_regs<kMxChunks * 4>(
+          a.epi_op, a.epi_val, a.n_epi, bias0, v, [&](int k) {
+            const int y = y0 + g + 8 * ((k & 3) >> 1);
+            const int x = x0 + 8 * (k >> 2) + 2 * q + (k & 1);
+            return y < hd && x < wd
+                       ? load_residual(a.resid, a.io_bf16,
+                                       (((size_t)b * a.zo + oz0 + z) * a.ho +
+                                        oy0 + y) * a.wo + ox0 + x)
+                       : 0.f;
+          });
+#pragma unroll
+      for (int c = 0; c < kMxChunks; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[c][i] = v[4 * c + i];
+    }
 #pragma unroll
     for (int c = 0; c < kMxChunks; ++c) {
 #pragma unroll
@@ -216,24 +295,29 @@ __device__ __forceinline__ void apply_mx(const MxuArgs& a, const MxSrc& src,
           if (two) d[1] = v1;
           continue;
         }
-        const size_t go =
-            (((size_t)b * a.zo + oz0 + z) * a.ho + oy0 + y) * a.wo + ox0 + x;
+        const long long go = b * a.o_img + (oz0 + z) * a.o_plane +
+                             (long long)(oy0 + y) * a.o_row +
+                             (long long)(ox0 + x) * a.o_col;
+        // a pair of columns in one store where they are adjacent and
+        // aligned
         if (a.io_bf16) {
           __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.out) + go;
-          if (two && (go & 1) == 0) {
+          if (two && a.o_col == 1 &&
+              (reinterpret_cast<uintptr_t>(o) & 3) == 0) {
             *reinterpret_cast<__nv_bfloat162*>(o) =
                 __floats2bfloat162_rn(v0, v1);
           } else {
             o[0] = __float2bfloat16(v0);
-            if (two) o[1] = __float2bfloat16(v1);
+            if (two) o[a.o_col] = __float2bfloat16(v1);
           }
         } else {
           float* o = static_cast<float*>(a.out) + go;
-          if (two && (go & 1) == 0) {
+          if (two && a.o_col == 1 &&
+              (reinterpret_cast<uintptr_t>(o) & 7) == 0) {
             *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
           } else {
             o[0] = v0;
-            if (two) o[1] = v1;
+            if (two) o[a.o_col] = v1;
           }
         }
       }
@@ -252,9 +336,9 @@ __device__ __forceinline__ void issue_mx_tile(const CUtensorMap* xmap,
   r /= a.tiles_y;
   const int tz = r % a.tiles_z, b = r / a.tiles_z;
   const int per = a.io_bf16 ? 8 : 4;  // elements of 16 bytes
-  const int ix0 = tx * a.bw - a.lx;
+  const int ix0 = tx * a.bw * a.sw - a.lx;
   const int x0 = ix0 - ((ix0 % per) + per) % per;  // aligned at or below
-  const int y0 = ty * a.bh - a.ly, z0 = tz * a.bz - a.lz;
+  const int y0 = ty * a.bh * a.sh - a.ly, z0 = tz * a.bz - a.lz;
   const int es = a.io_bf16 ? 2 : 4;
   const uint32_t box = a.box_x * a.box_y * a.box_z * es;
   mbar_expect_tx(bar, box * a.nby * a.nbz);
@@ -270,7 +354,7 @@ __device__ __forceinline__ void issue_mx_tile(const CUtensorMap* xmap,
     }
 }
 
-template <int KKM>
+template <int KKM, bool S>
 __global__ void __launch_bounds__(kMxThreads, 2)
     mxu_window_kernel(const __grid_constant__ CUtensorMap xmap,
                       const __grid_constant__ MxuArgs a) {
@@ -282,7 +366,7 @@ __global__ void __launch_bounds__(kMxThreads, 2)
   float* c0 = reinterpret_cast<float*>(ring + a.stages * a.stage_bytes);
   float* bufa = c0 + a.c0_words;
   float* bufb = bufa + a.bufa_words;
-  float* btile = bufb + a.bufb_words + kMxSlack;
+  float* btile = bufb + a.bufb_words + a.slack;
   int4* ent = reinterpret_cast<int4*>(btile + a.b_words);
   uint64_t* full = reinterpret_cast<uint64_t*>(ent + 2 * a.nent);
 
@@ -290,12 +374,12 @@ __global__ void __launch_bounds__(kMxThreads, 2)
   {
     float4* z4 = reinterpret_cast<float4*>(ring);
     const int n4 = (a.stages * a.stage_bytes) / 16 +
-                   (a.c0_words + a.bufa_words + a.bufb_words + kMxSlack) / 4;
+                   (a.c0_words + a.bufa_words + a.bufb_words + a.slack) / 4;
     for (int k = tid; k < n4; k += kMxThreads)
       z4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   // the entries (dz, r, cmin, KK | B offset, span, column table) and
-  // their Toeplitz tiles B_s[k][n] = c(dz, r, cmin + 8s + k - n)
+  // their Toeplitz tiles B_s[k][n] = c(dz, r, cmin + 8s + k - sw * n)
   for (int e = tid; e < a.nent; e += kMxThreads) {
     const int* h = a.table + kMxEntInts * e;
     ent[2 * e] = make_int4(h[0], h[1], h[2], h[4]);
@@ -307,7 +391,7 @@ __global__ void __launch_bounds__(kMxThreads, 2)
     const int* col = a.table + h[6];
     for (int i = tid; i < kk * 64; i += kMxThreads) {
       const int s = i >> 6, k = (i >> 3) & 7, n = i & 7;
-      const int qq = 8 * s + k - n;
+      const int qq = 8 * s + k - a.sw * n;
       const int ci = (qq >= 0 && qq < span) ? col[qq] : -1;
       btile[boff + i] = ci >= 0 ? a.cvals[ci] : 0.f;
     }
@@ -342,7 +426,7 @@ __global__ void __launch_bounds__(kMxThreads, 2)
     const int oz0 = tzi * a.bz, oy0 = tyi * a.bh, ox0 = txi * a.bw;
     const int tz = min(a.bz, a.zo - oz0), ty = min(a.bh, a.ho - oy0);
     const int tx = min(a.bw, a.wo - ox0);
-    const int ix0 = ox0 - a.lx;
+    const int ix0 = ox0 * a.sw - a.lx;
     const int shift = ((ix0 % per) + per) % per;
     int zs = tz + t * (a.D - 1), hs = ty + t * (a.N - 1),
         ws = tx + t * (a.M - 1);
@@ -369,8 +453,13 @@ __global__ void __launch_bounds__(kMxThreads, 2)
       const bool last = k == t - 1;
       float* dst = (k & 1) ? bufb : bufa;
       const int dpitch = (ws - (a.M - 1) + 4) / 8 * 8 + 4;  // >= width, 4 mod 8
-      apply_mx<KKM>(a, src, zs, hs, ws, dst, dpitch, last, b, oz0, oy0, ox0,
-                    ent, btile);
+      if constexpr (S)
+        apply_mx<KKM, S>(a, src, 1, ty, tx, dst, dpitch, last, b, oz0, oy0,
+                         ox0, ent, btile);
+      else
+        apply_mx<KKM, S>(a, src, zs - (a.D - 1), hs - (a.N - 1),
+                         ws - (a.M - 1), dst, dpitch, last, b, oz0, oy0, ox0,
+                         ent, btile);
       __syncthreads();
       if (!refilled && tid == 0 && tile + a.stages * G < a.ntiles)
         issue_mx_tile(&xmap, a, tile + a.stages * G, smem_addr(stage),
@@ -384,16 +473,20 @@ __global__ void __launch_bounds__(kMxThreads, 2)
   }
 }
 
-using MxuKernelFn = decltype(&mxu_window_kernel<1>);
+using MxuKernelFn = decltype(&mxu_window_kernel<1, false>);
 
-MxuKernelFn pick_mxu(int kkmax) {
+// One instantiation a plan's largest entry (1-4 k-steps); the strided
+// plans share the one of 4, since their chunks walk an entry's k-steps in
+// a runtime loop (s < kk) either way.
+MxuKernelFn pick_mxu(int kkmax, bool strided) {
+  if (kkmax < 1 || kkmax > 4) return nullptr;
+  if (strided) return mxu_window_kernel<4, true>;
   switch (kkmax) {
-    case 1: return mxu_window_kernel<1>;
-    case 2: return mxu_window_kernel<2>;
-    case 3: return mxu_window_kernel<3>;
-    case 4: return mxu_window_kernel<4>;
+    case 1: return mxu_window_kernel<1, false>;
+    case 2: return mxu_window_kernel<2, false>;
+    case 3: return mxu_window_kernel<3, false>;
   }
-  return nullptr;
+  return mxu_window_kernel<4, false>;
 }
 
 }  // namespace ssam
@@ -404,14 +497,21 @@ MxuKernelFn pick_mxu(int kkmax) {
 //   zo, ho, wo, lz, ly, lx, bz, bh, bw, box_x, box_y, box_z, nby, nbz,
 //   stages, stage_bytes, pc, c0_words, bufa_words, bufb_words, b_words,
 //   table_ints, smem_bytes, grid, slack, kkmax (the most k-steps of an
-//   entry);
+//   entry), sh, sw (the output stride), o_row, o_col, o_plane, o_img (the
+//   output's step, elements);
 // `table` on the card holds the entries (dz, r, cmin, span, KK, B offset,
 // column table offset, 0) and their column tables (per column of the
-// span: an index into cvals, or -1). Returns a cudaError_t, or kTmaError +
-// the CUresult where the tensor map cannot be encoded.
+// span: an index into cvals, or -1). The epilogue: epi_ops and epi_vals
+// host arrays of kMaxEpi entries, `bias` a scalar on the card (or null),
+// `resid` the residual in the output's dtype and dense layout (or null).
+// Returns a cudaError_t, or kTmaError + the CUresult where the tensor map
+// cannot be encoded.
 extern "C" int ssam_mxu_window_launch(const void* x, void* out, int io_bf16,
                                       const float* cvals, const int* table,
                                       const int* geom, int ngeom,
+                                      const float* bias, const void* resid,
+                                      const int* epi_ops,
+                                      const float* epi_vals, int n_epi,
                                       void* stream) {
   using namespace ssam;
   if (ngeom != kMxGeomInts) return (int)cudaErrorInvalidValue;
@@ -451,8 +551,27 @@ extern "C" int ssam_mxu_window_launch(const void* x, void* out, int io_bf16,
   a.bufb_words = g[30];
   a.b_words = g[31];
   const int table_ints = g[32], smem_bytes = g[33], grid = g[34];
-  const int slack = g[35], kkmax = g[36];
-  MxuKernelFn fn = pick_mxu(kkmax);
+  const int kkmax = g[36];
+  a.slack = g[35];
+  a.sh = g[37];
+  a.sw = g[38];
+  a.o_row = g[39];
+  a.o_col = g[40];
+  a.o_plane = g[41];
+  a.o_img = g[42];
+  if (n_epi < 0 || n_epi > kMaxEpi) return (int)cudaErrorInvalidValue;
+  a.bias = bias;
+  a.resid = resid;
+  for (int s = 0; s < kMaxEpi; ++s) {
+    a.epi_op[s] = s < n_epi ? epi_ops[s] : 0;
+    a.epi_val[s] = s < n_epi ? epi_vals[s] : 0.f;
+    if ((a.epi_op[s] == 1 && bias == nullptr) ||
+        (a.epi_op[s] == 6 && resid == nullptr))
+      return (int)cudaErrorInvalidValue;
+  }
+  a.n_epi = n_epi;
+  const bool strided = a.sh != 1 || a.sw != 1;
+  MxuKernelFn fn = pick_mxu(kkmax, strided);
   a.sy = a.nby * a.box_y;
   a.sz = a.nbz * a.box_z;
   a.tiles_x = (a.wo + a.bw - 1) / a.bw;
@@ -469,12 +588,16 @@ extern "C" int ssam_mxu_window_launch(const void* x, void* out, int io_bf16,
       a.nent < 1 || a.D < 1 || a.N < 1 || a.M < 1 || a.t < 1 ||
       a.batch < 1 || a.zo < 1 || a.ho < 1 || a.wo < 1 || a.bz < 1 ||
       a.bh < 1 || a.bw < 1 || ntiles > 0x7fffffffLL || grid < 1 ||
-      grid > a.ntiles || slack != kMxSlack || table_ints < kMxEntInts * a.nent ||
+      grid > a.ntiles || a.slack < kMxSlack || a.slack % 4 ||
+      a.slack < 24 * a.sw + 40 || table_ints < kMxEntInts * a.nent ||
+      a.sh < 1 || a.sw < 1 || a.sw > 4 || a.o_col < 1 ||
+      (strided && (a.t != 1 || a.ndim != 2)) ||
       a.box_x < 1 || a.box_x > 256 || a.box_y < 1 || a.box_y > 256 ||
       a.box_z < 1 || a.box_z > 256 || (a.box_x * es) % 16 ||
       (a.nbz > 1 && a.nby > 1 && a.box_z > 1) ||
-      a.sy < a.bh + a.t * (a.N - 1) || a.sz < a.bz + a.t * (a.D - 1) ||
-      a.box_x < a.bw + a.t * (a.M - 1) + 16 / es - 1 ||
+      a.sy < a.sh * (a.bh - 1) + 1 + a.t * (a.N - 1) ||
+      a.sz < a.bz + a.t * (a.D - 1) ||
+      a.box_x < a.sw * (a.bw - 1) + a.t * (a.M - 1) + 16 / es ||
       a.stages < 1 || a.stages > kMxMaxStages || a.stage_bytes % 128 ||
       a.stage_bytes < box_bytes ||
       (a.nby > 1 && (a.box_y * a.box_x * es) % 128) ||
@@ -483,7 +606,7 @@ extern "C" int ssam_mxu_window_launch(const void* x, void* out, int io_bf16,
       a.c0_words % 4 || a.bufa_words % 4 || a.bufb_words % 4 ||
       (pitch * es) % 16 || pitch < win ||
       (reinterpret_cast<uintptr_t>(x) & 15) ||
-      (reinterpret_cast<uintptr_t>(out) & 15))
+      (reinterpret_cast<uintptr_t>(out) & (es - 1)))
     return (int)cudaErrorInvalidValue;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;

@@ -56,7 +56,8 @@
 //    stages), refilled by one thread as stages free up. No atomics, no
 //    split of K across blocks: two calls give equal bits.
 //  * the flush stages the fp32 tile through shared memory; the epilogue
-//    (ssam_epilogue.cuh) runs over it a stage at a time, one op a loop, and
+//    (ssam_epilogue.cuh; a residual read at the output's position) runs
+//    over it a stage at a time, one op a loop, and
 //    rows of consecutive positions are stored. Applied per element
 //    straight from the accumulator (64 unrolled copies of the op switch),
 //    it cost more than the forward's whole reduction over 512 channels
@@ -98,8 +99,10 @@ constexpr int kMtPhaseInts = 8;   // a phase's header in the table
 struct MxuTcArgs {
   void* out;            // (batch, co, hout, wout), x's dtype
   const float* bias;    // co values, or null
+  const void* resid;    // the residual (out's dtype and layout), or null
   const int* table;     // phase headers, then per tap (x row, x offset)
-  int epi_op[kMaxEpi];  // 1 bias, 2 gelu (tanh), 3 silu, 4 relu, 5 scale
+  int epi_op[kMaxEpi];  // 1 bias, 2 gelu (tanh), 3 silu, 4 relu, 5 scale,
+                        // 6 residual
   float epi_val[kMaxEpi];
   int n_epi;
   int co, hout, wout;
@@ -134,6 +137,19 @@ __device__ __forceinline__ void fence_frag(uint32_t (&r)[4][4]) {
   for (int k = 0; k < 4; ++k)
 #pragma unroll
     for (int f = 0; f < 4; ++f) asm volatile("" : "+r"(r[k][f])::"memory");
+}
+
+// One epilogue op over the staged output tile (channel-major, pitch
+// 2 * kMtPos + 4), the op a compile-time constant.
+template <int Op>
+__device__ __forceinline__ void tile_op(float* tile, int nel, float val,
+                                        const float* bias, int co0) {
+  constexpr int kPos = 2 * kMtPos;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nel; i += kMtThreads) {
+    float* t = tile + (i / kPos) * (kPos + 4) + i % kPos;
+    *t = apply_epilogue_op(Op, val, bias, *t, co0 + i / kPos);
+  }
 }
 
 template <bool kBf16>
@@ -299,16 +315,41 @@ __global__ void __launch_bounds__(kMtThreads, 1)
   const int npos = min(kPos, wq - ox0);
   // the tile's channels that exist, by positions
   const int nel = min(kMtCo, a.co - co0) * kPos;
-  // the epilogue a stage at a time (one op for the whole loop), each
-  // thread on the elements it stores
+  // the epilogue a stage at a time (one op, a compile-time constant, for
+  // the whole loop), each thread on the elements it stores
 #pragma unroll 1
   for (int s = 0; s < a.n_epi; ++s) {
-    const int op = a.epi_op[s];
     const float val = a.epi_val[s];
+    switch (a.epi_op[s]) {
+      case 1: tile_op<1>(tile, nel, val, a.bias, co0); break;
+      case 2: tile_op<2>(tile, nel, val, a.bias, co0); break;
+      case 3: tile_op<3>(tile, nel, val, a.bias, co0); break;
+      case 4: tile_op<4>(tile, nel, val, a.bias, co0); break;
+      case 5: tile_op<5>(tile, nel, val, a.bias, co0); break;
+      case 6:  // the residual at each output's position, four a thread
 #pragma unroll 4
-    for (int i = tid; i < nel; i += kMtThreads) {
-      float* t = tile + (i / kPos) * cpitch + i % kPos;
-      *t = apply_epilogue_op(op, val, a.bias, *t, co0 + i / kPos);
+        for (int i = 4 * tid; i < nel; i += 4 * kMtThreads) {
+          const int c = i / kPos, p = i % kPos;
+          if (p >= npos) continue;
+          const size_t at =
+              (((size_t)b * a.co + co0 + c) * a.hout + orow) * a.wout +
+              (size_t)(ox0 + p) * a.osw + px;
+          float r[4];
+          if (a.osw == 1) {
+            load_residual4(a.resid, kBf16, at, min(4, npos - p), r);
+          } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              r[k] = p + k < npos
+                         ? load_residual(a.resid, kBf16,
+                                         at + (size_t)k * a.osw)
+                         : 0.f;
+          }
+          float* t = tile + c * cpitch + p;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) t[k] += r[k];
+        }
+        break;
     }
   }
 #pragma unroll 4
@@ -337,8 +378,8 @@ __global__ void __launch_bounds__(kMtThreads, 1)
 // kMaxEpi entries.
 extern "C" int ssam_mxu_tc_launch(
     const void* x, void* out, int io_bf16, const float* wb, const int* table,
-    const float* bias, const int* epi_ops, const float* epi_vals, int n_epi,
-    int xh, int xc, int xb, int x_pitch, int ktot, int co, int hout,
+    const float* bias, const void* resid, const int* epi_ops,
+    const float* epi_vals, int n_epi, int xh, int xc, int xb, int x_pitch, int ktot, int co, int hout,
     int wout, int sh, int sw, int osh, int osw, int nphases, int co_tiles,
     int slabs, int row_len, int rows, int x_per_kblock,
     int b_stages, int x_stages, int x_bytes, int grid_x, int grid_y,
@@ -393,11 +434,14 @@ extern "C" int ssam_mxu_tc_launch(
   MxuTcArgs a;
   a.out = out;
   a.bias = bias;
+  a.resid = resid;
   a.table = table;
   for (int s = 0; s < kMaxEpi; ++s) {
     a.epi_op[s] = s < n_epi ? epi_ops[s] : 0;
     a.epi_val[s] = s < n_epi ? epi_vals[s] : 0.f;
-    if (a.epi_op[s] == 1 && bias == nullptr) return (int)cudaErrorInvalidValue;
+    if ((a.epi_op[s] == 1 && bias == nullptr) ||
+        (a.epi_op[s] == 6 && resid == nullptr))
+      return (int)cudaErrorInvalidValue;
   }
   a.n_epi = n_epi;
   a.co = co;

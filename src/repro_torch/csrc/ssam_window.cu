@@ -6,16 +6,23 @@
 //   zo, ho, wo, lz, ly, lx, bz, bh, bw,
 //   box_x, box_y, box_z, nbx, nby, nbz,
 //   stages, stage_bytes, buf_c0, buf_a, buf_b, smem_bytes, grid,
+//   sh, sw (the output stride), o_row, o_col, o_plane, o_img (the
+//   output's step, elements),
 // then the steps' records (shift, first tap, taps, dense), 4 ints each;
 // `table` on the card holds the records too, then the taps' slots and
-// coefficient indices.
+// coefficient indices. The epilogue: epi_ops and epi_vals host arrays of
+// kMaxEpi entries, `bias` a scalar on the card (or null), `resid` the
+// residual in the output's dtype and dense layout (or null).
 // Returns a cudaError_t, or kTmaError + the CUresult where the tensor map
 // cannot be encoded.
 #include "ssam_window.cuh"
 
 extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
                                   const float* cvals, const int* table,
-                                  const int* geom, int ngeom, void* stream) {
+                                  const int* geom, int ngeom,
+                                  const float* bias, const void* resid,
+                                  const int* epi_ops, const float* epi_vals,
+                                  int n_epi, void* stream) {
   using namespace ssam;
   if (ngeom < kGeomInts || geom[4] < 1 || geom[4] > kMaxSteps ||
       ngeom != kGeomInts + 4 * geom[4])
@@ -57,6 +64,23 @@ extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
   a.buf_a = g[31];
   a.buf_b = g[32];
   const int smem_bytes = g[33], grid = g[34];
+  a.sh = g[35];
+  a.sw = g[36];
+  a.o_row = g[37];
+  a.o_col = g[38];
+  a.o_plane = g[39];
+  a.o_img = g[40];
+  if (n_epi < 0 || n_epi > kMaxEpi) return (int)cudaErrorInvalidValue;
+  a.bias = bias;
+  a.resid = resid;
+  for (int s = 0; s < kMaxEpi; ++s) {
+    a.epi_op[s] = s < n_epi ? epi_ops[s] : 0;
+    a.epi_val[s] = s < n_epi ? epi_vals[s] : 0.f;
+    if ((a.epi_op[s] == 1 && bias == nullptr) ||
+        (a.epi_op[s] == 6 && resid == nullptr))
+      return (int)cudaErrorInvalidValue;
+  }
+  a.n_epi = n_epi;
   for (int m = 0; m < kMaxSteps; ++m) {
     const int* r = geom + kGeomInts + 4 * (m < a.steps ? m : 0);
     a.step[m] = make_int4(r[0], r[1], r[2], r[3]);
@@ -71,9 +95,12 @@ extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
   const long long ntiles = (long long)a.batch * a.tiles_z * a.tiles_y *
                            a.tiles_x;
   a.ntiles = (int)ntiles;
-  KernelFn fn = a.ndim == 3   ? pick_3d(a.N, a.D)
-                : a.N <= 16   ? pick_2d_narrow(a.N)
-                              : pick_2d_wide(a.N);
+  const bool strided = a.sh != 1 || a.sw != 1;
+  const int nt = strided ? (a.N + a.sh - 1) / a.sh : a.N;  // cache rows
+  KernelFn fn = a.ndim == 3 ? (strided ? nullptr : pick_3d(a.N, a.D))
+                : strided   ? pick_2d_strided(nt)
+                : nt <= 16  ? pick_2d_narrow(nt)
+                            : pick_2d_wide(nt);
   const long long box_bytes =
       (long long)a.box_x * a.box_y * a.box_z * es * a.nbx * a.nby * a.nbz;
   if (fn == nullptr || (a.ndim != 2 && a.ndim != 3) ||
@@ -85,15 +112,17 @@ extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
       a.box_x < 1 || a.box_x > 256 || a.box_y < 1 || a.box_y > 256 ||
       a.box_z < 1 || a.box_z > 256 || (a.box_x * es) % 16 ||
       (a.nbz > 1 && a.nby > 1 && a.box_z > 1) ||
-      a.sy < a.bh + a.t * (a.N - 1) || a.sz < a.bz + a.t * (a.D - 1) ||
-      a.nbx * a.box_x < a.bw + a.t * (a.M - 1) + 16 / es - 1 ||
+      a.sh < 1 || a.sw < 1 || (strided && a.t != 1) || a.o_col < 1 ||
+      a.sy < a.sh * (a.bh - 1) + 1 + a.t * (a.N - 1) ||
+      a.sz < a.bz + a.t * (a.D - 1) ||
+      a.nbx * a.box_x < a.sw * (a.bw - 1) + a.t * (a.M - 1) + 16 / es ||
       a.stages < 1 || a.stages > kMaxStages || a.stage_bytes % 128 ||
       a.stage_bytes < a.nbx * a.xblock * es ||
       (a.nby > 1 && (a.box_y * a.box_x * es) % 128) ||
       (a.nbz > 1 && (a.box_z * a.sy * a.box_x * es) % 128) ||
       a.stage_bytes < box_bytes || (pitch * es) % 16 || pitch < win ||
       (reinterpret_cast<uintptr_t>(x) & 15) ||
-      (reinterpret_cast<uintptr_t>(out) & 15))
+      (reinterpret_cast<uintptr_t>(out) & (es - 1)))
     return (int)cudaErrorInvalidValue;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;

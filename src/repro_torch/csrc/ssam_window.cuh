@@ -6,7 +6,10 @@
 // _apply_plan_once, launched by _window_call) for plans with table or
 // dense coefficients, 2-D (N, M <= 32) or 3-D (up to 5 x 5, depth x rows),
 // both schedule variants, t >= 1 fused time steps with pad-once semantics,
-// fp32 or bf16 input and output with fp32 sums, and batch axes.
+// fp32 or bf16 input and output with fp32 sums, batch axes, an output
+// stride on 2-D plans (one application), and the fused epilogue of
+// _apply_epilogue_val (scalar bias, GELU, SiLU, ReLU, scale, residual)
+// applied once to the fp32 sum after the last application.
 //
 // Bound on an H100: the Table-3 stencils up to 2d64pt, the 3-D ones but
 // 3d125pt, and filters up to 7 x 7 are bound by bytes, each input element
@@ -80,6 +83,24 @@
 //    the warps, Z is split into chunks.
 //  * bf16 input is staged by TMA as bf16 and widened once into an fp32
 //    buffer of the stage's layout.
+//  * Output-strided plans (2-D, t = 1; the reference's data-stationary
+//    read): lane l of a warp item holds output column l of its 32 and reads
+//    input column sw * l + cum of each column step from the stage, so no
+//    shuffle is needed and all 32 lanes keep their outputs. The register
+//    cache holds the rows sh * p + r of the P outputs, one row phase at a
+//    time (rows = rho mod sh), so its index stays a compile-time constant:
+//    a strided instantiation's N is ceil(N / sh), its P 16, exact up to
+//    16 rows; one of 32 rows (P 8) takes 17 to 32 and loads only the
+//    ceil(N / sh) + P - 1 rows the taps read. Tiles start at sh * oy0 and
+//    sw * ox0 of the input.
+//  * The epilogue and the residual are applied as the block stores the
+//    tile (fp32, before the bf16 cast): four rows a warp and four columns
+//    a lane of each in registers, each stage dispatched once for those 16
+//    values (a dispatch an output cost more than a stencil's own
+//    arithmetic); the residual is read at the outputs' positions. The
+//    store writes through an output step (row pitch, column step, image
+//    pitch), so the phases of a strided plan's input adjoint write their
+//    positions of dx in place.
 // The register cache reads past a source's last row (into the next buffer,
 // or the slack the wrapper adds at the end of shared memory) only for rows
 // whose outputs are discarded; lanes past its last column read that column.
@@ -94,6 +115,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ssam_epilogue.cuh"
 #include "ssam_hopper.cuh"
 
 namespace ssam {
@@ -104,7 +126,8 @@ constexpr int kThreads3d = 512;  // one block an SM
 constexpr int kMaxSteps = 32;
 constexpr int kMaxTaps = 1024;
 constexpr int kMaxStages = 3;
-constexpr int kGeomInts = 35;  // core/engine.py::WindowLayout.geom
+constexpr int kGeomInts = 41;  // core/engine.py::WindowLayout.geom
+constexpr int kEpiRows = 4;    // rows a warp stores at once with an epilogue
 constexpr unsigned kFull = 0xffffffffu;
 
 struct WindowArgs {
@@ -124,6 +147,16 @@ struct WindowArgs {
   int stages, stage_bytes;
   int buf_c0, buf_a, buf_b;  // fp32 words: widened bf16 stage, iterates
   int tiles_x, tiles_y, tiles_z, ntiles;
+  int sh, sw;          // output stride (strided instantiations; else 1)
+  // the output's element (b, z, y, x) at out + b * o_img + z * o_plane +
+  // y * o_row + x * o_col; the residual's in the dense output layout
+  long long o_img, o_plane;
+  int o_row, o_col;
+  const float* bias;   // the scalar bias, or null
+  const void* resid;   // the residual (the output's dtype), or null
+  int epi_op[kMaxEpi];
+  float epi_val[kMaxEpi];
+  int n_epi;
 };
 
 // A source of one application: element (z, y, col) lies at
@@ -332,6 +365,68 @@ __device__ __forceinline__ void apply_once(const WindowArgs& a, const Src& src,
   }
 }
 
+// One application of an output-strided 2-D plan on a source of extent
+// (hs, ws): the (hd, wd) outputs, written densely to dst. Lane l of an item
+// holds output column wc * 32 + l and reads input column sw * oc + cum of
+// each step; the cache holds rows sh * (y0 + i) + rho for one row phase rho
+// at a time, N here being the instantiation's ceil(N / sh) rows, or 32
+// for 17 to 32 of which it loads the ceil(N / sh) + P - 1 that the taps
+// read (rows past the source's last read that row, columns past the last
+// output read its columns: their outputs are discarded). Tap records are
+// {rho << 8 | q, coefficient}, row r = sh * q + rho, in (step, rho, q)
+// order.
+template <int N, int P, int T>
+__device__ __forceinline__ void apply_strided(const WindowArgs& a,
+                                              const Src& src, int hs, int hd,
+                                              int wd, float* dst,
+                                              const int2* taps) {
+  constexpr int C = N + P - 1;
+  constexpr int kWarps = T / kWarp;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int nwc = (wd + kWarp - 1) / kWarp;
+  const int items = nwc * ((hd + P - 1) / P);
+  constexpr bool kBucket = N == 32;  // the instantiation of 17 to 32 rows
+  const int cn = (a.N + a.sh - 1) / a.sh + P - 1;  // the rows the taps read
+  for (int it = warp; it < items; it += kWarps) {
+    const int yc = it / nwc, wc = it - yc * nwc;
+    const int oc = wc * kWarp + lane;
+    const int y0 = yc * P;
+    const int colbase = a.sw * min(oc, wd - 1) + src.shift;
+    float c[1][C];
+    float s[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) s[p] = 0.f;
+    int cum = 0;
+    for (int m = 0; m < a.steps; ++m) {
+      const int4 st = a.step[m];
+      cum += st.x;
+      const int sc = colbase + cum;
+      const float* pc =
+          src.p + (src.bstride ? (sc / src.bw) * src.bstride + sc % src.bw
+                               : sc);
+      int k = st.y;
+      const int end = st.y + st.z;
+      while (k < end) {
+        const int rho = taps[k].x >> 8;
+#pragma unroll
+        for (int i = 0; i < C; ++i)
+          if (!kBucket || i < cn)
+            c[0][i] = pc[min(a.sh * (y0 + i) + rho, hs - 1) * src.pitch];
+        for (; k < end; ++k) {
+          const int2 tp = taps[k];
+          if ((tp.x >> 8) != rho) break;
+          tap_fma<N, 1, P>(tp.x & 255, c, s, __int_as_float(tp.y), 0);
+        }
+      }
+    }
+    if (oc >= wd) continue;
+    float* d = dst + (size_t)y0 * wd + oc;
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      if (y0 + p < hd) d[p * wd] = s[p];
+  }
+}
+
 // Thread 0: the TMA boxes of tile `tile` into the stage at dst, completing
 // on bar. A 2-D plan's map is (W, H, batch), a 3-D plan's (W, H, Z, batch).
 __device__ __forceinline__ void issue_tile(const CUtensorMap* xmap,
@@ -343,9 +438,9 @@ __device__ __forceinline__ void issue_tile(const CUtensorMap* xmap,
   r /= a.tiles_y;
   const int tz = r % a.tiles_z, b = r / a.tiles_z;
   const int per = a.io_bf16 ? 8 : 4;  // elements of 16 bytes
-  const int ix0 = tx * a.bw - a.lx;
+  const int ix0 = tx * a.bw * a.sw - a.lx;
   const int x0 = ix0 - ((ix0 % per) + per) % per;  // aligned at or below
-  const int y0 = ty * a.bh - a.ly, z0 = tz * a.bz - a.lz;
+  const int y0 = ty * a.bh * a.sh - a.ly, z0 = tz * a.bz - a.lz;
   const int es = a.io_bf16 ? 2 : 4;
   const uint32_t box = a.box_x * a.box_y * a.box_z * es;
   mbar_expect_tx(bar, box * a.nbx * a.nby * a.nbz);
@@ -364,7 +459,9 @@ __device__ __forceinline__ void issue_tile(const CUtensorMap* xmap,
       }
 }
 
-template <int N, int D, int P, int T>
+// S: an output-strided instantiation (2-D, t = 1; N = ceil(N / sh), or 32
+// for 17 to 32 rows).
+template <int N, int D, int P, int T, bool S>
 __global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
     window_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ WindowArgs a) {
@@ -414,9 +511,10 @@ __global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
     const int oz0 = tzi * a.bz, oy0 = tyi * a.bh, ox0 = txi * a.bw;
     const int tz = min(a.bz, a.zo - oz0), ty = min(a.bh, a.ho - oy0);
     const int tx = min(a.bw, a.wo - ox0);
-    const int ix0 = ox0 - a.lx;
+    const int ix0 = ox0 * a.sw - a.lx;
     const int shift = ((ix0 % per) + per) % per;
-    int zs = tz + t * (D - 1), hs = ty + t * (N - 1), ws = tx + t * (a.M - 1);
+    int zs = tz + t * (D - 1), hs = a.sh * (ty - 1) + 1 + t * (a.N - 1),
+        ws = a.sw * (tx - 1) + 1 + t * (a.M - 1);
 
     mbar_wait(smem_addr(&full[s]), (i / a.stages) & 1);
     // the stage as the first application reads it (x-boxes as blocks)
@@ -430,49 +528,131 @@ __global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
       __syncthreads();
       src.p = c0;
     }
-    for (int k = 0; k < t; ++k) {
-      float* dst = ((t - 1 - k) & 1) ? bufa : bufb;  // the last one: bufb
-      apply_once<N, D, P, T>(a, src, zs, hs, ws, dst, taps);
+    if constexpr (S) {
+      apply_strided<N, P, T>(a, src, hs, ty, tx, bufb, taps);
       __syncthreads();
-      if (k == 0 && tid == 0 && tile + a.stages * G < a.ntiles)
+      if (tid == 0 && tile + a.stages * G < a.ntiles)
         issue_tile(&xmap, a, tile + a.stages * G, smem_addr(stage),
                    smem_addr(&full[s]));  // the stage is read: refill it
-      zs -= D - 1;
-      hs -= N - 1;
-      ws -= a.M - 1;
-      src = Src{dst, ws, hs * ws, 1, 0, 0};
-    }
-    // the output tile (tz, ty, tx), dense in bufb, row by row
-    const bool vec = !a.io_bf16 && a.wo % 4 == 0 && ox0 % 4 == 0 && tx % 4 == 0;
-    for (int rr = warp; rr < tz * ty; rr += kWarps) {
-      const int z = rr / ty, y = rr % ty;
-      const float* srow = bufb + rr * tx;
-      const size_t go =
-          (((size_t)b * a.zo + oz0 + z) * a.ho + oy0 + y) * a.wo + ox0;
-      if (a.io_bf16) {
-        __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(a.out) + go;
-        for (int x = lane; x < tx; x += kWarp)
-          orow[x] = __float2bfloat16(srow[x]);
-      } else if (vec) {
-        float4* orow =
-            reinterpret_cast<float4*>(static_cast<float*>(a.out) + go);
-        const float4* s4 = reinterpret_cast<const float4*>(srow);
-        for (int q = lane; q < tx / 4; q += kWarp) orow[q] = s4[q];
-      } else {
-        float* orow = static_cast<float*>(a.out) + go;
-        for (int x = lane; x < tx; x += kWarp) orow[x] = srow[x];
+    } else {
+      for (int k = 0; k < t; ++k) {
+        float* dst = ((t - 1 - k) & 1) ? bufa : bufb;  // the last one: bufb
+        apply_once<N, D, P, T>(a, src, zs, hs, ws, dst, taps);
+        __syncthreads();
+        if (k == 0 && tid == 0 && tile + a.stages * G < a.ntiles)
+          issue_tile(&xmap, a, tile + a.stages * G, smem_addr(stage),
+                     smem_addr(&full[s]));  // the stage is read: refill it
+        zs -= D - 1;
+        hs -= N - 1;
+        ws -= a.M - 1;
+        src = Src{dst, ws, hs * ws, 1, 0, 0};
       }
+    }
+    // the output tile (tz, ty, tx), dense in bufb, row by row; with an
+    // epilogue, kEpiRows rows a warp at a time and four columns a lane of
+    // each, the chain applied to those values in registers with one
+    // dispatch a stage for all of them (a dispatch an output cost more than
+    // a stencil's own arithmetic), the residual read at their positions
+    const bool vec = !a.io_bf16 && a.o_col == 1 && a.o_row % 4 == 0 &&
+                     a.o_plane % 4 == 0 && a.o_img % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(a.out) & 15) == 0 &&
+                     ox0 % 4 == 0 && tx % 4 == 0;
+    const int rows = tz * ty;
+    auto dense_at = [&](int rr) {  // the residual's (dense) row start
+      return (((size_t)b * a.zo + oz0 + rr / ty) * a.ho + oy0 + rr % ty) *
+                 a.wo + ox0;
+    };
+    auto out_at = [&](int rr) {    // the output's row start
+      return b * a.o_img + (oz0 + rr / ty) * a.o_plane +
+             (long long)(oy0 + rr % ty) * a.o_row + (long long)ox0 * a.o_col;
+    };
+    if (a.n_epi == 0) {
+      for (int rr = warp; rr < rows; rr += kWarps) {
+        const float* srow = bufb + rr * tx;
+        const long long go = out_at(rr);
+        if (vec) {
+          float4* orow =
+              reinterpret_cast<float4*>(static_cast<float*>(a.out) + go);
+          const float4* s4 = reinterpret_cast<const float4*>(srow);
+          for (int q = lane; q < tx / 4; q += kWarp) orow[q] = s4[q];
+        } else {
+          for (int x = lane; x < tx; x += kWarp) {
+            const long long at = go + (long long)x * a.o_col;
+            if (a.io_bf16)
+              static_cast<__nv_bfloat16*>(a.out)[at] =
+                  __float2bfloat16(srow[x]);
+            else
+              static_cast<float*>(a.out)[at] = srow[x];
+          }
+        }
+      }
+    } else {
+      // the scalar bias, loaded here so that no register holds it while
+      // the taps run
+      const float bias0 = a.bias ? a.bias[0] : 0.f;
+      for (int r0 = warp; r0 < rows; r0 += kWarps * kEpiRows)
+        for (int q = lane; 4 * q < tx; q += kWarp) {
+          const int x0 = 4 * q, nv = min(4, tx - x0);
+          float v[4 * kEpiRows], r[4 * kEpiRows];
+#pragma unroll
+          for (int j = 0; j < kEpiRows; ++j) {
+            const int rr = r0 + j * kWarps;
+            const bool ok = rr < rows;
+            const float* src = bufb + (ok ? rr : 0) * tx + x0;
+            if (tx % 4 == 0) {
+              const float4 t4 = *reinterpret_cast<const float4*>(src);
+              v[4 * j] = t4.x, v[4 * j + 1] = t4.y, v[4 * j + 2] = t4.z,
+                    v[4 * j + 3] = t4.w;
+            } else {
+#pragma unroll
+              for (int k = 0; k < 4; ++k) v[4 * j + k] = k < nv ? src[k] : 0.f;
+            }
+            float rj[4];
+            load_residual4(ok ? a.resid : nullptr, a.io_bf16,
+                           dense_at(ok ? rr : 0) + x0, nv, rj);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) r[4 * j + k] = rj[k];
+          }
+          apply_epilogue_regs<4 * kEpiRows>(a.epi_op, a.epi_val, a.n_epi,
+                                            bias0, v,
+                                            [&](int k) { return r[k]; });
+#pragma unroll
+          for (int j = 0; j < kEpiRows; ++j) {
+            const int rr = r0 + j * kWarps;
+            if (rr >= rows) break;
+            const long long go = out_at(rr);
+            if (vec) {
+              reinterpret_cast<float4*>(static_cast<float*>(a.out) + go)[q] =
+                  make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2],
+                              v[4 * j + 3]);
+              continue;
+            }
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              if (k >= nv) break;
+              const long long at = go + (long long)(x0 + k) * a.o_col;
+              if (a.io_bf16)
+                static_cast<__nv_bfloat16*>(a.out)[at] =
+                    __float2bfloat16(v[4 * j + k]);
+              else
+                static_cast<float*>(a.out)[at] = v[4 * j + k];
+            }
+          }
+        }
     }
     __syncthreads();  // bufb is free for the next tile
   }
 }
 
-using KernelFn = decltype(&window_kernel<1, 1, 8, kThreads2d>);
+using KernelFn = decltype(&window_kernel<1, 1, 8, kThreads2d, false>);
 
 // Instantiation tables, one translation unit each so they build in
-// parallel; P as core/engine.py::window_p states it.
-KernelFn pick_2d_narrow(int N);  // N in [1, 16]: P = 32 to 13 rows, then 16
-KernelFn pick_2d_wide(int N);    // N in [17, 32], P = 16
+// parallel; P and N as core/engine.py::window_p and window_rows state
+// them.
+KernelFn pick_2d_narrow(int N);   // N in [1, 16]: P = 32 to 13 rows, then 16
+KernelFn pick_2d_wide(int N);     // N in [17, 32], P = 16
+KernelFn pick_2d_strided(int N);  // N = ceil(N / sh) in [1, 16]: P = 16;
+                                  // 17 to 32 rows: one of 32, P = 8
 KernelFn pick_3d(int N, int D);  // N, D in [1, 5]: P = 16 or 8
 
 }  // namespace ssam

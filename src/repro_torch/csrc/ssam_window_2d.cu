@@ -10,7 +10,7 @@ namespace ssam {
 
 #define SSAM_2D(n) \
   case n:          \
-    return window_kernel<n, 1, (n <= 13 ? 32 : 16), kThreads2d>;
+    return window_kernel<n, 1, (n <= 13 ? 32 : 16), kThreads2d, false>;
 
 KernelFn pick_2d_narrow(int N) {
   switch (N) {

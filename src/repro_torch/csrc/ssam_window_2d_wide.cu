@@ -9,7 +9,7 @@ namespace ssam {
 
 #define SSAM_2D(n) \
   case n:          \
-    return window_kernel<n, 1, 16, kThreads2d>;
+    return window_kernel<n, 1, 16, kThreads2d, false>;
 
 KernelFn pick_2d_wide(int N) {
   switch (N) {

@@ -12,7 +12,8 @@ namespace ssam {
 
 #define SSAM_3D(n, d) \
   if (N == n && D == d) \
-    return window_kernel<n, d, (d * (n + 15) <= 54 ? 16 : 8), kThreads3d>;
+    return window_kernel<n, d, (d * (n + 15) <= 54 ? 16 : 8), kThreads3d, \
+                         false>;
 #define SSAM_3D_ROW(n) \
   SSAM_3D(n, 1) SSAM_3D(n, 2) SSAM_3D(n, 3) SSAM_3D(n, 4) SSAM_3D(n, 5)
 

@@ -39,7 +39,8 @@
 //  * The epilogue chain is fixed per launch: template instances for the
 //    chains the port and its tests launch (none; bias + SiLU; ReLU; bias +
 //    GELU + scale) with the per-lane bias held in registers, and a generic
-//    instance that walks any other chain at run time.
+//    instance that walks any other chain at run time (a residual, read at
+//    the output's position, among them).
 //  * D that is not a multiple of 4 (fp32) or 8 (bf16), or an operand not
 //    16-byte aligned, leaves rows unaligned for 16-byte copies: such a
 //    launch loads and stores element by element, masked at D.
@@ -66,6 +67,7 @@ struct PerlaneArgs {
   void* out;          // (batch, To, D), x's dtype
   const float* w;     // (K, D) fp32
   const float* bias;  // (D,) fp32, or null
+  const void* resid;  // (batch, To, D) residual in x's dtype, or null
   int cid[kMaxRows];  // per footprint row: the row of w, -1 = no tap
   int epi_op[ssam::kMaxEpi];
   float epi_val[ssam::kMaxEpi];
@@ -92,7 +94,7 @@ struct Epi {
   static constexpr bool kBias = ((Ops == 1) || ... || false);
   template <int V>
   __device__ static void apply(float (&o)[V], const float (&bias)[V],
-                               const PerlaneArgs& a, int, int) {
+                               const PerlaneArgs& a, int, int, size_t) {
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       int k = 0;
@@ -103,7 +105,8 @@ struct Epi {
 };
 
 // Any other chain, walked at run time: one (uniform) dispatch a step, each
-// step over the thread's channels, the bias read per output.
+// step over the thread's channels, the bias and the residual (op 6, at the
+// output's position `at`) read per output.
 struct EpiGeneric {
   static constexpr bool kBias = false;
   template <int Op, int V>
@@ -114,7 +117,8 @@ struct EpiGeneric {
   }
   template <int V>
   __device__ static void apply(float (&o)[V], const float (&)[V],
-                               const PerlaneArgs& a, int d0, int nv) {
+                               const PerlaneArgs& a, int d0, int nv,
+                               size_t at) {
     for (int s = 0; s < a.n_epi; ++s) {
       const float val = a.epi_val[s];
       switch (a.epi_op[s]) {
@@ -127,6 +131,11 @@ struct EpiGeneric {
         case 3: each<3>(o, val); break;
         case 4: each<4>(o, val); break;
         case 5: each<5>(o, val); break;
+        case 6:
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            if (v < nv) o[v] += ssam::load_residual(a.resid, V == 8, at + v);
+          break;
       }
     }
   }
@@ -280,7 +289,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < NM; ++j) s = fmaf(c[j][v], wr[j][v], s);
       o[v] = s;
     }
-    E::apply(o, bias, a, d0, nv);
+    E::apply(o, bias, a, d0, nv, ((size_t)b * a.To + t) * a.D + d0);
     T* orow = out + (size_t)t * a.D;
     if (vec) {
       *reinterpret_cast<uint4*>(orow) = pack16<V>(o);
@@ -327,8 +336,8 @@ PerlaneFn pick(const PerlaneArgs& a, int io_bf16) {
 // Plain C entry of K1's per-lane path, loaded with ctypes.
 extern "C" int ssam_window_perlane_launch(
     const void* x, void* out, int io_bf16, const float* w, const int* cid,
-    int N, const float* bias, const int* epi_ops, const float* epi_vals,
-    int n_epi, int batch, int T, int D, int To, int lead, void* stream) {
+    int N, const float* bias, const void* resid, const int* epi_ops,
+    const float* epi_vals, int n_epi, int batch, int T, int D, int To, int lead, void* stream) {
   const int V = io_bf16 ? 8 : 4;
   if (N < 1 || N > kMaxRows || n_epi < 0 || n_epi > ssam::kMaxEpi ||
       batch < 1 || T < 1 || D < 1 || To < 1 || lead < 0 || batch > 65535 ||
@@ -339,11 +348,14 @@ extern "C" int ssam_window_perlane_launch(
   a.out = out;
   a.w = w;
   a.bias = bias;
+  a.resid = resid;
   for (int r = 0; r < kMaxRows; ++r) a.cid[r] = r < N ? cid[r] : -1;
   for (int s = 0; s < ssam::kMaxEpi; ++s) {
     a.epi_op[s] = s < n_epi ? epi_ops[s] : 0;
     a.epi_val[s] = s < n_epi ? epi_vals[s] : 0.f;
-    if (a.epi_op[s] == 1 && bias == nullptr) return (int)cudaErrorInvalidValue;
+    if ((a.epi_op[s] == 1 && bias == nullptr) ||
+        (a.epi_op[s] == 6 && resid == nullptr))
+      return (int)cudaErrorInvalidValue;
   }
   a.n_epi = n_epi;
   a.T = T;

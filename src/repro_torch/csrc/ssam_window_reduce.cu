@@ -60,8 +60,9 @@
 //  * One fixed order for every sum (ci ascending; inside a channel the tap
 //    table's groups in order, each group's taps by column), no atomics, no
 //    split of C_in across blocks: two calls give equal bits.
-//  * The epilogue (bias per out channel, tanh-GELU, SiLU, ReLU, scale,
-//    ssam_epilogue.cuh) is applied once to each sum; a thread stores its 8
+//  * The epilogue (bias per out channel, tanh-GELU, SiLU, ReLU, scale, a
+//    residual read at the output's position; ssam_epilogue.cuh) is applied
+//    once to each sum; a thread stores its 8
 //    columns as two float4 (one 16-byte store of 8 bf16) where the row
 //    allows, else element by element.
 // What holds it now (paired A/B calls on the card): not the shared loads
@@ -92,7 +93,9 @@ struct ReduceArgs {
   const int* table;     // phase headers, then each phase's taps, rows, groups
   int table_ints;
   const float* bias;    // co values, or null
-  int epi_op[kMaxEpi];  // 1 bias, 2 gelu (tanh), 3 silu, 4 relu, 5 scale
+  const void* resid;    // the residual (out's dtype and layout), or null
+  int epi_op[kMaxEpi];  // 1 bias, 2 gelu (tanh), 3 silu, 4 relu, 5 scale,
+                        // 6 residual
   float epi_val[kMaxEpi];
   int n_epi;
   int batch, cr, co, co_pad, hin, win, hout, wout;
@@ -412,12 +415,19 @@ __global__ void __launch_bounds__(256, 2)
     if (co >= a.co) continue;
     const size_t obase =
         ((static_cast<size_t>(b) * a.co + co) * a.hout + orow) * a.wout;
+    const size_t first = obase + static_cast<size_t>(ox) * a.osw + px;
     float v[kRTh];
 #pragma unroll
-    for (int i = 0; i < kRTh; ++i)
-      v[i] = apply_epilogue(a.epi_op, a.epi_val, a.n_epi, a.bias, acc[o][i],
-                            co);
-    const size_t first = obase + static_cast<size_t>(ox) * a.osw + px;
+    for (int i = 0; i < kRTh; ++i) v[i] = acc[o][i];
+    // the chain on the channel's 8 sums, one dispatch a stage for the 8
+    apply_epilogue_regs<kRTh>(
+        a.epi_op, a.epi_val, a.n_epi, a.bias ? a.bias[co] : 0.f, v,
+        [&](int i) {
+          return ox + i < wq
+                     ? load_residual(a.resid, sizeof(T) == 2,
+                                     first + static_cast<size_t>(i) * a.osw)
+                     : 0.f;
+        });
     if (a.osw == 1 && ox + kRTh <= wq && first % E == 0) {
       if (sizeof(T) == 4) {
         float4* dst = reinterpret_cast<float4*>(static_cast<float*>(a.out) +
@@ -472,7 +482,7 @@ int launch_stride(const ReduceArgs& a, int grid_x, int grid_y, int smem,
 // reduce_layout.
 extern "C" int ssam_window_reduce_launch(
     const void* x, void* out, int io_bf16, const float* w, const int* table,
-    int table_ints, const float* bias, const int* epi_ops,
+    int table_ints, const float* bias, const void* resid, const int* epi_ops,
     const float* epi_vals, int n_epi, int batch, int cr, int co, int co_pad,
     int hin, int win, int hout, int wout, int sh, int sw, int osh, int osw,
     int fsz, int nphases, int cols, int ci_slab, int lp, int x_bytes,
@@ -493,10 +503,13 @@ extern "C" int ssam_window_reduce_launch(
   a.table = table;
   a.table_ints = table_ints;
   a.bias = bias;
+  a.resid = resid;
   for (int s = 0; s < ssam::kMaxEpi; ++s) {
     a.epi_op[s] = s < n_epi ? epi_ops[s] : 0;
     a.epi_val[s] = s < n_epi ? epi_vals[s] : 0.f;
-    if (a.epi_op[s] == 1 && bias == nullptr) return (int)cudaErrorInvalidValue;
+    if ((a.epi_op[s] == 1 && bias == nullptr) ||
+        (a.epi_op[s] == 6 && resid == nullptr))
+      return (int)cudaErrorInvalidValue;
   }
   a.n_epi = n_epi;
   a.batch = batch;

@@ -34,8 +34,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import adjoint as adj
 from ..core import engine as _engine
-from ..core.plan import (SystolicPlan, linear_recurrence_plan,
-                         normalize_epilogue)
+from ..core.plan import (SystolicPlan, epilogue_operand_stages,
+                         linear_recurrence_plan, normalize_epilogue)
 from . import ssam_conv1d as _c1
 from . import ssam_conv2d as _c2
 from . import ssam_scan as _sc
@@ -154,15 +154,17 @@ def window_op(plan: SystolicPlan, x, w=None, epilogue_args=(), *, block=None,
 
 def stencil(x: torch.Tensor, sdef: StencilDef | str, *, time_steps: int = 1,
             variant: str = "shift_psum", block=None, epilogue=None,
-            mesh=None, strategy: str | None = None) -> torch.Tensor:
+            epilogue_args=(), mesh=None,
+            strategy: str | None = None) -> torch.Tensor:
     """Apply a Table-3 stencil ``time_steps`` times to an ``(H, W)`` or
     ``(D, H, W)`` grid (zero boundary, same shape, pad-once semantics).
     ``strategy='mxu'`` runs the im2row contraction (K2 on the card)
-    instead of the lanes schedule (K1). Differentiable in ``x`` (the
-    input-adjoint plan, under the same strategy)."""
-    if epilogue is not None:
-        raise NotImplementedError(
-            "stencil epilogues are ROADMAP Queue 1 item 4")
+    instead of the lanes schedule (K1). ``epilogue=`` fuses elementwise
+    stages into the kernel's store, applied once after the last of the
+    ``time_steps`` applications: a scalar ``bias`` and a grid-shaped
+    ``residual_add`` ride in ``epilogue_args``. Differentiable in ``x``
+    (the input-adjoint plan, under the same strategy) and in the
+    epilogue's operands."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded stencils are ROADMAP Queue 1 item 12")
@@ -173,8 +175,11 @@ def stencil(x: torch.Tensor, sdef: StencilDef | str, *, time_steps: int = 1,
                          f"{tuple(x.shape)}")
     mod = _s2 if sdef.ndim == 2 else _s3
     plan = _strategy_plan(mod.plan_for(sdef), strategy, "stencil")
-    return window_op(plan, x, block=block, time_steps=time_steps,
-                     variant=variant)
+    epi_stages = normalize_epilogue(epilogue)
+    if epi_stages:
+        plan = dataclasses.replace(plan, epilogue=epi_stages)
+    return window_op(plan, x, None, tuple(epilogue_args), block=block,
+                     time_steps=time_steps, variant=variant)
 
 
 def _normalize_stride(stride):
@@ -185,6 +190,45 @@ def _normalize_stride(stride):
         raise ValueError(f"conv2d: stride must be two ints >= 1, got {stride}")
     stride = tuple(int(v) for v in stride)
     return None if stride == (1, 1) else stride
+
+
+def _conv2d_grouped(x, w, *, groups, mode, variant, block, stride,
+                    epilogue, epilogue_args, strategy):
+    """Grouped NCHW conv as per-group reduce slices (the reference's
+    ``_conv2d_grouped``): each group is an ordinary NCHW call on its
+    ``(C_in/groups, C_out/groups)`` slice of the operands, one K1 launch
+    (K2 under ``strategy='mxu'``) a group, and the group outputs are
+    concatenated on C_out. A bias row and a residual are sliced per group
+    along C_out. ``groups == C_in`` is depthwise 2-D."""
+    if x.ndim != 4:
+        raise ValueError(
+            f"conv2d: groups={groups} needs a 4-D NCHW input against an "
+            f"OIHW filter (grouped channels), got a {x.ndim}-D input")
+    if w.ndim != 4:
+        raise ValueError(
+            f"conv2d: groups={groups} needs an OIHW "
+            f"(C_out, C_in/groups, N, M) filter, got w shape "
+            f"{tuple(w.shape)}")
+    # the plan builder owns the named divisibility checks
+    _c2.plan_for_nchw(x.shape, w.shape, mode, groups)
+    stages = epilogue_operand_stages(normalize_epilogue(epilogue))
+    args = tuple(epilogue_args)
+    if len(args) != len(stages):
+        raise ValueError(
+            f"conv2d: epilogue {epilogue!r} needs {len(stages)} runtime "
+            f"operand(s), got {len(args)}")
+    Cg, Og = x.shape[1] // groups, w.shape[0] // groups
+    outs = []
+    for g in range(groups):
+        o = slice(g * Og, (g + 1) * Og)
+        args_g = tuple(arr[o] if st.op == "bias" and arr.ndim == 1
+                       else arr[:, o] if st.op == "residual_add" else arr
+                       for st, arr in zip(stages, args))
+        outs.append(conv2d(x[:, g * Cg:(g + 1) * Cg], w[o], mode=mode,
+                           variant=variant, block=block, stride=stride,
+                           epilogue=epilogue, epilogue_args=args_g,
+                           strategy=strategy))
+    return torch.cat(outs, dim=1)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, mode: str = "same",
@@ -201,27 +245,35 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, mode: str = "same",
       an fp32 accumulator across the channel reduction.
 
     ``mode`` is ``'same'`` (zero boundary, centre anchor) or ``'valid'``.
-    On NCHW inputs ``stride=(sh, sw)`` computes only every ``s``-th
-    output, and ``epilogue=`` fuses elementwise output stages
-    (``bias``/``gelu``/``silu``/``relu``/``scale``) applied to the summed
-    value before the store; a per-C_out bias row rides in
-    ``epilogue_args``. ``strategy='mxu'`` pins the tap-set contraction to
-    the im2row lowering (K2, the tensor cores; NCHW contracts over
-    ``C_in·taps``), ``'lanes'`` or None to the lanes schedule (K1).
-    Differentiable in ``x``, ``w`` and the bias: ``dx`` under the same
+    ``stride=(sh, sw)`` computes only every ``s``-th output (the kernels
+    read input ``l·s + cum`` for output ``l``; no dense pass), and
+    ``epilogue=`` fuses elementwise output stages
+    (``bias``/``gelu``/``silu``/``relu``/``scale``/``residual_add``)
+    applied to the summed value before the store: a bias is a per-C_out
+    row on NCHW inputs and a scalar otherwise, a residual is shaped like
+    the output; both ride in ``epilogue_args``. ``groups=`` (NCHW only)
+    runs a grouped convolution as per-group slices against a ``(C_out,
+    C_in/groups, N, M)`` filter (``groups == C_in``: depthwise 2-D).
+    ``strategy='mxu'`` pins the tap-set contraction to the im2row
+    lowering (K2, the tensor cores; NCHW contracts over ``C_in·taps``),
+    ``'lanes'`` or None to the lanes schedule (K1). Differentiable in
+    ``x``, ``w`` and the epilogue's operands: ``dx`` under the same
     strategy, ``dW`` through K3.
     """
     if mesh is not None:
         raise NotImplementedError("sharded conv2d is ROADMAP Queue 1 item 12")
     if int(groups) != groups or groups < 1:
         raise ValueError(f"conv2d: groups must be an int >= 1, got {groups}")
-    if groups != 1:
-        raise NotImplementedError(
-            "grouped conv2d is not ported yet (ROADMAP Queue 1 item 4)")
     if mode not in ("same", "valid"):
         raise ValueError(
             f"conv2d: mode must be 'same' or 'valid', got {mode!r}")
     stride = _normalize_stride(stride)
+    if groups != 1:
+        return _conv2d_grouped(x, w, groups=int(groups), mode=mode,
+                               variant=variant, block=block, stride=stride,
+                               epilogue=epilogue,
+                               epilogue_args=epilogue_args,
+                               strategy=strategy)
     epi_stages = normalize_epilogue(epilogue)
     if x.ndim == 4:
         if w.ndim != 4:
@@ -230,10 +282,6 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, mode: str = "same",
                 f"(C_out, C_in, N, M) filter, got w shape {tuple(w.shape)}")
         plan = _c2.plan_for_nchw(x.shape, w.shape, mode)
     else:
-        if stride is not None or epi_stages:
-            raise NotImplementedError(
-                "stride and epilogues on single-channel conv2d are not "
-                "ported yet (ROADMAP Queue 1 item 4); pass an NCHW input")
         if w.ndim != 2:
             raise ValueError(f"conv2d takes an (N, M) filter for (H, W) or "
                              f"(B, H, W) input, got w shape {tuple(w.shape)}")

@@ -30,8 +30,9 @@ def plan_for_batched(w_shape: tuple[int, int], mode: str = "valid"):
 def plan_for_nchw(x_shape, w_shape, mode: str = "valid", groups: int = 1):
     """Reduce-axes plan for an NCHW minibatch against an OIHW filter.
 
-    ``groups > 1`` describes one group's reduce sweep; the ops layer does
-    not run grouped convolutions yet (ROADMAP Queue 1 item 4).
+    ``groups > 1`` checks that both channel counts divide evenly and
+    describes one group's reduce sweep: ``ops.conv2d(groups=)`` runs it
+    on each group's slice of the operands.
     """
     B, C_in = x_shape[:2]
     C_out, C_in_w, N, M = w_shape

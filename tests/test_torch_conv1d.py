@@ -223,9 +223,9 @@ def test_bad_calls_raise():
         ops.conv1d_causal(x, w, epilogue="bias")
     with pytest.raises(NotImplementedError, match="5c"):
         ops.conv1d_causal(x, w, strategy="mxu")
-    with pytest.raises(NotImplementedError, match="residual_add"):
+    with pytest.raises(ValueError, match="residual_add"):
         ops.conv1d_causal(x, w, epilogue="residual_add",
-                          epilogue_args=(torch.zeros(1, 8, 5),))
+                          epilogue_args=(torch.zeros(1, 7, 5),))
     with pytest.raises(ValueError, match="M = 1"):
         engine.run_window_plan(x, torch.zeros(3, 5), plan=dataclasses.replace(
             plan.conv2d_plan(2, 3), coeff_mode="perlane", batch_axes=1))

@@ -282,10 +282,10 @@ def test_conv2d_bad_calls_raise():
         ops.conv2d(x, w, stride=(0, 1))
     with pytest.raises(ValueError, match="OIHW"):
         ops.conv2d(x, torch.zeros(1, 3))
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="filter expects C_in=4"):
         ops.conv2d(x, w, groups=2)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ops.conv2d(torch.zeros(4, 9), torch.zeros(1, 3), stride=2)
+    with pytest.raises(ValueError, match="4-D NCHW input"):
+        ops.conv2d(torch.zeros(4, 9), torch.zeros(1, 3), groups=2)
     with pytest.raises(ValueError, match="temporal blocking"):
         p = ssam_conv2d.plan_for_nchw(x.shape, w.shape)
         engine.run_window_plan(x, w, plan=p, time_steps=2)

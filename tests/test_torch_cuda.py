@@ -999,3 +999,184 @@ def test_hymba_train_steps_go_through_k1_k4_and_k5(cuda):
     want = hymba.train_launches(hymba_1g5b.SMOKE, 300, 2)
     got = [k.launches - b for k, b in zip(kernels, before)]
     assert got == [2 * want["k1"], 2 * want["k4"], 2 * want["k5"], 0, 0]
+
+
+# Epilogues, residuals, output strides and groups on every windowed path:
+# each against its plain version on the card, one K1/K2 launch a fused
+# forward, the strided forward's dx (one launch a phase) and dW (K3, per
+# phase of x) beside it.
+EPI_CASES = [
+    ("2d9pt", (97, 203), ("bias", "relu"), 1),
+    ("2d9pt", (97, 203), ("bias", "relu"), 2),
+    ("2d5pt", (64, 300), ("gelu",), 2),
+    ("3d7pt", (21, 30, 75), ("silu", "residual_add"), 2),
+]
+
+
+def _epi_args(chain, out_shape, device, like=None):
+    args = []
+    for st in normalize_epilogue(chain):
+        if st.op == "bias":
+            args.append(torch.tensor([0.25], device=device))
+        elif st.op == "residual_add":
+            args.append(like if like is not None
+                        else _grid(out_shape, device, 77))
+    return tuple(args)
+
+
+@pytest.mark.parametrize("strategy", ["lanes", "mxu"])
+@pytest.mark.parametrize("name,shape,chain,t", EPI_CASES, ids=str)
+def test_stencil_epilogue_at_the_store(cuda, strategy, name, shape, chain, t):
+    x = _grid(shape, cuda, 61)
+    args = _epi_args(chain, shape, cuda)
+    sd = stencils.BENCHMARKS[name]
+    mod = ssam_stencil2d if sd.ndim == 2 else ssam_stencil3d
+    p = dataclasses.replace(mod.plan_for(sd), strategy=strategy,
+                            epilogue=normalize_epilogue(chain))
+    kernel = engine.MXU_KERNEL if strategy == "mxu" else engine.WINDOW_KERNEL
+    for variant in VARIANTS:
+        before = kernel.launches
+        got = ops.stencil(x, name, time_steps=t, variant=variant,
+                          epilogue=chain, epilogue_args=args,
+                          strategy=strategy)
+        assert kernel.launches == before + 1       # fused: one launch
+        _close(got, engine.run_window_plan_reference(
+            x, plan=p, time_steps=t, variant=variant, epilogue_args=args))
+
+
+@pytest.mark.parametrize("strategy", ["lanes", "mxu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_conv_residual_is_x(cuda, strategy, dtype):
+    """'same' 5x5 with ("bias", "gelu", "residual_add") and the residual x
+    itself, forward and the gradients of x, w, the bias and the residual
+    (in the operand's shape and dtype)."""
+    x = _grid((3, 90, 131), cuda, 62).to(dtype).requires_grad_(True)
+    w = _grid((5, 5), cuda, 63).requires_grad_(True)
+    b = torch.tensor([0.1], device=cuda, requires_grad=True)
+    chain = ("bias", "gelu", "residual_add")
+    kernel = engine.MXU_KERNEL if strategy == "mxu" else engine.WINDOW_KERNEL
+    before = kernel.launches
+    y = ops.conv2d(x, w, mode="same", epilogue=chain, epilogue_args=(b, x),
+                   strategy=strategy)
+    assert kernel.launches == before + 1
+    p = dataclasses.replace(ssam_conv2d.plan_for_batched((5, 5), "same"),
+                            strategy=strategy,
+                            epilogue=normalize_epilogue(chain))
+    rtol = 3e-5 if dtype == torch.float32 else 3e-2
+    _close(y.float(), engine.run_window_plan_reference(
+        x.detach(), w.detach(), plan=p,
+        epilogue_args=(b.detach(), x.detach())).float(), rtol)
+    r = x.detach().clone().requires_grad_(True)
+    g = _grid(y.shape, cuda, 64).to(dtype)
+    gx, gw, gb, gr = torch.autograd.grad(
+        ops.conv2d(x, w, mode="same", epilogue=chain, epilogue_args=(b, r),
+                   strategy=strategy), (x, w, b, r), g)
+    assert gb.shape == b.shape and gr.shape == r.shape and gr.dtype == dtype
+    xc, wc, bc, rc = (t.detach().cpu().float().requires_grad_(True)
+                      for t in (x, w, b, r))
+    want = torch.autograd.grad(ops.conv2d(
+        xc, wc, mode="same", epilogue=chain, epilogue_args=(bc, rc)),
+        (xc, wc, bc, rc), g.cpu().float())
+    for got, exp in zip((gx, gw, gb, gr), want):
+        _close(got.float().cpu(), exp, 1e-4 if dtype == torch.float32
+               else 3e-2)
+
+
+STRIDED = [((2, 2), "same"), ((1, 2), "same"), ((2, 1), "valid"),
+           ((3, 3), "valid")]
+
+
+@pytest.mark.parametrize("strategy", ["lanes", "mxu"])
+@pytest.mark.parametrize("shape", [(131, 259), (3, 67, 97)], ids=str)
+@pytest.mark.parametrize("stride,mode", STRIDED, ids=str)
+def test_strided_single_channel_conv(cuda, strategy, shape, stride, mode):
+    """Forward (one launch, only the kept outputs), dx (one launch a phase
+    a tap reaches) and dW (K3, per phase of x) of a strided 5x5 against
+    the plain versions."""
+    x = _grid(shape, cuda, 65)
+    w = _grid((5, 5), cuda, 66)
+    base = (ssam_conv2d.plan_for if len(shape) == 2
+            else ssam_conv2d.plan_for_batched)((5, 5), mode)
+    p = dataclasses.replace(base, stride=stride, strategy=strategy)
+    kernel = engine.MXU_KERNEL if strategy == "mxu" else engine.WINDOW_KERNEL
+    before = kernel.launches
+    y = engine.run_window_plan(x, w, plan=p)
+    assert kernel.launches == before + 1
+    _close(y, engine.run_window_plan_reference(x, w, plan=p))
+    g = _grid(y.shape, cuda, 67)
+    wa = adjoint.adjoint_coeff_array(p, w)
+    phases = [ph for ph in adjoint.strided_input_adjoint_phases(p)
+              if ph.plan is not None and all(ph.extent(shape[-2:]))]
+    before = kernel.launches
+    dx = engine.run_adjoint_phases(g, wa, plan=p, in_spatial=shape[-2:])
+    assert kernel.launches == before + len(phases)
+    _close(dx, engine.run_adjoint_phases_reference(g, wa, plan=p,
+                                                    in_spatial=shape[-2:]),
+           1e-4)
+    before = engine.WGRAD_KERNEL.launches
+    dw = engine.run_weight_grad_plan(x, g, plan=p)
+    assert engine.WGRAD_KERNEL.launches == before + \
+        engine.WgradKernel.launches_for(x, g, plan=p)
+    _close(dw, engine.run_weight_grad_plan_reference(x, g, plan=p), 1e-4)
+    xb = x.to(torch.bfloat16)
+    _close(engine.run_window_plan(xb, w, plan=p).float(),
+           engine.run_window_plan_reference(xb, w, plan=p).float(), 3e-2)
+
+
+@pytest.mark.parametrize("strategy", ["lanes", "mxu"])
+def test_residual_on_the_reduce_paths(cuda, strategy):
+    xs, ws = (2, 16, 23, 75), (24, 16, 3, 3)
+    x, w = _grid(xs, cuda, 68), _grid(ws, cuda, 69)
+    b = _grid(ws[:1], cuda, 70)
+    for stride in ((1, 1), (2, 2)):
+        p = dataclasses.replace(
+            ssam_conv2d.plan_for_nchw(xs, ws, "same"),
+            stride=None if stride == (1, 1) else stride, strategy=strategy,
+            epilogue=normalize_epilogue(("bias", "gelu", "residual_add")))
+        r = _grid((2, 24) + p.out_shape(xs[2:]), cuda, 71)
+        kernel = engine.MXU_KERNEL if strategy == "mxu" \
+            else engine.WINDOW_KERNEL
+        for rr in (r, r.to(torch.bfloat16)):        # converted once
+            before = kernel.launches
+            got = engine.run_window_plan(x, w, plan=p, epilogue_args=(b, rr))
+            assert kernel.launches == before + 1
+            _close(got, engine.run_window_plan_reference(
+                x, w, plan=p, epilogue_args=(b, rr.float())), 1e-4)
+
+
+def test_residual_on_the_perlane_path(cuda):
+    x, w, b, g = _perlane_data(2, 131, 99, 4, cuda, 10)
+    r = _grid(x.shape, cuda, 72)
+    p = dataclasses.replace(ssam_conv1d.plan_for(4), epilogue=(
+        normalize_epilogue(("bias", "silu", "residual_add"))))
+    assert engine.perlane_layout(p, 2, 131, 99, 4).chain == "generic"
+    for dt, rtol in (("float32", 3e-5), ("bfloat16", 3e-2)):
+        xx, rr = x.to(getattr(torch, dt)), r.to(getattr(torch, dt))
+        before = engine.WINDOW_KERNEL.launches
+        got = engine.run_window_plan(xx, w, plan=p, epilogue_args=(b, rr))
+        assert engine.WINDOW_KERNEL.launches == before + 1
+        _close(got.float(), engine.run_window_plan_reference(
+            xx, w, plan=p, epilogue_args=(b, rr)).float(), rtol)
+
+
+@pytest.mark.parametrize("strategy", ["lanes", "mxu"])
+@pytest.mark.parametrize("groups", [2, 8])
+def test_grouped_conv2d(cuda, strategy, groups):
+    """One launch a group; forward and gradients against the CPU."""
+    x = _grid((2, 8, 20, 37), cuda, 73).requires_grad_(True)
+    w = _grid((16, 8 // groups, 3, 3), cuda, 74).requires_grad_(True)
+    b = _grid((16,), cuda, 75).requires_grad_(True)
+    kernel = engine.MXU_KERNEL if strategy == "mxu" else engine.WINDOW_KERNEL
+    before = kernel.launches
+    y = ops.conv2d(x, w, groups=groups, epilogue=("bias", "relu"),
+                   epilogue_args=(b,), strategy=strategy)
+    assert kernel.launches == before + groups
+    xc, wc, bc = (t.detach().cpu().requires_grad_(True) for t in (x, w, b))
+    yc = ops.conv2d(xc, wc, groups=groups, epilogue=("bias", "relu"),
+                    epilogue_args=(bc,))
+    _close(y.detach().cpu(), yc.detach(), 1e-4)
+    g = _grid(y.shape, cuda, 76)
+    got = torch.autograd.grad(y, (x, w, b), g)
+    want = torch.autograd.grad(yc, (xc, wc, bc), g.cpu())
+    for a, e in zip(got, want):
+        _close(a.cpu(), e, 1e-4)

@@ -25,7 +25,7 @@ from repro.kernels import ssam_stencil2d as js2
 from repro.kernels import ssam_stencil3d as js3
 from repro.kernels import stencils as jstencils
 from repro_torch import convert
-from repro_torch.core import engine
+from repro_torch.core import engine, plan
 from repro_torch.kernels import ssam_conv2d, ssam_stencil2d, ssam_stencil3d
 from repro_torch.kernels import stencils
 
@@ -178,7 +178,7 @@ def test_layouts_of_the_paper_cases():
     """The default tile of every stencil and filter at t = 1 and 2 fits
     two blocks an SM, its box obeys TMA's rules (at most 256 elements an
     axis, rows of a multiple of 16 bytes, fp32 rows at a pitch 4 mod 8
-    words) and the C entry's geometry has its 37 ints."""
+    words) and the C entry's geometry has its 43 ints."""
     plans = [_stencil_plans(n)[1] for n in NAMES] + [
         _mxu(ssam_conv2d.plan_for((k, k), "same")) for k in SIZES]
     for p in plans:
@@ -196,7 +196,8 @@ def test_layouts_of_the_paper_cases():
             assert lay.grid == 2 * engine.H100_SMS
             assert box_x <= engine.TMA_MAX_BOX and box_x % 8 == 4
             assert lay.staged[1] >= block[-2] + t * (p.N - 1)
-            assert len(lay.geom) == 37 and lay.geom[-2] == engine.MXU_SLACK
+            assert len(lay.geom) == 43
+            assert lay.geom[35] == engine.mxu_slack(1) == engine.MXU_SLACK
 
 
 def test_fragment_loads_hit_thirty_two_banks():
@@ -215,3 +216,73 @@ def test_too_wide_a_block_raises():
     with pytest.raises(ValueError, match="TMA box"):
         engine.emulate_mxu_kernel(x, torch.zeros(3, 3), plan=p,
                                   block=(8, 300))
+
+
+# Output strides (a steeper Toeplitz band, B[k][n] = c(k − sw·n), rows
+# sh·m + r) and the epilogue at the store
+@pytest.mark.parametrize("block", [None, (16, 40)], ids=str)
+@pytest.mark.parametrize("shape", [(37, 70), (2, 29, 83)], ids=str)
+@pytest.mark.parametrize("stride,mode", [((2, 2), "same"), ((1, 2), "same"),
+                                         ((2, 1), "valid"),
+                                         ((3, 3), "valid")], ids=str)
+def test_strided_schedule_matches_plain_version(stride, mode, shape, block):
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((5, 5)).astype(np.float32))
+    p = _mxu(dataclasses.replace(
+        (ssam_conv2d.plan_for if len(shape) == 2
+         else ssam_conv2d.plan_for_batched)((5, 5), mode), stride=stride))
+    _close(engine.emulate_mxu_kernel(x, w, plan=p, block=block),
+           engine.run_window_plan_reference(x, w, plan=p))
+
+
+def test_strided_toeplitz_band_and_layout():
+    """Entries span at most 32 − 7·sw columns (sw ≤ 4), the band's k-steps
+    ⌈(span + 7·sw)/8⌉; the tiles fit two blocks an SM and one TMA box."""
+    for sw in (1, 2, 3, 4):
+        assert engine.mxu_span(sw) == 32 - 7 * sw
+        assert engine.mxu_slack(sw) >= engine.MXU_SLACK
+    with pytest.raises(ValueError, match="column strides up to 4"):
+        engine.mxu_span(5)
+    p = _mxu(dataclasses.replace(ssam_conv2d.plan_for((5, 5), "same"),
+                                 stride=(2, 2)))
+    ents = engine.mxu_entries(p, (5, 5))
+    assert [e[4] for e in ents.entries] == [3] * 5      # ⌈(5 + 14)/8⌉
+    cvals = torch.arange(1.0, 26.0)
+    bt = engine.mxu_btiles(ents, cvals, 2)
+    _, _, cmin, span, kk, boff, toff = ents.entries[0]
+    tiles = bt[boff:boff + 64 * kk].view(kk, 8, 8)
+    for s in range(kk):
+        for k in range(8):
+            for n in range(8):
+                q = 8 * s + k - 2 * n
+                want = cvals[q] if 0 <= q < span else 0.0
+                assert float(tiles[s, k, n]) == float(want)
+    for stride in ((2, 2), (1, 2), (3, 3)):
+        sp = _mxu(dataclasses.replace(ssam_conv2d.plan_for((5, 5), "same"),
+                                      stride=stride))
+        block = engine.default_block(sp)
+        out = sp.out_shape((8192, 8192))
+        head = (1, 1, 8192, 8192, 1) + out + (0, 2, 2)
+        lay = engine.mxu_layout(sp, head, (1,) + block, 1, 4, 8192,
+                                engine.mxu_entries(sp, (5, 5)))
+        assert lay.box[2] <= engine.TMA_MAX_BOX and lay.smem <= \
+            engine.WINDOW_SMEM_TARGET
+        assert lay.geom[35] == engine.mxu_slack(stride[1])
+        assert lay.geom[37:39] == stride
+
+
+def test_epilogue_at_the_store_matches_plain_version():
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy(rng.standard_normal((2, 30, 50)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((3, 4)).astype(np.float32))
+    p = dataclasses.replace(_mxu(ssam_conv2d.plan_for_batched((3, 4),
+                                                              "same")),
+                            epilogue=plan.normalize_epilogue(
+                                ("bias", "silu", "residual_add")))
+    args = (torch.tensor([-0.3]), torch.from_numpy(
+        rng.standard_normal((2, 30, 50)).astype(np.float32)))
+    _close(engine.emulate_mxu_kernel(x, w, plan=p, block=(16, 24),
+                                     epilogue_args=args),
+           engine.run_window_plan_reference(x, w, plan=p,
+                                            epilogue_args=args))

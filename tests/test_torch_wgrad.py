@@ -113,11 +113,17 @@ def test_strided_backward_reads_the_cotangent_in_place(monkeypatch):
 
 
 def test_single_channel_kernel_refuses_a_stride():
+    # a stride no longer refused: the gradient runs per phase of x, each
+    # phase one launch of the stride-1 walk (one tile, one block here)
     p = dataclasses.replace(ssam_conv2d.plan_for((3, 3), "same"),
                             stride=(1, 2))
-    with pytest.raises(NotImplementedError, match="item 4"):
+    assert [(ph.n, ph.m) for ph in engine.wgrad_phases(p)] == [(3, 2),
+                                                               (3, 1)]
+    assert engine.WGRAD_KERNEL.launches_for(torch.zeros(9, 12),
+                                            torch.zeros(9, 6), plan=p) == 2
+    with pytest.raises(ValueError, match="not the output"):
         engine.WGRAD_KERNEL.launches_for(torch.zeros(9, 12),
-                                         torch.zeros(9, 6), plan=p)
+                                         torch.zeros(9, 12), plan=p)
 
 
 # --- the kernel's geometry ---------------------------------------------------

@@ -17,6 +17,8 @@ the tiles that cut a footprint wider or taller than one block holds, the
 walk the layout refuses, and the kernels' table generated from the
 layout's.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -273,3 +275,64 @@ def test_kernel_tables_match_the_layout(monkeypatch):
                                  pathlib.Path("k.o"), include=pathlib.Path(
                                      "inc"))
     assert cmd[cmd.index("-I") + 1] == "inc"
+
+
+# A strided plan's weight gradient: each phase (pn, pm) of the filter is
+# the stride-1 gradient of x's phase image (engine.wgrad_phases,
+# engine.wgrad_phase_images), PR 22's walk unchanged, one launch set a
+# phase; jax.grad of the dense oracle subsampled is the witness
+STRIDED_CASES = [
+    ((37, 70), (5, 5), "same", (2, 2), "float32", None),
+    ((3, 29, 83), (5, 5), "same", (1, 2), "float32", 2),
+    ((37, 70), (4, 7), "valid", (3, 3), "float32", None),
+    ((2, 31, 40), (5, 5), "valid", (2, 1), "bfloat16", None),
+    ((40, 130), (1, 3), "same", (2, 3), "float32", 1),
+]
+
+
+@pytest.mark.parametrize("xs,filt,mode,stride,dtype,max_grid", STRIDED_CASES,
+                         ids=str)
+def test_strided_emulation_matches_plain_version_and_oracle(
+        xs, filt, mode, stride, dtype, max_grid):
+    x, _, p, xn, _ = _operands(xs, filt, mode, dtype)
+    p = dataclasses.replace(p, stride=stride)
+    gn = np.random.default_rng(41).standard_normal(
+        tuple(xs[:-2]) + p.out_shape(xs[-2:])).astype(np.float32)
+    g = torch.from_numpy(gn).to(getattr(torch, dtype))
+    gn = g.float().numpy()
+    got = engine.emulate_wgrad_kernel(x, g, plan=p, max_grid=max_grid)
+    _close(got.numpy(), engine.run_weight_grad_plan_reference(
+        x, g, plan=p).numpy(), TOL[dtype])
+    # the oracle: the dense correlation's gradient with the cotangent
+    # scattered onto the lattice the stride keeps
+    dense = tuple(xs[:-2]) + _plan(xs, filt, mode).out_shape(xs[-2:])
+    full = np.zeros(dense, np.float32)
+    full[..., ::stride[0], ::stride[1]] = gn
+    _close(got.numpy(), _oracle(xn, full, filt, mode), TOL[dtype])
+    # every phase's layout fits the card; the launches add up per phase
+    x3 = x.reshape((-1,) + tuple(xs[-2:]))
+    phases = engine.wgrad_phases(p)
+    lays = engine._wgrad_geometry(x, g, p)[3]
+    assert len(phases) == len(lays) == min(stride[0], filt[0]) * min(
+        stride[1], filt[1])
+    assert all(lay.smem <= engine.SMEM_LIMIT for lay in lays)
+    assert engine.WGRAD_KERNEL.launches_for(x, g, plan=p) == sum(
+        lay.launches for lay in lays)
+    assert engine.wgrad_phase_images(x3, stride).shape[:2] == stride
+
+
+def test_strided_layout_at_8192_squared():
+    """A 5x5 at stride 2 on 8192²: four phases of 3x3, 3x2, 2x3 and 2x2
+    taps on 4096² phase images, each one tile."""
+    p = dataclasses.replace(ssam_conv2d.plan_for((5, 5), "same"),
+                            stride=(2, 2))
+    phases = engine.wgrad_phases(p)
+    assert [(ph.n, ph.m) for ph in phases] == [(3, 3), (3, 2), (2, 3),
+                                              (2, 2)]
+    # lead 2 = 2·1 + 0 for phase 0, 2·1 + 1 − 1 for phase 1 of x
+    assert [ph.lead for ph in phases] == [(1, 1)] * 4
+    assert [ph.xphase for ph in phases] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    for ph in phases:
+        lay = engine.wgrad_layout(1, 4096, 4096, 4096, 4096, ph.n, ph.m,
+                                  lead=ph.lead)
+        assert len(lay.tiles) == 1 and lay.smem <= engine.SMEM_LIMIT

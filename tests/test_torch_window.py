@@ -226,6 +226,7 @@ def test_nvcc_command_targets_sm_90a():
                                      "ssam_wgrad_perlane.cu",
                                      "ssam_wgrad_tc.cu",
                                      "ssam_window.cu", "ssam_window_2d.cu",
+                                     "ssam_window_2d_strided.cu",
                                      "ssam_window_2d_wide.cu",
                                      "ssam_window_3d.cu",
                                      "ssam_window_perlane.cu",
@@ -278,16 +279,21 @@ def test_out_of_slice_raises_not_implemented(case):
     x = torch.zeros((20, 40))
     w = torch.ones((3, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "nchw":      # NCHW runs; its residual_add epilogue not
+        # NCHW, groups, strides and epilogues run (residual_add included);
+        # sharding them does not, nor an epilogue on a scan plan
+        if case == "nchw":
             ops.conv2d(torch.zeros((1, 2, 20, 40)), torch.ones((3, 2, 3, 3)),
                        epilogue="residual_add",
-                       epilogue_args=(torch.zeros((1, 3, 20, 40)),))
+                       epilogue_args=(torch.zeros((1, 3, 20, 40)),),
+                       mesh=object())
         elif case == "groups":
-            ops.conv2d(x, w, groups=2)
+            ops.conv2d(torch.zeros((1, 4, 20, 40)), torch.ones((4, 2, 3, 3)),
+                       groups=2, mesh=object())
         elif case == "stride":
-            ops.conv2d(x, w, stride=2)
+            ops.conv2d(x, w, stride=2, mesh=object())
         elif case == "epilogue":
-            ops.stencil(x, "2d5pt", epilogue="relu")
+            engine.run_scan_plan(x, plan=dataclasses.replace(
+                plan.scan_plan(8), epilogue=plan.normalize_epilogue("relu")))
         elif case == "mesh":
             ops.conv2d(x, w, mesh=object())
         elif case == "perlane":  # per-lane runs; its temporal blocking not

@@ -10,6 +10,7 @@ budget. It is held here to the plain version
 (``repro.kernels.ref``) on numpy inputs from a seed. Tolerance: fp32
 3e-5·max|want| (DESIGN.md §6), bf16 3e-2.
 """
+import dataclasses
 import re
 from pathlib import Path
 
@@ -190,13 +191,35 @@ def test_geometry_matches_the_c_entry():
     two = (CUH.parent / "ssam_window_2d.cu").read_text()
     three = (CUH.parent / "ssam_window_3d.cu").read_text()
     wide = (CUH.parent / "ssam_window_2d_wide.cu").read_text()
-    assert "window_kernel<n, 1, (n <= 13 ? 32 : 16), kThreads2d>" in two
-    assert "window_kernel<n, 1, 16, kThreads2d>" in wide
+    strided = (CUH.parent / "ssam_window_2d_strided.cu").read_text()
+    assert "window_kernel<n, 1, (n <= 13 ? 32 : 16), kThreads2d, false>" in two
+    assert "window_kernel<n, 1, 16, kThreads2d, false>" in wide
+    # the strided table: exact row counts up to engine's, then one bucket
+    assert "window_kernel<n, 1, 16, kThreads2d, true>" in strided
+    exact = [int(v) for v in re.findall(r"SSAM_2D_STRIDED\((\d+)\)", strided)]
+    assert exact == list(range(1, engine.WINDOW_STRIDED_EXACT + 1))
+    assert (f"window_kernel<{engine.WINDOW_STRIDED_BUCKET}, 1, 8, kThreads2d, "
+            "true>") in strided
     assert "(d * (n + 15) <= 54 ? 16 : 8)" in three
     assert engine.window_p(p) == 32
     assert engine.window_p(ssam_conv2d.plan_for((20, 20), "same")) == 16
     assert engine.window_p(_stencil_plan("3d7pt")) == 16
     assert engine.window_p(_stencil_plan("3d125pt")) == 8
+    # the strided instantiations: ceil(N / sh) rows up to 16, P = 16; one
+    # of 32 rows above, P = 8
+    for f, st, rows, want in (((5, 5), (2, 2), 3, 16),
+                              ((5, 5), (1, 2), 5, 16),
+                              ((3, 3), (3, 3), 1, 16),
+                              ((20, 20), (1, 2), 32, 8),
+                              ((32, 32), (2, 1), 16, 16),
+                              ((17, 17), (1, 3), 32, 8)):
+        sp = dataclasses.replace(ssam_conv2d.plan_for(f, "same"), stride=st)
+        assert engine.window_rows(sp) == rows
+        assert engine.window_p(sp) == want
+    assert engine.window_rows(p) == p.N
+    # the geometry's stride and dense output step (o_row, o_col, o_plane,
+    # o_img) sit right before the step records
+    assert lay.geom[n - 6:n] == (1, 1, 80, 1, 40 * 80, 40 * 80)
 
 
 def test_too_large_a_block_raises():
@@ -212,3 +235,72 @@ def test_shuffles_keep_the_lanes_below_the_delta():
     assert up[:3].tolist() == [0, 1, 2] and up[3:].equal(v[:-3])
     down = engine._shfl_down(v, 3)
     assert down[29:].tolist() == [29, 30, 31] and down[:29].equal(v[3:])
+
+
+# Output strides and the epilogue at the store (the reference's
+# data-stationary strided read: lane l reads column sw·l + cum, the cache
+# one row phase at a time; the chain applied once to the fp32 sum)
+STRIDED = [((2, 2), "same"), ((1, 2), "same"), ((2, 1), "valid"),
+           ((3, 3), "valid")]
+
+
+@pytest.mark.parametrize("block", [None, (8, 16)], ids=str)
+@pytest.mark.parametrize("shape", [(37, 70), (2, 29, 83)], ids=str)
+@pytest.mark.parametrize("stride,mode", STRIDED, ids=str)
+def test_strided_schedule_matches_plain_version(stride, mode, shape, block):
+    x = torch.from_numpy(_x(shape, 21))
+    w = torch.from_numpy(_x((5, 5), 22))
+    p = dataclasses.replace((ssam_conv2d.plan_for if len(shape) == 2
+                             else ssam_conv2d.plan_for_batched)((5, 5), mode),
+                            stride=stride)
+    want = engine.run_window_plan_reference(x, w, plan=p)
+    _close(engine.emulate_window_kernel(x, w, plan=p, block=block), want)
+    _close(engine.emulate_window_kernel(x.to(torch.bfloat16), w, plan=p,
+                                        block=block),
+           engine.run_window_plan_reference(x.to(torch.bfloat16), w,
+                                            plan=p), 3e-2)
+
+
+def test_strided_tap_table_and_layout():
+    """Row r of a stride-sh plan sits in row phase r mod sh at q = r // sh
+    (slot rho << 8 | q, (rho, q) order in a step, no step dense); the
+    tiles fit two blocks an SM at 8192², the stage holds sh·(bh−1) + N
+    rows."""
+    p = dataclasses.replace(ssam_conv2d.plan_for((5, 5), "same"),
+                            stride=(2, 2))
+    tab = engine.tap_table(p, (5, 5))
+    assert tab.slots[:5] == (0, 1, 2, 256, 257)
+    assert not any(d for *_, d in tab.steps)
+    for stride in ((2, 2), (1, 2), (3, 3)):
+        sp = dataclasses.replace(ssam_conv2d.plan_for((5, 5), "same"),
+                                 stride=stride)
+        block = engine.default_block(sp)
+        assert engine.smem_bytes(sp, block, 1) <= engine.WINDOW_SMEM_TARGET
+        out = sp.out_shape((8192, 8192))
+        tile = (1,) + block
+        head = (1, 1, 8192, 8192, 1) + out + (0, 2, 2)
+        lay = engine.window_layout(sp, head, tile, 1)
+        assert lay.staged[1] >= stride[0] * (block[0] - 1) + 5
+        assert lay.boxes[2] * lay.box[2] >= stride[1] * (block[1] - 1) + 5
+        assert lay.smem <= engine.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("t", [1, 2])
+@pytest.mark.parametrize("name", ["2d9pt", "3d7pt"])
+def test_epilogue_at_the_store_matches_plain_version(name, t):
+    sd = stencils.BENCHMARKS[name]
+    shape = (19, 37) if sd.ndim == 2 else (7, 9, 37)
+    x = torch.from_numpy(_x(shape, 23))
+    r = torch.from_numpy(_x(shape, 24))
+    p = dataclasses.replace(_stencil_plan(name), epilogue=plan.
+                            normalize_epilogue(("bias", "gelu",
+                                                "residual_add")))
+    args = (torch.tensor([0.5]), r)
+    block = (8, 16) if sd.ndim == 2 else (3, 4, 16)
+    for variant in VARIANTS:
+        _close(engine.emulate_window_kernel(
+            x, plan=p, block=block, time_steps=t, variant=variant,
+            epilogue_args=args),
+            engine.run_window_plan_reference(x, plan=p, time_steps=t,
+                                             variant=variant,
+                                             epilogue_args=args))
