@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR]
 
-Six paths. The first is the paper's experiment: the 15 Table-3
+Eight paths. The first is the paper's experiment: the 15 Table-3
 stencils at 8192² (2-D) and 512³ (3-D) in fp32, both schedule variants,
 t ∈ {1, 2}, one bf16 case, and 2-D convolution ('same' and 'valid') at
 8192² over the Fig. 4 filter sweep plus a (16, 2048, 2048) batched 5×5,
@@ -23,7 +23,12 @@ through K1's per-lane path, the conv's weight gradient through K4 and
 the selective scan, forward and backward, through K5. The sixth runs the
 windowed ops' whole surface at full size: fused epilogues and residuals,
 output strides on single-channel convolution (forward, dx and dW) and
-grouped convolution, through K1, K2 and K3.
+grouped convolution, through K1, K2 and K3. The seventh runs Hymba's
+depthwise conv1d with ``strategy="mxu"``: forward and dx through K2's
+per-lane path (``csrc/ssam_mxu_perlane.cu``), dW through K4. The eighth
+trains rwkv6-1.6b at full width through ``repro_torch.launch.train``:
+its WKV runs forward through K5 in checkpointed chunks and backward
+through K5's λ-recurrence.
 Phases, one JSON line each:
 
 1. build: compile K1, K2, K3, K4 and K5 from ``src/repro_torch/csrc``
@@ -224,6 +229,34 @@ Phases, one JSON line each:
    ``conv2d_weight`` for dx and dW; the grouped backward through cuDNN's
    autograd) and the plain version.
 
+12. K2's per-lane path at Hymba's conv shape (2, 2048, 3200), K = 4:
+   (a) ``ops.conv1d_causal(strategy="mxu")`` with bias+SiLU forward and
+   backward once, the counters zeroed before and read after (K2 3: the
+   forward, the recomputed pre-activation and dx; K4 its dW launches; K1
+   0), its output and gradients against autograd through the plain
+   versions at 1e-4; (b) the forward with bias+SiLU, the linear forward,
+   bias+SiLU+residual and dx, fp32 and bf16, each against the plain mxu
+   version (3e-5, bf16 3e-2) and K1's per-lane path (1e-4); (c) their
+   device and call times beside the byte bound, the plain version, K1's
+   per-lane path and the library call (``F.conv1d(groups=D)`` and the
+   elementwise ops, ``conv1d_input``); the build line carries
+   ``mxu_perlane`` (registers, spills, ``HMMA``) and fails if an instance
+   spills or lacks ``HMMA``;
+13. train rwkv6-1.6b (1,465,503,744 parameters, weights from ``--seed``,
+   TF32 off), batch 2 × 2048 tokens: (a) layer 0 of the full-width
+   model, its output and gradients through K5 against autograd through
+   the plain versions at 1e-4·max|leaf|, beside a 1e-7 relative
+   perturbation's spread, K5 3 launches a chunk; (b) 6 steps of
+   ``launch.train.main``: every loss finite, the counters (zeroed
+   before) at ``models.rwkv6.train_launches`` per step (K5 3072, K1-K4
+   0), step time, samples/s and peak memory; (c) K5's forward chunk with
+   its carry and the reversed λ-recurrence at the training chunk's rows
+   (262144, 64) against the plain versions, timed beside their byte
+   bounds; one step on the host clock alone, then the next profiled
+   (device only): device time, K5's and the copies' shares, and the
+   card's idle share of that profiled step, over its own wall time and
+   over its trace's span.
+
 It exits non-zero if there is no card, if a build, launch or check fails,
 and when run outside a checkout of the repository. The full results go
 to ``DIR/chip_smoke.json`` (default ``build/chip_smoke/``); the last
@@ -281,6 +314,9 @@ HYMBA_CHUNK = 128               # selective-scan chunk: rows x 128 per K5 call
 PERLANE_RTOL = 3e-5             # K1 per-lane against plain, fp32
 K4_RTOL = 1e-4                  # K4 against plain: sums of 4096 products
 LAYER_RTOL = 1e-4               # a layer's gradients, kernels against plain
+MXU_PL_RTOL = 3e-5              # K2 per-lane against plain, fp32
+RWKV6_STEPS = 6
+RWKV6_BATCH, RWKV6_SEQ = 2, 2048
 # K1's reduce path on small edge cases (x, w, mode, stride, epilogue, dtype):
 # tests/test_torch_cuda.py's REDUCE_CASES and bf16 rows of 1500
 REDUCE_EDGE_CASES = [
@@ -586,7 +622,11 @@ def device_ops(prof, top: int = 5, match=None):
             rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    out = {"device_ms": total,
+    ends = [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    span = (max(b for _, b in ends) - min(a for a, _ in ends)) / 1e3 \
+        if ends else None
+    out = {"device_ms": total, "span_ms": span,
            "top": [{"op": k[:160], "ms": ms, "calls": c,
                     "share": ms / total} for k, ms, c in rows[:top]]}
     for name, pattern in (match or {"k5": "ssam_scan_kernel"}).items():
@@ -1716,16 +1756,17 @@ def mxu_phase(args, dev, card, results, lanes, single) -> dict:
 
 
 class _PlainKernels:
-    """Within the block the engine's wrappers of K1, K4 and K5 are replaced
-    by the plain versions, so the same model code runs autograd through
-    them on the card (the kernels' counters stay put)."""
+    """Within the block the engine's wrappers of K1, K2, K4 and K5 are
+    replaced by the plain versions, so the same model code runs autograd
+    through them on the card (the kernels' counters stay put)."""
 
     def __enter__(self):
         from repro_torch.core import engine
 
-        self.saved = (engine.WINDOW_KERNEL, engine.PERLANE_WGRAD_KERNEL,
-                      engine.SCAN_KERNEL)
+        self.saved = (engine.WINDOW_KERNEL, engine.MXU_KERNEL,
+                      engine.PERLANE_WGRAD_KERNEL, engine.SCAN_KERNEL)
         engine.WINDOW_KERNEL = engine.run_window_plan_reference
+        engine.MXU_KERNEL = engine.run_window_plan_reference
         engine.PERLANE_WGRAD_KERNEL = engine.run_weight_grad_plan_reference
         engine.SCAN_KERNEL = engine.run_scan_plan_reference
         return self
@@ -1733,8 +1774,8 @@ class _PlainKernels:
     def __exit__(self, *exc):
         from repro_torch.core import engine
 
-        (engine.WINDOW_KERNEL, engine.PERLANE_WGRAD_KERNEL,
-         engine.SCAN_KERNEL) = self.saved
+        (engine.WINDOW_KERNEL, engine.MXU_KERNEL,
+         engine.PERLANE_WGRAD_KERNEL, engine.SCAN_KERNEL) = self.saved
         return False
 
 
@@ -2455,6 +2496,349 @@ def plain_grouped_backward(x, w, b, gy, groups: int, chain) -> tuple:
     return torch.cat(dxs, 1), torch.cat(dws, 0), torch.cat(dbs)
 
 
+def mxu_perlane_phase(args, dev, card, results) -> dict:
+    """Phase 12: K2's per-lane path, ``conv1d_causal(strategy="mxu")``, at
+    Hymba's conv shape (2, 2048, 3200), K = 4: (a) the op's forward and
+    backward once with bias+SiLU (the main path: K2 the forward, the
+    recomputed pre-activation and dx, K4 dW, K1 never), its gradients
+    against autograd through the plain versions; (b) the forward with
+    bias+SiLU, the linear forward, bias+SiLU+residual and dx, fp32 and
+    bf16, each against the plain mxu version and K1's per-lane path; (c)
+    their times beside the byte bound, the plain version, K1's per-lane
+    path and the library call (``F.conv1d(groups=D)`` + the ops,
+    ``conv1d_input``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import convert
+    from repro_torch.core import adjoint, engine
+    from repro_torch.core.plan import normalize_epilogue
+    from repro_torch.kernels import ops, ssam_conv1d
+
+    K1, K2 = engine.WINDOW_KERNEL, engine.MXU_KERNEL
+    K4 = engine.PERLANE_WGRAD_KERNEL
+    rng = np.random.default_rng(args.seed + 12)
+
+    def put(*shape, scale=1.0):
+        return convert.from_numpy(
+            (scale * rng.standard_normal(shape)).astype(np.float32), dev)
+
+    B, T, D, K = HYMBA_BATCH, HYMBA_SEQ, HYMBA_DI, HYMBA_K
+    x, g, r = put(B, T, D), put(B, T, D), put(B, T, D)
+    w, b = put(K, D, scale=K ** -0.5), put(D, scale=0.1)
+
+    # -- (a) the main path: the op forward and backward, counted ----------
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    K1.launches = K2.launches = K4.launches = 0
+
+    def op_grads(*ts):
+        y = ops.conv1d_causal(ts[0], ts[1], epilogue=("bias", "silu"),
+                              epilogue_args=(ts[2],), strategy="mxu")
+        return (y,) + torch.autograd.grad(y, ts, g)
+
+    got = op_grads(*leaves)
+    torch.cuda.synchronize()
+    launches = {"k1": K1.launches, "k2": K2.launches, "k4": K4.launches}
+    want = {"k1": 0, "k2": 3,
+            "k4": K4.launches_for(x, g, plan=ssam_conv1d.plan_for(K))}
+    require(launches == want, ("phase 12 launches", launches, want))
+    with _PlainKernels():
+        plain = op_grads(*[t.clone().requires_grad_() for t in (x, w, b)])
+    worst = 0.0
+    for name, kg, pg in zip(("y", "dx", "dw", "db"), got, plain):
+        worst = max(worst, compare(
+            f"phase 12 conv1d_causal(strategy='mxu') {name}, kernels "
+            "against the plain versions", kg, pg, LAYER_RTOL, results))
+    del got, plain, leaves
+
+    # -- (b) each case against the plain mxu version and K1 --------------
+    p = dataclasses.replace(ssam_conv1d.plan_for(K), strategy="mxu")
+    pe = dataclasses.replace(p, epilogue=normalize_epilogue(("bias",
+                                                             "silu")))
+    pr = dataclasses.replace(p, epilogue=normalize_epilogue(
+        ("bias", "silu", "residual_add")))
+    adj = adjoint.input_adjoint_plan(p)
+    run, ref = engine.run_window_plan, engine.run_window_plan_reference
+    elems = B * T * D
+    wt = w.T[:, None, :].contiguous()
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        eb = torch.finfo(dt).bits // 8
+        xx, gg, rr = x.to(dt), g.to(dt), r.to(dt)
+        # the library's layout: channels ahead of time, (B, D, T)
+        xt = xx.transpose(1, 2).contiguous()
+        gt = F.pad(gg.transpose(1, 2), (0, K - 1)).contiguous()
+        rt = rr.transpose(1, 2).contiguous()
+        wl, bl = wt.to(dt), b.to(dt)
+
+        def conv(xt=xt, wl=wl, bias=None):
+            return F.conv1d(xt, wl, bias, padding=K - 1, groups=D)[..., :T]
+
+        name = "fp32" if dt == torch.float32 else "bf16"
+        w_bytes = 4 * K * D
+        cases += [
+            (f"forward bias+silu {name}", pe, xx, (b,),
+             2 * eb * elems + w_bytes + 4 * D,
+             lambda conv=conv, bl=bl: F.silu(conv(bias=bl))),
+            (f"forward linear {name}", p, xx, (),
+             2 * eb * elems + w_bytes, lambda conv=conv: conv()),
+            (f"forward bias+silu+residual {name}", pr, xx, (b, rr),
+             3 * eb * elems + w_bytes + 4 * D,
+             lambda conv=conv, bl=bl, rt=rt: F.silu(conv(bias=bl)) + rt),
+            (f"dx, the input-adjoint plan {name}", adj, gg, (),
+             2 * eb * elems + w_bytes,
+             lambda xt=xt, wl=wl, gt=gt: torch.nn.grad.conv1d_input(
+                 xt.shape, wl, gt, padding=K - 1, groups=D)),
+        ]
+    timed = {}
+    for tag, pl, inp, ea, nbytes, lib in cases:
+        rtol = MXU_PL_RTOL if inp.dtype == torch.float32 else 3e-2
+
+        def kern(pl=pl, inp=inp, ea=ea):
+            return run(inp, w, plan=pl, epilogue_args=ea)
+
+        def plain_fn(pl=pl, inp=inp, ea=ea):
+            return ref(inp, w, plan=pl, epilogue_args=ea)
+
+        def lanes_fn(pl=pl, inp=inp, ea=ea):
+            return run(inp, w, plan=dataclasses.replace(pl, strategy="lanes"),
+                       epilogue_args=ea)
+
+        y = kern()
+        err = compare(f"phase 12 K2 per-lane {tag}", y, plain_fn(), rtol,
+                      results)
+        if inp.dtype == torch.float32:
+            worst = max(worst, err)
+        compare(f"phase 12 K2 per-lane {tag} against K1", y, lanes_fn(),
+                MXU_VS_LANES if inp.dtype == torch.float32 else 3e-2,
+                results)
+        del y
+        counts = (K1.launches, K2.launches)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        f_ms = 2 * K * elems / TF32_FLOPS * 1e3
+        ms = device_ms(kern, 20)
+        rec = {"case": f"K2 per-lane conv1d (2,2048,3200) K=4 {tag}",
+               "ms": ms, "call_ms": event_ms(kern, 20),
+               "k1_ms": device_ms(lanes_fn, 20),
+               "plain_ms": device_ms(plain_fn, 3),
+               "library_ms": device_ms(lib, 20),
+               "bound_ms": max(b_ms, f_ms),
+               "bound_by": "bytes" if b_ms >= f_ms else "operations",
+               "bytes": nbytes, "roofline_share": max(b_ms, f_ms) / ms,
+               "card": card}
+        K1.launches, K2.launches = counts
+        results["times"].append(rec)
+        emit({"phase": "mxu_perlane_time", **rec})
+        timed[tag] = rec
+    return {"launches": launches["k2"], "worst": worst, "timed": timed,
+            "headline": timed["forward bias+silu fp32"]}
+
+
+def rwkv6_train_phase(args, dev, card, results) -> dict:
+    """Phase 13: train rwkv6-1.6b at full width; its WKV runs forward
+    through K5 in streamed, checkpointed chunks and backward through K5's
+    λ-recurrence in reversed time: (a) layer 0 of the seeded full-width
+    model, its output and gradients through the kernels against autograd
+    through the plain versions at 1e-4·max|leaf| beside a 1e-7 relative
+    perturbation's spread; (b) 6 steps of ``launch.train.main --arch
+    rwkv6-1.6b --batch 2 --seq 2048`` (every loss finite, K5 at
+    ``models.rwkv6.train_launches`` per step, K1-K4 at 0, step time and
+    peak memory); (c) K5's forward chunk and λ-recurrence at the training
+    chunk's rows (262144, 64) against their plain versions, timed beside
+    their byte bounds; one step timed alone, then the next profiled:
+    device time, K5's and the copies' shares, and the idle share of the
+    profiled step over its own wall time and over its trace's span."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import convert
+    from repro_torch.config import get_config
+    from repro_torch.core import adjoint, engine, plan
+    from repro_torch.data import TokenDataset
+    from repro_torch.launch import train
+    from repro_torch.models import build_model, rwkv6
+    from repro_torch.nn import spec
+
+    kernels = {"k1": engine.WINDOW_KERNEL, "k2": engine.MXU_KERNEL,
+               "k3": engine.WGRAD_KERNEL, "k4": engine.PERLANE_WGRAD_KERNEL,
+               "k5": engine.SCAN_KERNEL}
+    K5 = kernels["k5"]
+    rng = np.random.default_rng(args.seed + 13)
+
+    def put(*shape, scale=1.0, low=None):
+        a = (rng.uniform(low, 1.0, shape) if low is not None
+             else scale * rng.standard_normal(shape))
+        return convert.from_numpy(a.astype(np.float32), dev)
+
+    B, T = RWKV6_BATCH, RWKV6_SEQ
+    cfg = get_config("rwkv6-1.6b")
+    # -- (a) one full-width layer: kernels against the plain versions -------
+    model = build_model(cfg, device=dev, seed=args.seed)
+    n_params = sum(q.numel() for q in model.parameters())
+    require(n_params == spec.param_count(rwkv6.specs(cfg)) == FULL_PARAMS,
+            ("rwkv6-1.6b parameters", n_params))
+    p0 = model.params["layers"][0]
+    leaves0 = list(spec.module_leaves(p0))
+    xl, gl = put(B, T, cfg.d_model), put(B, T, cfg.d_model)
+
+    def layer_grads():
+        xx = xl.clone().requires_grad_()
+        y = model._layer(p0, xx)[0]
+        return (y.detach(),) + torch.autograd.grad(
+            y, [xx] + [q for _, q in leaves0], gl)
+
+    before = K5.launches
+    kern_g = layer_grads()
+    torch.cuda.synchronize()
+    layer_launches = K5.launches - before
+    chunks = -(-T // cfg.wkv_chunk)
+    require(layer_launches == 3 * chunks,
+            ("one layer's K5 launches (3 a chunk)", layer_launches))
+    with _PlainKernels():
+        plain_g = layer_grads()
+    with torch.no_grad():
+        saved = [q.clone() for _, q in leaves0]
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 14)
+        for _, q in leaves0:
+            q.mul_(1 + PERTURB_REL * torch.randn(q.shape, generator=gen,
+                                                 device=dev))
+    moved_g = layer_grads()
+    with torch.no_grad():
+        for (_, q), s0 in zip(leaves0, saved):
+            q.copy_(s0)
+    names = ["y", "x"] + [".".join(map(str, path)) for path, _ in leaves0]
+    spread = max(float((m - k).abs().max() / k.abs().max().clamp_min(1e-30))
+                 for m, k in zip(moved_g, kern_g))
+    layer_worst = 0.0
+    for name, kg, pg in zip(names, kern_g, plain_g):
+        scale = pg.abs().max().item()
+        err = (kg - pg).abs().max().item()
+        layer_worst = max(layer_worst, err / max(scale, 1e-30))
+        torch.testing.assert_close(
+            kg, pg, rtol=0, atol=LAYER_RTOL * scale,
+            msg=lambda m, n=name: f"rwkv6 layer 0 {n}: {m}")
+    rec = {"case": "rwkv6-1.6b layer 0, full width (2,2048,2048)",
+           "leaves": len(names), "worst_rel_to_scale": layer_worst,
+           "perturbed_spread_rel": spread, "perturbation": PERTURB_REL,
+           "rtol": LAYER_RTOL, "k5_launches": layer_launches, "card": card}
+    results["rwkv6_layer"] = rec
+    emit({"phase": "rwkv6_layer", **rec})
+    del kern_g, plain_g, moved_g, saved, model, p0, leaves0, xl, gl
+    torch.cuda.empty_cache()
+
+    # -- (b) the main path: the trainer at full width -------------------------
+    argv = ["--arch", "rwkv6-1.6b", "--steps", str(RWKV6_STEPS), "--batch",
+            str(B), "--seq", str(T), "--seed", str(args.seed),
+            "--log-every", "1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = {name: k.launches for name, k in kernels.items()}
+    per_step = rwkv6.train_launches(cfg, T, B)
+    want = {name: RWKV6_STEPS * n for name, n in per_step.items()}
+    step_ms = statistics.median(res.step_seconds[1:]) * 1e3
+    rec = {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "wkv_chunk": cfg.wkv_chunk, "steps": RWKV6_STEPS, "batch": B,
+           "seq": T, "losses": res.losses, "grad_norms": res.grad_norms,
+           "step_ms": [t * 1e3 for t in res.step_seconds],
+           "step_ms_median_after_first": step_ms,
+           "samples_per_s": B / step_ms * 1e3,
+           "tokens_per_s": B * T / step_ms * 1e3, "run_s": run_s,
+           "peak_mem_gb_per_step": res.peak_mem_gb,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": got, "launches_expected": want,
+           "launches_per_step": per_step, "card": card}
+    results["train_rwkv6"] = rec
+    emit({"phase": "train_rwkv6", **rec})
+    require(all(np.isfinite(res.losses)), ("non-finite loss", res.losses))
+    require(got == want, ("rwkv6 train launches", got, want))
+
+    # -- (c) K5 at the training chunk's rows, and one profiled step ----------
+    R, L = B * cfg.n_heads * cfg.head_k * cfg.head_v, cfg.wkv_chunk
+    sa, sb, sh0 = put(R, L, low=0.5), put(R, L), put(R, 1)
+    lin = plan.linear_recurrence_plan(L)
+    abar = adjoint.time_reversed(adjoint.reversed_recurrence_coeffs(sa))
+    grev = adjoint.time_reversed(sb)
+    worst = 0.0
+    timed = {}
+    for tag, kern, plain_fn, nbytes in (
+            ("K5 WKV training chunk forward with carry (262144,64)",
+             lambda: engine.run_scan_plan(sa, sb, plan=lin, carry=sh0),
+             lambda: engine.run_scan_plan_reference(sa, sb, plan=lin,
+                                                    carry=sh0),
+             4 * (3 * R * L + 2 * R)),
+            ("K5 WKV training chunk lambda-recurrence, reversed (262144,64)",
+             lambda: engine.run_scan_plan(abar, grev, plan=lin),
+             lambda: engine.run_scan_plan_reference(abar, grev, plan=lin),
+             12 * R * L)):
+        n0 = K5.launches
+        y, yp = kern(), plain_fn()
+        if isinstance(y, tuple):
+            y, yp = torch.cat([y[0], y[1]], 1), torch.cat([yp[0], yp[1]], 1)
+        worst = max(worst, compare(tag, y, yp, 1e-5, results))
+        del y, yp
+        ms = device_ms(kern, 20)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rec = {"case": tag, "ms": ms, "call_ms": event_ms(kern, 20),
+               "plain_ms": device_ms(plain_fn, 3), "library_ms": None,
+               "bound_ms": b_ms, "bound_by": "bytes",
+               "roofline_share": b_ms / ms, "card": card}
+        K5.launches = n0
+        results["times"].append(rec)
+        emit({"phase": "rwkv6_time", **rec})
+        timed["forward" if "forward" in tag else "lambda"] = rec
+    model = res.trainer.model
+    ds = TokenDataset(cfg.vocab, T, seed=args.seed)
+    batch = train.make_batch(model, ds, RWKV6_STEPS, B, dev)
+    # the idle share comes from one step: the profiled one's device time
+    # over its own wall time (the profiler's host cost included) and over
+    # its trace's span; the step before it, on the host clock alone,
+    # shows what the profiler adds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = res.trainer.step(batch)
+    float(loss)
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3
+    before = K5.launches
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loss, _ = res.trainer.step(batch)
+        float(loss)
+        torch.cuda.synchronize()
+    traced_ms = (time.perf_counter() - t0) * 1e3
+    rec = {**device_ops(prof, match={"k5": "ssam_scan_kernel",
+                                     "copies": "copy"}),
+           "launches": {"k5": K5.launches - before},
+           "traced_step_host_ms": traced_ms,
+           "untraced_step_host_ms": untraced_ms, "card": card}
+    rec["idle_share"] = (1 - rec["device_ms"] / traced_ms
+                         if rec["device_ms"] else None)
+    rec["idle_share_in_span"] = (1 - rec["device_ms"] / rec["span_ms"]
+                                 if rec["device_ms"] and rec["span_ms"]
+                                 else None)
+    results["train_rwkv6_profile"] = rec
+    emit({"phase": "train_rwkv6_profile", **rec})
+    if rec["device_ms"]:
+        require(rec["k5_calls"] == rec["launches"]["k5"],
+                ("profiled K5 launches against the counter",
+                 rec["k5_calls"], rec["launches"]))
+    del res, model
+    return {"launches": got["k5"], "per_step": per_step["k5"],
+            "worst": max(worst, layer_worst), "step_ms": step_ms,
+            "timed": timed}
+
+
 def first_loss_parity(cfg, ds, dev, seed, card, results) -> dict:
     """The first step's loss of whisper-base with the stem on K2 (``cfg``)
     and on K1 (the same config with ``conv_strategy=None``), on the same
@@ -2696,6 +3080,15 @@ def main() -> int:
         "instances": perlane, "sass": sass_counts(
             str(_build.LIBRARY.path), "window_perlane_kernel",
             ("LDG.E.128", "STG.E.128", "LDGSTS", "LDS.128"))}
+    # K2's per-lane path: each instance's (fp32, bf16) registers and
+    # spills, its mma.sync (HMMA), its 16-byte shared loads of the fragments
+    # and its cp.async copies
+    mxu_perlane = ptxas_entries(_build.LIBRARY.ptxas_log,
+                                r".*mxu_perlane_kernelILb(\d)E")
+    results["build"]["mxu_perlane"] = {
+        "instances": mxu_perlane, "sass": sass_counts(
+            str(_build.LIBRARY.path), "mxu_perlane_kernel",
+            ("HMMA", "LDS.128", "LDGSTS", "STG.E.128"))}
     # K3's single-channel path: each width bucket's registers and spills,
     # and its FMAs, shared loads and TMA loads in SASS (all summed)
     wgrad_rows = ptxas_entries(_build.LIBRARY.ptxas_log,
@@ -2718,6 +3111,11 @@ def main() -> int:
     require(len(perlane) >= 4 and all(r["spill_store_bytes"] == 0
                                        for r in perlane.values()),
             ("K1's per-lane kernel spills", perlane))
+    mpl_sass = results["build"]["mxu_perlane"]["sass"]
+    require(len(mxu_perlane) == 2 and all(
+        r["spill_store_bytes"] == 0 for r in mxu_perlane.values())
+        and (mpl_sass is None or mpl_sass["HMMA"] > 0),
+        ("K2's per-lane kernel spills or lacks HMMA", mxu_perlane, mpl_sass))
     require(reduce_build["kernels"] >= 1
             and reduce_build["max_spill_store_bytes"] == 0,
             ("K1's reduce kernel spills", reduce_build))
@@ -2931,6 +3329,12 @@ def main() -> int:
     marks.append(("11 epilogues, residuals, strides, groups",
                   time.perf_counter()))
     surf = surface_phase(args, dev, card, results)
+    torch.cuda.empty_cache()
+    marks.append(("12 K2 per-lane conv1d", time.perf_counter()))
+    mpl = mxu_perlane_phase(args, dev, card, results)
+    torch.cuda.empty_cache()
+    marks.append(("13 train rwkv6-1.6b", time.perf_counter()))
+    rw = rwkv6_train_phase(args, dev, card, results)
     marks.append(("end", time.perf_counter()))
     results["phase_seconds"] = {name: t1 - t0 for (name, t0), (_, t1)
                                 in zip(marks, marks[1:])}
@@ -2982,7 +3386,13 @@ def main() -> int:
         "case": wkv["case"],
         "hymba": {"launches": hy["launches"]["k5"],
                   "max_abs_err": hy["worst"]["K5"],
-                  **_row(hy["timed"]["K5"])}}, {
+                  **_row(hy["timed"]["K5"])},
+        "rwkv6_train": {"launches": rw["launches"],
+                        "launches_per_step": rw["per_step"],
+                        "max_abs_err": rw["worst"],
+                        "step_ms": rw["step_ms"],
+                        **_row(rw["timed"]["lambda"]),
+                        "forward": _row(rw["timed"]["forward"])}}, {
         "name": K3.name, "route": "cuda", "source": K3.source,
         "replaces": K3.replaces, "launches": trained["k3_launches"],
         "max_abs_err": trained["worst"]["K3"], "ms": k3h["ms"],
@@ -3024,7 +3434,15 @@ def main() -> int:
         "surface": _surface(surf, "K2")}, {
         "name": K4.name, "route": "cuda", "source": K4.source,
         "replaces": K4.replaces, "launches": hy["launches"]["k4"],
-        "max_abs_err": hy["worst"]["K4"], **_row(hy["timed"]["K4"])}]})
+        "max_abs_err": hy["worst"]["K4"], **_row(hy["timed"]["K4"])}, {
+        "name": "ssam_mxu_perlane", "route": "cuda",
+        "source": K2.perlane_source, "replaces": K2.perlane_replaces,
+        "launches": mpl["launches"], "max_abs_err": mpl["worst"],
+        **_row(mpl["headline"]), "call_ms": mpl["headline"]["call_ms"],
+        "k1_ms": mpl["headline"]["k1_ms"],
+        "cases": {tag: {**_row(rec), "call_ms": rec["call_ms"],
+                        "k1_ms": rec["k1_ms"]}
+                  for tag, rec in mpl["timed"].items()}}]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

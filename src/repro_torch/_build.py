@@ -161,6 +161,9 @@ class Library:
         lib.ssam_window_perlane_launch.argtypes = (
             [p, p, i, p, ints, i] + epi + [i] * 5 + [p])
         lib.ssam_window_perlane_launch.restype = i
+        lib.ssam_mxu_perlane_launch.argtypes = (
+            [p, p, i, p, ints, i] + epi + [i] * 6 + [p])
+        lib.ssam_mxu_perlane_launch.restype = i
         lib.ssam_wgrad_perlane_launch.argtypes = [p, p, i, p, p] + [i] * 8 + [p]
         lib.ssam_wgrad_perlane_launch.restype = i
         return lib

@@ -12,8 +12,9 @@ device decides how:
   ``csrc/ssam_window*.cu`` (it replaces the JAX package's
   ``core/engine.py::_window_kernel``), or, for a plan whose
   ``strategy`` is ``'mxu'``, K2, the tensor-core kernels in
-  ``csrc/ssam_mxu_tc.cu`` (channel plans) and ``csrc/ssam_mxu.cu``
-  (single-channel plans; both replace ``_apply_plan_mxu``); a failure
+  ``csrc/ssam_mxu_tc.cu`` (channel plans), ``csrc/ssam_mxu.cu``
+  (single-channel plans) and ``csrc/ssam_mxu_perlane.cu`` (per-lane
+  plans; all three replace ``_apply_plan_mxu``); a failure
   raises, it never falls back, and an mxu plan never retreats to K1;
 * a CPU tensor runs :func:`run_window_plan_reference`, the plain torch
   version: the reference's ``_apply_plan_once`` block walk, both
@@ -87,9 +88,6 @@ def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
     if plan.stages:
         todo.append("fused stages (ROADMAP Queue 1 item 7)")
     perlane = plan.coeff_mode == "perlane"
-    if perlane and plan.strategy == "mxu":
-        todo.append("strategy='mxu' on per-lane coefficients, the "
-                    "lane-batched mat-vec (ROADMAP Queue 1 item 5c)")
     if perlane and time_steps != 1:
         todo.append("temporal blocking of per-lane plans (ROADMAP Queue 1 "
                     "item 4; no ops.* call reaches it)")
@@ -330,12 +328,17 @@ def _mxu_view(xb, plan: SystolicPlan, cum: int, tap, out_sp):
 def apply_plan_mxu(xb: torch.Tensor, plan: SystolicPlan, w) -> torch.Tensor:
     """One valid application of ``plan`` on blocks ``xb`` as an im2row
     contraction: the plain version of K2, the torch twin of the
-    reference's ``_apply_plan_mxu`` for 'table' and 'dense' coefficients.
+    reference's ``_apply_plan_mxu``.
 
     Each tap's shifted crop of the block (:func:`_mxu_view`) is a row of
     a ``(taps padded to 8, out_elems)`` operand, contracted with the
     coefficient row in the accumulator's dtype. 'table' coefficients
-    fold into their rows against a ones row, as the reference does. For
+    fold into their rows against a ones row, as the reference does.
+    'perlane' coefficients (depthwise conv1d and its input adjoint) have
+    no shared row: each lane contracts the tap axis against its own row
+    ``w[coeff_id, lane]`` (``w`` broadcast against the blocks' lanes,
+    as :func:`run_window_plan_reference` lays it out), the reference's
+    lane-batched mat-vec. For
     NCHW reduce plans (axis 0 of ``xb`` the batch, axis 1 ``C_in``) the
     contraction runs over ``C_in·taps`` against ``w[:, :, tap]`` into the
     same sum. Leading axes are independent blocks, so the operand of all
@@ -354,6 +357,22 @@ def apply_plan_mxu(xb: torch.Tensor, plan: SystolicPlan, w) -> torch.Tensor:
     for g0 in range(0, len(taps), MXU_TAP_ALIGN):
         group = taps[g0:g0 + MXU_TAP_ALIGN]
         views = [_mxu_view(xb, plan, cum, tap, out_sp) for cum, tap in group]
+        pad = MXU_TAP_ALIGN - len(group)
+        if plan.coeff_mode == "perlane":
+            # (T, …, R, L) taps against (T, …, 1, L) per-lane rows: T
+            # contracted under a lane batch, the reference's batched mat-vec
+            A = torch.stack(views)
+            Wm = torch.stack([w[tap.coeff_id[-1]] for _, tap in group]
+                             ).to(xb.dtype)
+            if pad:
+                A = torch.cat([A, A.new_zeros((pad,) + tuple(A.shape[1:]))])
+                Wm = torch.cat([Wm, Wm.new_zeros((pad,)
+                                                 + tuple(Wm.shape[1:]))])
+            Wm = Wm.reshape((MXU_TAP_ALIGN,) + (1,) * (A.ndim - Wm.ndim)
+                            + tuple(Wm.shape[1:]))
+            part = (A * Wm).sum(0)
+            acc = part if acc is None else acc + part
+            continue
         if plan.coeff_mode == "table":
             rows = [v * plan.coeffs[tap.coeff_id[-1]]
                     for v, (_, tap) in zip(views, group)]
@@ -368,7 +387,6 @@ def apply_plan_mxu(xb: torch.Tensor, plan: SystolicPlan, w) -> torch.Tensor:
             c = torch.stack([w[tuple(tap.coeff_id)]
                              for _, tap in group]).to(xb.dtype)
         A = torch.stack(rows)
-        pad = MXU_TAP_ALIGN - len(group)
         if pad:
             A = torch.cat([A, A.new_zeros((pad,) + tuple(A.shape[1:]))])
         if len(c) < MXU_TAP_ALIGN:
@@ -846,13 +864,13 @@ def emulate_perlane_kernel(x: torch.Tensor, w: torch.Tensor, *,
 
 
 def perlane_row_table(plan: SystolicPlan) -> tuple[int, ...]:
-    """A per-lane plan's taps as K1 and K4 read them: per footprint row,
-    the row of ``w`` its tap multiplies (``-1``: no tap), padded to
+    """A per-lane plan's taps as K1, K2 and K4 read them: per footprint
+    row, the row of ``w`` its tap multiplies (``-1``: no tap), padded to
     :data:`PERLANE_MAX_ROWS`. The rows are summed in row order, which is
     the plan's order for the depthwise builder and its input adjoint."""
     if plan.N > PERLANE_MAX_ROWS:
-        raise ValueError(f"K1's per-lane path holds filters of up to "
-                         f"{PERLANE_MAX_ROWS} taps, got N={plan.N}")
+        raise ValueError(f"the per-lane paths of K1 and K2 hold filters "
+                         f"of up to {PERLANE_MAX_ROWS} taps, got N={plan.N}")
     rows = [-1] * PERLANE_MAX_ROWS
     prev = -1
     for tap in plan.steps[0].taps:
@@ -862,6 +880,164 @@ def perlane_row_table(plan: SystolicPlan) -> tuple[int, ...]:
                              f"the footprint in row order, got {tap}")
         rows[r], prev = tap.coeff_id[-1], r
     return tuple(rows)
+
+# K2's per-lane path (csrc/ssam_mxu_perlane.cu): a unit is 128 output rows
+# (one m16n8k8 tile a lane: 16 rows of 8 steps) x 128 bytes of lanes (8
+# chunks of 16 bytes) of one sequence, staged with 8 more input rows (the
+# 16-step K window of the last 8 outputs); persistent blocks of 128 threads,
+# MXU_PL_BLOCKS_PER_SM an SM, walk the units on a ring of two stages.
+MXU_PL_CHUNKS = 8
+MXU_PL_OUT = 128
+MXU_PL_IN = MXU_PL_OUT + 8
+MXU_PL_BLOCKS_PER_SM = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class MxuPerlaneLayout:
+    """K2's per-lane geometry for one call: ``vec`` lanes of a 16-byte
+    chunk, ``lanes`` of a tile (``8·vec``), the units (lane tiles, row
+    tiles, sequences; the row tile fastest in the walk) and the persistent
+    blocks that walk them. Whether rows take 16-byte copies the kernel
+    decides from D and the pointers it is given."""
+
+    vec: int
+    lanes: int
+    grid: tuple[int, int, int]
+    blocks: int
+
+
+def mxu_perlane_layout(plan: SystolicPlan, batch: int, T: int, D: int,
+                       elem_bytes: int) -> MxuPerlaneLayout:
+    """K2's per-lane layout of a call on ``(batch, T, D)`` (the choices
+    ``ssam_mxu_perlane_launch`` makes from the same arguments)."""
+    vec = CP_ASYNC_BYTES // elem_bytes
+    lanes = MXU_PL_CHUNKS * vec
+    To = plan.out_shape((T, D))[0]
+    grid = (-(-D // lanes), -(-To // MXU_PL_OUT), batch)
+    units = grid[0] * grid[1] * grid[2]
+    return MxuPerlaneLayout(vec, lanes, grid,
+                            min(units, MXU_PL_BLOCKS_PER_SM * H100_SMS))
+
+
+def mxu_perlane_swizzle(r: int, out: bool = False) -> int:
+    """The chunk permutation of a staged row ``r`` (an XOR on the chunk
+    index): bits 0, 1 and 3 of an input row, so one phase of a warp's
+    16-byte fragment loads (rows ``x..x+3`` and ``x+8..x+11``) reads eight
+    chunks; bits 1-3 of an output row, so a phase of the staging stores
+    (rows ``x, x+2, …, x+14``) writes eight."""
+    return (r >> 1) & 7 if out else (r & 3) | ((r >> 1) & 4)
+
+
+def _mma_coords():
+    """The m16n8k8 TF32 fragment layouts (PTX ``mma.sync``, row.col): per
+    thread ``(g, c)`` of a warp, the ``(row, column)`` of its four A, two
+    B and four D elements."""
+    a = [[(g + 8 * (f & 1), c + 4 * (f >> 1)) for f in range(4)]
+         for g in range(8) for c in range(4)]
+    b = [[(c + 4 * h, g) for h in range(2)] for g in range(8)
+         for c in range(4)]
+    d = [[(g + 8 * (f >> 1), 2 * c + (f & 1)) for f in range(4)]
+         for g in range(8) for c in range(4)]
+    return a, b, d
+
+
+def emulate_mxu_perlane_kernel(x: torch.Tensor, w: torch.Tensor, *,
+                               plan: SystolicPlan,
+                               epilogue_args=()) -> torch.Tensor:
+    """K2's per-lane schedule walked in plain torch on the CPU, the spec of
+    ``csrc/ssam_mxu_perlane.cu``: :func:`mxu_perlane_layout`'s units
+    (each walked once by the persistent blocks), each unit's
+    :data:`MXU_PL_IN` input rows from ``t0 − lead`` (zeros outside
+    [0, T) and past D) in chunks permuted by :func:`mxu_perlane_swizzle`,
+    every thread's fragments gathered at the rows the kernel computes
+    (``8g + c + 8·ks``, +64 for rows ``g + 8``, +4 for columns ``c + 4``),
+    the lane's band ``B[m][j] = w[cid[m − j]]`` from the same thread
+    formulas, the product assembled through the PTX fragment layouts in
+    3xTF32 (truncating splits; a bf16 x without its small part), the D
+    elements mapped back to output rows ``8i + j`` through the staging
+    tile's permutation (every (b, t, d) written exactly once, asserted)
+    and the epilogue at the store. Returns ``x``'s shape and dtype."""
+    check_supported(plan, 1, "shift_psum")
+    _check_operands(plan, x, w, epilogue_args)
+    if plan.coeff_mode != "perlane":
+        raise ValueError("the emulation walks K2's per-lane path")
+    rows = perlane_row_table(plan)
+    nb = plan.batch_axes
+    xs = x.reshape((-1,) + tuple(x.shape[nb:]))
+    batch, T, D = xs.shape
+    (lead, _), _ = plan.lead_trail()
+    lay = mxu_perlane_layout(plan, batch, T, D, x.element_size())
+    To = plan.out_shape((T, D))[0]
+    V, gx, gy = lay.vec, lay.grid[0], lay.grid[1]
+    walked = sorted(u for blk in range(lay.blocks)
+                    for u in range(blk, gx * gy * batch, lay.blocks))
+    assert walked == list(range(gx * gy * batch)), "a unit is not walked once"
+    CH = MXU_PL_CHUNKS
+    Dp = gx * lay.lanes
+    bf16 = x.dtype == torch.bfloat16
+    # every block's staged tile at once, (batch, gy, gx, rows, chunks, V):
+    # chunk k of row r lands at k ^ swizzle(r)
+    xf = F.pad(xs.float(), (0, Dp - D))
+    ti = (torch.arange(gy)[:, None] * MXU_PL_OUT - lead
+          + torch.arange(MXU_PL_IN)[None])
+    inside = ((ti >= 0) & (ti < T)).float()
+    tile = (xf[:, ti.clamp(0, T - 1)] * inside[None, :, :, None]).reshape(
+        batch, gy, MXU_PL_IN, gx, CH, V).movedim(3, 2)
+    perm_in = torch.tensor([[k ^ mxu_perlane_swizzle(r) for k in range(CH)]
+                            for r in range(MXU_PL_IN)])
+    smem = torch.zeros_like(tile)
+    smem[..., torch.arange(MXU_PL_IN)[:, None], perm_in, :] = tile
+    wr = torch.zeros((PERLANE_MAX_ROWS, Dp))
+    for r, cid in enumerate(rows):
+        if cid >= 0:
+            wr[r, :D] = w.detach().float()[cid]
+    wr = wr.reshape(PERLANE_MAX_ROWS, gx, CH, V)
+    acoords, bcoords, dcoords = _mma_coords()
+    acc = torch.zeros((batch, gy, gx, CH, V, 16, 8))
+    cor = torch.zeros_like(acc)
+    for ks in range(2):
+        A = torch.zeros((batch, gy, gx, CH, V, 16, 8))
+        Bm = torch.zeros((gx, CH, V, 8, 8))
+        for th in range(32):
+            g, c = th >> 2, th & 3
+            for f, (i, k) in enumerate(acoords[th]):
+                r = 8 * g + c + 8 * ks + (64 if f & 1 else 0) \
+                    + (4 if f & 2 else 0)
+                A[..., i, k] = smem[:, :, :, r, perm_in[r]]
+            for h, (k, j) in enumerate(bcoords[th]):
+                r = 8 * ks + c + 4 * h - g
+                if 0 <= r < PERLANE_MAX_ROWS:
+                    Bm[..., k, j] = wr[r]
+        ab, as_ = _tf32_split(A)
+        if bf16:                 # a bf16 x is exact in TF32
+            as_ = torch.zeros_like(as_)
+        bb, bs = _tf32_split(Bm)
+        acc = acc + ab @ bb
+        cor = cor + (as_ @ bb + ab @ bs)
+    prod = acc + cor
+    # D element (i, j) of thread (g, c) is output row 8i + j of its block,
+    # staged at chunk q ^ swizzle(row, out) and stored from there
+    perm_out = [[k ^ mxu_perlane_swizzle(r, True) for k in range(CH)]
+                for r in range(MXU_PL_OUT)]
+    ost = torch.zeros((batch, gy, gx, MXU_PL_OUT, CH, V))
+    hits = torch.zeros((MXU_PL_OUT, CH), dtype=torch.int64)
+    for th in range(32):
+        g, c = th >> 2, th & 3
+        for f, (i, j) in enumerate(dcoords[th]):
+            tr = 8 * g + 2 * c + (f & 1) + 32 * (f & 2)
+            assert tr == 8 * i + j, "a D element leaves its output row"
+            for q in range(CH):
+                ost[:, :, :, tr, perm_out[tr][q]] = prod[:, :, :, q, :, i, j]
+                hits[tr, perm_out[tr][q]] += 1
+    assert bool((hits == 1).all()), "a staged output is not written once"
+    outs = torch.stack([ost[:, :, :, r, perm_out[r]]
+                        for r in range(MXU_PL_OUT)], 3)
+    outs = outs.movedim(2, 3).reshape(batch, gy * MXU_PL_OUT, Dp)
+    out = outs[:, :To, :D].reshape(tuple(x.shape[:nb]) + (To, D))
+    if plan.epilogue:
+        out = apply_epilogue(plan, out, epilogue_args)
+    return out.to(x.dtype)
+
 
 # K1's channel-reduce path (csrc/ssam_window_reduce.cu): a register-tiled
 # implicit GEMM on the CUDA cores. A thread holds 8 output channels x 8
@@ -2325,8 +2501,10 @@ def mxu_tc_layout(phases, *, batch: int, c_in: int, c_out: int, fsz: int,
 class MxuKernel:
     """Wrapper of K2. Channel (NCHW) plans launch the tensor-core kernel
     of ``csrc/ssam_mxu_tc.cu`` (``ssam_mxu_tc_launch``), single-channel
-    plans ``csrc/ssam_mxu.cu`` (``ssam_mxu_window_launch``). ``launches``
-    counts the kernel launches it made: one per call on either path, a
+    plans ``csrc/ssam_mxu.cu`` (``ssam_mxu_window_launch``), per-lane
+    plans ``csrc/ssam_mxu_perlane.cu`` (``ssam_mxu_perlane_launch``).
+    ``launches`` counts the kernel launches it made: one per call on any
+    path, a
     fused epilogue or residual included; a strided reduce plan's input
     adjoint (:meth:`adjoint_phases`) is one launch for all its phases, a
     strided single-channel plan's one launch a phase that a tap
@@ -2335,6 +2513,9 @@ class MxuKernel:
     name = "ssam_mxu"
     source = "src/repro_torch/csrc/ssam_mxu_tc.cu"
     single_channel_source = "src/repro_torch/csrc/ssam_mxu.cu"
+    perlane_source = "src/repro_torch/csrc/ssam_mxu_perlane.cu"
+    perlane_replaces = ("src/repro/core/engine.py:253 (_apply_plan_mxu's "
+                        "per-lane branch, pallas_call at 587)")
     replaces = ("src/repro/core/engine.py:189 (_apply_plan_mxu, "
                 "strategy='mxu' at pallas_call 587)")
 
@@ -2350,8 +2531,41 @@ class MxuKernel:
                              f"{plan.strategy!r}")
         if _is_reduce(plan):
             return self._reduce(x, w, plan, epilogue_args)
+        if plan.coeff_mode == "perlane":
+            return self._perlane(x, w, plan, epilogue_args)
         return self._single(x, w, plan, block, time_steps, None,
                             epilogue_args)
+
+    def _perlane(self, x, w, plan, epilogue_args):
+        """The per-lane (depthwise) path: ``x (…, T, D)`` against ``w (K,
+        D)``, each lane's taps a Toeplitz band on the tensor cores, 128
+        outputs an ``mma.sync`` tile, persistent blocks on a ring of two
+        stages, the epilogue at the store (``ssam_mxu_perlane.cu``,
+        :func:`mxu_perlane_layout`)."""
+        rows = perlane_row_table(plan)
+        nb = plan.batch_axes
+        x = x.contiguous()
+        batch = 1
+        for d in x.shape[:nb]:
+            batch *= d
+        T, D = x.shape[nb:]
+        To = plan.out_shape((T, D))[0]
+        lay = mxu_perlane_layout(plan, batch, T, D, x.element_size())
+        (lead, _), _ = plan.lead_trail()
+        wf = w.detach().to(torch.float32).contiguous()
+        epi = _epilogue_codes(plan, epilogue_args, x.device, x.dtype)
+        out = torch.empty(tuple(x.shape[:nb]) + (To, D), dtype=x.dtype,
+                          device=x.device)
+        err = self.library.get().ssam_mxu_perlane_launch(
+            x.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
+            wf.data_ptr(), (ctypes.c_int * PERLANE_MAX_ROWS)(*rows),
+            plan.N, *epi.args(), batch, T, D, To, lead, lay.blocks,
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"K2 launch failed: CUDA error {err} "
+                               f"({plan.kind}, per-lane {tuple(x.shape)})")
+        self.launches += 1
+        return out
 
     def _single(self, x, w, plan, block, t, _variant, epilogue_args, *,
                 out=None, out_sp=None, offset=0, oaddr=None):

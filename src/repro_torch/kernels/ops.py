@@ -1,7 +1,8 @@
 """Public ops of the port: ``stencil`` and ``conv2d`` (windowed plans,
 K1, or K2 under ``strategy='mxu'``, with gradients through the same
-kernel and K3), ``conv1d_causal`` (K1's per-lane path, gradients through
-it and K4) and the scan family ``cumsum``, ``sat``,
+kernel and K3), ``conv1d_causal`` (K1's per-lane path, or K2's under
+``strategy='mxu'``, gradients through the same kernel and K4) and the
+scan family ``cumsum``, ``sat``,
 ``linear_recurrence``, ``linear_recurrence_carry`` and
 ``chunked_linear_recurrence`` (K5, gradients through K5 in reversed
 time).
@@ -309,11 +310,22 @@ def conv1d_causal(x: torch.Tensor, w: torch.Tensor, *, epilogue=None,
     ``epilogue=`` fuses elementwise output stages into the kernel:
     ``bias`` takes a per-channel ``(D,)`` row (channels are the plan's
     lanes), which is Mamba's ``conv → +b → silu`` seam with no store
-    between the conv and the activation. ``block`` is the plain version's
-    ``(block_t, block_d)`` tile. On the card K1's per-lane path runs the
-    forward and ``dx`` (the input-adjoint plan), K4 ``dW``; differentiable
-    in ``x``, ``w`` and the bias. ``strategy='mxu'`` (K2's lane-batched
-    mat-vec) is not ported and raises.
+    between the conv and the activation; ``residual_add`` takes an
+    output-shaped operand. ``block`` is the plain version's ``(block_t,
+    block_d)`` tile. On the card K1's per-lane path runs the forward and
+    ``dx`` (the input-adjoint plan), K4 ``dW``; ``strategy='mxu'`` runs
+    the forward and ``dx`` on K2's per-lane path instead (each lane's taps
+    a Toeplitz band on the tensor cores, the reference's lane-batched
+    mat-vec), ``dW`` still on K4. Differentiable in ``x``, ``w`` and the
+    epilogue's operands.
+
+    Unlike the plain version, K2's per-lane path multiplies every input
+    step of a tile row's 16-step fragment by its band coefficient, zero
+    or not: a non-finite ``x`` (or, for ``dx``, gradient) at step ``s``
+    makes each output of the 8-step rows whose fragment holds ``s`` nan,
+    up to 15 steps before the outputs its taps reach and 7 after, where
+    the plain version's sum gives a non-finite value only where the taps
+    reach ``s``.
     """
     if w.ndim != 2 or w.shape[-1] != x.shape[-1]:
         # checked before anything runs: the oracle would otherwise

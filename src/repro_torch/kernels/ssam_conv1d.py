@@ -5,8 +5,9 @@ branch). The plan (:func:`repro_torch.core.plan.depthwise_conv1d_plan`)
 maps channels to the lane axis and time to rows, so the taps walk the
 vertical, in-thread direction (the paper's §5.4): no lane shifts at all,
 M = 1. Causality is the plan's ``K − 1`` lead rows. On a CUDA tensor the
-engine launches K1's per-lane path (``csrc/ssam_window_perlane.cu``), on
-a CPU tensor its plain version.
+engine launches K1's per-lane path (``csrc/ssam_window_perlane.cu``), or
+K2's (``csrc/ssam_mxu_perlane.cu``) for a plan with ``strategy='mxu'``,
+on a CPU tensor their plain versions.
 """
 from __future__ import annotations
 

@@ -4,6 +4,8 @@
         [--steps 100] [--batch 8] [--seq 128] [--lr 3e-4] [--device cuda]
     python -m repro_torch.launch.train --arch hymba-1.5b --batch 2 \
         --seq 2048 --steps 6 [--scan-impl engine]
+    python -m repro_torch.launch.train --arch rwkv6-1.6b --batch 2 \
+        --seq 2048 --steps 6 [--scan-impl engine]
 
 Config → model (weights from ``--seed``) → per step: a synthetic token
 batch (:class:`repro_torch.data.TokenDataset`) and, for the audio
@@ -12,12 +14,13 @@ the step, the loss, its gradients through autograd and one AdamW update
 under the reference's warm-up/cosine schedule (warm-up ``max(steps //
 10, 10)``, total ``max(steps, 100)``). On the card Whisper's mel stem
 runs backward through K1 and K3; Hymba's Mamba branch through K1's
-per-lane path, K4 and K5 (the λ-recurrence). A step-time watchdog flags
+per-lane path, K4 and K5 (the λ-recurrence); RWKV6's WKV through K5,
+forward and λ. A step-time watchdog flags
 stragglers (> EMA + 2.5σ and > 1.5× EMA). The flags and defaults are the
 JAX CLI's; ``--device`` (default ``cuda``) is the port's. Checkpointing
 (``--ckpt-dir``, ROADMAP Queue 1 item 10) and model parallelism
 (``--model-axis > 1``, item 12) are not ported and raise; the audio
-(whisper) and hybrid (hymba) families train, RWKV6 (item 5d) not yet.
+(whisper), hybrid (hymba) and ssm (rwkv6) families train.
 """
 from __future__ import annotations
 
@@ -117,10 +120,10 @@ def main(argv=None) -> TrainResult:
     from ..models import build_model
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.family not in ("audio", "hybrid"):
+    if cfg.family not in ("audio", "hybrid", "ssm"):
         raise NotImplementedError(
             f"training the {cfg.family!r} family is not ported yet (ROADMAP "
-            "Queue 1 item 5d)")
+            "Queue 1 item 9)")
     if args.conv_frontend:
         if cfg.family != "audio":
             ap.error(f"--conv-frontend is for audio archs, not {cfg.family}")

@@ -14,7 +14,8 @@ and, for training, the time-reversed λ-recurrence of the backward.
   checkpointed under autograd (O(chunk) live state);
   ``'engine_unchunked'`` runs all of T in one call.
 * RWKV6 (:func:`wkv6_chunked`): the same two schedules over the WKV
-  state ``S_t = diag(exp(logw_t))·S_{t−1} + k_tᵀv_t``.
+  state ``S_t = diag(exp(logw_t))·S_{t−1} + k_tᵀv_t``, the streamed
+  chunks checkpointed under autograd as Mamba's are.
 
 The reference's ``'chunked'`` matmul schedules (ROADMAP Queue 1 item 5b)
 and the Mamba decode step (Hymba serving, item 9) are not ported yet.
@@ -248,13 +249,33 @@ def _wkv6_engine(r, k, v, logw, u):
     return y.to(r.dtype), S[:, -1]
 
 
+def _wkv_chunk(u32, S, r_k, k_k, v_k, w_k):
+    """One chunk of the streamed WKV6: its ``B·H·K·V`` rows through one
+    ``ops.linear_recurrence_carry`` call (one K5 launch on the card)
+    seeded with the state ``S``, and the output contraction. Returns the
+    new state and the chunk's ``y`` (B, L, H, V) fp32."""
+    B, L, H, K = r_k.shape
+    V = v_k.shape[-1]
+    a, b = _transfer_pairs(k_k, v_k, w_k, (B, L, H, K, V))
+    rows_a = a.movedim(1, -1).reshape(-1, L)                      # (B·H·K·V, L)
+    rows_b = b.movedim(1, -1).reshape(-1, L)
+    Ss, S_new = ops.linear_recurrence_carry(rows_a, rows_b, S)
+    Ss = Ss.reshape(B, H, K, V, L).movedim(-1, 1)                 # (B,L,H,K,V)
+    S_prev = torch.cat([S.reshape(B, 1, H, K, V), Ss[:, :-1]], dim=1)
+    return S_new, _wkv_out(r_k.float(), S_prev, u32, k_k.float(),
+                           v_k.float())
+
+
 def _wkv6_engine_stream(r, k, v, logw, u, *, chunk):
     """Chunk-streamed WKV6: each ``(B, L, H, K, V)`` slab's recurrence runs
-    as ``B·H·K·V`` rows through one ``ops.linear_recurrence_carry`` call
-    (one K5 launch on the card) seeded with the state, and the output
+    through :func:`_wkv_chunk` seeded with the state, and the output
     contraction happens before the next chunk. The state of the chunk's
-    first position is the carry-in. T pads to whole chunks with
-    ``logw = 0`` and ``k = v = 0``: identity steps."""
+    first position is the carry-in. Under autograd each chunk is
+    checkpointed (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` of the chunk step): the backward keeps only the
+    chunk-boundary states, O(B·H·K·V) each, re-runs each chunk's forward
+    and then its λ-recurrence, both through the engine. T pads to whole
+    chunks with ``logw = 0`` and ``k = v = 0``: identity steps."""
     B, T, H, K = r.shape
     V = v.shape[-1]
     L = min(chunk, T)
@@ -266,16 +287,12 @@ def _wkv6_engine_stream(r, k, v, logw, u, *, chunk):
     S = torch.zeros((B * H * K * V, 1), dtype=torch.float32, device=r.device)
     ys = []
     for c in range(0, T + pad, L):
-        r_k, k_k, v_k, w_k = (t[:, c:c + L] for t in (r, k, v, logw))
-        a, b = _transfer_pairs(k_k, v_k, w_k, (B, L, H, K, V))
-        rows_a = a.movedim(1, -1).reshape(-1, L)                  # (B·H·K·V, L)
-        rows_b = b.movedim(1, -1).reshape(-1, L)
-        Ss, S_new = ops.linear_recurrence_carry(rows_a, rows_b, S)
-        Ss = Ss.reshape(B, H, K, V, L).movedim(-1, 1)             # (B,L,H,K,V)
-        S_prev = torch.cat([S.reshape(B, 1, H, K, V), Ss[:, :-1]], dim=1)
-        ys.append(_wkv_out(r_k.float(), S_prev, u32, k_k.float(),
-                           v_k.float()))
-        S = S_new
+        args = (u32, S) + tuple(t[:, c:c + L] for t in (r, k, v, logw))
+        if torch.is_grad_enabled():
+            S, y = checkpoint(_wkv_chunk, *args, use_reentrant=False)
+        else:
+            S, y = _wkv_chunk(*args)
+        ys.append(y)
     y = torch.cat(ys, dim=1)[:, :T]
     return y.to(r.dtype), S.reshape(B, H, K, V)
 

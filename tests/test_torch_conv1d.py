@@ -221,8 +221,9 @@ def test_bad_calls_raise():
                           epilogue_args=(torch.zeros(4),))
     with pytest.raises(ValueError, match="runtime operand"):
         ops.conv1d_causal(x, w, epilogue="bias")
-    with pytest.raises(NotImplementedError, match="5c"):
-        ops.conv1d_causal(x, w, strategy="mxu")
+    # strategy='mxu' runs the lane-batched mat-vec (item 5c closed)
+    assert torch.equal(ops.conv1d_causal(x, w, strategy="mxu"),
+                       torch.zeros(1, 8, 5))
     with pytest.raises(ValueError, match="residual_add"):
         ops.conv1d_causal(x, w, epilogue="residual_add",
                           epilogue_args=(torch.zeros(1, 7, 5),))

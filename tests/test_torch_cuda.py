@@ -802,11 +802,14 @@ def test_mxu_never_retreats(cuda, monkeypatch):
                     strategy="mxu")
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.stencil(_grid((40, 80), cuda).double(), "2d5pt", strategy="mxu")
-    with pytest.raises(NotImplementedError, match="5c"):
-        engine.run_window_plan(_grid((20, 40), cuda), _grid((3, 40), cuda),
-                               plan=plan.depthwise_conv1d_plan(3),
-                               strategy="mxu")
-    assert engine.MXU_KERNEL.launches == before + 5
+    # a per-lane plan under mxu runs K2's per-lane path, never K1
+    x1, w1 = _grid((1, 20, 40), cuda), _grid((3, 40), cuda)
+    got = engine.run_window_plan(x1, w1, plan=plan.depthwise_conv1d_plan(3),
+                                 strategy="mxu")
+    assert engine.MXU_KERNEL.launches == before + 6
+    monkeypatch.undo()
+    mxu = dataclasses.replace(plan.depthwise_conv1d_plan(3), strategy="mxu")
+    _close(got, engine.run_window_plan_reference(x1, w1, plan=mxu))
 
 
 def test_mxu_gradients_on_the_card_match_the_cpu(cuda):
@@ -953,6 +956,129 @@ def test_perlane_rows_and_chains(cuda, D, chain):
                                             epilogue_args=args))
 
 
+@pytest.mark.parametrize("B,T,D,K", PERLANE + [(1, 300, 64, 1),
+                                          (2, 257, 3200, 2)],
+                         ids=PERLANE_IDS + ["1x300x64-K1", "2x257x3200-K2"])
+def test_mxu_perlane_kernel_matches_plain_version(cuda, B, T, D, K):
+    """K2's per-lane path (``strategy="mxu"``): the forward with bias+SiLU,
+    the linear forward and the input adjoint, each against the plain mxu
+    version (3e-5), K1's per-lane path (1e-4) and the CPU emulation of
+    its schedule; three K2 launches, no K1 launch; twice for equal
+    bits."""
+    x, w, b, g = _perlane_data(B, T, D, K, cuda, 11)
+    p = dataclasses.replace(ssam_conv1d.plan_for(K), strategy="mxu")
+    pe = dataclasses.replace(p, epilogue=normalize_epilogue(("bias", "silu")))
+    a = adjoint.input_adjoint_plan(p)
+    assert a.strategy == "mxu"
+    before = engine.MXU_KERNEL.launches, engine.WINDOW_KERNEL.launches
+    outs = []
+    for pl, inp, epi in ((pe, x, (b,)), (p, x, ()), (a, g, ())):
+        got = engine.run_window_plan(inp, w, plan=pl, epilogue_args=epi)
+        outs.append((got, pl, inp, epi))
+    assert (engine.MXU_KERNEL.launches,
+            engine.WINDOW_KERNEL.launches) == (before[0] + 3, before[1])
+    for got, pl, inp, epi in outs:
+        _close(got, engine.run_window_plan_reference(inp, w, plan=pl,
+                                                     epilogue_args=epi))
+        lanes = dataclasses.replace(pl, strategy="lanes")
+        _close(got, engine.run_window_plan(inp, w, plan=lanes,
+                                           epilogue_args=epi), 1e-4)
+        if inp.numel() <= 1 << 16:
+            _close(got.cpu(), engine.emulate_mxu_perlane_kernel(
+                inp.cpu(), w.cpu(), plan=pl,
+                epilogue_args=tuple(t.cpu() for t in epi)))
+        assert torch.equal(got, engine.run_window_plan(
+            inp, w, plan=pl, epilogue_args=epi))
+
+
+@pytest.mark.parametrize("chain", [(), ("bias", "silu"), ("relu",),
+                                   ("bias", "gelu", ("scale", 0.5)),
+                                   ("silu", "residual_add")], ids=str)
+@pytest.mark.parametrize("D", [99, 3200])
+def test_mxu_perlane_rows_chains_and_bf16(cuda, D, chain):
+    """K2's per-lane path at an odd T (131) for D = 99 (element-wise rows)
+    and 3200 (16-byte rows), every epilogue op and a residual, fp32 and
+    bf16 I/O, forward and dx, against the plain mxu version."""
+    x, w, b, g = _perlane_data(2, 131, D, 4, cuda, 12)
+    r = _grid(x.shape, cuda, 13)
+    p = dataclasses.replace(ssam_conv1d.plan_for(4), strategy="mxu")
+    pe = dataclasses.replace(p, epilogue=normalize_epilogue(chain) if chain
+                             else ())
+    a = adjoint.input_adjoint_plan(p)
+    for dt, rtol in (("float32", 3e-5), ("bfloat16", 3e-2)):
+        xx, gg, rr = (t.to(getattr(torch, dt)) for t in (x, g, r))
+        args = tuple(b if st.op == "bias" else rr
+                     for st in pe.epilogue if st.op in ("bias",
+                                                        "residual_add"))
+        for pl, inp, ea in ((pe, xx, args), (a, gg, ())):
+            before = engine.MXU_KERNEL.launches
+            got = engine.run_window_plan(inp, w, plan=pl, epilogue_args=ea)
+            assert engine.MXU_KERNEL.launches == before + 1
+            assert got.dtype == inp.dtype
+            _close(got.float(), engine.run_window_plan_reference(
+                inp, w, plan=pl, epilogue_args=ea).float(), rtol)
+
+
+@pytest.mark.parametrize("adj", [False, True], ids=["forward", "adjoint"])
+def test_mxu_perlane_nonfinite_input_reach(cuda, adj):
+    """K2's per-lane path on an inf at one step ``s`` of one lane: the
+    outputs the plain version makes non-finite are non-finite; the ones
+    K2 makes non-finite lie in the 8-step output rows whose 16-step input
+    fragment (steps ``8i − lead .. 8i − lead + 15``) holds ``s``, the
+    documented departure from the plain version; every other output
+    equals the plain version's."""
+    T, D, K, s, lane = 300, 64, 4, 200, 5
+    x, w, _, _ = _perlane_data(1, T, D, K, cuda, 15)
+    x[0, s, lane] = float("inf")
+    p = dataclasses.replace(ssam_conv1d.plan_for(K), strategy="mxu")
+    pl = adjoint.input_adjoint_plan(p) if adj else p
+    lead = 0 if adj else K - 1
+    got = engine.run_window_plan(x, w, plan=pl)
+    want = engine.run_window_plan_reference(x, w, plan=pl)
+    torch.cuda.synchronize()
+    t = torch.arange(T, device=cuda)
+    row = t - t % 8 - lead
+    reach = (row <= s) & (s <= row + 15)
+    bad_got, bad_want = ~torch.isfinite(got), ~torch.isfinite(want)
+    assert bad_want[0, :, lane].any()
+    assert not (bad_want & ~bad_got).any()
+    assert not bad_got[0, ~reach, lane].any()
+    assert not torch.cat([bad_got[..., :lane], bad_got[..., lane + 1:]],
+                         -1).any()
+    ok = ~bad_got
+    _close(got[ok], want[ok])
+
+
+def test_conv1d_mxu_gradients_on_the_card_match_the_cpu(cuda, monkeypatch):
+    """``ops.conv1d_causal(strategy="mxu")`` with bias+SiLU: forward,
+    recomputed pre-activation and dx through K2's per-lane path, dW
+    through K4, never K1 or the plain versions; the gradients equal the
+    CPU's."""
+    xc, wc, bc, gc = _perlane_data(2, 150, 200, 4, "cpu", 14)
+    grads = {}
+    for dev in ("cpu", cuda):
+        x, w, b = (t.detach().to(dev).requires_grad_() for t in (xc, wc, bc))
+        if dev == cuda:
+            def boom(*a, **k):
+                raise AssertionError("plain version or K1 reached")
+            for name in ("run_window_plan_reference",
+                         "run_weight_grad_plan_reference", "WINDOW_KERNEL"):
+                monkeypatch.setattr(engine, name, boom)
+            before = (engine.MXU_KERNEL.launches,
+                      engine.PERLANE_WGRAD_KERNEL.launches)
+        y = ops.conv1d_causal(x, w, epilogue=("bias", "silu"),
+                              epilogue_args=(b,), strategy="mxu")
+        grads[str(dev)] = [v.cpu() for v in torch.autograd.grad(
+            y, (x, w, b), gc.to(dev))]
+    assert (engine.MXU_KERNEL.launches,
+            engine.PERLANE_WGRAD_KERNEL.launches) == (
+        before[0] + 3, before[1] + engine.PERLANE_WGRAD_KERNEL.launches_for(
+            xc, gc, plan=ssam_conv1d.plan_for(4)))
+    for got, want in zip(grads[str(cuda)], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * want.abs().max().item())
+
+
 def test_perlane_bad_calls_raise_on_the_card(cuda):
     x = _grid((1, 20, 40), cuda)
     with pytest.raises(ValueError, match="same device"):
@@ -961,8 +1087,12 @@ def test_perlane_bad_calls_raise_on_the_card(cuda):
         ops.conv1d_causal(x, _grid((9, 40), cuda))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.conv1d_causal(x.double(), _grid((4, 40), cuda).double())
-    with pytest.raises(NotImplementedError, match="5c"):
-        ops.conv1d_causal(x, _grid((4, 40), cuda), strategy="mxu")
+    with pytest.raises(ValueError, match="up to 8 taps"):
+        ops.conv1d_causal(x, _grid((9, 40), cuda), strategy="mxu")
+    before = engine.MXU_KERNEL.launches, engine.WINDOW_KERNEL.launches
+    ops.conv1d_causal(x, _grid((4, 40), cuda), strategy="mxu")
+    assert (engine.MXU_KERNEL.launches,
+            engine.WINDOW_KERNEL.launches) == (before[0] + 1, before[1])
 
 
 def test_scan_gradients_on_the_card_go_through_k5(cuda):

@@ -210,10 +210,13 @@ def test_strategy_rides_the_plan_and_unknown_ones_raise():
         ops.conv2d(x, torch.ones(3, 3), strategy="wgmma")
     with pytest.raises(ValueError, match="strategy"):
         engine.run_window_plan(x, plan=_plans("2d5pt")[1], strategy="simt")
-    with pytest.raises(NotImplementedError, match="5c"):
-        engine.run_window_plan(x, torch.ones((3, 40)),
-                               plan=plan.depthwise_conv1d_plan(3),
-                               strategy="mxu")
+    # a per-lane plan under mxu runs the lane-batched mat-vec (item 5c
+    # closed), equal to the lanes schedule
+    xd = torch.from_numpy(_rand((20, 40), 30))
+    wd = torch.from_numpy(_rand((3, 40), 31))
+    dw = plan.depthwise_conv1d_plan(3)
+    _close(engine.run_window_plan(xd, wd, plan=dw, strategy="mxu"),
+           engine.run_window_plan(xd, wd, plan=dw, strategy="lanes").numpy())
     p = _plans("2d5pt")[1]
     for s in (None, "auto"):
         assert ops._strategy_plan(p, s, "stencil") is p

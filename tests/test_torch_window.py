@@ -219,7 +219,8 @@ def test_cpu_tensor_never_loads_the_kernel():
 
 def test_nvcc_command_targets_sm_90a():
     src = _build.sources()
-    assert [p.name for p in src] == ["ssam_mxu.cu", "ssam_mxu_tc.cu",
+    assert [p.name for p in src] == ["ssam_mxu.cu", "ssam_mxu_perlane.cu",
+                                     "ssam_mxu_tc.cu",
                                      "ssam_scan.cu",
                                      "ssam_wgrad.cu", "ssam_wgrad_bf16.cu",
                                      "ssam_wgrad_f32.cu",
@@ -300,10 +301,11 @@ def test_out_of_slice_raises_not_implemented(case):
             engine.run_window_plan(x[None], torch.ones((3, 40)),
                                    plan=plan.depthwise_conv1d_plan(3),
                                    time_steps=2)
-        elif case == "mxu":     # mxu runs; its per-lane mat-vec does not
-            engine.run_window_plan(
-                x, torch.ones((3, 40)), plan=dataclasses.replace(
-                    plan.depthwise_conv1d_plan(3), strategy="mxu"))
+        elif case == "mxu":     # mxu runs, its per-lane mat-vec too (item
+            # 5c); fused stages do not (item 7)
+            p = dataclasses.replace(plan.conv2d_plan(3, 3), strategy="mxu")
+            engine.run_window_plan(x, w, plan=dataclasses.replace(
+                p, stages=(p,)))
         else:                   # one reduce axis runs; two do not
             engine.run_window_plan(
                 torch.zeros((1, 2, 2, 20, 40)), torch.ones((3, 2, 2, 3, 3)),
