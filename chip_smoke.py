@@ -23,7 +23,9 @@ through K1's per-lane path, the conv's weight gradient through K4 and
 the selective scan, forward and backward, through K5. The sixth runs the
 windowed ops' whole surface at full size: fused epilogues and residuals,
 output strides on single-channel convolution (forward, dx and dW) and
-grouped convolution, through K1, K2 and K3. The seventh runs Hymba's
+grouped convolution (a depthwise conv one K1 launch over its images, a
+filter each, and one K3 walk with a gradient per channel), through K1,
+K2 and K3. The seventh runs Hymba's
 depthwise conv1d with ``strategy="mxu"``: forward and dx through K2's
 per-lane path (``csrc/ssam_mxu_perlane.cu``), dW through K4. The eighth
 trains rwkv6-1.6b at full width through ``repro_torch.launch.train``:
@@ -214,9 +216,15 @@ Phases, one JSON line each:
    bias+GELU on the whisper stem's conv2 shape through K1's reduce path
    and K2's channel path, and with bias+SiLU on Hymba's conv1d shape (2,
    2048, 3200) through K1's per-lane generic instance; (d) grouped NCHW
-   3×3 with bias+GELU, forward and backward: ResNeXt-like (8, 256, 56, 56)
-   at groups=32 and depthwise (8, 64, 256, 256) at groups=64 (one K1
-   launch a group, the gradients against cuDNN's autograd). Each case is
+   'same', forward and backward: ResNeXt-like (8, 256, 56, 56) 3×3 at
+   groups=32 with bias+GELU (one K1 launch a group), depthwise (8, 64,
+   256, 256) 3×3 at groups=64 with bias+GELU and ConvNeXt's depthwise
+   (64, 96, 56, 56) 7×7 at groups=96 with bias (one K1 launch forward
+   over the B·C images, a filter each; backward 2 K1 launches, recompute
+   and dx, and ``K3.launches_for`` K3 launches), each against the port's
+   plain per-group backward and cuDNN's autograd at 1e-4, the depthwise
+   ones also beside the parent's per-group route (a launch a group) timed
+   in turns and K3's dW alone. Each case is
    held to its plain version on the card (single-channel 3e-5, reduce
    paths and K3 1e-4, bf16 3e-2; the grouped gradients to torch's
    autograd at 1e-4), its launches counted (K1, K2 and K3 zeroed before
@@ -239,7 +247,9 @@ Phases, one JSON line each:
    version (3e-5, bf16 3e-2) and K1's per-lane path (1e-4); (c) their
    device and call times beside the byte bound, the plain version, K1's
    per-lane path and the library call (``F.conv1d(groups=D)`` and the
-   elementwise ops, ``conv1d_input``); the build line carries
+   elementwise ops, ``conv1d_input``), beside an earlier per-lane kernel
+   in turns where the probe offers one (``run_mxu_perlane``: the cost of
+   the non-finite check); the build line carries
    ``mxu_perlane`` (registers, spills, ``HMMA``) and fails if an instance
    spills or lacks ``HMMA``;
 13. train rwkv6-1.6b (1,465,503,744 parameters, weights from ``--seed``,
@@ -2365,35 +2375,75 @@ def surface_phase(args, dev, card, results) -> dict:
     del xh, wh, bh, rh, xt, wt, rt
 
     # -- (d) grouped NCHW forward and backward ---------------------------
-    for xs, ws, groups, label in (
-            ((8, 256, 56, 56), (256, 8, 3, 3), 32, "ResNeXt-like"),
-            ((8, 64, 256, 256), (64, 1, 3, 3), 64, "depthwise")):
+    # The ResNeXt-like case runs a launch a group; the depthwise ones
+    # (groups == C_in == C_out) one K1 launch forward, and K1's recompute
+    # and dx and K3's launches backward. Each against the port's plain
+    # per-group version and cuDNN's autograd, timed beside its byte bound,
+    # cuDNN and (depthwise) the per-group route of the parent, in turns.
+    depthwise = {}
+    for xs, ws, groups, label, chain in (
+            ((8, 256, 56, 56), (256, 8, 3, 3), 32, "ResNeXt-like",
+             ("bias", "gelu")),
+            ((8, 64, 256, 256), (64, 1, 3, 3), 64, "depthwise",
+             ("bias", "gelu")),
+            ((64, 96, 56, 56), (96, 1, 7, 7), 96, "ConvNeXt depthwise",
+             ("bias",))):
         xg = randn(*xs).requires_grad_(True)
-        wg = randn(*ws, scale=ws[1] ** -0.5 / 3).requires_grad_(True)
+        wg = randn(*ws, scale=(ws[1] * ws[2] * ws[3]) ** -0.5
+                   ).requires_grad_(True)
         bg = randn(ws[0], scale=0.1).requires_grad_(True)
         gy = randn(xs[0], ws[0], xs[2], xs[3])
-        tag = (f"grouped {label} {'x'.join(map(str, xs))} 3x3 "
-               f"groups={groups} bias+gelu")
+        pad, fk = ws[2] // 2, f"{ws[2]}x{ws[3]}"
+        dw = ops.depthwise_plan(xs, ws, groups=groups, mode="same",
+                                epilogue=chain)
+        tag = (f"grouped {label} {'x'.join(map(str, xs))} {fk} "
+               f"groups={groups} {'+'.join(chain)}")
 
-        def fwd(xg=xg, wg=wg, bg=bg, groups=groups):
-            return ops.conv2d(xg, wg, groups=groups,
-                              epilogue=("bias", "gelu"), epilogue_args=(bg,))
+        def fwd(xg=xg, wg=wg, bg=bg, groups=groups, chain=chain):
+            return ops.conv2d(xg, wg, groups=groups, epilogue=chain,
+                              epilogue_args=(bg,))
 
-        def plain_fwd(xg=xg, wg=wg, bg=bg, groups=groups, xs=xs, ws=ws):
+        def per_group(xg=xg, wg=wg, bg=bg, groups=groups, chain=chain):
+            """The parent's route: one NCHW call a group (K1's reduce
+            path), the outputs concatenated."""
+            Cg, Og = xg.shape[1] // groups, wg.shape[0] // groups
+            return torch.cat([ops.conv2d(
+                xg[:, i * Cg:(i + 1) * Cg], wg[i * Og:(i + 1) * Og],
+                epilogue=chain, epilogue_args=(bg[i * Og:(i + 1) * Og],))
+                for i in range(groups)], dim=1)
+
+        def plain_fwd(xg=xg, wg=wg, bg=bg, groups=groups, xs=xs, ws=ws,
+                      chain=chain, dw=dw):
+            if dw is not None:      # the plain version of the one launch
+                return engine.run_window_plan_reference(
+                    xg.detach().reshape(-1, *xs[2:]),
+                    wg.detach().reshape(ws[0], *ws[2:]), plan=dw,
+                    epilogue_args=(bg.detach(),)).reshape(gy.shape)
             Cg, Og = xs[1] // groups, ws[0] // groups
             p = dataclasses.replace(
                 ssam_conv2d.plan_for_nchw((xs[0], Cg) + xs[2:],
                                           (Og,) + ws[1:], "same"),
-                epilogue=normalize_epilogue(("bias", "gelu")))
+                epilogue=normalize_epilogue(chain))
             return torch.cat([engine.run_window_plan_reference(
                 xg[:, i * Cg:(i + 1) * Cg].detach(),
                 wg[i * Og:(i + 1) * Og].detach(), plan=p,
                 epilogue_args=(bg[i * Og:(i + 1) * Og].detach(),))
                 for i in range(groups)], dim=1)
 
+        def lib_fwd(xg=xg, wg=wg, bg=bg, groups=groups, pad=pad,
+                    chain=chain):
+            y = F.conv2d(xg, wg, bg, padding=pad, groups=groups)
+            return F.gelu(y, approximate="tanh") if "gelu" in chain else y
+
+        fwd_launches = 1 if dw is not None else groups
         with torch.no_grad():
-            y = run("K1", groups, fwd)
+            n0 = K1.launches
+            y = run("K1", fwd_launches, fwd)
+            k1_fwd = K1.launches - n0
             held("K1", f"{tag} forward", y, plain_fwd(), 1e-4)
+            if dw is not None:
+                held("K1", f"{tag} forward vs the per-group route", y,
+                     run("K1", groups, per_group), 1e-4)
         with torch.enable_grad():
             y = fwd()
             before = {k: v.launches for k, v in kernels.items()}
@@ -2401,38 +2451,45 @@ def surface_phase(args, dev, card, results) -> dict:
             torch.cuda.synchronize()
             k1_bwd = K1.launches - before["K1"]
             k3_bwd = K3.launches - before["K3"]
-            require(k1_bwd == 2 * groups and k3_bwd >= groups,
-                    (tag, "backward launches", k1_bwd, k3_bwd))
-            expected["K1"] += groups + k1_bwd
+            if dw is not None:
+                lin = dataclasses.replace(dw, epilogue=())
+                want_k3 = K3.launches_for(xg.detach().reshape(-1, *xs[2:]),
+                                          gy.reshape(-1, *xs[2:]), plan=lin)
+                require(k1_bwd == 2 and k3_bwd == want_k3,
+                        (tag, "backward launches", k1_bwd, k3_bwd, want_k3))
+            else:
+                require(k1_bwd == 2 * groups and k3_bwd >= groups,
+                        (tag, "backward launches", k1_bwd, k3_bwd))
+            expected["K1"] += fwd_launches + k1_bwd
             expected["K3"] += k3_bwd
             # against the port's plain per-group backward, and against
             # cuDNN's autograd of the same function
-            plain = plain_grouped_backward(xg, wg, bg, gy, groups,
-                                           ("bias", "gelu"))
+            plain = plain_grouped_backward(xg, wg, bg, gy, groups, chain)
             for name_, a, e in zip(("dx", "dW", "db"), grads, plain):
                 held("K3" if name_ == "dW" else "K1",
                      f"{tag} {name_} vs plain", a, e, 1e-4)
             del plain
             xd, wd, bd = (t.detach().requires_grad_(True)
                           for t in (xg, wg, bg))
-            yl = F.gelu(F.conv2d(xd, wd, bd, padding=1, groups=groups),
-                        approximate="tanh")
-            want = torch.autograd.grad(yl, (xd, wd, bd), gy)
+            want = torch.autograd.grad(lib_fwd(xd, wd, bd), (xd, wd, bd),
+                                       gy)
             for name_, a, e in zip(("dx", "dW", "db"), grads, want):
                 held("K3" if name_ == "dW" else "K1", f"{tag} {name_}", a, e,
                      1e-4)
-            del y, yl, grads, want
+            del y, grads, want
         outs = gy.numel()
-        flops = 2 * outs * ws[1] * 9
-        time_case("K1", f"{tag} forward", lambda: fwd().detach(),
-                  lambda: plain_fwd(),
-                  (xg.numel() + wg.numel() + outs) * 4, flops,
-                  unfused=lambda xg=xg, wg=wg, bg=bg, groups=groups: F.gelu(
-                      ops.conv2d(xg.detach(), wg.detach(), groups=groups)
-                      + bg.detach()[:, None, None], approximate="tanh"),
-                  lib=lambda xg=xg, wg=wg, bg=bg, groups=groups: F.gelu(
-                      F.conv2d(xg, wg, bg, padding=1, groups=groups),
-                      approximate="tanh"))
+        flops = 2 * outs * ws[1] * ws[2] * ws[3]
+        counts = {k: v.launches for k, v in kernels.items()}
+        if dw is not None:      # the per-group route first, in turns
+            pg0 = device_ms(lambda: per_group().detach(), SURFACE_REPS)
+        rec_f = time_case(
+            "K1", f"{tag} forward", lambda: fwd().detach(),
+            lambda: plain_fwd(), (xg.numel() + wg.numel() + outs) * 4, flops,
+            unfused=(lambda xg=xg, wg=wg, bg=bg, groups=groups: F.gelu(
+                ops.conv2d(xg.detach(), wg.detach(), groups=groups)
+                + bg.detach()[:, None, None], approximate="tanh"))
+            if "gelu" in chain else None,
+            lib=lib_fwd)
 
         def bwd(fn):
             def go():
@@ -2440,13 +2497,77 @@ def surface_phase(args, dev, card, results) -> dict:
                     return torch.autograd.grad(fn(), (xg, wg, bg), gy)
             return go
 
-        # (the plain versions run no backward on the card: no plain_ms)
-        time_case("K1", f"{tag} backward", bwd(fwd), None,
-                  (2 * xg.numel() + 2 * outs + 2 * wg.numel()) * 4,
-                  2 * flops,
-                  lib=bwd(lambda xg=xg, wg=wg, bg=bg, groups=groups: F.gelu(
-                      F.conv2d(xg, wg, bg, padding=1, groups=groups),
-                      approximate="tanh")))
+        # (the plain versions run no backward on the card: no plain_ms);
+        # its bytes: x and g read, dx written, the filter and the bias
+        # read, dW and db written
+        rec_b = time_case("K1", f"{tag} backward", bwd(fwd), None,
+                          (2 * xg.numel() + outs + 2 * wg.numel()
+                           + 2 * bg.numel()) * 4,
+                          2 * flops, lib=bwd(lib_fwd))
+        # the launches the op's own calls made above, in this run
+        rec_f["launches"], rec_b["launches"] = k1_fwd, k1_bwd
+        if dw is not None:
+            pg1 = device_ms(lambda: per_group().detach(), SURFACE_REPS)
+            pgb = [device_ms(bwd(per_group), SURFACE_REPS)
+                   for _ in range(2)]
+            rec_f["per_group_ms"] = (pg0 + pg1) / 2
+            rec_b["per_group_ms"] = sum(pgb) / 2
+            # the same launch without the chain at the store
+            rec_f["bare_ms"] = device_ms(
+                lambda: ops.conv2d(xg.detach(), wg.detach(), groups=groups),
+                SURFACE_REPS)
+            # the same launch at tiles that cover a row in fewer tiles
+            # than the default, whose last tile of a row is narrow: timed in
+            # turns beside it (the choice is the tuner's)
+            db = tuple(engine.default_block(dw))
+            if db[-1] < xs[3] <= 256:
+                def at(blk):
+                    return lambda: ops.conv2d(
+                        xg.detach(), wg.detach(), groups=groups,
+                        epilogue=chain, epilogue_args=(bg.detach(),),
+                        block=blk).detach()
+                y0 = fwd().detach()
+                tiles = {}
+                for blk in (db, (32, xs[3]), (64, 128), db):
+                    held("K1", f"{tag} forward at block {blk}", at(blk)(), y0,
+                         3e-5)
+                    tiles.setdefault(str(blk), []).append(
+                        device_ms(at(blk), SURFACE_REPS))
+                rec_f["tiles_ms"] = {k: sum(v) / len(v)
+                                     for k, v in tiles.items()}
+                del y0
+            # K3's part of the backward alone, on the recomputed cotangent
+            gz = gy.reshape(-1, *xs[2:])
+            xz = xg.detach().reshape(-1, *xs[2:])
+            rec_w = {"case": f"{tag} dW (K3)", "kernel": "K3",
+                     "ms": device_ms(lambda: K3(xz, gz, plan=lin),
+                                     SURFACE_REPS),
+                     "plain_ms": event_ms(lambda: engine.
+                                          run_weight_grad_plan_reference(
+                                              xz, gz, plan=lin), 1),
+                     "library_ms": event_ms(
+                         lambda: torch.nn.grad.conv2d_weight(
+                             xg.detach(), ws, gy, padding=pad,
+                             groups=groups), SURFACE_REPS),
+                     "bound_ms": (xz.numel() + gz.numel() + wg.numel()) * 4
+                     / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes", "launches": k3_bwd,
+                     "unfused_ms": None, "card": card}
+            rec_w["roofline_share"] = rec_w["bound_ms"] / rec_w["ms"]
+            rows["K3"][rec_w["case"]] = rec_w
+            results["times"].append(rec_w)
+            emit({"phase": "time", **rec_w})
+            emit({"phase": "time_per_group", "case": tag,
+                  "forward_ms": rec_f["ms"], "backward_ms": rec_b["ms"],
+                  "per_group_forward_ms": rec_f["per_group_ms"],
+                  "per_group_backward_ms": rec_b["per_group_ms"],
+                  "bare_forward_ms": rec_f["bare_ms"],
+                  "forward_ms_by_tile": rec_f.get("tiles_ms"),
+                  "card": card})
+            depthwise[label] = {"forward": rec_f, "backward": rec_b,
+                                "dW": rec_w}
+        for k, v in kernels.items():    # (timing runs, not the main path)
+            v.launches = counts[k]
         del xg, wg, bg, gy
         torch.cuda.empty_cache()
 
@@ -2455,7 +2576,8 @@ def surface_phase(args, dev, card, results) -> dict:
           "expected": expected})
     require(launches == expected and all(launches.values()),
             ("phase 11 launches", launches, expected))
-    return {"launches": launches, "worst": worst, "rows": rows}
+    return {"launches": launches, "worst": worst, "rows": rows,
+            "depthwise": depthwise}
 
 
 def plain_grouped_backward(x, w, b, gy, groups: int, chain) -> tuple:
@@ -2594,6 +2716,7 @@ def mxu_perlane_phase(args, dev, card, results) -> dict:
                  xt.shape, wl, gt, padding=K - 1, groups=D)),
         ]
     timed = {}
+    probe = parent_probe()
     for tag, pl, inp, ea, nbytes, lib in cases:
         rtol = MXU_PL_RTOL if inp.dtype == torch.float32 else 3e-2
 
@@ -2615,13 +2738,26 @@ def mxu_perlane_phase(args, dev, card, results) -> dict:
         compare(f"phase 12 K2 per-lane {tag} against K1", y, lanes_fn(),
                 MXU_VS_LANES if inp.dtype == torch.float32 else 3e-2,
                 results)
-        del y
         counts = (K1.launches, K2.launches)
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         f_ms = 2 * K * elems / TF32_FLOPS * 1e3
-        ms = device_ms(kern, 20)
+        parent_ms = None
+        if probe is not None and hasattr(probe, "run_mxu_perlane"):
+            # the parent's kernel (no non-finite check), in turns
+            parent_fn = (lambda pl=pl, inp=inp, ea=ea:
+                         probe.run_mxu_perlane(inp, w, pl, ea))
+            compare(f"phase 12 K2 per-lane {tag} parent kernel",
+                    parent_fn(), y, rtol, results)
+            k0 = device_ms(kern, 10)
+            p0, p1 = device_ms(parent_fn, 10), device_ms(parent_fn, 10)
+            ms = (k0 + device_ms(kern, 10)) / 2
+            parent_ms = (p0 + p1) / 2
+        else:
+            ms = device_ms(kern, 20)
+        del y
         rec = {"case": f"K2 per-lane conv1d (2,2048,3200) K=4 {tag}",
-               "ms": ms, "call_ms": event_ms(kern, 20),
+               "ms": ms, "parent_ms": parent_ms,
+               "call_ms": event_ms(kern, 20),
                "k1_ms": device_ms(lanes_fn, 20),
                "plain_ms": device_ms(plain_fn, 3),
                "library_ms": device_ms(lib, 20),
@@ -2938,9 +3074,10 @@ def parent_probe():
     ``run(x, w, plan, time_steps, variant)`` (an earlier K1 single-channel
     kernel, phase 5), ``run_mxu(x, w, plan, time_steps)`` (an earlier K2
     single-channel kernel, phase 9), ``run_perlane(x, w, plan,
-    epilogue_args)`` (an earlier K1 per-lane kernel, phase 10) and
+    epilogue_args)`` (an earlier K1 per-lane kernel, phase 10),
     ``run_wgrad(x, g, plan)`` (an earlier K3 single-channel kernel, phase
-    8)."""
+    8) and ``run_mxu_perlane(x, w, plan, epilogue_args)`` (an earlier K2
+    per-lane kernel, phase 12)."""
     import importlib.util
 
     path = os.path.join(ROOT, "build", "parent", "probe.py")
@@ -2980,6 +3117,25 @@ def _surface(surf, kname) -> dict:
             "max_abs_err": surf["worst"][kname],
             "cases": {tag: {**_row(rec), "unfused_ms": rec["unfused_ms"]}
                       for tag, rec in surf["rows"][kname].items()}}
+
+
+def _depthwise(surf, kname) -> dict:
+    """Phase 11's depthwise cases as the kernel line carries them under
+    K1 (forward and backward) and K3 (dW), each with the launches its
+    op's call made in the run, beside the parent's per-group route (K1)."""
+    out = {}
+    for label, recs in surf["depthwise"].items():
+        if kname == "K3":
+            out[label] = {**_row(recs["dW"]),
+                          "launches": recs["dW"]["launches"],
+                          "max_abs_err": surf["worst"]["K3"]}
+            continue
+        out[label] = {
+            key: {**_row(recs[key]), "launches": recs[key]["launches"],
+                  "max_abs_err": surf["worst"]["K1"],
+                  "per_group_ms": recs[key]["per_group_ms"]}
+            for key in ("forward", "backward")}
+    return out
 
 
 def card_line() -> str:
@@ -3091,14 +3247,15 @@ def main() -> int:
             ("HMMA", "LDS.128", "LDGSTS", "STG.E.128"))}
     # K3's single-channel path: each width bucket's registers and spills,
     # and its FMAs, shared loads and TMA loads in SASS (all summed)
-    wgrad_rows = ptxas_entries(_build.LIBRARY.ptxas_log,
-                               r".*wgrad_rows_kernelILb(\d)ELi(\d+)E")
+    wgrad_rows = ptxas_entries(
+        _build.LIBRARY.ptxas_log,
+        r".*wgrad_rows_kernelILb(\d)ELi(\d+)ELi\d+ELb(\d)E")
     results["build"]["wgrad_rows"] = {
         "instances": wgrad_rows, "sass": sass_counts(
             str(_build.LIBRARY.path), "wgrad_rows_kernel",
             ("FFMA", "LDS", "UTMALDG", "SHFL"))}
     emit({"phase": "build", **results["build"], "card": card})
-    require(len(wgrad_rows) == 2 * len(engine.WGRAD_M_BUCKETS) and all(
+    require(len(wgrad_rows) == 4 * len(engine.WGRAD_M_BUCKETS) and all(
         r["spill_store_bytes"] == 0 for r in wgrad_rows.values()),
         ("K3's single-channel kernel spills or lacks an instance",
          wgrad_rows))
@@ -3376,7 +3533,8 @@ def main() -> int:
                   "forward_linear": {
                       **_row(hy["timed"]["K1 linear"]),
                       "parent_ms": hy["timed"]["K1 linear"]["parent_ms"]}},
-        "surface": _surface(surf, "K1")},
+        "surface": _surface(surf, "K1"),
+        "depthwise": _depthwise(surf, "K1")},
         {
         "name": K5.name, "route": "cuda", "source": K5.source,
         "replaces": K5.replaces, "launches": served["k5_launches"],
@@ -3412,7 +3570,8 @@ def main() -> int:
             "case": k3r["headline"]["case"],
             "cases": {tag: {**_row(r), "parent_ms": r["parent_ms"]}
                       for tag, r in k3r["rows"].items()}},
-        "surface": _surface(surf, "K3")},
+        "surface": _surface(surf, "K3"),
+        "depthwise": _depthwise(surf, "K3")},
         {
         "name": K2.name, "route": "cuda", "source": K2.source,
         "replaces": K2.replaces, "launches": mxu["train_launches"],
@@ -3440,8 +3599,9 @@ def main() -> int:
         "launches": mpl["launches"], "max_abs_err": mpl["worst"],
         **_row(mpl["headline"]), "call_ms": mpl["headline"]["call_ms"],
         "k1_ms": mpl["headline"]["k1_ms"],
+        "parent_ms": mpl["headline"]["parent_ms"],
         "cases": {tag: {**_row(rec), "call_ms": rec["call_ms"],
-                        "k1_ms": rec["k1_ms"]}
+                        "k1_ms": rec["k1_ms"], "parent_ms": rec["parent_ms"]}
                   for tag, rec in mpl["timed"].items()}}]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -145,7 +145,7 @@ class Library:
         lib.ssam_window_reduce_launch.argtypes = (
             [p, p, i, p, p, i] + epi + [i] * 22 + [p])
         lib.ssam_window_reduce_launch.restype = i
-        lib.ssam_wgrad_launch.argtypes = ([p, p, i, p, p] + [i] * 22
+        lib.ssam_wgrad_launch.argtypes = ([p, p, i, p, p] + [i] * 24
                                           + [ctypes.POINTER(ctypes.c_int), p])
         lib.ssam_wgrad_launch.restype = i
         lib.ssam_wgrad_tc_launch.argtypes = (

@@ -260,7 +260,9 @@ def apply_epilogue(plan: SystolicPlan, y: torch.Tensor, args) -> torch.Tensor:
     autograd at the recomputed pre-activation, the VJP of the epilogue
     chain. ``gelu`` is the tanh form (``jax.nn.gelu(approximate=True)``).
     A bias is per out channel ahead of the spatial axes for out-axes
-    plans, per lane for perlane plans, a scalar otherwise.
+    plans, per lane for perlane plans, per filter for a plan with a filter
+    per image (image ``i`` of ``y`` takes ``bias[i mod filters]``), a
+    scalar otherwise.
     """
     ai = 0
     for st in plan.epilogue:
@@ -277,6 +279,9 @@ def apply_epilogue(plan: SystolicPlan, y: torch.Tensor, args) -> torch.Tensor:
             ai += 1
             if plan.out_axes:
                 b = b.reshape(b.shape + (1,) * plan.ndim_spatial)
+            elif plan.filters > 1:      # image i's bias[i mod C]
+                b = b.repeat(y.shape[0] // plan.filters).reshape(
+                    (-1,) + (1,) * plan.ndim_spatial)
             y = y + b
         elif st.op == "residual_add":
             y = y + args[ai].to(y.dtype)

@@ -2,8 +2,9 @@
 each a CUDA kernel beside its plain version.
 
 :func:`run_window_plan` runs a windowed :class:`SystolicPlan` (2-D and
-3-D stencils, dense 2-D convolution, with leading batch axes, NCHW
-convolution with a channel reduction, and depthwise (per-lane) conv1d;
+3-D stencils, dense 2-D convolution, with leading batch axes and
+optionally a filter per image (a depthwise conv2d), NCHW convolution with
+a channel reduction, and depthwise (per-lane) conv1d;
 an output stride on 2-D plans, and a fused epilogue, ``residual_add``
 included, on all of them) over an input whose lane axis is last. The tensor's
 device decides how:
@@ -126,6 +127,13 @@ def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
                       or perlane):
         raise ValueError("output strides support single 2-D plan "
                          "applications")
+    if plan.filters > 1 and (reduce or plan.coeff_mode != "dense"
+                             or plan.ndim_spatial != 2
+                             or plan.batch_axes != 1
+                             or plan.strategy == "mxu"):
+        raise ValueError(f"{plan.kind!r}: a filter per image takes batched "
+                         "dense 2-D single-channel plans on the lanes "
+                         "strategy (K1)")
 
 
 def _out_dims(plan: SystolicPlan, x, w, time_steps: int = 1) -> tuple:
@@ -140,9 +148,10 @@ def _out_dims(plan: SystolicPlan, x, w, time_steps: int = 1) -> tuple:
 def _check_operands(plan: SystolicPlan, x, w, epilogue_args,
                     time_steps: int = 1) -> None:
     """Shapes of the filter and the epilogue operands against the plan:
-    a bias per C_out (reduce plans), per lane (per-lane plans) or a
-    scalar (any other plan), a residual shaped exactly like the output
-    (the reference's ``_check_epilogue_operands``)."""
+    a bias per C_out (reduce plans and a filter per image, whose channels
+    are the filters), per lane (per-lane plans) or a scalar (any other
+    plan), a residual shaped exactly like the output (the reference's
+    ``_check_epilogue_operands``)."""
     if plan.coeff_mode in ("dense", "perlane") and w is None:
         raise ValueError(f"a {plan.coeff_mode} plan needs its filter w")
     need = epilogue_operand_stages(plan.epilogue)
@@ -151,6 +160,15 @@ def _check_operands(plan: SystolicPlan, x, w, epilogue_args,
             f"epilogue {tuple(s.op for s in plan.epilogue)} needs "
             f"{len(need)} runtime operand(s), got {len(epilogue_args)}")
     perlane = plan.coeff_mode == "perlane"
+    per_image = plan.filters > 1
+    if per_image:
+        want = (plan.filters,) + plan.exts
+        if w.ndim != 3 or tuple(w.shape) != want or x.ndim != 3 \
+                or x.shape[0] % plan.filters:
+            raise ValueError(
+                f"{plan.kind!r}: a filter per image takes x (B*{plan.filters}"
+                f", H, W) against w {want}, got x {tuple(x.shape)} and w "
+                f"{tuple(w.shape)}")
     if perlane:
         rows = 1 + max(t.coeff_id[-1] for t in plan.steps[0].taps)
         if w.ndim != 2 or w.shape[1] != x.shape[-1] or w.shape[0] < rows:
@@ -179,7 +197,7 @@ def _check_operands(plan: SystolicPlan, x, w, epilogue_args,
             if shape != (x.shape[-1],):
                 raise ValueError(f"bias epilogue wants a per-lane "
                                  f"({x.shape[-1]},) row, got {shape}")
-        elif _is_reduce(plan):
+        elif _is_reduce(plan) or per_image:
             if shape != (w.shape[0],):
                 raise ValueError(f"bias epilogue wants a per-C_out "
                                  f"({w.shape[0]},) row, got {shape}")
@@ -231,7 +249,8 @@ def _term(plan: SystolicPlan, w, tap, view):
     if _is_reduce(plan):
         wt = w[(slice(None), slice(None)) + tuple(tap.coeff_id)]
         return torch.einsum("bc...,oc->bo...", view, wt.to(view.dtype))
-    return view * w[tuple(tap.coeff_id)].to(view.dtype)
+    # (a filter per image: w's leading axes broadcast over the blocks')
+    return view * w[(...,) + tuple(tap.coeff_id)].to(view.dtype)
 
 
 def _zeros(xb, plan, w, spatial):
@@ -442,6 +461,11 @@ def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
         # against blocks (..., gt, gd, rows, bd)
         wp = F.pad(w, (0, g[-1] * B[-1] - w.shape[-1]))
         w = wp.reshape(w.shape[0], g[-1], 1, B[-1])
+    elif plan.filters > 1:
+        # image i's filter i mod C, (images, 1, 1, 1, 1, N, M) against
+        # blocks (images, gh, gw, rows, cols)
+        w = w.repeat(x.shape[0] // plan.filters, 1, 1).reshape(
+            (x.shape[0],) + (1,) * (2 * nd) + tuple(w.shape[1:]))
     for _ in range(t):
         if plan.strategy == "mxu":
             blocks = apply_plan_mxu(blocks, plan, w)
@@ -588,8 +612,9 @@ def _phase_launches(run, g, wa, plan: SystolicPlan, in_spatial):
 
 class WindowKernel:
     """Wrapper of K1. ``launches`` counts the kernel launches it made:
-    one per call, on the single-channel path (``ssam_window_launch``) and
-    on the channel-reduce path (``ssam_window_reduce_launch``) alike, a
+    one per call, on the single-channel path (``ssam_window_launch``; a
+    depthwise conv's images with a filter each included) and on the
+    channel-reduce path (``ssam_window_reduce_launch``) alike, a
     fused epilogue or residual included; a strided reduce plan's input
     adjoint (:meth:`adjoint_phases`) is one launch for all its phases, a
     strided single-channel plan's one launch a phase that a tap
@@ -617,12 +642,15 @@ class WindowKernel:
     def _single(self, x, w, plan, block, t, variant, epilogue_args, *,
                 out=None, out_sp=None, offset=0, oaddr=None):
         """The single-channel path (``ssam_window.cuh``): one launch,
-        strided or not, the epilogue at the store. ``out``, ``out_sp``,
+        strided or not, with a filter per image or not, the epilogue at
+        the store. ``out``, ``out_sp``,
         ``offset`` and ``oaddr`` (the output step) store a crop of the
         plan's output into a caller's tensor (an adjoint phase)."""
-        table = tap_table(plan, None if w is None else tuple(w.shape))
+        table = tap_table(plan, None if w is None else tuple(w.shape[-2:]))
         ints, cvals = _device_table(table, x.device)
         if plan.coeff_mode == "dense":
+            # a filter per image: the filters one after another, a tile's
+            # records rewritten from its image's
             cvals = w.detach().to(torch.float32).contiguous()
         x, fresh, B, head, tile = _tile_launch(plan, x, block, t, out_sp)
         out = fresh if out is None else out
@@ -630,7 +658,7 @@ class WindowKernel:
         # take a pitch-padded copy (the map keeps the logical width)
         xt, pitch = _tma_operand(x)
         lay = window_layout(plan, head, tile, t, x.element_size(), pitch,
-                            variant, oaddr)
+                            variant, oaddr, _filter_size(plan, w))
         epi = _epilogue_codes(plan, epilogue_args, x.device, x.dtype)
         err = self.library.get().ssam_window_launch(
             xt.data_ptr(), out.data_ptr() + offset * x.element_size(),
@@ -953,7 +981,9 @@ def emulate_mxu_perlane_kernel(x: torch.Tensor, w: torch.Tensor, *,
     (``8g + c + 8·ks``, +64 for rows ``g + 8``, +4 for columns ``c + 4``),
     the lane's band ``B[m][j] = w[cid[m − j]]`` from the same thread
     formulas, the product assembled through the PTX fragment layouts in
-    3xTF32 (truncating splits; a bf16 x without its small part), the D
+    3xTF32 (truncating splits; a bf16 x without its small part), a
+    warp's chunk whose sums are not all finite summed again tap by tap in
+    the plain version's order, the D
     elements mapped back to output rows ``8i + j`` through the staging
     tile's permutation (every (b, t, d) written exactly once, asserted)
     and the epilogue at the store. Returns ``x``'s shape and dtype."""
@@ -1015,6 +1045,16 @@ def emulate_mxu_perlane_kernel(x: torch.Tensor, w: torch.Tensor, *,
         acc = acc + ab @ bb
         cor = cor + (as_ @ bb + ab @ bs)
     prod = acc + cor
+    # a chunk whose sums are not all finite (a non-finite value met the
+    # band): the warp's CUDA-core sums, a product and a sum a tap in row
+    # order, output row 8i + j from staged rows 8i + j + r
+    plain = torch.zeros((batch, gy, gx, MXU_PL_OUT, CH, V))
+    for r, cid in enumerate(rows):
+        if cid >= 0:
+            plain = plain + tile[:, :, :, r:r + MXU_PL_OUT] * wr[r][:, None]
+    plain = plain.permute(0, 1, 2, 4, 5, 3).reshape(prod.shape)
+    bad = ~torch.isfinite(prod).flatten(4).all(-1)
+    prod = torch.where(bad[..., None, None, None], plain, prod)
     # D element (i, j) of thread (g, c) is output row 8i + j of its block,
     # staged at chunk q ^ swizzle(row, out) and stored from there
     perm_out = [[k ^ mxu_perlane_swizzle(r, True) for k in range(CH)]
@@ -1302,25 +1342,38 @@ class TapTable:
                 + self.cidx)
 
 
-@functools.lru_cache(maxsize=256)
-def tap_table(plan: SystolicPlan, w_shape) -> TapTable:
+def tap_table_refusal(plan: SystolicPlan) -> str | None:
+    """Why K1's single-channel kernel cannot hold ``plan``'s footprint
+    (:func:`tap_table` raises it), or None: a pure function of the plan,
+    so a route can be chosen before anything launches."""
     nd = plan.ndim_spatial
     D = plan.depth if nd == 3 else 1
     N, steps = plan.N, len(plan.steps)
     reach = sum(s.shift for s in plan.steps)
     if nd == 3 and (D > 5 or N > 5):
-        raise ValueError(f"K1 builds 3-D plans up to a 5x5 (depth x rows) "
-                         f"footprint, got {D}x{N}")
+        return (f"K1 builds 3-D plans up to a 5x5 (depth x rows) "
+                f"footprint, got {D}x{N}")
     if N > 32:
-        raise ValueError(f"K1 builds plans of up to 32 rows, got N={N}")
+        return f"K1 builds plans of up to 32 rows, got N={N}"
     if reach + 1 != plan.M or plan.M > WARP or steps > WARP:
-        raise ValueError(
-            f"K1 maps the lane axis onto one {WARP}-lane warp: the plan's "
-            f"column steps (shift total {reach}, M={plan.M}, {steps} steps) "
-            "must fit in it")
+        return (f"K1 maps the lane axis onto one {WARP}-lane warp: the "
+                f"plan's column steps (shift total {reach}, M={plan.M}, "
+                f"{steps} steps) must fit in it")
     if steps * D * N > TABLE_SLOTS:
-        raise ValueError(f"plan has {steps * D * N} tap slots, K1 holds "
-                         f"{TABLE_SLOTS}")
+        return f"plan has {steps * D * N} tap slots, K1 holds {TABLE_SLOTS}"
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def tap_table(plan: SystolicPlan, w_shape) -> TapTable:
+    """K1's :class:`TapTable` of ``plan`` against a filter of shape
+    ``w_shape`` (one filter's, for a plan with a filter per image)."""
+    refusal = tap_table_refusal(plan)
+    if refusal:
+        raise ValueError(refusal)
+    nd = plan.ndim_spatial
+    D = plan.depth if nd == 3 else 1
+    N = plan.N
     sh = plan.stride_per_axis()[0]
     strided = _strided(plan)
     slots, cidx = [], []
@@ -1515,13 +1568,21 @@ def _window_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
             _round_up(smem, 16))
 
 
+def _filter_size(plan: SystolicPlan, w) -> int:
+    """Coefficients of one filter of a plan with a filter per image (the
+    step between filters in K1's coefficient array), 0 for other plans."""
+    return w.shape[-2] * w.shape[-1] if plan.filters > 1 else 0
+
+
 def window_layout(plan: SystolicPlan, head, tile, t: int,
                   elem_bytes: int = 4, pitch: int | None = None,
                   variant: str = "shift_psum",
-                  oaddr=None) -> WindowLayout:
+                  oaddr=None, filter_size: int = 0) -> WindowLayout:
     """K1's single-channel layout for a call of :func:`_tile_launch`'s
     ``head`` and ``tile``, storing through the output step ``oaddr``
-    (``(o_row, o_col, o_plane, o_img)``; default the dense output). The
+    (``(o_row, o_col, o_plane, o_img)``; default the dense output), with
+    ``plan.filters`` filters of ``filter_size`` coefficients cycled over
+    the images (one filter: 0). The
     ring takes the most stages (up to 3) that leave two blocks an SM (2-D
     plans); failing that, or for 3-D plans, the most that fit one block;
     failing that, the call raises."""
@@ -1554,8 +1615,9 @@ def window_layout(plan: SystolicPlan, head, tile, t: int,
             pitch or tma_pitch(win, elem_bytes),
             zo, ho, wo, lz, ly, lx, bz, bh, bw,
             box[2], box[1], box[0], boxes[2], boxes[1], boxes[0],
-            stages, stage_bytes, *bufs, smem, grid,
-            *plan.stride_per_axis()[-2:], *(oaddr or _dense_oaddr(head))
+            stages, stage_bytes, *bufs, smem, grid, plan.filters,
+            filter_size, *plan.stride_per_axis()[-2:],
+            *(oaddr or _dense_oaddr(head))
             ) + tuple(v for st in tap_steps(plan) for v in st)
     return WindowLayout(tile, tiles, box, boxes, stage_bytes, stages,
                         bufs, smem, bps, grid, geom)
@@ -1743,10 +1805,13 @@ def _tile_epilogue(plan: SystolicPlan, vals: torch.Tensor, epilogue_args,
         return vals
     sl = (b,) + tuple(slice(o, o + n) for o, n in
                       zip(origin[-vals.ndim:], vals.shape))
-    args = [resid[sl].float() if st.op == "residual_add" else a
+    # a filter per image: image b's bias[b mod filters]
+    args = [resid[sl].float() if st.op == "residual_add"
+            else a[b % plan.filters] if plan.filters > 1 else a
             for st, a in zip(epilogue_operand_stages(plan.epilogue),
                              epilogue_args)]
-    return apply_epilogue(plan, vals, args)
+    return apply_epilogue(dataclasses.replace(plan, filters=1)
+                          if plan.filters > 1 else plan, vals, args)
 
 
 def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
@@ -1763,8 +1828,9 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     t applications (:func:`_emulate_apply`: the stage, then the fp32
     iterates in two ping-pong buffers, the last into the even one; an
     output-strided plan's one :func:`_emulate_strided`) and the output
-    tile stored from it through the epilogue (:func:`_tile_epilogue`).
-    Returns ``x``'s shape and dtype."""
+    tile stored from it through the epilogue (:func:`_tile_epilogue`);
+    with a filter per image, a tile's tap records and bias its image's
+    filter's. Returns ``x``'s shape and dtype."""
     check_supported(plan, time_steps, variant)
     _check_operands(plan, x, w, epilogue_args, time_steps)
     if _is_reduce(plan) or plan.coeff_mode == "perlane" \
@@ -1775,16 +1841,19 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     D = plan.depth if nd == 3 else 1
     N, M = plan.N, plan.M
     P = window_p(plan)
-    table = tap_table(plan, None if w is None else tuple(w.shape))
+    table = tap_table(plan, None if w is None else tuple(w.shape[-2:]))
     cvals = (torch.tensor(plan.coeffs, dtype=torch.float32)
              if plan.coeff_mode == "table"
-             else w.detach().to(torch.float32).flatten())
-    coef = cvals[list(table.cidx)]
+             else w.detach().to(torch.float32)).reshape(plan.filters, -1)
+    # the tap records' coefficients of each filter: a tile of image b
+    # holds filter b mod filters'
+    coefs = cvals[:, list(table.cidx)]
     xc, out, _, head, tile = _tile_launch(plan, x, block, t)
     xt, pitch = _tma_operand(xc)
     batch, zin, hin, win, zo, ho, wo, lz, ly, lx = head
     es = x.element_size()
-    lay = window_layout(plan, head, tile, t, es, pitch, variant)
+    lay = window_layout(plan, head, tile, t, es, pitch, variant,
+                        filter_size=_filter_size(plan, w))
     assert lay.smem <= SMEM_LIMIT
     xm = xt.reshape(batch, zin, hin, pitch)
     out4 = out.reshape(batch, zo, ho, wo)
@@ -1804,6 +1873,7 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
             s = i % lay.stages
             assert ring[s] == tile_no, "a stage holds another tile"
             b, oz0, oy0, ox0 = lay.tile_origin(tile_no)
+            coef = coefs[b % plan.filters]
             x0, shift = staged_row_start(sw * ox0 - lx, es)
             stage = torch.empty(nbx * bstride)
             for jx in range(nbx):
@@ -2221,8 +2291,8 @@ def _tf32_split(a: torch.Tensor):
 
 
 def _emulate_mxu_apply(mem: torch.Tensor, src, out_ext, ents: MxuEntries,
-                       btile: torch.Tensor, plan: SystolicPlan
-                       ) -> torch.Tensor:
+                       btile: torch.Tensor, plan: SystolicPlan,
+                       cvals: torch.Tensor) -> torch.Tensor:
     """One application of ``ssam_mxu.cu::apply_mx`` on the emulated shared
     memory ``mem`` (flat fp32 words) through ``src (base, pitch, plane,
     shift)``: the warp items (16 rows, rows past the last clamped, × 4
@@ -2231,8 +2301,10 @@ def _emulate_mxu_apply(mem: torch.Tensor, src, out_ext, ents: MxuEntries,
     ``c`` its window from column ``sw·8c``) split and multiplied with its
     Toeplitz tiles (big·big summed over whole entries of at least
     :data:`MXU_FLUSH` k-steps, then added to the fp32 sum; the cross terms
-    beside). Returns the dense fp32 ``out_ext`` ``(zd, hd, wd)``
-    result."""
+    beside); an item whose sums are not all finite (a non-finite input met
+    the tiles' zeros) summed again tap by tap, the entries' columns in
+    order, from ``cvals``. Returns the dense fp32 ``out_ext`` ``(zd, hd,
+    wd)`` result."""
     base, pitch, plane, shift = src
     zd, hd, wd = out_ext
     sh, sw = plan.stride_per_axis()[-2:]
@@ -2257,7 +2329,22 @@ def _emulate_mxu_apply(mem: torch.Tensor, src, out_ext, ents: MxuEntries,
         pend += kk
         if pend >= MXU_FLUSH or e == len(ents.entries) - 1:
             acc, hi, pend = acc + hi, torch.zeros_like(hi), 0
-    return (acc + cor).reshape(zd, hp, nch * 8)[:, :hd, :wd]
+    out = (acc + cor).reshape(zd, hp, nch * 8)
+    items = (zd, hp // MXU_ROWS, MXU_ROWS, nch // MXU_CHUNKS, 8 * MXU_CHUNKS)
+    bad = ~torch.isfinite(out.reshape(items)).all(-1).all(2)
+    if bool(bad.any()):
+        col = sw * torch.arange(nch * 8).clamp(max=wd - 1)
+        plain = torch.zeros_like(out)
+        for dz, r, cmin, span, _, _, toff in ents.entries:
+            for k, ci in enumerate(ents.table[toff:toff + span]):
+                if ci >= 0:
+                    addr = (base + (torch.arange(zd)[:, None, None] + dz)
+                            * plane + (sh * y[None, :, None] + r) * pitch
+                            + col + cmin + k + shift)
+                    plain = plain + mem[addr] * cvals[ci]
+        out = torch.where(bad[:, :, None, :, None], plain.reshape(items),
+                          out.reshape(items)).reshape(out.shape)
+    return out[:, :hd, :wd]
 
 
 def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
@@ -2345,7 +2432,7 @@ def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                 res = _emulate_mxu_apply(
                     mem, src, (tz, ty, tx) if sh * sw > 1 else
                     (ext[0] - (D - 1), ext[1] - (N - 1), ext[2] - (M - 1)),
-                    ents, btile, plan)
+                    ents, btile, plan, cvals)
                 ext = tuple(res.shape)
                 if k < t - 1:
                     zd, hd, wd = ext
@@ -2730,7 +2817,9 @@ def _check_adjoint_phase_operands(g, wa, plan: SystolicPlan, in_spatial):
     nb, reduce = plan.batch_axes, _is_reduce(plan)
     want = plan.out_shape(tuple(in_spatial))
     fits = (wa.ndim == 4 and g.ndim == nb + 3 and wa.shape[1] == g.shape[nb]
-            if reduce else wa.ndim == 2 and g.ndim == nb + 2)
+            if reduce else g.ndim == nb + 2 and (
+                wa.ndim == 2 if plan.filters == 1 else
+                wa.ndim == 3 and wa.shape[0] == plan.filters))
     if not fits or tuple(g.shape[-2:]) != want \
             or tuple(wa.shape[-2:]) != plan.exts:
         raise ValueError(
@@ -2876,8 +2965,10 @@ def run_weight_grad_plan_reference(x: torch.Tensor, g: torch.Tensor, *,
     filter tap, ``dW[:, :, n, m] = Σ_{b,o} g[b, :, o]·xp[b, :, s·o + (n,
     m)]`` over the input padded by the plan's lead (and trail), ``s`` the
     plan's output stride (``g`` the strided output's cotangent); per-lane
-    plans ``dW[k, d] = Σ_{b,t} g[b,t,d]·xp[b,t+k,d]``. Returns fp32 (fp64
-    for fp64 inputs), ``(N, M)``, ``(C_out, C_in, N, M)`` or ``(K, D)``."""
+    plans ``dW[k, d] = Σ_{b,t} g[b,t,d]·xp[b,t+k,d]``; a plan with a
+    filter per image ``dW[c] = Σ_b Σ_o g[b·C+c, o]·xp[b·C+c, s·o + (n,
+    m)]``. Returns fp32 (fp64 for fp64 inputs), ``(N, M)``, ``(C_out,
+    C_in, N, M)``, ``(C, N, M)`` or ``(K, D)``."""
     if plan.coeff_mode == "perlane":
         return _wgrad_perlane_reference(x, g, plan)
     x4, g4 = _wgrad_operands(x, g, plan)
@@ -2890,6 +2981,17 @@ def run_weight_grad_plan_reference(x: torch.Tensor, g: torch.Tensor, *,
     Hd, Wd = sy * (Ho - 1) + 1, sx * (Wo - 1) + 1   # the rows/columns read
     xp = F.pad(x4.to(acc), (lx, Wd + M - 1 - lx - W, ly, Hd + N - 1 - ly - H))
     gf = g4.to(acc)
+    if plan.filters > 1:
+        # a gradient per filter: image b·C + c feeds filter c
+        C = plan.filters
+        gf = gf.reshape((-1, C) + tuple(gf.shape[2:]))
+        xp = xp.reshape((-1, C) + tuple(xp.shape[2:]))
+        out = xp.new_zeros((C, N, M))
+        for n in range(N):
+            for m in range(M):
+                out[:, n, m] = torch.einsum(
+                    "bchw,bchw->c", gf, xp[..., n:n + Hd:sy, m:m + Wd:sx])
+        return out
     out = xp.new_zeros((g4.shape[1], x4.shape[1], N, M))
     for n in range(N):
         for m in range(M):
@@ -2992,8 +3094,17 @@ class WgradLayout:
     rows (the instantiation ``mb``, the width bucket, holds ``nb·mb`` sums
     a thread); a block has ``warps = nbands·row_groups`` warps, warp ``w``
     taking band ``w % nbands`` on the chunk's row group ``w // nbands``.
-    Each block writes one ``(N, M)`` partial; a second kernel adds the
-    ``grid`` partials in block order."""
+    With ``filters`` filters cycled over the images (image ``b·C + c``
+    feeds filter ``c``) the units run channel-major: a channel's images
+    and their chunks are consecutive. Block ``k`` walks the run of units
+    :meth:`run` ``(k)`` (with one filter the walk of stride ``grid``), so
+    it meets a run of channels and each channel a run of blocks; it
+    writes its sums as the ``(N, M)`` partial ``k + c``
+    of each channel ``c`` it meets (flushed when the unit's channel
+    changes, through ``red`` bytes of shared memory of their own when
+    there is more than one filter, else through the ring), and a second
+    kernel adds, per channel, the partials of the blocks that met it in
+    block order."""
 
     V: int
     mb: int
@@ -3012,11 +3123,29 @@ class WgradLayout:
     smem: int
     blocks_per_sm: int
     grid: int
+    filters: int = 1
+    red: int = 0
 
     @property
     def slices(self) -> int:
-        """Partial sums the first kernel writes (one a block)."""
-        return self.grid
+        """Partial sums the first kernel writes: one a block and channel
+        it meets (``k + c``), ``grid + filters − 1``."""
+        return self.grid + self.filters - 1
+
+    def run(self, k: int) -> range:
+        """The units block ``k`` walks, in order: with one filter every
+        ``grid``-th from ``k`` (the blocks in flight cover a band of the
+        image; a run was 11–22 % slower on the card), with a filter per
+        image as many consecutive units, from ``k·(rounds − 1) + min(k,
+        rem)`` (``rounds = ⌈units/grid⌉``, ``rem`` the blocks that walk
+        that many)."""
+        walk = range(k, self.units, self.grid)
+        if self.filters == 1:
+            return walk
+        rounds = -(-self.units // self.grid)
+        start = k * (rounds - 1) + min(k, self.units % self.grid
+                                       or self.grid)
+        return range(start, start + len(walk))
 
     @property
     def launches(self) -> int:
@@ -3041,10 +3170,16 @@ class WgradLayout:
                      for b in range(self.nbands))
 
     def unit(self, u: int) -> tuple[int, int, int]:
-        """``(b, chunk, strip)`` of unit ``u``."""
-        r, sx = divmod(u, self.strips)
-        b, cy = divmod(r, self.chunks)
-        return b, cy, sx
+        """``(b, chunk, strip)`` of unit ``u``: channel-major, then the
+        channel's images, chunks and strips (strip fastest)."""
+        c, r = divmod(u, self.units // self.filters)
+        r, sx = divmod(r, self.strips)
+        bb, cy = divmod(r, self.chunks)
+        return bb * self.filters + c, cy, sx
+
+    def channel(self, u: int) -> int:
+        """The filter unit ``u`` feeds."""
+        return u // (self.units // self.filters)
 
 
 def _wgrad_regions(rows: int, hw: int, V: int, x_rows: int):
@@ -3062,9 +3197,10 @@ def _cuts(n: int, parts: int) -> list[tuple[int, int]]:
 
 
 def wgrad_layout(B, H, W, Ho, Wo, N, M, *, lead=(0, 0),
-                 elem_bytes=4) -> WgradLayout:
+                 elem_bytes=4, filters=1) -> WgradLayout:
     """K3's single-channel layout for x ``(B, H, W)``, the cotangent ``(B,
-    Ho, Wo)`` and an ``(N, M)`` filter whose lead padding is ``lead``.
+    Ho, Wo)`` and an ``(N, M)`` filter whose lead padding is ``lead`` (or
+    ``filters`` of them cycled over the images).
     Every footprint is held: one wider than the largest bucket, or taller
     than a block's bands, is cut into tiles. Raises ``ValueError`` naming
     the limit where the walk cannot count its units."""
@@ -3088,7 +3224,10 @@ def wgrad_layout(B, H, W, Ho, Wo, N, M, *, lead=(0, 0),
     row_groups = max(1, min(WGRAD_WARPS, max_bands) // nbands)
     warps = nbands * row_groups
     hw = _round_up(max(t.d + t.m - 1 for t in tiles), V)
-    red = 4 * warps * nb * mb            # the reduction reuses the ring
+    # the reduction's buffer: the ring's, once the walk is done; its own
+    # with more than one filter (a block flushes mid-walk)
+    red = 4 * warps * nb * mb
+    apart = red if filters > 1 else 0
     fixed = 256                          # alignment, the barriers
 
     def stage(rows):
@@ -3096,7 +3235,8 @@ def wgrad_layout(B, H, W, Ho, Wo, N, M, *, lead=(0, 0),
                          128)
 
     def smem(rows, stages):
-        return _round_up(fixed + max(stages * stage(rows), red), 16)
+        return _round_up(fixed + max(stages * stage(rows), red - apart)
+                         + apart, 16)
 
     # the chunk's rows: WGRAD_ROWS, halved until x's box (rows + n − 1
     # rows, n ≤ 128) and a ring of two stages fit
@@ -3117,9 +3257,12 @@ def wgrad_layout(B, H, W, Ho, Wo, N, M, *, lead=(0, 0),
         stages -= 1
     bps = max(1, min(by_regs, H100_SM_SMEM // (smem(rows, stages) + 1024)))
     grid = min(units, bps * H100_SMS)
+    if B % filters:
+        raise ValueError(f"{B} images do not cycle through {filters} "
+                         "filters")
     return WgradLayout(V, mb, nb, tuple(tiles), nbands, row_groups, warps,
                        rows, strips, chunks, units, hw, stage(rows), stages,
-                       smem(rows, stages), bps, grid)
+                       smem(rows, stages), bps, grid, filters, apart)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -3182,7 +3325,8 @@ def _wgrad_geometry(x, g, plan: SystolicPlan):
     phases = wgrad_phases(plan)
     lays = tuple(wgrad_layout(B, -(-H // sh), -(-W // sw), Ho, Wo, ph.n,
                               ph.m, lead=ph.lead,
-                              elem_bytes=x.element_size())
+                              elem_bytes=x.element_size(),
+                              filters=plan.filters)
                  for ph in phases)
     return x3, g3, phases, lays
 
@@ -3204,28 +3348,32 @@ def emulate_wgrad_kernel(x: torch.Tensor, g: torch.Tensor, *,
     band row and step ``k = m − 1 − j`` of tap ``j``, then the fixed-order
     reduction: a butterfly over the 32 lanes, the row groups in order, the
     tiles' rows and columns of each block's partial, the partials in block
-    order. A strided plan walks each of its phases (:func:`wgrad_phases`)
-    so, on its phase image (:func:`wgrad_phase_images`), into its taps of
-    the gradient. ``max_grid`` caps the blocks, so that a small input
-    walks several units a block through the ring. Returns ``(N, M)``
-    fp32."""
+    order, per channel where there is a filter per image (the units
+    channel-major, a block flushing its sums into its partial of a channel
+    when the unit's channel changes, the partials of each channel added
+    in block order). A strided plan walks each of its phases
+    (:func:`wgrad_phases`) so, on its phase image
+    (:func:`wgrad_phase_images`), into its taps of the gradient.
+    ``max_grid`` caps the blocks, so that a small input walks several
+    units a block through the ring. Returns ``(N, M)`` fp32, ``(C, N,
+    M)`` for a plan with a filter per image."""
     x3, g3, phases, lays = _wgrad_geometry(x, g, plan)
     xph = wgrad_phase_images(x3, plan.stride_per_axis())
     sh, sw = plan.stride_per_axis()
-    out = torch.zeros(plan.exts)
+    out = torch.zeros((plan.filters,) + plan.exts)
     for ph, lay in zip(phases, lays):
         if max_grid is not None:    # fewer blocks: more units each
             lay = dataclasses.replace(lay, grid=min(lay.grid, max_grid))
         pn, pm = ph.offset
-        out[pn::sh, pm::sw] = _emulate_wgrad_phase(
+        out[:, pn::sh, pm::sw] = _emulate_wgrad_phase(
             xph[ph.xphase], g3, lay, ph.n, ph.m, x.element_size())
-    return out
+    return out if plan.filters > 1 else out[0]
 
 
 def _emulate_wgrad_phase(x3, g3, lay: WgradLayout, N: int, M: int,
                          es: int) -> torch.Tensor:
-    """One launch set of :func:`emulate_wgrad_kernel`: the ``(N, M)``
-    gradient of ``x3`` against ``g3`` through ``lay``."""
+    """One launch set of :func:`emulate_wgrad_kernel`: the ``(filters,
+    N, M)`` gradient of ``x3`` against ``g3`` through ``lay``."""
 
     W = x3.shape[2]
     Ho, Wo = g3.shape[1:]
@@ -3235,7 +3383,7 @@ def _emulate_wgrad_phase(x3, g3, lay: WgradLayout, N: int, M: int,
     gt, _ = _tma_operand(g3)
     xm, gm = xt[:, None], gt[:, None]          # (B, 1, rows, pitch)
     rows, lane = lay.rows, torch.arange(WARP)
-    partials = torch.zeros((lay.grid, N, M))
+    partials = torch.full((lay.slices, N, M), float("nan"))
     for tile in lay.tiles:
         n, m = tile.n, tile.m
         bands = lay.bands(n)
@@ -3246,11 +3394,29 @@ def _emulate_wgrad_phase(x3, g3, lay: WgradLayout, N: int, M: int,
         win = (lane[:, None] * V + tile.d
                + torch.arange(V + m - 1)[None, :])              # (32, V+m-1)
         done = torch.zeros(lay.units, dtype=torch.int64)
+
+        def flush(k, c, acc):
+            """Block k's sums of channel c into its partial k + c."""
+            for off in (16, 8, 4, 2, 1):    # the lanes' butterfly
+                acc = acc + acc[..., lane ^ off]
+            red = acc[..., 0]               # (warps, nb, m)
+            for band, (n0, nbr) in enumerate(bands):
+                s = torch.zeros((nbr, m))
+                for rg in range(lay.row_groups):
+                    s = s + red[rg * lay.nbands + band, :nbr]
+                r = tile.n0 + n0            # step k is tap m − 1 − k
+                partials[k + c, r:r + nbr, tile.m0:tile.m0 + m] = s.flip(-1)
+
         for k in range(lay.grid):
-            mine = list(range(k, lay.units, lay.grid))
+            mine = list(lay.run(k))
             ring = mine[:lay.stages] + [None] * (lay.stages - len(mine))
             acc = torch.zeros((lay.warps, lay.nb, m, WARP))
+            cur = lay.channel(mine[0])
             for i, u in enumerate(mine):
+                if lay.channel(u) != cur:   # the channel changes: flush
+                    flush(k, cur, acc)
+                    acc = torch.zeros_like(acc)
+                    cur = lay.channel(u)
                 s = i % lay.stages
                 assert ring[s] == u, "a stage holds another unit"
                 b, cy, sx = lay.unit(u)
@@ -3287,19 +3453,16 @@ def _emulate_wgrad_phase(x3, g3, lay: WgradLayout, N: int, M: int,
                 done[u] += 1
                 nxt = i + lay.stages        # the block has read it: refill
                 ring[s] = mine[nxt] if nxt < len(mine) else None
-            for off in (16, 8, 4, 2, 1):    # the lanes' butterfly
-                acc = acc + acc[..., lane ^ off]
-            red = acc[..., 0]               # (warps, nb, m)
-            for band, (n0, nbr) in enumerate(bands):
-                s = torch.zeros((nbr, m))
-                for rg in range(lay.row_groups):
-                    s = s + red[rg * lay.nbands + band, :nbr]
-                r = tile.n0 + n0            # step k is tap m − 1 − k
-                partials[k, r:r + nbr, tile.m0:tile.m0 + m] = s.flip(-1)
+            flush(k, cur, acc)
         assert bool((done == 1).all()), "a unit is not walked exactly once"
-    out = torch.zeros((N, M))
-    for part in partials:
-        out = out + part
+    # per channel, the partials of the blocks that met it, in block order
+    out = torch.zeros((lay.filters, N, M))
+    for c in range(lay.filters):
+        for k in range(lay.grid):
+            run = lay.run(k)
+            if lay.channel(run[0]) <= c <= lay.channel(run[-1]):
+                out[c] = out[c] + partials[k + c]
+    assert not bool(out.isnan().any()), "a partial read was never written"
     return out
 
 
@@ -3487,7 +3650,8 @@ class WgradKernel:
     reduction is split (the partial sums, then the pass that adds them);
     on the single-channel path one per tile of the footprint, then that
     pass, for each phase of a strided plan (:func:`wgrad_phases`;
-    :meth:`launches_for`)."""
+    :meth:`launches_for`), a gradient per filter or not (a depthwise
+    conv's: one walk for all its channels)."""
 
     name = "ssam_wgrad"
     source = "src/repro_torch/csrc/ssam_wgrad_tc.cu"
@@ -3512,28 +3676,32 @@ class WgradKernel:
             return self._channels(x, g, plan)
         x3, g3, phases, lays = _wgrad_geometry(x, g, plan)
         if len(phases) == 1:
-            return self._single(x3, g3, lays[0], plan)
-        # a strided plan: each phase's taps from its phase image
-        xph = wgrad_phase_images(x3, plan.stride_per_axis())
-        sh, sw = plan.stride_per_axis()
-        out = torch.empty(plan.exts, dtype=torch.float32, device=x.device)
-        for ph, lay in zip(phases, lays):
-            pn, pm = ph.offset
-            out[pn::sh, pm::sw] = self._single(xph[ph.xphase], g3, lay,
-                                               plan, (ph.n, ph.m))
-        return out
+            out = self._single(x3, g3, lays[0], plan)
+        else:
+            # a strided plan: each phase's taps from its phase image
+            xph = wgrad_phase_images(x3, plan.stride_per_axis())
+            sh, sw = plan.stride_per_axis()
+            out = torch.empty((plan.filters,) + plan.exts,
+                              dtype=torch.float32, device=x.device)
+            for ph, lay in zip(phases, lays):
+                pn, pm = ph.offset
+                out[:, pn::sh, pm::sw] = self._single(
+                    xph[ph.xphase], g3, lay, plan, (ph.n, ph.m))
+        return out if plan.filters > 1 else out[0]
 
     def _single(self, x3, g3, lay: WgradLayout, plan: SystolicPlan,
                 exts=None):
-        """One gradient of an ``exts`` filter (default the plan's) of
-        ``x3`` against ``g3`` through ``lay``: a launch per tile, then the
-        pass that adds the partials."""
+        """The ``(filters, N, M)`` gradient of an ``exts`` filter (default
+        the plan's) of ``x3`` against ``g3`` through ``lay``: a launch per
+        tile, then the pass that adds the partials per channel."""
         (xs, x_pitch), (gs, g_pitch) = _tma_operand(x3), _tma_operand(g3)
         B, H, W = x3.shape
         Ho, Wo = g3.shape[1:]
         N, M = exts or plan.exts
-        out = torch.empty((N, M), dtype=torch.float32, device=x3.device)
-        part = (torch.empty((lay.grid, N, M), dtype=torch.float32,
+        out = torch.empty((lay.filters, N, M), dtype=torch.float32,
+                          device=x3.device)
+        # one block: its partial of channel c is the output's (k + c = c)
+        part = (torch.empty((lay.slices, N, M), dtype=torch.float32,
                             device=x3.device) if lay.grid > 1 else out)
         gh_off, x_off, _ = lay.regions
         tiles = [v for t in lay.tiles for v in t.ints()]
@@ -3542,7 +3710,7 @@ class WgradKernel:
             part.data_ptr(), out.data_ptr(), B, H, W, x_pitch, Ho, Wo,
             g_pitch, N, M, lay.mb, lay.nb, lay.nbands, lay.row_groups,
             lay.rows, lay.hw, lay.stages, lay.stage_bytes, gh_off, x_off,
-            lay.grid, lay.smem, len(lay.tiles),
+            lay.grid, lay.smem, lay.filters, lay.red, len(lay.tiles),
             (ctypes.c_int * len(tiles))(*tiles),
             torch.cuda.current_stream(x3.device).cuda_stream)
         if err:

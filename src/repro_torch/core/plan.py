@@ -234,6 +234,10 @@ class SystolicPlan:
     # Adjoints and fused chains derive plans with dataclasses.replace, so
     # the strategy rides the plan IR unchanged through both.
     strategy: str | None = None
+    # Filters a batched single-channel plan's images cycle through (image
+    # ``i`` uses filter ``i mod filters``). Not a field, so that a plan
+    # stays equal to the reference's: :class:`PerImageFilterPlan` sets it.
+    filters = 1
 
     # ---- X geometry: what the engine lowers from --------------------------
     @property
@@ -335,6 +339,19 @@ class SystolicPlan:
         a fused chain, the plan's own otherwise (mid-chain epilogues are
         applied between stages inside the kernel)."""
         return self.stages[-1].epilogue if self.stages else self.epilogue
+
+
+@dataclasses.dataclass(frozen=True)
+class PerImageFilterPlan(SystolicPlan):
+    """A batched single-channel plan with a filter per image: ``x (B·C,
+    H, W)`` against ``w (C, N, M)``, image ``i`` correlated with filter
+    ``i mod C`` (``C = filters``) and, with a ``bias`` epilogue, offset by
+    ``bias[i mod C]``. A depthwise NCHW conv2d (``groups == C_in ==
+    C_out``) is this plan on ``x`` viewed as ``(B·C, H, W)``. The port's
+    own plan: the reference runs a depthwise conv group by group. The
+    adjoint plans (``dataclasses.replace``) keep the filters."""
+
+    filters: int = 1
 
 
 # ---------------------------------------------------------------------------

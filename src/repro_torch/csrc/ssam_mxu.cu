@@ -79,6 +79,10 @@
 //    bf16 cast. The store writes through an output step (row pitch,
 //    column step, image pitch), so the phases of a strided plan's input
 //    adjoint write their positions of dx in place.
+//  * Non-finite inputs: an inf or nan meets the tiles' zero coefficients
+//    as well, and inf * 0 is nan. A warp whose item's sums are not all
+//    finite takes them again on the CUDA cores, tap by tap, so the
+//    non-finite outputs are the plain version's (see apply_mx).
 // Reads past a source's last column or row (the columns a ragged chunk's
 // window covers, clamped rows) stay in shared memory the block zeroed at
 // its start, so every A element is finite and meets a zero coefficient:
@@ -247,6 +251,42 @@ __device__ __forceinline__ void apply_mx(const MxuArgs& a, const MxSrc& src,
           }
         pend = 0;
       }
+    }
+    // A non-finite value in the item's source meets the Toeplitz tiles'
+    // zeros (inf * 0 is nan) and would reach outputs its taps do not: a
+    // finite source gives finite sums (short of an overflow), so the warp
+    // votes on them, and where one is not finite the item's sums are
+    // taken again on the CUDA cores, tap by tap from the same source (the
+    // entries' columns in order), so that an output is non-finite where
+    // the plain version's is.
+    bool bad = false;
+#pragma unroll
+    for (int c = 0; c < kMxChunks; ++c)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) bad |= nonfinite(acc[c][i] + cor[c][i]);
+    if (__any_sync(0xffffffffu, bad)) {
+#pragma unroll
+      for (int c = 0; c < kMxChunks; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int y = min(y0 + g + 8 * (i >> 1), hd - 1);
+          const int x = min(x0 + 8 * c + 2 * q + (i & 1), wd - 1);
+          float v = 0.f;
+          for (int e = 0; e < a.nent; ++e) {
+            const int4 h = ent[2 * e];           // dz, r, cmin, KK
+            const int4 h2 = ent[2 * e + 1];      // B offset, span, columns
+            const int* col = a.table + h2.z;
+            const float* row = src.p + (z + h.x) * src.plane +
+                               (sh * y + h.y) * src.pitch + sw * x + h.z +
+                               src.shift;
+            for (int k = 0; k < h2.y; ++k) {
+              const int ci = col[k];
+              if (ci >= 0) v = __fadd_rn(v, __fmul_rn(row[k], a.cvals[ci]));
+            }
+          }
+          acc[c][i] = v;
+          cor[c][i] = 0.f;
+        }
     }
     // the accumulator: d[0], d[1] row g, columns 2q, 2q + 1; d[2], d[3]
     // row g + 8

@@ -55,9 +55,17 @@
 //    on a thread's fp32 sums in registers, one dispatch a stage for all of
 //    them; SiLU takes the hardware exponential and the approximate division
 //    as K1's per-lane path does.
-// A row that x holds but an output's taps do not reach still meets a zero
-// coefficient of the band, so a non-finite x there (inf, nan) reaches that
-// output as nan where the plain version's sum skips it.
+//  * Non-finite inputs. A row that x holds but an output's taps do not
+//    reach still meets a zero coefficient of the band, and inf * 0 is nan:
+//    an inf or nan would reach the outputs of every 8-step row whose
+//    16-step fragment holds it, where the plain version's sum skips it.
+//    A finite tile gives finite sums (short of an overflow), so each warp
+//    votes on its chunk's fp32 sums before the epilogue: where one is not
+//    finite, the chunk's outputs are computed again on the CUDA cores, a
+//    product and a sum a tap in the plain version's order (the taps' rows
+//    ascending), from the same staged rows. The vote costs a test a sum;
+//    the path runs only on chunks that hold a non-finite value, so the
+//    non-finite outputs are the plain version's, and so are the others.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -355,6 +363,32 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) o[v][i] = acc[i] + cor[i];
+      }
+      bool bad = false;
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) bad |= ssam::nonfinite(o[v][i]);
+      if (__any_sync(0xffffffffu, bad)) {
+        // a non-finite value in the chunk's tile: the plain version's sums
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o[v][i] = 0.f;
+        for (int r = 0; r < a.N; ++r) {
+          if (a.cid[r] < 0) continue;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = tr[i] + r;
+            const uint4 xv = st.x[row][q ^ swz_in(row)];
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              o[v][i] = __fadd_rn(
+                  o[v][i],
+                  __fmul_rn(__uint_as_float(lane_bits<kBf16>(xv, v)),
+                            st.w[r][q * V + v]));
+          }
+        }
       }
       for (int s = 0; s < a.n_epi; ++s) {
         const float val = a.epi_val[s];

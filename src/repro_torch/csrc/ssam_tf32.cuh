@@ -63,4 +63,10 @@ __device__ __forceinline__ void mma_3xtf32(float (&acc)[4], float (&cor)[4],
   mma_tf32(cor, ab, bs);
 }
 
+// Whether v is inf or nan (its exponent bits all set): a tile whose sums
+// hold one met a non-finite input, which the Toeplitz zeros spread.
+__device__ __forceinline__ bool nonfinite(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
+}
+
 }  // namespace ssam

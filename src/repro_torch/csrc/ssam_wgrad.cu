@@ -3,8 +3,11 @@
 // blocks' partial sums in block order.
 //
 // x (batch, hin, win) and g (batch, ho, wo) at row pitches of a multiple of
-// 16 bytes (x_pitch, g_pitch, elements), fp32 or bf16; out (N, M) fp32;
-// part (grid, N, M) fp32, or out itself when grid == 1. The layout is
+// 16 bytes (x_pitch, g_pitch, elements), fp32 or bf16, image b feeding
+// filter b % filters; out (filters, N, M) fp32; part (grid + filters - 1,
+// N, M) fp32, or out itself when grid == 1; red_bytes the reduction
+// buffer's own bytes after the ring (0 with one filter: it reuses the
+// ring). The layout is
 // core/engine.py::WgradLayout's, passed as it is: the width bucket mb, the
 // band rows nb a thread holds, the bands and row groups of a block, the
 // chunk's rows, the ring, a stage's regions, the grid, and ntiles tiles of
@@ -17,14 +20,25 @@
 
 namespace ssam {
 
-// out[e] = sum over blocks of part[k][e], in block order.
-__global__ void wgrad_sum_kernel(const float* part, float* out, int slices,
+// out[c][e] = sum over the blocks k whose run of units (from k (rounds -
+// 1) + min(k, rem), rounds or rounds - 1 of them) meets channel
+// c's (units [c upc, (c + 1) upc)) of their partial part[k + c][e], in
+// block order; with one filter (a walk of stride grid), every block's.
+__global__ void wgrad_sum_kernel(const float* part, float* out, int grid,
+                                 int rounds, int rem, int upc, int filters,
                                  int n) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)filters * n) return;
+  const int c = (int)(i / n), e = (int)(i % n);
+  const long long lo = (long long)c * upc, hi = lo + upc;
   float s = 0.f;
-  for (int k = 0; k < slices; ++k) s += part[(size_t)k * n + e];
-  out[e] = s;
+  for (int k = 0; k < grid; ++k) {
+    const long long r0 = (long long)k * (rounds - 1) + min(k, rem);
+    const long long r1 = r0 + rounds - (k < rem ? 0 : 1);
+    if (filters == 1 || (r0 < hi && r1 > lo))
+      s += part[(size_t)(k + c) * n + e];
+  }
+  out[i] = s;
 }
 
 }  // namespace ssam
@@ -34,10 +48,12 @@ extern "C" int ssam_wgrad_launch(
     int batch, int hin, int win, int x_pitch, int ho, int wo, int g_pitch,
     int N, int M, int mb, int nb, int nbands, int rgroups, int rows, int hw,
     int stages, int stage_bytes, int gh_off, int x_off, int grid,
-    int smem_bytes, int ntiles, const int* tiles, void* stream) {
+    int smem_bytes, int filters, int red_bytes, int ntiles, const int* tiles,
+    void* stream) {
   using namespace ssam;
   const int V = io_bf16 ? 8 : 4, es = io_bf16 ? 2 : 4, SW = 32 * V;
-  WgradFn fn = io_bf16 ? pick_wgrad_bf16(mb, nb) : pick_wgrad_f32(mb, nb);
+  WgradFn fn = io_bf16 ? pick_wgrad_bf16(mb, nb, filters > 1)
+                       : pick_wgrad_f32(mb, nb, filters > 1);
   const int strips = (win + SW - 1) / SW, chunks = (ho + rows - 1) / rows;
   const long long units = (long long)batch * chunks * strips;
   const int threads = 32 * nbands * rgroups;
@@ -49,7 +65,10 @@ extern "C" int ssam_wgrad_launch(
       stages > kWgMaxStages || stage_bytes % 128 || gh_off % 128 ||
       x_off % 128 || gh_off < rows * SW * es ||
       x_off < gh_off + rows * hw * es ||
-      smem_bytes < 256 + stages * stage_bytes || smem_bytes < 256 + red ||
+      filters < 1 || batch % filters ||
+      (filters > 1 ? red_bytes < red : red_bytes != 0) ||
+      smem_bytes < 256 + stages * stage_bytes + red_bytes ||
+      smem_bytes < 256 + red ||
       (x_pitch * es) % 16 || x_pitch < win || (g_pitch * es) % 16 ||
       g_pitch < wo || (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(g) & 15) || ntiles < 1)
@@ -90,6 +109,11 @@ extern "C" int ssam_wgrad_launch(
     a.strips = strips;
     a.chunks = chunks;
     a.units = (int)units;
+    a.filters = filters;
+    a.upc = (int)(units / filters);
+    a.red_off = red_bytes ? stages * stage_bytes : 0;
+    a.rounds = (int)((units + grid - 1) / grid);
+    a.rem = units % grid ? (int)(units % grid) : grid;
     a.stages = stages;
     a.stage_bytes = stage_bytes;
     a.gh_off = gh_off;
@@ -123,6 +147,10 @@ extern "C" int ssam_wgrad_launch(
   }
   if (grid == 1) return 0;
   const int nm = N * M;
-  wgrad_sum_kernel<<<(nm + 255) / 256, 256, 0, st>>>(part, out, grid, nm);
+  const long long all = (long long)filters * nm;
+  const int rounds = (int)((units + grid - 1) / grid);
+  const int rem = units % grid ? (int)(units % grid) : grid;
+  wgrad_sum_kernel<<<(int)((all + 255) / 256), 256, 0, st>>>(
+      part, out, grid, rounds, rem, (int)(units / filters), filters, nm);
   return (int)cudaGetLastError();
 }

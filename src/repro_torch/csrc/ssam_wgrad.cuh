@@ -10,6 +10,9 @@
 //
 //   dW[n, m] = sum_b sum_(oy, ox) g[b, oy, ox] * xp[b, oy + n, ox + m],
 //
+// or, with a filter per image (C filters cycled over the images),
+// dW[c, n, m], the same sum over the images b * C + c,
+//
 // xp being x read at (oy + n - ly, ox + m - lx), zero outside the input.
 // Rewritten with the column j = ox + m - lx of x as the walk's index:
 //
@@ -53,7 +56,7 @@
 //    of `rows` output rows, strip) in a fixed order, unit k, k + grid,
 //    ...: the units in flight at once cover a band of the image, so the
 //    rows and columns a unit re-reads (its N - 1 halo rows of x, M - 1 + d
-//    halo columns of g) come from L2. The next units' boxes are in flight
+//    halo columns of g) come from L2 (a filter per image: below). The next units' boxes are in flight
 //    by TMA (three boxes a unit, completion on an mbarrier per stage) in a
 //    ring of 2-4 stages, sized so an SM keeps about 32 KB in flight. Once
 //    every warp is done with a unit (one barrier), thread 0 refills its
@@ -72,6 +75,18 @@
 //    shuffles over the warp, then the row groups in warp order in shared
 //    memory; each block writes one (N, M) partial, and a second kernel adds
 //    the partials in block order. Two calls give the same bits.
+//  * A gradient per filter (a depthwise conv2d's B * C images, image
+//    b * C + c feeding filter c): the units run channel-major, a channel's
+//    images and their chunks consecutive, and block k walks a run of
+//    consecutive units, so it meets a run of channels and each
+//    channel a run of blocks. When the unit's channel changes, the block
+//    flushes its sums (the reduction above, through a buffer of its own
+//    beside the ring) into its partial k + c of that channel, and starts
+//    again from zero; the second kernel adds, per channel, the partials of
+//    the blocks that met it, in block order: G + C - 1 partials, no
+//    atomics. With one filter the blocks keep the walk of stride G above
+//    (one partial a block): paired runs on the card found a run 11-22 %
+//    slower on the byte-bound 8192^2 filters.
 // No tensor cores: the cases that matter are byte-bound, and fp32 FMAs
 // keep the plain version's precision.
 #pragma once
@@ -113,6 +128,9 @@ struct WgradRowsArgs {
   int goff, d, hw;   // g's box: column offset from the strip, window shift,
                      // halo width (elements)
   int nbands, rgroups, rows, strips, chunks, units;
+  int filters, upc;  // filters cycled over the images; units a channel
+  int rounds, rem;   // a filter per image: the blocks' runs of units
+  int red_off;       // the reduction buffer, bytes past the ring's start
   int stages, stage_bytes, gh_off, x_off;  // a stage's regions (bytes)
   int tx_bytes;                            // bytes TMA writes into a stage
 };
@@ -190,16 +208,18 @@ __device__ __forceinline__ void band_fma(float (&acc)[NB][MB],
   }
 }
 
-// Thread 0: the three TMA boxes of unit u into the stage at st.
-template <int SW>
+// Thread 0: the three TMA boxes of unit u into the stage at st. Units run
+// channel-major: unit u feeds filter c = u / upc, its image b * filters + c.
+template <int SW, bool RUN>
 __device__ __forceinline__ void issue_unit(const CUtensorMap* xmap,
                                            const CUtensorMap* gmap,
                                            const CUtensorMap* hmap,
                                            const WgradRowsArgs& a, int u,
                                            uint8_t* st, uint32_t bar) {
-  const int sx = u % a.strips;
-  const int r = u / a.strips;
-  const int cy = r % a.chunks, b = r / a.chunks;
+  const int c = RUN ? u / a.upc : 0;
+  const int r = (RUN ? u - c * a.upc : u) / a.strips, sx = u % a.strips;
+  const int cy = r % a.chunks;
+  const int b = RUN ? r / a.chunks * a.filters + c : r / a.chunks;
   const int j0 = sx * SW, oy0 = cy * a.rows;
   mbar_expect_tx(bar, a.tx_bytes);
   tma_load_3d(smem_addr(st), gmap, bar, j0 + a.goff, oy0, b);
@@ -274,7 +294,45 @@ __device__ __forceinline__ void walk_rows(const uint8_t* st,
   }
 }
 
-template <bool BF16, int MB, int NB>
+// The fixed-order reduction of a block's sums into its partial `slot`
+// (block k's of channel c: k + c): the lanes by a butterfly, then the row
+// groups in warp order through `red` (warps x NB x MB floats); the sums
+// start again from zero.
+template <int NB, int MB>
+__device__ __forceinline__ void flush_sums(const WgradRowsArgs& a,
+                                           float (&acc)[NB][MB], float* red,
+                                           int slot) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int k = 0; k < MB; ++k) {
+      float v = acc[n][k];
+      acc[n][k] = 0.f;
+#pragma unroll
+      for (int off = 16; off; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane == 0) red[(warp * NB + n) * MB + k] = v;
+    }
+  __syncthreads();
+  for (int e = threadIdx.x; e < a.N * a.M; e += blockDim.x) {
+    const int nn = e / a.M, m = e % a.M;
+    int b = 0;
+    while ((b + 1) * a.N / a.nbands <= nn) ++b;
+    const int n = nn - b * a.N / a.nbands, k = a.M - 1 - m;
+    float sum = 0.f;
+    for (int r = 0; r < a.rgroups; ++r)
+      sum += red[((r * a.nbands + b) * NB + n) * MB + k];
+    a.part[(size_t)slot * a.pstride + nn * a.ld + m] = sum;
+  }
+  __syncthreads();  // red is free for the next flush
+}
+
+// RUN: a filter per image, each block a run of units flushed at every
+// channel change; else one filter, the walk of stride G with no flush in
+// the loop (a flush there, never taken, cost the wide instantiations up to
+// 10 % on the card).
+template <bool BF16, int MB, int NB, bool RUN>
 __global__ void __launch_bounds__(wg_threads(MB), 1)
     wgrad_rows_kernel(const __grid_constant__ CUtensorMap xmap,
                       const __grid_constant__ CUtensorMap gmap,
@@ -292,13 +350,25 @@ __global__ void __launch_bounds__(wg_threads(MB), 1)
     fence_mbarrier_init();
   }
   __syncthreads();
-  const int G = gridDim.x;
+  // This block's units. One filter: every G-th from blockIdx.x (the
+  // blocks in flight cover a band of the image, whose halo rows and
+  // columns they share through L2; a run of consecutive units was 11-22 %
+  // slower on the card). A filter per image (RUN): a run of consecutive
+  // units [u0, u1), block k's from k (rounds - 1) + min(k, rem), the first
+  // rem blocks rounds of them and the others one fewer (rounds = ceil(units
+  // / G)): it meets a run of channels, so it flushes rarely and the
+  // partials number G + C - 1. The bound and the step are spelled out per
+  // walk, so that with one filter the loop is the stride-G walk's own
+  // (held at 128 registers, the narrow instantiations spill nothing).
+  const int G = gridDim.x, blk = blockIdx.x;
+  const int u0 = RUN ? blk * (a.rounds - 1) + min(blk, a.rem) : blk;
+  const int u1 = RUN ? u0 + a.rounds - (blk < a.rem ? 0 : 1) : 0;
   if (tid == 0)
     for (int s = 0; s < a.stages; ++s) {
-      const int u = blockIdx.x + s * G;
-      if (u < a.units)
-        issue_unit<SW>(&xmap, &gmap, &hmap, a, u, ring + s * a.stage_bytes,
-                       smem_addr(&full[s]));
+      const int u = u0 + s * (RUN ? 1 : G);
+      if (u < (RUN ? u1 : a.units))
+        issue_unit<SW, RUN>(&xmap, &gmap, &hmap, a, u,
+                            ring + s * a.stage_bytes, smem_addr(&full[s]));
     }
 
   const int band = warp % a.nbands, rg = warp / a.nbands;
@@ -310,11 +380,19 @@ __global__ void __launch_bounds__(wg_threads(MB), 1)
 #pragma unroll
     for (int k = 0; k < MB; ++k) acc[n][k] = 0.f;
 
-  int i = 0;
-  for (int u = blockIdx.x; u < a.units; u += G, ++i) {
+  for (int u = u0, i = 0; u < (RUN ? u1 : a.units);
+       u += (RUN ? 1 : G), ++i) {
+    int ur = u;  // the unit within its channel's
+    if constexpr (RUN) {
+      ur = u % a.upc;
+      if (ur == 0 && i > 0)  // a new channel: flush the last one's sums
+        flush_sums<NB, MB>(a, acc,
+                           reinterpret_cast<float*>(ring + a.red_off),
+                           blk + u / a.upc - 1);
+    }
     const int s = i % a.stages;
     uint8_t* st = ring + s * a.stage_bytes;
-    const int oy0 = ((u / a.strips) % a.chunks) * a.rows;
+    const int oy0 = ((ur / a.strips) % a.chunks) * a.rows;
     const int T = min(a.rows, a.ho - oy0);
     const int r0 = rg * T / a.rgroups, r1 = (rg + 1) * T / a.rgroups;
     mbar_wait(smem_addr(&full[s]), (i / a.stages) & 1);
@@ -322,42 +400,25 @@ __global__ void __launch_bounds__(wg_threads(MB), 1)
       walk_rows<BF16, MB, NB, wg_wide(MB)>(st, a, r0, r1, n0, nbr, lane,
                                            acc);
     __syncthreads();  // every warp is done with the stage: refill it
-    if (tid == 0 && u + a.stages * G < a.units)
-      issue_unit<SW>(&xmap, &gmap, &hmap, a, u + a.stages * G, st,
-                     smem_addr(&full[s]));
+    const int next = u + a.stages * (RUN ? 1 : G);
+    if (tid == 0 && next < (RUN ? u1 : a.units))
+      issue_unit<SW, RUN>(&xmap, &gmap, &hmap, a, next, st,
+                          smem_addr(&full[s]));
   }
-
-  // The fixed-order reduction: the lanes by a butterfly, then the row
-  // groups in warp order (the ring is free: every load issued was read).
-  float* red = reinterpret_cast<float*>(ring);  // warps x NB x MB
-#pragma unroll
-  for (int n = 0; n < NB; ++n)
-#pragma unroll
-    for (int k = 0; k < MB; ++k) {
-      float v = acc[n][k];
-#pragma unroll
-      for (int off = 16; off; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0) red[(warp * NB + n) * MB + k] = v;
-    }
-  __syncthreads();
-  for (int e = tid; e < a.N * a.M; e += blockDim.x) {
-    const int nn = e / a.M, m = e % a.M;
-    int b = 0;
-    while ((b + 1) * a.N / a.nbands <= nn) ++b;
-    const int n = nn - b * a.N / a.nbands, k = a.M - 1 - m;
-    float sum = 0.f;
-    for (int r = 0; r < a.rgroups; ++r)
-      sum += red[((r * a.nbands + b) * NB + n) * MB + k];
-    a.part[(size_t)blockIdx.x * a.pstride + nn * a.ld + m] = sum;
-  }
+  // the last channel's sums: with a filter per image through their own
+  // buffer, with one filter (channel 0) through the ring, free now (every
+  // load issued was read)
+  flush_sums<NB, MB>(a, acc,
+                     reinterpret_cast<float*>(RUN ? ring + a.red_off : ring),
+                     blk + (RUN ? (u1 - 1) / a.upc : 0));
 }
 
 using WgradFn = void (*)(CUtensorMap, CUtensorMap, CUtensorMap,
                          WgradRowsArgs);
 
-// The instantiation of width bucket mb holding nb band rows, or null.
-WgradFn pick_wgrad_f32(int mb, int nb);
-WgradFn pick_wgrad_bf16(int mb, int nb);
+// The instantiation of width bucket mb holding nb band rows, walking runs
+// (a filter per image) or not, or null.
+WgradFn pick_wgrad_f32(int mb, int nb, bool runs);
+WgradFn pick_wgrad_bf16(int mb, int nb, bool runs);
 
 }  // namespace ssam

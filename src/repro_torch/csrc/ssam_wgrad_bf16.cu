@@ -1,13 +1,16 @@
 // K3 single-channel instantiations, bf16 input (V = 8 values a lane):
-// one per width bucket and its band rows, the table SSAM_WGRAD_BF16
+// one per width bucket and its band rows and per walk (a filter per
+// image or not), the table SSAM_WGRAD_BF16
 // that the build generates from core/engine.py::WGRAD_BAND_ROWS.
 #include "ssam_wgrad.cuh"
 
 namespace ssam {
 
-WgradFn pick_wgrad_bf16(int mb, int nb) {
-#define SSAM_WG(MB, NB) \
-  if (mb == MB && nb == NB) return &wgrad_rows_kernel<true, MB, NB>;
+WgradFn pick_wgrad_bf16(int mb, int nb, bool runs) {
+#define SSAM_WG(MB, NB)                                  \
+  if (mb == MB && nb == NB)                              \
+    return runs ? &wgrad_rows_kernel<true, MB, NB, true> \
+                : &wgrad_rows_kernel<true, MB, NB, false>;
   SSAM_WGRAD_BF16(SSAM_WG)
 #undef SSAM_WG
   return nullptr;

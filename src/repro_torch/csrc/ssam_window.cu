@@ -6,12 +6,15 @@
 //   zo, ho, wo, lz, ly, lx, bz, bh, bw,
 //   box_x, box_y, box_z, nbx, nby, nbz,
 //   stages, stage_bytes, buf_c0, buf_a, buf_b, smem_bytes, grid,
+//   filters, fsz (the filters cycled over the images and the
+//   coefficients of one, 1 and 0 for one filter),
 //   sh, sw (the output stride), o_row, o_col, o_plane, o_img (the
 //   output's step, elements),
 // then the steps' records (shift, first tap, taps, dense), 4 ints each;
 // `table` on the card holds the records too, then the taps' slots and
-// coefficient indices. The epilogue: epi_ops and epi_vals host arrays of
-// kMaxEpi entries, `bias` a scalar on the card (or null), `resid` the
+// coefficient indices (into one filter of `cvals`). The epilogue: epi_ops
+// and epi_vals host arrays of kMaxEpi entries, `bias` a scalar, or one a
+// filter, on the card (or null), `resid` the
 // residual in the output's dtype and dense layout (or null).
 // Returns a cudaError_t, or kTmaError + the CUresult where the tensor map
 // cannot be encoded.
@@ -64,12 +67,14 @@ extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
   a.buf_a = g[31];
   a.buf_b = g[32];
   const int smem_bytes = g[33], grid = g[34];
-  a.sh = g[35];
-  a.sw = g[36];
-  a.o_row = g[37];
-  a.o_col = g[38];
-  a.o_plane = g[39];
-  a.o_img = g[40];
+  a.filters = g[35];
+  a.fsz = g[36];
+  a.sh = g[37];
+  a.sw = g[38];
+  a.o_row = g[39];
+  a.o_col = g[40];
+  a.o_plane = g[41];
+  a.o_img = g[42];
   if (n_epi < 0 || n_epi > kMaxEpi) return (int)cudaErrorInvalidValue;
   a.bias = bias;
   a.resid = resid;
@@ -113,6 +118,8 @@ extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
       a.box_z < 1 || a.box_z > 256 || (a.box_x * es) % 16 ||
       (a.nbz > 1 && a.nby > 1 && a.box_z > 1) ||
       a.sh < 1 || a.sw < 1 || (strided && a.t != 1) || a.o_col < 1 ||
+      a.filters < 1 || a.batch % a.filters ||
+      (a.filters > 1 && a.fsz < 1) ||
       a.sy < a.sh * (a.bh - 1) + 1 + a.t * (a.N - 1) ||
       a.sz < a.bz + a.t * (a.D - 1) ||
       a.nbx * a.box_x < a.sw * (a.bw - 1) + a.t * (a.M - 1) + 16 / es ||

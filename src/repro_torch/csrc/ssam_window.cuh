@@ -6,10 +6,11 @@
 // _apply_plan_once, launched by _window_call) for plans with table or
 // dense coefficients, 2-D (N, M <= 32) or 3-D (up to 5 x 5, depth x rows),
 // both schedule variants, t >= 1 fused time steps with pad-once semantics,
-// fp32 or bf16 input and output with fp32 sums, batch axes, an output
-// stride on 2-D plans (one application), and the fused epilogue of
-// _apply_epilogue_val (scalar bias, GELU, SiLU, ReLU, scale, residual)
-// applied once to the fp32 sum after the last application.
+// fp32 or bf16 input and output with fp32 sums, batch axes, a filter per
+// image (a depthwise conv2d over its B * C images), an output stride on
+// 2-D plans (one application), and the fused epilogue of
+// _apply_epilogue_val (scalar or per-filter bias, GELU, SiLU, ReLU, scale,
+// residual) applied once to the fp32 sum after the last application.
 //
 // Bound on an H100: the Table-3 stencils up to 2d64pt, the 3-D ones but
 // 3d125pt, and filters up to 7 x 7 are bound by bytes, each input element
@@ -101,6 +102,17 @@
 //    store writes through an output step (row pitch, column step, image
 //    pitch), so the phases of a strided plan's input adjoint write their
 //    positions of dx in place.
+//  * A filter per image (a depthwise conv2d's B * C images, image b taking
+//    filter b mod C): the tap records hold one filter's coefficients, and
+//    a tile whose image takes another filter than the block's last tile
+//    rewrites them from L2 between two barriers before its first
+//    application (a 3 x 3 filter is 36 bytes against a tile of tens of
+//    KB); its bias is bias[b mod C]. The slots, the step records and the
+//    branch-free dense body are the single filter's. On the card neither
+//    a second set of records filled by cp.async during the tile before
+//    nor a walk of consecutive tiles (fewer rewrites) was faster. Staging
+//    all C filters at once would cap C by shared memory (1024 filters of
+//    7 x 7 take 392 KB of records).
 // The register cache reads past a source's last row (into the next buffer,
 // or the slack the wrapper adds at the end of shared memory) only for rows
 // whose outputs are discarded; lanes past its last column read that column.
@@ -126,16 +138,17 @@ constexpr int kThreads3d = 512;  // one block an SM
 constexpr int kMaxSteps = 32;
 constexpr int kMaxTaps = 1024;
 constexpr int kMaxStages = 3;
-constexpr int kGeomInts = 41;  // core/engine.py::WindowLayout.geom
+constexpr int kGeomInts = 43;  // core/engine.py::WindowLayout.geom
 constexpr int kEpiRows = 4;    // rows a warp stores at once with an epilogue
 constexpr unsigned kFull = 0xffffffffu;
 
 struct WindowArgs {
   void* out;           // batch x zo x ho x wo output
   int io_bf16;         // 1: bf16 input and output, 0: fp32
-  const float* cvals;  // coefficient values
+  const float* cvals;  // coefficient values: `filters` filters of fsz
   const int* table;    // steps x (shift, first, taps, dense), taps x slot,
-                       // taps x index into cvals
+                       // taps x index into one filter of cvals
+  int filters, fsz;    // image b takes filter b % filters (and its bias)
   int ndim, D, N, M, steps, ntaps, t, variant;
   int4 step[kMaxSteps];  // the step records, read uniformly from here
   int batch, zo, ho, wo;
@@ -152,7 +165,7 @@ struct WindowArgs {
   // y * o_row + x * o_col; the residual's in the dense output layout
   long long o_img, o_plane;
   int o_row, o_col;
-  const float* bias;   // the scalar bias, or null
+  const float* bias;   // the scalar bias (one a filter), or null
   const void* resid;   // the residual (the output's dtype), or null
   int epi_op[kMaxEpi];
   float epi_val[kMaxEpi];
@@ -477,10 +490,10 @@ __global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(taps + a.ntaps + 1);
 
   const int tid = threadIdx.x;
+  const int* cidx = a.table + 4 * a.steps + a.ntaps;
   for (int k = tid; k < a.ntaps; k += T)
-    taps[k] = make_int2(
-        a.table[4 * a.steps + k],
-        __float_as_int(a.cvals[a.table[4 * a.steps + a.ntaps + k]]));
+    taps[k] = make_int2(a.table[4 * a.steps + k],
+                        __float_as_int(a.cvals[cidx[k]]));
   if (tid == 0) {
     for (int s = 0; s < a.stages; ++s) mbar_init(smem_addr(&full[s]), 1);
     fence_mbarrier_init();
@@ -499,6 +512,7 @@ __global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
   const int t = a.t;
   const int per = a.io_bf16 ? 8 : 4;
   const int warp = tid / kWarp, lane = tid % kWarp;
+  int filt = 0;  // the filter whose coefficients the tap records hold
   int i = 0;
   for (int tile = blockIdx.x; tile < a.ntiles; tile += G, ++i) {
     const int s = i % a.stages;
@@ -508,6 +522,16 @@ __global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
     const int tyi = r % a.tiles_y;
     r /= a.tiles_y;
     const int tzi = r % a.tiles_z, b = r / a.tiles_z;
+    if (b % a.filters != filt) {
+      // a filter per image: this image's coefficients into the records
+      // (every warp is past the last tile's taps, the barrier that ends
+      // it), read from L2 where a block's tiles cycle through the filters
+      filt = b % a.filters;
+      const float* cv = a.cvals + (size_t)filt * a.fsz;
+      for (int k = tid; k < a.ntaps; k += T)
+        taps[k].y = __float_as_int(cv[cidx[k]]);
+      __syncthreads();
+    }
     const int oz0 = tzi * a.bz, oy0 = tyi * a.bh, ox0 = txi * a.bw;
     const int tz = min(a.bz, a.zo - oz0), ty = min(a.bh, a.ho - oy0);
     const int tx = min(a.bw, a.wo - ox0);
@@ -589,7 +613,7 @@ __global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
     } else {
       // the scalar bias, loaded here so that no register holds it while
       // the taps run
-      const float bias0 = a.bias ? a.bias[0] : 0.f;
+      const float bias0 = a.bias ? a.bias[filt] : 0.f;
       for (int r0 = warp; r0 < rows; r0 += kWarps * kEpiRows)
         for (int q = lane; 4 * q < tx; q += kWarp) {
           const int x0 = 4 * q, nv = min(4, tx - x0);

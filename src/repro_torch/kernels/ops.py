@@ -193,14 +193,67 @@ def _normalize_stride(stride):
     return None if stride == (1, 1) else stride
 
 
+def depthwise_plan(x_shape, w_shape, *, groups, mode, stride=None,
+                   epilogue=None, strategy=None):
+    """The single-launch plan of a grouped ``ops.conv2d``, or None where
+    the call keeps the per-group route: a pure function of the shapes,
+    the strategy and the plan, decided before anything launches. A
+    depthwise conv with one filter a channel (``groups == C_in ==
+    C_out``) on the lanes strategy (None or ``'lanes'``) whose ``(N,
+    M)`` footprint K1's single-channel kernel holds
+    (:func:`~repro_torch.core.engine.tap_table_refusal`) is one
+    :class:`~repro_torch.core.plan.PerImageFilterPlan` over the ``B·C``
+    images; grouped convs with ``C_in/groups > 1``, a channel multiplier
+    above 1, ``strategy='mxu'`` and footprints K1 refuses are not."""
+    if len(x_shape) != 4 or len(w_shape) != 4:
+        return None
+    C = x_shape[1]
+    if not (groups == C == w_shape[0] and w_shape[1] == 1) \
+            or strategy not in (None, "auto", "lanes"):
+        return None
+    plan = _c2.plan_for_depthwise(tuple(w_shape[2:]), mode, C)
+    plan = dataclasses.replace(plan, stride=stride,
+                               epilogue=normalize_epilogue(epilogue))
+    if _engine.tap_table_refusal(plan):
+        return None
+    return plan
+
+
+def _conv2d_depthwise(plan, x, w, stages, args, *, variant, block):
+    """A depthwise conv as one windowed op of ``plan``
+    (:func:`depthwise_plan`): ``x`` viewed as its ``(B·C, H, W)`` images,
+    ``w`` as its ``(C, N, M)`` filters, a residual among ``args`` (the
+    runtime operands of the epilogue's ``stages``) as the output's
+    images; the bias row rides as it is (image ``i`` takes ``bias[i mod
+    C]``). One K1 launch forward; its backward one K1 launch for dx (a
+    launch a phase when strided) and K3's launches for dW."""
+    B, C, H, W = x.shape
+    out_sp = plan.out_shape((H, W))
+    want = (B, C) + out_sp
+    for st, arr in zip(stages, args):
+        if st.op == "residual_add" and tuple(arr.shape) != want:
+            raise ValueError(
+                f"residual_add epilogue wants an output-shaped {want} "
+                f"operand, got shape {tuple(arr.shape)}")
+    args = tuple(arr.reshape((B * C,) + out_sp)
+                 if st.op == "residual_add" else arr
+                 for st, arr in zip(stages, args))
+    y = window_op(plan, x.reshape(B * C, H, W),
+                  w.reshape((C,) + tuple(w.shape[2:])), args, block=block,
+                  variant=variant)
+    return y.reshape(want)
+
+
 def _conv2d_grouped(x, w, *, groups, mode, variant, block, stride,
                     epilogue, epilogue_args, strategy):
-    """Grouped NCHW conv as per-group reduce slices (the reference's
+    """Grouped NCHW conv. A depthwise conv that :func:`depthwise_plan`
+    takes is one op over the ``B·C`` images (:func:`_conv2d_depthwise`);
+    every other one runs as per-group reduce slices (the reference's
     ``_conv2d_grouped``): each group is an ordinary NCHW call on its
     ``(C_in/groups, C_out/groups)`` slice of the operands, one K1 launch
     (K2 under ``strategy='mxu'``) a group, and the group outputs are
     concatenated on C_out. A bias row and a residual are sliced per group
-    along C_out. ``groups == C_in`` is depthwise 2-D."""
+    along C_out."""
     if x.ndim != 4:
         raise ValueError(
             f"conv2d: groups={groups} needs a 4-D NCHW input against an "
@@ -218,6 +271,12 @@ def _conv2d_grouped(x, w, *, groups, mode, variant, block, stride,
         raise ValueError(
             f"conv2d: epilogue {epilogue!r} needs {len(stages)} runtime "
             f"operand(s), got {len(args)}")
+    plan = depthwise_plan(tuple(x.shape), tuple(w.shape), groups=groups,
+                          mode=mode, stride=stride, epilogue=epilogue,
+                          strategy=strategy)
+    if plan is not None:
+        return _conv2d_depthwise(plan, x, w, stages, args, variant=variant,
+                                 block=block)
     Cg, Og = x.shape[1] // groups, w.shape[0] // groups
     outs = []
     for g in range(groups):
@@ -254,7 +313,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, mode: str = "same",
     row on NCHW inputs and a scalar otherwise, a residual is shaped like
     the output; both ride in ``epilogue_args``. ``groups=`` (NCHW only)
     runs a grouped convolution as per-group slices against a ``(C_out,
-    C_in/groups, N, M)`` filter (``groups == C_in``: depthwise 2-D).
+    C_in/groups, N, M)`` filter; a depthwise one (``groups == C_in ==
+    C_out``, lanes) is one launch over the ``B·C`` images, each with its
+    channel's filter (:func:`depthwise_plan`).
     ``strategy='mxu'`` pins the tap-set contraction to the im2row
     lowering (K2, the tensor cores; NCHW contracts over ``C_in·taps``),
     ``'lanes'`` or None to the lanes schedule (K1). Differentiable in
@@ -317,15 +378,10 @@ def conv1d_causal(x: torch.Tensor, w: torch.Tensor, *, epilogue=None,
     the forward and ``dx`` on K2's per-lane path instead (each lane's taps
     a Toeplitz band on the tensor cores, the reference's lane-batched
     mat-vec), ``dW`` still on K4. Differentiable in ``x``, ``w`` and the
-    epilogue's operands.
-
-    Unlike the plain version, K2's per-lane path multiplies every input
-    step of a tile row's 16-step fragment by its band coefficient, zero
-    or not: a non-finite ``x`` (or, for ``dx``, gradient) at step ``s``
-    makes each output of the 8-step rows whose fragment holds ``s`` nan,
-    up to 15 steps before the outputs its taps reach and 7 after, where
-    the plain version's sum gives a non-finite value only where the taps
-    reach ``s``.
+    epilogue's operands. A non-finite ``x`` (or, for ``dx``, gradient)
+    gives a non-finite output exactly where the plain version's does on
+    either strategy: K2 sums a chunk that holds one tap by tap, as the
+    plain version does.
     """
     if w.ndim != 2 or w.shape[-1] != x.shape[-1]:
         # checked before anything runs: the oracle would otherwise

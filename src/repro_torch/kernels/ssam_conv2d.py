@@ -7,10 +7,13 @@ filter.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..core.engine import run_window_plan
-from ..core.plan import (conv2d_batched_plan, conv2d_nchw_plan, conv2d_plan,
+from ..core.plan import (PerImageFilterPlan, SystolicPlan,
+                         conv2d_batched_plan, conv2d_nchw_plan, conv2d_plan,
                          conv2d_same_plan)
 
 
@@ -25,6 +28,18 @@ def plan_for_batched(w_shape: tuple[int, int], mode: str = "valid"):
     """Batched single-channel plan for a ``(B, H, W)`` image stack."""
     N, M = w_shape
     return conv2d_batched_plan(M, N, mode=mode)
+
+
+def plan_for_depthwise(w_shape: tuple[int, int], mode: str, channels: int):
+    """The depthwise plan of ``channels`` channels for ``(N, M)`` filters:
+    the batched single-channel plan over the ``B·channels`` images of an
+    NCHW input viewed as ``(B·C, H, W)``, image ``i`` against filter ``i
+    mod channels`` (:class:`~repro_torch.core.plan.PerImageFilterPlan`),
+    so one launch runs every channel."""
+    base = plan_for_batched(w_shape, mode)
+    return PerImageFilterPlan(
+        **{f.name: getattr(base, f.name)
+           for f in dataclasses.fields(SystolicPlan)}, filters=channels)
 
 
 def plan_for_nchw(x_shape, w_shape, mode: str = "valid", groups: int = 1):

@@ -18,7 +18,10 @@ phased dx, bf16 3e-2), and against K1 at 1e-4, the reference's
 lanes-versus-mxu tolerance. K1's per-lane
 (depthwise conv1d) path at fp32 3e-5, bf16 3e-2; K4 (per-lane weight
 gradient, sums over B·T products in another order) at fp32 1e-4, bf16
-3e-2; gradients through K1, K4 and K5 against the CPU's at 1e-4.
+3e-2; gradients through K1, K4 and K5 against the CPU's at 1e-4. A
+depthwise conv2d (one K1 launch over its images, a filter each; K3 a
+gradient per channel) against the CPU at 1e-4, bf16 3e-2; K2's
+non-finite outputs exactly the plain version's.
 """
 import numpy as np
 import pytest
@@ -1021,32 +1024,70 @@ def test_mxu_perlane_rows_chains_and_bf16(cuda, D, chain):
 
 @pytest.mark.parametrize("adj", [False, True], ids=["forward", "adjoint"])
 def test_mxu_perlane_nonfinite_input_reach(cuda, adj):
-    """K2's per-lane path on an inf at one step ``s`` of one lane: the
-    outputs the plain version makes non-finite are non-finite; the ones
-    K2 makes non-finite lie in the 8-step output rows whose 16-step input
-    fragment (steps ``8i − lead .. 8i − lead + 15``) holds ``s``, the
-    documented departure from the plain version; every other output
-    equals the plain version's."""
+    """K2's per-lane path on an inf at one step ``s`` of one lane and a
+    nan at another step of another lane, fp32 and bf16: its non-finite
+    outputs are exactly the plain version's (a chunk that holds one is
+    summed tap by tap), and every other output equals the plain
+    version's."""
     T, D, K, s, lane = 300, 64, 4, 200, 5
     x, w, _, _ = _perlane_data(1, T, D, K, cuda, 15)
     x[0, s, lane] = float("inf")
+    x[0, 37, 60] = float("nan")
     p = dataclasses.replace(ssam_conv1d.plan_for(K), strategy="mxu")
     pl = adjoint.input_adjoint_plan(p) if adj else p
-    lead = 0 if adj else K - 1
-    got = engine.run_window_plan(x, w, plan=pl)
-    want = engine.run_window_plan_reference(x, w, plan=pl)
+    for dt, rtol in ((torch.float32, 3e-5), (torch.bfloat16, 3e-2)):
+        xx = x.to(dt)
+        got = engine.run_window_plan(xx, w, plan=pl).float()
+        want = engine.run_window_plan_reference(xx, w, plan=pl).float()
+        torch.cuda.synchronize()
+        bad_got, bad_want = ~torch.isfinite(got), ~torch.isfinite(want)
+        assert bad_want[0, :, lane].any() and bad_want[0, :, 60].any()
+        assert torch.equal(bad_got, bad_want)
+        ok = ~bad_want
+        _close(got[ok], want[ok], rtol)
+
+
+# K2's single-channel path on non-finite inputs: (tag, grid, plan, filter,
+# t, stride, dtype); a star stencil (zeros inside the band), a dense
+# filter, t = 2 (the iterate carries them on), a stride and bf16
+def _mxu_nonfinite_cases():
+    sd = stencils.BENCHMARKS
+    s2 = ssam_stencil2d.plan_for
+    conv = ssam_conv2d.plan_for
+    return [
+        ("2d5pt", (70, 130), s2(sd["2d5pt"]), None, 1, None, "float32"),
+        ("2d9pt t=2", (70, 130), s2(sd["2d9pt"]), None, 2, None, "float32"),
+        ("conv 5x3", (70, 130), conv((5, 3), "same"), (5, 3), 1, None,
+         "float32"),
+        ("conv 5x5 stride 2", (70, 130), conv((5, 5), "same"), (5, 5), 1,
+         (2, 2), "float32"),
+        ("conv 7x7 bf16", (70, 130), conv((7, 7), "valid"), (7, 7), 1,
+         None, "bfloat16"),
+    ]
+
+
+@pytest.mark.parametrize("case", _mxu_nonfinite_cases(), ids=lambda c: c[0])
+def test_mxu_single_channel_nonfinite_input_reach(cuda, case):
+    """K2's single-channel path (Toeplitz tiles, whose zeros meet every
+    staged column of an entry's window) on an inf and a nan in x: its
+    non-finite outputs are exactly the plain version's, and every other
+    output equals the plain version's."""
+    _, shape, p, fshape, t, stride, dt = case
+    x = _grid(shape, cuda, 81)
+    x[31, 40] = float("inf")
+    x[50, 101] = float("nan")
+    x = x.to(getattr(torch, dt))
+    w = None if fshape is None else _grid(fshape, cuda, 82)
+    pl = dataclasses.replace(p, strategy="mxu", stride=stride)
+    got = engine.run_window_plan(x, w, plan=pl, time_steps=t).float()
+    want = engine.run_window_plan_reference(x, w, plan=pl,
+                                            time_steps=t).float()
     torch.cuda.synchronize()
-    t = torch.arange(T, device=cuda)
-    row = t - t % 8 - lead
-    reach = (row <= s) & (s <= row + 15)
     bad_got, bad_want = ~torch.isfinite(got), ~torch.isfinite(want)
-    assert bad_want[0, :, lane].any()
-    assert not (bad_want & ~bad_got).any()
-    assert not bad_got[0, ~reach, lane].any()
-    assert not torch.cat([bad_got[..., :lane], bad_got[..., lane + 1:]],
-                         -1).any()
-    ok = ~bad_got
-    _close(got[ok], want[ok])
+    assert bad_want.any()
+    assert torch.equal(bad_got, bad_want)
+    ok = ~bad_want
+    _close(got[ok], want[ok], 3e-5 if dt == "float32" else 3e-2)
 
 
 def test_conv1d_mxu_gradients_on_the_card_match_the_cpu(cuda, monkeypatch):
@@ -1310,3 +1351,79 @@ def test_grouped_conv2d(cuda, strategy, groups):
     want = torch.autograd.grad(yc, (xc, wc, bc), g.cpu())
     for a, e in zip(got, want):
         _close(a.cpu(), e, 1e-4)
+
+
+# Depthwise conv2d (groups == C_in == C_out): one K1 launch over the B·C
+# images, a filter per image; dx one K1 launch (a launch a phase when
+# strided), dW K3's launches: (B, C, H, W, filter, mode, stride, dtype).
+# C = 1024 at 7x7 holds more filters than a block's shared memory would.
+DEPTHWISE = [
+    (2, 8, 37, 70, (3, 3), "same", None, "float32"),
+    (2, 5, 30, 41, (5, 5), "valid", None, "float32"),
+    (3, 6, 33, 50, (3, 3), "same", (2, 2), "float32"),
+    (2, 4, 29, 61, (7, 7), "same", (1, 2), "float32"),
+    (1, 1024, 20, 24, (7, 7), "same", None, "float32"),
+    (2, 8, 37, 70, (3, 3), "same", None, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", DEPTHWISE, ids=lambda c: "x".join(
+    map(str, c[:4])) + f"-{c[4][0]}x{c[4][1]}-{c[5]}-{c[6]}-{c[7]}")
+def test_depthwise_conv2d_one_launch(cuda, case):
+    """Forward with bias+GELU+residual in one K1 launch; dx (K1), dW (K3,
+    ``launches_for`` its launches), the bias row's and the residual's
+    gradients; all against the CPU's (fp32 1e-4, bf16 3e-2)."""
+    B, C, H, W, (N, M), mode, stride, dt = case
+    dtype = getattr(torch, dt)
+    rtol = 1e-4 if dt == "float32" else 3e-2
+    x = _grid((B, C, H, W), cuda, 91).to(dtype).requires_grad_(True)
+    w = (_grid((C, 1, N, M), cuda, 92) / (N * M) ** 0.5).requires_grad_(True)
+    b = _grid((C,), cuda, 93).requires_grad_(True)
+    chain = ("bias", "gelu", "residual_add")
+    p = ops.depthwise_plan(tuple(x.shape), tuple(w.shape), groups=C,
+                           mode=mode, stride=stride, epilogue=chain)
+    assert p is not None and p.filters == C
+    out = (B, C) + p.out_shape((H, W))
+    r = _grid(out, cuda, 94).to(dtype).requires_grad_(True)
+    K1, K3 = engine.WINDOW_KERNEL, engine.WGRAD_KERNEL
+    before = K1.launches
+    y = ops.conv2d(x, w, groups=C, mode=mode, stride=stride,
+                   epilogue=chain, epilogue_args=(b, r))
+    assert K1.launches == before + 1 and y.dtype == dtype
+    g = _grid(out, cuda, 95).to(dtype)
+    k1, k3 = K1.launches, K3.launches
+    got = torch.autograd.grad(y, (x, w, b, r), g)
+    lin = dataclasses.replace(p, epilogue=())
+    phases = (sum(1 for ph in adjoint.strided_input_adjoint_phases(lin)
+                  if ph.plan is not None and all(ph.extent((H, W))))
+              if stride else 1)
+    assert K1.launches - k1 == 1 + phases       # recompute, then dx
+    assert K3.launches - k3 == K3.launches_for(
+        x.detach().reshape(B * C, H, W), g.reshape((B * C,) + out[2:]),
+        plan=lin)
+    xc, wc, bc, rc = (t.detach().cpu().float().requires_grad_(True)
+                      for t in (x, w, b, r))
+    yc = ops.conv2d(xc, wc, groups=C, mode=mode, stride=stride,
+                    epilogue=chain, epilogue_args=(bc, rc))
+    _close(y.detach().cpu().float(), yc.detach(), rtol)
+    want = torch.autograd.grad(yc, (xc, wc, bc, rc), g.cpu().float())
+    for a, e in zip(got, want):
+        _close(a.cpu().float(), e, rtol)
+
+
+def test_depthwise_launch_failure_raises(cuda, monkeypatch):
+    """A K1 launch that fails on the depthwise route raises; nothing
+    falls back to the per-group route or the plain version."""
+    x = _grid((2, 8, 20, 30), cuda, 96)
+    w = _grid((8, 1, 3, 3), cuda, 97)
+    lib = engine.WINDOW_KERNEL.library.get()
+    monkeypatch.setattr(lib, "ssam_window_launch", lambda *a: 1)
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version was reached")
+
+    monkeypatch.setattr(engine, "run_window_plan_reference", boom)
+    before = engine.WINDOW_KERNEL.launches
+    with pytest.raises(RuntimeError, match="K1 launch failed"):
+        ops.conv2d(x, w, groups=8)
+    assert engine.WINDOW_KERNEL.launches == before
