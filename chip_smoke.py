@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR]
 
-Eight paths. The first is the paper's experiment: the 15 Table-3
+Nine paths. The first is the paper's experiment: the 15 Table-3
 stencils at 8192² (2-D) and 512³ (3-D) in fp32, both schedule variants,
 t ∈ {1, 2}, one bf16 case, and 2-D convolution ('same' and 'valid') at
 8192² over the Fig. 4 filter sweep plus a (16, 2048, 2048) batched 5×5,
@@ -30,7 +30,9 @@ depthwise conv1d with ``strategy="mxu"``: forward and dx through K2's
 per-lane path (``csrc/ssam_mxu_perlane.cu``), dW through K4. The eighth
 trains rwkv6-1.6b at full width through ``repro_torch.launch.train``:
 its WKV runs forward through K5 in checkpointed chunks and backward
-through K5's λ-recurrence.
+through K5's λ-recurrence. The ninth runs fused plan pipelines
+(``ops.pipeline``): a chain of stencil or conv stages in one launch of
+K1's single-channel kernel, the intermediates kept in shared memory.
 Phases, one JSON line each:
 
 1. build: compile K1, K2, K3, K4 and K5 from ``src/repro_torch/csrc``
@@ -265,7 +267,26 @@ Phases, one JSON line each:
    bounds; one step on the host clock alone, then the next profiled
    (device only): device time, K5's and the copies' shares, and the
    card's idle share of that profiled step, over its own wall time and
-   over its trace's span.
+   over its trace's span;
+14. fused pipelines (``ops.pipeline``, K1's stage loop) at 8192² fp32:
+   (a) ``["2d5pt", "2d9pt", "2d5pt"]`` fused (1 K1 launch) and with
+   ``fuse=False`` (3), ``["2d5pt"] × 3`` equal to ``ops.stencil(
+   time_steps=3)``, the conv chain ``[(w5, gelu), (w3, bias), (w5,
+   residual_add)]``, ``["3d7pt", "3d27pt"]`` at 512³ and the 2-D chain on
+   bf16 input (fused and unfused, each against its own plain version),
+   each against the plain version on the card (fp32 3e-5, bf16 3e-2);
+   (b) the linear chain's gradient (1 K1 launch: the reversed chain) and
+   the conv chain's (6 K1 launches: the stages recomputed, dx a stage;
+   K3's ``launches_for`` each dense stage's dW) against torch autograd
+   through the plain version at 1e-4·max|leaf|; K1's and K3's counters,
+   zeroed before (a), equal the calls' launches; (c) device times of the
+   fused chain beside the unfused sequence, the byte bound and its share,
+   the plain version and the library yardstick (``F.pad`` once, then a
+   cuDNN call a stage with the same filters, TF32 off: three calls, no
+   single PyTorch call computes a chain), for the chain, its backward
+   launch, ``["2d5pt"] × 3`` beside ``time_steps=3``, the conv chain, the
+   3-D chain and bf16. The build line's K1 instantiations include the
+   chains' (``PIPELINE_CHAINS``).
 
 It exits non-zero if there is no card, if a build, launch or check fails,
 and when run outside a checkout of the repository. The full results go
@@ -365,6 +386,8 @@ WGRAD_ROWS_CASES = [
      "float32"),
 ]
 WGRAD_ROWS_HEADLINE = "K3 single-channel " + WGRAD_ROWS_CASES[0][0]
+PIPELINE_CHAINS = (("2d5pt", "2d9pt", "2d5pt"), ("3d7pt", "3d27pt"))
+PIPELINE_SIDE, PIPELINE_SIDE3 = 8192, 512   # phase 14's 2-D and 3-D sides
 COPY_BYTES = 1 << 30            # the bandwidth probe's copy: 1 GiB each way
 STEP_SHAPE = (8192, 8192)       # the op path's field (phase 8 (g))
 MXU_EDGE_CASES = REDUCE_EDGE_CASES + [
@@ -2975,6 +2998,275 @@ def rwkv6_train_phase(args, dev, card, results) -> dict:
             "timed": timed}
 
 
+def pipeline_phase(args, dev, card, results) -> dict:
+    """Phase 14: fused plan pipelines through K1's single-channel kernel,
+    a chain of stages in one launch, at full size: each case against the
+    plain version on the card, the launches counted (K1 and K3 zeroed
+    before the phase's main path and read after), the gradients against
+    torch autograd through the plain version, and the times beside the
+    byte bound, the unfused sequence, the plain version and the library
+    yardstick (``F.pad`` once, then a cuDNN call a stage with the stages'
+    filters, TF32 off: there is no single PyTorch call for a chain)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import convert
+    from repro_torch.core import adjoint, engine, fuse
+    from repro_torch.kernels import ops, stencils
+
+    K1, K3 = engine.WINDOW_KERNEL, engine.WGRAD_KERNEL
+    rng = np.random.default_rng(args.seed + 14)
+
+    def randn(*shape, scale=1.0):
+        return convert.from_numpy(
+            (scale * rng.standard_normal(shape)).astype(np.float32), dev)
+
+    def fused_plan(x, stages):
+        res = [ops._pipeline_stage_plan(x, d, i)
+               for i, d in enumerate(stages)]
+        return (fuse.fuse_plans(*[p for p, _ in res]),
+                tuple(w for _, w in res))
+
+    worst = {"K1": 0.0, "K3": 0.0, "grad": 0.0}
+    expected = {"K1": 0, "K3": 0}
+
+    def run(k1, k3, fn):
+        b1, b3 = K1.launches, K3.launches
+        out = fn()
+        torch.cuda.synchronize()
+        got = (K1.launches - b1, K3.launches - b3)
+        require(got == (k1, k3), ("phase 14 launches", got, (k1, k3)))
+        expected["K1"] += k1
+        expected["K3"] += k3
+        return out
+
+    def held(tag, y, plain, rtol):
+        worst["K1"] = max(worst["K1"], compare(
+            f"phase 14 {tag}", y, plain, rtol, results))
+
+    def grads_held(tag, got, want):
+        """Gradients at 1e-4·max|leaf| against autograd through the plain
+        version."""
+        for i, (a, e) in enumerate(zip(got, want)):
+            worst["grad"] = max(worst["grad"], compare(
+                f"phase 14 {tag} grad {i}", a, e, 1e-4, results))
+
+    chain5, chain3 = map(list, PIPELINE_CHAINS)
+    n, n3 = PIPELINE_SIDE, PIPELINE_SIDE3
+    x = randn(n, n)
+    cells = x.numel()
+    p5, w5s = fused_plan(x, chain5)
+    K1.launches = K3.launches = 0
+
+    # -- (a) the main path: forwards ------------------------------------
+    y = run(1, 0, lambda: ops.pipeline(x, chain5))
+    plain5 = engine.run_window_plan_reference(x, w5s, plan=p5)
+    held("2d5pt+2d9pt+2d5pt fused 8192^2", y, plain5, 3e-5)
+    yu = run(3, 0, lambda: ops.pipeline(x, chain5, fuse=False))
+    held("2d5pt+2d9pt+2d5pt unfused 8192^2", yu, plain5, 3e-5)
+    del y, yu
+    yh = run(1, 0, lambda: ops.pipeline(x, ["2d5pt"] * 3))
+    yt = run(1, 0, lambda: ops.stencil(x, "2d5pt", time_steps=3))
+    require(torch.equal(yh, yt), "2d5pt x 3 differs from time_steps=3")
+    del yh, yt
+    w5, w3 = randn(5, 5, scale=0.2), randn(3, 3, scale=1 / 3)
+    bias, r = torch.tensor([0.25], device=dev), randn(n, n)
+    conv = [(w5, "gelu"), (w3, "bias"), (w5, "residual_add")]
+    pc, wcs = fused_plan(x, conv)
+    yc = run(1, 0, lambda: ops.pipeline(x, conv, epilogue_args=(bias, r)))
+    plainc = engine.run_window_plan_reference(x, wcs, plan=pc,
+                                              epilogue_args=(bias, r))
+    held("conv 5x5 gelu + 3x3 bias + 5x5 residual fused 8192^2", yc, plainc,
+         3e-5)
+    del yc, plainc
+    x3 = randn(n3, n3, n3)
+    p3, w3s = fused_plan(x3, chain3)
+    y3 = run(1, 0, lambda: ops.pipeline(x3, chain3))
+    held("3d7pt+3d27pt fused 512^3", y3,
+         engine.run_window_plan_reference(x3, w3s, plan=p3), 3e-5)
+    del y3
+    xb = x.to(torch.bfloat16)
+    yb = run(1, 0, lambda: ops.pipeline(xb, chain5))
+    held("2d5pt+2d9pt+2d5pt fused bf16 8192^2", yb,
+         engine.run_window_plan_reference(xb, w5s, plan=p5), 3e-2)
+    ybu = run(3, 0, lambda: ops.pipeline(xb, chain5, fuse=False))
+    lead, trail = fuse.summed_lead_trail(p5.stages)
+    h = F.pad(xb, (lead[1], trail[1], lead[0], trail[0]))
+    for st in p5.stages:      # the unfused sequence's own plain version
+        h = engine.run_window_plan_reference(
+            h, plan=dataclasses.replace(st, lead=None, trail=None))
+    held("2d5pt+2d9pt+2d5pt unfused bf16 8192^2", ybu, h, 3e-2)
+    del yb, ybu, h, xb
+    torch.cuda.empty_cache()
+
+    # -- (b) the main path: gradients -----------------------------------
+    g = randn(n, n)
+    xg = x.clone().requires_grad_(True)
+    y = run(1, 0, lambda: ops.pipeline(xg, chain5))
+    (dx,) = run(1, 0, lambda: torch.autograd.grad(y, xg, g))
+    xr = x.clone().requires_grad_(True)
+    want = torch.autograd.grad(
+        engine.run_window_plan_reference(xr, w5s, plan=p5), xr, g)
+    grads_held("linear chain", (dx,), want)
+    del y, dx, want, xr
+    torch.cuda.empty_cache()
+    leaves = [t.clone().requires_grad_(True) for t in (x, w5, w3, bias, r)]
+    xl, w5l, w3l, bl, rl = leaves
+    conv_l = [(w5l, "gelu"), (w3l, "bias"), (w5l, "residual_add")]
+    y = run(1, 0, lambda: ops.pipeline(xl, conv_l, epilogue_args=(bl, rl)))
+    k3 = sum(K3.launches_for(h_, g_, plan=p_) for h_, g_, p_ in
+             _chain_wgrads(x, pc))
+    got = run(6, k3, lambda: torch.autograd.grad(y, leaves, g))
+    del y
+    torch.cuda.empty_cache()
+    ref_leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    xr, w5r, w3r, br, rr = ref_leaves
+    yr = engine.run_window_plan_reference(xr, (w5r, w3r, w5r), plan=pc,
+                                          epilogue_args=(br, rr))
+    want = torch.autograd.grad(yr, ref_leaves, g)
+    grads_held("conv chain", got, want)
+    del yr, want, got, ref_leaves, leaves, xl
+    torch.cuda.synchronize()
+    launches = {"K1": K1.launches, "K3": K3.launches}
+    emit({"phase": "pipeline_launches", **launches, "expected": expected})
+    require(launches == expected, ("phase 14 launches", launches, expected))
+    torch.cuda.empty_cache()
+
+    # -- (c) times ----------------------------------------------------------
+    rows = {}
+
+    def time_case(tag, fused, unfused, plain, lib, lib_label, bytes_, flops):
+        counts = (K1.launches, K3.launches)
+        b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / FP32_FLOPS * 1e3
+        rec = {"case": tag, "ms": device_ms(fused, SURFACE_REPS),
+               "unfused_ms": (device_ms(unfused, SURFACE_REPS)
+                              if unfused else None),
+               "plain_ms": event_ms(plain, 1),
+               "library_ms": event_ms(lib, SURFACE_REPS),
+               "library": lib_label,
+               "bound_ms": max(b_ms, f_ms),
+               "bound_by": "bytes" if b_ms >= f_ms else "operations",
+               "card": card}
+        rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+        K1.launches, K3.launches = counts
+        rows[tag] = rec
+        results["times"].append(rec)
+        emit({"phase": "time", **rec})
+        return rec
+
+    def flops(p, n):
+        return sum(2 * sum(len(s.taps) for s in st.steps) - 1
+                   for st in p.stages) * n
+
+    def lib_chain(xx, sds, pads_all):
+        """F.pad by the summed pads, then one valid cuDNN correlation a
+        stage."""
+        conv_fn = F.conv2d if xx.ndim == 2 else F.conv3d
+        flat = [v for lo_hi in reversed(pads_all) for v in lo_hi]
+        yy = F.pad(xx[None, None], flat)
+        for wt in sds:
+            yy = conv_fn(yy, wt[None, None])
+        return yy[0, 0]
+
+    def lib_of(names):
+        wts = [dense_filter(stencils.BENCHMARKS[n], dev) for n in names]
+        pads = [tuple(sum(p[a][i] for _, p in wts) for i in (0, 1))
+                for a in range(len(wts[0][1]))]
+        return [w for w, _ in wts], pads
+
+    wt5, pads5 = lib_of(chain5)
+    headline = time_case(
+        "2d5pt+2d9pt+2d5pt fp32 8192^2",
+        lambda: ops.pipeline(x, chain5),
+        lambda: ops.pipeline(x, chain5, fuse=False),
+        lambda: engine.run_window_plan_reference(x, w5s, plan=p5),
+        lambda: lib_chain(x, wt5, pads5), "F.pad + 3 x F.conv2d (3 calls)",
+        2 * cells * 4, flops(p5, cells))
+    ap5 = adjoint.input_adjoint_plan(p5)
+    time_case(
+        "2d5pt+2d9pt+2d5pt backward (one launch of the reversed chain) "
+        "fp32 8192^2",
+        lambda: engine.run_window_plan(g, (None,) * 3, plan=ap5),
+        None,
+        lambda: engine.run_window_plan_reference(g, (None,) * 3, plan=ap5),
+        lambda: lib_chain(g, [torch.flip(w, (0, 1)) for w in wt5[::-1]],
+                          [tuple(reversed(pd)) for pd in pads5]),
+        "F.pad + 3 x F.conv2d (3 calls)", 2 * cells * 4, flops(ap5, cells))
+    time_case(
+        "2d5pt x 3 (time_steps=3 beside) fp32 8192^2",
+        lambda: ops.pipeline(x, ["2d5pt"] * 3),
+        lambda: ops.stencil(x, "2d5pt", time_steps=3),
+        lambda: engine.run_window_plan_reference(
+            x, (None,) * 3, plan=fused_plan(x, ["2d5pt"] * 3)[0]),
+        lambda: library_padded(x, *dense_filter(
+            stencils.BENCHMARKS["2d5pt"], dev), 3),
+        "F.pad + 3 x F.conv2d (3 calls)", 2 * cells * 4,
+        flops(fused_plan(x, ["2d5pt"] * 3)[0], cells))
+    (ly, lx), (ty, tx) = fuse.summed_lead_trail(pc.stages)
+
+    def lib_conv():
+        yy = F.pad(x[None, None], [lx, tx, ly, ty])
+        yy = F.gelu(F.conv2d(yy, w5[None, None]), approximate="tanh")
+        yy = F.conv2d(yy, w3[None, None]) + bias
+        return F.conv2d(yy, w5[None, None])[0, 0] + r
+
+    time_case(
+        "conv 5x5 gelu + 3x3 bias + 5x5 residual fp32 8192^2",
+        lambda: ops.pipeline(x, conv, epilogue_args=(bias, r)),
+        lambda: ops.pipeline(x, conv, fuse=False, epilogue_args=(bias, r)),
+        lambda: engine.run_window_plan_reference(x, wcs, plan=pc,
+                                                 epilogue_args=(bias, r)),
+        lib_conv, "F.pad + 3 x F.conv2d + the elementwise ops",
+        3 * cells * 4, flops(pc, cells))
+    wt3, pads3 = lib_of(chain3)
+    time_case(
+        "3d7pt+3d27pt fp32 512^3",
+        lambda: ops.pipeline(x3, chain3),
+        lambda: ops.pipeline(x3, chain3, fuse=False),
+        lambda: engine.run_window_plan_reference(x3, w3s, plan=p3),
+        lambda: lib_chain(x3, wt3, pads3), "F.pad + 2 x F.conv3d (2 calls)",
+        2 * x3.numel() * 4, flops(p3, x3.numel()))
+    xb = x.to(torch.bfloat16)
+    time_case(
+        "2d5pt+2d9pt+2d5pt bf16 8192^2",
+        lambda: ops.pipeline(xb, chain5),
+        lambda: ops.pipeline(xb, chain5, fuse=False),
+        lambda: engine.run_window_plan_reference(xb, w5s, plan=p5),
+        lambda: lib_chain(xb, [w.to(torch.bfloat16) for w in wt5], pads5),
+        "F.pad + 3 x F.conv2d (3 calls, bf16)", 2 * cells * 2,
+        flops(p5, cells))
+    return {"launches": launches, "worst": worst, "rows": rows,
+            "headline": headline}
+
+
+def _chain_wgrads(x, plan):
+    """``(h, g, plan)`` shapes of each dW a fused chain's backward runs:
+    the 'valid' stage plans on the pad-once intermediates (empty tensors
+    on x's device, for ``launches_for``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import fuse
+
+    lead, trail = fuse.summed_lead_trail(plan.stages)
+    cur = tuple(n + l + t for n, l, t in zip(x.shape, lead, trail))
+    out = []
+    for st in plan.stages:
+        nxt = tuple(n - e + 1 for n, e in zip(cur, st.exts))
+        if st.coeff_mode == "dense":
+            out.append((torch.empty(cur, device=x.device),
+                        torch.empty(nxt, device=x.device),
+                        dataclasses.replace(st, lead=None, trail=None,
+                                            epilogue=())))
+        cur = nxt
+    return out
+
+
 def first_loss_parity(cfg, ds, dev, seed, card, results) -> dict:
     """The first step's loss of whisper-base with the stem on K2 (``cfg``)
     and on K1 (the same config with ``conv_strategy=None``), on the same
@@ -3172,7 +3464,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch import _build, convert
-    from repro_torch.core import engine
+    from repro_torch.core import engine, fuse
     from repro_torch.kernels import ops, ref, ssam_conv2d, stencils
     from repro_torch.kernels import ssam_stencil2d, ssam_stencil3d
 
@@ -3295,28 +3587,33 @@ def main() -> int:
     k1_plans = [stencil_plan(sd) for sd in stencils.BENCHMARKS.values()] + [
         ssam_conv2d.plan_for((k, k), "same") for k in CONV_SIZES] + [
         dataclasses.replace(ssam_conv2d.plan_for((5, 5), mode), stride=st)
-        for mode, st in SURFACE_STRIDES]
+        for mode, st in SURFACE_STRIDES] + [
+        fuse.fuse_plans(*[stencil_plan(stencils.BENCHMARKS[n])
+                          for n in chain])
+        for chain in PIPELINE_CHAINS + (("2d5pt",) * 3,)]
     k1_used = sorted({
-        (engine.window_rows(p),
-         p.depth if p.ndim_spatial == 3 else 1, engine.window_p(p),
+        (engine.window_rows(p), engine.window_inst(p)[0],
+         engine.window_p(p),
          512 if p.ndim_spatial == 3 else 256,
-         int(any(v > 1 for v in p.stride_per_axis()))) for p in k1_plans})
+         int(any(v > 1 for v in p.stride_per_axis())), int(bool(p.stages)))
+        for p in k1_plans})
     k1_regs = ptxas_entries(
         _build.LIBRARY.ptxas_log,
-        r".*window_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi\d+ELb(\d)E")
+        r".*window_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi\d+ELb(\d)ELb(\d)E")
     k1_build = {}
-    for n, d, pr, threads, s in k1_used:
-        key = f"{n}x{d}x{pr}x{s}"
+    for n, d, pr, threads, s, ch in k1_used:
+        key = f"{n}x{d}x{pr}x{s}x{ch}"
         k1_build[key] = {**k1_regs.get(key, {}), "sass": sass_counts(
             str(_build.LIBRARY.path),
-            f"window_kernelILi{n}ELi{d}ELi{pr}ELi{threads}ELb{s}E",
+            f"window_kernelILi{n}ELi{d}ELi{pr}ELi{threads}ELb{s}ELb{ch}E",
             ("UTMALDG", "LDGSTS", "SHFL", "FFMA", "BRX"))}
     results["build"]["window_single_channel"] = k1_build
     emit({"phase": "build_k1", "instantiations": k1_build, "card": card})
     for key, rec in k1_build.items():
         require("registers" in rec and rec["spill_store_bytes"] == 0
                 and (rec["sass"] is None or rec["sass"]["UTMALDG"] > 0),
-                (f"K1 single-channel kernel {key} (N x D x P x strided) "
+                (f"K1 single-channel kernel {key} (N x D x P x strided x "
+                 "chain) "
                  "spills or "
                  "has no TMA load", rec))
 
@@ -3492,6 +3789,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     marks.append(("13 train rwkv6-1.6b", time.perf_counter()))
     rw = rwkv6_train_phase(args, dev, card, results)
+    torch.cuda.empty_cache()
+    marks.append(("14 fused pipelines", time.perf_counter()))
+    pipe = pipeline_phase(args, dev, card, results)
     marks.append(("end", time.perf_counter()))
     results["phase_seconds"] = {name: t1 - t0 for (name, t0), (_, t1)
                                 in zip(marks, marks[1:])}
@@ -3534,7 +3834,14 @@ def main() -> int:
                       **_row(hy["timed"]["K1 linear"]),
                       "parent_ms": hy["timed"]["K1 linear"]["parent_ms"]}},
         "surface": _surface(surf, "K1"),
-        "depthwise": _depthwise(surf, "K1")},
+        "depthwise": _depthwise(surf, "K1"),
+        "pipeline": {"launches": pipe["launches"]["K1"],
+                     "max_abs_err": pipe["worst"]["K1"],
+                     "grad_max_abs_err": pipe["worst"]["grad"],
+                     "cases": {tag: {**_row(rec),
+                                     "unfused_ms": rec["unfused_ms"],
+                                     "library": rec["library"]}
+                               for tag, rec in pipe["rows"].items()}}},
         {
         "name": K5.name, "route": "cuda", "source": K5.source,
         "replaces": K5.replaces, "launches": served["k5_launches"],
@@ -3571,7 +3878,8 @@ def main() -> int:
             "cases": {tag: {**_row(r), "parent_ms": r["parent_ms"]}
                       for tag, r in k3r["rows"].items()}},
         "surface": _surface(surf, "K3"),
-        "depthwise": _depthwise(surf, "K3")},
+        "depthwise": _depthwise(surf, "K3"),
+        "pipeline": {"launches": pipe["launches"]["K3"]}},
         {
         "name": K2.name, "route": "cuda", "source": K2.source,
         "replaces": K2.replaces, "launches": mxu["train_launches"],

@@ -138,7 +138,8 @@ class Library:
             ctypes.c_float)
         # the epilogue: bias, residual, ops, values, count
         epi = [p, p, ints, floats, i]
-        lib.ssam_window_launch.argtypes = [p, p, i, p, p, ints, i] + epi + [p]
+        lib.ssam_window_launch.argtypes = ([p, p, i, p, p, ints, i, ints, i]
+                                            + epi + [p])
         lib.ssam_window_launch.restype = i
         lib.ssam_scan_launch.argtypes = [p] * 5 + [i] * 4 + [p]
         lib.ssam_scan_launch.restype = i

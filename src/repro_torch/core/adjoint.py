@@ -108,7 +108,10 @@ def input_adjoint_plan(plan: SystolicPlan) -> SystolicPlan:
     plan=input_adjoint_plan(p))`` computes ``∂L/∂x`` of
     ``y = run_window_plan(x, w, plan=p)`` given the cotangent ``g``. The
     adjoint is of the linear part only: any epilogue is stripped (the ops
-    layer differentiates it at the recomputed pre-activation).
+    layer differentiates it at the recomputed pre-activation). A fused
+    pipeline transposes to the reversed chain of its stage adjoints, again
+    a fused plan, so a linear chain differentiates through one fused
+    backward launch.
     """
     if plan.combine != "fma":
         raise ValueError(
@@ -121,9 +124,14 @@ def input_adjoint_plan(plan: SystolicPlan) -> SystolicPlan:
             "which is not a windowed plan; the ops layer dilates the "
             "cotangent and transposes the stride-free plan instead")
     if plan.stages:
-        raise NotImplementedError(
-            "the adjoint of a fused pipeline is the reversed chain of stage "
-            "adjoints, which needs core/fuse.py (ROADMAP Queue 1 item 7)")
+        # (P_k ∘ … ∘ P_1)ᵀ = P_1ᵀ ∘ … ∘ P_kᵀ, itself a fused plan. Stage
+        # strategies ride unchanged; one pinned only on the composite is
+        # pushed down, so the transposed chain stays on the same lowering
+        from .fuse import fuse_plans
+        return fuse_plans(*[
+            input_adjoint_plan(dataclasses.replace(
+                s, epilogue=(), strategy=s.strategy or plan.strategy))
+            for s in reversed(plan.stages)])
     exts = plan.exts
     reflected = [
         (tuple(e - 1 - o for e, o in zip(exts, off)), cid)
@@ -200,9 +208,10 @@ def strided_input_adjoint_phases(plan: SystolicPlan) -> tuple[AdjointPhase, ...]
         raise ValueError("strided_input_adjoint_phases takes 2-D windowed "
                          f"plans, got {plan.kind!r}")
     if plan.stages:
-        raise NotImplementedError(
-            "the adjoint of a fused pipeline is the reversed chain of stage "
-            "adjoints, which needs core/fuse.py (ROADMAP Queue 1 item 7)")
+        raise ValueError(
+            "a fused pipeline has no strided input adjoint: fuse_plans "
+            "refuses output-strided stages, so a chain is never strided "
+            "(its adjoint is input_adjoint_plan's reversed chain)")
     stride = plan.stride_per_axis()
     (ly, lx), _ = plan.lead_trail()
     sh, sw = stride

@@ -6,8 +6,10 @@ each a CUDA kernel beside its plain version.
 optionally a filter per image (a depthwise conv2d), NCHW convolution with
 a channel reduction, and depthwise (per-lane) conv1d;
 an output stride on 2-D plans, and a fused epilogue, ``residual_add``
-included, on all of them) over an input whose lane axis is last. The tensor's
-device decides how:
+included, on all of them; a fused pipeline of single-channel stages,
+:func:`repro_torch.core.fuse.fuse_plans`, one application of each stage
+in the block with the mid-chain epilogues between them) over an input
+whose lane axis is last. The tensor's device decides how:
 
 * a CUDA tensor launches K1, the hand-written kernel in
   ``csrc/ssam_window*.cu`` (it replaces the JAX package's
@@ -53,6 +55,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import struct
 
 import torch
 import torch.nn.functional as F
@@ -60,8 +63,10 @@ import torch.nn.functional as F
 from .. import _build
 from . import adjoint
 from .adjoint import apply_epilogue
+from .fuse import stage_epilogue_args
 from .halo import origin_pads
-from .plan import EPILOGUE_OPERANDS, SystolicPlan, epilogue_operand_stages
+from .plan import (EPILOGUE_OPERANDS, SystolicPlan,
+                   chain_epilogue_operand_stages, epilogue_operand_stages)
 
 VARIANTS = ("shift_psum", "shift_data")
 STRATEGIES = (None, "lanes", "mxu")
@@ -86,8 +91,6 @@ def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
     if reduce and (plan.reduce_axes, plan.out_axes) != (1, 1):
         todo.append("reduce/out axes other than one of each (ROADMAP "
                     "Queue 1 item 4; no ops.* call reaches it)")
-    if plan.stages:
-        todo.append("fused stages (ROADMAP Queue 1 item 7)")
     perlane = plan.coeff_mode == "perlane"
     if perlane and time_steps != 1:
         todo.append("temporal blocking of per-lane plans (ROADMAP Queue 1 "
@@ -95,6 +98,8 @@ def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
     if plan.combine != "fma":
         raise ValueError(f"{plan.kind!r} plan has combine={plan.combine!r}: "
                          "scan plans run through run_scan_plan")
+    if plan.stages:
+        _check_chain(plan, time_steps)
     if todo:
         raise NotImplementedError(
             f"{plan.kind!r} plan: {', '.join(todo)} not ported yet")
@@ -136,6 +141,28 @@ def check_supported(plan: SystolicPlan, time_steps: int, variant: str) -> None:
                          "strategy (K1)")
 
 
+def _check_chain(plan: SystolicPlan, time_steps: int) -> None:
+    """A fused pipeline (:func:`repro_torch.core.fuse.fuse_plans`) as the
+    engine runs it: single-channel windowed stages with table or dense
+    coefficients, no stride, one application (the chain is the fusion)."""
+    if time_steps != 1:
+        raise ValueError("a fused pipeline already is the fusion: it takes "
+                         f"time_steps=1, got {time_steps}")
+    for i, st in enumerate(plan.stages):
+        if (st.stages or st.combine != "fma" or _is_reduce(st)
+                or st.coeff_mode not in ("table", "dense")
+                or any(v > 1 for v in st.stride_per_axis())
+                or st.filters > 1 or st.ndim_spatial != plan.ndim_spatial
+                or st.batch_axes != plan.batch_axes):
+            raise ValueError(
+                f"{plan.kind!r}: stage {i} ({st.kind!r}) is not a stage "
+                "fuse_plans builds (single-channel windowed, table or dense "
+                "coefficients, no stride, the chain's batch and rank)")
+        if st.strategy not in STRATEGIES:
+            raise ValueError(f"unknown lowering strategy {st.strategy!r} "
+                             f"on stage {i}: expected one of {STRATEGIES}")
+
+
 def _out_dims(plan: SystolicPlan, x, w, time_steps: int = 1) -> tuple:
     """The output's shape: x's batch axes, C_out for reduce plans, then
     the windowed axes of :meth:`SystolicPlan.out_shape`."""
@@ -152,6 +179,8 @@ def _check_operands(plan: SystolicPlan, x, w, epilogue_args,
     are the filters), per lane (per-lane plans) or a scalar (any other
     plan), a residual shaped exactly like the output (the reference's
     ``_check_epilogue_operands``)."""
+    if plan.stages:
+        return _check_chain_operands(plan, x, w, epilogue_args)
     if plan.coeff_mode in ("dense", "perlane") and w is None:
         raise ValueError(f"a {plan.coeff_mode} plan needs its filter w")
     need = epilogue_operand_stages(plan.epilogue)
@@ -205,6 +234,44 @@ def _check_operands(plan: SystolicPlan, x, w, epilogue_args,
             raise ValueError(
                 f"bias epilogue wants a scalar for {plan.kind!r} plans (no "
                 f"channel axis), got shape {shape}")
+
+
+def _check_chain_operands(plan: SystolicPlan, x, w, epilogue_args) -> None:
+    """A fused pipeline's operands: ``w`` one entry a stage (the stage's
+    ``(N, M)`` filter for a 'dense' stage, None for a 'table' one), the
+    epilogue operands in chain order (mid-chain biases scalars, the final
+    stage's checked as that stage's own against the same-shaped
+    output)."""
+    n = len(plan.stages)
+    if not isinstance(w, (tuple, list)) or len(w) != n:
+        raise ValueError(
+            f"{plan.kind!r}: a fused pipeline takes w as a tuple of {n} "
+            "entries, one a stage (a filter for a 'dense' stage, None for "
+            f"a 'table' one), got {type(w).__name__}")
+    for i, (st, ws) in enumerate(zip(plan.stages, w)):
+        if st.coeff_mode == "table" and ws is not None:
+            raise ValueError(f"stage {i} ({st.kind!r}) has table "
+                             "coefficients and takes no filter")
+        if st.coeff_mode == "dense" and (
+                ws is None or tuple(ws.shape) != st.exts):
+            raise ValueError(
+                f"stage {i} ({st.kind!r}) takes an {st.exts} filter, got "
+                f"{None if ws is None else tuple(ws.shape)}")
+    need = chain_epilogue_operand_stages(plan)
+    if len(epilogue_args) != len(need):
+        raise ValueError(
+            f"the chain's epilogues need {len(need)} runtime operand(s) "
+            f"({[s.op for s in need]}, chain order), got "
+            f"{len(epilogue_args)}")
+    splits = stage_epilogue_args(plan.stages, epilogue_args)
+    for i, (st, args) in enumerate(zip(plan.stages[:-1], splits)):
+        for e, arr in zip(epilogue_operand_stages(st.epilogue), args):
+            if e.op != "bias" or arr.numel() != 1:
+                raise ValueError(
+                    f"stage {i} ({st.kind!r}): mid-chain epilogue operands "
+                    "are scalar biases (a residual is final-only), got "
+                    f"{e.op} of shape {tuple(arr.shape)}")
+    _check_operands(plan.stages[-1], x, w[-1], splits[-1])
 
 
 def _geometry(plan, x_shape, block, time_steps):
@@ -418,6 +485,28 @@ def apply_plan_mxu(xb: torch.Tensor, plan: SystolicPlan, w) -> torch.Tensor:
     return acc
 
 
+def _apply_stages(blocks: torch.Tensor, plan: SystolicPlan, w, variant: str,
+                  epilogue_args) -> torch.Tensor:
+    """The reference's stage loop (``_window_kernel``, lines 388-408) on
+    overlapped blocks: one valid application of each of ``plan.stages``
+    (:func:`apply_plan_once`, or :func:`apply_plan_mxu` where the stage,
+    or else the chain, is pinned to mxu), each stage's mid-chain epilogue
+    applied to the whole block between stages (pad-once: halo positions
+    outside the domain included). The final stage's epilogue is left to
+    the flush."""
+    splits = stage_epilogue_args(plan.stages, epilogue_args)
+    last = len(plan.stages) - 1
+    for i, (st, ws) in enumerate(zip(plan.stages, w)):
+        if (st.strategy or plan.strategy) == "mxu":
+            blocks = apply_plan_mxu(blocks, st, ws)
+        else:
+            blocks = apply_plan_once(blocks, st, ws, variant)
+        if i < last and st.epilogue:
+            blocks = apply_epilogue(
+                st, blocks, [a.reshape(()) for a in splits[i]])
+    return blocks
+
+
 def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                               block=None, time_steps: int = 1,
                               variant: str = "shift_psum",
@@ -434,6 +523,10 @@ def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     fp32 (fp64 for fp64 inputs); returns ``x``'s dtype. A plan whose
     ``strategy`` is ``'mxu'`` applies :func:`apply_plan_mxu` instead (the
     plain version of K2; ``variant`` is then moot, as in the reference).
+    A fused pipeline (``plan.stages``; ``w`` a tuple, one entry a stage)
+    pads once by the summed leads and trails and runs :func:`_apply_stages`
+    on the blocks, the intermediates in fp32; the final stage's epilogue
+    is applied once after the crop.
     """
     check_supported(plan, time_steps, variant)
     _check_operands(plan, x, w, epilogue_args, time_steps)
@@ -466,7 +559,9 @@ def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
         # blocks (images, gh, gw, rows, cols)
         w = w.repeat(x.shape[0] // plan.filters, 1, 1).reshape(
             (x.shape[0],) + (1,) * (2 * nd) + tuple(w.shape[1:]))
-    for _ in range(t):
+    if plan.stages:
+        blocks = _apply_stages(blocks, plan, w, variant, epilogue_args)
+    for _ in range(0 if plan.stages else t):
         if plan.strategy == "mxu":
             blocks = apply_plan_mxu(blocks, plan, w)
         else:
@@ -479,7 +574,10 @@ def run_window_plan_reference(x: torch.Tensor, w=None, *, plan: SystolicPlan,
         tuple(blocks.shape[:lead_out])
         + tuple(gi * bi for gi, bi in zip(g, B)))
     out = out[(slice(None),) * lead_out + tuple(slice(0, o) for o in out_sp)]
-    if plan.epilogue:
+    if plan.stages and plan.final_epilogue():
+        out = apply_epilogue(plan.stages[-1], out, stage_epilogue_args(
+            plan.stages, epilogue_args)[-1])
+    elif plan.epilogue:
         out = apply_epilogue(plan, out, epilogue_args)
     if squeeze:
         out = out[0]
@@ -543,7 +641,9 @@ def _check_kernel_operands(kernel: str, x, w, plan: SystolicPlan) -> None:
         raise ValueError(f"{kernel} takes a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{kernel} takes float32 or bfloat16, got {x.dtype}")
-    if plan.coeff_mode in ("dense", "perlane") and w.device != x.device:
+    ws = (w if plan.stages else (w,)
+          if plan.coeff_mode in ("dense", "perlane") else ())
+    if any(f is not None and f.device != x.device for f in ws):
         raise ValueError(f"a {plan.coeff_mode} plan takes its filter w on "
                          "the same device as x")
 
@@ -613,7 +713,8 @@ def _phase_launches(run, g, wa, plan: SystolicPlan, in_spatial):
 class WindowKernel:
     """Wrapper of K1. ``launches`` counts the kernel launches it made:
     one per call, on the single-channel path (``ssam_window_launch``; a
-    depthwise conv's images with a filter each included) and on the
+    depthwise conv's images with a filter each, and a fused pipeline's
+    whole chain of stages, included) and on the
     channel-reduce path (``ssam_window_reduce_launch``) alike, a
     fused epilogue or residual included; a strided reduce plan's input
     adjoint (:meth:`adjoint_phases`) is one launch for all its phases, a
@@ -642,13 +743,22 @@ class WindowKernel:
     def _single(self, x, w, plan, block, t, variant, epilogue_args, *,
                 out=None, out_sp=None, offset=0, oaddr=None):
         """The single-channel path (``ssam_window.cuh``): one launch,
-        strided or not, with a filter per image or not, the epilogue at
-        the store. ``out``, ``out_sp``,
+        strided or not, with a filter per image or not, a fused pipeline's
+        stages one after another in the tile (:func:`chain_table`, the
+        mid-chain epilogues on the iterates), the epilogue at the store.
+        ``out``, ``out_sp``,
         ``offset`` and ``oaddr`` (the output step) store a crop of the
         plan's output into a caller's tensor (an adjoint phase)."""
-        table = tap_table(plan, None if w is None else tuple(w.shape[-2:]))
-        ints, cvals = _device_table(table, x.device)
-        if plan.coeff_mode == "dense":
+        if plan.stages:
+            ints = _device_ints(chain_table(plan).table.ints(), x.device)
+            cvals = chain_coefficients(plan, w, epilogue_args, x.device)
+            epilogue_args = stage_epilogue_args(plan.stages,
+                                                epilogue_args)[-1]
+        else:
+            table = tap_table(plan, None if w is None
+                              else tuple(w.shape[-2:]))
+            ints, cvals = _device_table(table, x.device)
+        if plan.coeff_mode == "dense" and not plan.stages:
             # a filter per image: the filters one after another, a tile's
             # records rewritten from its image's
             cvals = w.detach().to(torch.float32).contiguous()
@@ -659,12 +769,14 @@ class WindowKernel:
         xt, pitch = _tma_operand(x)
         lay = window_layout(plan, head, tile, t, x.element_size(), pitch,
                             variant, oaddr, _filter_size(plan, w))
-        epi = _epilogue_codes(plan, epilogue_args, x.device, x.dtype)
+        epi = _epilogue_codes(plan.stages[-1] if plan.stages else plan,
+                              epilogue_args, x.device, x.dtype)
         err = self.library.get().ssam_window_launch(
             xt.data_ptr(), out.data_ptr() + offset * x.element_size(),
             int(x.dtype == torch.bfloat16), cvals.data_ptr(),
             ints.data_ptr(), (ctypes.c_int * len(lay.geom))(*lay.geom),
-            len(lay.geom), *epi.args(),
+            len(lay.geom), (ctypes.c_int * len(lay.chain))(*lay.chain),
+            len(lay.chain), *epi.args(),
             torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"K1 launch failed: CUDA error {err} "
@@ -1316,6 +1428,8 @@ WINDOW_MAX_STAGES = 3
 WINDOW_SMEM_TARGET = H100_SM_SMEM // 2 - 1024   # two blocks an SM
 TMA_ALIGN = 16                    # bytes: TMA's base, row pitch and box start
 TMA_MAX_BOX = 256                 # elements of a TMA box along one axis
+WINDOW_MAX_STEPS = 32             # column steps of a launch (kMaxSteps)
+WINDOW_MAX_MID = 16               # mid-chain epilogue ops of a launch (kMaxMid)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1345,7 +1459,28 @@ class TapTable:
 def tap_table_refusal(plan: SystolicPlan) -> str | None:
     """Why K1's single-channel kernel cannot hold ``plan``'s footprint
     (:func:`tap_table` raises it), or None: a pure function of the plan,
-    so a route can be chosen before anything launches."""
+    so a route can be chosen before anything launches. A fused pipeline
+    needs each stage to fit, all its column steps to fit one launch's
+    :data:`WINDOW_MAX_STEPS` records, its tap slots :data:`TABLE_SLOTS`
+    and its mid-chain epilogue ops :data:`WINDOW_MAX_MID`."""
+    if plan.stages:
+        for i, st in enumerate(plan.stages):
+            why = tap_table_refusal(st)
+            if why:
+                return f"stage {i} ({st.kind}): {why}"
+        steps = sum(len(st.steps) for st in plan.stages)
+        if steps > WINDOW_MAX_STEPS:
+            return (f"the chain has {steps} column steps, K1 holds "
+                    f"{WINDOW_MAX_STEPS} a launch")
+        slots = sum(len(st.steps) * st.N * (st.depth if st.ndim_spatial == 3
+                                            else 1) for st in plan.stages)
+        if slots > TABLE_SLOTS:
+            return f"the chain has {slots} tap slots, K1 holds {TABLE_SLOTS}"
+        mid = sum(len(st.epilogue) for st in plan.stages[:-1])
+        if mid > WINDOW_MAX_MID:
+            return (f"the chain has {mid} mid-chain epilogue ops, K1 holds "
+                    f"{WINDOW_MAX_MID}")
+        return None
     nd = plan.ndim_spatial
     D = plan.depth if nd == 3 else 1
     N, steps = plan.N, len(plan.steps)
@@ -1355,7 +1490,7 @@ def tap_table_refusal(plan: SystolicPlan) -> str | None:
                 f"footprint, got {D}x{N}")
     if N > 32:
         return f"K1 builds plans of up to 32 rows, got N={N}"
-    if reach + 1 != plan.M or plan.M > WARP or steps > WARP:
+    if reach + 1 != plan.M or plan.M > WARP or steps > WINDOW_MAX_STEPS:
         return (f"K1 maps the lane axis onto one {WARP}-lane warp: the "
                 f"plan's column steps (shift total {reach}, M={plan.M}, "
                 f"{steps} steps) must fit in it")
@@ -1365,15 +1500,19 @@ def tap_table_refusal(plan: SystolicPlan) -> str | None:
 
 
 @functools.lru_cache(maxsize=256)
-def tap_table(plan: SystolicPlan, w_shape) -> TapTable:
+def tap_table(plan: SystolicPlan, w_shape, inst=None) -> TapTable:
     """K1's :class:`TapTable` of ``plan`` against a filter of shape
-    ``w_shape`` (one filter's, for a plan with a filter per image)."""
+    ``w_shape`` (one filter's, for a plan with a filter per image), its
+    slots ``dz·N + row`` counted in the ``(D, N)`` of the instantiation
+    ``inst`` that runs it (default the plan's own: a stage of a chain
+    runs in the chain's, :func:`window_inst`)."""
     refusal = tap_table_refusal(plan)
     if refusal:
         raise ValueError(refusal)
     nd = plan.ndim_spatial
     D = plan.depth if nd == 3 else 1
     N = plan.N
+    D_i, N_i = inst or (D, N)
     sh = plan.stride_per_axis()[0]
     strided = _strided(plan)
     slots, cidx = [], []
@@ -1383,7 +1522,7 @@ def tap_table(plan: SystolicPlan, w_shape) -> TapTable:
             if not (0 <= tap.row_offset < N and 0 <= tap.z_offset < D):
                 raise ValueError(f"tap {tap} lies outside the footprint")
             slot = (((tap.row_offset % sh) << 8) | tap.row_offset // sh
-                    if strided else tap.z_offset * N + tap.row_offset)
+                    if strided else tap.z_offset * N_i + tap.row_offset)
             if slot in taps:
                 raise ValueError(f"two taps of step {m} read the same "
                                  f"cell {tap}")
@@ -1404,21 +1543,126 @@ def tap_table(plan: SystolicPlan, w_shape) -> TapTable:
         for slot in sorted(taps):
             slots.append(slot)
             cidx.append(taps[slot])
-    return TapTable(tap_steps(plan), tuple(slots), tuple(cidx), plan.coeffs)
+    return TapTable(tap_steps(plan, inst), tuple(slots), tuple(cidx),
+                    plan.coeffs)
 
 
-def tap_steps(plan: SystolicPlan) -> tuple[tuple[int, int, int, int], ...]:
+def tap_steps(plan: SystolicPlan, inst=None
+              ) -> tuple[tuple[int, int, int, int], ...]:
     """The step records ``(shift, first, count, dense)`` of
-    :func:`tap_table`, which depend on the plan's taps only."""
+    :func:`tap_table`, which depend on the plan's taps only: a step is
+    dense where its taps fill every slot of the instantiation ``inst``
+    (default the plan's own ``(D, N)``)."""
     nd = plan.ndim_spatial
-    D = plan.depth if nd == 3 else 1
+    D_i, N_i = inst or (plan.depth if nd == 3 else 1, plan.N)
     out, first = [], 0
     for step in plan.steps:
         n = len({(t.z_offset, t.row_offset) for t in step.taps})
         out.append((step.shift, first, n,
-                    int(n == D * plan.N and not _strided(plan))))
+                    int(n == D_i * N_i and not _strided(plan))))
         first += n
     return tuple(out)
+
+
+# The chain instantiations' rows (csrc/ssam_window_chain_2d.cu) and 3-D rows
+# and slices (ssam_window_chain_3d.cu): a chain runs the first at or above
+# its largest stage's.
+WINDOW_CHAIN_ROWS = (1, 2, 3, 4, 5, 7, 9, 11, 13, 17, 21, 25, 32)
+WINDOW_CHAIN_3D = (3, 5)
+
+
+def window_inst(plan: SystolicPlan) -> tuple[int, int]:
+    """``(D, N)`` of the K1 single-channel instantiation whose register
+    cache holds ``plan``'s footprint: the plan's own, or for a fused
+    pipeline the first of the chain instantiations at or above its largest
+    stage's (a stage with fewer rows or slices loads the instantiation's
+    and its taps read its own)."""
+    nd = plan.ndim_spatial
+    if not plan.stages:
+        return (plan.depth if nd == 3 else 1, plan.N)
+    D = max(p.depth if nd == 3 else 1 for p in plan.stages)
+    N = max(p.N for p in plan.stages)
+    if nd == 2:
+        return 1, next(r for r in WINDOW_CHAIN_ROWS if r >= N)
+    return tuple(next(r for r in WINDOW_CHAIN_3D if r >= v) for v in (D, N))
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainTable:
+    """K1's tables of a fused pipeline: ``table`` the stages' tap tables
+    one after another (step records' ``first`` and the coefficient indices
+    offset into the concatenations), ``records`` one ``(first_step, steps,
+    N | D << 8 | M << 16, mid)`` a stage (``mid`` ``first | count << 8``
+    of its mid-chain epilogue ops, 0 for none), ``mid`` the ops ``(code,
+    value, index)`` (``index`` the bias's place in the coefficient array,
+    −1 for other ops), that array holding each stage's immediates or its
+    filter flattened, then the mid-chain biases in chain order
+    (:func:`chain_coefficients`)."""
+
+    table: TapTable
+    records: tuple[tuple[int, int, int, int], ...]
+    mid: tuple[tuple[int, float, int], ...]
+
+
+def _stage_record(plan: SystolicPlan, first: int, steps: int,
+                  mid: int = 0) -> tuple[int, int, int, int]:
+    D = plan.depth if plan.ndim_spatial == 3 else 1
+    return (first, steps, plan.N | D << 8 | plan.M << 16, mid)
+
+
+@functools.lru_cache(maxsize=256)
+def chain_table(plan: SystolicPlan) -> ChainTable:
+    """The :class:`ChainTable` of a fused pipeline. A chain K1 cannot hold
+    (:func:`tap_table_refusal`) raises ``NotImplementedError`` naming the
+    limit: the CUDA kernel never runs it unfused or on the plain
+    version."""
+    why = tap_table_refusal(plan)
+    if why:
+        raise NotImplementedError(
+            f"{plan.kind!r}: {why}; a chain beyond K1's single-channel "
+            "limits is not ported (ROADMAP Queue 2, K1)")
+    inst = window_inst(plan)
+    steps, slots, cidx, records, mid = [], [], [], [], []
+    off = 0
+    for st in plan.stages:
+        dense = st.coeff_mode == "dense"
+        tt = tap_table(st, st.exts if dense else None, inst)
+        ntaps = len(slots)
+        records.append((len(steps), len(tt.steps)))
+        steps += [(sh, f + ntaps, n, d) for sh, f, n, d in tt.steps]
+        slots += tt.slots
+        cidx += [off + c for c in tt.cidx]
+        off += math.prod(st.exts) if dense else len(st.coeffs)
+    recs = []
+    for i, st in enumerate(plan.stages):
+        ops_ = st.epilogue if i < len(plan.stages) - 1 else ()
+        first = len(mid)
+        for e in ops_:
+            idx = -1
+            if e.op == "bias":
+                idx = off
+                off += 1
+            mid.append((EPILOGUE_CODES[e.op], float(e.value or 0.0), idx))
+        recs.append(_stage_record(st, *records[i],
+                                  first | len(ops_) << 8 if ops_ else 0))
+    return ChainTable(TapTable(tuple(steps), tuple(slots), tuple(cidx), None),
+                      tuple(recs), tuple(mid))
+
+
+def chain_coefficients(plan: SystolicPlan, w, epilogue_args,
+                       device) -> torch.Tensor:
+    """The fp32 coefficient array a fused pipeline's launch reads (on
+    ``device``): each stage's immediates or filter, then the mid-chain
+    biases, as :class:`ChainTable` lays them out."""
+    parts = []
+    for st, ws in zip(plan.stages, w):
+        parts.append(_device_floats(st.coeffs, device)
+                     if st.coeff_mode == "table"
+                     else ws.detach().to(torch.float32).reshape(-1))
+    splits = stage_epilogue_args(plan.stages, epilogue_args)
+    parts += [a.detach().to(device=device, dtype=torch.float32).reshape(-1)
+              for args in splits[:-1] for a in args]
+    return torch.cat(parts)
 
 
 def _strided(plan: SystolicPlan) -> bool:
@@ -1450,7 +1694,10 @@ class WindowLayout:
     even iterates: the last application writes the output tile into the
     even buffer), the tap table, the barriers and the slack the register
     cache's discarded rows read past the last buffer: ``smem`` bytes.
-    ``geom`` is what the C entry takes."""
+    ``geom`` and ``chain`` are what the C entry takes: ``chain`` the
+    applications' records (``(records, N, D, mid ops)`` of the
+    instantiation, then :class:`ChainTable`'s records and mid-chain ops;
+    a plan that is no chain one record its ``t`` applications repeat)."""
 
     tile: tuple[int, int, int]
     tiles: tuple[int, int, int, int]
@@ -1463,6 +1710,7 @@ class WindowLayout:
     blocks_per_sm: int
     grid: int
     geom: tuple[int, ...]
+    chain: tuple[int, ...]
 
     @property
     def ntiles(self) -> int:
@@ -1496,7 +1744,7 @@ def window_rows(plan: SystolicPlan) -> int:
     up to :data:`WINDOW_STRIDED_EXACT`, else
     :data:`WINDOW_STRIDED_BUCKET`."""
     if not _strided(plan):
-        return plan.N
+        return window_inst(plan)[1]
     n = -(-plan.N // plan.stride_per_axis()[0])
     return n if n <= WINDOW_STRIDED_EXACT else WINDOW_STRIDED_BUCKET
 
@@ -1508,12 +1756,17 @@ def window_p(plan: SystolicPlan) -> int:
     16 for wider ones; 16 for 3-D plans whose register cache then holds at
     most 54 values (``D·(N + 15) ≤ 54``: the 3×3 footprints), else 8. An
     output-strided plan's instantiation (:func:`window_rows`) holds 16,
-    8 in the one of 32 rows."""
+    8 in the one of 32 rows. A fused pipeline runs the instantiation of
+    its largest stage (:func:`window_inst`) from the chain tables
+    (``csrc/ssam_window_chain_{2d,3d}.cu``): 2-D as above, 3-D 8."""
     if _strided(plan):
         return 16 if window_rows(plan) <= 16 else 8
+    D, N = window_inst(plan)
     if plan.ndim_spatial == 2:
-        return 32 if plan.N <= 13 else 16
-    return 16 if plan.depth * (plan.N + 15) <= 54 else 8
+        return 32 if N <= 13 else 16
+    if plan.stages:         # csrc/ssam_window_chain_3d.cu
+        return 8
+    return 16 if D * (N + 15) <= 54 else 8
 
 
 def _xblock(sz: int, sy: int, box_x: int, elem_bytes: int) -> int:
@@ -1553,19 +1806,43 @@ def _window_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
     elems = nbx * _xblock(nbz * box_z, nby * box_y, box_x, elem_bytes)
     stage_bytes = _round_up(elems * elem_bytes, 128)
 
-    def tile_words(j):
-        return (bz + j * (D - 1)) * (bh + j * (N - 1)) * (bw + j * (M - 1))
+    apps = _applications(plan, t)
+
+    def tile_words(j):      # the iterate with j applications after it
+        grow = [sum(e[a] - 1 for e in apps[len(apps) - j:]) if j else 0
+                for a in range(3)]
+        return (bz + grow[0]) * (bh + grow[1]) * (bw + grow[2])
 
     c0 = _round_up(elems, 4) if elem_bytes == 2 else 0
-    odd = max((tile_words(j) for j in range(1, t, 2)), default=0)
-    even = max(tile_words(j) for j in range(0, t, 2))
+    odd = max((tile_words(j) for j in range(1, len(apps), 2)), default=0)
+    even = max(tile_words(j) for j in range(0, len(apps), 2))
     bufs = (c0, _round_up(odd, 4), _round_up(even, 4))
-    taps = sum(len(s.taps) for s in plan.steps)
+    taps = sum(len(s.taps) for p in plan.stages or (plan,) for s in p.steps)
     table = 8 * (taps + 1) + 8 * WINDOW_MAX_STAGES
-    slack = 4 * window_p(plan) * nbx * box_x
+    slack = 4 * _slack_rows(plan) * nbx * box_x
     smem = (128 + stages * stage_bytes + 4 * sum(bufs) + table + slack)
     return ((box_z, box_y, box_x), (nbz, nby, nbx), stage_bytes, bufs,
             _round_up(smem, 16))
+
+
+def _applications(plan: SystolicPlan, t: int) -> list[tuple[int, int, int]]:
+    """``(D, N, M)`` of each application a K1 single-channel tile runs:
+    a fused pipeline's stages in order, else the plan ``t`` times."""
+    nd = plan.ndim_spatial
+    return [(p.depth if nd == 3 else 1, p.N, p.M)
+            for p in plan.stages or (plan,) * t]
+
+
+def _slack_rows(plan: SystolicPlan) -> int:
+    """Rows of a source's pitch that the register cache may read past its
+    last row (their outputs discarded): ``P − 1`` for the last row item,
+    and the instantiation's rows beyond the stage's own (a stage of a
+    chain with fewer rows than the largest), one more to spare."""
+    P = window_p(plan)
+    if _strided(plan):
+        return P
+    N_i = window_inst(plan)[1]
+    return P + N_i - min(p.N for p in plan.stages or (plan,))
 
 
 def _filter_size(plan: SystolicPlan, w) -> int:
@@ -1609,8 +1886,12 @@ def window_layout(plan: SystolicPlan, head, tile, t: int,
     bps = max(1, min(WINDOW_BLOCKS_PER_SM[nd],
                      H100_SM_SMEM // (smem + 1024)))
     grid = min(ntiles, bps * H100_SMS)
-    ntaps = sum(len(s.taps) for s in plan.steps)
-    geom = (nd, D, plan.N, plan.M, len(plan.steps), ntaps, t,
+    ct = chain_table(plan) if plan.stages else None
+    steps = ct.table.steps if ct else tap_steps(plan)
+    records = ct.records if ct else (_stage_record(plan, 0, len(steps)),)
+    mid = ct.mid if ct else ()
+    ntaps = sum(st[2] for st in steps)
+    geom = (nd, D, plan.N, plan.M, len(steps), ntaps, t,
             VARIANTS.index(variant), batch, zin, hin, win,
             pitch or tma_pitch(win, elem_bytes),
             zo, ho, wo, lz, ly, lx, bz, bh, bw,
@@ -1618,9 +1899,17 @@ def window_layout(plan: SystolicPlan, head, tile, t: int,
             stages, stage_bytes, *bufs, smem, grid, plan.filters,
             filter_size, *plan.stride_per_axis()[-2:],
             *(oaddr or _dense_oaddr(head))
-            ) + tuple(v for st in tap_steps(plan) for v in st)
+            ) + tuple(v for st in steps for v in st)
+    chain = ((len(records), *reversed(window_inst(plan)), len(mid))
+             + tuple(v for r in records for v in r)
+             + tuple(v for op, val, idx in mid
+                     for v in (op, _float_bits(val), idx)))
     return WindowLayout(tile, tiles, box, boxes, stage_bytes, stages,
-                        bufs, smem, bps, grid, geom)
+                        bufs, smem, bps, grid, geom, chain)
+
+
+def _float_bits(v: float) -> int:
+    return int.from_bytes(struct.pack("<f", v), "little", signed=True)
 
 
 def smem_bytes(plan: SystolicPlan, block, time_steps: int) -> int:
@@ -1640,7 +1929,7 @@ def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
     mxu plan takes K2's tile (:func:`_mxu_block`). (The reduce paths tile
     their output themselves: K1 128 channels x 1 row x 64-128 columns, K2
     128 or 256 channels x 1 row x 128 or 64 columns.)"""
-    if plan.strategy == "mxu":
+    if plan.strategy == "mxu" and not plan.stages:
         return _mxu_block(plan, time_steps)
     need, limit = smem_bytes, SMEM_LIMIT
     V = max(1, WARP - (plan.M - 1))
@@ -1695,21 +1984,26 @@ def _tma_box(xm: torch.Tensor, win: int, b: int, corner, box) -> torch.Tensor:
 
 
 def _emulate_apply(src: torch.Tensor, addr, ext, table: TapTable, coef,
-                   plan: SystolicPlan, variant: str, P: int) -> torch.Tensor:
+                   variant: str, P: int, inst, rec, mid=()) -> torch.Tensor:
     """One application of ``ssam_window.cuh::apply_once`` on the emulated
     shared memory ``src`` (flat fp32; NaN past the source, where the
-    kernel reads whatever lies there): the warp items of ``V = 33 − M``
-    valid lanes and ``P`` rows (every slice at once), the register cache
-    read through ``addr (pitch, plane, bw, bstride, shift)`` with the
-    lane's column clamped to the source's last, the compacted column
-    steps with 32-lane shuffles, the valid lanes written once each to a
-    dense ``(zs−D+1, hs−N+1, ws−M+1)`` result."""
+    kernel reads whatever lies there): the application's record ``rec``
+    (``(first_step, steps, N | D << 8 | M << 16, mid)``, its own footprint)
+    in the instantiation ``inst`` ``(D, N)`` (its register cache of ``D``
+    slices, clamped to the source's last, by ``N + P − 1`` rows), the warp
+    items of ``V = 33 − M`` valid lanes and ``P`` rows (every slice at
+    once), the cache read through ``addr (pitch, plane, bw, bstride,
+    shift)`` with the lane's column clamped to the source's last, the
+    compacted column steps with 32-lane shuffles, the mid-chain ops
+    ``mid`` (``(code, value, bias)``) on the sums, the valid lanes written
+    once each to a dense ``(zs−D+1, hs−N+1, ws−M+1)`` result."""
     pitch, plane, bw, bstride, shift = addr
     zs, hs, ws = ext
-    nd = plan.ndim_spatial
-    D = plan.depth if nd == 3 else 1
-    N, M = plan.N, plan.M
-    C = N + P - 1
+    D_i, N_i = inst
+    first, nsteps, geo, _ = rec
+    N, D, M = geo & 255, (geo >> 8) & 255, geo >> 16
+    assert N <= N_i and D <= D_i
+    C = N_i + P - 1
     V = WARP - (M - 1)
     zd, hd, wd = zs - (D - 1), hs - (N - 1), ws - (M - 1)
     nwc, nyc = -(-wd // V), -(-hd // P)
@@ -1718,26 +2012,29 @@ def _emulate_apply(src: torch.Tensor, addr, ext, table: TapTable, coef,
     sc = col.clamp(max=ws - 1) + shift
     cbase = (sc // bw) * bstride + sc % bw
     rows = torch.arange(nyc)[:, None] * P + torch.arange(C)  # (nyc, C)
-    zz = torch.arange(zd)[:, None] + torch.arange(D)         # (zd, D)
+    zz = (torch.arange(zd)[:, None] + torch.arange(D_i)).clamp(max=zs - 1)
     addr = (zz[:, :, None, None, None, None] * plane
             + rows[None, None, None, :, :, None] * pitch
             + cbase[None, None, :, None, None, :])
-    assert int(addr.max()) < src.numel()
-    c = src[addr]                                # (zd, D, nwc, nyc, C, 32)
+    assert int(addr.max()) < src.numel(), "a read leaves the source"
+    c = src[addr]                              # (zd, D_i, nwc, nyc, C, 32)
     s = c.new_zeros((zd, nwc, nyc, P, WARP))
     cum = 0
-    for shift_m, first, count, dense in table.steps:
+    for shift_m, f, count, dense in table.steps[first:first + nsteps]:
         cum += shift_m
         if variant == "shift_psum":
             s = _shfl_up(s, shift_m)
         if dense:
-            assert table.slots[first:first + count] == tuple(range(D * N))
-        for k in range(first, first + count):
-            dz, r = divmod(table.slots[k], N)
+            assert table.slots[f:f + count] == tuple(range(D_i * N_i))
+        for k in range(f, f + count):
+            dz, r = divmod(table.slots[k], N_i)
+            assert dz < D and r < N, "a tap lies outside its stage"
             v = c[:, dz, :, :, r:r + P, :]
             if variant == "shift_data":
                 v = _shfl_down(v, cum)
             s = s + v * coef[k]
+    for code, val, b in mid:
+        s = _epilogue_op(code, val, b, s)
     if variant == "shift_psum":
         oc, ok_lane = col - (M - 1), lane >= M - 1
     else:
@@ -1752,6 +2049,22 @@ def _emulate_apply(src: torch.Tensor, addr, ext, table: TapTable, coef,
     assert bool((hits == 1).all()), "an output is not written exactly once"
     dst[:, oy, ox] = s[:, idx[0], idx[1], idx[2], idx[3]]
     return dst
+
+
+def _epilogue_op(code: int, val: float, bias, v: torch.Tensor) -> torch.Tensor:
+    """``ssam_epilogue.cuh::apply_epilogue_op`` of one code on fp32 ``v``
+    (``bias`` the scalar the op adds, for code 1)."""
+    if code == EPILOGUE_CODES["bias"]:
+        return v + bias
+    if code == EPILOGUE_CODES["gelu"]:
+        return F.gelu(v, approximate="tanh")
+    if code == EPILOGUE_CODES["silu"]:
+        return F.silu(v)
+    if code == EPILOGUE_CODES["relu"]:
+        return torch.clamp_min(v, 0)
+    if code == EPILOGUE_CODES["scale"]:
+        return v * val
+    raise ValueError(f"epilogue code {code} is no mid-chain op")
 
 
 def _emulate_strided(src: torch.Tensor, addr, hs: int, out_ext,
@@ -1830,7 +2143,12 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     output-strided plan's one :func:`_emulate_strided`) and the output
     tile stored from it through the epilogue (:func:`_tile_epilogue`);
     with a filter per image, a tile's tap records and bias its image's
-    filter's. Returns ``x``'s shape and dtype."""
+    filter's. A fused pipeline walks its stages as the kernel does
+    (:func:`chain_table`: each application its stage's records, shrinking
+    by its footprint, in the instantiation of :func:`window_inst`, its
+    mid-chain ops applied to the sums before the iterate is written; the
+    coefficients and mid-chain biases read from
+    :func:`chain_coefficients`). Returns ``x``'s shape and dtype."""
     check_supported(plan, time_steps, variant)
     _check_operands(plan, x, w, epilogue_args, time_steps)
     if _is_reduce(plan) or plan.coeff_mode == "perlane" \
@@ -1841,10 +2159,28 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     D = plan.depth if nd == 3 else 1
     N, M = plan.N, plan.M
     P = window_p(plan)
-    table = tap_table(plan, None if w is None else tuple(w.shape[-2:]))
-    cvals = (torch.tensor(plan.coeffs, dtype=torch.float32)
-             if plan.coeff_mode == "table"
-             else w.detach().to(torch.float32)).reshape(plan.filters, -1)
+    inst = window_inst(plan)
+    lay_chain = None
+    if plan.stages:
+        ct = chain_table(plan)
+        table = ct.table
+        cvals = chain_coefficients(plan, w, epilogue_args,
+                                   x.device).cpu()[None]
+        records = ct.records
+        mids = [[(code, val, cvals[0, i] if i >= 0 else None)
+                 for code, val, i in ct.mid[(r[3] & 255):
+                                            (r[3] & 255) + (r[3] >> 8)]]
+                for r in records]
+        epi_plan = plan.stages[-1]
+        epilogue_args = stage_epilogue_args(plan.stages, epilogue_args)[-1]
+    else:
+        table = tap_table(plan, None if w is None else tuple(w.shape[-2:]))
+        cvals = (torch.tensor(plan.coeffs, dtype=torch.float32)
+                 if plan.coeff_mode == "table"
+                 else w.detach().to(torch.float32)).reshape(plan.filters, -1)
+        records = (_stage_record(plan, 0, len(table.steps)),) * t
+        mids = [()] * t
+        epi_plan = plan
     # the tap records' coefficients of each filter: a tile of image b
     # holds filter b mod filters'
     coefs = cvals[:, list(table.cidx)]
@@ -1855,16 +2191,18 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     lay = window_layout(plan, head, tile, t, es, pitch, variant,
                         filter_size=_filter_size(plan, w))
     assert lay.smem <= SMEM_LIMIT
+    assert lay.chain[:4] == (len(records) if plan.stages else 1, inst[1],
+                             inst[0], sum(len(m) for m in mids))
     xm = xt.reshape(batch, zin, hin, pitch)
     out4 = out.reshape(batch, zo, ho, wo)
     resid = next((a.reshape(batch, zo, ho, wo) for st, a in zip(
-        epilogue_operand_stages(plan.epilogue), epilogue_args)
+        epilogue_operand_stages(epi_plan.epilogue), epilogue_args)
         if st.op == "residual_add"), None)
     sh, sw = plan.stride_per_axis()[-2:]
     (box_z, box_y, box_x), (nbz, nby, nbx) = lay.box, lay.boxes
     sz, sy = lay.staged
     bstride = _xblock(sz, sy, box_x, es)
-    slack = torch.full((P * nbx * box_x + WARP,), float("nan"))
+    slack = torch.full((_slack_rows(plan) * nbx * box_x,), float("nan"))
     done = torch.zeros(lay.ntiles, dtype=torch.int64)
     for g in range(lay.grid):
         mine = list(range(g, lay.ntiles, lay.grid))
@@ -1901,9 +2239,9 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                 ext, t_left = (1, ty, tx), 0
             else:
                 t_left = t
-            for k in range(t_left):
-                dst = _emulate_apply(src, addr, ext, table, coef, plan,
-                                     variant, P)
+            for k in range(t_left and len(records)):
+                dst = _emulate_apply(src, addr, ext, table, coef, variant,
+                                     P, inst, records[k], mids[k])
                 if k == 0:      # the stage is read: refill it
                     nxt = i + lay.stages
                     ring[s] = mine[nxt] if nxt < len(mine) else None
@@ -1912,7 +2250,7 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                 src = torch.cat([dst.flatten(), slack])
             assert ext == (tz, ty, tx)
             out4[b, oz0:oz0 + tz, oy0:oy0 + ty, ox0:ox0 + tx] = \
-                _tile_epilogue(plan, dst, epilogue_args, resid, b,
+                _tile_epilogue(epi_plan, dst, epilogue_args, resid, b,
                                (oz0, oy0, ox0))
             done[tile_no] += 1
     assert bool((done == 1).all()), "a tile is not walked exactly once"
@@ -2612,6 +2950,12 @@ class MxuKernel:
 
     def __call__(self, x: torch.Tensor, w, *, plan: SystolicPlan, block,
                  time_steps: int, epilogue_args=()) -> torch.Tensor:
+        if plan.stages:
+            raise NotImplementedError(
+                f"{plan.kind!r}: K2 with fused stages (a chain pinned to "
+                "strategy='mxu') is not ported (ROADMAP Queue 1 item 7, its "
+                "K2 half); the CPU runs its plain version, the card K1's "
+                "chain on the lanes strategy")
         _check_kernel_operands("K2", x, w, plan)
         if plan.strategy != "mxu":
             raise ValueError(f"K2 runs mxu plans, got strategy="

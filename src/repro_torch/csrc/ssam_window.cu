@@ -12,17 +12,25 @@
 //   output's step, elements),
 // then the steps' records (shift, first tap, taps, dense), 4 ints each;
 // `table` on the card holds the records too, then the taps' slots and
-// coefficient indices (into one filter of `cvals`). The epilogue: epi_ops
+// coefficient indices (into one filter of `cvals`). `chain` holds
+// core/engine.py::WindowLayout.chain: nchain, N and D of the instantiation,
+// nmid, then nchain records (first step, steps, N | D << 8 | M << 16, mid
+// ops first | count << 8), then nmid ops (code, value's float bits, index
+// of a bias in `cvals` or -1); a plan that is no chain has one record, run
+// t times, a chain's t is 1. The epilogue: epi_ops
 // and epi_vals host arrays of kMaxEpi entries, `bias` a scalar, or one a
 // filter, on the card (or null), `resid` the
 // residual in the output's dtype and dense layout (or null).
 // Returns a cudaError_t, or kTmaError + the CUresult where the tensor map
 // cannot be encoded.
+#include <string.h>
+
 #include "ssam_window.cuh"
 
 extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
                                   const float* cvals, const int* table,
                                   const int* geom, int ngeom,
+                                  const int* chain, int nchain_ints,
                                   const float* bias, const void* resid,
                                   const int* epi_ops, const float* epi_vals,
                                   int n_epi, void* stream) {
@@ -90,6 +98,44 @@ extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
     const int* r = geom + kGeomInts + 4 * (m < a.steps ? m : 0);
     a.step[m] = make_int4(r[0], r[1], r[2], r[3]);
   }
+  if (nchain_ints < 4) return (int)cudaErrorInvalidValue;
+  a.nchain = chain[0];
+  a.inst_n = chain[1];
+  a.inst_d = chain[2];
+  const int nmid = chain[3];
+  if (a.nchain < 1 || a.nchain > kMaxChain || nmid < 0 || nmid > kMaxMid ||
+      nchain_ints != 4 + 4 * a.nchain + 3 * nmid ||
+      (a.nchain > 1 && a.t != 1))
+    return (int)cudaErrorInvalidValue;
+  // the records: steps in range, footprints within the instantiation, the
+  // applications' shrinkage the staged extent's
+  int grow_n = 0, grow_m = 0, grow_d = 0;
+  for (int k = 0; k < kMaxChain; ++k) {
+    const int* r = chain + 4 + 4 * (k < a.nchain ? k : 0);
+    a.chain[k] = make_int4(r[0], r[1], r[2], r[3]);
+    if (k >= a.nchain) continue;
+    const int n = r[2] & 255, d = (r[2] >> 8) & 255, m = r[2] >> 16;
+    const int e0 = r[3] & 255, ne = r[3] >> 8;
+    if (r[0] < 0 || r[1] < 1 || r[0] + r[1] > a.steps || n < 1 ||
+        n > a.inst_n || d < 1 || d > a.inst_d || m < 1 || m > kWarp ||
+        e0 + ne > nmid)
+      return (int)cudaErrorInvalidValue;
+    grow_n += n - 1;
+    grow_m += m - 1;
+    grow_d += d - 1;
+  }
+  if (grow_n != a.N - 1 || grow_m != a.M - 1 || grow_d != a.D - 1)
+    return (int)cudaErrorInvalidValue;
+  for (int e = 0; e < kMaxMid; ++e) {
+    const int* r = chain + 4 + 4 * a.nchain + 3 * (e < nmid ? e : 0);
+    a.mid_op[e] = e < nmid ? r[0] : 0;
+    float v = 0.f;
+    if (e < nmid) memcpy(&v, &r[1], sizeof v);
+    a.mid_val[e] = v;
+    a.mid_bias[e] = e < nmid ? r[2] : -1;
+    if (e < nmid && (r[0] < 1 || r[0] > 5 || (r[0] == 1 && r[2] < 0)))
+      return (int)cudaErrorInvalidValue;
+  }
   a.sy = a.nby * a.box_y;
   a.sz = a.nbz * a.box_z;
   const int es = io_bf16 ? 2 : 4;
@@ -101,9 +147,14 @@ extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
                            a.tiles_x;
   a.ntiles = (int)ntiles;
   const bool strided = a.sh != 1 || a.sw != 1;
-  const int nt = strided ? (a.N + a.sh - 1) / a.sh : a.N;  // cache rows
-  KernelFn fn = a.ndim == 3 ? (strided ? nullptr : pick_3d(a.N, a.D))
+  // cache rows: a chain's largest stage's
+  const int nt = strided ? (a.N + a.sh - 1) / a.sh : a.inst_n;
+  const bool fused = a.nchain > 1;
+  KernelFn fn = a.ndim == 3 ? (strided  ? nullptr
+                               : fused  ? pick_chain_3d(nt, a.inst_d)
+                                        : pick_3d(nt, a.inst_d))
                 : strided   ? pick_2d_strided(nt)
+                : fused     ? pick_chain_2d(nt)
                 : nt <= 16  ? pick_2d_narrow(nt)
                             : pick_2d_wide(nt);
   const long long box_bytes =
@@ -117,7 +168,8 @@ extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
       a.box_x < 1 || a.box_x > 256 || a.box_y < 1 || a.box_y > 256 ||
       a.box_z < 1 || a.box_z > 256 || (a.box_x * es) % 16 ||
       (a.nbz > 1 && a.nby > 1 && a.box_z > 1) ||
-      a.sh < 1 || a.sw < 1 || (strided && a.t != 1) || a.o_col < 1 ||
+      a.sh < 1 || a.sw < 1 || (strided && (a.t != 1 || a.nchain != 1)) ||
+      a.o_col < 1 || (a.ndim == 2 && a.inst_d != 1) ||
       a.filters < 1 || a.batch % a.filters ||
       (a.filters > 1 && a.fsz < 1) ||
       a.sy < a.sh * (a.bh - 1) + 1 + a.t * (a.N - 1) ||

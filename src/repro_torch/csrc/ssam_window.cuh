@@ -10,7 +10,10 @@
 // image (a depthwise conv2d over its B * C images), an output stride on
 // 2-D plans (one application), and the fused epilogue of
 // _apply_epilogue_val (scalar or per-filter bias, GELU, SiLU, ReLU, scale,
-// residual) applied once to the fp32 sum after the last application.
+// residual) applied once to the fp32 sum after the last application, and
+// fused pipelines (core/fuse.py: a chain of stages, each its own taps and
+// footprint, one application each in the tile, mid-chain epilogues on the
+// iterates).
 //
 // Bound on an H100: the Table-3 stencils up to 2d64pt, the 3-D ones but
 // 3d125pt, and filters up to 7 x 7 are bound by bytes, each input element
@@ -79,6 +82,22 @@
 //  * t > 1: every application but the last writes its iterate, fp32, to
 //    one of two shared buffers (ping-pong); the iterate is not re-zeroed at
 //    the domain edge (pad-once semantics of ref.stencil_iterate).
+//  * A fused pipeline generalizes that loop: application k runs stage k's
+//    record (its first column step and step count, its N, D and M, its
+//    mid-chain epilogue ops), walks that stage's step records and taps, and
+//    shrinks the extents by its own footprint. The intermediate stays fp32
+//    in the ping-pong buffers and never reaches HBM. Stage k's mid-chain
+//    ops (scalar bias, GELU, SiLU, ReLU, scale) are applied to the sums
+//    before the iterate is written, at every position the tile computes,
+//    halo positions outside the domain included (the reference's pad-once
+//    chain). The instantiation is the largest stage's N and D: a stage
+//    with fewer rows loads the instantiation's N + P - 1 rows (the wrapper
+//    sizes the slack past the buffers for them) and its taps read its
+//    own; slices past the source's last are clamped to it. Chains run
+//    instantiations of their own (Ch), 3-D ones at P = 8, so that the
+//    records' registers cost the plans that are no chain nothing (with
+//    them the 3 x 3 x 3 cache at P = 16 spills). A plan that is no chain
+//    is one record its t applications repeat (the launch checks it).
 //  * 3-D plans walk Z inside the thread: the register cache rolls one slice
 //    per output slice. Where a tile's row and column items are too few for
 //    the warps, Z is split into chunks.
@@ -136,6 +155,8 @@ constexpr int kWarp = 32;
 constexpr int kThreads2d = 256;  // two blocks share an SM (launch bounds)
 constexpr int kThreads3d = 512;  // one block an SM
 constexpr int kMaxSteps = 32;
+constexpr int kMaxChain = 32;  // applications' records (a stage has a step)
+constexpr int kMaxMid = 16;    // mid-chain epilogue ops of a chain
 constexpr int kMaxTaps = 1024;
 constexpr int kMaxStages = 3;
 constexpr int kGeomInts = 43;  // core/engine.py::WindowLayout.geom
@@ -151,6 +172,14 @@ struct WindowArgs {
   int filters, fsz;    // image b takes filter b % filters (and its bias)
   int ndim, D, N, M, steps, ntaps, t, variant;
   int4 step[kMaxSteps];  // the step records, read uniformly from here
+  // one record a chain's stage (a plan that is no chain: one record, run
+  // t times): (first step, steps, N | D << 8 | M << 16, mid-chain ops
+  // first | count << 8, 0 for none)
+  int4 chain[kMaxChain];
+  int nchain, inst_n, inst_d;
+  int mid_op[kMaxMid];   // mid-chain ops (codes of ssam_epilogue.cuh)
+  float mid_val[kMaxMid];
+  int mid_bias[kMaxMid];  // a bias op's value: cvals[mid_bias]
   int batch, zo, ho, wo;
   int lz, ly, lx;      // t * lead per axis: input index of output 0 is -lead
   int bz, bh, bw;      // output tile
@@ -292,17 +321,39 @@ __device__ __forceinline__ void step_taps(float (&c)[D][N + P - 1],
   }
 }
 
-// One valid application of the plan on a source of extent (zs, hs, ws).
-// The result, (zs-D+1, hs-N+1, ws-M+1), is written densely to dst.
-template <int N, int D, int P, int T>
+// Stage k's mid-chain ops on the P sums a thread holds (rec: its record's
+// first | count << 8), each op dispatched once for the P values.
+template <int P>
+__device__ __forceinline__ void mid_epilogue(const WindowArgs& a, int rec,
+                                             float (&s)[P]) {
+  const int e0 = rec & 255, e1 = e0 + (rec >> 8);
+  for (int e = e0; e < e1; ++e) {
+    const float val = a.mid_val[e];
+    switch (a.mid_op[e]) {
+      case 1: epilogue_each<1, P>(s, val, a.cvals[a.mid_bias[e]]); break;
+      case 2: epilogue_each<2, P>(s, val, 0.f); break;
+      case 3: epilogue_each<3, P>(s, val, 0.f); break;
+      case 4: epilogue_each<4, P>(s, val, 0.f); break;
+      case 5: epilogue_each<5, P>(s, val, 0.f); break;
+    }
+  }
+}
+
+// One valid application of the plan (Ch: of a chain's stage, the record
+// rec's: its steps, its footprint Nk x Mk, Dk slices; N and D are then the
+// instantiation's, at least those) on a source of extent (zs, hs, ws). The
+// result, (zs-Dk+1, hs-Nk+1, ws-Mk+1), is written densely to dst, the
+// stage's mid-chain ops applied first.
+template <int N, int D, int P, int T, bool Ch>
 __device__ __forceinline__ void apply_once(const WindowArgs& a, const Src& src,
                                            int zs, int hs, int ws, float* dst,
-                                           const int2* taps) {
+                                           const int2* taps, int4 rec) {
   constexpr int C = N + P - 1;
   constexpr int kWarps = T / kWarp;
-  const int M = a.M;
+  const int Nk = Ch ? rec.z & 255 : N, Dk = Ch ? (rec.z >> 8) & 255 : D;
+  const int M = Ch ? rec.z >> 16 : a.M;
   const int V = kWarp - (M - 1);
-  const int zd = zs - (D - 1), hd = hs - (N - 1), wd = ws - (M - 1);
+  const int zd = zs - (Dk - 1), hd = hs - (Nk - 1), wd = ws - (M - 1);
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int nwc = (wd + V - 1) / V;
   const int nyc = (hd + P - 1) / P;
@@ -328,27 +379,33 @@ __device__ __forceinline__ void apply_once(const WindowArgs& a, const Src& src,
     const float* p0 = src.p + xoff + y0 * src.pitch;
     float c[D][C];
     // slices zb .. zb + D - 2 into c[1 ..]; each output slice rolls one in
+    // (slices past the source's last, which only a stage of fewer slices
+    // than D reaches and its taps never read, read the last)
 #pragma unroll
-    for (int dz = 1; dz < D; ++dz)
+    for (int dz = 1; dz < D; ++dz) {
+      const float* pz =
+          p0 + (Ch ? min(zb + dz - 1, zs - 1) : zb + dz - 1) * src.plane;
 #pragma unroll
-      for (int i = 0; i < C; ++i)
-        c[dz][i] = p0[(zb + dz - 1) * src.plane + i * src.pitch];
+      for (int i = 0; i < C; ++i) c[dz][i] = pz[i * src.pitch];
+    }
     for (int z = zb; z < ze; ++z) {
 #pragma unroll
       for (int dz = 0; dz + 1 < D; ++dz)
 #pragma unroll
         for (int i = 0; i < C; ++i) c[dz][i] = c[dz + 1][i];
+      const float* pz =
+          p0 + (Ch ? min(z + D - 1, zs - 1) : z + D - 1) * src.plane;
 #pragma unroll
-      for (int i = 0; i < C; ++i)
-        c[D - 1][i] = p0[(z + D - 1) * src.plane + i * src.pitch];
+      for (int i = 0; i < C; ++i) c[D - 1][i] = pz[i * src.pitch];
       float s[P];
 #pragma unroll
       for (int p = 0; p < P; ++p) s[p] = 0.f;
       int oc;
       bool valid;
+      const int m0 = Ch ? rec.x : 0, m1 = Ch ? rec.x + rec.y : a.steps;
       if (a.variant == 0) {  // shift_psum
         int done = 0;
-        for (int m = 0; m < a.steps; ++m) {
+        for (int m = m0; m < m1; ++m) {
           const int4 st = a.step[m];
           if (st.x) {
 #pragma unroll
@@ -361,7 +418,7 @@ __device__ __forceinline__ void apply_once(const WindowArgs& a, const Src& src,
         valid = lane >= M - 1 && oc < wd;
       } else {  // shift_data
         int cum = 0, done = 0;
-        for (int m = 0; m < a.steps; ++m) {
+        for (int m = m0; m < m1; ++m) {
           const int4 st = a.step[m];
           cum += st.x;
           step_taps<N, D, P>(c, s, st, taps, cum, done);
@@ -370,6 +427,8 @@ __device__ __forceinline__ void apply_once(const WindowArgs& a, const Src& src,
         valid = lane < V && oc < wd;
       }
       if (!valid) continue;
+      if constexpr (Ch)
+        if (rec.w) mid_epilogue<P>(a, rec.w, s);
       float* d = dst + ((size_t)z * hd + y0) * wd + oc;
 #pragma unroll
       for (int p = 0; p < P; ++p)
@@ -473,8 +532,10 @@ __device__ __forceinline__ void issue_tile(const CUtensorMap* xmap,
 }
 
 // S: an output-strided instantiation (2-D, t = 1; N = ceil(N / sh), or 32
-// for 17 to 32 rows).
-template <int N, int D, int P, int T, bool S>
+// for 17 to 32 rows). Ch: a fused pipeline's (N and D the largest stage's;
+// instantiations of their own, so that the records' registers cost the
+// plans that are no chain nothing).
+template <int N, int D, int P, int T, bool S, bool Ch = false>
 __global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
     window_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ WindowArgs a) {
@@ -537,7 +598,7 @@ __global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
     const int tx = min(a.bw, a.wo - ox0);
     const int ix0 = ox0 * a.sw - a.lx;
     const int shift = ((ix0 % per) + per) % per;
-    int zs = tz + t * (D - 1), hs = a.sh * (ty - 1) + 1 + t * (a.N - 1),
+    int zs = tz + t * (a.D - 1), hs = a.sh * (ty - 1) + 1 + t * (a.N - 1),
         ws = a.sw * (tx - 1) + 1 + t * (a.M - 1);
 
     mbar_wait(smem_addr(&full[s]), (i / a.stages) & 1);
@@ -559,16 +620,19 @@ __global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
         issue_tile(&xmap, a, tile + a.stages * G, smem_addr(stage),
                    smem_addr(&full[s]));  // the stage is read: refill it
     } else {
-      for (int k = 0; k < t; ++k) {
-        float* dst = ((t - 1 - k) & 1) ? bufa : bufb;  // the last one: bufb
-        apply_once<N, D, P, T>(a, src, zs, hs, ws, dst, taps);
+      // the applications: t of the plan, or a chain's stages in order
+      const int napp = Ch ? a.nchain : t;
+      for (int k = 0; k < napp; ++k) {
+        const int4 rec = Ch ? a.chain[k] : make_int4(0, 0, 0, 0);
+        float* dst = ((napp - 1 - k) & 1) ? bufa : bufb;  // the last: bufb
+        apply_once<N, D, P, T, Ch>(a, src, zs, hs, ws, dst, taps, rec);
         __syncthreads();
         if (k == 0 && tid == 0 && tile + a.stages * G < a.ntiles)
           issue_tile(&xmap, a, tile + a.stages * G, smem_addr(stage),
                      smem_addr(&full[s]));  // the stage is read: refill it
-        zs -= D - 1;
-        hs -= N - 1;
-        ws -= a.M - 1;
+        zs -= (Ch ? (rec.z >> 8) & 255 : D) - 1;
+        hs -= (Ch ? rec.z & 255 : N) - 1;
+        ws -= (Ch ? rec.z >> 16 : a.M) - 1;
         src = Src{dst, ws, hs * ws, 1, 0, 0};
       }
     }
@@ -678,5 +742,10 @@ KernelFn pick_2d_wide(int N);     // N in [17, 32], P = 16
 KernelFn pick_2d_strided(int N);  // N = ceil(N / sh) in [1, 16]: P = 16;
                                   // 17 to 32 rows: one of 32, P = 8
 KernelFn pick_3d(int N, int D);  // N, D in [1, 5]: P = 16 or 8
+// fused pipelines (ssam_window_chain_2d.cu, _chain_3d.cu): N, D buckets
+// at or above the largest stage's (core/engine.py::window_inst); 2-D P as
+// above, 3-D P = 8
+KernelFn pick_chain_2d(int N);   // N in WINDOW_CHAIN_ROWS
+KernelFn pick_chain_3d(int N, int D);  // N, D in WINDOW_CHAIN_3D
 
 }  // namespace ssam

@@ -1,6 +1,8 @@
 """Public ops of the port: ``stencil`` and ``conv2d`` (windowed plans,
 K1, or K2 under ``strategy='mxu'``, with gradients through the same
-kernel and K3), ``conv1d_causal`` (K1's per-lane path, or K2's under
+kernel and K3), ``pipeline`` (a chain of stencil and conv stages fused
+into one K1 launch, its backward one more for a linear chain),
+``conv1d_causal`` (K1's per-lane path, or K2's under
 ``strategy='mxu'``, gradients through the same kernel and K4) and the
 scan family ``cumsum``, ``sat``,
 ``linear_recurrence``, ``linear_recurrence_carry`` and
@@ -31,10 +33,13 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core import adjoint as adj
 from ..core import engine as _engine
+from ..core.fuse import fuse_plans, summed_lead_trail
+from ..core.fuse import stage_epilogue_args as _pipeline_epi_splits
 from ..core.plan import (SystolicPlan, epilogue_operand_stages,
                          linear_recurrence_plan, normalize_epilogue)
 from . import ssam_conv1d as _c1
@@ -398,6 +403,289 @@ def conv1d_causal(x: torch.Tensor, w: torch.Tensor, *, epilogue=None,
         plan = dataclasses.replace(plan, epilogue=epi_stages)
     return window_op(plan, x, w, tuple(epilogue_args),
                      block=block or _c1.BLOCK)
+
+
+# ---------------------------------------------------------------------------
+# Fused plan pipelines: ops.pipeline (DESIGN.md §11)
+# ---------------------------------------------------------------------------
+
+def _pipeline_stage_plan(x, desc, idx: int):
+    """One pipeline stage descriptor as ``(plan, w or None)``.
+
+    A descriptor is a Table-3 name or :class:`StencilDef` (a stage with
+    table coefficients), a 2-D filter tensor (a dense 'same'-mode conv
+    stage), or a ``(descriptor, epilogue)`` pair attaching elementwise
+    stages after it. Stages window the domain's *trailing* spatial axes:
+    on a ``(B, H, W)`` stack or a ``(B, C, H, W)`` NCHW tensor (and a 3-D
+    stage on a batched volume) the extra leading axes are batch axes, so
+    the chain stays one launch. Anything else (scan ops, OIHW reduce
+    filters) raises a named ``ValueError``.
+    """
+    epilogue = None
+    if (isinstance(desc, tuple) and len(desc) == 2
+            and isinstance(desc[0], (str, StencilDef, torch.Tensor))):
+        desc, epilogue = desc
+    if isinstance(desc, str):
+        if desc not in BENCHMARKS:
+            raise ValueError(
+                f"ops.pipeline: stage {idx} names unknown stencil "
+                f"{desc!r}; known Table-3 stencils: "
+                f"{sorted(BENCHMARKS)}")
+        desc = BENCHMARKS[desc]
+    if isinstance(desc, StencilDef):
+        if desc.ndim > x.ndim:
+            raise ValueError(
+                f"ops.pipeline: stage {idx} ({desc.name}) is "
+                f"{desc.ndim}-D but the domain is {x.ndim}-D")
+        mod = _s2 if desc.ndim == 2 else _s3
+        plan, w = mod.plan_for(desc), None
+        if x.ndim > desc.ndim:
+            plan = dataclasses.replace(plan, batch_axes=x.ndim - desc.ndim)
+    elif isinstance(desc, torch.Tensor):
+        if desc.ndim == 4:
+            raise ValueError(
+                f"ops.pipeline: stage {idx} is an OIHW (NCHW conv) "
+                "filter — reduce plans cannot chain-fuse (the channel "
+                "reduction must finish its accumulator sweep first); "
+                "run ops.conv2d / nn.layers.conv2d_apply with a fused "
+                "epilogue= instead")
+        if desc.ndim != 2 or x.ndim < 2:
+            raise ValueError(
+                f"ops.pipeline: stage {idx} filter must be a 2-D (N, M) "
+                f"array on a >= 2-D domain, got filter "
+                f"{tuple(desc.shape)} on a {x.ndim}-D domain")
+        plan, w = _c2.plan_for(tuple(desc.shape), "same"), desc
+        if x.ndim > 2:
+            plan = dataclasses.replace(plan, batch_axes=x.ndim - 2)
+    else:
+        raise ValueError(
+            f"ops.pipeline: stage {idx} descriptor {type(desc).__name__} "
+            "is not a stencil name/StencilDef/2-D filter array; scan ops "
+            "(cumsum/linear_recurrence) cannot sit in a spatial chain")
+    if epilogue is not None:
+        plan = dataclasses.replace(plan,
+                                   epilogue=normalize_epilogue(epilogue))
+    return plan, w
+
+
+def _epilogue_vjp(plan: SystolicPlan, z, args, g):
+    """``(dz, dargs)``: the VJP of ``plan``'s epilogue at the
+    pre-activation ``z`` (autograd of :func:`adjoint.apply_epilogue`)."""
+    with torch.enable_grad():
+        zz = z.detach().requires_grad_(True)
+        aa = [a.detach().requires_grad_(True) for a in args]
+        y = adj.apply_epilogue(plan, zz, aa)
+        grads = torch.autograd.grad(y, [zz, *aa], g.to(z.dtype))
+    return grads[0], tuple(grads[1:])
+
+
+def _stage_wgrad(h, g, plan: SystolicPlan):
+    """``dW`` of a dense 'valid' stage on its padded input ``h`` (K3 on the
+    card); leading batch axes beyond one fold into one."""
+    if plan.batch_axes > 1:
+        h = h.reshape((-1,) + tuple(h.shape[plan.batch_axes:]))
+        g = g.reshape((-1,) + tuple(g.shape[plan.batch_axes:]))
+        plan = dataclasses.replace(plan, batch_axes=1)
+    return _engine.run_weight_grad_plan(h, g.to(h.dtype), plan=plan)
+
+
+def _pipeline_bwd(cfg: WindowCfg, x, ws, epi, g):
+    """Backward of a fused pipeline (the reference's ``_pipeline_bwd``):
+    ``(dx, dws, depi)``.
+
+    A linear chain of table stages transposes to ONE fused adjoint launch
+    (the reversed chain of stage adjoints, :func:`adjoint.input_adjoint_plan`).
+    Any other chain recomputes each stage's input and pre-activation with
+    the stages' 'valid' plans on the pad-once input (a K1 launch each),
+    then walks the stages in reverse: the epilogue VJP at the saved
+    pre-activation, ``dW`` of a dense stage (K3), and ``dx`` through the
+    stage's input-adjoint plan (K1; 'valid' transposes to 'full', so the
+    cotangent grows back); at the end the summed lead and trail are
+    cropped (the transpose of the pad-once zero pad)."""
+    plan = cfg.plan
+    stages = plan.stages
+    if (not any(s.epilogue for s in stages)
+            and all(s.coeff_mode == "table" for s in stages)):
+        aplan = adj.input_adjoint_plan(plan)        # fused reversed chain
+        adj.record_lowering(aplan.kind)
+        dx = _run(cfg, aplan, g, tuple(None for _ in stages))
+        return dx.to(x.dtype), tuple(None for _ in stages), ()
+
+    lead, trail = plan.lead_trail()
+    nb = plan.batch_axes
+    h = F.pad(x, [v for lo_hi in reversed(tuple(zip(lead, trail)))
+                  for v in lo_hi])
+    splits = _pipeline_epi_splits(stages, epi)
+    hs, zs, valids = [], [], []
+    for i, s in enumerate(stages):
+        sv = dataclasses.replace(s, lead=None, trail=None, epilogue=())
+        hs.append(h)
+        valids.append(sv)
+        z = _run(cfg, sv, h, ws[i])
+        se = dataclasses.replace(sv, epilogue=s.epilogue)
+        h = adj.apply_epilogue(se, z, splits[i]).to(x.dtype)
+        zs.append(z)
+
+    depi_parts = [()] * len(stages)
+    dws = [None] * len(stages)
+    for i in reversed(range(len(stages))):
+        s, sv = stages[i], valids[i]
+        if s.epilogue:
+            se = dataclasses.replace(sv, epilogue=s.epilogue)
+            g, depi_parts[i] = _epilogue_vjp(se, zs[i], splits[i], g)
+        if s.coeff_mode == "dense":
+            adj.record_lowering("wgrad_" + sv.kind)
+            dws[i] = _stage_wgrad(hs[i], g, sv).to(ws[i].dtype)
+        ap = adj.input_adjoint_plan(sv)     # valid ⇒ full: output grows back
+        adj.record_lowering(ap.kind)
+        g = _run(cfg, ap, g.to(x.dtype), ws[i]).to(x.dtype)
+    depi = tuple(d for part in depi_parts for d in part)
+    sl = (slice(None),) * nb + tuple(
+        slice(l, l + n) for l, n in zip(lead, x.shape[nb:]))
+    return g[sl].to(x.dtype), tuple(dws), depi
+
+
+def _split_operands(stages, rest):
+    """``(ws, epi)`` from :class:`PipelineOp`'s operands: one filter entry
+    a stage (None for a 'table' one), then the epilogue operands."""
+    dense = iter(rest)
+    ws = tuple(next(dense) if s.coeff_mode == "dense" else None
+               for s in stages)
+    return ws, tuple(dense)
+
+
+class PipelineOp(torch.autograd.Function):
+    """A fused pipeline as one engine call (K1 on the card) with
+    :func:`_pipeline_bwd` as its backward. ``rest`` is the dense stages'
+    filters in stage order, then the epilogue operands in chain order."""
+
+    @staticmethod
+    def forward(ctx, cfg: WindowCfg, x, *rest):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, *rest)
+        return _run(cfg, cfg.plan, x, *_split_operands(cfg.plan.stages, rest))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *rest = ctx.saved_tensors
+        ws, epi = _split_operands(ctx.cfg.plan.stages, rest)
+        dx, dws, depi = _pipeline_bwd(ctx.cfg, x, ws, epi, g)
+        return (None, dx, *(d for d in dws if d is not None), *depi)
+
+
+def pipeline(x: torch.Tensor, stages, *, fuse="auto", epilogue_args=(),
+             strategy: str | None = None, block=None,
+             variant: str = "shift_psum", mesh=None) -> torch.Tensor:
+    """Run a chain of shape-preserving windowed ops as ONE engine call: on
+    the card one launch of K1's single-channel kernel, the intermediates
+    kept in fp32 in shared memory and never written to HBM (DESIGN.md
+    §11).
+
+    ``stages`` is a list of stage descriptors applied left to right:
+    Table-3 stencil names or :class:`StencilDef`\\ s, 2-D 'same'-mode conv
+    filters, each optionally paired with an epilogue as ``(stage,
+    "gelu")``. Stages window the domain's trailing spatial axes: on a
+    ``(B, H, W)`` stack or an NCHW ``(B, C, H, W)`` tensor the extra
+    leading axes are batch axes. Mid-chain epilogues fix zero or are a
+    *scalar* ``bias``; the final stage may also take ``residual_add``.
+    ``epilogue_args`` carries the operands of every operand-bearing stage
+    in chain order: mid-chain biases first, the final stage's last.
+
+    Semantics are pad-once (trapezoidal), shared with temporal blocking:
+    zero-pad once by the summed stage leads and trails, then apply the
+    stages as valid windows. It equals a chain of same-shape per-op calls
+    on the interior at distance > Σ radius from the boundary; a mid-chain
+    bias also shifts the halo positions, so there the two differ near the
+    boundary.
+
+    ``fuse``: ``'auto'`` fuses exactly when
+    :func:`~repro_torch.core.fuse.fuse_plans` accepts the chain, and runs
+    the unfused pad-once sequence otherwise; ``True`` raises the named
+    legality error instead; ``False`` runs the unfused sequence, one
+    engine call (one K1 launch) a stage. The choice depends on legality
+    only: a legal chain that K1 cannot hold raises
+    ``NotImplementedError`` on the card, naming the limit. A chain pinned
+    to ``strategy='mxu'`` runs its plain version on the CPU and raises on
+    the card (K2 with stages is ROADMAP Queue 1 item 7's K2 half).
+    Differentiable in ``x``, the filters and the epilogue operands: a
+    linear chain of stencils through one fused adjoint launch, any other
+    stage by stage (:func:`_pipeline_bwd`). There is no ``impl=`` switch
+    (the tensor's device decides) and no ``autotune=`` (the tuner is
+    ROADMAP Queue 1 item 8).
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded pipelines are ROADMAP Queue 1 item 12")
+    if fuse not in (True, False, "auto"):
+        raise ValueError(f"ops.pipeline: fuse must be True/False/'auto', "
+                         f"got {fuse!r}")
+    if not stages:
+        raise ValueError("ops.pipeline needs at least one stage")
+    resolved = [_pipeline_stage_plan(x, d, i) for i, d in enumerate(stages)]
+    nd0 = resolved[0][0].ndim_spatial
+    for i, (p, _) in enumerate(resolved):
+        if p.ndim_spatial != nd0:
+            raise ValueError(
+                f"ops.pipeline: stage {i} is {p.ndim_spatial}-D but stage "
+                f"0 is {nd0}-D; on a batched domain every stage must "
+                "window the same trailing spatial axes")
+    # one strategy for the whole chain: the pin rides each stage plan and
+    # fuse_plans carries it onto the composite
+    plans = [_strategy_plan(p, strategy, "pipeline") for p, _ in resolved]
+    ws = tuple(w for _, w in resolved)
+    epi_args = tuple(epilogue_args)
+    need = [s.op for p in plans for s in epilogue_operand_stages(p.epilogue)]
+    if len(epi_args) != len(need):
+        raise ValueError(
+            f"ops.pipeline: the chain's epilogues need {len(need)} runtime "
+            f"operand(s) ({need}, application order) in epilogue_args, got "
+            f"{len(epi_args)}")
+    epi_splits = _pipeline_epi_splits(plans, epi_args)
+    for i, p in enumerate(plans[:-1]):
+        bad = [s.op for s in epilogue_operand_stages(p.epilogue)
+               if s.op != "bias"]
+        if bad:
+            raise ValueError(
+                f"ops.pipeline: stage {i} carries a residual_add epilogue "
+                "mid-chain; the residual operand is output-shaped and "
+                "would materialize the intermediate it skips — only bias "
+                "may sit mid-chain, residual_add goes on the final stage")
+        for arr in epi_splits[i]:
+            if arr.numel() != 1:
+                raise ValueError(
+                    f"ops.pipeline: stage {i}'s mid-chain bias must be a "
+                    "scalar (it applies to the whole pad-once "
+                    f"intermediate), got shape {tuple(arr.shape)}")
+    if plans[-1].epilogue:
+        # the stages are shape-preserving, so the final stage's own layout
+        # checks its epilogue operands (named errors)
+        _engine._check_operands(plans[-1], x, ws[-1], epi_splits[-1])
+    block = None if block is None else tuple(block)
+
+    fused, fuse_err = None, None
+    try:
+        fused = fuse_plans(*plans)
+    except ValueError as e:
+        fuse_err = e
+    if fuse is True and fused is None:
+        raise fuse_err
+    if fused is None or fuse is False:
+        # the unfused sequence: the same pad-once math, one engine call,
+        # and one HBM round trip of the intermediate, a stage
+        lead, trail = summed_lead_trail(plans)
+        h = F.pad(x, [v for lo_hi in reversed(tuple(zip(lead, trail)))
+                      for v in lo_hi])
+        for i, p in enumerate(plans):
+            pv = dataclasses.replace(p, lead=None, trail=None)
+            h = window_op(pv, h, ws[i], epi_splits[i], block=block,
+                          variant=variant)
+        return h
+    if not fused.stages:            # one stage: the op itself
+        return window_op(fused, x, ws[0], epi_args, block=block,
+                         variant=variant)
+    cfg = WindowCfg(fused, block, 1, variant)
+    return PipelineOp.apply(cfg, x, *(w for w in ws if w is not None),
+                            *epi_args)
 
 
 # ---------------------------------------------------------------------------

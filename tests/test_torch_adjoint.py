@@ -86,10 +86,14 @@ def test_adjoint_of_strided_and_fused_plans_raises():
                             stride=(1, 2))
     with pytest.raises(ValueError, match="input-dilated"):
         adjoint.input_adjoint_plan(p)
+    # a fused plan transposes to the reversed chain of stage adjoints (no
+    # refusal since core/fuse.py is ported); its strided phases refuse
     fused = dataclasses.replace(plan.conv2d_plan(3, 3),
                                 stages=(plan.conv2d_plan(3, 3),))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        adjoint.input_adjoint_plan(fused)
+    assert adjoint.input_adjoint_plan(fused) == adjoint.input_adjoint_plan(
+        plan.conv2d_plan(3, 3))
+    with pytest.raises(ValueError, match="never strided"):
+        adjoint.strided_input_adjoint_phases(fused)
     with pytest.raises(ValueError, match="windowed"):
         adjoint.input_adjoint_plan(plan.scan_plan(16))
 

@@ -21,7 +21,9 @@ gradient, sums over B·T products in another order) at fp32 1e-4, bf16
 3e-2; gradients through K1, K4 and K5 against the CPU's at 1e-4. A
 depthwise conv2d (one K1 launch over its images, a filter each; K3 a
 gradient per channel) against the CPU at 1e-4, bf16 3e-2; K2's
-non-finite outputs exactly the plain version's.
+non-finite outputs exactly the plain version's. A fused pipeline (one
+K1 launch for the chain) against the plain version at K1's tolerances,
+its gradients against the CPU's at 1e-4.
 """
 import numpy as np
 import pytest
@@ -32,7 +34,7 @@ import dataclasses
 from repro_torch import convert
 from repro_torch.config import get_config
 from repro_torch.configs import whisper_base
-from repro_torch.core import adjoint, engine, plan
+from repro_torch.core import adjoint, engine, fuse, plan
 from repro_torch.data import TokenDataset
 from repro_torch.configs import hymba_1g5b
 from repro_torch.core.plan import normalize_epilogue
@@ -1427,3 +1429,163 @@ def test_depthwise_launch_failure_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="K1 launch failed"):
         ops.conv2d(x, w, groups=8)
     assert engine.WINDOW_KERNEL.launches == before
+
+
+# -- fused pipelines: a chain of stages in one K1 launch -----------------
+
+def _chain(names, device, seed, conv=False):
+    """Stage descriptors: stencil names, and with ``conv`` the conv chain
+    ``[(w5, ("bias", "gelu")), (w3, "bias"), w5]`` (filters scaled to a
+    unit gain) with its two mid-chain biases."""
+    if not conv:
+        return list(names), ()
+    w5 = _grid((5, 5), device, seed) / 5
+    w3 = _grid((3, 3), device, seed + 1) / 3
+    b0 = torch.tensor([0.25], device=device)
+    b1 = torch.tensor(-0.5, device=device)
+    return [(w5, ("bias", "gelu")), (w3, "bias"), w5], (b0, b1)
+
+
+def _fused_plan(x, stages):
+    plans = [ops._pipeline_stage_plan(x, d, i) for i, d in enumerate(stages)]
+    return (fuse.fuse_plans(*[p for p, _ in plans]),
+            tuple(w for _, w in plans))
+
+
+PIPE_CASES = [
+    ("2d", (97, 203), ["2d5pt", "2d9pt", "2d5pt"], False, "float32"),
+    ("2d-mid", (131, 259), ["2d5pt", ("2d9pt", ("relu", ("scale", 0.5))),
+                            ("2d25pt", "silu")], False, "float32"),
+    ("2d-conv", (77, 141), (), True, "float32"),
+    ("2d-bf16", (97, 203), ["2d5pt", "2d9pt", "2d5pt"], False, "bfloat16"),
+    ("2d-conv-bf16", (77, 141), (), True, "bfloat16"),
+    ("3d", (21, 30, 75), ["3d7pt", "3d27pt"], False, "float32"),
+    ("3d-mixed", (14, 22, 45), ["3d7pt", "3d125pt", "3d13pt"], False,
+     "float32"),
+    ("batched", (3, 67, 97), ["2d9pt", "2d5pt"], False, "float32"),
+    ("nchw", (2, 3, 41, 70), (), True, "float32"),
+]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("case", PIPE_CASES, ids=lambda c: c[0])
+def test_pipeline_fused_one_launch(cuda, case, variant):
+    """One K1 launch for the whole chain (mid-chain epilogues on the
+    iterates, the final residual at the store for the conv chains), held
+    to the plain version on the card (fp32 3e-5, bf16 3e-2) and to the
+    CPU walk of the kernel."""
+    tag, shape, names, conv, dt = case
+    dtype = getattr(torch, dt)
+    rtol = 3e-5 if dt == "float32" else 3e-2
+    x = _grid(shape, cuda, 101).to(dtype)
+    stages, mids = _chain(names, cuda, 102, conv)
+    if conv:
+        stages[-1] = (stages[-1], "residual_add")
+    args = mids + ((_grid(shape, cuda, 103).to(dtype),) if conv else ())
+    plan, ws = _fused_plan(x, stages)
+    K1 = engine.WINDOW_KERNEL
+    before = K1.launches
+    y = ops.pipeline(x, stages, variant=variant, epilogue_args=args)
+    assert K1.launches == before + 1 and y.dtype == dtype
+    plain = engine.run_window_plan_reference(x, ws, plan=plan,
+                                             variant=variant,
+                                             epilogue_args=args)
+    _close(y.float(), plain.float(), rtol)
+    if dt == "float32" and x.numel() < 50_000:
+        emu = engine.emulate_window_kernel(
+            x.cpu(), tuple(None if w is None else w.cpu() for w in ws),
+            plan=plan, variant=variant,
+            epilogue_args=tuple(a.cpu() for a in args))
+        _close(y.cpu(), emu, rtol)
+
+
+def test_pipeline_launch_counts(cuda):
+    """Fused forward 1 launch, a linear chain's gradient 1 more,
+    ``fuse=False`` one a stage (and its backward one a stage); a conv
+    chain's backward recomputes each stage (K1), then per stage dW (K3)
+    and dx (K1); each equals the CPU's."""
+    K1, K3 = engine.WINDOW_KERNEL, engine.WGRAD_KERNEL
+    x = _grid((97, 203), cuda, 111).requires_grad_(True)
+    chain = ["2d5pt", "2d9pt", "2d5pt"]
+    k1 = K1.launches
+    y = ops.pipeline(x, chain)
+    assert K1.launches - k1 == 1
+    g = _grid(y.shape, cuda, 112)
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert K1.launches - k1 == 2
+    k1 = K1.launches
+    yu = ops.pipeline(x, chain, fuse=False)
+    assert K1.launches - k1 == 3
+    (dxu,) = torch.autograd.grad(yu, x, g)
+    assert K1.launches - k1 == 6
+    _close(yu, y)
+    _close(dxu, dx)
+    xc = x.detach().cpu().requires_grad_(True)
+    (want,) = torch.autograd.grad(ops.pipeline(xc, chain), xc, g.cpu())
+    _close(dx.cpu(), want)
+    # the conv chain: 3 recomputes, 2 dW, 3 dx
+    stages, mids = _chain((), cuda, 113, conv=True)
+    ws = [d[0] if isinstance(d, tuple) else d for d in stages]
+    for w in ws:
+        w.requires_grad_(True)
+    mids = tuple(m.clone().requires_grad_(True) for m in mids)
+    y = ops.pipeline(x, stages, epilogue_args=mids)
+    k1, k3 = K1.launches, K3.launches
+    got = torch.autograd.grad(y, (x, ws[0], ws[1], *mids), g)
+    assert K1.launches - k1 == 6
+    assert K3.launches - k3 == sum(K3.launches_for(
+        torch.empty(sh, device=cuda), torch.empty(so, device=cuda),
+        plan=p) for sh, so, p in _conv_chain_wgrads(x.shape, stages))
+    cpu = [t.detach().cpu().requires_grad_(True)
+           for t in (x, ws[0], ws[1], *mids)]
+    cstages = [(cpu[1], ("bias", "gelu")), (cpu[2], "bias"), cpu[1]]
+    yc = ops.pipeline(cpu[0], cstages, epilogue_args=tuple(cpu[3:]))
+    want = torch.autograd.grad(yc, cpu, g.cpu())
+    for a, e in zip(got, want):
+        _close(a.cpu(), e, 1e-4)
+
+
+def _conv_chain_wgrads(shape, stages):
+    """``(x shape, g shape, plan)`` of each dW the conv chain's backward
+    runs: the 'valid' stage plans on the pad-once intermediates."""
+    plans = [ops._pipeline_stage_plan(torch.empty(shape), d, i)[0]
+             for i, d in enumerate(stages)]
+    lead, trail = fuse.summed_lead_trail(plans)
+    cur = tuple(n + l + r for n, l, r in zip(shape, lead, trail))
+    out = []
+    for p in plans:
+        nxt = tuple(n - e + 1 for n, e in zip(cur, p.exts))
+        if p.coeff_mode == "dense":
+            out.append((cur, nxt, dataclasses.replace(
+                p, lead=None, trail=None, epilogue=())))
+        cur = nxt
+    return out
+
+
+def test_pipeline_beyond_k1_raises(cuda):
+    """A legal chain K1 cannot hold (three 2d121pt stages: 33 column steps
+    of 32) raises NotImplementedError naming the limit on the card; it
+    runs neither unfused nor on the plain version."""
+    x = _grid((64, 96), cuda, 121)
+    K1 = engine.WINDOW_KERNEL
+    before = K1.launches
+    with pytest.raises(NotImplementedError, match="column steps"):
+        ops.pipeline(x, ["2d121pt"] * 3)
+    assert K1.launches == before
+    y = ops.pipeline(x, ["2d121pt"] * 3, fuse=False)
+    assert K1.launches == before + 3
+    _close(y.cpu(), ops.pipeline(x.cpu(), ["2d121pt"] * 3), 1e-4)
+
+
+def test_pipeline_mxu_raises(cuda):
+    """K2 with stages is not ported: a chain pinned to ``strategy='mxu'``
+    raises on the card naming item 7; ``fuse=False`` runs K2 a stage."""
+    x = _grid((64, 96), cuda, 131)
+    K2 = engine.MXU_KERNEL
+    before = K2.launches
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ops.pipeline(x, ["2d5pt", "2d9pt"], strategy="mxu")
+    assert K2.launches == before
+    y = ops.pipeline(x, ["2d5pt", "2d9pt"], strategy="mxu", fuse=False)
+    assert K2.launches == before + 2
+    _close(y.cpu(), ops.pipeline(x.cpu(), ["2d5pt", "2d9pt"]), 1e-4)

@@ -230,6 +230,8 @@ def test_nvcc_command_targets_sm_90a():
                                      "ssam_window_2d_strided.cu",
                                      "ssam_window_2d_wide.cu",
                                      "ssam_window_3d.cu",
+                                     "ssam_window_chain_2d.cu",
+                                     "ssam_window_chain_3d.cu",
                                      "ssam_window_perlane.cu",
                                      "ssam_window_reduce.cu"]
     cmd = _build.compile_command(src[0], _build.BUILD_DIR / "k.o")
@@ -302,10 +304,11 @@ def test_out_of_slice_raises_not_implemented(case):
                                    plan=plan.depthwise_conv1d_plan(3),
                                    time_steps=2)
         elif case == "mxu":     # mxu runs, its per-lane mat-vec too (item
-            # 5c); fused stages do not (item 7)
+            # 5c), and fused stages on the CPU; K2 refuses stages (item 7's
+            # K2 half) before it looks at the device
             p = dataclasses.replace(plan.conv2d_plan(3, 3), strategy="mxu")
-            engine.run_window_plan(x, w, plan=dataclasses.replace(
-                p, stages=(p,)))
+            engine.MXU_KERNEL(x, (w,), plan=dataclasses.replace(
+                p, stages=(p,)), block=(8, 16), time_steps=1)
         else:                   # one reduce axis runs; two do not
             engine.run_window_plan(
                 torch.zeros((1, 2, 2, 20, 40)), torch.ones((3, 2, 2, 3, 3)),
