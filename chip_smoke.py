@@ -32,7 +32,9 @@ trains rwkv6-1.6b at full width through ``repro_torch.launch.train``:
 its WKV runs forward through K5 in checkpointed chunks and backward
 through K5's λ-recurrence. The ninth runs fused plan pipelines
 (``ops.pipeline``): a chain of stencil or conv stages in one launch of
-K1's single-channel kernel, the intermediates kept in shared memory.
+K1's single-channel kernel or, pinned to ``strategy="mxu"``, of K2's,
+the intermediates kept in shared memory; a chain no launch holds as
+launches of its segments.
 Phases, one JSON line each:
 
 1. build: compile K1, K2, K3, K4 and K5 from ``src/repro_torch/csrc``
@@ -41,10 +43,11 @@ Phases, one JSON line each:
    ``HGMMA``, ``UTMALDG``, ``LDS`` and ``STS`` in K2's, the registers
    and spills of K1's reduce kernel and K2's channel kernel (neither may
    spill; K2's must hold ``HGMMA``), per K1 single-channel
-   instantiation that phases 2–5 launch, its registers, spills and
+   instantiation that phases 2–5 and 14 launch, its registers, spills and
    ``UTMALDG``, ``LDGSTS``, ``SHFL``, ``FFMA`` and ``BRX`` counts (none
    may spill; each must hold ``UTMALDG``), per instantiation of K2's
-   single-channel kernel (1–4 k-steps an entry) its registers, spills and
+   single-channel kernel (1–4 k-steps an entry; the strided one; the four
+   of fused pipelines) its registers, spills and
    ``HMMA``, ``HGMMA``, ``UTMALDG`` and ``LDS`` counts (none may spill;
    each must hold ``HMMA`` and ``UTMALDG``), and per instance of K1's
    per-lane kernel its registers (none may spill), with the path's
@@ -285,8 +288,23 @@ Phases, one JSON line each:
    cuDNN call a stage with the same filters, TF32 off: three calls, no
    single PyTorch call computes a chain), for the chain, its backward
    launch, ``["2d5pt"] × 3`` beside ``time_steps=3``, the conv chain, the
-   3-D chain and bf16. The build line's K1 instantiations include the
-   chains' (``PIPELINE_CHAINS``).
+   3-D chain and bf16; (d) the same chains pinned to ``strategy="mxu"``,
+   each one K2 launch and no K1 launch (``fuse=False`` 3 K2 launches):
+   the 2-D chain fused and unfused, the conv chain, the 3-D chain at
+   512³, the 2-D chain on bf16 input and on an input with an inf and a
+   nan (its non-finite set equal to the plain version's), each against
+   the plain version on the card (fp32 3e-5, bf16 3e-2), the linear
+   chain's gradient (1 K2 launch, the reversed chain) and the conv
+   chain's (6 K2 launches and K3's) at 1e-4·max|leaf|; (e)
+   ``["2d121pt"] × 3``, whose 33 column steps no K1 launch holds, as its
+   segments (2 K1 launches: a 2-stage chain, then one stage, the
+   intermediate in fp32) and as one K2 launch, each against the fused
+   plain version; K1's, K2's and K3's counters, zeroed before (a), equal
+   the calls' launches; (f) the times of (d) and (e) as in (c), K2's
+   bound with the operations counted once at TF32's 495 TFLOP/s (the fp32
+   bound beside) and K1's fused chain of the same case beside. The build
+   line's K1 instantiations include the chains' (``PIPELINE_CHAINS``, the
+   2-stage 2d121pt segment).
 
 It exits non-zero if there is no card, if a build, launch or check fails,
 and when run outside a checkout of the repository. The full results go
@@ -2999,14 +3017,16 @@ def rwkv6_train_phase(args, dev, card, results) -> dict:
 
 
 def pipeline_phase(args, dev, card, results) -> dict:
-    """Phase 14: fused plan pipelines through K1's single-channel kernel,
-    a chain of stages in one launch, at full size: each case against the
-    plain version on the card, the launches counted (K1 and K3 zeroed
-    before the phase's main path and read after), the gradients against
-    torch autograd through the plain version, and the times beside the
-    byte bound, the unfused sequence, the plain version and the library
-    yardstick (``F.pad`` once, then a cuDNN call a stage with the stages'
-    filters, TF32 off: there is no single PyTorch call for a chain)."""
+    """Phase 14: fused plan pipelines through K1's single-channel kernel
+    and, pinned to ``strategy="mxu"``, through K2's, a chain of stages in
+    one launch, at full size; a chain that no launch holds as the fewest
+    launches of its segments. Each case against the plain version on the
+    card, the launches counted (K1, K2 and K3 zeroed before the phase's
+    main path and read after), the gradients against torch autograd
+    through the plain version, and the times beside the byte bound, the
+    unfused sequence, the plain version and the library yardstick
+    (``F.pad`` once, then a cuDNN call a stage with the stages' filters,
+    TF32 off: there is no single PyTorch call for a chain)."""
     import dataclasses
 
     import numpy as np
@@ -3017,49 +3037,54 @@ def pipeline_phase(args, dev, card, results) -> dict:
     from repro_torch.core import adjoint, engine, fuse
     from repro_torch.kernels import ops, stencils
 
-    K1, K3 = engine.WINDOW_KERNEL, engine.WGRAD_KERNEL
+    K1, K2, K3 = engine.WINDOW_KERNEL, engine.MXU_KERNEL, engine.WGRAD_KERNEL
     rng = np.random.default_rng(args.seed + 14)
 
     def randn(*shape, scale=1.0):
         return convert.from_numpy(
             (scale * rng.standard_normal(shape)).astype(np.float32), dev)
 
-    def fused_plan(x, stages):
+    def fused_plan(x, stages, strategy=None):
         res = [ops._pipeline_stage_plan(x, d, i)
                for i, d in enumerate(stages)]
-        return (fuse.fuse_plans(*[p for p, _ in res]),
+        return (fuse.fuse_plans(*[ops._strategy_plan(p, strategy, "pipeline")
+                                  for p, _ in res]),
                 tuple(w for _, w in res))
 
-    worst = {"K1": 0.0, "K3": 0.0, "grad": 0.0}
-    expected = {"K1": 0, "K3": 0}
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "grad": 0.0, "K2 grad": 0.0}
+    expected = {"K1": 0, "K2": 0, "K3": 0}
 
-    def run(k1, k3, fn):
-        b1, b3 = K1.launches, K3.launches
+    def run(k1, k3, fn, k2=0):
+        b1, b2, b3 = K1.launches, K2.launches, K3.launches
         out = fn()
         torch.cuda.synchronize()
-        got = (K1.launches - b1, K3.launches - b3)
-        require(got == (k1, k3), ("phase 14 launches", got, (k1, k3)))
+        got = (K1.launches - b1, K2.launches - b2, K3.launches - b3)
+        require(got == (k1, k2, k3),
+                ("phase 14 launches", got, (k1, k2, k3)))
         expected["K1"] += k1
+        expected["K2"] += k2
         expected["K3"] += k3
         return out
 
-    def held(tag, y, plain, rtol):
-        worst["K1"] = max(worst["K1"], compare(
+    def held(tag, y, plain, rtol, kernel="K1"):
+        worst[kernel] = max(worst[kernel], compare(
             f"phase 14 {tag}", y, plain, rtol, results))
 
-    def grads_held(tag, got, want):
+    def grads_held(tag, got, want, key="grad"):
         """Gradients at 1e-4·max|leaf| against autograd through the plain
         version."""
         for i, (a, e) in enumerate(zip(got, want)):
-            worst["grad"] = max(worst["grad"], compare(
+            worst[key] = max(worst[key], compare(
                 f"phase 14 {tag} grad {i}", a, e, 1e-4, results))
 
     chain5, chain3 = map(list, PIPELINE_CHAINS)
+    big = ["2d121pt"] * 3
     n, n3 = PIPELINE_SIDE, PIPELINE_SIDE3
     x = randn(n, n)
     cells = x.numel()
     p5, w5s = fused_plan(x, chain5)
-    K1.launches = K3.launches = 0
+    pm5, _ = fused_plan(x, chain5, "mxu")
+    K1.launches = K2.launches = K3.launches = 0
 
     # -- (a) the main path: forwards ------------------------------------
     y = run(1, 0, lambda: ops.pipeline(x, chain5))
@@ -3067,7 +3092,7 @@ def pipeline_phase(args, dev, card, results) -> dict:
     held("2d5pt+2d9pt+2d5pt fused 8192^2", y, plain5, 3e-5)
     yu = run(3, 0, lambda: ops.pipeline(x, chain5, fuse=False))
     held("2d5pt+2d9pt+2d5pt unfused 8192^2", yu, plain5, 3e-5)
-    del y, yu
+    del y, yu, plain5
     yh = run(1, 0, lambda: ops.pipeline(x, ["2d5pt"] * 3))
     yt = run(1, 0, lambda: ops.stencil(x, "2d5pt", time_steps=3))
     require(torch.equal(yh, yt), "2d5pt x 3 differs from time_steps=3")
@@ -3076,6 +3101,7 @@ def pipeline_phase(args, dev, card, results) -> dict:
     bias, r = torch.tensor([0.25], device=dev), randn(n, n)
     conv = [(w5, "gelu"), (w3, "bias"), (w5, "residual_add")]
     pc, wcs = fused_plan(x, conv)
+    pcm, _ = fused_plan(x, conv, "mxu")
     yc = run(1, 0, lambda: ops.pipeline(x, conv, epilogue_args=(bias, r)))
     plainc = engine.run_window_plan_reference(x, wcs, plan=pc,
                                               epilogue_args=(bias, r))
@@ -3084,6 +3110,7 @@ def pipeline_phase(args, dev, card, results) -> dict:
     del yc, plainc
     x3 = randn(n3, n3, n3)
     p3, w3s = fused_plan(x3, chain3)
+    p3m, _ = fused_plan(x3, chain3, "mxu")
     y3 = run(1, 0, lambda: ops.pipeline(x3, chain3))
     held("3d7pt+3d27pt fused 512^3", y3,
          engine.run_window_plan_reference(x3, w3s, plan=p3), 3e-5)
@@ -3099,38 +3126,108 @@ def pipeline_phase(args, dev, card, results) -> dict:
         h = engine.run_window_plan_reference(
             h, plan=dataclasses.replace(st, lead=None, trail=None))
     held("2d5pt+2d9pt+2d5pt unfused bf16 8192^2", ybu, h, 3e-2)
-    del yb, ybu, h, xb
+    del yb, ybu, h
+    torch.cuda.empty_cache()
+    # the same chains pinned to the tensor cores: one K2 launch, no K1
+    ym = run(0, 0, lambda: ops.pipeline(x, chain5, strategy="mxu"), k2=1)
+    plainm5 = engine.run_window_plan_reference(x, w5s, plan=pm5)
+    held("mxu 2d5pt+2d9pt+2d5pt fused 8192^2", ym, plainm5, 3e-5, "K2")
+    ymu = run(0, 0, lambda: ops.pipeline(x, chain5, strategy="mxu",
+                                         fuse=False), k2=3)
+    held("mxu 2d5pt+2d9pt+2d5pt unfused 8192^2", ymu, plainm5, 3e-5, "K2")
+    del ym, ymu, plainm5
+    ycm = run(0, 0, lambda: ops.pipeline(x, conv, strategy="mxu",
+                                         epilogue_args=(bias, r)), k2=1)
+    held("mxu conv 5x5 gelu + 3x3 bias + 5x5 residual fused 8192^2", ycm,
+         engine.run_window_plan_reference(x, wcs, plan=pcm,
+                                          epilogue_args=(bias, r)),
+         3e-5, "K2")
+    del ycm
+    y3m = run(0, 0, lambda: ops.pipeline(x3, chain3, strategy="mxu"), k2=1)
+    held("mxu 3d7pt+3d27pt fused 512^3", y3m,
+         engine.run_window_plan_reference(x3, w3s, plan=p3m), 3e-5, "K2")
+    del y3m
+    ybm = run(0, 0, lambda: ops.pipeline(xb, chain5, strategy="mxu"), k2=1)
+    held("mxu 2d5pt+2d9pt+2d5pt fused bf16 8192^2", ybm,
+         engine.run_window_plan_reference(xb, w5s, plan=pm5), 3e-2, "K2")
+    del ybm
+    # an inf and a nan: the non-finite set is the plain version's
+    xn = x.clone()
+    xn[n // 3, n // 5] = float("inf")
+    xn[n // 2, 7] = float("nan")
+    yn = run(0, 0, lambda: ops.pipeline(xn, chain5, strategy="mxu"), k2=1)
+    plainn = engine.run_window_plan_reference(xn, w5s, plan=pm5)
+    bad = ~torch.isfinite(plainn)
+    require(bool(bad.any()) and torch.equal(~torch.isfinite(yn), bad),
+            ("phase 14 mxu non-finite set", int((~torch.isfinite(yn)).sum()),
+             int(bad.sum())))
+    held("mxu 2d5pt+2d9pt+2d5pt inf and nan 8192^2 (finite part)",
+         torch.where(bad, 0.0, yn), torch.where(bad, 0.0, plainn), 3e-5,
+         "K2")
+    nonfinite = int(bad.sum())
+    del yn, plainn, bad
+    torch.cuda.empty_cache()
+    # a chain no launch of K1 holds (33 column steps of 32): its segments,
+    # a 2-stage chain and one stage; K2 holds it in one launch
+    pb, wbs = fused_plan(x, big)
+    pbm, _ = fused_plan(x, big, "mxu")
+    require([len(sg) for sg in ops.chain_segments(list(pb.stages))] == [2, 1],
+            "2d121pt x 3 does not cut into 2 + 1 on lanes")
+    ys = run(2, 0, lambda: ops.pipeline(x, big))
+    held("2d121pt x 3 segmented (2 K1 launches) 8192^2", ys,
+         engine.run_window_plan_reference(x, wbs, plan=pb), 3e-5)
+    del ys
+    ysm = run(0, 0, lambda: ops.pipeline(x, big, strategy="mxu"), k2=1)
+    held("mxu 2d121pt x 3 fused 8192^2", ysm,
+         engine.run_window_plan_reference(x, wbs, plan=pbm), 3e-5, "K2")
+    del ysm
     torch.cuda.empty_cache()
 
     # -- (b) the main path: gradients -----------------------------------
     g = randn(n, n)
-    xg = x.clone().requires_grad_(True)
-    y = run(1, 0, lambda: ops.pipeline(xg, chain5))
-    (dx,) = run(1, 0, lambda: torch.autograd.grad(y, xg, g))
-    xr = x.clone().requires_grad_(True)
-    want = torch.autograd.grad(
-        engine.run_window_plan_reference(xr, w5s, plan=p5), xr, g)
-    grads_held("linear chain", (dx,), want)
-    del y, dx, want, xr
-    torch.cuda.empty_cache()
-    leaves = [t.clone().requires_grad_(True) for t in (x, w5, w3, bias, r)]
-    xl, w5l, w3l, bl, rl = leaves
-    conv_l = [(w5l, "gelu"), (w3l, "bias"), (w5l, "residual_add")]
-    y = run(1, 0, lambda: ops.pipeline(xl, conv_l, epilogue_args=(bl, rl)))
+    for strategy, tag, key in ((None, "linear chain", "grad"),
+                               ("mxu", "mxu linear chain", "K2 grad")):
+        mxu = strategy == "mxu"
+        xg = x.clone().requires_grad_(True)
+        y = run(0 if mxu else 1, 0, lambda: ops.pipeline(
+            xg, chain5, strategy=strategy), k2=int(mxu))
+        (dx,) = run(0 if mxu else 1, 0, lambda: torch.autograd.grad(
+            y, xg, g), k2=int(mxu))
+        xr = x.clone().requires_grad_(True)
+        want = torch.autograd.grad(engine.run_window_plan_reference(
+            xr, w5s, plan=pm5 if mxu else p5), xr, g)
+        grads_held(tag, (dx,), want, key)
+        del y, dx, want, xr
+        torch.cuda.empty_cache()
     k3 = sum(K3.launches_for(h_, g_, plan=p_) for h_, g_, p_ in
              _chain_wgrads(x, pc))
-    got = run(6, k3, lambda: torch.autograd.grad(y, leaves, g))
-    del y
-    torch.cuda.empty_cache()
-    ref_leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
-    xr, w5r, w3r, br, rr = ref_leaves
-    yr = engine.run_window_plan_reference(xr, (w5r, w3r, w5r), plan=pc,
-                                          epilogue_args=(br, rr))
-    want = torch.autograd.grad(yr, ref_leaves, g)
-    grads_held("conv chain", got, want)
-    del yr, want, got, ref_leaves, leaves, xl
+    for strategy, tag, key in ((None, "conv chain", "grad"),
+                               ("mxu", "mxu conv chain", "K2 grad")):
+        mxu = strategy == "mxu"
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (x, w5, w3, bias, r)]
+        xl, w5l, w3l, bl, rl = leaves
+        conv_l = [(w5l, "gelu"), (w3l, "bias"), (w5l, "residual_add")]
+        y = run(0 if mxu else 1, 0, lambda: ops.pipeline(
+            xl, conv_l, strategy=strategy, epilogue_args=(bl, rl)),
+            k2=int(mxu))
+        # the stages recomputed and a dx a stage: 6 launches, K3 a dW
+        got = run(0 if mxu else 6, k3, lambda: torch.autograd.grad(
+            y, leaves, g), k2=6 if mxu else 0)
+        del y
+        torch.cuda.empty_cache()
+        ref_leaves = [t.detach().clone().requires_grad_(True)
+                      for t in leaves]
+        xr, w5r, w3r, br, rr = ref_leaves
+        yr = engine.run_window_plan_reference(
+            xr, (w5r, w3r, w5r), plan=pcm if mxu else pc,
+            epilogue_args=(br, rr))
+        want = torch.autograd.grad(yr, ref_leaves, g)
+        grads_held(tag, got, want, key)
+        del yr, want, got, ref_leaves, leaves, xl
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    launches = {"K1": K1.launches, "K3": K3.launches}
+    launches = {"K1": K1.launches, "K2": K2.launches, "K3": K3.launches}
     emit({"phase": "pipeline_launches", **launches, "expected": expected})
     require(launches == expected, ("phase 14 launches", launches, expected))
     torch.cuda.empty_cache()
@@ -3138,10 +3235,13 @@ def pipeline_phase(args, dev, card, results) -> dict:
     # -- (c) times ----------------------------------------------------------
     rows = {}
 
-    def time_case(tag, fused, unfused, plain, lib, lib_label, bytes_, flops):
-        counts = (K1.launches, K3.launches)
+    def time_case(tag, fused, unfused, plain, lib, lib_label, bytes_, flops,
+                  peak=FP32_FLOPS, k1_ms=None):
+        """``peak``: the operations' rate (K2's counted once at TF32's,
+        the fp32 bound beside)."""
+        counts = (K1.launches, K2.launches, K3.launches)
         b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-        f_ms = flops / FP32_FLOPS * 1e3
+        f_ms = flops / peak * 1e3
         rec = {"case": tag, "ms": device_ms(fused, SURFACE_REPS),
                "unfused_ms": (device_ms(unfused, SURFACE_REPS)
                               if unfused else None),
@@ -3150,9 +3250,10 @@ def pipeline_phase(args, dev, card, results) -> dict:
                "library": lib_label,
                "bound_ms": max(b_ms, f_ms),
                "bound_by": "bytes" if b_ms >= f_ms else "operations",
-               "card": card}
+               "fp32_bound_ms": max(b_ms, flops / FP32_FLOPS * 1e3),
+               "k1_ms": k1_ms, "card": card}
         rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
-        K1.launches, K3.launches = counts
+        K1.launches, K2.launches, K3.launches = counts
         rows[tag] = rec
         results["times"].append(rec)
         emit({"phase": "time", **rec})
@@ -3187,7 +3288,7 @@ def pipeline_phase(args, dev, card, results) -> dict:
         lambda: lib_chain(x, wt5, pads5), "F.pad + 3 x F.conv2d (3 calls)",
         2 * cells * 4, flops(p5, cells))
     ap5 = adjoint.input_adjoint_plan(p5)
-    time_case(
+    back = time_case(
         "2d5pt+2d9pt+2d5pt backward (one launch of the reversed chain) "
         "fp32 8192^2",
         lambda: engine.run_window_plan(g, (None,) * 3, plan=ap5),
@@ -3214,7 +3315,7 @@ def pipeline_phase(args, dev, card, results) -> dict:
         yy = F.conv2d(yy, w3[None, None]) + bias
         return F.conv2d(yy, w5[None, None])[0, 0] + r
 
-    time_case(
+    conv_rec = time_case(
         "conv 5x5 gelu + 3x3 bias + 5x5 residual fp32 8192^2",
         lambda: ops.pipeline(x, conv, epilogue_args=(bias, r)),
         lambda: ops.pipeline(x, conv, fuse=False, epilogue_args=(bias, r)),
@@ -3223,15 +3324,14 @@ def pipeline_phase(args, dev, card, results) -> dict:
         lib_conv, "F.pad + 3 x F.conv2d + the elementwise ops",
         3 * cells * 4, flops(pc, cells))
     wt3, pads3 = lib_of(chain3)
-    time_case(
+    rec3 = time_case(
         "3d7pt+3d27pt fp32 512^3",
         lambda: ops.pipeline(x3, chain3),
         lambda: ops.pipeline(x3, chain3, fuse=False),
         lambda: engine.run_window_plan_reference(x3, w3s, plan=p3),
         lambda: lib_chain(x3, wt3, pads3), "F.pad + 2 x F.conv3d (2 calls)",
         2 * x3.numel() * 4, flops(p3, x3.numel()))
-    xb = x.to(torch.bfloat16)
-    time_case(
+    recb = time_case(
         "2d5pt+2d9pt+2d5pt bf16 8192^2",
         lambda: ops.pipeline(xb, chain5),
         lambda: ops.pipeline(xb, chain5, fuse=False),
@@ -3239,8 +3339,86 @@ def pipeline_phase(args, dev, card, results) -> dict:
         lambda: lib_chain(xb, [w.to(torch.bfloat16) for w in wt5], pads5),
         "F.pad + 3 x F.conv2d (3 calls, bf16)", 2 * cells * 2,
         flops(p5, cells))
-    return {"launches": launches, "worst": worst, "rows": rows,
-            "headline": headline}
+    wtb, padsb = lib_of(big)
+    time_case(
+        "2d121pt x 3 segmented (2 K1 launches; unfused 3) fp32 8192^2",
+        lambda: ops.pipeline(x, big),
+        lambda: ops.pipeline(x, big, fuse=False),
+        lambda: engine.run_window_plan_reference(x, wbs, plan=pb),
+        lambda: lib_chain(x, wtb, padsb), "F.pad + 3 x F.conv2d (3 calls)",
+        2 * cells * 4, flops(pb, cells))
+    # K2's chains: the operations counted once at the TF32 rate, the fp32
+    # bound beside; K1's fused chain of the same case beside
+    mxu_rows = {}
+
+    def time_mxu(tag, *a, k1_ms=None, **kw):
+        mxu_rows[tag] = time_case("mxu " + tag, *a, peak=TF32_FLOPS,
+                                  k1_ms=k1_ms, **kw)
+
+    time_mxu("2d5pt+2d9pt+2d5pt fp32 8192^2",
+             lambda: ops.pipeline(x, chain5, strategy="mxu"),
+             lambda: ops.pipeline(x, chain5, strategy="mxu", fuse=False),
+             lambda: engine.run_window_plan_reference(x, w5s, plan=pm5),
+             lambda: lib_chain(x, wt5, pads5),
+             "F.pad + 3 x F.conv2d (3 calls)", 2 * cells * 4,
+             flops(pm5, cells), k1_ms=headline["ms"])
+    apm5 = adjoint.input_adjoint_plan(pm5)
+    time_mxu("2d5pt+2d9pt+2d5pt backward (one K2 launch of the reversed "
+             "chain) fp32 8192^2",
+             lambda: engine.run_window_plan(g, (None,) * 3, plan=apm5),
+             None,
+             lambda: engine.run_window_plan_reference(g, (None,) * 3,
+                                                      plan=apm5),
+             lambda: lib_chain(g, [torch.flip(w, (0, 1))
+                                   for w in wt5[::-1]],
+                               [tuple(reversed(pd)) for pd in pads5]),
+             "F.pad + 3 x F.conv2d (3 calls)", 2 * cells * 4,
+             flops(apm5, cells), k1_ms=back["ms"])
+    time_mxu("conv 5x5 gelu + 3x3 bias + 5x5 residual fp32 8192^2",
+             lambda: ops.pipeline(x, conv, strategy="mxu",
+                                  epilogue_args=(bias, r)),
+             lambda: ops.pipeline(x, conv, strategy="mxu", fuse=False,
+                                  epilogue_args=(bias, r)),
+             lambda: engine.run_window_plan_reference(
+                 x, wcs, plan=pcm, epilogue_args=(bias, r)),
+             lib_conv, "F.pad + 3 x F.conv2d + the elementwise ops",
+             3 * cells * 4, flops(pcm, cells), k1_ms=conv_rec["ms"])
+    time_mxu("3d7pt+3d27pt fp32 512^3",
+             lambda: ops.pipeline(x3, chain3, strategy="mxu"),
+             lambda: ops.pipeline(x3, chain3, strategy="mxu", fuse=False),
+             lambda: engine.run_window_plan_reference(x3, w3s, plan=p3m),
+             lambda: lib_chain(x3, wt3, pads3),
+             "F.pad + 2 x F.conv3d (2 calls)", 2 * x3.numel() * 4,
+             flops(p3m, x3.numel()), k1_ms=rec3["ms"])
+    time_mxu("2d5pt+2d9pt+2d5pt bf16 8192^2",
+             lambda: ops.pipeline(xb, chain5, strategy="mxu"),
+             lambda: ops.pipeline(xb, chain5, strategy="mxu", fuse=False),
+             lambda: engine.run_window_plan_reference(xb, w5s, plan=pm5),
+             lambda: lib_chain(xb, [w.to(torch.bfloat16) for w in wt5],
+                               pads5),
+             "F.pad + 3 x F.conv2d (3 calls, bf16)", 2 * cells * 2,
+             flops(pm5, cells), k1_ms=recb["ms"])
+    time_mxu(f"2d5pt+2d9pt+2d5pt with an inf and a nan ({nonfinite} "
+             "non-finite outputs) fp32 8192^2",
+             lambda: ops.pipeline(xn, chain5, strategy="mxu"), None,
+             lambda: engine.run_window_plan_reference(xn, w5s, plan=pm5),
+             lambda: lib_chain(xn, wt5, pads5),
+             "F.pad + 3 x F.conv2d (3 calls)", 2 * cells * 4,
+             flops(pm5, cells))
+    time_mxu("2d121pt x 3 (one K2 launch; unfused 3) fp32 8192^2",
+             lambda: ops.pipeline(x, big, strategy="mxu"),
+             lambda: ops.pipeline(x, big, strategy="mxu", fuse=False),
+             lambda: engine.run_window_plan_reference(x, wbs, plan=pbm),
+             lambda: lib_chain(x, wtb, padsb),
+             "F.pad + 3 x F.conv2d (3 calls)", 2 * cells * 4,
+             flops(pbm, cells),
+             k1_ms=rows["2d121pt x 3 segmented (2 K1 launches; unfused 3) "
+                        "fp32 8192^2"]["ms"])
+    k1_rows = {tag: rec for tag, rec in rows.items()
+               if not tag.startswith("mxu ")}
+    return {"launches": launches, "worst": worst, "rows": k1_rows,
+            "mxu_rows": mxu_rows, "headline": headline,
+            "mxu_headline": mxu_rows["2d5pt+2d9pt+2d5pt fp32 8192^2"]}
 
 
 def _chain_wgrads(x, plan):
@@ -3508,17 +3686,19 @@ def main() -> int:
                            ("HGMMA", "UTMALDG", "LDS", "STS"))
     results["build"]["mxu_tc_sass"] = mxu_sass
     # K2's single-channel path: each instantiation (the plan's largest
-    # entry, 1-4 k-steps; one of 4 for the strided plans), its registers and spills, its mma.sync (HMMA)
+    # entry, 1-4 k-steps; one of 4 for the strided plans; 1-4 for fused
+    # pipelines, key suffix 1), its registers and spills, its mma.sync (HMMA)
     # on TMA-staged tiles (UTMALDG) and its fragment loads (LDS), no spills;
     # K1's per-lane path: each instance's registers and its 16-byte global
     # accesses (the cp.async ring's LDGSTS, STG.E.128, LDG.E.128)
     mxu_single = {}
     for key, rec in ptxas_entries(
             _build.LIBRARY.ptxas_log,
-            r".*mxu_window_kernelILi(\d)ELb(\d)E").items():
-        kk, s = key.split("x")
+            r".*mxu_window_kernelILi(\d)ELb(\d)ELb(\d)E").items():
+        kk, s, ch = key.split("x")
         mxu_single[key] = {**rec, "sass": sass_counts(
-            str(_build.LIBRARY.path), f"mxu_window_kernelILi{kk}ELb{s}E",
+            str(_build.LIBRARY.path),
+            f"mxu_window_kernelILi{kk}ELb{s}ELb{ch}E",
             ("HMMA", "HGMMA", "UTMALDG", "LDS"))}
     results["build"]["mxu_single_channel"] = mxu_single
     perlane = ptxas_entries(_build.LIBRARY.ptxas_log,
@@ -3551,7 +3731,7 @@ def main() -> int:
         r["spill_store_bytes"] == 0 for r in wgrad_rows.values()),
         ("K3's single-channel kernel spills or lacks an instance",
          wgrad_rows))
-    require(len(mxu_single) == 5 and all(
+    require(len(mxu_single) == 9 and all(
         r["spill_store_bytes"] == 0 and (r["sass"] is None or (
             r["sass"]["HMMA"] > 0 and r["sass"]["UTMALDG"] > 0))
         for r in mxu_single.values()),
@@ -3590,7 +3770,7 @@ def main() -> int:
         for mode, st in SURFACE_STRIDES] + [
         fuse.fuse_plans(*[stencil_plan(stencils.BENCHMARKS[n])
                           for n in chain])
-        for chain in PIPELINE_CHAINS + (("2d5pt",) * 3,)]
+        for chain in PIPELINE_CHAINS + (("2d5pt",) * 3, ("2d121pt",) * 2)]
     k1_used = sorted({
         (engine.window_rows(p), engine.window_inst(p)[0],
          engine.window_p(p),
@@ -3898,7 +4078,21 @@ def main() -> int:
                            "call_ms": k2h["call_ms"], "k1_ms": k2h["k1_ms"],
                            "parent_ms": k2h["parent_ms"],
                            "case": k2h["case"] + " 8192x8192 fp32"},
-        "surface": _surface(surf, "K2")}, {
+        "surface": _surface(surf, "K2"),
+        "pipeline": {"source": K2.chain_source,
+                     "replaces": K2.chain_replaces,
+                     "launches": pipe["launches"]["K2"],
+                     "max_abs_err": pipe["worst"]["K2"],
+                     "grad_max_abs_err": pipe["worst"]["K2 grad"],
+                     **_row(pipe["mxu_headline"]),
+                     "k1_ms": pipe["mxu_headline"]["k1_ms"],
+                     "cases": {tag: {**_row(rec),
+                                     "unfused_ms": rec["unfused_ms"],
+                                     "k1_ms": rec["k1_ms"],
+                                     "fp32_bound_ms": rec["fp32_bound_ms"],
+                                     "library": rec["library"]}
+                               for tag, rec in pipe["mxu_rows"].items()}}},
+        {
         "name": K4.name, "route": "cuda", "source": K4.source,
         "replaces": K4.replaces, "launches": hy["launches"]["k4"],
         "max_abs_err": hy["worst"]["K4"], **_row(hy["timed"]["K4"])}, {

@@ -156,8 +156,8 @@ class Library:
         lib.ssam_mxu_tc_launch.argtypes = (
             [p, p, i, p, p] + epi + [i] * 24 + [p])
         lib.ssam_mxu_tc_launch.restype = i
-        lib.ssam_mxu_window_launch.argtypes = ([p, p, i, p, p, ints, i]
-                                               + epi + [p])
+        lib.ssam_mxu_window_launch.argtypes = ([p, p, i, p, p, ints, i,
+                                                ints, i] + epi + [p])
         lib.ssam_mxu_window_launch.restype = i
         lib.ssam_window_perlane_launch.argtypes = (
             [p, p, i, p, ints, i] + epi + [i] * 5 + [p])

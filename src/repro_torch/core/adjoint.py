@@ -123,26 +123,31 @@ def input_adjoint_plan(plan: SystolicPlan) -> SystolicPlan:
             "the transpose of an output-strided plan is input-dilated, "
             "which is not a windowed plan; the ops layer dilates the "
             "cotangent and transposes the stride-free plan instead")
+    # all-zero pads normalise to None (the builders' default), so that the
+    # adjoint of an adjoint is identically the original plan
+    norm = lambda t: t if any(t) else None
+    exts = plan.exts
+    lead, trail = plan.lead_trail()
     if plan.stages:
         # (P_k ∘ … ∘ P_1)ᵀ = P_1ᵀ ∘ … ∘ P_kᵀ, itself a fused plan. Stage
         # strategies ride unchanged; one pinned only on the composite is
-        # pushed down, so the transposed chain stays on the same lowering
+        # pushed down, so the transposed chain stays on the same lowering.
+        # The composite's frame transposes as a plan's does: a chain run in
+        # valid mode (a segment of one no launch holds) transposes to
+        # 'full'; a shape-preserving one to the frame fuse_plans sums.
         from .fuse import fuse_plans
-        return fuse_plans(*[
+        return dataclasses.replace(fuse_plans(*[
             input_adjoint_plan(dataclasses.replace(
                 s, epilogue=(), strategy=s.strategy or plan.strategy))
-            for s in reversed(plan.stages)])
-    exts = plan.exts
+            for s in reversed(plan.stages)]),
+            lead=norm(tuple(e - 1 - l for e, l in zip(exts, lead))),
+            trail=norm(tuple(e - 1 - r for e, r in zip(exts, trail))))
     reflected = [
         (tuple(e - 1 - o for e, o in zip(exts, off)), cid)
         for off, cid in iter_tap_offsets(plan)
     ]
-    lead, trail = plan.lead_trail()
     kind = plan.kind[4:] if plan.kind.startswith("adj_") else \
         "adj_" + plan.kind
-    # all-zero pads normalise to None (the builders' default), so that the
-    # adjoint of an adjoint is identically the original plan
-    norm = lambda t: t if any(t) else None
     return dataclasses.replace(
         plan,
         kind=kind,

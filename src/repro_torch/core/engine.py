@@ -173,12 +173,12 @@ def _out_dims(plan: SystolicPlan, x, w, time_steps: int = 1) -> tuple:
 
 
 def _check_operands(plan: SystolicPlan, x, w, epilogue_args,
-                    time_steps: int = 1) -> None:
+                    time_steps: int = 1, out_dims=None) -> None:
     """Shapes of the filter and the epilogue operands against the plan:
     a bias per C_out (reduce plans and a filter per image, whose channels
     are the filters), per lane (per-lane plans) or a scalar (any other
-    plan), a residual shaped exactly like the output (the reference's
-    ``_check_epilogue_operands``)."""
+    plan), a residual shaped exactly like the output, ``out_dims`` where
+    given (the reference's ``_check_epilogue_operands``)."""
     if plan.stages:
         return _check_chain_operands(plan, x, w, epilogue_args)
     if plan.coeff_mode in ("dense", "perlane") and w is None:
@@ -217,7 +217,7 @@ def _check_operands(plan: SystolicPlan, x, w, epilogue_args,
     for st, arr in zip(need, epilogue_args):
         shape = tuple(arr.shape)
         if st.op == "residual_add":
-            want = _out_dims(plan, x, w, time_steps)
+            want = out_dims or _out_dims(plan, x, w, time_steps)
             if shape != want:
                 raise ValueError(
                     f"residual_add epilogue wants an output-shaped {want} "
@@ -240,8 +240,7 @@ def _check_chain_operands(plan: SystolicPlan, x, w, epilogue_args) -> None:
     """A fused pipeline's operands: ``w`` one entry a stage (the stage's
     ``(N, M)`` filter for a 'dense' stage, None for a 'table' one), the
     epilogue operands in chain order (mid-chain biases scalars, the final
-    stage's checked as that stage's own against the same-shaped
-    output)."""
+    stage's checked as that stage's own against the chain's output)."""
     n = len(plan.stages)
     if not isinstance(w, (tuple, list)) or len(w) != n:
         raise ValueError(
@@ -271,7 +270,10 @@ def _check_chain_operands(plan: SystolicPlan, x, w, epilogue_args) -> None:
                     f"stage {i} ({st.kind!r}): mid-chain epilogue operands "
                     "are scalar biases (a residual is final-only), got "
                     f"{e.op} of shape {tuple(arr.shape)}")
-    _check_operands(plan.stages[-1], x, w[-1], splits[-1])
+    # the final stage's residual is shaped like the chain's output (a chain
+    # run in valid mode is smaller than its input)
+    _check_operands(plan.stages[-1], x, w[-1], splits[-1],
+                    out_dims=_out_dims(plan, x, None))
 
 
 def _geometry(plan, x_shape, block, time_steps):
@@ -1622,7 +1624,7 @@ def chain_table(plan: SystolicPlan) -> ChainTable:
             f"{plan.kind!r}: {why}; a chain beyond K1's single-channel "
             "limits is not ported (ROADMAP Queue 2, K1)")
     inst = window_inst(plan)
-    steps, slots, cidx, records, mid = [], [], [], [], []
+    steps, slots, cidx, records = [], [], [], []
     off = 0
     for st in plan.stages:
         dense = st.coeff_mode == "dense"
@@ -1633,7 +1635,20 @@ def chain_table(plan: SystolicPlan) -> ChainTable:
         slots += tt.slots
         cidx += [off + c for c in tt.cidx]
         off += math.prod(st.exts) if dense else len(st.coeffs)
-    recs = []
+    fields, mid = _chain_mid(plan, off)
+    recs = [_stage_record(st, *rec, f)
+            for st, rec, f in zip(plan.stages, records, fields)]
+    return ChainTable(TapTable(tuple(steps), tuple(slots), tuple(cidx), None),
+                      tuple(recs), mid)
+
+
+def _chain_mid(plan: SystolicPlan, off: int):
+    """A fused pipeline's mid-chain epilogue ops as K1 and K2 read them:
+    per stage ``first | count << 8`` of its ops (0 for none), and the ops
+    ``(code, value, index)``, ``index`` a bias's place in the coefficient
+    array after the stages' ``off`` coefficients (:func:`chain_coefficients`),
+    −1 for other ops."""
+    fields, mid = [], []
     for i, st in enumerate(plan.stages):
         ops_ = st.epilogue if i < len(plan.stages) - 1 else ()
         first = len(mid)
@@ -1643,10 +1658,8 @@ def chain_table(plan: SystolicPlan) -> ChainTable:
                 idx = off
                 off += 1
             mid.append((EPILOGUE_CODES[e.op], float(e.value or 0.0), idx))
-        recs.append(_stage_record(st, *records[i],
-                                  first | len(ops_) << 8 if ops_ else 0))
-    return ChainTable(TapTable(tuple(steps), tuple(slots), tuple(cidx), None),
-                      tuple(recs), tuple(mid))
+        fields.append(first | len(ops_) << 8 if ops_ else 0)
+    return fields, tuple(mid)
 
 
 def chain_coefficients(plan: SystolicPlan, w, epilogue_args,
@@ -1929,7 +1942,7 @@ def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
     mxu plan takes K2's tile (:func:`_mxu_block`). (The reduce paths tile
     their output themselves: K1 128 channels x 1 row x 64-128 columns, K2
     128 or 256 channels x 1 row x 128 or 64 columns.)"""
-    if plan.strategy == "mxu" and not plan.stages:
+    if plan.strategy == "mxu":
         return _mxu_block(plan, time_steps)
     need, limit = smem_bytes, SMEM_LIMIT
     V = max(1, WARP - (plan.M - 1))
@@ -2301,7 +2314,7 @@ def mxu_tap_table(plan: SystolicPlan, w_shape) -> tuple[int, ...]:
     return tuple(out)
 
 
-# K2's single-channel path (csrc/ssam_mxu.cu): Toeplitz coefficient tiles
+# K2's single-channel path (csrc/ssam_mxu.cuh): Toeplitz coefficient tiles
 # on the tensor cores. A tapped footprint row (dz, r) is cut into entries of
 # at most MXU_SPAN consecutive columns; an entry's k-steps s < KK hold B_s[k,
 # n] = c(dz, r, cmin + 8s + k − n) for 8 consecutive output columns n. A
@@ -2374,15 +2387,20 @@ def _mxu_segments(rows, sw: int = 1) -> list:
 
 
 def _mxu_b_shape(plan: SystolicPlan) -> tuple[int, int]:
-    """``(entries, B tile words)`` of a plan, from its tap positions."""
-    rows: dict = {}
-    for cum, tap in flat_taps(plan):
-        dz = tap.z_offset if plan.ndim_spatial == 3 else 0
-        rows.setdefault((dz, tap.row_offset), set()).add(cum)
-    sw = plan.stride_per_axis()[-1]
-    segs = _mxu_segments(rows, sw)
-    return len(segs), sum(64 * -(-(c[-1] - c[0] + 1 + 7 * sw) // 8)
-                          for _, _, c in segs)
+    """``(entries, B tile words)`` of a plan (a fused pipeline's summed
+    over its stages), from its tap positions."""
+    nent = words = 0
+    for st in plan.stages or (plan,):
+        rows: dict = {}
+        for cum, tap in flat_taps(st):
+            dz = tap.z_offset if st.ndim_spatial == 3 else 0
+            rows.setdefault((dz, tap.row_offset), set()).add(cum)
+        sw = st.stride_per_axis()[-1]
+        segs = _mxu_segments(rows, sw)
+        nent += len(segs)
+        words += sum(64 * -(-(c[-1] - c[0] + 1 + 7 * sw) // 8)
+                     for _, _, c in segs)
+    return nent, words
 
 
 @functools.lru_cache(maxsize=256)
@@ -2434,6 +2452,125 @@ def mxu_btiles(ents: MxuEntries, cvals: torch.Tensor,
     return bt
 
 
+MXU_MAX_CHAIN = 32            # stage records of a launch (kMxMaxChain)
+
+
+def _mxu_stage_entries(st: SystolicPlan) -> MxuEntries:
+    return mxu_entries(st, st.exts if st.coeff_mode == "dense" else None)
+
+
+def mxu_chain_refusal(plan: SystolicPlan) -> str | None:
+    """Why one launch of K2's single-channel kernel cannot hold ``plan``,
+    or None: a pure function of the plan, as :func:`tap_table_refusal` is
+    for K1, so a route can be chosen before anything launches. A plan
+    that is no chain: what :func:`mxu_entries` refuses. A fused pipeline:
+    a stage it refuses, more than :data:`MXU_MAX_CHAIN` stages, more than
+    :data:`MXU_MAX_TAPS` taps in all, more than :data:`WINDOW_MAX_MID`
+    mid-chain epilogue ops, or the stages' B tiles, entries, staged tile
+    and iterates beyond :data:`SMEM_LIMIT` at the smallest tile (1 × 1)."""
+    for i, st in enumerate(plan.stages or (plan,)):
+        try:
+            _mxu_stage_entries(st)
+        except ValueError as e:
+            return f"stage {i} ({st.kind}): {e}" if plan.stages else str(e)
+    if not plan.stages:
+        return None
+    if len(plan.stages) > MXU_MAX_CHAIN:
+        return (f"the chain has {len(plan.stages)} stages, K2 holds "
+                f"{MXU_MAX_CHAIN} a launch")
+    taps = sum(len(s.taps) for st in plan.stages for s in st.steps)
+    if _round8(taps) > MXU_MAX_TAPS:
+        return f"the chain has {taps} taps, K2 holds {MXU_MAX_TAPS} a launch"
+    mid = sum(len(st.epilogue) for st in plan.stages[:-1])
+    if mid > WINDOW_MAX_MID:
+        return (f"the chain has {mid} mid-chain epilogue ops, K2 holds "
+                f"{WINDOW_MAX_MID}")
+    smem = _mxu_smem(plan, (1, 1, 1), 1, 4, 1)[5]
+    if smem > SMEM_LIMIT:
+        return (f"the chain's B tiles need {smem} bytes of shared memory at "
+                f"a 1 x 1 tile, K2 holds {SMEM_LIMIT}")
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class MxuChain:
+    """K2's tables of a fused pipeline. ``ents``: every stage's
+    :func:`mxu_entries` one after another as one :class:`MxuEntries`
+    (B offsets past the stages before, column tables after all the entry
+    records, coefficient indices into :func:`chain_coefficients`'s array),
+    so that :func:`mxu_btiles` builds the whole chain's B tiles.
+    ``records``: one ``(first entry, entries, N | D << 8 | M << 16, mid)``
+    a stage, ``mid`` its mid-chain ops ``first | count << 8`` (0 for
+    none); ``mid``: the ops ``(code, value, index)`` of
+    :func:`_chain_mid`."""
+
+    ents: MxuEntries
+    records: tuple[tuple[int, int, int, int], ...]
+    mid: tuple[tuple[int, float, int], ...]
+
+    def ints(self) -> tuple[int, ...]:
+        """The chain as the C entry takes it: ``(stages, mid ops)``, the
+        records, then the ops ``(code, value's float bits, index)``."""
+        return ((len(self.records), len(self.mid))
+                + tuple(v for r in self.records for v in r)
+                + tuple(v for op, val, idx in self.mid
+                        for v in (op, _float_bits(val), idx)))
+
+
+@functools.lru_cache(maxsize=256)
+def mxu_chain_table(plan: SystolicPlan) -> MxuChain:
+    """The :class:`MxuChain` of a fused pipeline, built from each stage's
+    own entries. A chain one K2 launch cannot hold
+    (:func:`mxu_chain_refusal`) raises ``NotImplementedError`` naming the
+    limit: the CUDA kernel never runs it unfused or on the plain
+    version."""
+    why = mxu_chain_refusal(plan)
+    if why:
+        raise NotImplementedError(
+            f"{plan.kind!r}: {why}; a chain beyond K2's single-channel "
+            "limits is not ported (ROADMAP Queue 2, K2)")
+    parts = [_mxu_stage_entries(st) for st in plan.stages]
+    nent = sum(len(p.entries) for p in parts)
+    head, tail, ents, spans = [], [], [], []
+    boff = coff = 0
+    for st, part in zip(plan.stages, parts):
+        spans.append((len(ents), len(part.entries)))
+        for dz, r, cmin, span, kk, bo, toff in part.entries:
+            ent = (dz, r, cmin, span, kk, bo + boff,
+                   MXU_ENT_INTS * nent + len(tail))
+            head += [*ent, 0]
+            ents.append(ent)
+            tail += [c + coff if c >= 0 else -1
+                     for c in part.table[toff:toff + span]]
+        boff += part.b_words
+        coff += (math.prod(st.exts) if st.coeff_mode == "dense"
+                 else len(st.coeffs))
+    fields, mid = _chain_mid(plan, coff)
+    recs = tuple(_stage_record(st, *sp, f)
+                 for st, sp, f in zip(plan.stages, spans, fields))
+    return MxuChain(MxuEntries(tuple(ents), tuple(head + tail), boff),
+                    recs, mid)
+
+
+def _mxu_ents(plan: SystolicPlan, w) -> MxuEntries:
+    """The entries K2 walks for ``plan``: a fused pipeline's
+    (:func:`mxu_chain_table`), else the plan's own against ``w``."""
+    if plan.stages:
+        return mxu_chain_table(plan).ents
+    return mxu_entries(plan, None if w is None else tuple(w.shape))
+
+
+def _mxu_cvals(plan: SystolicPlan, w, epilogue_args, device) -> torch.Tensor:
+    """The fp32 coefficients K2 reads on ``device``: a fused pipeline's
+    :func:`chain_coefficients`, a dense plan's filter, else the plan's
+    immediates."""
+    if plan.stages:
+        return chain_coefficients(plan, w, epilogue_args, device)
+    if plan.coeff_mode == "dense":
+        return w.detach().to(device=device, dtype=torch.float32).flatten()
+    return _device_floats(plan.coeffs, device)
+
+
 def mxu_pitch(width: int) -> int:
     """The row pitch, in words, of K2's fp32 iterate buffers: at least
     ``width`` and 4 mod 8, so that a fragment's 8 rows × 4 columns fall
@@ -2453,8 +2590,9 @@ class MxuLayout:
     ``stage_bytes`` make the ring; then ``bufs`` fp32 words (the widened
     bf16 stage at pitch ``pc``, the even and the odd iterates), the
     :data:`MXU_SLACK` words the over-reads reach, the B tiles, the entries
-    and the barriers: ``smem`` bytes. ``geom`` is what the C entry
-    takes."""
+    and the barriers: ``smem`` bytes. ``geom`` and ``chain`` are what the
+    C entry takes: ``chain`` a fused pipeline's :meth:`MxuChain.ints`,
+    ``(0, 0)`` for a plan that is no chain."""
 
     tile: tuple[int, int, int]
     tiles: tuple[int, int, int, int]
@@ -2467,6 +2605,7 @@ class MxuLayout:
     smem: int
     grid: int
     geom: tuple[int, ...]
+    chain: tuple[int, ...]
 
     @property
     def ntiles(self) -> int:
@@ -2491,7 +2630,13 @@ def _mxu_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
               stages: int):
     """``(box, boxes, stage_bytes, pc, bufs, smem)`` of a K2 single-channel
     block at a ring of ``stages`` (``box[2]`` above :data:`TMA_MAX_BOX`
-    where a tile's input row is wider than one TMA box)."""
+    where a tile's input row is wider than one TMA box). A fused
+    pipeline stages the input widened by its summed footprint; each
+    application's iterate shrinks by its own stage's, and the ping-pong
+    buffers hold the largest iterate written to each (the first stage's
+    in the even one). An item reads rows clamped to its source's, so a
+    stage of fewer rows needs no row slack; the over-reads past a row's
+    end stay within :func:`mxu_slack`."""
     nd = plan.ndim_spatial
     D = plan.depth if nd == 3 else 1
     N, M = plan.N, plan.M
@@ -2520,13 +2665,16 @@ def _mxu_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
     pc = box_x + 4 if es == 2 else 0    # bf16 box_x is a multiple of 8
     c0 = _round_up(sz * sy * pc, 4)
 
-    def iterate(k):             # words of application k's result
-        j = t - 1 - k
-        return ((bz + j * (D - 1)) * (bh + j * (N - 1))
-                * mxu_pitch(bw + j * (M - 1)))
+    apps = _applications(plan, t)
 
-    even = max((iterate(k) for k in range(0, t - 1, 2)), default=0)
-    odd = max((iterate(k) for k in range(1, t - 1, 2)), default=0)
+    def iterate(k):             # words of application k's result: the tile
+        # widened by the footprints of the applications after it
+        g = [sum(e[a] - 1 for e in apps[k + 1:]) for a in range(3)]
+        return (bz + g[0]) * (bh + g[1]) * mxu_pitch(bw + g[2])
+
+    n = len(apps)
+    even = max((iterate(k) for k in range(0, n - 1, 2)), default=0)
+    odd = max((iterate(k) for k in range(1, n - 1, 2)), default=0)
     bufs = (c0, _round_up(even, 4), _round_up(odd, 4))
     nent, b_words = _mxu_b_shape(plan)
     smem = (128 + stages * stage_bytes
@@ -2576,13 +2724,14 @@ def mxu_layout(plan: SystolicPlan, head, tile, t: int, elem_bytes: int,
             mxu_slack(plan.stride_per_axis()[-1]),
             max(e[4] for e in ents.entries), *plan.stride_per_axis()[-2:],
             *(oaddr or _dense_oaddr(head)))
+    chain = mxu_chain_table(plan).ints() if plan.stages else (0, 0)
     return MxuLayout(tile, tiles, box, boxes, stage_bytes, stages, pc, bufs,
-                     smem, grid, geom)
+                     smem, grid, geom, chain)
 
 
 def mxu_smem_bytes(plan: SystolicPlan, block, time_steps: int) -> int:
     """Dynamic shared memory of one fp32 single-channel K2 block with one
-    ring stage (layout of ``ssam_mxu.cu``, :func:`mxu_layout`), B tiles
+    ring stage (layout of ``ssam_mxu.cuh``, :func:`mxu_layout`), B tiles
     included."""
     tile = (1,) * (3 - plan.ndim_spatial) + tuple(block)
     return _mxu_smem(plan, tile, time_steps, 4, 1)[5]
@@ -2590,14 +2739,15 @@ def mxu_smem_bytes(plan: SystolicPlan, block, time_steps: int) -> int:
 
 def _mxu_block(plan: SystolicPlan, t: int) -> tuple[int, ...]:
     """K2's default output tile: 64 × 128 (2-D) or 8 × 16 × 64 (3-D), cut
-    at t > 1 (by at most half) so that the first application's rows and
-    columns fill whole warp items (16 rows, 32 columns); slices, then
-    rows, then columns (or
+    at t > 1 or for a fused pipeline (by at most half) so that the first
+    application's rows and columns fill whole warp items (16 rows, 32
+    columns); slices, then rows, then columns (or
     the columns first where a tile's input row is wider than one TMA box)
     halved until a block takes at most half of the shared memory, two
     blocks an SM."""
     base = [8, 16, 64] if plan.ndim_spatial == 3 else [64, 128]
-    grow = ((t - 1) * (plan.N - 1), (t - 1) * (plan.M - 1))
+    later = _applications(plan, t)[1:]
+    grow = tuple(sum(e[a] - 1 for e in later) for a in (1, 2))
     while True:
         block = list(base)
         for a, (unit, g) in enumerate(zip((MXU_ROWS, 8 * MXU_CHUNKS), grow)):
@@ -2628,24 +2778,24 @@ def _tf32_split(a: torch.Tensor):
     return big, trunc(a - big)
 
 
-def _emulate_mxu_apply(mem: torch.Tensor, src, out_ext, ents: MxuEntries,
-                       btile: torch.Tensor, plan: SystolicPlan,
+def _emulate_mxu_apply(mem: torch.Tensor, src, out_ext, entries, table,
+                       btile: torch.Tensor, stride,
                        cvals: torch.Tensor) -> torch.Tensor:
-    """One application of ``ssam_mxu.cu::apply_mx`` on the emulated shared
+    """One application of ``ssam_mxu.cuh::apply_mx`` on the emulated shared
     memory ``mem`` (flat fp32 words) through ``src (base, pitch, plane,
     shift)``: the warp items (16 rows, rows past the last clamped, × 4
-    chunks of 8 columns, per slice), each entry's shifted-row A (its k-step
-    windows read in place: output row ``y`` reads row ``sh·y + r``, chunk
-    ``c`` its window from column ``sw·8c``) split and multiplied with its
-    Toeplitz tiles (big·big summed over whole entries of at least
-    :data:`MXU_FLUSH` k-steps, then added to the fp32 sum; the cross terms
-    beside); an item whose sums are not all finite (a non-finite input met
-    the tiles' zeros) summed again tap by tap, the entries' columns in
-    order, from ``cvals``. Returns the dense fp32 ``out_ext`` ``(zd, hd,
-    wd)`` result."""
+    chunks of 8 columns, per slice), each of ``entries``' shifted-row A
+    (its k-step windows read in place: output row ``y`` reads row ``sh·y
+    + r`` at ``stride (sh, sw)``, chunk ``c`` its window from column
+    ``sw·8c``) split and multiplied with its Toeplitz tiles (big·big
+    summed over whole entries of at least :data:`MXU_FLUSH` k-steps, then
+    added to the fp32 sum; the cross terms beside); an item whose sums are
+    not all finite (a non-finite input met the tiles' zeros) summed again
+    tap by tap, the entries' columns (``table``) in order, from ``cvals``.
+    Returns the dense fp32 ``out_ext`` ``(zd, hd, wd)`` result."""
     base, pitch, plane, shift = src
     zd, hd, wd = out_ext
-    sh, sw = plan.stride_per_axis()[-2:]
+    sh, sw = stride
     hp = _round_up(hd, MXU_ROWS)
     nch = _round_up(wd, 8 * MXU_CHUNKS) // 8
     y = torch.arange(hp).clamp(max=hd - 1)
@@ -2653,7 +2803,7 @@ def _emulate_mxu_apply(mem: torch.Tensor, src, out_ext, ents: MxuEntries,
     cor = torch.zeros((zd, hp, nch, 8))
     hi = torch.zeros((zd, hp, nch, 8))
     pend = 0
-    for e, (dz, r, cmin, _, kk, boff, _) in enumerate(ents.entries):
+    for e, (dz, r, cmin, _, kk, boff, _) in enumerate(entries):
         addr = (base + (torch.arange(zd)[:, None, None, None] + dz) * plane
                 + (sh * y[None, :, None, None] + r) * pitch
                 + sw * 8 * torch.arange(nch)[None, None, :, None] + cmin
@@ -2665,7 +2815,7 @@ def _emulate_mxu_apply(mem: torch.Tensor, src, out_ext, ents: MxuEntries,
         hi = hi + ab @ bb
         cor = cor + (as_ @ bb + ab @ bs)
         pend += kk
-        if pend >= MXU_FLUSH or e == len(ents.entries) - 1:
+        if pend >= MXU_FLUSH or e == len(entries) - 1:
             acc, hi, pend = acc + hi, torch.zeros_like(hi), 0
     out = (acc + cor).reshape(zd, hp, nch * 8)
     items = (zd, hp // MXU_ROWS, MXU_ROWS, nch // MXU_CHUNKS, 8 * MXU_CHUNKS)
@@ -2673,8 +2823,8 @@ def _emulate_mxu_apply(mem: torch.Tensor, src, out_ext, ents: MxuEntries,
     if bool(bad.any()):
         col = sw * torch.arange(nch * 8).clamp(max=wd - 1)
         plain = torch.zeros_like(out)
-        for dz, r, cmin, span, _, _, toff in ents.entries:
-            for k, ci in enumerate(ents.table[toff:toff + span]):
+        for dz, r, cmin, span, _, _, toff in entries:
+            for k, ci in enumerate(table[toff:toff + span]):
                 if ci >= 0:
                     addr = (base + (torch.arange(zd)[:, None, None] + dz)
                             * plane + (sh * y[None, :, None] + r) * pitch
@@ -2685,22 +2835,35 @@ def _emulate_mxu_apply(mem: torch.Tensor, src, out_ext, ents: MxuEntries,
     return out[:, :hd, :wd]
 
 
+def _emulate_mid(mid, rec: int, cvals: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    """A stage's mid-chain ops (its record's ``first | count << 8`` into
+    ``mid``) on the fp32 sums ``v``, as ``mid_ops`` applies them."""
+    e0 = rec & 255
+    for code, val, idx in mid[e0:e0 + (rec >> 8)]:
+        v = _epilogue_op(code, val, cvals[idx] if code == 1 else None, v)
+    return v
+
+
 def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                        block=None, time_steps: int = 1,
                        epilogue_args=()) -> torch.Tensor:
     """K2's single-channel schedule walked in plain torch on the CPU: the
-    spec of ``csrc/ssam_mxu.cu`` that the CPU tests hold to the plain
+    spec of ``csrc/ssam_mxu.cuh`` that the CPU tests hold to the plain
     version. The wrapper's operand (a pitch-padded copy where x's rows are
-    not a multiple of 16 bytes), :func:`mxu_entries` and the Toeplitz tiles
+    not a multiple of 16 bytes), :func:`mxu_entries` (a fused pipeline's
+    :func:`mxu_chain_table`) and the Toeplitz tiles of every stage
     (:func:`mxu_btiles`), :func:`mxu_layout`, the persistent walk (block
     ``g`` takes tiles ``g, g + grid, …``; a stage is waited for by the
     tile it was filled with), each stage's TMA boxes (:func:`_tma_box`),
     one block's shared memory zeroed at its start and reused by its tiles
-    (a bf16 stage widened into its fp32 buffer), the t applications
-    (:func:`_emulate_mxu_apply`: the stage, then the fp32 iterates in two
-    ping-pong buffers at :func:`mxu_pitch`) and the last one stored
-    through the epilogue (:func:`_tile_epilogue`). Returns ``x``'s shape
-    and dtype."""
+    (a bf16 stage widened into its fp32 buffer), the t applications, or
+    a chain's one a stage (:func:`_emulate_mxu_apply` on the stage's own
+    entries, shrinking by its own footprint: the TMA stage, then the fp32
+    iterates in two ping-pong buffers at :func:`mxu_pitch`, a stage's
+    mid-chain ops applied after its non-finite check) and the last one
+    stored through the epilogue (:func:`_tile_epilogue`). Returns ``x``'s
+    shape and dtype."""
     check_supported(plan, time_steps, "shift_psum")
     _check_operands(plan, x, w, epilogue_args, time_steps)
     if _is_reduce(plan) or plan.coeff_mode == "perlane" \
@@ -2708,14 +2871,21 @@ def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
         raise ValueError("the emulation walks K2's single-channel path")
     block = tuple(block or default_block(plan, time_steps))
     t, nd = time_steps, plan.ndim_spatial
-    D = plan.depth if nd == 3 else 1
-    N, M = plan.N, plan.M
-    ents = mxu_entries(plan, None if w is None else tuple(w.shape))
-    cvals = (torch.tensor(plan.coeffs, dtype=torch.float32)
-             if plan.coeff_mode == "table"
-             else w.detach().to(torch.float32).flatten())
+    ents = _mxu_ents(plan, w)
+    cvals = _mxu_cvals(plan, w, epilogue_args, torch.device("cpu"))
     sh, sw = plan.stride_per_axis()[-2:]
     btile = mxu_btiles(ents, cvals, sw)
+    if plan.stages:
+        ct = mxu_chain_table(plan)
+        apps = [(ents.entries[f:f + n], (nz & 255, nz >> 8 & 255, nz >> 16),
+                 m) for f, n, nz, m in ct.records]
+        mid = ct.mid
+        final = plan.stages[-1]
+        epilogue_args = stage_epilogue_args(plan.stages, epilogue_args)[-1]
+    else:
+        D = plan.depth if nd == 3 else 1
+        apps = [(ents.entries, (plan.N, D, plan.M), 0)] * t
+        mid, final = (), plan
     xc, out, _, head, tile = _tile_launch(plan, x, block, t)
     xt, pitch = _tma_operand(xc)
     batch, zin, hin, win, zo, ho, wo, lz, ly, lx = head
@@ -2725,7 +2895,7 @@ def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     xm = xt.reshape(batch, zin, hin, pitch)
     out4 = out.reshape(batch, zo, ho, wo)
     resid = next((a.reshape(batch, zo, ho, wo) for st, a in zip(
-        epilogue_operand_stages(plan.epilogue), epilogue_args)
+        epilogue_operand_stages(final.epilogue), epilogue_args)
         if st.op == "residual_add"), None)
     (box_z, box_y, box_x), (nbz, nby) = lay.box, lay.boxes
     sz, sy = lay.staged
@@ -2765,14 +2935,17 @@ def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
             held[s] = mine[nxt] if nxt < len(mine) else None
             tz, ty, tx = (min(a, n - o) for a, n, o in
                           zip(lay.tile, (zo, ho, wo), (oz0, oy0, ox0)))
-            ext = (tz + t * (D - 1), ty + t * (N - 1), tx + t * (M - 1))
-            for k in range(t):
+            # staged: the tile widened by every application's footprint
+            ext = tuple(v + t * (e - 1) for v, e in
+                        zip((tz, ty, tx), lay.geom[1:4]))
+            for k, (stage_ents, (Nk, Dk, Mk), rec) in enumerate(apps):
                 res = _emulate_mxu_apply(
                     mem, src, (tz, ty, tx) if sh * sw > 1 else
-                    (ext[0] - (D - 1), ext[1] - (N - 1), ext[2] - (M - 1)),
-                    ents, btile, plan, cvals)
+                    (ext[0] - (Dk - 1), ext[1] - (Nk - 1), ext[2] - (Mk - 1)),
+                    stage_ents, ents.table, btile, (sh, sw), cvals)
                 ext = tuple(res.shape)
-                if k < t - 1:
+                if k < len(apps) - 1:
+                    res = _emulate_mid(mid, rec, cvals, res)
                     zd, hd, wd = ext
                     dp = mxu_pitch(wd)
                     base = offs[1 + (k & 1)]
@@ -2782,7 +2955,7 @@ def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                     src = (base, dp, hd * dp, 0)
             assert ext == (tz, ty, tx)
             out4[b, oz0:oz0 + tz, oy0:oy0 + ty, ox0:ox0 + tx] = \
-                _tile_epilogue(plan, res, epilogue_args, resid, b,
+                _tile_epilogue(final, res, epilogue_args, resid, b,
                                (oz0, oy0, ox0))
             done[tile_no] += 1
     assert bool((done == 1).all()), "a tile is not walked exactly once"
@@ -2929,7 +3102,7 @@ class MxuKernel:
     plans ``csrc/ssam_mxu.cu`` (``ssam_mxu_window_launch``), per-lane
     plans ``csrc/ssam_mxu_perlane.cu`` (``ssam_mxu_perlane_launch``).
     ``launches`` counts the kernel launches it made: one per call on any
-    path, a
+    path, a fused pipeline's whole chain of stages and a
     fused epilogue or residual included; a strided reduce plan's input
     adjoint (:meth:`adjoint_phases`) is one launch for all its phases, a
     strided single-channel plan's one launch a phase that a tap
@@ -2941,6 +3114,9 @@ class MxuKernel:
     perlane_source = "src/repro_torch/csrc/ssam_mxu_perlane.cu"
     perlane_replaces = ("src/repro/core/engine.py:253 (_apply_plan_mxu's "
                         "per-lane branch, pallas_call at 587)")
+    chain_source = "src/repro_torch/csrc/ssam_mxu_chain.cu"
+    chain_replaces = ("src/repro/core/engine.py:388-408 (_window_kernel's "
+                      "stage loop on _apply_plan_mxu, pallas_call at 587)")
     replaces = ("src/repro/core/engine.py:189 (_apply_plan_mxu, "
                 "strategy='mxu' at pallas_call 587)")
 
@@ -2951,11 +3127,9 @@ class MxuKernel:
     def __call__(self, x: torch.Tensor, w, *, plan: SystolicPlan, block,
                  time_steps: int, epilogue_args=()) -> torch.Tensor:
         if plan.stages:
-            raise NotImplementedError(
-                f"{plan.kind!r}: K2 with fused stages (a chain pinned to "
-                "strategy='mxu') is not ported (ROADMAP Queue 1 item 7, its "
-                "K2 half); the CPU runs its plain version, the card K1's "
-                "chain on the lanes strategy")
+            # a chain one launch cannot hold raises naming the limit (before
+            # the device is looked at); ops.pipeline cuts such chains
+            mxu_chain_table(plan)
         _check_kernel_operands("K2", x, w, plan)
         if plan.strategy != "mxu":
             raise ValueError(f"K2 runs mxu plans, got strategy="
@@ -3000,26 +3174,31 @@ class MxuKernel:
 
     def _single(self, x, w, plan, block, t, _variant, epilogue_args, *,
                 out=None, out_sp=None, offset=0, oaddr=None):
-        """The single-channel path (``ssam_mxu.cu``): one launch, strided
-        or not, the epilogue at the store; ``out``, ``out_sp``, ``offset``
-        and ``oaddr`` as :meth:`WindowKernel._single` takes them."""
-        ents = mxu_entries(plan, None if w is None else tuple(w.shape))
+        """The single-channel path (``ssam_mxu.cuh``): one launch, strided
+        or not, a fused pipeline's stages one after another in the tile
+        (:func:`mxu_chain_table`: each stage's entries and B tiles, its
+        mid-chain epilogue on the fp32 iterate), the epilogue at the
+        store; ``out``, ``out_sp``, ``offset`` and ``oaddr`` as
+        :meth:`WindowKernel._single` takes them."""
+        ents = _mxu_ents(plan, w)
         table = _device_ints(ents.table, x.device)
-        if plan.coeff_mode == "dense":
-            cvals = w.detach().to(torch.float32).contiguous()
-        else:
-            cvals = _device_floats(plan.coeffs, x.device)
+        cvals = _mxu_cvals(plan, w, epilogue_args, x.device)
+        final = plan.stages[-1] if plan.stages else plan
+        if plan.stages:
+            epilogue_args = stage_epilogue_args(plan.stages,
+                                                epilogue_args)[-1]
         x, fresh, B, head, tile = _tile_launch(plan, x, block, t, out_sp)
         out = fresh if out is None else out
         xt, pitch = _tma_operand(x)
         lay = mxu_layout(plan, head, tile, t, x.element_size(), pitch, ents,
                          oaddr)
-        epi = _epilogue_codes(plan, epilogue_args, x.device, x.dtype)
+        epi = _epilogue_codes(final, epilogue_args, x.device, x.dtype)
         err = self.library.get().ssam_mxu_window_launch(
             xt.data_ptr(), out.data_ptr() + offset * x.element_size(),
             int(x.dtype == torch.bfloat16), cvals.data_ptr(),
             table.data_ptr(), (ctypes.c_int * len(lay.geom))(*lay.geom),
-            len(lay.geom), *epi.args(),
+            len(lay.geom), (ctypes.c_int * len(lay.chain))(*lay.chain),
+            len(lay.chain), *epi.args(),
             torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"K2 launch failed: CUDA error {err} "

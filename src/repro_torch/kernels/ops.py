@@ -1,7 +1,8 @@
 """Public ops of the port: ``stencil`` and ``conv2d`` (windowed plans,
 K1, or K2 under ``strategy='mxu'``, with gradients through the same
 kernel and K3), ``pipeline`` (a chain of stencil and conv stages fused
-into one K1 launch, its backward one more for a linear chain),
+into one K1 launch, or K2 under ``strategy='mxu'``, its backward one more
+for a linear chain; a chain no launch holds as launches of sub-chains),
 ``conv1d_causal`` (K1's per-lane path, or K2's under
 ``strategy='mxu'``, gradients through the same kernel and K4) and the
 scan family ``cumsum``, ``sat``,
@@ -494,14 +495,17 @@ def _pipeline_bwd(cfg: WindowCfg, x, ws, epi, g):
     ``(dx, dws, depi)``.
 
     A linear chain of table stages transposes to ONE fused adjoint launch
-    (the reversed chain of stage adjoints, :func:`adjoint.input_adjoint_plan`).
-    Any other chain recomputes each stage's input and pre-activation with
-    the stages' 'valid' plans on the pad-once input (a K1 launch each),
-    then walks the stages in reverse: the epilogue VJP at the saved
-    pre-activation, ``dW`` of a dense stage (K3), and ``dx`` through the
-    stage's input-adjoint plan (K1; 'valid' transposes to 'full', so the
-    cotangent grows back); at the end the summed lead and trail are
-    cropped (the transpose of the pad-once zero pad)."""
+    (the reversed chain of stage adjoints, :func:`adjoint.input_adjoint_plan`,
+    which pushes an mxu pin down to each stage: one K1 launch, or one K2
+    launch of an mxu chain). Any other chain recomputes each stage's input
+    and pre-activation with the stages' 'valid' plans on the pad-once
+    input (a K1 launch each, K2 under mxu), then walks the stages in
+    reverse: the epilogue VJP at the saved pre-activation, ``dW`` of a
+    dense stage (K3), and ``dx`` through the stage's input-adjoint plan
+    (K1 or K2; 'valid' transposes to 'full', so the cotangent grows back):
+    2 launches a stage and K3's for each dense one. At the end the summed
+    lead and trail are cropped (the transpose of the pad-once zero
+    pad)."""
     plan = cfg.plan
     stages = plan.stages
     if (not any(s.epilogue for s in stages)
@@ -518,7 +522,10 @@ def _pipeline_bwd(cfg: WindowCfg, x, ws, epi, g):
     splits = _pipeline_epi_splits(stages, epi)
     hs, zs, valids = [], [], []
     for i, s in enumerate(stages):
-        sv = dataclasses.replace(s, lead=None, trail=None, epilogue=())
+        # the chain's pin rides every stage: an mxu chain's recomputes and
+        # dx run on K2
+        sv = dataclasses.replace(s, lead=None, trail=None, epilogue=(),
+                                 strategy=s.strategy or plan.strategy)
         hs.append(h)
         valids.append(sv)
         z = _run(cfg, sv, h, ws[i])
@@ -555,8 +562,8 @@ def _split_operands(stages, rest):
 
 
 class PipelineOp(torch.autograd.Function):
-    """A fused pipeline as one engine call (K1 on the card) with
-    :func:`_pipeline_bwd` as its backward. ``rest`` is the dense stages'
+    """A fused pipeline as one engine call (K1 on the card, K2 under mxu)
+    with :func:`_pipeline_bwd` as its backward. ``rest`` is the dense stages'
     filters in stage order, then the epilogue operands in chain order."""
 
     @staticmethod
@@ -573,13 +580,76 @@ class PipelineOp(torch.autograd.Function):
         return (None, dx, *(d for d in dws if d is not None), *depi)
 
 
+def chain_segments(plans, strategy=None) -> list[tuple[int, ...]]:
+    """The cut of a chain into the runs of stages that one launch holds:
+    a pure function of the stage ``plans`` (a chain :func:`fuse_plans`
+    accepts) and the chain's ``strategy``. From the first stage on, each
+    run is the longest one that K1's single-channel kernel
+    (:func:`engine.tap_table_refusal`) or, for ``strategy='mxu'``, K2's
+    (:func:`engine.mxu_chain_refusal`) accepts; the limits are sums over
+    the stages, so the greedy cut launches the fewest runs. A stage that
+    no launch holds alone raises ``NotImplementedError`` naming the
+    limit: there is nothing to cut."""
+    refusal = (_engine.mxu_chain_refusal if strategy == "mxu"
+               else _engine.tap_table_refusal)
+    kernel = "K2" if strategy == "mxu" else "K1"
+    out, i = [], 0
+    while i < len(plans):
+        why = refusal(plans[i])
+        if why:
+            raise NotImplementedError(
+                f"ops.pipeline: stage {i} ({plans[i].kind!r}): {why}; a "
+                f"stage beyond {kernel}'s single-channel limits is not "
+                "ported (ROADMAP Queue 2)")
+        j = i + 1
+        while j < len(plans) and refusal(fuse_plans(*plans[i:j + 1])) is None:
+            j += 1
+        out.append(tuple(range(i, j)))
+        i = j
+    return out
+
+
+def pipeline_segments(x: torch.Tensor, plans, ws, epilogue_args, segments, *,
+                      block=None, variant: str = "shift_psum"):
+    """A fused chain run as consecutive launches of its ``segments``
+    (:func:`chain_segments`): pad once by the summed lead and trail, then
+    each segment a valid-mode fused engine call (:class:`PipelineOp`; one
+    stage :class:`WindowOp`) on the previous segment's output, the
+    intermediates in fp32 and only the last cast to ``x``'s dtype: the
+    pad-once semantics of the unfused sequence with sub-chains in place of
+    single stages, so the result is the fused chain's. Differentiable
+    through each segment's backward: a linear chain's is the reversed
+    segments, one launch each."""
+    lead, trail = summed_lead_trail(plans)
+    h = F.pad(x.to(_engine.acc_dtype(x)),
+              [v for lo_hi in reversed(tuple(zip(lead, trail)))
+               for v in lo_hi])
+    splits = _pipeline_epi_splits(plans, epilogue_args)
+    for seg in segments:
+        sw = [ws[i] for i in seg]
+        epi = tuple(a for i in seg for a in splits[i])
+        if len(seg) == 1:
+            h = window_op(dataclasses.replace(plans[seg[0]], lead=None,
+                                              trail=None),
+                          h, sw[0], epi, block=block, variant=variant)
+            continue
+        # the segment's composite in valid mode (its stages keep their own
+        # frames, which the engine does not read; the adjoint transposes
+        # the composite's to 'full')
+        fused = dataclasses.replace(fuse_plans(*[plans[i] for i in seg]),
+                                    lead=None, trail=None)
+        cfg = WindowCfg(fused, block, 1, variant)
+        h = PipelineOp.apply(cfg, h, *(w for w in sw if w is not None), *epi)
+    return h.to(x.dtype)
+
+
 def pipeline(x: torch.Tensor, stages, *, fuse="auto", epilogue_args=(),
              strategy: str | None = None, block=None,
              variant: str = "shift_psum", mesh=None) -> torch.Tensor:
     """Run a chain of shape-preserving windowed ops as ONE engine call: on
-    the card one launch of K1's single-channel kernel, the intermediates
-    kept in fp32 in shared memory and never written to HBM (DESIGN.md
-    §11).
+    the card one launch of K1's single-channel kernel (K2's under
+    ``strategy='mxu'``), the intermediates kept in fp32 in shared memory
+    and never written to HBM (DESIGN.md §11).
 
     ``stages`` is a list of stage descriptors applied left to right:
     Table-3 stencil names or :class:`StencilDef`\\ s, 2-D 'same'-mode conv
@@ -603,15 +673,18 @@ def pipeline(x: torch.Tensor, stages, *, fuse="auto", epilogue_args=(),
     the unfused pad-once sequence otherwise; ``True`` raises the named
     legality error instead; ``False`` runs the unfused sequence, one
     engine call (one K1 launch) a stage. The choice depends on legality
-    only: a legal chain that K1 cannot hold raises
-    ``NotImplementedError`` on the card, naming the limit. A chain pinned
-    to ``strategy='mxu'`` runs its plain version on the CPU and raises on
-    the card (K2 with stages is ROADMAP Queue 1 item 7's K2 half).
-    Differentiable in ``x``, the filters and the epilogue operands: a
-    linear chain of stencils through one fused adjoint launch, any other
-    stage by stage (:func:`_pipeline_bwd`). There is no ``impl=`` switch
-    (the tensor's device decides) and no ``autotune=`` (the tuner is
-    ROADMAP Queue 1 item 8).
+    only. A chain pinned to ``strategy='mxu'`` runs as one launch of K2's
+    single-channel kernel instead. On the card a legal chain that no
+    single launch holds (three 2d121pt stages: 33 column steps, K1 holds
+    32) runs as the fewest launches of sub-chains
+    (:func:`chain_segments`, :func:`pipeline_segments`); only a stage
+    that no launch holds alone raises ``NotImplementedError``, naming the
+    limit. Differentiable in ``x``, the filters and the epilogue operands:
+    a linear chain of stencils through one fused adjoint launch (a
+    segmented one through one a segment), any other stage by stage
+    (:func:`_pipeline_bwd`). There is no ``impl=`` switch (the tensor's
+    device decides) and no ``autotune=`` (the tuner is ROADMAP Queue 1
+    item 8).
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -683,6 +756,13 @@ def pipeline(x: torch.Tensor, stages, *, fuse="auto", epilogue_args=(),
     if not fused.stages:            # one stage: the op itself
         return window_op(fused, x, ws[0], epi_args, block=block,
                          variant=variant)
+    if x.device.type == "cuda":
+        # a chain no launch holds runs as the fewest launches of sub-chains
+        # (the plain version, on the CPU, holds any chain)
+        segments = chain_segments(plans, fused.strategy)
+        if len(segments) > 1:
+            return pipeline_segments(x, plans, ws, epi_args, segments,
+                                     block=block, variant=variant)
     cfg = WindowCfg(fused, block, 1, variant)
     return PipelineOp.apply(cfg, x, *(w for w in ws if w is not None),
                             *epi_args)

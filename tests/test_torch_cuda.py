@@ -22,8 +22,9 @@ gradient, sums over B·T products in another order) at fp32 1e-4, bf16
 depthwise conv2d (one K1 launch over its images, a filter each; K3 a
 gradient per channel) against the CPU at 1e-4, bf16 3e-2; K2's
 non-finite outputs exactly the plain version's. A fused pipeline (one
-K1 launch for the chain) against the plain version at K1's tolerances,
-its gradients against the CPU's at 1e-4.
+K1 launch for the chain, one K2 launch under ``strategy="mxu"``; a chain
+no launch holds one launch a segment) against the plain version at K1's
+tolerances, its gradients against the CPU's at 1e-4.
 """
 import numpy as np
 import pytest
@@ -1563,14 +1564,22 @@ def _conv_chain_wgrads(shape, stages):
 
 
 def test_pipeline_beyond_k1_raises(cuda):
-    """A legal chain K1 cannot hold (three 2d121pt stages: 33 column steps
-    of 32) raises NotImplementedError naming the limit on the card; it
-    runs neither unfused nor on the plain version."""
+    """A legal chain K1 cannot hold in one launch (three 2d121pt stages:
+    33 column steps of 32) runs as its segments, a 2-stage chain and one
+    stage (2 K1 launches), equal to the fused plain version; a stage that
+    no launch holds alone (a 3 x 33 filter: columns beyond one warp)
+    still raises NotImplementedError naming the limit, before anything
+    launches; ``fuse=False`` runs a launch a stage."""
     x = _grid((64, 96), cuda, 121)
     K1 = engine.WINDOW_KERNEL
     before = K1.launches
-    with pytest.raises(NotImplementedError, match="column steps"):
-        ops.pipeline(x, ["2d121pt"] * 3)
+    y = ops.pipeline(x, ["2d121pt"] * 3)
+    assert K1.launches == before + 2
+    plan, ws = _fused_plan(x, ["2d121pt"] * 3)
+    _close(y, engine.run_window_plan_reference(x, ws, plan=plan))
+    before = K1.launches
+    with pytest.raises(NotImplementedError, match="warp"):
+        ops.pipeline(x, ["2d5pt", _grid((3, 33), cuda, 122)])
     assert K1.launches == before
     y = ops.pipeline(x, ["2d121pt"] * 3, fuse=False)
     assert K1.launches == before + 3
@@ -1578,14 +1587,196 @@ def test_pipeline_beyond_k1_raises(cuda):
 
 
 def test_pipeline_mxu_raises(cuda):
-    """K2 with stages is not ported: a chain pinned to ``strategy='mxu'``
-    raises on the card naming item 7; ``fuse=False`` runs K2 a stage."""
+    """A chain pinned to ``strategy='mxu'`` is one K2 launch and no K1
+    launch (K2's stage loop), equal to the plain version; ``fuse=False``
+    runs K2 a stage."""
     x = _grid((64, 96), cuda, 131)
-    K2 = engine.MXU_KERNEL
-    before = K2.launches
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ops.pipeline(x, ["2d5pt", "2d9pt"], strategy="mxu")
-    assert K2.launches == before
-    y = ops.pipeline(x, ["2d5pt", "2d9pt"], strategy="mxu", fuse=False)
-    assert K2.launches == before + 2
-    _close(y.cpu(), ops.pipeline(x.cpu(), ["2d5pt", "2d9pt"]), 1e-4)
+    K1, K2 = engine.WINDOW_KERNEL, engine.MXU_KERNEL
+    k1, k2 = K1.launches, K2.launches
+    y = ops.pipeline(x, ["2d5pt", "2d9pt"], strategy="mxu")
+    assert (K1.launches - k1, K2.launches - k2) == (0, 1)
+    plan, ws = _mxu_stages(x, ["2d5pt", "2d9pt"])
+    _close(y, engine.run_window_plan_reference(x, ws, plan=plan))
+    yu = ops.pipeline(x, ["2d5pt", "2d9pt"], strategy="mxu", fuse=False)
+    assert (K1.launches - k1, K2.launches - k2) == (0, 3)
+    _close(yu.cpu(), ops.pipeline(x.cpu(), ["2d5pt", "2d9pt"]), 1e-4)
+
+
+def _mxu_stages(x, stages):
+    """``(fused mxu plan, filters)`` of a descriptor chain."""
+    res = [ops._pipeline_stage_plan(x, d, i) for i, d in enumerate(stages)]
+    return (fuse.fuse_plans(*[ops._strategy_plan(p, "mxu", "pipeline")
+                              for p, _ in res]),
+            tuple(w for _, w in res))
+
+
+@pytest.mark.parametrize("case", PIPE_CASES, ids=lambda c: c[0])
+def test_pipeline_mxu_one_k2_launch(cuda, case):
+    """K2 with stages: one K2 launch and no K1 launch for the whole chain
+    pinned to mxu (each stage's entries and B tiles, its mid-chain
+    epilogue on the iterate, the final residual at the store), held to
+    the plain version on the card (fp32 3e-5, bf16 3e-2) and to the CPU
+    walk of the kernel."""
+    tag, shape, names, conv, dt = case
+    dtype = getattr(torch, dt)
+    rtol = 3e-5 if dt == "float32" else 3e-2
+    x = _grid(shape, cuda, 141).to(dtype)
+    stages, mids = _chain(names, cuda, 142, conv)
+    if conv:
+        stages[-1] = (stages[-1], "residual_add")
+    args = mids + ((_grid(shape, cuda, 143).to(dtype),) if conv else ())
+    plan, ws = _mxu_stages(x, stages)
+    K1, K2 = engine.WINDOW_KERNEL, engine.MXU_KERNEL
+    k1, k2 = K1.launches, K2.launches
+    y = ops.pipeline(x, stages, strategy="mxu", epilogue_args=args)
+    assert (K1.launches - k1, K2.launches - k2) == (0, 1)
+    assert y.dtype == dtype
+    plain = engine.run_window_plan_reference(x, ws, plan=plan,
+                                             epilogue_args=args)
+    _close(y.float(), plain.float(), rtol)
+    if dt == "float32" and x.numel() < 50_000:
+        emu = engine.emulate_mxu_kernel(
+            x.cpu(), tuple(None if w is None else w.cpu() for w in ws),
+            plan=plan, epilogue_args=tuple(a.cpu() for a in args))
+        _close(y.cpu(), emu, rtol)
+
+
+def test_pipeline_mxu_gradient_routes(cuda):
+    """A linear mxu chain's gradient is one K2 launch of the reversed
+    chain; the conv chain's backward recomputes each stage on K2, then
+    per stage dW (K3) and dx (K2): 6 K2 launches and K3's
+    ``launches_for``, no K1 launch; each against the CPU's at 1e-4."""
+    K1, K2, K3 = engine.WINDOW_KERNEL, engine.MXU_KERNEL, engine.WGRAD_KERNEL
+    x = _grid((97, 203), cuda, 151).requires_grad_(True)
+    chain = ["2d5pt", "2d9pt", "2d5pt"]
+    y = ops.pipeline(x, chain, strategy="mxu")
+    g = _grid(y.shape, cuda, 152)
+    k1, k2 = K1.launches, K2.launches
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert (K1.launches - k1, K2.launches - k2) == (0, 1)
+    xc = x.detach().cpu().requires_grad_(True)
+    (want,) = torch.autograd.grad(ops.pipeline(xc, chain, strategy="mxu"),
+                                  xc, g.cpu())
+    _close(dx.cpu(), want, 1e-4)
+    stages, mids = _chain((), cuda, 153, conv=True)
+    ws = [d[0] if isinstance(d, tuple) else d for d in stages]
+    for w in ws:
+        w.requires_grad_(True)
+    mids = tuple(m.clone().requires_grad_(True) for m in mids)
+    y = ops.pipeline(x, stages, strategy="mxu", epilogue_args=mids)
+    k1, k2, k3 = K1.launches, K2.launches, K3.launches
+    got = torch.autograd.grad(y, (x, ws[0], ws[1], *mids), g)
+    assert (K1.launches - k1, K2.launches - k2) == (0, 6)
+    assert K3.launches - k3 == sum(K3.launches_for(
+        torch.empty(sh, device=cuda), torch.empty(so, device=cuda),
+        plan=p) for sh, so, p in _conv_chain_wgrads(x.shape, stages))
+    cpu = [t.detach().cpu().requires_grad_(True)
+           for t in (x, ws[0], ws[1], *mids)]
+    cstages = [(cpu[1], ("bias", "gelu")), (cpu[2], "bias"), cpu[1]]
+    yc = ops.pipeline(cpu[0], cstages, strategy="mxu",
+                      epilogue_args=tuple(cpu[3:]))
+    want = torch.autograd.grad(yc, cpu, g.cpu())
+    for a, e in zip(got, want):
+        _close(a.cpu(), e, 1e-4)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_pipeline_mxu_nonfinite_input_reach(cuda, dt):
+    """An inf and a nan in the input of an mxu chain: the kernel's
+    non-finite outputs are exactly the plain version's (each stage's
+    warp items re-summed where an iterate carries them), the rest equal
+    it."""
+    x = _grid((97, 203), cuda, 161)
+    x[40, 50] = float("inf")
+    x[10, 180] = float("nan")
+    x = x.to(getattr(torch, dt))
+    chain = ["2d5pt", ("2d9pt", "gelu"), "2d5pt"]
+    plan, ws = _mxu_stages(x, chain)
+    y = ops.pipeline(x, chain, strategy="mxu").float()
+    want = engine.run_window_plan_reference(x, ws, plan=plan).float()
+    torch.cuda.synchronize()
+    bad = ~torch.isfinite(want)
+    assert bad.any() and torch.equal(~torch.isfinite(y), bad)
+    _close(y[~bad], want[~bad], 3e-5 if dt == "float32" else 3e-2)
+
+
+SEGMENT_CASES = [
+    # (tag, chain, strategy, launches of the forward)
+    ("2d121pt x 3 lanes", ["2d121pt"] * 3, None, 2),
+    ("2d121pt x 3 mxu", ["2d121pt"] * 3, "mxu", 1),
+    ("2d5pt x 33 lanes", ["2d5pt"] * 33, None, 4),
+    ("2d5pt x 33 mxu", ["2d5pt"] * 33, "mxu", 2),
+]
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES, ids=lambda c: c[0])
+def test_pipeline_segments_on_both_strategies(cuda, case):
+    """A chain no launch holds runs as the fewest launches of sub-chains
+    (``ops.chain_segments``) on the chain's strategy's kernel, the
+    intermediates in fp32, equal to the fused plain version; its linear
+    gradient one launch a segment, equal to the CPU's."""
+    tag, chain, strategy, launches = case
+    K = engine.MXU_KERNEL if strategy == "mxu" else engine.WINDOW_KERNEL
+    other = engine.WINDOW_KERNEL if strategy == "mxu" else engine.MXU_KERNEL
+    x = _grid((131, 259), cuda, 171).requires_grad_(True)
+    k, o = K.launches, other.launches
+    y = ops.pipeline(x, chain, strategy=strategy)
+    assert (K.launches - k, other.launches - o) == (launches, 0)
+    plans = [ops._strategy_plan(ops._pipeline_stage_plan(x, n, i)[0],
+                                strategy, "pipeline")
+             for i, n in enumerate(chain)]
+    assert len(ops.chain_segments(plans, strategy)) == launches
+    p = fuse.fuse_plans(*plans)
+    _close(y, engine.run_window_plan_reference(x.detach(), (None,) * len(
+        chain), plan=p))
+    g = _grid(y.shape, cuda, 172)
+    k = K.launches
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert K.launches - k == launches
+    xc = x.detach().cpu().requires_grad_(True)
+    (want,) = torch.autograd.grad(ops.pipeline(xc, chain, strategy=strategy),
+                                  xc, g.cpu())
+    _close(dx.cpu(), want, 1e-4)
+    xb = x.detach().to(torch.bfloat16)
+    yb = ops.pipeline(xb, chain, strategy=strategy)
+    assert yb.dtype == torch.bfloat16
+    _close(yb.float(), engine.run_window_plan_reference(
+        xb, (None,) * len(chain), plan=p).float(), 3e-2)
+
+
+def test_pipeline_segments_with_filters_and_epilogues(cuda):
+    """A segmented chain of conv and stencil stages with mid-chain biases
+    and a final residual, on both strategies: the fused plain version's
+    output, and gradients against the CPU's at 1e-4."""
+    x = _grid((97, 203), cuda, 181)
+    w5, w3 = _grid((5, 5), cuda, 182) / 5, _grid((3, 3), cuda, 183) / 3
+    b = [torch.tensor([v], device=cuda) for v in (0.3, -0.2, 0.1)]
+    r = _grid((97, 203), cuda, 184)
+    chain = [(w5, ("bias", "gelu")), ("2d121pt", "bias"), "2d121pt",
+             ("2d121pt", "silu"), (w3, ("bias", "residual_add"))]
+    for strategy in (None, "mxu"):
+        K = engine.MXU_KERNEL if strategy == "mxu" else engine.WINDOW_KERNEL
+        leaves = [t.clone().requires_grad_(True) for t in (x, w5, w3, *b, r)]
+        xl, w5l, w3l, b0, b1, b2, rl = leaves
+        cl = [(w5l, ("bias", "gelu")), ("2d121pt", "bias"), "2d121pt",
+              ("2d121pt", "silu"), (w3l, ("bias", "residual_add"))]
+        k = K.launches
+        y = ops.pipeline(xl, cl, strategy=strategy,
+                         epilogue_args=(b0, b1, b2, rl))
+        assert K.launches - k == (1 if strategy == "mxu" else 2)
+        res = [ops._pipeline_stage_plan(x, d, i) for i, d in enumerate(chain)]
+        p = fuse.fuse_plans(*[ops._strategy_plan(q, strategy, "pipeline")
+                              for q, _ in res])
+        _close(y, engine.run_window_plan_reference(
+            x, tuple(w for _, w in res), plan=p,
+            epilogue_args=(*b, r)))
+        g = _grid(y.shape, cuda, 185)
+        got = torch.autograd.grad(y, leaves, g)
+        cpu = [t.detach().cpu().requires_grad_(True) for t in leaves]
+        cc = [(cpu[1], ("bias", "gelu")), ("2d121pt", "bias"), "2d121pt",
+              ("2d121pt", "silu"), (cpu[2], ("bias", "residual_add"))]
+        want = torch.autograd.grad(ops.pipeline(
+            cpu[0], cc, strategy=strategy, epilogue_args=tuple(cpu[3:])),
+            cpu, g.cpu())
+        for a, e in zip(got, want):
+            _close(a.cpu(), e, 1e-4)

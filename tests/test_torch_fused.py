@@ -393,8 +393,8 @@ def test_auto_fuses_exactly_when_fuse_plans_accepts(monkeypatch):
 
     monkeypatch.setattr(engine, "run_window_plan", spy)
     x = torch.from_numpy(_x((48, 64), 11))
-    # a legal chain K1 cannot hold (33 column steps of 32) still fuses:
-    # the CPU runs it, the card raises naming the limit
+    # a legal chain K1 cannot hold in one launch (33 column steps of 32)
+    # still fuses: the CPU runs it in one call, the card as its segments
     big = ["2d121pt"] * 3
     assert "column steps" in engine.tap_table_refusal(
         fuse.fuse_plans(*_plans(big)))

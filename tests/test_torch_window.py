@@ -219,7 +219,8 @@ def test_cpu_tensor_never_loads_the_kernel():
 
 def test_nvcc_command_targets_sm_90a():
     src = _build.sources()
-    assert [p.name for p in src] == ["ssam_mxu.cu", "ssam_mxu_perlane.cu",
+    assert [p.name for p in src] == ["ssam_mxu.cu", "ssam_mxu_chain.cu",
+                                     "ssam_mxu_perlane.cu",
                                      "ssam_mxu_tc.cu",
                                      "ssam_scan.cu",
                                      "ssam_wgrad.cu", "ssam_wgrad_bf16.cu",
@@ -304,11 +305,12 @@ def test_out_of_slice_raises_not_implemented(case):
                                    plan=plan.depthwise_conv1d_plan(3),
                                    time_steps=2)
         elif case == "mxu":     # mxu runs, its per-lane mat-vec too (item
-            # 5c), and fused stages on the CPU; K2 refuses stages (item 7's
-            # K2 half) before it looks at the device
-            p = dataclasses.replace(plan.conv2d_plan(3, 3), strategy="mxu")
-            engine.MXU_KERNEL(x, (w,), plan=dataclasses.replace(
-                p, stages=(p,)), block=(8, 16), time_steps=1)
+            # 5c), and fused stages; K2 refuses a chain whose stage no
+            # launch holds (1089 taps of 1024) before it looks at the device
+            p = dataclasses.replace(plan.conv2d_plan(33, 33), strategy="mxu")
+            engine.MXU_KERNEL(x, (torch.ones((33, 33)),),
+                              plan=dataclasses.replace(p, stages=(p,)),
+                              block=(8, 16), time_steps=1)
         else:                   # one reduce axis runs; two do not
             engine.run_window_plan(
                 torch.zeros((1, 2, 2, 20, 40)), torch.ones((3, 2, 2, 3, 3)),
