@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out DIR]
 
-Nine paths. The first is the paper's experiment: the 15 Table-3
+Ten paths. The first is the paper's experiment: the 15 Table-3
 stencils at 8192² (2-D) and 512³ (3-D) in fp32, both schedule variants,
 t ∈ {1, 2}, one bf16 case, and 2-D convolution ('same' and 'valid') at
 8192² over the Fig. 4 filter sweep plus a (16, 2048, 2048) batched 5×5,
@@ -34,7 +34,10 @@ through K5's λ-recurrence. The ninth runs fused plan pipelines
 (``ops.pipeline``): a chain of stencil or conv stages in one launch of
 K1's single-channel kernel or, pinned to ``strategy="mxu"``, of K2's,
 the intermediates kept in shared memory; a chain no launch holds as
-launches of its segments.
+launches of its segments. The tenth runs filters of any size: K1's
+single-channel path walking a footprint in bands, K2's streaming its
+Toeplitz tiles a group of entries at a time, K3's channel path beyond 64
+taps.
 Phases, one JSON line each:
 
 1. build: compile K1, K2, K3, K4 and K5 from ``src/repro_torch/csrc``
@@ -305,6 +308,33 @@ Phases, one JSON line each:
    bound beside) and K1's fused chain of the same case beside. The build
    line's K1 instantiations include the chains' (``PIPELINE_CHAINS``, the
    2-stage 2d121pt segment).
+15. large filters at 8192² fp32 (the paper's grid): (a) ``ops.conv2d``
+   'same' with 33×33, 64×64, 51×5, 5×51, 1×127 and 127×1 filters on
+   ``strategy="lanes"`` (one K1 launch, the footprint walked in bands) and
+   ``"mxu"`` (one K2 launch, its B tiles streamed where they pass 1024
+   taps or 32 KB), a bf16 33×33 on both, and the 33×33 on K2 with one inf
+   and one nan in x (its non-finite outputs exactly the plain version's);
+   (b) a learned 33×33 filter step, forward, dx and dW (K1, K1, K3; then
+   K2, K2, K3); (c) SLaK's depthwise 51×5 and 5×51 with a bias at
+   ConvNeXt-T's first stage (64, 96, 56, 56): one K1 launch forward over
+   the B·C images, backward 2 K1 launches and K3's; (d) the NCHW
+   backward of a 9×9 'same' on (8, 64, 128, 128) → 64 and of AlexNet's
+   conv1, 11×11 at stride 4 'valid' on (64, 3, 227, 227) → 96: forward
+   and dx on K1's reduce path, dW on K3's channel kernel. Each against
+   its plain version on the card (fp32 3e-5; K3, the reduce path and the
+   depthwise gradients 1e-4; bf16 3e-2), the counters (zeroed before the
+   phase) equal to the launches the calls must make, and each timed
+   (``device_ms`` and ``call_ms``, 3 calls) beside its bound (bytes over
+   3.35 TB/s or fp32 operations over 67 TFLOP/s; K2 and K3's channel path
+   the operations once at 495 TFLOP/s of TF32, the fp32 bound beside), the
+   plain version (the one timed call the check made) and cuDNN with TF32
+   off and on (``F.conv2d(padding=)``, ``conv2d_input``,
+   ``conv2d_weight``, ``groups=96`` and its autograd for the depthwise;
+   an even filter ``F.pad`` first, outside the timing), each cuDNN call
+   first timed on a crop and not made where that predicts more than
+   ``LARGE_LIB_MAX_MS`` (its prediction recorded). The build line's K1
+   instantiations include the banded ones (key suffix ``x1``) and K2's
+   the four streamed ones (``…x0x0x1``).
 
 It exits non-zero if there is no card, if a build, launch or check fails,
 and when run outside a checkout of the repository. The full results go
@@ -408,6 +438,17 @@ PIPELINE_CHAINS = (("2d5pt", "2d9pt", "2d5pt"), ("3d7pt", "3d27pt"))
 PIPELINE_SIDE, PIPELINE_SIDE3 = 8192, 512   # phase 14's 2-D and 3-D sides
 COPY_BYTES = 1 << 30            # the bandwidth probe's copy: 1 GiB each way
 STEP_SHAPE = (8192, 8192)       # the op path's field (phase 8 (g))
+# phase 15: filters of any size
+LARGE_SIDE = 8192
+LARGE_FILTERS = ((33, 33), (64, 64), (51, 5), (5, 51), (1, 127), (127, 1))
+LARGE_DEPTHWISE = (64, 96, 56, 56)      # ConvNeXt-T's first stage
+LARGE_NCHW = (
+    ("NCHW 9x9 'same' (8, 64, 128, 128) -> 64", (8, 64, 128, 128),
+     (64, 64, 9, 9), "same", None),
+    ("NCHW AlexNet conv1 11x11 stride 4 'valid' (64, 3, 227, 227) -> 96",
+     (64, 3, 227, 227), (96, 3, 11, 11), "valid", (4, 4)))
+LARGE_REPS = 3                  # timed calls of phase 15
+LARGE_LIB_MAX_MS = 3000.0       # cuDNN calls predicted longer are not made
 MXU_EDGE_CASES = REDUCE_EDGE_CASES + [
     ((1, 16, 23, 300), (200, 16, 1, 3), "same", (1, 1), ("bias", "gelu"),
      "float32"),
@@ -2621,6 +2662,423 @@ def surface_phase(args, dev, card, results) -> dict:
             "depthwise": depthwise}
 
 
+def large_filter_phase(args, dev, card, results) -> dict:
+    """Phase 15: filters of any size. K1's single-channel path walks a
+    footprint in bands (one launch), K2's streams its Toeplitz B tiles a
+    group of entries at a time (one launch), K3's channel path takes any
+    number of taps. Each case against its plain version on the card, the
+    launches counted (K1, K2 and K3 zeroed before the phase and read
+    after), and timed beside its bound (bytes, fp32 operations, and for
+    the tensor-core kernels the operations once at TF32's rate), the plain
+    version (one timed call: the one the check ran) and cuDNN with TF32
+    off and on. cuDNN's single-channel weight gradient of a large filter
+    takes seconds (5×5 at 8192²: 3989 ms, PERF.md); each cuDNN call is
+    first timed on a crop, and where that predicts more than
+    ``LARGE_LIB_MAX_MS`` the full call is not made ("not measured",
+    with the prediction)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import convert
+    from repro_torch.core import adjoint, engine
+    from repro_torch.kernels import ops, ssam_conv2d
+
+    K1, K2, K3 = engine.WINDOW_KERNEL, engine.MXU_KERNEL, engine.WGRAD_KERNEL
+    kernels = {"K1": K1, "K2": K2, "K3": K3}
+    rng = np.random.default_rng(args.seed + 15)
+
+    def randn(*shape, scale=1.0):
+        return convert.from_numpy(
+            (scale * rng.standard_normal(shape)).astype(np.float32), dev)
+
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    expected = {"K1": 0, "K2": 0, "K3": 0}
+    rows = {"K1": {}, "K2": {}, "K3": {}}
+
+    def run(want, fn):
+        """``fn()`` on the main path: its launches must be ``want``."""
+        before = {k: v.launches for k, v in kernels.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v.launches - before[k] for k, v in kernels.items()}
+        full = {k: want.get(k, 0) for k in kernels}
+        require(got == full, ("phase 15 launches", got, full))
+        for k, v in got.items():
+            expected[k] += v
+        return out
+
+    def plain_timed(fn):
+        """One call of a plain version, timed with events: ``(out, ms)``."""
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        e1.synchronize()
+        return out, e0.elapsed_time(e1)
+
+    def held(kernel, tag, y, plain, rtol):
+        worst[kernel] = max(worst[kernel], compare(
+            f"phase 15 {tag}", y, plain, rtol, results))
+
+    def lib_ms(full, crop, ratio):
+        """cuDNN's time for ``full``: first ``crop`` (``1/ratio`` of the
+        work) once; where that predicts more than LARGE_LIB_MAX_MS the full
+        call is not made (``(None, predicted)``), else ``(ms, None)``."""
+        crop()
+        torch.cuda.synchronize()
+        predicted = event_ms(crop, 1) * ratio
+        if predicted > LARGE_LIB_MAX_MS:
+            return None, predicted
+        return event_ms(full, LARGE_REPS), None
+
+    def timed(kernel, tag, fn, plain_ms, flops, nbytes, libs, tc=False,
+              launches=None):
+        """Device and call time of ``fn`` beside its bound, the plain
+        version's ``plain_ms`` and cuDNN (``libs``: label -> (full, crop,
+        ratio) or None); the launches it makes are not the main path's."""
+        counts = {k: v.launches for k, v in kernels.items()}
+        ms = device_ms(fn, LARGE_REPS)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        f32 = flops / FP32_FLOPS * 1e3
+        ops_ms = flops / TF32_FLOPS * 1e3 if tc else f32
+        rec = {"case": tag, "kernel": kernel, "ms": ms,
+               "call_ms": event_ms(fn, LARGE_REPS), "plain_ms": plain_ms,
+               "bound_ms": max(b_ms, ops_ms),
+               "bound_by": "bytes" if b_ms >= ops_ms else "operations",
+               "fp32_bound_ms": max(b_ms, f32), "bytes_bound_ms": b_ms,
+               "gflop": flops / 1e9, "launches": launches, "card": card}
+        for label, spec in libs.items():
+            if spec is None:
+                rec[label], rec[label + "_predicted"] = None, None
+                continue
+            full, crop, ratio = spec
+            rec[label], rec[label + "_predicted"] = lib_ms(full, crop, ratio)
+            rec[label + "_tf32"], rec[label + "_tf32_predicted"] = lib_ms(
+                cudnn_tf32(full), cudnn_tf32(crop), ratio)
+        rec["library_ms"] = rec.get("cudnn_ms")
+        rec["library_tf32_ms"] = rec.get("cudnn_ms_tf32")
+        rec["roofline_share"] = rec["bound_ms"] / ms
+        results["times"].append(rec)
+        emit({"phase": "time", **rec})
+        rows[kernel][tag] = rec
+        for k, v in kernels.items():
+            v.launches = counts[k]
+        return rec
+
+    def conv_lib(x, w, pad, crop):
+        """``F.conv2d(padding=)`` on ``x`` (2-D) and on a crop of it."""
+        x4, w4 = x[None, None], w[None, None]
+        return ((lambda: F.conv2d(x4, w4, padding=pad)),
+                (lambda: F.conv2d(x4[..., :crop, :crop], w4, padding=pad)),
+                x.numel() / crop ** 2)
+
+    for k in kernels.values():
+        k.launches = 0
+    n = LARGE_SIDE
+    x = randn(n, n)
+    cells = x.numel()
+    crop = min(512, n // 4)     # the side of cuDNN's probe on a crop
+
+    # -- (a) 'same' at 8192² on both strategies, a launch each ---------
+    filters = {nm: randn(*nm, scale=(nm[0] * nm[1]) ** -0.5)
+               for nm in LARGE_FILTERS}
+    for nm, w in filters.items():
+        N, M = nm
+        pad = ((N - 1) // 2, (M - 1) // 2) if N % 2 and M % 2 else None
+        pads = [(N - 1) // 2, N - 1 - (N - 1) // 2, (M - 1) // 2,
+                M - 1 - (M - 1) // 2]
+        for strategy in ("lanes", "mxu"):
+            kernel = "K2" if strategy == "mxu" else "K1"
+            p = dataclasses.replace(ssam_conv2d.plan_for(nm, "same"),
+                                    strategy=strategy)
+            tag = f"{strategy} conv2d {N}x{M} 'same' {n}x{n} fp32"
+            y = run({kernel: 1}, lambda: ops.conv2d(x, w,
+                                                    strategy=strategy))
+            plain, plain_ms = plain_timed(
+                lambda: engine.run_window_plan_reference(x, w, plan=p))
+            held(kernel, tag, y, plain, 3e-5)
+            del y, plain
+            # cuDNN: F.conv2d with its own padding where the filter is odd,
+            # else F.pad then a valid call
+            if pad is not None:
+                lib = conv_lib(x, w, pad, crop)
+            else:
+                x4 = F.pad(x[None, None], pads[2:] + pads[:2])
+                lib = ((lambda: F.conv2d(x4, w[None, None])),
+                       (lambda: F.conv2d(x4[..., :crop + N - 1,
+                                            :crop + M - 1], w[None, None])),
+                       cells / crop ** 2)
+            timed(kernel, tag, lambda: ops.conv2d(x, w, strategy=strategy),
+                  plain_ms, 2 * N * M * cells, 2 * cells * 4,
+                  {"cudnn_ms": lib}, tc=strategy == "mxu", launches=1)
+            torch.cuda.empty_cache()
+    # bf16 33x33 and the non-finite reach of the streamed K2
+    w33 = filters[(33, 33)]
+    xb = x.to(torch.bfloat16)
+    for strategy in ("lanes", "mxu"):
+        kernel = "K2" if strategy == "mxu" else "K1"
+        p = dataclasses.replace(ssam_conv2d.plan_for((33, 33), "same"),
+                                strategy=strategy)
+        tag = f"{strategy} conv2d 33x33 'same' {n}x{n} bf16"
+        y = run({kernel: 1}, lambda: ops.conv2d(xb, w33, strategy=strategy))
+        require(y.dtype == torch.bfloat16, (tag, y.dtype))
+        plain, plain_ms = plain_timed(
+            lambda: engine.run_window_plan_reference(xb, w33, plan=p))
+        held(kernel, tag, y, plain, 3e-2)
+        del y, plain
+        timed(kernel, tag, lambda: ops.conv2d(xb, w33, strategy=strategy),
+              plain_ms, 2 * 33 * 33 * cells, 2 * cells * 2,
+              {"cudnn_ms": conv_lib(xb, w33.to(torch.bfloat16), 16, crop)},
+              tc=strategy == "mxu", launches=1)
+    del xb
+    xn = x.clone()
+    xn[n // 8, n // 4], xn[5 * n // 8, 7 * n // 8] = float("inf"), float("nan")
+    pm = dataclasses.replace(ssam_conv2d.plan_for((33, 33), "same"),
+                             strategy="mxu")
+    y = run({"K2": 1}, lambda: ops.conv2d(xn, w33, strategy="mxu"))
+    plain = engine.run_window_plan_reference(xn, w33, plan=pm)
+    torch.cuda.synchronize()
+    bad_y, bad_p = ~torch.isfinite(y), ~torch.isfinite(plain)
+    nonfinite = {"case": "mxu conv2d 33x33 with an inf and a nan",
+                 "nonfinite_plain": int(bad_p.sum()),
+                 "nonfinite_kernel": int(bad_y.sum()),
+                 "equal_sets": bool(torch.equal(bad_y, bad_p))}
+    emit({"phase": "check_nonfinite", **nonfinite})
+    require(nonfinite["equal_sets"] and nonfinite["nonfinite_plain"] > 0,
+            nonfinite)
+    held("K2", "mxu conv2d 33x33 with an inf and a nan, finite outputs",
+         y[~bad_p], plain[~bad_p], 3e-5)
+    del xn, y, plain, bad_y, bad_p
+    torch.cuda.empty_cache()
+
+    # -- (b) a learned 33x33 filter step: forward, dx and dW -----------
+    g = randn(n, n)
+    for strategy in ("lanes", "mxu"):
+        kernel = "K2" if strategy == "mxu" else "K1"
+        p = dataclasses.replace(ssam_conv2d.plan_for((33, 33), "same"),
+                                strategy=strategy)
+        lin = dataclasses.replace(p, strategy="lanes")
+        ap = adjoint.input_adjoint_plan(p)
+        xg = x.clone().requires_grad_(True)
+        wg = w33.clone().requires_grad_(True)
+        k3n = K3.launches_for(x, g, plan=lin)
+
+        def step(xg=xg, wg=wg, strategy=strategy):
+            with torch.enable_grad():
+                y = ops.conv2d(xg, wg, strategy=strategy)
+                return torch.autograd.grad(y, (xg, wg), g)
+
+        dx, dw = run({kernel: 2, "K3": k3n}, step)
+        wa = adjoint.adjoint_coeff_array(p, w33)
+        plain_dx, dx_ms = plain_timed(
+            lambda: engine.run_window_plan_reference(g, wa, plan=ap))
+        plain_dw, dw_ms = plain_timed(
+            lambda: engine.run_weight_grad_plan_reference(x, g, plan=lin))
+        tag = f"{strategy} learned 33x33 step {n}x{n} fp32"
+        held(kernel, f"{tag} dx", dx, plain_dx, 3e-5)
+        held("K3", f"{tag} dW", dw, plain_dw, 1e-4)
+        del dx, dw, plain_dx, plain_dw
+        flops = 2 * 33 * 33 * cells
+        x4, g4, w4 = x[None, None], g[None, None], w33[None, None]
+        timed(kernel, f"{tag} dx", lambda: engine.run_window_plan(
+            g, wa, plan=ap), dx_ms, flops, 2 * cells * 4,
+            {"cudnn_ms": (
+                lambda: torch.nn.grad.conv2d_input(x4.shape, w4, g4,
+                                                   padding=16),
+                lambda: torch.nn.grad.conv2d_input(
+                    (1, 1, crop, crop), w4, g4[..., :crop, :crop],
+                    padding=16), cells / crop ** 2)},
+            tc=strategy == "mxu", launches=1)
+        timed("K3", f"{tag} dW", lambda: engine.run_weight_grad_plan(
+            x, g, plan=lin), dw_ms, flops, 2 * cells * 4,
+            {"cudnn_ms": (
+                lambda: torch.nn.grad.conv2d_weight(x4, w4.shape, g4,
+                                                    padding=16),
+                lambda: torch.nn.grad.conv2d_weight(
+                    x4[..., :crop, :crop], w4.shape, g4[..., :crop, :crop],
+                    padding=16), cells / crop ** 2)},
+            launches=k3n)
+        counts = {k: v.launches for k, v in kernels.items()}
+        rs = {"case": f"{tag}: forward, dx, dW", "kernel": kernel,
+              "ms": device_ms(lambda: step(), LARGE_REPS),
+              "launches": {kernel: 2, "K3": k3n}, "card": card}
+        for k, v in kernels.items():
+            v.launches = counts[k]
+        results["times"].append(rs)
+        emit({"phase": "time", **rs})
+        del xg, wg
+    del g
+    torch.cuda.empty_cache()
+
+    # -- (c) depthwise 51x5 and 5x51 with a bias, ConvNeXt-T's stage 1 --
+    B, C, H, W = LARGE_DEPTHWISE
+    for nm in ((51, 5), (5, 51)):
+        N, M = nm
+        xs, ws = (B, C, H, W), (C, 1, N, M)
+        xg = randn(*xs).requires_grad_(True)
+        wg = randn(*ws, scale=(N * M) ** -0.5).requires_grad_(True)
+        bg = randn(C, scale=0.1).requires_grad_(True)
+        gy = randn(*xs)
+        dwp = ops.depthwise_plan(xs, ws, groups=C, mode="same",
+                                 epilogue=("bias",))
+        require(dwp is not None and engine.banded(dwp),
+                ("depthwise", nm, "not one banded launch"))
+        lin = dataclasses.replace(dwp, epilogue=())
+        tag = f"depthwise {'x'.join(map(str, xs))} {N}x{M} bias"
+        x3, g3 = xg.detach().reshape(B * C, H, W), gy.reshape(B * C, H, W)
+        w3 = wg.detach().reshape(C, N, M)
+        k3n = K3.launches_for(x3, g3, plan=lin)
+
+        def fwd(xg=xg, wg=wg, bg=bg):
+            return ops.conv2d(xg, wg, groups=C, epilogue=("bias",),
+                              epilogue_args=(bg,))
+
+        def bwd(xg=xg, wg=wg, bg=bg, gy=gy, fn=fwd):
+            with torch.enable_grad():
+                return torch.autograd.grad(fn(), (xg, wg, bg), gy)
+
+        with torch.no_grad():
+            y = run({"K1": 1}, fwd)
+        plain, plain_ms = plain_timed(
+            lambda: engine.run_window_plan_reference(
+                x3, w3, plan=dwp, epilogue_args=(bg.detach(),)))
+        held("K1", f"{tag} forward", y, plain.reshape(xs), 3e-5)
+        del y, plain
+        # the forward, then its backward: the pre-activation recomputed,
+        # dx, and K3's dW
+        got = run({"K1": 3, "K3": k3n}, bwd)
+        # the plain backward: the bias's VJP is the identity
+        wa = adjoint.adjoint_coeff_array(lin, w3)
+        pdx = engine.run_window_plan_reference(
+            g3, wa, plan=adjoint.input_adjoint_plan(lin)).reshape(xs)
+        pdw = engine.run_weight_grad_plan_reference(x3, g3, plan=lin)
+        held("K1", f"{tag} dx", got[0], pdx, 3e-5)
+        held("K3", f"{tag} dW", got[1], pdw.reshape(ws), 1e-4)
+        held("K1", f"{tag} db", got[2], gy.sum((0, 2, 3)), 1e-4)
+        del got, pdx, pdw
+        pad = ((N - 1) // 2, (M - 1) // 2)
+
+        def lib_f(xg=xg, wg=wg, bg=bg, pad=pad, n_img=B):
+            return F.conv2d(xg[:n_img], wg, bg, padding=pad, groups=C)
+
+        def lib_b(n_img=B, xg=xg, wg=wg, bg=bg, gy=gy, pad=pad):
+            xd, wd, bd = (t.detach().requires_grad_(True)
+                          for t in (xg[:n_img], wg, bg))
+            with torch.enable_grad():
+                return torch.autograd.grad(
+                    F.conv2d(xd, wd, bd, padding=pad, groups=C),
+                    (xd, wd, bd), gy[:n_img])
+
+        flops = 2 * xg.numel() * N * M
+        timed("K1", f"{tag} forward", lambda: fwd().detach(), plain_ms,
+              flops, (2 * xg.numel() + wg.numel() + C) * 4,
+              {"cudnn_ms": (lambda: lib_f(), lambda: lib_f(n_img=8),
+                            B / 8)}, launches=1)
+        timed("K1", f"{tag} forward and backward", bwd, None, 3 * flops,
+              (2 * xg.numel() + gy.numel() + 2 * wg.numel() + 2 * C) * 4,
+              {"cudnn_ms": (lambda: lib_b(), lambda: lib_b(n_img=8),
+                            B / 8)},
+              launches={"K1": 3, "K3": k3n})
+        del xg, wg, bg, gy
+        torch.cuda.empty_cache()
+
+    # -- (d) NCHW backward beyond 64 taps: dW on K3's channel path ------
+    for tag, xs, ws, mode, stride in LARGE_NCHW:
+        xg = randn(*xs).requires_grad_(True)
+        wg = randn(*ws, scale=(ws[1] * ws[2] * ws[3]) ** -0.5
+                   ).requires_grad_(True)
+        p = dataclasses.replace(ssam_conv2d.plan_for_nchw(xs, ws, mode),
+                                stride=stride)
+        with torch.no_grad():
+            y = run({"K1": 1}, lambda: ops.conv2d(xg, wg, mode=mode,
+                                                  stride=stride))
+        plain, fwd_ms = plain_timed(lambda: engine.run_window_plan_reference(
+            xg.detach(), wg.detach(), plan=p))
+        held("K1", f"{tag} forward", y, plain, 1e-4)
+        gy = randn(*y.shape)
+        del y, plain
+        k3n = K3.launches_for(xg.detach(), gy, plan=p)
+
+        def bwd(xg=xg, wg=wg, gy=gy, mode=mode, stride=stride):
+            with torch.enable_grad():
+                return torch.autograd.grad(
+                    ops.conv2d(xg, wg, mode=mode, stride=stride), (xg, wg),
+                    gy)
+
+        dx, dw = run({"K1": 2, "K3": k3n}, bwd)
+        wa = adjoint.adjoint_coeff_array(p, wg.detach())
+        if stride:
+            pdx, dx_ms = plain_timed(
+                lambda: engine.run_adjoint_phases_reference(
+                    gy, wa, plan=p, in_spatial=xs[2:]))
+        else:
+            pdx, dx_ms = plain_timed(lambda: engine.run_window_plan_reference(
+                gy, wa, plan=adjoint.input_adjoint_plan(p)))
+        pdw, dw_ms = plain_timed(lambda: engine.run_weight_grad_plan_reference(
+            xg.detach(), gy, plan=p))
+        held("K1", f"{tag} dx", dx, pdx, 1e-4)
+        held("K3", f"{tag} dW", dw, pdw, 1e-4)
+        del dx, dw, pdx, pdw
+        outs = gy.numel() // ws[0]
+        flops = 2 * outs * ws[0] * ws[1] * ws[2] * ws[3]
+        st = stride or (1, 1)
+        pad = (ws[2] // 2, ws[3] // 2) if mode == "same" else (0, 0)
+        xd, wd = xg.detach(), wg.detach()
+        xb_, gb_ = xs[0] // 4, xs[0] // 4     # cuDNN's crops: a quarter
+        timed("K1", f"{tag} forward", lambda: ops.conv2d(
+            xd, wd, mode=mode, stride=stride), fwd_ms, flops,
+            (xd.numel() + wd.numel() + gy.numel()) * 4,
+            {"cudnn_ms": (lambda: F.conv2d(xd, wd, stride=st, padding=pad),
+                          lambda: F.conv2d(xd[:xb_], wd, stride=st,
+                                           padding=pad), 4)}, launches=1)
+        timed("K1", f"{tag} dx", lambda: engine.run_adjoint_phases(
+            gy, wa, plan=p, in_spatial=xs[2:]) if stride else
+            engine.run_window_plan(gy, wa,
+                                   plan=adjoint.input_adjoint_plan(p)),
+            dx_ms, flops, (xd.numel() + wd.numel() + gy.numel()) * 4,
+            {"cudnn_ms": (
+                lambda: torch.nn.grad.conv2d_input(xs, wd, gy, stride=st,
+                                                   padding=pad),
+                lambda: torch.nn.grad.conv2d_input(
+                    (xb_,) + xs[1:], wd, gy[:gb_], stride=st, padding=pad),
+                4)}, launches=1)
+        timed("K3", f"{tag} dW", lambda: engine.run_weight_grad_plan(
+            xd, gy, plan=p), dw_ms, flops,
+            (xd.numel() + gy.numel() + wd.numel()) * 4,
+            {"cudnn_ms": (
+                lambda: torch.nn.grad.conv2d_weight(xd, ws, gy, stride=st,
+                                                    padding=pad),
+                lambda: torch.nn.grad.conv2d_weight(
+                    xd[:xb_], ws, gy[:gb_], stride=st, padding=pad), 4)},
+            tc=True, launches=k3n)
+        del xg, wg, gy, xd, wd, wa
+        torch.cuda.empty_cache()
+
+    counts = {k: v.launches for k, v in kernels.items()}
+    emit({"phase": "large_filter_launches", "launches": counts,
+          "expected": expected})
+    require(counts == expected and all(counts.values()),
+            ("phase 15 launches", counts, expected))
+    return {"launches": counts, "worst": worst, "rows": rows,
+            "nonfinite": nonfinite}
+
+
+def _large(big, kname) -> dict:
+    """Phase 15's cases of one kernel as the kernel line carries them."""
+    return {"launches": big["launches"][kname],
+            "max_abs_err": big["worst"][kname],
+            "cases": {tag: {**_row(rec), "call_ms": rec["call_ms"],
+                            "launches": rec["launches"],
+                            "fp32_bound_ms": rec["fp32_bound_ms"],
+                            "library_tf32_ms": rec["library_tf32_ms"]}
+                      for tag, rec in big["rows"][kname].items()}}
+
+
 def plain_grouped_backward(x, w, b, gy, groups: int, chain) -> tuple:
     """``(dx, dW, db)`` of the grouped NCHW 'same' conv ``ops.conv2d(x, w,
     groups=, epilogue=chain, epilogue_args=(b,))`` through the port's
@@ -3694,12 +4152,12 @@ def main() -> int:
     mxu_single = {}
     for key, rec in ptxas_entries(
             _build.LIBRARY.ptxas_log,
-            r".*mxu_window_kernelILi(\d)ELb(\d)ELb(\d)E").items():
-        kk, s, ch = key.split("x")
+            r".*mxu_window_kernelILi(\d)ELb(\d)ELb(\d)ELb(\d)E").items():
+        kk, s, ch, st = key.split("x")
         mxu_single[key] = {**rec, "sass": sass_counts(
             str(_build.LIBRARY.path),
-            f"mxu_window_kernelILi{kk}ELb{s}ELb{ch}E",
-            ("HMMA", "HGMMA", "UTMALDG", "LDS"))}
+            f"mxu_window_kernelILi{kk}ELb{s}ELb{ch}ELb{st}E",
+            ("HMMA", "HGMMA", "UTMALDG", "LDS", "LDGSTS"))}
     results["build"]["mxu_single_channel"] = mxu_single
     perlane = ptxas_entries(_build.LIBRARY.ptxas_log,
                             r".*window_perlane_kernelILi(\d)ELi(\d)E"
@@ -3731,7 +4189,7 @@ def main() -> int:
         r["spill_store_bytes"] == 0 for r in wgrad_rows.values()),
         ("K3's single-channel kernel spills or lacks an instance",
          wgrad_rows))
-    require(len(mxu_single) == 9 and all(
+    require(len(mxu_single) == 13 and all(
         r["spill_store_bytes"] == 0 and (r["sass"] is None or (
             r["sass"]["HMMA"] > 0 and r["sass"]["UTMALDG"] > 0))
         for r in mxu_single.values()),
@@ -3770,30 +4228,34 @@ def main() -> int:
         for mode, st in SURFACE_STRIDES] + [
         fuse.fuse_plans(*[stencil_plan(stencils.BENCHMARKS[n])
                           for n in chain])
-        for chain in PIPELINE_CHAINS + (("2d5pt",) * 3, ("2d121pt",) * 2)]
+        for chain in PIPELINE_CHAINS + (("2d5pt",) * 3, ("2d121pt",) * 2)] + [
+        ssam_conv2d.plan_for(nm, "same") for nm in LARGE_FILTERS + (
+            (3, 33),)]
     k1_used = sorted({
         (engine.window_rows(p), engine.window_inst(p)[0],
          engine.window_p(p),
          512 if p.ndim_spatial == 3 else 256,
-         int(any(v > 1 for v in p.stride_per_axis())), int(bool(p.stages)))
+         int(any(v > 1 for v in p.stride_per_axis())), int(bool(p.stages)),
+         int(engine.banded(p)))
         for p in k1_plans})
     k1_regs = ptxas_entries(
         _build.LIBRARY.ptxas_log,
-        r".*window_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi\d+ELb(\d)ELb(\d)E")
+        r".*window_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi\d+ELb(\d)ELb(\d)"
+        r"ELb(\d)E")
     k1_build = {}
-    for n, d, pr, threads, s, ch in k1_used:
-        key = f"{n}x{d}x{pr}x{s}x{ch}"
+    for n, d, pr, threads, s, ch, bd in k1_used:
+        key = f"{n}x{d}x{pr}x{s}x{ch}x{bd}"
         k1_build[key] = {**k1_regs.get(key, {}), "sass": sass_counts(
             str(_build.LIBRARY.path),
-            f"window_kernelILi{n}ELi{d}ELi{pr}ELi{threads}ELb{s}ELb{ch}E",
-            ("UTMALDG", "LDGSTS", "SHFL", "FFMA", "BRX"))}
+            f"window_kernelILi{n}ELi{d}ELi{pr}ELi{threads}ELb{s}ELb{ch}"
+            f"ELb{bd}E", ("UTMALDG", "LDGSTS", "SHFL", "FFMA", "BRX"))}
     results["build"]["window_single_channel"] = k1_build
     emit({"phase": "build_k1", "instantiations": k1_build, "card": card})
     for key, rec in k1_build.items():
         require("registers" in rec and rec["spill_store_bytes"] == 0
                 and (rec["sass"] is None or rec["sass"]["UTMALDG"] > 0),
                 (f"K1 single-channel kernel {key} (N x D x P x strided x "
-                 "chain) "
+                 "chain x banded) "
                  "spills or "
                  "has no TMA load", rec))
 
@@ -3972,6 +4434,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     marks.append(("14 fused pipelines", time.perf_counter()))
     pipe = pipeline_phase(args, dev, card, results)
+    torch.cuda.empty_cache()
+    marks.append(("15 large filters", time.perf_counter()))
+    big = large_filter_phase(args, dev, card, results)
     marks.append(("end", time.perf_counter()))
     results["phase_seconds"] = {name: t1 - t0 for (name, t0), (_, t1)
                                 in zip(marks, marks[1:])}
@@ -4021,7 +4486,8 @@ def main() -> int:
                      "cases": {tag: {**_row(rec),
                                      "unfused_ms": rec["unfused_ms"],
                                      "library": rec["library"]}
-                               for tag, rec in pipe["rows"].items()}}},
+                               for tag, rec in pipe["rows"].items()}},
+        "large_filters": _large(big, "K1")},
         {
         "name": K5.name, "route": "cuda", "source": K5.source,
         "replaces": K5.replaces, "launches": served["k5_launches"],
@@ -4059,7 +4525,8 @@ def main() -> int:
                       for tag, r in k3r["rows"].items()}},
         "surface": _surface(surf, "K3"),
         "depthwise": _depthwise(surf, "K3"),
-        "pipeline": {"launches": pipe["launches"]["K3"]}},
+        "pipeline": {"launches": pipe["launches"]["K3"]},
+        "large_filters": _large(big, "K3")},
         {
         "name": K2.name, "route": "cuda", "source": K2.source,
         "replaces": K2.replaces, "launches": mxu["train_launches"],
@@ -4091,7 +4558,10 @@ def main() -> int:
                                      "k1_ms": rec["k1_ms"],
                                      "fp32_bound_ms": rec["fp32_bound_ms"],
                                      "library": rec["library"]}
-                               for tag, rec in pipe["mxu_rows"].items()}}},
+                               for tag, rec in pipe["mxu_rows"].items()}},
+        "large_filters": {**_large(big, "K2"),
+                          "source": "src/repro_torch/csrc/ssam_mxu_stream.cu",
+                          "nonfinite": big["nonfinite"]}},
         {
         "name": K4.name, "route": "cuda", "source": K4.source,
         "replaces": K4.replaces, "launches": hy["launches"]["k4"],

@@ -149,14 +149,12 @@ class Library:
         lib.ssam_wgrad_launch.argtypes = ([p, p, i, p, p] + [i] * 24
                                           + [ctypes.POINTER(ctypes.c_int), p])
         lib.ssam_wgrad_launch.restype = i
-        lib.ssam_wgrad_tc_launch.argtypes = (
-            [p, p, i, p, p] + [i] * 24 + [ctypes.POINTER(ctypes.c_int)] * 4
-            + [i] * 4 + [p])
+        lib.ssam_wgrad_tc_launch.argtypes = [p, p, i, p, p] + [i] * 31 + [p]
         lib.ssam_wgrad_tc_launch.restype = i
         lib.ssam_mxu_tc_launch.argtypes = (
             [p, p, i, p, p] + epi + [i] * 24 + [p])
         lib.ssam_mxu_tc_launch.restype = i
-        lib.ssam_mxu_window_launch.argtypes = ([p, p, i, p, p, ints, i,
+        lib.ssam_mxu_window_launch.argtypes = ([p, p, i, p, p, p, ints, i,
                                                 ints, i] + epi + [p])
         lib.ssam_mxu_window_launch.restype = i
         lib.ssam_window_perlane_launch.argtypes = (

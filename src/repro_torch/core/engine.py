@@ -750,15 +750,21 @@ class WindowKernel:
         mid-chain epilogues on the iterates), the epilogue at the store.
         ``out``, ``out_sp``,
         ``offset`` and ``oaddr`` (the output step) store a crop of the
-        plan's output into a caller's tensor (an adjoint phase)."""
+        plan's output into a caller's tensor (an adjoint phase). A
+        footprint K1 cannot walk (:func:`tap_table_refusal`) raises
+        ``NotImplementedError`` naming the limit before anything
+        launches."""
         if plan.stages:
             ints = _device_ints(chain_table(plan).table.ints(), x.device)
             cvals = chain_coefficients(plan, w, epilogue_args, x.device)
             epilogue_args = stage_epilogue_args(plan.stages,
                                                 epilogue_args)[-1]
         else:
-            table = tap_table(plan, None if w is None
-                              else tuple(w.shape[-2:]))
+            why = tap_table_refusal(plan)
+            if why:
+                raise NotImplementedError(f"{plan.kind!r}: {why}")
+            table = window_table(plan, None if w is None
+                                 else tuple(w.shape[-2:]))
             ints, cvals = _device_table(table, x.device)
         if plan.coeff_mode == "dense" and not plan.stages:
             # a filter per image: the filters one after another, a tile's
@@ -1459,10 +1465,12 @@ class TapTable:
 
 
 def tap_table_refusal(plan: SystolicPlan) -> str | None:
-    """Why K1's single-channel kernel cannot hold ``plan``'s footprint
-    (:func:`tap_table` raises it), or None: a pure function of the plan,
-    so a route can be chosen before anything launches. A fused pipeline
-    needs each stage to fit, all its column steps to fit one launch's
+    """Why K1's single-channel kernel cannot hold ``plan``'s footprint in
+    one launch, or None: a pure function of the plan, so a route can be
+    chosen before anything launches. A 2-D plan that one walk of the warp
+    does not hold (:func:`walk_refusal`) runs in bands (:func:`band_walk`)
+    unless :func:`band_refusal` says why not. A fused pipeline needs each
+    stage to fit one walk, all its column steps to fit one launch's
     :data:`WINDOW_MAX_STEPS` records, its tap slots :data:`TABLE_SLOTS`
     and its mid-chain epilogue ops :data:`WINDOW_MAX_MID`."""
     if plan.stages:
@@ -1470,6 +1478,11 @@ def tap_table_refusal(plan: SystolicPlan) -> str | None:
             why = tap_table_refusal(st)
             if why:
                 return f"stage {i} ({st.kind}): {why}"
+            why = walk_refusal(st)
+            if why:
+                return (f"stage {i} ({st.kind}): {why}; K1 walks such a "
+                        "stage in bands, which a chain does not fuse (it "
+                        "runs as a segment of its own)")
         steps = sum(len(st.steps) for st in plan.stages)
         if steps > WINDOW_MAX_STEPS:
             return (f"the chain has {steps} column steps, K1 holds "
@@ -1483,6 +1496,16 @@ def tap_table_refusal(plan: SystolicPlan) -> str | None:
             return (f"the chain has {mid} mid-chain epilogue ops, K1 holds "
                     f"{WINDOW_MAX_MID}")
         return None
+    if walk_refusal(plan) is None:
+        return None
+    return band_refusal(plan)
+
+
+def walk_refusal(plan: SystolicPlan) -> str | None:
+    """Why one walk of K1's warp (its register cache of ``N + P − 1`` rows,
+    its column steps within 32 lanes, the step records in the kernel's
+    parameters) cannot hold the footprint of ``plan`` (a plan that is no
+    chain), or None."""
     nd = plan.ndim_spatial
     D = plan.depth if nd == 3 else 1
     N, steps = plan.N, len(plan.steps)
@@ -1501,14 +1524,123 @@ def tap_table_refusal(plan: SystolicPlan) -> str | None:
     return None
 
 
+# K1's banded walk (ssam_window.cuh, the instantiations of
+# ssam_window_band.cu): a 2-D footprint that one walk does not hold is cut
+# into bands of at most WINDOW_BAND_ROWS rows and WINDOW_BAND_COLS columns
+# (a warp keeps at least 16 of its lanes); each band is walked over the
+# same staged tile and adds its sums into the tile's fp32 accumulator.
+WINDOW_BAND_ROWS = 32
+WINDOW_BAND_COLS = 17
+WINDOW_MAX_BANDS = 32             # band records of a launch (kMaxChain)
+WINDOW_MAX_BAND_STEPS = 2048      # column steps of a banded launch
+
+
+def _row_bands(N: int) -> list[tuple[int, int]]:
+    """``(first row, rows)`` of the row bands of an ``N``-row footprint:
+    the fewest bands of at most :data:`WINDOW_BAND_ROWS` rows, or up to two
+    more where that makes them equal and of a row count the banded
+    instantiations hold (every column step of such a band runs the
+    branch-free dense body); else the fewest, equal but the last."""
+    lo = -(-N // WINDOW_BAND_ROWS)
+    for nb in range(lo, lo + 3):
+        if N % nb == 0 and N // nb in WINDOW_CHAIN_ROWS:
+            return [(i * (N // nb), N // nb) for i in range(nb)]
+    rows = -(-N // lo)
+    return [(r, min(rows, N - r)) for r in range(0, N, rows)]
+
+
+@functools.lru_cache(maxsize=256)
+def band_walk(plan: SystolicPlan):
+    """K1's banded walk of a 2-D plan: ``(steps, records, taps)``. Per row
+    band (:func:`_row_bands`) its tapped columns are cut, from the left,
+    into bands of at most ``⌈span / ⌈span / 17⌉⌉`` columns (balanced, at
+    most :data:`WINDOW_BAND_COLS`). ``records``: one ``(first step, steps,
+    Nb | 1 << 8 | Mb << 16, r0 | c0 << 16)`` a band, its rows ``Nb`` from
+    row ``r0``, its columns ``Mb`` from column ``c0`` of the footprint.
+    ``steps``: the bands' column steps one after another, ``(shift,
+    first, count, dense)`` as :func:`tap_steps` (a band's first step
+    unshifted, ``dense`` where the step's taps fill the instantiation's
+    rows); ``taps``: each step's taps in row order, ``(slot, tap)`` with
+    ``slot`` the tap's row in its band."""
+    N_i = window_inst(plan)[1]
+    cols: dict = {}
+    for cum, tap in flat_taps(plan):
+        cols.setdefault(cum, []).append(tap)
+    steps, records, taps = [], [], []
+    for r0, nb in _row_bands(plan.N):
+        mine = [(c, sorted((t for t in ts if r0 <= t.row_offset < r0 + nb),
+                           key=lambda t: t.row_offset))
+                for c, ts in sorted(cols.items())]
+        mine = [(c, ts) for c, ts in mine if ts]
+        if not mine:
+            continue
+        span = mine[-1][0] - mine[0][0] + 1
+        width = -(-span // -(-span // WINDOW_BAND_COLS))
+        i = 0
+        while i < len(mine):
+            j = i
+            while j + 1 < len(mine) and mine[j + 1][0] - mine[i][0] < width:
+                j += 1
+            c0 = prev = mine[i][0]
+            first = len(steps)
+            for c, ts in mine[i:j + 1]:
+                rows = [t.row_offset - r0 for t in ts]
+                if len(set(rows)) != len(rows):
+                    raise ValueError(f"two taps of {plan.kind!r} read the "
+                                     f"same cell at column {c}")
+                steps.append((c - prev, len(taps), len(ts),
+                              int(len(ts) == N_i)))
+                taps += zip(rows, ts)
+                prev = c
+            records.append((first, j + 1 - i,
+                            nb | 1 << 8 | (prev - c0 + 1) << 16,
+                            r0 | c0 << 16))
+            i = j + 1
+    return tuple(steps), tuple(records), tuple(taps)
+
+
+def band_refusal(plan: SystolicPlan) -> str | None:
+    """Why K1 cannot walk ``plan`` (one that one walk does not hold) in
+    bands, or None: 3-D and output-strided plans, more than
+    :data:`WINDOW_MAX_BANDS` bands, more than :data:`WINDOW_MAX_BAND_STEPS`
+    column steps, or a footprint whose staged halo, tap records and step
+    records pass the shared memory of one block at a 1 x 1 output tile."""
+    why = walk_refusal(plan)
+    if not banded(plan):
+        return (f"{why}; K1's banded walk takes 2-D plans without an output "
+                "stride (ROADMAP Queue 2)")
+    steps, records, _ = band_walk(plan)
+    if len(records) > WINDOW_MAX_BANDS:
+        return (f"{why}; the footprint needs {len(records)} bands, K1 holds "
+                f"{WINDOW_MAX_BANDS} a launch (ROADMAP Queue 2)")
+    if len(steps) > WINDOW_MAX_BAND_STEPS:
+        return (f"{why}; the footprint needs {len(steps)} column steps in "
+                f"bands, K1 holds {WINDOW_MAX_BAND_STEPS} a launch (ROADMAP "
+                "Queue 2)")
+    smem = _window_smem(plan, (1, 1, 1), 1, 4, 1)[4]
+    if smem > SMEM_LIMIT:
+        return (f"{why}; its staged halo and tap records need {smem} bytes "
+                f"of shared memory at a 1 x 1 tile, K1 holds {SMEM_LIMIT} "
+                "(ROADMAP Queue 2)")
+    return None
+
+
+def banded(plan: SystolicPlan) -> bool:
+    """Whether K1 walks ``plan`` in bands: a 2-D plan without an output
+    stride that is no chain and that one walk does not hold."""
+    return (not plan.stages and plan.ndim_spatial == 2
+            and not _strided(plan) and walk_refusal(plan) is not None)
+
+
 @functools.lru_cache(maxsize=256)
 def tap_table(plan: SystolicPlan, w_shape, inst=None) -> TapTable:
     """K1's :class:`TapTable` of ``plan`` against a filter of shape
     ``w_shape`` (one filter's, for a plan with a filter per image), its
     slots ``dz·N + row`` counted in the ``(D, N)`` of the instantiation
     ``inst`` that runs it (default the plan's own: a stage of a chain
-    runs in the chain's, :func:`window_inst`)."""
-    refusal = tap_table_refusal(plan)
+    runs in the chain's, :func:`window_inst`). A plan K1 walks in bands
+    takes :func:`band_table`."""
+    refusal = tap_table_refusal(plan) or walk_refusal(plan)
     if refusal:
         raise ValueError(refusal)
     nd = plan.ndim_spatial
@@ -1528,25 +1660,50 @@ def tap_table(plan: SystolicPlan, w_shape, inst=None) -> TapTable:
             if slot in taps:
                 raise ValueError(f"two taps of step {m} read the same "
                                  f"cell {tap}")
-            if plan.coeff_mode == "table":
-                if not 0 <= tap.coeff_id[-1] < len(plan.coeffs or ()):
-                    raise ValueError(f"tap {tap} has no coefficient in the "
-                                     "plan's table")
-                taps[slot] = tap.coeff_id[-1]
-            else:
-                if len(tap.coeff_id) != len(w_shape) or not all(
-                        0 <= i < n for i, n in zip(tap.coeff_id, w_shape)):
-                    raise ValueError(f"tap {tap} lies outside the filter of "
-                                     f"shape {w_shape}")
-                flat = 0
-                for i, n in zip(tap.coeff_id, w_shape):
-                    flat = flat * n + i
-                taps[slot] = flat
+            taps[slot] = _tap_cidx(plan, tap, w_shape)
         for slot in sorted(taps):
             slots.append(slot)
             cidx.append(taps[slot])
     return TapTable(tap_steps(plan, inst), tuple(slots), tuple(cidx),
                     plan.coeffs)
+
+
+def _tap_cidx(plan: SystolicPlan, tap, w_shape) -> int:
+    """``tap``'s index into the coefficient array K1 reads: the plan's
+    immediates ('table'), or the flattened filter of shape ``w_shape``."""
+    if plan.coeff_mode == "table":
+        if not 0 <= tap.coeff_id[-1] < len(plan.coeffs or ()):
+            raise ValueError(f"tap {tap} has no coefficient in the plan's "
+                             "table")
+        return tap.coeff_id[-1]
+    if len(tap.coeff_id) != len(w_shape) or not all(
+            0 <= i < n for i, n in zip(tap.coeff_id, w_shape)):
+        raise ValueError(f"tap {tap} lies outside the filter of shape "
+                         f"{w_shape}")
+    flat = 0
+    for i, n in zip(tap.coeff_id, w_shape):
+        flat = flat * n + i
+    return flat
+
+
+@functools.lru_cache(maxsize=256)
+def band_table(plan: SystolicPlan, w_shape) -> TapTable:
+    """K1's :class:`TapTable` of a plan it walks in bands
+    (:func:`band_walk`: every band's steps, then slots ``row − r0`` and
+    coefficient indices against a filter of shape ``w_shape``)."""
+    refusal = tap_table_refusal(plan)
+    if refusal:
+        raise ValueError(refusal)
+    steps, _, taps = band_walk(plan)
+    return TapTable(steps, tuple(r for r, _ in taps),
+                    tuple(_tap_cidx(plan, t, w_shape) for _, t in taps),
+                    plan.coeffs)
+
+
+def window_table(plan: SystolicPlan, w_shape) -> TapTable:
+    """The :class:`TapTable` K1 reads for a plan that is no chain: its
+    bands' (:func:`band_table`) or its one walk's (:func:`tap_table`)."""
+    return (band_table if banded(plan) else tap_table)(plan, w_shape)
 
 
 def tap_steps(plan: SystolicPlan, inst=None
@@ -1575,12 +1732,16 @@ WINDOW_CHAIN_3D = (3, 5)
 
 def window_inst(plan: SystolicPlan) -> tuple[int, int]:
     """``(D, N)`` of the K1 single-channel instantiation whose register
-    cache holds ``plan``'s footprint: the plan's own, or for a fused
-    pipeline the first of the chain instantiations at or above its largest
+    cache holds ``plan``'s footprint: the plan's own; for a plan walked in
+    bands the first of :data:`WINDOW_CHAIN_ROWS` at or above its row
+    bands' (``csrc/ssam_window_band.cu``); for a fused pipeline the first of the chain instantiations at or above its largest
     stage's (a stage with fewer rows or slices loads the instantiation's
     and its taps read its own)."""
     nd = plan.ndim_spatial
     if not plan.stages:
+        if nd == 2 and banded(plan):     # the banded instantiations' rows
+            rows = max(n for _, n in _row_bands(plan.N))
+            return 1, next(r for r in WINDOW_CHAIN_ROWS if r >= rows)
         return (plan.depth if nd == 3 else 1, plan.N)
     D = max(p.depth if nd == 3 else 1 for p in plan.stages)
     N = max(p.N for p in plan.stages)
@@ -1710,7 +1871,10 @@ class WindowLayout:
     ``geom`` and ``chain`` are what the C entry takes: ``chain`` the
     applications' records (``(records, N, D, mid ops)`` of the
     instantiation, then :class:`ChainTable`'s records and mid-chain ops;
-    a plan that is no chain one record its ``t`` applications repeat)."""
+    a plan that is no chain one record its ``t`` applications repeat, a
+    plan walked in bands its :func:`band_walk` records, every application
+    walking all of them; ``geom`` ends with the step records, after a
+    flag that says which)."""
 
     tile: tuple[int, int, int]
     tiles: tuple[int, int, int, int]
@@ -1832,6 +1996,8 @@ def _window_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
     bufs = (c0, _round_up(odd, 4), _round_up(even, 4))
     taps = sum(len(s.taps) for p in plan.stages or (plan,) for s in p.steps)
     table = 8 * (taps + 1) + 8 * WINDOW_MAX_STAGES
+    if banded(plan):            # the step records, in shared memory
+        table += 16 * len(band_walk(plan)[0])
     slack = 4 * _slack_rows(plan) * nbx * box_x
     smem = (128 + stages * stage_bytes + 4 * sum(bufs) + table + slack)
     return ((box_z, box_y, box_x), (nbz, nby, nbx), stage_bytes, bufs,
@@ -1850,11 +2016,14 @@ def _slack_rows(plan: SystolicPlan) -> int:
     """Rows of a source's pitch that the register cache may read past its
     last row (their outputs discarded): ``P − 1`` for the last row item,
     and the instantiation's rows beyond the stage's own (a stage of a
-    chain with fewer rows than the largest), one more to spare."""
+    chain or a band with fewer rows than the largest), one more to
+    spare."""
     P = window_p(plan)
     if _strided(plan):
         return P
     N_i = window_inst(plan)[1]
+    if banded(plan):            # a band of fewer rows than the instantiation
+        return P + N_i - min(n for _, n in _row_bands(plan.N))
     return P + N_i - min(p.N for p in plan.stages or (plan,))
 
 
@@ -1900,8 +2069,12 @@ def window_layout(plan: SystolicPlan, head, tile, t: int,
                      H100_SM_SMEM // (smem + 1024)))
     grid = min(ntiles, bps * H100_SMS)
     ct = chain_table(plan) if plan.stages else None
-    steps = ct.table.steps if ct else tap_steps(plan)
-    records = ct.records if ct else (_stage_record(plan, 0, len(steps)),)
+    bands = banded(plan)
+    if bands:
+        steps, records, _ = band_walk(plan)
+    else:
+        steps = ct.table.steps if ct else tap_steps(plan)
+        records = ct.records if ct else (_stage_record(plan, 0, len(steps)),)
     mid = ct.mid if ct else ()
     ntaps = sum(st[2] for st in steps)
     geom = (nd, D, plan.N, plan.M, len(steps), ntaps, t,
@@ -1911,7 +2084,7 @@ def window_layout(plan: SystolicPlan, head, tile, t: int,
             box[2], box[1], box[0], boxes[2], boxes[1], boxes[0],
             stages, stage_bytes, *bufs, smem, grid, plan.filters,
             filter_size, *plan.stride_per_axis()[-2:],
-            *(oaddr or _dense_oaddr(head))
+            *(oaddr or _dense_oaddr(head)), int(bands)
             ) + tuple(v for st in steps for v in st)
     chain = ((len(records), *reversed(window_inst(plan)), len(mid))
              + tuple(v for r in records for v in r)
@@ -1943,9 +2116,13 @@ def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
     their output themselves: K1 128 channels x 1 row x 64-128 columns, K2
     128 or 256 channels x 1 row x 128 or 64 columns.)"""
     if plan.strategy == "mxu":
+        if mxu_streamed(plan) and mxu_stream_refusal(plan) is None:
+            return _mxu_stream_block(plan)
         return _mxu_block(plan, time_steps)
     need, limit = smem_bytes, SMEM_LIMIT
     V = max(1, WARP - (plan.M - 1))
+    if banded(plan):
+        return _band_block(plan, time_steps)
     if _strided(plan):
         # items of P rows x 32 columns, 8 a tile, the tile's input small
         # enough for two blocks an SM
@@ -1960,6 +2137,38 @@ def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
             break
         block[i] = max(1, block[i] // 2)
     return tuple(block)
+
+
+@functools.lru_cache(maxsize=256)
+def _band_block(plan: SystolicPlan, t: int) -> tuple[int, int]:
+    """The output tile of a plan K1 walks in bands: of ``P·2^i`` rows and
+    ``V·2^j`` columns (``V`` the widest band's valid lanes) with at least
+    one warp item a warp, the one whose staged input is the fewest
+    elements an output among those of which two blocks share an SM (else
+    one), ties to the larger tile: a band re-reads the tile's whole halo,
+    whose rows and columns grow with the footprint."""
+    P = window_p(plan)
+    V = WARP - max(r[2] >> 16 for r in band_walk(plan)[1]) + 1
+    warps = 256 // WARP               # kThreads2d
+    best = {}
+    for i in range(6):
+        for j in range(5):
+            bh, bw = P << i, V << j
+            if (bh // P) * (bw // V) < warps:
+                continue
+            smem = smem_bytes(plan, (bh, bw), t)
+            fit = (0 if smem <= WINDOW_SMEM_TARGET else
+                   1 if smem <= SMEM_LIMIT else None)
+            if fit is None:
+                continue
+            ratio = ((bh + t * (plan.N - 1)) * (bw + t * (plan.M - 1))
+                     / (bh * bw))
+            key = (fit, ratio, -bh * bw)
+            best.setdefault(fit, (key, (bh, bw)))
+            best[fit] = min(best[fit], (key, (bh, bw)))
+    if not best:
+        return (P, V)
+    return best[min(best)][1]
 
 
 def _shfl_up(v: torch.Tensor, d: int) -> torch.Tensor:
@@ -2062,6 +2271,29 @@ def _emulate_apply(src: torch.Tensor, addr, ext, table: TapTable, coef,
     assert bool((hits == 1).all()), "an output is not written exactly once"
     dst[:, oy, ox] = s[:, idx[0], idx[1], idx[2], idx[3]]
     return dst
+
+
+def _emulate_bands(src: torch.Tensor, addr, ext, table: TapTable, coef,
+                   variant: str, P: int, inst, bands, exts) -> torch.Tensor:
+    """One application of a plan K1 walks in bands (``exts`` its ``(N,
+    M)``): each band of :func:`band_walk` an :func:`_emulate_apply` of its
+    own ``Nb × Mb`` footprint on the same source, read from its row ``r0``
+    and column ``c0`` (the source's base moved ``r0`` rows, its shift
+    ``c0`` columns), over the whole application's outputs; the first band
+    writes the fp32 accumulator, each later one adds its sums to it."""
+    pitch, plane, bw, bstride, shift = addr
+    zs, hs, ws = ext
+    hd, wd = hs - (exts[0] - 1), ws - (exts[1] - 1)
+    acc = None
+    for rec in bands:
+        nb, mb = rec[2] & 255, rec[2] >> 16
+        r0, c0 = rec[3] & 0xFFFF, rec[3] >> 16
+        part = _emulate_apply(src[r0 * pitch:], (pitch, plane, bw, bstride,
+                                                 shift + c0),
+                              (zs, hd + nb - 1, wd + mb - 1), table, coef,
+                              variant, P, inst, rec)
+        acc = part if acc is None else acc + part
+    return acc
 
 
 def _epilogue_op(code: int, val: float, bias, v: torch.Tensor) -> torch.Tensor:
@@ -2187,13 +2419,15 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
         epi_plan = plan.stages[-1]
         epilogue_args = stage_epilogue_args(plan.stages, epilogue_args)[-1]
     else:
-        table = tap_table(plan, None if w is None else tuple(w.shape[-2:]))
+        table = window_table(plan, None if w is None
+                             else tuple(w.shape[-2:]))
         cvals = (torch.tensor(plan.coeffs, dtype=torch.float32)
                  if plan.coeff_mode == "table"
                  else w.detach().to(torch.float32)).reshape(plan.filters, -1)
         records = (_stage_record(plan, 0, len(table.steps)),) * t
         mids = [()] * t
         epi_plan = plan
+    bands = band_walk(plan)[1] if banded(plan) else None
     # the tap records' coefficients of each filter: a tile of image b
     # holds filter b mod filters'
     coefs = cvals[:, list(table.cidx)]
@@ -2204,8 +2438,9 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     lay = window_layout(plan, head, tile, t, es, pitch, variant,
                         filter_size=_filter_size(plan, w))
     assert lay.smem <= SMEM_LIMIT
-    assert lay.chain[:4] == (len(records) if plan.stages else 1, inst[1],
-                             inst[0], sum(len(m) for m in mids))
+    assert lay.chain[:4] == (len(bands) if bands else len(records)
+                             if plan.stages else 1, inst[1], inst[0],
+                             sum(len(m) for m in mids))
     xm = xt.reshape(batch, zin, hin, pitch)
     out4 = out.reshape(batch, zo, ho, wo)
     resid = next((a.reshape(batch, zo, ho, wo) for st, a in zip(
@@ -2253,8 +2488,14 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
             else:
                 t_left = t
             for k in range(t_left and len(records)):
-                dst = _emulate_apply(src, addr, ext, table, coef, variant,
-                                     P, inst, records[k], mids[k])
+                if bands:
+                    dst = _emulate_bands(src, addr, ext, table, coef,
+                                         variant, P, inst, bands,
+                                         (N, M))
+                else:
+                    dst = _emulate_apply(src, addr, ext, table, coef,
+                                         variant, P, inst, records[k],
+                                         mids[k])
                 if k == 0:      # the stage is read: refill it
                     nxt = i + lay.stages
                     ring[s] = mine[nxt] if nxt < len(mine) else None
@@ -2274,7 +2515,13 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
 # K2: the tensor-core kernel (strategy='mxu')
 # ---------------------------------------------------------------------------
 
-MXU_MAX_TAPS = 1024           # single-channel taps K2 holds (padded to 8)
+MXU_RESIDENT_TAPS = 1024      # taps whose B tiles a K2 block keeps resident
+                              # (padded to 8); more stream (mxu_streamed)
+MXU_RESIDENT_WORDS = 8192     # B tile words a block keeps resident (32 KB)
+MXU_MAX_ENTRIES = 256         # entry records of a streamed launch (shared
+                              # memory, 32 bytes each)
+MXU_SLOT_MIN = 2048           # fp32 words of a ring slot a streamed tile
+                              # wants at least (its largest entry's at least)
 
 
 def _round8(n: int) -> int:
@@ -2308,9 +2555,8 @@ def mxu_tap_table(plan: SystolicPlan, w_shape) -> tuple[int, ...]:
             for i, n in zip(tap.coeff_id, w_shape):
                 cidx = cidx * n + i
         out += [dz, tap.row_offset, cum, cidx]
-    if not out or _round8(len(out) // 4) > MXU_MAX_TAPS:
-        raise ValueError(f"K2 takes 1..{MXU_MAX_TAPS} taps, got "
-                         f"{len(out) // 4}")
+    if not out:
+        raise ValueError(f"{plan.kind!r} has no taps")
     return tuple(out)
 
 
@@ -2386,6 +2632,7 @@ def _mxu_segments(rows, sw: int = 1) -> list:
     return out
 
 
+@functools.lru_cache(maxsize=256)
 def _mxu_b_shape(plan: SystolicPlan) -> tuple[int, int]:
     """``(entries, B tile words)`` of a plan (a fused pipeline's summed
     over its stages), from its tap positions."""
@@ -2434,22 +2681,99 @@ def mxu_entries(plan: SystolicPlan, w_shape) -> MxuEntries:
     return MxuEntries(tuple(out), tuple(head + tail), boff)
 
 
+@functools.lru_cache(maxsize=64)
+def mxu_bindex(ents: MxuEntries, sw: int = 1) -> tuple[int, ...]:
+    """Per word of the Toeplitz B tiles (:func:`mxu_btiles`) the index of
+    its coefficient, ``-1`` where no tap sits."""
+    out = []
+    for _, _, _, span, kk, _, toff in ents.entries:
+        col = ents.table[toff:toff + span]
+        for i in range(64 * kk):
+            q = 8 * (i // 64) + (i // 8) % 8 - sw * (i % 8)
+            out.append(col[q] if 0 <= q < span else -1)
+    return tuple(out)
+
+
 def mxu_btiles(ents: MxuEntries, cvals: torch.Tensor,
                sw: int = 1) -> torch.Tensor:
-    """The Toeplitz B tiles K2 builds in shared memory at a block's start:
+    """The Toeplitz B tiles of K2's entries, on ``cvals``' device:
     ``b_words`` fp32 words, entry ``e``'s k-step ``s`` at ``boff + 64·s``,
     ``B_s[k][n] = c(cmin + 8s + k − sw·n)`` (0 where no tap sits; ``sw``
-    the output column stride: a steeper band)."""
-    bt = torch.zeros(ents.b_words, dtype=torch.float32)
-    s = torch.arange(MXU_KSTEPS * 64)
-    qq = 8 * (s // 64) + (s // 8) % 8 - sw * (s % 8)
-    for _, _, _, span, kk, boff, toff in ents.entries:
-        col = torch.tensor(ents.table[toff:toff + span] + (-1,))
-        q = qq[:64 * kk]
-        ci = col[torch.where((q >= 0) & (q < span), q, span)]
-        bt[boff:boff + 64 * kk] = torch.where(
-            ci >= 0, cvals.float()[ci.clamp(min=0)], 0.0)
-    return bt
+    the output column stride: a steeper band). A resident launch builds
+    them in shared memory at a block's start; a streamed one
+    (:func:`mxu_streamed`) reads them, built here once a call, from
+    device memory a group at a time."""
+    idx = (_device_ints(mxu_bindex(ents, sw), cvals.device).long()
+           if cvals.is_cuda else torch.tensor(mxu_bindex(ents, sw)))
+    cv = cvals.float()
+    return torch.where(idx >= 0, cv[idx.clamp(min=0)], cv.new_zeros(()))
+
+
+def mxu_streamed(plan: SystolicPlan) -> bool:
+    """Whether K2 streams ``plan``'s Toeplitz B tiles a group of entries at
+    a time instead of keeping them resident: a plan that is no chain
+    whose taps pass :data:`MXU_RESIDENT_TAPS` or whose B tiles pass
+    :data:`MXU_RESIDENT_WORDS` (they would leave the staged input too
+    few rows: a 255 × 1 filter's 64 KB of tiles kept K2 to tiles of one
+    row)."""
+    if plan.stages:
+        return False
+    taps = sum(len(s.taps) for s in plan.steps)
+    return (_round8(taps) > MXU_RESIDENT_TAPS
+            or _mxu_b_shape(plan)[1] > MXU_RESIDENT_WORDS)
+
+
+def mxu_stream_refusal(plan: SystolicPlan) -> str | None:
+    """Why K2 cannot stream ``plan``'s B tiles (a plan
+    :func:`mxu_streamed` picks), or None: 3-D and output-strided plans,
+    more than :data:`MXU_MAX_ENTRIES` entries, or a staged halo, entry
+    records and two slots of its largest entry that pass shared memory at
+    the smallest tile (16 × 32)."""
+    taps = sum(len(s.taps) for s in plan.steps)
+    why = (f"K2 keeps the B tiles of {MXU_RESIDENT_TAPS} taps "
+           f"({MXU_RESIDENT_WORDS} words) resident, {plan.kind!r} has {taps}")
+    if plan.ndim_spatial != 2 or _strided(plan):
+        return (f"{why}; K2 streams the B tiles of 2-D plans without an "
+                "output stride (ROADMAP Queue 2)")
+    nent = _mxu_b_shape(plan)[0]
+    if nent > MXU_MAX_ENTRIES:
+        return (f"{why}; its {nent} entries pass the {MXU_MAX_ENTRIES} a "
+                "streamed launch holds (ROADMAP Queue 2)")
+    smem = _mxu_smem(plan, (1, MXU_ROWS, 8 * MXU_CHUNKS), 1, 4, 1,
+                     slot_words=64 * MXU_KSTEPS)[5]
+    if smem > SMEM_LIMIT:
+        return (f"{why}; its staged halo, entries and B tile slots need "
+                f"{smem} bytes of shared memory at a 16 x 32 tile, K2 holds "
+                f"{SMEM_LIMIT} (ROADMAP Queue 2)")
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class MxuStream:
+    """A streamed launch's groups: ``groups`` one ``(first entry, entries,
+    first B word, words)`` a group, consecutive entries whose tiles fill at
+    most ``slot_words`` fp32 words of a ring slot."""
+
+    slot_words: int
+    groups: tuple[tuple[int, int, int, int], ...]
+
+
+def mxu_stream(ents: MxuEntries, slot_words: int) -> MxuStream:
+    """The entries cut, in order, into the fewest groups of consecutive
+    entries whose B tiles fit ``slot_words`` words (greedy from the
+    first)."""
+    groups, first = [], 0
+    for e, (*_, kk, boff, _) in enumerate(ents.entries):
+        if 64 * kk > slot_words:
+            raise ValueError(f"an entry's {64 * kk} B words pass a slot of "
+                             f"{slot_words}")
+        f0 = ents.entries[first][5]
+        if boff + 64 * kk - f0 > slot_words:
+            groups.append((first, e - first, f0, boff - f0))
+            first = e
+    f0 = ents.entries[first][5]
+    groups.append((first, len(ents.entries) - first, f0, ents.b_words - f0))
+    return MxuStream(slot_words, tuple(groups))
 
 
 MXU_MAX_CHAIN = 32            # stage records of a launch (kMxMaxChain)
@@ -2465,22 +2789,42 @@ def mxu_chain_refusal(plan: SystolicPlan) -> str | None:
     for K1, so a route can be chosen before anything launches. A plan
     that is no chain: what :func:`mxu_entries` refuses. A fused pipeline:
     a stage it refuses, more than :data:`MXU_MAX_CHAIN` stages, more than
-    :data:`MXU_MAX_TAPS` taps in all, more than :data:`WINDOW_MAX_MID`
+    :data:`MXU_RESIDENT_TAPS` taps in all, more than :data:`WINDOW_MAX_MID`
     mid-chain epilogue ops, or the stages' B tiles, entries, staged tile
-    and iterates beyond :data:`SMEM_LIMIT` at the smallest tile (1 × 1)."""
+    and iterates beyond :data:`SMEM_LIMIT` at the smallest tile (1 × 1).
+    A plan that is no chain whose B tiles K2 streams (:func:`mxu_streamed`)
+    runs unless :func:`mxu_stream_refusal` says why not; no chain fuses
+    such a stage (it runs as a segment of its own)."""
     for i, st in enumerate(plan.stages or (plan,)):
         try:
             _mxu_stage_entries(st)
         except ValueError as e:
             return f"stage {i} ({st.kind}): {e}" if plan.stages else str(e)
+        if plan.stages and mxu_streamed(st):
+            return (f"stage {i} ({st.kind}): its B tiles pass what a K2 "
+                    "block keeps resident; K2 streams such a stage's, "
+                    "which a chain does not fuse (it runs as a segment of "
+                    "its own)")
     if not plan.stages:
+        streamed = mxu_streamed(plan)
+        if streamed and (why := mxu_stream_refusal(plan)):
+            return why
+        # a tile's input row is one TMA box: the narrowest tile's (a
+        # streamed tile's is a warp item's 32 columns)
+        tile = (1, MXU_ROWS, 8 * MXU_CHUNKS) if streamed else (1, 1, 1)
+        cols = _mxu_smem(plan, tile, 1, 4, 1, 0 if streamed else None)[0][2]
+        if cols > TMA_MAX_BOX:
+            return (f"{plan.kind!r} spans {plan.M} columns: a tile's input "
+                    f"row of {cols} passes one TMA box ({TMA_MAX_BOX}), "
+                    "which K2 stages (ROADMAP Queue 2)")
         return None
     if len(plan.stages) > MXU_MAX_CHAIN:
         return (f"the chain has {len(plan.stages)} stages, K2 holds "
                 f"{MXU_MAX_CHAIN} a launch")
     taps = sum(len(s.taps) for st in plan.stages for s in st.steps)
-    if _round8(taps) > MXU_MAX_TAPS:
-        return f"the chain has {taps} taps, K2 holds {MXU_MAX_TAPS} a launch"
+    if _round8(taps) > MXU_RESIDENT_TAPS:
+        return (f"the chain has {taps} taps, K2 holds {MXU_RESIDENT_TAPS} a "
+                "launch")
     mid = sum(len(st.epilogue) for st in plan.stages[:-1])
     if mid > WINDOW_MAX_MID:
         return (f"the chain has {mid} mid-chain epilogue ops, K2 holds "
@@ -2592,7 +2936,10 @@ class MxuLayout:
     :data:`MXU_SLACK` words the over-reads reach, the B tiles, the entries
     and the barriers: ``smem`` bytes. ``geom`` and ``chain`` are what the
     C entry takes: ``chain`` a fused pipeline's :meth:`MxuChain.ints`,
-    ``(0, 0)`` for a plan that is no chain."""
+    ``(0, 0)`` for a plan that is no chain. ``stream``: a streamed
+    launch's :class:`MxuStream` (None where the B tiles stay resident);
+    ``table`` the ints the card's table holds (the entries', then the
+    groups' records)."""
 
     tile: tuple[int, int, int]
     tiles: tuple[int, int, int, int]
@@ -2606,6 +2953,8 @@ class MxuLayout:
     grid: int
     geom: tuple[int, ...]
     chain: tuple[int, ...]
+    stream: MxuStream | None = None
+    table: tuple[int, ...] = ()
 
     @property
     def ntiles(self) -> int:
@@ -2627,7 +2976,7 @@ class MxuLayout:
 
 
 def _mxu_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
-              stages: int):
+              stages: int, slot_words=None):
     """``(box, boxes, stage_bytes, pc, bufs, smem)`` of a K2 single-channel
     block at a ring of ``stages`` (``box[2]`` above :data:`TMA_MAX_BOX`
     where a tile's input row is wider than one TMA box). A fused
@@ -2636,7 +2985,10 @@ def _mxu_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
     buffers hold the largest iterate written to each (the first stage's
     in the even one). An item reads rows clamped to its source's, so a
     stage of fewer rows needs no row slack; the over-reads past a row's
-    end stay within :func:`mxu_slack`."""
+    end stay within :func:`mxu_slack`. A streamed launch (``slot_words``
+    given, :func:`mxu_streamed`): the tile's fp32 sums across groups in
+    the even buffer, no odd one, two ring slots of ``slot_words`` in
+    place of the B tiles."""
     nd = plan.ndim_spatial
     D = plan.depth if nd == 3 else 1
     N, M = plan.N, plan.M
@@ -2675,8 +3027,12 @@ def _mxu_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
     n = len(apps)
     even = max((iterate(k) for k in range(0, n - 1, 2)), default=0)
     odd = max((iterate(k) for k in range(1, n - 1, 2)), default=0)
+    if slot_words is not None:          # the sums across groups
+        even, odd = bz * bh * mxu_pitch(bw), 0
     bufs = (c0, _round_up(even, 4), _round_up(odd, 4))
     nent, b_words = _mxu_b_shape(plan)
+    if slot_words is not None:
+        b_words = 2 * slot_words
     smem = (128 + stages * stage_bytes
             + 4 * (sum(bufs) + mxu_slack(sw) + b_words) + 32 * nent
             + 8 * stages)
@@ -2691,13 +3047,26 @@ def mxu_layout(plan: SystolicPlan, head, tile, t: int, elem_bytes: int,
     (``(o_row, o_col, o_plane, o_img)``; default the dense output). The
     ring takes the most stages (up to 3) that leave two blocks an SM;
     failing that, the most that fit one block; failing that, the call
-    raises."""
+    raises. A streamed plan (:func:`mxu_streamed`) takes one stage and
+    the largest ring slots (:func:`_mxu_slot`)."""
     batch, zin, hin, win, zo, ho, wo, lz, ly, lx = head
     nd = plan.ndim_spatial
     D = plan.depth if nd == 3 else 1
     tile = tuple(tile)
-    fits = [(s, _mxu_smem(plan, tile, t, elem_bytes, s))
-            for s in range(MXU_MAX_STAGES, 0, -1)]
+    stream = None
+    if mxu_streamed(plan):
+        why = mxu_stream_refusal(plan)
+        if why:
+            raise ValueError(why)
+        slot = _mxu_slot(plan, tile, elem_bytes, ents.b_words)
+        if slot is None:
+            raise ValueError(f"block {tile[3 - nd:]} leaves no room for "
+                             "K2's B tile slots; pass a smaller block")
+        stream = mxu_stream(ents, slot)
+    fits = [(s, _mxu_smem(plan, tile, t, elem_bytes, s,
+                          stream and stream.slot_words))
+            for s in (range(MXU_MAX_STAGES, 0, -1) if stream is None
+                      else (1,))]
     pick = next(((s, f) for s, f in fits if f[5] <= WINDOW_SMEM_TARGET),
                 None) or next(((s, f) for s, f in fits
                                if f[5] <= SMEM_LIMIT), None)
@@ -2717,16 +3086,67 @@ def mxu_layout(plan: SystolicPlan, head, tile, t: int, elem_bytes: int,
         raise ValueError(f"K2's tile walk cannot count {ntiles} tiles")
     bps = max(1, min(2, H100_SM_SMEM // (smem + 1024)))
     grid = min(ntiles, bps * H100_SMS)
+    table = ents.table + (tuple(v for g in stream.groups for v in g)
+                          if stream else ())
     geom = (nd, D, plan.N, plan.M, t, len(ents.entries), batch, zin, hin,
             win, pitch, zo, ho, wo, lz, ly, lx, bz, bh, bw, box[2], box[1],
             box[0], boxes[1], boxes[0], stages, stage_bytes, pc, *bufs,
-            ents.b_words, len(ents.table), smem, grid,
+            ents.b_words, len(table), smem, grid,
             mxu_slack(plan.stride_per_axis()[-1]),
             max(e[4] for e in ents.entries), *plan.stride_per_axis()[-2:],
-            *(oaddr or _dense_oaddr(head)))
+            *(oaddr or _dense_oaddr(head)),
+            len(stream.groups) if stream else 0,
+            stream.slot_words if stream else 0, len(ents.table))
     chain = mxu_chain_table(plan).ints() if plan.stages else (0, 0)
     return MxuLayout(tile, tiles, box, boxes, stage_bytes, stages, pc, bufs,
-                     smem, grid, geom, chain)
+                     smem, grid, geom, chain, stream, table)
+
+
+def _mxu_slot(plan: SystolicPlan, tile, elem_bytes: int,
+              b_words: int) -> int | None:
+    """The fp32 words of a streamed tile's ring slot: all its B tiles where
+    two slots of them fit, else the most (whole 256-byte k-step tiles)
+    that leave two blocks an SM if that is at least :data:`MXU_SLOT_MIN`,
+    else the most one block holds; None where not even the largest entry
+    fits."""
+    need = _round_up(b_words, 64)
+    base = _mxu_smem(plan, tile, 1, elem_bytes, 1, 0)[5]
+    biggest = 64 * max(e[4] for e in mxu_entries(
+        plan, plan.exts if plan.coeff_mode == "dense" else None).entries)
+    for limit, least in ((WINDOW_SMEM_TARGET, min(need, MXU_SLOT_MIN)),
+                         (SMEM_LIMIT, biggest)):
+        slot = min(need, (limit - base) // 8 // 64 * 64)
+        if slot >= max(least, biggest):
+            return slot
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def _mxu_stream_block(plan: SystolicPlan) -> tuple[int, int]:
+    """A streamed plan's output tile: of 16·2^i rows and 32·2^j columns
+    with a whole number of warp items a warp (8), the one that moves the
+    fewest words an output into shared memory (the staged halo and, each
+    tile again, the B tiles), among those of which two blocks share an SM
+    with a slot of at least :data:`MXU_SLOT_MIN` words (else one);
+    ties to the larger tile."""
+    b_words = _mxu_b_shape(plan)[1]
+    best = None
+    for i in range(4):
+        for j in range(3):
+            bh, bw = MXU_ROWS << i, 8 * MXU_CHUNKS << j
+            if (bh // MXU_ROWS) * (bw // (8 * MXU_CHUNKS)) % 8:
+                continue
+            tile = (1, bh, bw)
+            slot = _mxu_slot(plan, tile, 4, b_words)
+            if slot is None or _mxu_smem(plan, tile, 1, 4, 1,
+                                         0)[0][2] > TMA_MAX_BOX:
+                continue
+            two = _mxu_smem(plan, tile, 1, 4, 1, slot)[5] <= \
+                WINDOW_SMEM_TARGET
+            staged = _mxu_smem(plan, tile, 1, 4, 1, 0)[2] // 4
+            key = (not two, (staged + b_words) / (bh * bw), -bh * bw)
+            best = min(best or (key, (bh, bw)), (key, (bh, bw)))
+    return best[1] if best else (MXU_ROWS, 8 * MXU_CHUNKS)
 
 
 def mxu_smem_bytes(plan: SystolicPlan, block, time_steps: int) -> int:
@@ -2783,16 +3203,25 @@ def _emulate_mxu_apply(mem: torch.Tensor, src, out_ext, entries, table,
                        cvals: torch.Tensor) -> torch.Tensor:
     """One application of ``ssam_mxu.cuh::apply_mx`` on the emulated shared
     memory ``mem`` (flat fp32 words) through ``src (base, pitch, plane,
-    shift)``: the warp items (16 rows, rows past the last clamped, × 4
-    chunks of 8 columns, per slice), each of ``entries``' shifted-row A
-    (its k-step windows read in place: output row ``y`` reads row ``sh·y
-    + r`` at ``stride (sh, sw)``, chunk ``c`` its window from column
-    ``sw·8c``) split and multiplied with its Toeplitz tiles (big·big
+    shift)``: the products of :func:`_emulate_mxu_sums`, then the vote and
+    re-sum of :func:`_emulate_mxu_fix`. Returns the dense fp32 ``out_ext``
+    ``(zd, hd, wd)`` result."""
+    acc, cor = _emulate_mxu_sums(mem, src, out_ext, entries, btile, stride)
+    return _emulate_mxu_fix(acc + cor, mem, src, out_ext, entries, table,
+                            stride, cvals)
+
+
+def _emulate_mxu_sums(mem: torch.Tensor, src, out_ext, entries,
+                      btile: torch.Tensor, stride):
+    """The tensor-core sums of ``apply_mx`` over ``entries``: the warp
+    items (16 rows, rows past the last clamped, × 4 chunks of 8 columns,
+    per slice), each entry's shifted-row A (its k-step windows read in
+    place: output row ``y`` reads row ``sh·y + r`` at ``stride (sh,
+    sw)``, chunk ``c`` its window from column ``sw·8c``) split and
+    multiplied with its Toeplitz tiles at ``btile[boff:]`` (big·big
     summed over whole entries of at least :data:`MXU_FLUSH` k-steps, then
-    added to the fp32 sum; the cross terms beside); an item whose sums are
-    not all finite (a non-finite input met the tiles' zeros) summed again
-    tap by tap, the entries' columns (``table``) in order, from ``cvals``.
-    Returns the dense fp32 ``out_ext`` ``(zd, hd, wd)`` result."""
+    added to the fp32 sum; the cross terms beside). Returns ``(acc,
+    cor)``, each ``(zd, hp, nch, 8)`` over the items' padded extent."""
     base, pitch, plane, shift = src
     zd, hd, wd = out_ext
     sh, sw = stride
@@ -2817,7 +3246,24 @@ def _emulate_mxu_apply(mem: torch.Tensor, src, out_ext, entries, table,
         pend += kk
         if pend >= MXU_FLUSH or e == len(entries) - 1:
             acc, hi, pend = acc + hi, torch.zeros_like(hi), 0
-    out = (acc + cor).reshape(zd, hp, nch * 8)
+    return acc, cor
+
+
+def _emulate_mxu_fix(out: torch.Tensor, mem: torch.Tensor, src, out_ext,
+                     entries, table, stride,
+                     cvals: torch.Tensor) -> torch.Tensor:
+    """``apply_mx``'s vote on the item sums ``out`` (``(zd, hp, nch, 8)``):
+    an item whose sums are not all finite (a non-finite input met the
+    tiles' zeros) is summed again tap by tap, ``entries``' columns
+    (``table``) in order, from ``cvals``. Returns the dense ``(zd, hd,
+    wd)`` result."""
+    base, pitch, plane, shift = src
+    zd, hd, wd = out_ext
+    sh, sw = stride
+    hp = _round_up(hd, MXU_ROWS)
+    nch = _round_up(wd, 8 * MXU_CHUNKS) // 8
+    y = torch.arange(hp).clamp(max=hd - 1)
+    out = out.reshape(zd, hp, nch * 8)
     items = (zd, hp // MXU_ROWS, MXU_ROWS, nch // MXU_CHUNKS, 8 * MXU_CHUNKS)
     bad = ~torch.isfinite(out.reshape(items)).all(-1).all(2)
     if bool(bad.any()):
@@ -2833,6 +3279,41 @@ def _emulate_mxu_apply(mem: torch.Tensor, src, out_ext, entries, table,
         out = torch.where(bad[:, :, None, :, None], plain.reshape(items),
                           out.reshape(items)).reshape(out.shape)
     return out[:, :hd, :wd]
+
+
+def _emulate_mxu_groups(mem: torch.Tensor, src, out_ext, ents: MxuEntries,
+                        btile: torch.Tensor, lay: MxuLayout, part: int,
+                        cvals: torch.Tensor) -> torch.Tensor:
+    """A streamed launch's application (``ssam_mxu.cuh``, ``St``): each
+    group of ``lay.stream`` its entries' sums against its B tiles as the
+    ring slot holds them (the group's words from its first on), the
+    tile's fp32 sums carried across groups in the buffer at word ``part``
+    (pitch :func:`mxu_pitch`: the first group writes, each later one but
+    the last adds ``acc + cor``), the last group's ``acc`` plus them, its
+    ``cor`` beside, then the vote and the tap-by-tap re-sum over every
+    entry of every group."""
+    zd, hd, wd = out_ext
+    pp = mxu_pitch(wd)
+    assert zd * hd * pp <= lay.bufs[1], "the sums pass their buffer"
+    view = mem[part:part + zd * hd * pp].view(zd, hd, pp)
+    groups = lay.stream.groups
+    for gi, (first, n, w0, words) in enumerate(groups):
+        assert words <= lay.stream.slot_words, "a group passes its slot"
+        slot = torch.zeros(lay.stream.slot_words)
+        slot[:words] = btile[w0:w0 + words]
+        local = tuple(e[:5] + (e[5] - w0, e[6])
+                      for e in ents.entries[first:first + n])
+        acc, cor = _emulate_mxu_sums(mem, src, out_ext, local, slot, (1, 1))
+        if gi < len(groups) - 1:
+            tot = (acc + cor).reshape(zd, -1, acc.shape[2] * 8)[:, :hd, :wd]
+            view[..., :wd] = tot if gi == 0 else view[..., :wd] + tot
+            continue
+        if gi:
+            carried = torch.zeros_like(acc).reshape(zd, acc.shape[1], -1)
+            carried[:, :hd, :wd] = view[..., :wd]
+            acc = acc + carried.reshape(acc.shape)
+        return _emulate_mxu_fix(acc + cor, mem, src, out_ext, ents.entries,
+                                ents.table, (1, 1), cvals)
 
 
 def _emulate_mid(mid, rec: int, cvals: torch.Tensor,
@@ -2939,10 +3420,16 @@ def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
             ext = tuple(v + t * (e - 1) for v, e in
                         zip((tz, ty, tx), lay.geom[1:4]))
             for k, (stage_ents, (Nk, Dk, Mk), rec) in enumerate(apps):
-                res = _emulate_mxu_apply(
-                    mem, src, (tz, ty, tx) if sh * sw > 1 else
-                    (ext[0] - (Dk - 1), ext[1] - (Nk - 1), ext[2] - (Mk - 1)),
-                    stage_ents, ents.table, btile, (sh, sw), cvals)
+                oext = ((tz, ty, tx) if sh * sw > 1 else
+                        (ext[0] - (Dk - 1), ext[1] - (Nk - 1),
+                         ext[2] - (Mk - 1)))
+                if lay.stream:
+                    res = _emulate_mxu_groups(mem, src, oext, ents, btile,
+                                              lay, offs[1], cvals)
+                else:
+                    res = _emulate_mxu_apply(mem, src, oext, stage_ents,
+                                             ents.table, btile, (sh, sw),
+                                             cvals)
                 ext = tuple(res.shape)
                 if k < len(apps) - 1:
                     res = _emulate_mid(mid, rec, cvals, res)
@@ -3179,9 +3666,19 @@ class MxuKernel:
         (:func:`mxu_chain_table`: each stage's entries and B tiles, its
         mid-chain epilogue on the fp32 iterate), the epilogue at the
         store; ``out``, ``out_sp``, ``offset`` and ``oaddr`` as
-        :meth:`WindowKernel._single` takes them."""
+        :meth:`WindowKernel._single` takes them. A plan whose B tiles K2
+        streams (:func:`mxu_streamed`) takes them built here in device
+        memory (:func:`mxu_btiles`); one K2 cannot run raises
+        ``NotImplementedError`` naming the limit before anything
+        launches."""
+        if not plan.stages:
+            why = mxu_chain_refusal(plan)
+            if why is None and mxu_streamed(plan) and t != 1:
+                why = ("K2 streams B tiles for one application (t = 1), "
+                       f"got t = {t} (ROADMAP Queue 2)")
+            if why:
+                raise NotImplementedError(f"{plan.kind!r}: {why}")
         ents = _mxu_ents(plan, w)
-        table = _device_ints(ents.table, x.device)
         cvals = _mxu_cvals(plan, w, epilogue_args, x.device)
         final = plan.stages[-1] if plan.stages else plan
         if plan.stages:
@@ -3192,11 +3689,14 @@ class MxuKernel:
         xt, pitch = _tma_operand(x)
         lay = mxu_layout(plan, head, tile, t, x.element_size(), pitch, ents,
                          oaddr)
+        table = _device_ints(lay.table, x.device)
+        bsrc = mxu_btiles(ents, cvals) if lay.stream else None
         epi = _epilogue_codes(final, epilogue_args, x.device, x.dtype)
         err = self.library.get().ssam_mxu_window_launch(
             xt.data_ptr(), out.data_ptr() + offset * x.element_size(),
             int(x.dtype == torch.bfloat16), cvals.data_ptr(),
-            table.data_ptr(), (ctypes.c_int * len(lay.geom))(*lay.geom),
+            table.data_ptr(), bsrc.data_ptr() if lay.stream else None,
+            (ctypes.c_int * len(lay.geom))(*lay.geom),
             len(lay.geom), (ctypes.c_int * len(lay.chain))(*lay.chain),
             len(lay.chain), *epi.args(),
             torch.cuda.current_stream(x.device).cuda_stream)
@@ -3993,7 +4493,6 @@ def _emulate_wgrad_phase(x3, g3, lay: WgradLayout, N: int, M: int,
 WGRAD_TC_TILE = 128             # C_out x (tap, ci) columns per block
 WGRAD_TC_ROW_BYTES = 128        # a k-block: 128 bytes of one cotangent row
 WGRAD_TC_MAX_STAGES = 4         # the TMA ring
-WGRAD_TC_MAX_TAPS = 64
 WGRAD_TC_MIN_KBLOCKS = 8        # k-blocks a reduce slice takes at least
 WGRAD_TC_BLOCK_COST = 5         # a block's fixed cost (ring fill, partial
                                 # tile), in k-blocks
@@ -4053,7 +4552,10 @@ class WgradTcLayout:
     such a box fits TMA's 256 columns and a ring of 3 stages, else in
     ``phases = sx`` column phases (:func:`phase_split`; the map's rows are
     ``(row, phase)`` pairs, ``xstep`` 1). ``stages`` of ``stage_bytes``
-    (the g tile and the x boxes) form the TMA ring."""
+    (the g tile and the x boxes) form the TMA ring. A tap's ``(col, shift,
+    row, phase)`` (:func:`wgrad_tc_tap`) is a function of its index, the
+    lead, ``M`` and the phases, which the kernel computes itself: no
+    filter size bounds a table."""
 
     ci_tile: int
     taps_per_tile: int
@@ -4085,12 +4587,21 @@ class WgradTcLayout:
                 row * self.phases + self.tap_phase[tap], c0, b)
 
 
+def wgrad_tc_tap(tap: int, M: int, lead, phases: int,
+                 align: int) -> tuple[int, int, int, int]:
+    """``(col, shift, row, phase)`` of K3's channel-path tap ``tap`` (row
+    ``n``, column ``m`` of an ``N × M`` filter), as ``ssam_wgrad_tc.cu``
+    computes it: its x box's first column offset, 16-byte aligned
+    (``align`` elements), the tap's shift in the box, its row offset and
+    its column phase (of ``phases``)."""
+    n, m = divmod(tap, M)
+    q, p = divmod(m - lead[1], phases)   # phase p, its column xstep·ox + q
+    return q - q % align, q % align, n - lead[0], p
+
+
 def wgrad_tc_layout(B, c_in, c_out, Ho, Wo, N, M, *, lead=(0, 0),
                     stride=(1, 1), elem_bytes=4) -> WgradTcLayout:
     taps = N * M
-    if taps > WGRAD_TC_MAX_TAPS:
-        raise ValueError(f"K3's channel path holds filters of up to "
-                         f"{WGRAD_TC_MAX_TAPS} taps, got {N}x{M}")
     (ly, lx), (sy, sx) = lead, stride
     kb = WGRAD_TC_ROW_BYTES // elem_bytes
     align = TMA_ALIGN // elem_bytes
@@ -4138,19 +4649,14 @@ def wgrad_tc_layout(B, c_in, c_out, Ho, Wo, N, M, *, lead=(0, 0),
     if box_w > TMA_MAX_BOX or stages < 3:
         xstep, phases, box_w = 1, sx, kb + align
         stage_bytes, stages = ring(box_w)
-    cols, shifts, rows, tap_phases = [], [], [], []
-    for tap in range(taps):
-        n, m = divmod(tap, M)
-        q, p = divmod(m - lx, phases)   # phase p, its column xstep·ox + q
-        shifts.append(q % align)
-        cols.append(q - shifts[-1])
-        rows.append(n - ly)
-        tap_phases.append(p)
+    cols, shifts, rows, tap_phases = zip(*(
+        wgrad_tc_tap(tap, M, (ly, lx), phases, align)
+        for tap in range(taps)))
     return WgradTcLayout(ci_tile, tpt, ci_tiles, groups, kb, kpr, kblocks,
                          slices, (ci_tiles * groups, co_tiles, slices), sy,
                          xstep, phases, box_w, stages, stage_bytes,
-                         stages * stage_bytes + fixed, tuple(cols),
-                         tuple(shifts), tuple(rows), tuple(tap_phases))
+                         stages * stage_bytes + fixed, cols, shifts, rows,
+                         tap_phases)
 
 
 def _wgrad_tc_geometry(x, g, plan: SystolicPlan):
@@ -4259,17 +4765,15 @@ class WgradKernel:
         part = (torch.empty((lay.slices, lay.grid[0], Co, WGRAD_TC_TILE),
                             dtype=torch.float32, device=x.device)
                 if lay.slices > 1 else out)
-        taps = ctypes.c_int * (N * M)
+        (ly, lx), _ = plan.lead_trail()
         err = self.library.get().ssam_wgrad_tc_launch(
             xs.data_ptr(), gs.data_ptr(), int(x.dtype == torch.bfloat16),
             part.data_ptr(), out.data_ptr(), xw, H * lay.phases, Ci, B,
-            x_pitch, Wo, Ho, Co, B, g_pitch, Co, Ci, N * M, lay.row_stride,
-            lay.xstep, lay.phases, lay.ci_tile, lay.taps_per_tile,
-            lay.ci_tiles, lay.kblocks_per_row, lay.kblocks, lay.box_w,
-            lay.stages, lay.stage_bytes, taps(*lay.tap_col),
-            taps(*lay.tap_shift),
-            taps(*lay.tap_row), taps(*lay.tap_phase), *lay.grid, lay.smem,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            x_pitch, Wo, Ho, Co, B, g_pitch, Co, Ci, N * M, M, ly, lx,
+            lay.row_stride, lay.xstep, lay.phases, lay.ci_tile,
+            lay.taps_per_tile, lay.ci_tiles, lay.kblocks_per_row,
+            lay.kblocks, lay.box_w, lay.stages, lay.stage_bytes, *lay.grid,
+            lay.smem, torch.cuda.current_stream(x.device).cuda_stream)
         if err:
             raise RuntimeError(f"K3 launch failed: CUDA error {err} "
                                f"({plan.kind}, {Co}x{Ci}x{N}x{M})")

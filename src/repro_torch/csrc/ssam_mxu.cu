@@ -43,10 +43,14 @@ int launch_mx(Fn fn, const CUtensorMap& xmap, const Args& a, int grid,
 //   stages, stage_bytes, pc, c0_words, bufa_words, bufb_words, b_words,
 //   table_ints, smem_bytes, grid, slack, kkmax (the most k-steps of an
 //   entry), sh, sw (the output stride), o_row, o_col, o_plane, o_img (the
-//   output's step, elements);
+//   output's step, elements), ngroups, slot_words, gtab (a streamed
+//   launch's groups, the fp32 words of a ring slot and the offset of the
+//   group records in `table`; ngroups 0: the B tiles resident);
 // `table` on the card holds the entries (dz, r, cmin, span, KK, B offset,
 // column table offset, 0) and their column tables (per column of the
-// span: an index into cvals, or -1). `chain` holds
+// span: an index into cvals, or -1), then a streamed launch's group records
+// (first entry, entries, first B word, words); `bsrc` its B tiles in device
+// memory (core/engine.py::mxu_btiles), or null. `chain` holds
 // core/engine.py::MxuLayout.chain: nchain, nmid, then nchain records (first
 // entry, entries, N | D << 8 | M << 16, mid-chain ops first | count << 8),
 // then nmid ops (code, value's float bits, index of a bias in `cvals` or
@@ -59,6 +63,7 @@ int launch_mx(Fn fn, const CUtensorMap& xmap, const Args& a, int grid,
 // cannot be encoded.
 extern "C" int ssam_mxu_window_launch(const void* x, void* out, int io_bf16,
                                       const float* cvals, const int* table,
+                                      const float* bsrc,
                                       const int* geom, int ngeom,
                                       const int* chain, int nchain_ints,
                                       const float* bias, const void* resid,
@@ -73,6 +78,7 @@ extern "C" int ssam_mxu_window_launch(const void* x, void* out, int io_bf16,
   a.io_bf16 = io_bf16;
   a.cvals = cvals;
   a.table = table;
+  a.bsrc = bsrc;
   a.ndim = g[0];
   a.D = g[1];
   a.N = g[2];
@@ -111,6 +117,9 @@ extern "C" int ssam_mxu_window_launch(const void* x, void* out, int io_bf16,
   a.o_col = g[40];
   a.o_plane = g[41];
   a.o_img = g[42];
+  a.ngroups = g[43];
+  a.slot_words = g[44];
+  a.gtab = g[45];
   if (n_epi < 0 || n_epi > kMaxEpi) return (int)cudaErrorInvalidValue;
   a.bias = bias;
   a.resid = resid;
@@ -162,7 +171,10 @@ extern "C" int ssam_mxu_window_launch(const void* x, void* out, int io_bf16,
     if (r[0] < 1 || r[0] > 5 || (r[0] == 1 && r[2] < 0))
       return (int)cudaErrorInvalidValue;
   }
-  MxuKernelFn fn = a.nchain ? nullptr : pick_mxu(kkmax, strided);
+  const bool streamed = a.ngroups > 0;
+  MxuKernelFn fn = a.nchain      ? nullptr
+                   : streamed ? pick_mxu_stream(kkmax)
+                              : pick_mxu(kkmax, strided);
   MxuChainKernelFn fn_chain = a.nchain ? pick_mxu_chain(kkmax) : nullptr;
   a.sy = a.nby * a.box_y;
   a.sz = a.nbz * a.box_z;
@@ -197,7 +209,13 @@ extern "C" int ssam_mxu_window_launch(const void* x, void* out, int io_bf16,
       (a.nbz > 1 && (a.box_z * a.sy * a.box_x * es) % 128) ||
       (io_bf16 && (a.pc < a.box_x || a.c0_words < a.sz * a.sy * a.pc)) ||
       a.c0_words % 4 || a.bufa_words % 4 || a.bufb_words % 4 ||
-      (pitch * es) % 16 || pitch < win ||
+      (pitch * es) % 16 || pitch < win || a.ngroups < 0 ||
+      (streamed &&
+       (a.nchain || strided || a.t != 1 || a.ndim != 2 || bsrc == nullptr ||
+        (reinterpret_cast<uintptr_t>(bsrc) & 15) || a.slot_words < 64 ||
+        a.slot_words % 64 || a.gtab < kMxEntInts * a.nent ||
+        a.gtab + 4 * a.ngroups > table_ints ||
+        a.bufa_words < a.bh * ((a.bw + 4) / 8 * 8 + 4))) ||
       (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(out) & (es - 1)))
     return (int)cudaErrorInvalidValue;

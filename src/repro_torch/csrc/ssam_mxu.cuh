@@ -1,13 +1,16 @@
 // K2 on Hopper, single-channel path: the tensor-core strategy of the
 // windowed-plan engine (strategy="mxu") for table and dense single-channel
-// plans: 2-D and 3-D stencils, conv2d valid, same and batched, t >= 1
+// plans: 2-D and 3-D stencils, conv2d valid, same and batched (2-D
+// filters of any size up to 64 x 64, and rows up to the columns one TMA
+// box stages: 1 x 221 at the narrowest streamed tile), t >= 1
 // fused time steps with pad-once semantics, a fused pipeline's chain of
 // stages in one launch, fp32 or bf16 input and output
 // with fp32 sums, an output stride on 2-D plans (one application) and the
 // fused epilogue (scalar bias, GELU, SiLU, ReLU, scale, residual) applied
 // to the fp32 sum at the store. The kernel template is here; its
-// instantiations and the C entry in ssam_mxu.cu (plans that are no chain)
-// and ssam_mxu_chain.cu (fused pipelines).
+// instantiations and the C entry in ssam_mxu.cu (plans that are no chain),
+// ssam_mxu_chain.cu (fused pipelines) and ssam_mxu_stream.cu (streamed B
+// tiles).
 //
 // Replaces src/repro/core/engine.py::_apply_plan_mxu, the strategy="mxu"
 // body of _window_kernel (launched at the same pallas_call as K1): im2row
@@ -93,6 +96,30 @@
 //    bf16 cast. The store writes through an output step (row pitch,
 //    column step, image pitch), so the phases of a strided plan's input
 //    adjoint write their positions of dx in place.
+//  * Streamed B tiles (a plan that is no chain, 2-D, t = 1, unstrided,
+//    with more than 1024 taps or more than 32 KB of B tiles: 33 x 33 and
+//    64 x 64 filters, 255 x 1). Kept resident, a 64 x 64 filter's 192
+//    entries take 180 KB of tiles and leave no room for the staged input;
+//    kept resident, a 255 x 1 filter's 64 KB held K2 to tiles of one row.
+//    The wrapper builds the tiles once a call in device memory
+//    (core/engine.py::mxu_btiles) and cuts the entries, in order, into
+//    groups whose tiles fill a ring slot (core/engine.py::mxu_stream,
+//    slots as large as shared memory leaves beside a tile's input). A
+//    block brings a group's tiles into one of two slots by cp.async, 16
+//    bytes a copy, while its warps run the group before on the other, one
+//    barrier a group; the staged A tile keeps the whole footprint's halo
+//    and every group walks it. A warp's mma.sync sums of a group are added
+//    into the tile's fp32 accumulator in shared memory (bufa: the first
+//    group writes, the last reads), so an item's sums carry across groups
+//    without registers. F3 holds across groups: the vote runs on the
+//    final fp32 sums, and an item with a non-finite sum is summed again
+//    tap by tap from the same staged input, over every group's entries
+//    (their column tables and the coefficients read from device memory).
+//    One launch a call. Tiles are chosen to move the fewest words an
+//    output into shared memory, the halo and the tiles of every group
+//    (core/engine.py::_mxu_stream_block): 64 x 64 for 64 x 64, 64 x 128
+//    for 33 x 33. Costs: each tile reloads every group's tiles from L2
+//    (180 KB a tile at 64 x 64), and each group a barrier.
 //  * Non-finite inputs: an inf or nan meets the tiles' zero coefficients
 //    as well, and inf * 0 is nan. A warp whose item's sums are not all
 //    finite takes them again on the CUDA cores, tap by tap, so the
@@ -126,7 +153,7 @@ constexpr int kMxFlush = 8;      // k-steps big*big sums in the tensor core
 constexpr int kMxMaxStages = 3;
 constexpr int kMxSlack = 64;     // words the over-reads may reach past a source
                                  // (a strided plan's: 24 sw + 40)
-constexpr int kMxGeomInts = 43;  // core/engine.py::MxuLayout.geom
+constexpr int kMxGeomInts = 46;  // core/engine.py::MxuLayout.geom
 constexpr int kMxEntInts = 8;    // one entry's record in the table
 constexpr int kMxMaxChain = 32;  // stage records (engine.py MXU_MAX_CHAIN)
 constexpr int kMxMaxMid = 16;    // mid-chain ops of a chain (WINDOW_MAX_MID)
@@ -135,8 +162,14 @@ struct MxuArgs {
   void* out;           // batch x zo x ho x wo output
   int io_bf16;         // 1: bf16 input and output, 0: fp32
   const float* cvals;  // coefficient values
-  const int* table;    // entries x 8 ints, then their column tables
+  const int* table;    // entries x 8 ints, then their column tables (and a
+                       // streamed launch's group records)
+  const float* bsrc;   // a streamed launch's B tiles in device memory
   int ndim, D, N, M, t, nent;
+  // a streamed launch: its groups of entries, the fp32 words of a ring slot
+  // and the groups' records in `table` (first entry, entries, first B word,
+  // words); ngroups 0 for a launch whose B tiles stay resident
+  int ngroups, slot_words, gtab;
   int batch, zo, ho, wo;
   int lz, ly, lx;      // t * lead per axis: input index of output 0 is -lead
   int bz, bh, bw;      // output tile
@@ -199,6 +232,38 @@ struct MxSrc {
   int pitch, plane, shift;
 };
 
+// One group of a streamed launch as apply_mx walks it: every entry of the
+// plan (for the tap-by-tap re-sum), the group's first B word (its tiles
+// sit in a ring slot from there on), the tile's fp32 accumulator `part`
+// (pitch ppitch) that carries the sums across groups, and whether the
+// group is the tile's first (writes part) or last (reads it, votes, stores).
+struct MxGroup {
+  const int4* ent_all;
+  int bsub;
+  float* part;
+  int ppitch;
+  bool first, final;
+};
+
+__device__ __forceinline__ void mx_cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// All threads: group gi's B tiles (whole entries' k-step tiles, 256 bytes
+// each) from device memory into the ring slot at dst, 16 bytes a copy.
+__device__ __forceinline__ void mx_load_group(const MxuArgs& a, int gi,
+                                              float* dst) {
+  const int* gr = a.table + a.gtab + 4 * gi;
+  const float4* s = reinterpret_cast<const float4*>(a.bsrc + gr[2]);
+  float4* d = reinterpret_cast<float4*>(dst);
+  for (int k = threadIdx.x; k < gr[3] / 4; k += kMxThreads)
+    mx_cp_async16(d + k, s + k);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
 // One valid application on a source of extent (zs, hs, ws): the result
 // (zd, hd, wd) goes to dst (pitch dpitch) or, for the last application, to
 // the output tile at (b, oz0, oy0, ox0) through the epilogue. KKM: the most
@@ -206,16 +271,20 @@ struct MxSrc {
 // (zd = 1, the caller's (hd, wd) the tile's outputs); C: a chain's stage,
 // its nent_c entries from ent and its mid-chain ops `mid` (a record's
 // field), applied before dst is written (a plan that is no chain walks
-// all a.nent entries).
-template <int KKM, bool S, bool C = false, class Args = MxuArgs>
+// all a.nent entries). St: one group of a streamed launch (its nent_c
+// entries from ent, its B tiles at btile from word grp.bsub on); a group
+// but the last adds its fp32 sums into grp.part, the last adds grp.part to
+// its own before the vote, and the re-sum walks every entry of the plan.
+template <int KKM, bool S, bool C = false, class Args = MxuArgs,
+          bool St = false>
 __device__ __forceinline__ void apply_mx(const Args& a, const MxSrc& src,
                                          int zd, int hd, int wd, float* dst,
                                          int dpitch, bool last, int b,
                                          int oz0, int oy0, int ox0,
                                          const int4* ent,
                                          const float* btile, int nent_c = 0,
-                                         int mid = 0) {
-  const int nent = C ? nent_c : a.nent;
+                                         int mid = 0, MxGroup grp = {}) {
+  const int nent = C || St ? nent_c : a.nent;
   const int nyg = (hd + kMxRows - 1) / kMxRows;
   const int nxg = (wd + 8 * kMxChunks - 1) / (8 * kMxChunks);
   const int per_z = nyg * nxg;
@@ -240,7 +309,7 @@ __device__ __forceinline__ void apply_mx(const Args& a, const MxSrc& src,
     int pend = 0;
     for (int e = 0; e < nent; ++e) {
       const int4 h = ent[2 * e];       // dz, r, cmin, KK
-      const int boff = ent[2 * e + 1].x;
+      const int boff = ent[2 * e + 1].x - (St ? grp.bsub : 0);
       const int kk = h.w;
       const float* row = src.p + (z + h.x) * src.plane + sw * x0 + h.z +
                          src.shift + q;
@@ -313,6 +382,24 @@ __device__ __forceinline__ void apply_mx(const Args& a, const MxSrc& src,
         pend = 0;
       }
     }
+    if constexpr (St) {
+      // the tile's fp32 sums carried across groups: a group but the last
+      // adds its own to them (the first writes them), the last takes them
+      // into its accumulator before the vote
+#pragma unroll
+      for (int c = 0; c < kMxChunks; ++c)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int y = y0 + g + 8 * (i >> 1), x = x0 + 8 * c + 2 * q + (i & 1);
+          if (y >= hd || x >= wd) continue;
+          float* pp = grp.part + (z * hd + y) * grp.ppitch + x;
+          if (!grp.final)
+            *pp = (grp.first ? 0.f : *pp) + (acc[c][i] + cor[c][i]);
+          else if (!grp.first)
+            acc[c][i] += *pp;
+        }
+      if (!grp.final) continue;
+    }
     // A non-finite value in the item's source meets the Toeplitz tiles'
     // zeros (inf * 0 is nan) and would reach outputs its taps do not: a
     // finite source gives finite sums (short of an overflow), so the warp
@@ -326,6 +413,9 @@ __device__ __forceinline__ void apply_mx(const Args& a, const MxSrc& src,
 #pragma unroll
       for (int i = 0; i < 4; ++i) bad |= nonfinite(acc[c][i] + cor[c][i]);
     if (__any_sync(0xffffffffu, bad)) {
+      // a streamed launch: every group's entries, their columns in order
+      const int4* er = St ? grp.ent_all : ent;
+      const int ne = St ? a.nent : nent;
 #pragma unroll
       for (int c = 0; c < kMxChunks; ++c)
 #pragma unroll
@@ -333,9 +423,9 @@ __device__ __forceinline__ void apply_mx(const Args& a, const MxSrc& src,
           const int y = min(y0 + g + 8 * (i >> 1), hd - 1);
           const int x = min(x0 + 8 * c + 2 * q + (i & 1), wd - 1);
           float v = 0.f;
-          for (int e = 0; e < nent; ++e) {
-            const int4 h = ent[2 * e];           // dz, r, cmin, KK
-            const int4 h2 = ent[2 * e + 1];      // B offset, span, columns
+          for (int e = 0; e < ne; ++e) {
+            const int4 h = er[2 * e];            // dz, r, cmin, KK
+            const int4 h2 = er[2 * e + 1];       // B offset, span, columns
             const int* col = a.table + h2.z;
             const float* row = src.p + (z + h.x) * src.plane +
                                (sh * y + h.y) * src.pitch + sw * x + h.z +
@@ -473,20 +563,25 @@ __device__ __forceinline__ void issue_mx_tile(const CUtensorMap* xmap,
     }
 }
 
-template <int KKM, bool S, bool C>
+// St: a streamed launch (2-D, t = 1, no chain, no stride): its B tiles,
+// built by the wrapper in device memory, come a group of entries at a time
+// into a ring of two slots, the next group's by cp.async while the warps
+// run this one; bufa holds the tile's fp32 sums across groups.
+template <int KKM, bool S, bool C, bool St = false>
 __global__ void __launch_bounds__(kMxThreads, 2)
     mxu_window_kernel(const __grid_constant__ CUtensorMap xmap,
                       const __grid_constant__ MxArgs<C> a) {
   extern __shared__ uint8_t smem_raw[];
   // the ring first, 128-byte aligned; then the fp32 buffers and the slack
-  // the over-reads reach (all zeroed here), the B tiles, the entries and
-  // the barriers
+  // the over-reads reach (all zeroed here), the B tiles (a streamed
+  // launch's two slots), the entries and the barriers
   uint8_t* ring = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
   float* c0 = reinterpret_cast<float*>(ring + a.stages * a.stage_bytes);
   float* bufa = c0 + a.c0_words;
   float* bufb = bufa + a.bufa_words;
   float* btile = bufb + a.bufb_words + a.slack;
-  int4* ent = reinterpret_cast<int4*>(btile + a.b_words);
+  int4* ent = reinterpret_cast<int4*>(btile + (St ? 2 * a.slot_words
+                                                 : a.b_words));
   uint64_t* full = reinterpret_cast<uint64_t*>(ent + 2 * a.nent);
 
   const int tid = threadIdx.x;
@@ -504,7 +599,7 @@ __global__ void __launch_bounds__(kMxThreads, 2)
     ent[2 * e] = make_int4(h[0], h[1], h[2], h[4]);
     ent[2 * e + 1] = make_int4(h[5], h[3], h[6], 0);
   }
-  for (int e = 0; e < a.nent; ++e) {
+  for (int e = 0; e < (St ? 0 : a.nent); ++e) {
     const int* h = a.table + kMxEntInts * e;
     const int span = h[3], kk = h[4], boff = h[5];
     const int* col = a.table + h[6];
@@ -530,6 +625,9 @@ __global__ void __launch_bounds__(kMxThreads, 2)
         issue_mx_tile(&xmap, a, tile, smem_addr(ring + s * a.stage_bytes),
                       smem_addr(&full[s]));
     }
+
+  if constexpr (St) mx_load_group(a, 0, btile);  // the first group's tiles
+  int seq = 0;  // groups walked: group seq's tiles sit in slot seq & 1
 
   const int t = a.t;
   const int per = a.io_bf16 ? 8 : 4;
@@ -568,7 +666,34 @@ __global__ void __launch_bounds__(kMxThreads, 2)
       refilled = true;
       src = MxSrc{c0, a.pc, a.sy * a.pc, shift};
     }
-    if constexpr (C) {
+    if constexpr (St) {
+      // one application, a group of entries at a time, the tile's sums
+      // carried in bufa (pitch 4 mod 8); group gi's tiles landed in slot
+      // seq & 1 by the copies issued one group before, and the next
+      // group's (the next tile's first after the last) go into the other
+      // slot while this one runs. One group: loaded once.
+      const int hd = hs - (a.N - 1), wd = ws - (a.M - 1);
+      const int ppitch = (wd + 4) / 8 * 8 + 4;
+      for (int gi = 0; gi < a.ngroups; ++gi) {
+        asm volatile("cp.async.wait_all;" ::: "memory");
+        __syncthreads();  // the slot is filled; the other one is free
+        if (a.ngroups > 1 && (gi + 1 < a.ngroups || tile + G < a.ntiles))
+          mx_load_group(a, gi + 1 < a.ngroups ? gi + 1 : 0,
+                        btile + ((seq + 1) & 1) * a.slot_words);
+        const int* gr = a.table + a.gtab + 4 * gi;
+        const MxGroup grp{ent, gr[2], bufa, ppitch, gi == 0,
+                          gi == a.ngroups - 1};
+        apply_mx<KKM, false, false, MxuArgs, true>(
+            a, src, 1, hd, wd, bufb, 0, grp.final, b, oz0, oy0, ox0,
+            ent + 2 * gr[0], btile + (seq & 1) * a.slot_words, gr[1], 0,
+            grp);
+        if (a.ngroups > 1) ++seq;
+      }
+      __syncthreads();
+      if (!refilled && tid == 0 && tile + a.stages * G < a.ntiles)
+        issue_mx_tile(&xmap, a, tile + a.stages * G, smem_addr(stage),
+                      smem_addr(&full[s]));  // the stage is read: refill it
+    } else if constexpr (C) {
       // a chain: one application a stage, each walking the stage's own
       // entries and shrinking by its own footprint (Dk, Nk, Mk)
       for (int k = 0; k < a.nchain; ++k) {
@@ -621,9 +746,11 @@ __global__ void __launch_bounds__(kMxThreads, 2)
 using MxuKernelFn = decltype(&mxu_window_kernel<1, false, false>);
 using MxuChainKernelFn = decltype(&mxu_window_kernel<1, false, true>);
 
-// The instantiation of a plan that is no chain (ssam_mxu.cu) and of a fused
-// pipeline (ssam_mxu_chain.cu) for its largest entry's k-steps.
+// The instantiation of a plan that is no chain (ssam_mxu.cu), of a fused
+// pipeline (ssam_mxu_chain.cu) and of a streamed launch (ssam_mxu_stream.cu)
+// for its largest entry's k-steps.
 MxuKernelFn pick_mxu(int kkmax, bool strided);
 MxuChainKernelFn pick_mxu_chain(int kkmax);
+MxuKernelFn pick_mxu_stream(int kkmax);
 
 }  // namespace ssam

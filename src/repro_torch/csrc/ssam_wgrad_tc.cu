@@ -42,6 +42,12 @@
 //  * each warpgroup runs wgmma m64n128 on its 64 channels against the whole
 //    N tile, B (x) read from shared memory through a descriptor, A (g) from
 //    registers in fp32 and through a descriptor in bf16.
+//  * Filters of any size: the taps are cut into N tiles of at most 16 (128
+//    columns of at least 8 channels), a block walks only its own tile's
+//    taps, and a tap's box column, shift, row and phase are computed from
+//    its index, the filter's width and the plan's lead (tc_tap), so no
+//    table in the kernel's parameters bounds the filter (an earlier one
+//    held 64 taps: AlexNet's 11 x 11 and a 9 x 9 raised).
 //
 // fp32 parity: 3xTF32 (ssam_tf32.cuh): each operand splits into big = a
 // with the 13 bits TF32 drops cleared and small = a - big (exact), and
@@ -91,20 +97,35 @@ constexpr int kTcBN = 128;               // (tap, ci) columns per block
 constexpr int kTcRow = 128;              // bytes of a k-block row: the swizzle
 constexpr int kTcTile = kTcBM * kTcRow;  // bytes of one operand tile
 constexpr int kTcMaxStages = 4;
-constexpr int kTcMaxTaps = 64;
 
 struct WgradTcArgs {
   float* part;   // (slices, N tiles, cout, 128), or the output
   int cout, cin, taps, sy, ho;
+  int m, ly, lx;               // the filter's columns; the plan's lead
   int xstep, xph;              // x column step; column phases of the x map
   int ci_tile, tpt, ci_tiles;  // channels per box, taps per N tile, slabs
   int kb, kb_per_row, kblocks;
   int box_w, stages, stage_bytes;  // x box columns; the ring
-  int tap_col[kTcMaxTaps];     // per tap: the box's first column offset
-  int tap_shift[kTcMaxTaps];   // (16-byte aligned), the tap's shift in it,
-  int tap_row[kTcMaxTaps];     // its row offset
-  int tap_phase[kTcMaxTaps];   // and its column phase
 };
+
+// Tap `tap` (row n, column m of the filter) as its x boxes read it: the
+// box's first column offset (16-byte aligned, `align` elements), the tap's
+// shift in the box, its row offset and its column phase
+// (core/engine.py::wgrad_tc_tap). Computed from the tap's index, so no
+// table bounds the filter's size.
+struct TcTap {
+  int col, shift, row, phase;
+};
+
+__device__ __forceinline__ TcTap tc_tap(const WgradTcArgs& a, int tap,
+                                        int align) {
+  const int n = tap / a.m, m = tap % a.m;
+  // q, p = divmod(m - lx, xph), rounded toward minus infinity
+  const int v = m - a.lx;
+  const int q = (v >= 0 ? v : v - a.xph + 1) / a.xph, p = v - q * a.xph;
+  const int s = ((q % align) + align) % align;
+  return TcTap{q - s, s, n - a.ly, p};
+}
 
 // Issue the TMA loads of k-block kb (the g tile, then one x box per tap of
 // the block's N tile) into the stage at dst, completing on bar.
@@ -121,17 +142,16 @@ __device__ __forceinline__ void issue_kblock(const CUtensorMap* gmap,
   mbar_expect_tx(bar, tx_bytes);
   tma_load_4d(dst, gmap, bar, ox0, oy, co0, b);
   for (int t = 0; t < ntap; ++t) {
-    const int tap = tap0 + t;
+    const TcTap tp = tc_tap(a, tap0 + t, 16 / es);
     tma_load_4d(dst + kTcTile + t * a.ci_tile * a.box_w * es, xmap, bar,
-                a.xstep * ox0 + a.tap_col[tap],
-                (a.sy * oy + a.tap_row[tap]) * a.xph + a.tap_phase[tap], c0,
-                b);
+                a.xstep * ox0 + tp.col, (a.sy * oy + tp.row) * a.xph + tp.phase,
+                c0, b);
   }
 }
 
 // Prepares the operands of the stage at st for wgmma, into op. The x
 // operand's row r (tap t = r / ci_tile, its channel r % ci_tile), position
-// j is the staged box's column row_shift[r] (tap_shift[t]) + xstep * j,
+// j is the staged box's column row_shift[r] (tap t's shift) + xstep * j,
 // and lands in the 128-byte swizzle (16-byte chunk j / per16 of the row at
 // chunk (j / per16) ^ (r % 8)); consecutive threads take consecutive
 // positions, so the stores do not conflict on banks (the loads only by
@@ -197,7 +217,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   if (tid < kTcBN)
-    row_shift[tid] = tid < xrows ? a.tap_shift[tap0 + tid / a.ci_tile] : 0;
+    row_shift[tid] =
+        tid < xrows ? tc_tap(a, tap0 + tid / a.ci_tile, 16 / es).shift : 0;
   __syncthreads();
   if (tid == 0)
     for (int i = 0; i < min(a.stages, nkb); ++i)
@@ -324,25 +345,24 @@ __global__ void wgrad_tc_sum_kernel(const float* part, float* out,
 
 }  // namespace ssam
 
-// Plain C entry of K3's channel path, loaded with ctypes. x is read through
-// a 4-D map over (xw, xh, xc, xb) with rows x_pitch elements apart, in
-// boxes of box_w columns of which every xstep-th is used; its rows are
+// Plain C entry of K3's channel path, loaded with ctypes. The filter has
+// `taps` taps of `m` columns a row; (ly, lx) is the plan's lead. x is read
+// through a 4-D map over (xw, xh, xc, xb) with rows x_pitch elements apart,
+// in boxes of box_w columns of which every xstep-th is used; its rows are
 // (row, phase) pairs for xph column phases. g is read through a 4-D map over (gw, gh, gc, gb) with rows
 // g_pitch apart. part may equal out when the reduction is not split
 // (gz == 1).
 extern "C" int ssam_wgrad_tc_launch(
     const void* x, const void* g, int io_bf16, float* part, float* out,
     int xw, int xh, int xc, int xb, int x_pitch, int gw, int gh, int gc,
-    int gb, int g_pitch, int cout, int cin, int taps, int sy, int xstep,
-    int xph,
-    int ci_tile, int tpt, int ci_tiles, int kb_per_row, int kblocks,
-    int box_w, int stages, int stage_bytes, const int* tap_col,
-    const int* tap_shift, const int* tap_row, const int* tap_phase, int gx,
-    int gy, int gz, int smem_bytes, void* stream) {
+    int gb, int g_pitch, int cout, int cin, int taps, int m, int ly, int lx,
+    int sy, int xstep, int xph, int ci_tile, int tpt, int ci_tiles,
+    int kb_per_row, int kblocks, int box_w, int stages, int stage_bytes,
+    int gx, int gy, int gz, int smem_bytes, void* stream) {
   using namespace ssam;
   const int es = io_bf16 ? 2 : 4;
   const int kb = kTcRow / es;
-  if (taps < 1 || taps > kTcMaxTaps || ci_tile < 8 || ci_tile % 8 ||
+  if (taps < 1 || m < 1 || taps % m || ci_tile < 8 || ci_tile % 8 ||
       tpt < 1 || tpt * ci_tile > kTcBN || xstep < 1 || xph < 1 || gz < 1 ||
       kblocks < gz || box_w > 256 || (box_w * es) % 16 ||
       box_w < xstep * (kb - 1) + 16 / es ||
@@ -385,6 +405,9 @@ extern "C" int ssam_wgrad_tc_launch(
   a.cout = cout;
   a.cin = cin;
   a.taps = taps;
+  a.m = m;
+  a.ly = ly;
+  a.lx = lx;
   a.sy = sy;
   a.xstep = xstep;
   a.xph = xph;
@@ -398,12 +421,6 @@ extern "C" int ssam_wgrad_tc_launch(
   a.box_w = box_w;
   a.stages = stages;
   a.stage_bytes = stage_bytes;
-  for (int t = 0; t < kTcMaxTaps; ++t) {
-    a.tap_col[t] = t < taps ? tap_col[t] : 0;
-    a.tap_shift[t] = t < taps ? tap_shift[t] : 0;
-    a.tap_row[t] = t < taps ? tap_row[t] : 0;
-    a.tap_phase[t] = t < taps ? tap_phase[t] : 0;
-  }
   auto fn = io_bf16 ? wgrad_tc_kernel<true> : wgrad_tc_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);

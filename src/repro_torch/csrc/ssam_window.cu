@@ -9,7 +9,7 @@
 //   filters, fsz (the filters cycled over the images and the
 //   coefficients of one, 1 and 0 for one filter),
 //   sh, sw (the output stride), o_row, o_col, o_plane, o_img (the
-//   output's step, elements),
+//   output's step, elements), bands (1: a banded launch),
 // then the steps' records (shift, first tap, taps, dense), 4 ints each;
 // `table` on the card holds the records too, then the taps' slots and
 // coefficient indices (into one filter of `cvals`). `chain` holds
@@ -17,7 +17,9 @@
 // nmid, then nchain records (first step, steps, N | D << 8 | M << 16, mid
 // ops first | count << 8), then nmid ops (code, value's float bits, index
 // of a bias in `cvals` or -1); a plan that is no chain has one record, run
-// t times, a chain's t is 1. The epilogue: epi_ops
+// t times, a chain's t is 1; a banded launch has one record a band (first
+// step, steps, Nb | 1 << 8 | Mb << 16, r0 | c0 << 16), every application
+// walking all of them, and no mid-chain ops. The epilogue: epi_ops
 // and epi_vals host arrays of kMaxEpi entries, `bias` a scalar, or one a
 // filter, on the card (or null), `resid` the
 // residual in the output's dtype and dense layout (or null).
@@ -35,7 +37,8 @@ extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
                                   const int* epi_ops, const float* epi_vals,
                                   int n_epi, void* stream) {
   using namespace ssam;
-  if (ngeom < kGeomInts || geom[4] < 1 || geom[4] > kMaxSteps ||
+  if (ngeom < kGeomInts || geom[4] < 1 ||
+      geom[4] > (geom[43] ? kMaxBandSteps : kMaxSteps) ||
       ngeom != kGeomInts + 4 * geom[4])
     return (int)cudaErrorInvalidValue;
   const int* g = geom;
@@ -83,6 +86,7 @@ extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
   a.o_col = g[40];
   a.o_plane = g[41];
   a.o_img = g[42];
+  a.bands = g[43];
   if (n_epi < 0 || n_epi > kMaxEpi) return (int)cudaErrorInvalidValue;
   a.bias = bias;
   a.resid = resid;
@@ -105,10 +109,12 @@ extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
   const int nmid = chain[3];
   if (a.nchain < 1 || a.nchain > kMaxChain || nmid < 0 || nmid > kMaxMid ||
       nchain_ints != 4 + 4 * a.nchain + 3 * nmid ||
-      (a.nchain > 1 && a.t != 1))
+      (a.nchain > 1 && a.t != 1 && !a.bands) ||
+      (a.bands && (nmid != 0 || a.ndim != 2)))
     return (int)cudaErrorInvalidValue;
   // the records: steps in range, footprints within the instantiation, the
-  // applications' shrinkage the staged extent's
+  // applications' shrinkage the staged extent's (a band: within the plan's
+  // footprint)
   int grow_n = 0, grow_m = 0, grow_d = 0;
   for (int k = 0; k < kMaxChain; ++k) {
     const int* r = chain + 4 + 4 * (k < a.nchain ? k : 0);
@@ -117,14 +123,21 @@ extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
     const int n = r[2] & 255, d = (r[2] >> 8) & 255, m = r[2] >> 16;
     const int e0 = r[3] & 255, ne = r[3] >> 8;
     if (r[0] < 0 || r[1] < 1 || r[0] + r[1] > a.steps || n < 1 ||
-        n > a.inst_n || d < 1 || d > a.inst_d || m < 1 || m > kWarp ||
-        e0 + ne > nmid)
+        n > a.inst_n || d < 1 || d > a.inst_d || m < 1 || m > kWarp)
       return (int)cudaErrorInvalidValue;
+    if (a.bands) {
+      const int r0 = r[3] & 0xffff, c0 = r[3] >> 16;
+      if (d != 1 || r0 + n > a.N || c0 < 0 || c0 + m > a.M)
+        return (int)cudaErrorInvalidValue;
+      continue;
+    }
+    if (e0 + ne > nmid) return (int)cudaErrorInvalidValue;
     grow_n += n - 1;
     grow_m += m - 1;
     grow_d += d - 1;
   }
-  if (grow_n != a.N - 1 || grow_m != a.M - 1 || grow_d != a.D - 1)
+  if (!a.bands &&
+      (grow_n != a.N - 1 || grow_m != a.M - 1 || grow_d != a.D - 1))
     return (int)cudaErrorInvalidValue;
   for (int e = 0; e < kMaxMid; ++e) {
     const int* r = chain + 4 + 4 * a.nchain + 3 * (e < nmid ? e : 0);
@@ -150,9 +163,10 @@ extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
   // cache rows: a chain's largest stage's
   const int nt = strided ? (a.N + a.sh - 1) / a.sh : a.inst_n;
   const bool fused = a.nchain > 1;
-  KernelFn fn = a.ndim == 3 ? (strided  ? nullptr
+  KernelFn fn = a.ndim == 3 ? (strided || a.bands ? nullptr
                                : fused  ? pick_chain_3d(nt, a.inst_d)
                                         : pick_3d(nt, a.inst_d))
+                : a.bands   ? (strided ? nullptr : pick_band_2d(nt))
                 : strided   ? pick_2d_strided(nt)
                 : fused     ? pick_chain_2d(nt)
                 : nt <= 16  ? pick_2d_narrow(nt)
@@ -160,8 +174,9 @@ extern "C" int ssam_window_launch(const void* x, void* out, int io_bf16,
   const long long box_bytes =
       (long long)a.box_x * a.box_y * a.box_z * es * a.nbx * a.nby * a.nbz;
   if (fn == nullptr || (a.ndim != 2 && a.ndim != 3) ||
-      (a.ndim == 2 && a.D != 1) || a.steps < 1 || a.steps > kMaxSteps ||
-      a.ntaps < 1 || a.ntaps > kMaxTaps || a.M < 1 || a.M > kWarp ||
+      (a.ndim == 2 && a.D != 1) || a.steps < 1 ||
+      a.steps > (a.bands ? kMaxBandSteps : kMaxSteps) || a.ntaps < 1 ||
+      (!a.bands && (a.ntaps > kMaxTaps || a.M > kWarp)) || a.M < 1 ||
       a.t < 1 || a.variant < 0 || a.variant > 1 || a.batch < 1 ||
       a.zo < 1 || a.ho < 1 || a.wo < 1 || a.bz < 1 || a.bh < 1 ||
       a.bw < 1 || ntiles > 0x7fffffffLL || grid < 1 || grid > a.ntiles ||

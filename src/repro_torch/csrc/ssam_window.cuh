@@ -4,7 +4,9 @@
 //
 // Replaces src/repro/core/engine.py::_window_kernel (its block body
 // _apply_plan_once, launched by _window_call) for plans with table or
-// dense coefficients, 2-D (N, M <= 32) or 3-D (up to 5 x 5, depth x rows),
+// dense coefficients, 2-D (any N x M the banded walk below holds: every
+// footprint up to 64 x 64 and 1-D ones up to 255 taps) or 3-D (up to
+// 5 x 5, depth x rows),
 // both schedule variants, t >= 1 fused time steps with pad-once semantics,
 // fp32 or bf16 input and output with fp32 sums, batch axes, a filter per
 // image (a depthwise conv2d over its B * C images), an output stride on
@@ -132,6 +134,30 @@
 //    nor a walk of consecutive tiles (fewer rewrites) was faster. Staging
 //    all C filters at once would cap C by shared memory (1024 filters of
 //    7 x 7 take 392 KB of records).
+//  * Footprints one walk does not hold (more than 32 rows: the register
+//    cache; column steps beyond one warp: a warp keeps 33 - M lanes; more
+//    than 32 step records) are walked in bands, the chain's application
+//    loop with addition in place of composition. The wrapper
+//    (core/engine.py::band_walk) cuts the footprint into row bands of at
+//    most 32 rows (equal where that lands on an instantiation's row
+//    count, so that every step runs the dense body) and each into column
+//    bands of at most 17 columns (a warp keeps at least 16 lanes). A band
+//    is a record (its first step and step count, its rows Nb and columns
+//    Mb, its first row r0 and column c0); every band walks the same staged
+//    tile, read from (r0, c0), over all of the tile's outputs, the first
+//    writing the fp32 accumulator (bufb), each later one adding to it
+//    after a barrier; the epilogue and the residual are applied once, at
+//    the store. One launch a call, a filter per image included (its tap
+//    records rewritten as above). All bands' tap records sit in shared
+//    memory (64 x 64: 32 KB), and so do their step records (read with one
+//    LDS.128 a step instead of from the parameters: a launch may have
+//    hundreds), so shared memory is the limit (core/engine.py::
+//    band_refusal), with at most 32 bands. The instantiations
+//    (ssam_window_band.cu, Bd) are the chain tables' row counts. Costs:
+//    a band's lanes keep 16 or 17 of 32, so K1 pays about twice its
+//    FMAs, and each band reloads its register cache from shared memory.
+//    Tiles take the shape whose staged halo is smallest per output
+//    (core/engine.py::_band_block): tall and narrow for tall filters.
 // The register cache reads past a source's last row (into the next buffer,
 // or the slack the wrapper adds at the end of shared memory) only for rows
 // whose outputs are discarded; lanes past its last column read that column.
@@ -155,11 +181,13 @@ constexpr int kWarp = 32;
 constexpr int kThreads2d = 256;  // two blocks share an SM (launch bounds)
 constexpr int kThreads3d = 512;  // one block an SM
 constexpr int kMaxSteps = 32;
+constexpr int kMaxBandSteps = 2048;  // a banded launch's (in shared memory)
 constexpr int kMaxChain = 32;  // applications' records (a stage has a step)
+                               // or a banded launch's bands
 constexpr int kMaxMid = 16;    // mid-chain epilogue ops of a chain
 constexpr int kMaxTaps = 1024;
 constexpr int kMaxStages = 3;
-constexpr int kGeomInts = 43;  // core/engine.py::WindowLayout.geom
+constexpr int kGeomInts = 44;  // core/engine.py::WindowLayout.geom
 constexpr int kEpiRows = 4;    // rows a warp stores at once with an epilogue
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -171,10 +199,14 @@ struct WindowArgs {
                        // taps x index into one filter of cvals
   int filters, fsz;    // image b takes filter b % filters (and its bias)
   int ndim, D, N, M, steps, ntaps, t, variant;
-  int4 step[kMaxSteps];  // the step records, read uniformly from here
+  int bands;             // 1: walked in bands (the records below are bands')
+  int4 step[kMaxSteps];  // the step records, read uniformly from here (a
+                         // banded launch's from shared memory)
   // one record a chain's stage (a plan that is no chain: one record, run
   // t times): (first step, steps, N | D << 8 | M << 16, mid-chain ops
-  // first | count << 8, 0 for none)
+  // first | count << 8, 0 for none); a banded launch's one a band, (first
+  // step, steps, Nb | 1 << 8 | Mb << 16, r0 | c0 << 16), all walked in
+  // every application
   int4 chain[kMaxChain];
   int nchain, inst_n, inst_d;
   int mid_op[kMaxMid];   // mid-chain ops (codes of ssam_epilogue.cuh)
@@ -339,19 +371,24 @@ __device__ __forceinline__ void mid_epilogue(const WindowArgs& a, int rec,
   }
 }
 
-// One valid application of the plan (Ch: of a chain's stage, the record
-// rec's: its steps, its footprint Nk x Mk, Dk slices; N and D are then the
-// instantiation's, at least those) on a source of extent (zs, hs, ws). The
-// result, (zs-Dk+1, hs-Nk+1, ws-Mk+1), is written densely to dst, the
-// stage's mid-chain ops applied first.
-template <int N, int D, int P, int T, bool Ch>
+// One valid application of the plan (Ch: of a chain's stage, Bd: of a
+// band, the record rec's: its steps, its footprint Nk x Mk, Dk slices; N and
+// D are then the instantiation's, at least those) on a source of extent
+// (zs, hs, ws). The result, (zs-Dk+1, hs-Nk+1, ws-Mk+1), is written densely
+// to dst, the stage's mid-chain ops applied first; a band after the first
+// (acc) adds it to dst. A banded launch reads its step records from
+// `steps` in shared memory.
+template <int N, int D, int P, int T, bool Ch, bool Bd = false>
 __device__ __forceinline__ void apply_once(const WindowArgs& a, const Src& src,
                                            int zs, int hs, int ws, float* dst,
-                                           const int2* taps, int4 rec) {
+                                           const int2* taps, int4 rec,
+                                           const int4* steps = nullptr,
+                                           bool acc = false) {
   constexpr int C = N + P - 1;
   constexpr int kWarps = T / kWarp;
-  const int Nk = Ch ? rec.z & 255 : N, Dk = Ch ? (rec.z >> 8) & 255 : D;
-  const int M = Ch ? rec.z >> 16 : a.M;
+  constexpr bool kRec = Ch || Bd;  // the footprint from the record
+  const int Nk = kRec ? rec.z & 255 : N, Dk = kRec ? (rec.z >> 8) & 255 : D;
+  const int M = kRec ? rec.z >> 16 : a.M;
   const int V = kWarp - (M - 1);
   const int zd = zs - (Dk - 1), hd = hs - (Nk - 1), wd = ws - (M - 1);
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
@@ -402,11 +439,11 @@ __device__ __forceinline__ void apply_once(const WindowArgs& a, const Src& src,
       for (int p = 0; p < P; ++p) s[p] = 0.f;
       int oc;
       bool valid;
-      const int m0 = Ch ? rec.x : 0, m1 = Ch ? rec.x + rec.y : a.steps;
+      const int m0 = kRec ? rec.x : 0, m1 = kRec ? rec.x + rec.y : a.steps;
       if (a.variant == 0) {  // shift_psum
         int done = 0;
         for (int m = m0; m < m1; ++m) {
-          const int4 st = a.step[m];
+          const int4 st = Bd ? steps[m] : a.step[m];
           if (st.x) {
 #pragma unroll
             for (int p = 0; p < P; ++p)
@@ -419,7 +456,7 @@ __device__ __forceinline__ void apply_once(const WindowArgs& a, const Src& src,
       } else {  // shift_data
         int cum = 0, done = 0;
         for (int m = m0; m < m1; ++m) {
-          const int4 st = a.step[m];
+          const int4 st = Bd ? steps[m] : a.step[m];
           cum += st.x;
           step_taps<N, D, P>(c, s, st, taps, cum, done);
         }
@@ -430,9 +467,15 @@ __device__ __forceinline__ void apply_once(const WindowArgs& a, const Src& src,
       if constexpr (Ch)
         if (rec.w) mid_epilogue<P>(a, rec.w, s);
       float* d = dst + ((size_t)z * hd + y0) * wd + oc;
+      if (Bd && acc) {
 #pragma unroll
-      for (int p = 0; p < P; ++p)
-        if (y0 + p < hd) d[p * wd] = s[p];
+        for (int p = 0; p < P; ++p)
+          if (y0 + p < hd) d[p * wd] += s[p];
+      } else {
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          if (y0 + p < hd) d[p * wd] = s[p];
+      }
     }
   }
 }
@@ -534,8 +577,10 @@ __device__ __forceinline__ void issue_tile(const CUtensorMap* xmap,
 // S: an output-strided instantiation (2-D, t = 1; N = ceil(N / sh), or 32
 // for 17 to 32 rows). Ch: a fused pipeline's (N and D the largest stage's;
 // instantiations of their own, so that the records' registers cost the
-// plans that are no chain nothing).
-template <int N, int D, int P, int T, bool S, bool Ch = false>
+// plans that are no chain nothing). Bd: a banded launch's (2-D, N at or
+// above the largest band's rows; instantiations of their own too).
+template <int N, int D, int P, int T, bool S, bool Ch = false,
+          bool Bd = false>
 __global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
     window_kernel(const __grid_constant__ CUtensorMap xmap,
                   const __grid_constant__ WindowArgs a) {
@@ -547,7 +592,9 @@ __global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
   float* c0 = reinterpret_cast<float*>(ring + a.stages * a.stage_bytes);
   float* bufa = c0 + a.buf_c0;
   float* bufb = bufa + a.buf_a;
-  int2* taps = reinterpret_cast<int2*>(bufb + a.buf_b);  // {slot, coef}
+  // a banded launch's step records, then the taps {slot, coef}
+  int4* steps = reinterpret_cast<int4*>(bufb + a.buf_b);
+  int2* taps = reinterpret_cast<int2*>(steps + (Bd ? a.steps : 0));
   uint64_t* full = reinterpret_cast<uint64_t*>(taps + a.ntaps + 1);
 
   const int tid = threadIdx.x;
@@ -555,6 +602,9 @@ __global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
   for (int k = tid; k < a.ntaps; k += T)
     taps[k] = make_int2(a.table[4 * a.steps + k],
                         __float_as_int(a.cvals[cidx[k]]));
+  if constexpr (Bd)
+    for (int k = tid; k < a.steps; k += T)
+      steps[k] = reinterpret_cast<const int4*>(a.table)[k];
   if (tid == 0) {
     for (int s = 0; s < a.stages; ++s) mbar_init(smem_addr(&full[s]), 1);
     fence_mbarrier_init();
@@ -619,6 +669,31 @@ __global__ void __launch_bounds__(T, T == kThreads2d ? 2 : 1)
       if (tid == 0 && tile + a.stages * G < a.ntiles)
         issue_tile(&xmap, a, tile + a.stages * G, smem_addr(stage),
                    smem_addr(&full[s]));  // the stage is read: refill it
+    } else if constexpr (Bd) {
+      // t applications, each every band over the same source: band j reads
+      // it from its row r0 and column c0 and walks its own Nb x Mb
+      // footprint over the application's outputs, the first writing the
+      // fp32 accumulator, the others adding to it
+      for (int k = 0; k < t; ++k) {
+        float* dst = ((t - 1 - k) & 1) ? bufa : bufb;  // the last: bufb
+        const int hd = hs - (a.N - 1), wd = ws - (a.M - 1);
+        for (int j = 0; j < a.nchain; ++j) {
+          const int4 rec = a.chain[j];
+          Src bs = src;
+          bs.p += (rec.w & 0xffff) * src.pitch;
+          bs.shift += rec.w >> 16;
+          apply_once<N, 1, P, T, false, true>(a, bs, 1, hd + (rec.z & 255) - 1,
+                                              wd + (rec.z >> 16) - 1, dst,
+                                              taps, rec, steps, j > 0);
+          __syncthreads();
+        }
+        if (k == 0 && tid == 0 && tile + a.stages * G < a.ntiles)
+          issue_tile(&xmap, a, tile + a.stages * G, smem_addr(stage),
+                     smem_addr(&full[s]));  // the stage is read: refill it
+        hs = hd;
+        ws = wd;
+        src = Src{dst, ws, hs * ws, 1, 0, 0};
+      }
     } else {
       // the applications: t of the plan, or a chain's stages in order
       const int napp = Ch ? a.nchain : t;
@@ -747,5 +822,8 @@ KernelFn pick_3d(int N, int D);  // N, D in [1, 5]: P = 16 or 8
 // above, 3-D P = 8
 KernelFn pick_chain_2d(int N);   // N in WINDOW_CHAIN_ROWS
 KernelFn pick_chain_3d(int N, int D);  // N, D in WINDOW_CHAIN_3D
+// banded launches (ssam_window_band.cu): N in WINDOW_CHAIN_ROWS at or above
+// the largest band's rows, P as the 2-D tables
+KernelFn pick_band_2d(int N);
 
 }  // namespace ssam

@@ -185,7 +185,8 @@ def test_route_takes_one_launch_exactly_where_it_may():
     """A depthwise conv with one filter a channel on the lanes strategy
     whose footprint K1 holds is one plan; the ResNeXt-like shape, a
     channel multiplier of 2, strategy='mxu' and a footprint K1 refuses
-    keep the per-group route."""
+    (129 x 129: 40 bands) keep the per-group route; a footprint K1 walks
+    in bands (33 rows) is one plan."""
     x = (2, 8, 20, 30)
     for strategy in (None, "auto", "lanes"):
         p = ops.depthwise_plan(x, (8, 1, 3, 3), groups=8, mode="same",
@@ -199,8 +200,10 @@ def test_route_takes_one_launch_exactly_where_it_may():
                               mode="same") is None          # multiplier 2
     assert ops.depthwise_plan(x, (8, 1, 3, 3), groups=8, mode="same",
                               strategy="mxu") is None
+    assert ops.depthwise_plan(x, (8, 1, 129, 129), groups=8,
+                              mode="same") is None          # 40 bands
     assert ops.depthwise_plan(x, (8, 1, 33, 3), groups=8,
-                              mode="same") is None          # 33 rows
+                              mode="same").filters == 8     # 33 rows
     # the plain route's plans: one windowed op, or one a group
     calls = []
     real = ops.window_op

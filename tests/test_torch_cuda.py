@@ -1066,6 +1066,12 @@ def _mxu_nonfinite_cases():
          (2, 2), "float32"),
         ("conv 7x7 bf16", (70, 130), conv((7, 7), "valid"), (7, 7), 1,
          None, "bfloat16"),
+        # B tiles streamed in groups: the vote on the final sums, the
+        # re-sum over every group's entries
+        ("conv 33x33 streamed", (150, 200), conv((33, 33), "same"),
+         (33, 33), 1, None, "float32"),
+        ("conv 64x64 streamed bf16", (150, 200), conv((64, 64), "same"),
+         (64, 64), 1, None, "bfloat16"),
     ]
 
 
@@ -1567,9 +1573,10 @@ def test_pipeline_beyond_k1_raises(cuda):
     """A legal chain K1 cannot hold in one launch (three 2d121pt stages:
     33 column steps of 32) runs as its segments, a 2-stage chain and one
     stage (2 K1 launches), equal to the fused plain version; a stage that
-    no launch holds alone (a 3 x 33 filter: columns beyond one warp)
-    still raises NotImplementedError naming the limit, before anything
-    launches; ``fuse=False`` runs a launch a stage."""
+    only a banded launch holds (a 3 x 33 filter: columns beyond one warp)
+    is a segment of its own; a stage that no launch holds (129 x 129: 40
+    bands) still raises NotImplementedError naming the limit, before
+    anything launches; ``fuse=False`` runs a launch a stage."""
     x = _grid((64, 96), cuda, 121)
     K1 = engine.WINDOW_KERNEL
     before = K1.launches
@@ -1578,8 +1585,14 @@ def test_pipeline_beyond_k1_raises(cuda):
     plan, ws = _fused_plan(x, ["2d121pt"] * 3)
     _close(y, engine.run_window_plan_reference(x, ws, plan=plan))
     before = K1.launches
-    with pytest.raises(NotImplementedError, match="warp"):
-        ops.pipeline(x, ["2d5pt", _grid((3, 33), cuda, 122)])
+    w = _grid((3, 33), cuda, 122) / 10
+    y = ops.pipeline(x, ["2d5pt", w])
+    assert K1.launches == before + 2
+    plan, ws = _fused_plan(x, ["2d5pt", w])
+    _close(y, engine.run_window_plan_reference(x, ws, plan=plan))
+    before = K1.launches
+    with pytest.raises(NotImplementedError, match="bands.*Queue 2"):
+        ops.pipeline(x, ["2d5pt", _grid((129, 129), cuda, 122)])
     assert K1.launches == before
     y = ops.pipeline(x, ["2d121pt"] * 3, fuse=False)
     assert K1.launches == before + 3
@@ -1780,3 +1793,168 @@ def test_pipeline_segments_with_filters_and_epilogues(cuda):
             cpu, g.cpu())
         for a, e in zip(got, want):
             _close(a.cpu(), e, 1e-4)
+
+
+# -- filters of any size: K1 in bands, K2 streaming its B tiles, K3 -------
+
+LARGE = [(33, 33), (64, 64), (51, 5), (5, 51), (1, 127), (127, 1),
+         (1, 255), (255, 1)]
+# (footprint, strategy): K2 stages a tile's input row as one TMA box, so a
+# filter of 255 columns stays K1's
+LARGE_CASES = [(nm, s) for nm in LARGE for s in ("lanes", "mxu")
+               if (nm, s) != ((1, 255), "mxu")]
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nm,strategy", LARGE_CASES,
+                         ids=lambda v: f"{v[0]}x{v[1]}"
+                         if isinstance(v, tuple) else v)
+def test_large_filter_conv2d(cuda, nm, dt, strategy):
+    """A batched single-channel 'same' conv whose filter one walk of K1's
+    warp (or K2's resident B tiles) does not hold: one launch forward and
+    one for dx (K1 walking the footprint in bands, K2 streaming its
+    Toeplitz tiles in groups), dW on K3; forward and dx against the plain
+    version at 3e-5 (bf16 3e-2), dW at 1e-4."""
+    N, M = nm
+    dtype = getattr(torch, dt)
+    rtol = 3e-5 if dt == "float32" else 3e-2
+    x = _grid((2, 150, 230), cuda, 141).to(dtype).requires_grad_(True)
+    w = (_grid(nm, cuda, 142) / (N * M) ** 0.5).requires_grad_(True)
+    K = engine.MXU_KERNEL if strategy == "mxu" else engine.WINDOW_KERNEL
+    K3 = engine.WGRAD_KERNEL
+    k = K.launches
+    y = ops.conv2d(x, w, strategy=strategy)
+    assert K.launches == k + 1 and y.dtype == dtype
+    p = dataclasses.replace(ssam_conv2d.plan_for_batched(nm, "same"),
+                            strategy=strategy)
+    _close(y.detach().float(), engine.run_window_plan_reference(
+        x.detach(), w.detach(), plan=p).float(), rtol)
+    g = _grid(y.shape, cuda, 143).to(dtype)
+    k, k3 = K.launches, K3.launches
+    dx, dw = torch.autograd.grad(y, (x, w), g)
+    assert K.launches == k + 1
+    lin = dataclasses.replace(p, strategy="lanes")
+    assert K3.launches - k3 == K3.launches_for(x.detach(), g, plan=lin)
+    ap = adjoint.input_adjoint_plan(p)
+    _close(dx.float(), engine.run_window_plan_reference(
+        g, adjoint.adjoint_coeff_array(p, w.detach()), plan=ap).float(),
+        rtol)
+    _close(dw.float(), engine.run_weight_grad_plan_reference(
+        x.detach(), g, plan=lin).float(), 1e-4 if dt == "float32" else 3e-2)
+
+
+@pytest.mark.parametrize("strategy", ["lanes", "mxu"])
+def test_large_filter_launches_and_refusals(cuda, strategy):
+    """A 33 x 33 'same' conv at a grid of several thousand tiles is one
+    launch; a footprint beyond the banded walk (129 x 129: 40 bands) and
+    beyond K2's streamed entries (774 of 256), and on K2 a row of 255
+    columns (one TMA box), raise ``NotImplementedError`` naming ROADMAP
+    Queue 2 before anything launches."""
+    K = engine.MXU_KERNEL if strategy == "mxu" else engine.WINDOW_KERNEL
+    x = _grid((1100, 1300), cuda, 144)
+    w = _grid((33, 33), cuda, 145) / 33
+    k = K.launches
+    y = ops.conv2d(x, w, strategy=strategy)
+    assert K.launches == k + 1
+    p = dataclasses.replace(ssam_conv2d.plan_for((33, 33), "same"),
+                            strategy=strategy)
+    _close(y, engine.run_window_plan_reference(x, w, plan=p))
+    k = K.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        ops.conv2d(x[:300, :300], _grid((129, 129), cuda, 146),
+                   strategy=strategy)
+    if strategy == "mxu":
+        with pytest.raises(NotImplementedError, match="TMA box"):
+            ops.conv2d(x[:300, :300], _grid((1, 255), cuda, 146),
+                       strategy=strategy)
+    assert K.launches == k
+
+
+@pytest.mark.parametrize("nm", [(51, 5), (5, 51)], ids=str)
+def test_large_depthwise_one_launch(cuda, nm):
+    """ConvNeXt-style depthwise stripes (SLaK's 51 x 5 and 5 x 51) with a
+    bias: one K1 launch over the B·C images forward; the backward one K1
+    launch for the pre-activation and one for dx, dW on K3; against the
+    CPU at 1e-4."""
+    N, M = nm
+    B, C, H, W = 2, 96, 56, 56
+    x = _grid((B, C, H, W), cuda, 147).requires_grad_(True)
+    w = (_grid((C, 1, N, M), cuda, 148) / (N * M) ** 0.5).requires_grad_(True)
+    b = _grid((C,), cuda, 149).requires_grad_(True)
+    assert ops.depthwise_plan(tuple(x.shape), tuple(w.shape), groups=C,
+                              mode="same", epilogue=("bias",)) is not None
+    K1 = engine.WINDOW_KERNEL
+    k1 = K1.launches
+    y = ops.conv2d(x, w, groups=C, epilogue=("bias",), epilogue_args=(b,))
+    assert K1.launches == k1 + 1
+    g = _grid(y.shape, cuda, 150)
+    k1 = K1.launches
+    got = torch.autograd.grad(y, (x, w, b), g)
+    assert K1.launches == k1 + 2
+    xc, wc, bc = (t.detach().cpu().requires_grad_(True) for t in (x, w, b))
+    yc = ops.conv2d(xc, wc, groups=C, epilogue=("bias",), epilogue_args=(bc,))
+    _close(y.detach().cpu(), yc.detach(), 1e-4)
+    want = torch.autograd.grad(yc, (xc, wc, bc), g.cpu())
+    for a, e in zip(got, want):
+        _close(a.cpu(), e, 1e-4)
+
+
+NCHW_LARGE = [
+    # (x shape, w shape, mode, stride): a 9 x 9 'same' (81 taps) and
+    # AlexNet's conv1, 11 x 11 at stride 4 (121 taps, x in column phases)
+    ((2, 16, 40, 50), (24, 16, 9, 9), "same", None),
+    ((2, 3, 227, 227), (96, 3, 11, 11), "valid", (4, 4)),
+]
+
+
+@pytest.mark.parametrize("strategy", ["lanes", "mxu"])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", NCHW_LARGE, ids=lambda c: f"{c[1][2]}x"
+                         f"{c[1][3]}")
+def test_nchw_backward_beyond_64_taps(cuda, case, dt, strategy):
+    """The backward of an NCHW conv of more than 64 taps: dW on K3's
+    channel kernel (its taps computed from their index, no table), dx on
+    the strategy's kernel; against the plain version (fp32 1e-4, bf16
+    3e-2)."""
+    xs, ws, mode, stride = case
+    dtype = getattr(torch, dt)
+    rtol = 1e-4 if dt == "float32" else 3e-2
+    x = _grid(xs, cuda, 151).to(dtype).requires_grad_(True)
+    w = (_grid(ws, cuda, 152) / (ws[1] * ws[2] * ws[3]) ** 0.5
+         ).requires_grad_(True)
+    y = ops.conv2d(x, w, mode=mode, stride=stride, strategy=strategy)
+    g = _grid(y.shape, cuda, 153).to(dtype)
+    K3 = engine.WGRAD_KERNEL
+    p = dataclasses.replace(ssam_conv2d.plan_for_nchw(xs, ws, mode),
+                            stride=stride)
+    k3 = K3.launches
+    dx, dw = torch.autograd.grad(y, (x, w), g)
+    assert K3.launches - k3 == K3.launches_for(x.detach(), g, plan=p)
+    _close(dw.float(), engine.run_weight_grad_plan_reference(
+        x.detach(), g, plan=p).float(), rtol)
+    xc, wc = (t.detach().cpu().float().requires_grad_(True) for t in (x, w))
+    yc = ops.conv2d(xc, wc, mode=mode, stride=stride)
+    _close(y.detach().cpu().float(), yc.detach(), rtol)
+    (want,) = torch.autograd.grad(yc, xc, g.cpu().float())
+    _close(dx.cpu().float(), want, rtol)
+
+
+def test_large_filter_pipeline_segment(cuda):
+    """``ops.pipeline(x, ["2d5pt", w_3x33])`` on K1: the 3 x 33 stage, which
+    no fused chain holds (K1 walks it in bands), runs as a segment of its
+    own; on K2 (which holds a 3 x 33 stage in a chain) a 33 x 33 stage,
+    whose B tiles K2 streams, does; each equal to the fused plain
+    version."""
+    x = _grid((64, 96), cuda, 154)
+    for strategy, w in ((None, _grid((3, 33), cuda, 155) / 10),
+                        ("mxu", _grid((33, 33), cuda, 156) / 33)):
+        K = engine.MXU_KERNEL if strategy == "mxu" else engine.WINDOW_KERNEL
+        k = K.launches
+        y = ops.pipeline(x, ["2d5pt", w], strategy=strategy)
+        assert K.launches - k == 2
+        plans = [ops._strategy_plan(ops._pipeline_stage_plan(x, d, i)[0],
+                                    strategy, "pipeline")
+                 for i, d in enumerate(["2d5pt", w])]
+        assert ops.chain_segments(plans, strategy) == [(0,), (1,)]
+        _close(y, engine.run_window_plan_reference(
+            x, (None, w), plan=fuse.fuse_plans(*plans)))

@@ -580,3 +580,5 @@ def test_chain_beyond_k1_is_refused_by_name():
     wide = fuse.fuse_plans(_plans(["2d5pt"])[0],
                            ssam_conv2d.plan_for((3, 33), "same"))
     assert engine.tap_table_refusal(wide).startswith("stage 1")
+    # (a 3 x 33 stage alone is walked in bands, which no chain fuses)
+    assert "in bands" in engine.tap_table_refusal(wide)

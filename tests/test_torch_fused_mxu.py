@@ -235,10 +235,14 @@ def test_mxu_chain_refusal_is_a_pure_function_of_the_plan():
     big = dataclasses.replace(ssam_conv2d.plan_for((33, 33), "same"),
                               strategy="mxu")
     p5 = _stages(["2d5pt"], "mxu")[0]
+    # a 33 x 33 stage alone streams its B tiles; no chain fuses it
     assert engine.mxu_chain_refusal(fuse.fuse_plans(p5, big)).startswith(
-        "stage 1 (conv2d): K2 takes")
+        "stage 1 (conv2d): its B tiles pass what a K2 block keeps")
     assert engine.mxu_chain_refusal(p5) is None
-    assert "1089" in engine.mxu_chain_refusal(big)
+    assert engine.mxu_chain_refusal(big) is None
+    huge = dataclasses.replace(ssam_conv2d.plan_for((129, 129), "same"),
+                               strategy="mxu")
+    assert "774 entries" in engine.mxu_chain_refusal(huge)
     with pytest.raises(NotImplementedError, match="Queue 2, K2"):
         engine.mxu_chain_table(fuse.fuse_plans(*_stages(["2d5pt"] * 33,
                                                         "mxu")))
@@ -257,14 +261,22 @@ def test_chain_segments_cut_greedily():
     assert [len(s) for s in ops.chain_segments(many)] == [10, 10, 10, 3]
     assert [len(s) for s in ops.chain_segments(
         _stages(["2d5pt"] * 33, "mxu"), "mxu")] == [32, 1]
-    # a stage no launch holds alone: nothing to cut
+    # a stage that one launch holds only alone (K1 in bands, K2 streaming
+    # its B tiles) is a segment of its own
     wide = ssam_conv2d.plan_for((3, 33), "same")
-    with pytest.raises(NotImplementedError, match="stage 1.*warp.*Queue 2"):
-        ops.chain_segments(_stages(["2d5pt"]) + [wide])
-    huge = dataclasses.replace(ssam_conv2d.plan_for((33, 33), "same"),
-                               strategy="mxu")
-    with pytest.raises(NotImplementedError, match="stage 0.*1024.*Queue 2"):
-        ops.chain_segments([huge] + _stages(["2d5pt"], "mxu"), "mxu")
+    assert ops.chain_segments(_stages(["2d5pt"]) + [wide]) == [(0,), (1,)]
+    big = dataclasses.replace(ssam_conv2d.plan_for((33, 33), "same"),
+                              strategy="mxu")
+    assert ops.chain_segments([big] + _stages(["2d5pt"] * 2, "mxu"),
+                              "mxu") == [(0,), (1, 2)]
+    # a stage no launch holds alone: nothing to cut
+    huge = ssam_conv2d.plan_for((129, 129), "same")
+    with pytest.raises(NotImplementedError, match="stage 1.*bands.*Queue 2"):
+        ops.chain_segments(_stages(["2d5pt"]) + [huge])
+    with pytest.raises(NotImplementedError,
+                       match="stage 0.*entries.*Queue 2"):
+        ops.chain_segments([dataclasses.replace(huge, strategy="mxu")]
+                           + _stages(["2d5pt"], "mxu"), "mxu")
 
 
 SEGMENTED = [

@@ -398,6 +398,9 @@ def test_mxu_launch_geometry():
             pl = dataclasses.replace(_plans(name)[1], strategy="mxu")
             blk = engine.default_block(pl, t)
             assert engine.mxu_smem_bytes(pl, blk, t) <= engine.SMEM_LIMIT // 2
+    # a filter of more than 1024 taps is held: K2 streams its B tiles
     big = dataclasses.replace(ssam_conv2d.plan_for((33, 33)), strategy="mxu")
-    with pytest.raises(ValueError, match="taps"):
-        engine.mxu_tap_table(big, (33, 33))
+    assert len(engine.mxu_tap_table(big, (33, 33))) == 4 * 33 * 33
+    assert engine.mxu_streamed(big) and engine.mxu_chain_refusal(big) is None
+    with pytest.raises(ValueError, match="no taps"):
+        engine.mxu_tap_table(dataclasses.replace(big, steps=()), (33, 33))

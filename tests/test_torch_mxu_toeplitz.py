@@ -178,7 +178,7 @@ def test_layouts_of_the_paper_cases():
     """The default tile of every stencil and filter at t = 1 and 2 fits
     two blocks an SM, its box obeys TMA's rules (at most 256 elements an
     axis, rows of a multiple of 16 bytes, fp32 rows at a pitch 4 mod 8
-    words) and the C entry's geometry has its 43 ints."""
+    words) and the C entry's geometry has its 46 ints."""
     plans = [_stencil_plans(n)[1] for n in NAMES] + [
         _mxu(ssam_conv2d.plan_for((k, k), "same")) for k in SIZES]
     for p in plans:
@@ -196,7 +196,8 @@ def test_layouts_of_the_paper_cases():
             assert lay.grid == 2 * engine.H100_SMS
             assert box_x <= engine.TMA_MAX_BOX and box_x % 8 == 4
             assert lay.staged[1] >= block[-2] + t * (p.N - 1)
-            assert len(lay.geom) == 43
+            assert len(lay.geom) == 46 and lay.geom[43:] == (
+                0, 0, len(ents.table))     # B tiles resident
             assert lay.geom[35] == engine.mxu_slack(1) == engine.MXU_SLACK
 
 

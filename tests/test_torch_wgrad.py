@@ -170,8 +170,20 @@ def test_stem_layouts():
     assert (lay.tap_col, lay.tap_shift, lay.tap_phase) == \
         ((-8, 0, 0), (7, 0, 0), (3, 0, 1))
     assert lay.box(0, 1, 0, 64, 0) == (56, 3, 0, 1)
-    with pytest.raises(ValueError, match="64 taps"):
-        engine.wgrad_tc_layout(1, 1, 1, 9, 9, 9, 9)
+    # filters of any size: no tap table bounds them, a block walks its own
+    # N tile's taps (a 9 x 9 once refused at 64 taps)
+    lay = engine.wgrad_tc_layout(1, 1, 1, 9, 9, 9, 9, lead=(4, 4))
+    assert (lay.ci_tile, lay.taps_per_tile, lay.tap_groups) == (8, 16, 6)
+    assert lay.tap_col[:9] == (-4, -4, -4, -4, 0, 0, 0, 0, 4)
+    assert lay.tap_row[::9] == tuple(range(-4, 5))
+    # AlexNet's conv1: 11 x 11 at stride 4 over 3 channels, 121 taps
+    lay = engine.wgrad_tc_layout(64, 3, 96, 55, 55, 11, 11, stride=(4, 4))
+    assert (lay.ci_tile, lay.taps_per_tile, lay.tap_groups) == (8, 16, 8)
+    assert (lay.xstep, lay.phases, lay.box_w) == (1, 4, 36)   # in phases
+    assert lay.smem <= engine.SMEM_LIMIT
+    for tap in range(121):
+        col, shift, row, ph = engine.wgrad_tc_tap(tap, 11, (0, 0), 1, 4)
+        assert (col + shift, row, ph) == (tap % 11, tap // 11, 0)
 
 
 @pytest.mark.parametrize("xs,ws,mode,stride", CARD_CASES, ids=str)
@@ -301,7 +313,10 @@ def _emulate(x, g, p, lay):
 EMULATED = [c for c in CARD_CASES if c[0][1] * c[0][3] <= 5000] + [
     ((2, 4, 4, 40), (9, 4, 2, 3), "same", (2, 2)),
     ((1, 3, 2, 33), (5, 3, 1, 4), "valid", (1, 3)),
-    ((1, 3, 2, 70), (5, 3, 1, 3), "same", (1, 5))]
+    ((1, 3, 2, 70), (5, 3, 1, 3), "same", (1, 5)),
+    # beyond 64 taps: a 9 x 9 'same' and AlexNet's 11 x 11 at stride 4
+    ((1, 3, 10, 21), (4, 3, 9, 9), "same", (1, 1)),
+    ((1, 3, 23, 23), (5, 3, 11, 11), "valid", (4, 4))]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -221,6 +221,7 @@ def test_nvcc_command_targets_sm_90a():
     src = _build.sources()
     assert [p.name for p in src] == ["ssam_mxu.cu", "ssam_mxu_chain.cu",
                                      "ssam_mxu_perlane.cu",
+                                     "ssam_mxu_stream.cu",
                                      "ssam_mxu_tc.cu",
                                      "ssam_scan.cu",
                                      "ssam_wgrad.cu", "ssam_wgrad_bf16.cu",
@@ -231,6 +232,7 @@ def test_nvcc_command_targets_sm_90a():
                                      "ssam_window_2d_strided.cu",
                                      "ssam_window_2d_wide.cu",
                                      "ssam_window_3d.cu",
+                                     "ssam_window_band.cu",
                                      "ssam_window_chain_2d.cu",
                                      "ssam_window_chain_3d.cu",
                                      "ssam_window_perlane.cu",

@@ -218,8 +218,9 @@ def test_geometry_matches_the_c_entry():
         assert engine.window_p(sp) == want
     assert engine.window_rows(p) == p.N
     # the geometry's stride and dense output step (o_row, o_col, o_plane,
-    # o_img) sit right before the step records
-    assert lay.geom[n - 6:n] == (1, 1, 80, 1, 40 * 80, 40 * 80)
+    # o_img) sit right before the band flag (not banded) and the step
+    # records
+    assert lay.geom[n - 7:n] == (1, 1, 80, 1, 40 * 80, 40 * 80, 0)
 
 
 def test_too_large_a_block_raises():
