@@ -312,7 +312,9 @@ Phases, one JSON line each:
    'same' with 33×33, 64×64, 51×5, 5×51, 1×127 and 127×1 filters on
    ``strategy="lanes"`` (one K1 launch, the footprint walked in bands) and
    ``"mxu"`` (one K2 launch, its B tiles streamed where they pass 1024
-   taps or 32 KB), a bf16 33×33 on both, and the 33×33 on K2 with one inf
+   taps), a bf16 33×33 on both, a 33×33 box stencil at t = 2 on both
+   (K2 streaming its tiles through both applications), and the 33×33 on
+   K2 with one inf
    and one nan in x (its non-finite outputs exactly the plain version's);
    (b) a learned 33×33 filter step, forward, dx and dW (K1, K1, K3; then
    K2, K2, K3); (c) SLaK's depthwise 51×5 and 5×51 with a bias at
@@ -2684,7 +2686,7 @@ def large_filter_phase(args, dev, card, results) -> dict:
 
     from repro_torch import convert
     from repro_torch.core import adjoint, engine
-    from repro_torch.kernels import ops, ssam_conv2d
+    from repro_torch.kernels import ops, ssam_conv2d, ssam_stencil2d, stencils
 
     K1, K2, K3 = engine.WINDOW_KERNEL, engine.MXU_KERNEL, engine.WGRAD_KERNEL
     kernels = {"K1": K1, "K2": K2, "K3": K3}
@@ -2836,6 +2838,35 @@ def large_filter_phase(args, dev, card, results) -> dict:
               {"cudnn_ms": conv_lib(xb, w33.to(torch.bfloat16), 16, crop)},
               tc=strategy == "mxu", launches=1)
     del xb
+    # a 33x33 box stencil (1089 taps) at t = 2: K1's bands, and K2
+    # streaming its B tiles through both applications; cuDNN pads once and
+    # makes a valid call a step
+    sd = stencils.StencilDef("box 33x33", 2, stencils.box2d(16),
+                             stencils._norm_coeffs(33 * 33), 16, 0)
+    wbox = torch.full((1, 1, 33, 33), 1.0 / (33 * 33), device=dev)
+
+    def box_lib(side):
+        xp = F.pad(x[None, None, :side, :side], (32, 32, 32, 32))
+        return lambda: F.conv2d(F.conv2d(xp, wbox), wbox)
+
+    for strategy in ("lanes", "mxu"):
+        kernel = "K2" if strategy == "mxu" else "K1"
+        p = dataclasses.replace(ssam_stencil2d.plan_for(sd),
+                                strategy=strategy)
+        tag = f"{strategy} stencil box 33x33 t=2 {n}x{n} fp32"
+        y = run({kernel: 1}, lambda: ops.stencil(x, sd, time_steps=2,
+                                                 strategy=strategy))
+        plain, plain_ms = plain_timed(
+            lambda: engine.run_window_plan_reference(x, plan=p,
+                                                     time_steps=2))
+        held(kernel, tag, y, plain, 3e-5)
+        del y, plain
+        timed(kernel, tag, lambda: ops.stencil(x, sd, time_steps=2,
+                                               strategy=strategy),
+              plain_ms, 2 * 2 * 33 * 33 * cells, 2 * cells * 4,
+              {"cudnn_ms": (box_lib(n), box_lib(crop), cells / crop ** 2)},
+              tc=strategy == "mxu", launches=1)
+        torch.cuda.empty_cache()
     xn = x.clone()
     xn[n // 8, n // 4], xn[5 * n // 8, 7 * n // 8] = float("inf"), float("nan")
     pm = dataclasses.replace(ssam_conv2d.plan_for((33, 33), "same"),

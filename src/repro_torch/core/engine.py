@@ -2105,19 +2105,21 @@ def smem_bytes(plan: SystolicPlan, block, time_steps: int) -> int:
     return _window_smem(plan, tile, time_steps, 4, 1)[4]
 
 
-def default_block(plan: SystolicPlan, time_steps: int = 1) -> tuple[int, ...]:
+def default_block(plan: SystolicPlan, time_steps: int = 1,
+                  elem_bytes: int = 4) -> tuple[int, ...]:
     """The output tile of the block walk: four warp-widths of valid lanes
     across, 64 rows (2-D) or 16 rows by 8 slices (3-D), halved until a
     single-channel K1 block with one stage fits (:func:`window_layout`
     then deepens the ring and packs two 2-D blocks an SM where shared
     memory allows: paired runs on the card found these large tiles faster
     than smaller ones at t > 1, whose halo the fused steps recompute); an
-    mxu plan takes K2's tile (:func:`_mxu_block`). (The reduce paths tile
+    mxu plan takes K2's tile (:func:`_mxu_block`; a streamed one's depends
+    on the input's ``elem_bytes``). (The reduce paths tile
     their output themselves: K1 128 channels x 1 row x 64-128 columns, K2
     128 or 256 channels x 1 row x 128 or 64 columns.)"""
     if plan.strategy == "mxu":
         if mxu_streamed(plan) and mxu_stream_refusal(plan) is None:
-            return _mxu_stream_block(plan)
+            return _mxu_stream_block(plan, time_steps, elem_bytes)
         return _mxu_block(plan, time_steps)
     need, limit = smem_bytes, SMEM_LIMIT
     V = max(1, WARP - (plan.M - 1))
@@ -2517,7 +2519,6 @@ def emulate_window_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
 
 MXU_RESIDENT_TAPS = 1024      # taps whose B tiles a K2 block keeps resident
                               # (padded to 8); more stream (mxu_streamed)
-MXU_RESIDENT_WORDS = 8192     # B tile words a block keeps resident (32 KB)
 MXU_MAX_ENTRIES = 256         # entry records of a streamed launch (shared
                               # memory, 32 bytes each)
 MXU_SLOT_MIN = 2048           # fp32 words of a ring slot a streamed tile
@@ -2709,18 +2710,20 @@ def mxu_btiles(ents: MxuEntries, cvals: torch.Tensor,
     return torch.where(idx >= 0, cv[idx.clamp(min=0)], cv.new_zeros(()))
 
 
+@functools.lru_cache(maxsize=256)
 def mxu_streamed(plan: SystolicPlan) -> bool:
     """Whether K2 streams ``plan``'s Toeplitz B tiles a group of entries at
-    a time instead of keeping them resident: a plan that is no chain
-    whose taps pass :data:`MXU_RESIDENT_TAPS` or whose B tiles pass
-    :data:`MXU_RESIDENT_WORDS` (they would leave the staged input too
-    few rows: a 255 × 1 filter's 64 KB of tiles kept K2 to tiles of one
-    row)."""
+    a time instead of keeping them resident: only a plan that is no chain
+    and cannot keep them, with more than :data:`MXU_RESIDENT_TAPS` taps, or
+    whose resident tiles, entries and staged input pass shared memory at
+    the smallest tile (1 × 1, one application, fp32). Every other plan
+    keeps its tiles resident, whatever their size: a strided, 3-D or
+    t > 1 plan runs only so."""
     if plan.stages:
         return False
     taps = sum(len(s.taps) for s in plan.steps)
     return (_round8(taps) > MXU_RESIDENT_TAPS
-            or _mxu_b_shape(plan)[1] > MXU_RESIDENT_WORDS)
+            or _mxu_smem(plan, (1, 1, 1), 1, 4, 1)[5] > SMEM_LIMIT)
 
 
 def mxu_stream_refusal(plan: SystolicPlan) -> str | None:
@@ -2730,8 +2733,9 @@ def mxu_stream_refusal(plan: SystolicPlan) -> str | None:
     records and two slots of its largest entry that pass shared memory at
     the smallest tile (16 × 32)."""
     taps = sum(len(s.taps) for s in plan.steps)
-    why = (f"K2 keeps the B tiles of {MXU_RESIDENT_TAPS} taps "
-           f"({MXU_RESIDENT_WORDS} words) resident, {plan.kind!r} has {taps}")
+    why = (f"K2 keeps the B tiles of up to {MXU_RESIDENT_TAPS} taps "
+           f"resident where shared memory holds them, {plan.kind!r} has "
+           f"{taps} taps and {_mxu_b_shape(plan)[1]} B tile words")
     if plan.ndim_spatial != 2 or _strided(plan):
         return (f"{why}; K2 streams the B tiles of 2-D plans without an "
                 "output stride (ROADMAP Queue 2)")
@@ -2986,9 +2990,9 @@ def _mxu_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
     in the even one). An item reads rows clamped to its source's, so a
     stage of fewer rows needs no row slack; the over-reads past a row's
     end stay within :func:`mxu_slack`. A streamed launch (``slot_words``
-    given, :func:`mxu_streamed`): the tile's fp32 sums across groups in
-    the even buffer, no odd one, two ring slots of ``slot_words`` in
-    place of the B tiles."""
+    given, :func:`mxu_streamed`): each application's fp32 sums across
+    groups in the buffer its iterate takes (the last one's in the tile's
+    pitch), two ring slots of ``slot_words`` in place of the B tiles."""
     nd = plan.ndim_spatial
     D = plan.depth if nd == 3 else 1
     N, M = plan.N, plan.M
@@ -3025,10 +3029,11 @@ def _mxu_smem(plan: SystolicPlan, tile, t: int, elem_bytes: int,
         return (bz + g[0]) * (bh + g[1]) * mxu_pitch(bw + g[2])
 
     n = len(apps)
-    even = max((iterate(k) for k in range(0, n - 1, 2)), default=0)
-    odd = max((iterate(k) for k in range(1, n - 1, 2)), default=0)
-    if slot_words is not None:          # the sums across groups
-        even, odd = bz * bh * mxu_pitch(bw), 0
+    # a streamed launch's last application carries its sums in a buffer
+    # too; a resident one's stores from its accumulators
+    last = n if slot_words is not None else n - 1
+    even = max((iterate(k) for k in range(0, last, 2)), default=0)
+    odd = max((iterate(k) for k in range(1, last, 2)), default=0)
     bufs = (c0, _round_up(even, 4), _round_up(odd, 4))
     nent, b_words = _mxu_b_shape(plan)
     if slot_words is not None:
@@ -3058,7 +3063,7 @@ def mxu_layout(plan: SystolicPlan, head, tile, t: int, elem_bytes: int,
         why = mxu_stream_refusal(plan)
         if why:
             raise ValueError(why)
-        slot = _mxu_slot(plan, tile, elem_bytes, ents.b_words)
+        slot = _mxu_slot(plan, tile, elem_bytes, ents.b_words, t)
         if slot is None:
             raise ValueError(f"block {tile[3 - nd:]} leaves no room for "
                              "K2's B tile slots; pass a smaller block")
@@ -3103,14 +3108,14 @@ def mxu_layout(plan: SystolicPlan, head, tile, t: int, elem_bytes: int,
 
 
 def _mxu_slot(plan: SystolicPlan, tile, elem_bytes: int,
-              b_words: int) -> int | None:
-    """The fp32 words of a streamed tile's ring slot: all its B tiles where
-    two slots of them fit, else the most (whole 256-byte k-step tiles)
-    that leave two blocks an SM if that is at least :data:`MXU_SLOT_MIN`,
-    else the most one block holds; None where not even the largest entry
-    fits."""
+              b_words: int, t: int = 1) -> int | None:
+    """The fp32 words of a streamed tile's ring slot (``t`` applications):
+    all its B tiles where two slots of them fit, else the most (whole
+    256-byte k-step tiles) that leave two blocks an SM if that is at least
+    :data:`MXU_SLOT_MIN`, else the most one block holds; None where not
+    even the largest entry fits."""
     need = _round_up(b_words, 64)
-    base = _mxu_smem(plan, tile, 1, elem_bytes, 1, 0)[5]
+    base = _mxu_smem(plan, tile, t, elem_bytes, 1, 0)[5]
     biggest = 64 * max(e[4] for e in mxu_entries(
         plan, plan.exts if plan.coeff_mode == "dense" else None).entries)
     for limit, least in ((WINDOW_SMEM_TARGET, min(need, MXU_SLOT_MIN)),
@@ -3122,13 +3127,16 @@ def _mxu_slot(plan: SystolicPlan, tile, elem_bytes: int,
 
 
 @functools.lru_cache(maxsize=256)
-def _mxu_stream_block(plan: SystolicPlan) -> tuple[int, int]:
-    """A streamed plan's output tile: of 16·2^i rows and 32·2^j columns
-    with a whole number of warp items a warp (8), the one that moves the
-    fewest words an output into shared memory (the staged halo and, each
-    tile again, the B tiles), among those of which two blocks share an SM
-    with a slot of at least :data:`MXU_SLOT_MIN` words (else one);
-    ties to the larger tile."""
+def _mxu_stream_block(plan: SystolicPlan, t: int = 1,
+                      elem_bytes: int = 4) -> tuple[int, int]:
+    """A streamed plan's output tile at ``t`` applications: of 16·2^i rows
+    and 32·2^j columns with a whole number of warp items a warp (8), the
+    one that moves the fewest words an output into shared memory (the
+    staged halo and, each application again, the B tiles), among those of
+    which two blocks share an SM with a slot of at least
+    :data:`MXU_SLOT_MIN` words (else one), counted in fp32; ties to the
+    larger tile. For a bf16 call (``elem_bytes`` 2) the tile must also
+    hold its stage widened into an fp32 buffer beside it."""
     b_words = _mxu_b_shape(plan)[1]
     best = None
     for i in range(4):
@@ -3137,14 +3145,16 @@ def _mxu_stream_block(plan: SystolicPlan) -> tuple[int, int]:
             if (bh // MXU_ROWS) * (bw // (8 * MXU_CHUNKS)) % 8:
                 continue
             tile = (1, bh, bw)
-            slot = _mxu_slot(plan, tile, 4, b_words)
-            if slot is None or _mxu_smem(plan, tile, 1, 4, 1,
-                                         0)[0][2] > TMA_MAX_BOX:
+            slot = _mxu_slot(plan, tile, 4, b_words, t)
+            if slot is None or any(
+                    _mxu_slot(plan, tile, es, b_words, t) is None
+                    or _mxu_smem(plan, tile, t, es, 1, 0)[0][2] > TMA_MAX_BOX
+                    for es in {4, elem_bytes}):
                 continue
-            two = _mxu_smem(plan, tile, 1, 4, 1, slot)[5] <= \
+            two = _mxu_smem(plan, tile, t, 4, 1, slot)[5] <= \
                 WINDOW_SMEM_TARGET
-            staged = _mxu_smem(plan, tile, 1, 4, 1, 0)[2] // 4
-            key = (not two, (staged + b_words) / (bh * bw), -bh * bw)
+            staged = _mxu_smem(plan, tile, t, 4, 1, 0)[2] // 4
+            key = (not two, (staged + t * b_words) / (bh * bw), -bh * bw)
             best = min(best or (key, (bh, bw)), (key, (bh, bw)))
     return best[1] if best else (MXU_ROWS, 8 * MXU_CHUNKS)
 
@@ -3283,18 +3293,18 @@ def _emulate_mxu_fix(out: torch.Tensor, mem: torch.Tensor, src, out_ext,
 
 def _emulate_mxu_groups(mem: torch.Tensor, src, out_ext, ents: MxuEntries,
                         btile: torch.Tensor, lay: MxuLayout, part: int,
-                        cvals: torch.Tensor) -> torch.Tensor:
+                        cap: int, cvals: torch.Tensor) -> torch.Tensor:
     """A streamed launch's application (``ssam_mxu.cuh``, ``St``): each
     group of ``lay.stream`` its entries' sums against its B tiles as the
     ring slot holds them (the group's words from its first on), the
-    tile's fp32 sums carried across groups in the buffer at word ``part``
-    (pitch :func:`mxu_pitch`: the first group writes, each later one but
-    the last adds ``acc + cor``), the last group's ``acc`` plus them, its
-    ``cor`` beside, then the vote and the tap-by-tap re-sum over every
-    entry of every group."""
+    application's fp32 sums carried across groups in the buffer at word
+    ``part`` of ``cap`` words (pitch :func:`mxu_pitch`: the first group
+    writes, each later one but the last adds ``acc + cor``), the last
+    group's ``acc`` plus them, its ``cor`` beside, then the vote and the
+    tap-by-tap re-sum over every entry of every group."""
     zd, hd, wd = out_ext
     pp = mxu_pitch(wd)
-    assert zd * hd * pp <= lay.bufs[1], "the sums pass their buffer"
+    assert zd * hd * pp <= cap, "the sums pass their buffer"
     view = mem[part:part + zd * hd * pp].view(zd, hd, pp)
     groups = lay.stream.groups
     for gi, (first, n, w0, words) in enumerate(groups):
@@ -3350,7 +3360,8 @@ def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
     if _is_reduce(plan) or plan.coeff_mode == "perlane" \
             or plan.strategy != "mxu":
         raise ValueError("the emulation walks K2's single-channel path")
-    block = tuple(block or default_block(plan, time_steps))
+    block = tuple(block or default_block(plan, time_steps,
+                                         x.element_size()))
     t, nd = time_steps, plan.ndim_spatial
     ents = _mxu_ents(plan, w)
     cvals = _mxu_cvals(plan, w, epilogue_args, torch.device("cpu"))
@@ -3423,9 +3434,10 @@ def emulate_mxu_kernel(x: torch.Tensor, w=None, *, plan: SystolicPlan,
                 oext = ((tz, ty, tx) if sh * sw > 1 else
                         (ext[0] - (Dk - 1), ext[1] - (Nk - 1),
                          ext[2] - (Mk - 1)))
-                if lay.stream:
-                    res = _emulate_mxu_groups(mem, src, oext, ents, btile,
-                                              lay, offs[1], cvals)
+                if lay.stream:      # the sums in the iterate's buffer
+                    res = _emulate_mxu_groups(
+                        mem, src, oext, ents, btile, lay, offs[1 + (k & 1)],
+                        lay.bufs[1 + (k & 1)], cvals)
                 else:
                     res = _emulate_mxu_apply(mem, src, oext, stage_ents,
                                              ents.table, btile, (sh, sw),
@@ -3673,9 +3685,12 @@ class MxuKernel:
         launches."""
         if not plan.stages:
             why = mxu_chain_refusal(plan)
-            if why is None and mxu_streamed(plan) and t != 1:
-                why = ("K2 streams B tiles for one application (t = 1), "
-                       f"got t = {t} (ROADMAP Queue 2)")
+            if why is None and mxu_streamed(plan) and t > 1 and _mxu_slot(
+                    plan, (1, MXU_ROWS, 8 * MXU_CHUNKS), x.element_size(),
+                    _mxu_b_shape(plan)[1], t) is None:
+                why = (f"at t = {t} the staged halo and iterates leave no "
+                       "room for K2's B tile slots at a 16 x 32 tile "
+                       "(ROADMAP Queue 2)")
             if why:
                 raise NotImplementedError(f"{plan.kind!r}: {why}")
         ents = _mxu_ents(plan, w)
@@ -3802,7 +3817,8 @@ def run_window_plan(x: torch.Tensor, w=None, *, plan: SystolicPlan,
         plan = dataclasses.replace(plan, strategy=strategy)
     check_supported(plan, time_steps, variant)
     _check_operands(plan, x, w, epilogue_args, time_steps)
-    block = tuple(block or default_block(plan, time_steps))
+    block = tuple(block or default_block(plan, time_steps,
+                                         x.element_size()))
     if x.device.type == "cuda":
         if plan.strategy == "mxu":
             return MXU_KERNEL(x, w, plan=plan, block=block,

@@ -185,6 +185,15 @@ extern "C" int ssam_mxu_window_launch(const void* x, void* out, int io_bf16,
                            a.tiles_x;
   a.ntiles = (int)ntiles;
   const int es = io_bf16 ? 2 : 4;
+  // a streamed launch's application k carries its sums in bufa (k even)
+  // or bufb: the tile widened by the applications after it
+  bool sums_fit = true;
+  for (int k = 0; streamed && k < a.t; ++k) {
+    const int g = a.t - 1 - k, w = a.bw + g * (a.M - 1);
+    const long long need =
+        (long long)(a.bh + g * (a.N - 1)) * ((w + 4) / 8 * 8 + 4);
+    sums_fit = sums_fit && need <= ((k & 1) ? a.bufb_words : a.bufa_words);
+  }
   const long long box_bytes =
       (long long)a.box_x * a.box_y * a.box_z * es * a.nby * a.nbz;
   if ((fn == nullptr && fn_chain == nullptr) ||
@@ -211,11 +220,10 @@ extern "C" int ssam_mxu_window_launch(const void* x, void* out, int io_bf16,
       a.c0_words % 4 || a.bufa_words % 4 || a.bufb_words % 4 ||
       (pitch * es) % 16 || pitch < win || a.ngroups < 0 ||
       (streamed &&
-       (a.nchain || strided || a.t != 1 || a.ndim != 2 || bsrc == nullptr ||
+       (a.nchain || strided || a.ndim != 2 || bsrc == nullptr ||
         (reinterpret_cast<uintptr_t>(bsrc) & 15) || a.slot_words < 64 ||
         a.slot_words % 64 || a.gtab < kMxEntInts * a.nent ||
-        a.gtab + 4 * a.ngroups > table_ints ||
-        a.bufa_words < a.bh * ((a.bw + 4) / 8 * 8 + 4))) ||
+        a.gtab + 4 * a.ngroups > table_ints || !sums_fit)) ||
       (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(out) & (es - 1)))
     return (int)cudaErrorInvalidValue;

@@ -2,7 +2,7 @@
 // windowed-plan engine (strategy="mxu") for table and dense single-channel
 // plans: 2-D and 3-D stencils, conv2d valid, same and batched (2-D
 // filters of any size up to 64 x 64, and rows up to the columns one TMA
-// box stages: 1 x 221 at the narrowest streamed tile), t >= 1
+// box stages: 1 x 249 at a tile one column wide), t >= 1
 // fused time steps with pad-once semantics, a fused pipeline's chain of
 // stages in one launch, fp32 or bf16 input and output
 // with fp32 sums, an output stride on 2-D plans (one application) and the
@@ -96,12 +96,12 @@
 //    bf16 cast. The store writes through an output step (row pitch,
 //    column step, image pitch), so the phases of a strided plan's input
 //    adjoint write their positions of dx in place.
-//  * Streamed B tiles (a plan that is no chain, 2-D, t = 1, unstrided,
-//    with more than 1024 taps or more than 32 KB of B tiles: 33 x 33 and
-//    64 x 64 filters, 255 x 1). Kept resident, a 64 x 64 filter's 192
-//    entries take 180 KB of tiles and leave no room for the staged input;
-//    kept resident, a 255 x 1 filter's 64 KB held K2 to tiles of one row.
-//    The wrapper builds the tiles once a call in device memory
+//  * Streamed B tiles (a plan that is no chain, 2-D, unstrided, t >= 1,
+//    whose tiles a block cannot keep resident: more than 1024 taps, as
+//    33 x 33 and 64 x 64 filters, or tiles that leave no room for the
+//    staged input at a 1 x 1 tile). Kept resident, a 64 x 64 filter's 192
+//    entries would take 180 KB of tiles. Every other plan keeps its tiles
+//    resident, whatever their size (255 x 1: 64 KB). The wrapper builds the tiles once a call in device memory
 //    (core/engine.py::mxu_btiles) and cuts the entries, in order, into
 //    groups whose tiles fill a ring slot (core/engine.py::mxu_stream,
 //    slots as large as shared memory leaves beside a tile's input). A
@@ -109,9 +109,13 @@
 //    bytes a copy, while its warps run the group before on the other, one
 //    barrier a group; the staged A tile keeps the whole footprint's halo
 //    and every group walks it. A warp's mma.sync sums of a group are added
-//    into the tile's fp32 accumulator in shared memory (bufa: the first
+//    into the application's fp32 accumulator in shared memory (the first
 //    group writes, the last reads), so an item's sums carry across groups
-//    without registers. F3 holds across groups: the vote runs on the
+//    without registers. At t > 1 each application walks every group
+//    again; its accumulator is the buffer its iterate then takes (bufa,
+//    bufb in turn, pitch 4 mod 8), the last group writing the iterate in
+//    place after the vote, and the last application stores from the
+//    accumulators. F3 holds across groups: the vote runs on the
 //    final fp32 sums, and an item with a non-finite sum is summed again
 //    tap by tap from the same staged input, over every group's entries
 //    (their column tables and the coefficients read from device memory).
@@ -563,10 +567,10 @@ __device__ __forceinline__ void issue_mx_tile(const CUtensorMap* xmap,
     }
 }
 
-// St: a streamed launch (2-D, t = 1, no chain, no stride): its B tiles,
-// built by the wrapper in device memory, come a group of entries at a time
-// into a ring of two slots, the next group's by cp.async while the warps
-// run this one; bufa holds the tile's fp32 sums across groups.
+// St: a streamed launch (2-D, no chain, no stride): its B tiles, built by
+// the wrapper in device memory, come a group of entries at a time into a
+// ring of two slots, the next group's by cp.async while the warps run this
+// one; bufa and bufb hold the applications' fp32 sums across groups.
 template <int KKM, bool S, bool C, bool St = false>
 __global__ void __launch_bounds__(kMxThreads, 2)
     mxu_window_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -667,32 +671,43 @@ __global__ void __launch_bounds__(kMxThreads, 2)
       src = MxSrc{c0, a.pc, a.sy * a.pc, shift};
     }
     if constexpr (St) {
-      // one application, a group of entries at a time, the tile's sums
-      // carried in bufa (pitch 4 mod 8); group gi's tiles landed in slot
-      // seq & 1 by the copies issued one group before, and the next
-      // group's (the next tile's first after the last) go into the other
-      // slot while this one runs. One group: loaded once.
-      const int hd = hs - (a.N - 1), wd = ws - (a.M - 1);
-      const int ppitch = (wd + 4) / 8 * 8 + 4;
-      for (int gi = 0; gi < a.ngroups; ++gi) {
-        asm volatile("cp.async.wait_all;" ::: "memory");
-        __syncthreads();  // the slot is filled; the other one is free
-        if (a.ngroups > 1 && (gi + 1 < a.ngroups || tile + G < a.ntiles))
-          mx_load_group(a, gi + 1 < a.ngroups ? gi + 1 : 0,
-                        btile + ((seq + 1) & 1) * a.slot_words);
-        const int* gr = a.table + a.gtab + 4 * gi;
-        const MxGroup grp{ent, gr[2], bufa, ppitch, gi == 0,
-                          gi == a.ngroups - 1};
-        apply_mx<KKM, false, false, MxuArgs, true>(
-            a, src, 1, hd, wd, bufb, 0, grp.final, b, oz0, oy0, ox0,
-            ent + 2 * gr[0], btile + (seq & 1) * a.slot_words, gr[1], 0,
-            grp);
-        if (a.ngroups > 1) ++seq;
+      // t applications, each a group of entries at a time, its sums
+      // carried in bufa or bufb (ping-pong, pitch 4 mod 8), where an
+      // application but the last leaves its fp32 iterate in place for the
+      // next; group gi's tiles landed in slot seq & 1 by the copies issued
+      // one group before, and the next group's (the next application's or
+      // the next tile's first after the last) go into the other slot while
+      // this one runs. One group: loaded once.
+      for (int k = 0; k < t; ++k) {
+        const bool last = k == t - 1;
+        const int hd = hs - (a.N - 1), wd = ws - (a.M - 1);
+        const int ppitch = (wd + 4) / 8 * 8 + 4;
+        float* part = (k & 1) ? bufb : bufa;
+        for (int gi = 0; gi < a.ngroups; ++gi) {
+          asm volatile("cp.async.wait_all;" ::: "memory");
+          __syncthreads();  // the slot is filled; the other one is free
+          if (a.ngroups > 1 &&
+              (gi + 1 < a.ngroups || !last || tile + G < a.ntiles))
+            mx_load_group(a, gi + 1 < a.ngroups ? gi + 1 : 0,
+                          btile + ((seq + 1) & 1) * a.slot_words);
+          const int* gr = a.table + a.gtab + 4 * gi;
+          const MxGroup grp{ent, gr[2], part, ppitch, gi == 0,
+                            gi == a.ngroups - 1};
+          apply_mx<KKM, false, false, MxuArgs, true>(
+              a, src, 1, hd, wd, part, ppitch, last && grp.final, b, oz0,
+              oy0, ox0, ent + 2 * gr[0], btile + (seq & 1) * a.slot_words,
+              gr[1], 0, grp);
+          if (a.ngroups > 1) ++seq;
+        }
+        __syncthreads();
+        if (!refilled && tid == 0 && tile + a.stages * G < a.ntiles)
+          issue_mx_tile(&xmap, a, tile + a.stages * G, smem_addr(stage),
+                        smem_addr(&full[s]));  // the stage is read: refill it
+        refilled = true;
+        hs = hd;
+        ws = wd;
+        src = MxSrc{part, ppitch, hs * ppitch, 0};
       }
-      __syncthreads();
-      if (!refilled && tid == 0 && tile + a.stages * G < a.ntiles)
-        issue_mx_tile(&xmap, a, tile + a.stages * G, smem_addr(stage),
-                      smem_addr(&full[s]));  // the stage is read: refill it
     } else if constexpr (C) {
       // a chain: one application a stage, each walking the stage's own
       // entries and shrinking by its own footprint (Dk, Nk, Mk)

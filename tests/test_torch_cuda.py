@@ -31,6 +31,7 @@ import pytest
 import torch
 
 import dataclasses
+import itertools
 
 from repro_torch import convert
 from repro_torch.config import get_config
@@ -67,6 +68,12 @@ def _grid(shape, device, seed=0):
     rng = np.random.default_rng(seed)
     return convert.from_numpy(rng.standard_normal(shape).astype(np.float32),
                               device)
+
+
+def _box_stencil(name, exts):
+    offsets = tuple(itertools.product(*(range(n) for n in exts)))
+    return stencils.StencilDef(name, len(exts), offsets,
+                               stencils._norm_coeffs(len(offsets)), 1, 0)
 
 
 @pytest.mark.parametrize("name", sorted(stencils.BENCHMARKS))
@@ -1072,6 +1079,9 @@ def _mxu_nonfinite_cases():
          (33, 33), 1, None, "float32"),
         ("conv 64x64 streamed bf16", (150, 200), conv((64, 64), "same"),
          (64, 64), 1, None, "bfloat16"),
+        # each application of a streamed plan votes on its own sums
+        ("box 33x33 streamed t=2", (150, 200),
+         s2(_box_stencil("box33x33", (33, 33))), None, 2, None, "float32"),
     ]
 
 
@@ -1868,6 +1878,61 @@ def test_large_filter_launches_and_refusals(cuda, strategy):
             ops.conv2d(x[:300, :300], _grid((1, 255), cuda, 146),
                        strategy=strategy)
     assert K.launches == k
+
+
+@pytest.mark.parametrize("case", ["11x11 stride 4", "5x5x27 3-D",
+                                  "31x31 t=2"])
+def test_mxu_resident_beyond_32kb_of_tiles(cuda, case):
+    """Plans of at most 1024 taps whose B tiles pass 32 KB and which K2's
+    streamed walk would refuse (an output stride, 3-D, t > 1) keep their
+    tiles resident on K2: one launch each, against the plain version at
+    3e-5; the strided conv's dx through K2's phases too."""
+    K = engine.MXU_KERNEL
+    k = K.launches
+    if case == "11x11 stride 4":
+        x = _grid((2, 227, 227), cuda, 151).requires_grad_(True)
+        w = _grid((11, 11), cuda, 152) / 11
+        y = ops.conv2d(x, w, mode="valid", stride=4, strategy="mxu")
+        assert K.launches == k + 1
+        p = dataclasses.replace(ssam_conv2d.plan_for_batched((11, 11),
+                                                             "valid"),
+                                stride=(4, 4), strategy="mxu")
+        _close(y.detach(), engine.run_window_plan_reference(
+            x.detach(), w, plan=p))
+        g = _grid(y.shape, cuda, 153)
+        k = K.launches
+        (dx,) = torch.autograd.grad(y, (x,), g)
+        assert K.launches > k
+        _close(dx, engine.run_adjoint_phases_reference(
+            g, adjoint.adjoint_coeff_array(p, w), plan=p,
+            in_spatial=(227, 227)))
+        return
+    sd, shape, t = ((_box_stencil("box5x5x27", (5, 5, 27)), (20, 40, 90), 1)
+                    if case == "5x5x27 3-D" else
+                    (_box_stencil("box31x31", (31, 31)), (300, 400), 2))
+    x = _grid(shape, cuda, 154)
+    y = ops.stencil(x, sd, time_steps=t, strategy="mxu")
+    assert K.launches == k + 1
+    mod = ssam_stencil2d if sd.ndim == 2 else ssam_stencil3d
+    p = dataclasses.replace(mod.plan_for(sd), strategy="mxu")
+    _close(y, engine.run_window_plan_reference(x, plan=p, time_steps=t))
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [2, 3])
+def test_mxu_streamed_time_steps(cuda, t, dt):
+    """A 33 x 33 box stencil (1089 taps: K2 streams its B tiles) at t > 1:
+    one K2 launch, each application walking every group again, against
+    the plain version at 3e-5 (bf16 3e-2)."""
+    sd = _box_stencil("box33x33", (33, 33))
+    x = _grid((300, 400), cuda, 155).to(getattr(torch, dt))
+    K = engine.MXU_KERNEL
+    k = K.launches
+    y = ops.stencil(x, sd, time_steps=t, strategy="mxu")
+    assert K.launches == k + 1 and y.dtype == x.dtype
+    p = dataclasses.replace(ssam_stencil2d.plan_for(sd), strategy="mxu")
+    _close(y.float(), engine.run_window_plan_reference(
+        x, plan=p, time_steps=t).float(), 3e-5 if dt == "float32" else 3e-2)
 
 
 @pytest.mark.parametrize("nm", [(51, 5), (5, 51)], ids=str)

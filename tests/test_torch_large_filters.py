@@ -16,6 +16,7 @@ Tolerance: fp32 ``rtol = 3e-5, atol = 3e-5·max|ref|`` (DESIGN.md §6),
 bf16 3e-2.
 """
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +27,8 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import engine
-from repro_torch.kernels import ops, ssam_conv2d
+from repro_torch.kernels import ops, ssam_conv2d, ssam_stencil2d, \
+    ssam_stencil3d, stencils
 
 FOOTPRINTS = [(33, 33), (51, 5), (5, 51), (1, 127), (64, 64)]
 
@@ -163,11 +165,11 @@ def test_banded_limits_refuse_by_name():
     assert "output stride" in engine.tap_table_refusal(sp)
 
 
-# (footprint, grid): K2's streamed walk (more than 1024 taps, or B tiles
-# beyond 32 KB) and the resident one of the same footprints
-STREAMED = [((33, 33), (40, 50)), ((64, 64), (20, 30)), ((255, 1), (40, 3))]
+# (footprint, grid): K2's streamed walk (more than 1024 taps) and the
+# resident one, whatever the size of the B tiles (255 x 1: 64 KB)
+STREAMED = [((33, 33), (40, 50)), ((64, 64), (20, 30))]
 RESIDENT = [((51, 5), (60, 20)), ((5, 51), (12, 60)), ((1, 127), (4, 140)),
-            ((127, 1), (140, 4))]
+            ((127, 1), (140, 4)), ((255, 1), (40, 3))]
 
 
 @pytest.mark.parametrize("nm,shape", STREAMED + RESIDENT,
@@ -177,6 +179,53 @@ def test_mxu_walk_matches_plain_version(nm, shape):
     assert engine.mxu_streamed(p) == ((nm, shape) in STREAMED)
     assert engine.mxu_chain_refusal(p) is None
     _close(got, want)
+
+
+def _box_stencil(name, ndim, exts):
+    offsets = tuple(itertools.product(*(range(n) for n in exts)))
+    sd = stencils.StencilDef(name, ndim, offsets,
+                             stencils._norm_coeffs(len(offsets)), 1, 0)
+    mod = ssam_stencil2d if ndim == 2 else ssam_stencil3d
+    return dataclasses.replace(mod.plan_for(sd), strategy="mxu")
+
+
+# Plans of at most 1024 taps whose B tiles pass 32 KB and which K2's
+# streamed walk would refuse (an output stride, 3-D, t > 1): they keep
+# their tiles resident. (name, plan, time steps, grid, full-size grid)
+RESIDENT_BEYOND_32KB = [
+    ("11x11 stride 4", dataclasses.replace(
+        ssam_conv2d.plan_for((11, 11), "valid"), stride=(4, 4),
+        strategy="mxu"), 1, (47, 61), (8192, 8192)),
+    ("5x5x27 3-D", _box_stencil("box5x5x27", 3, (5, 5, 27)), 1,
+     (6, 9, 40), (512, 512, 512)),
+    ("31x31 t=2", _box_stencil("box31x31", 2, (31, 31)), 2, (70, 45),
+     (8192, 8192)),
+]
+
+
+@pytest.mark.parametrize("case", RESIDENT_BEYOND_32KB, ids=lambda c: c[0])
+def test_mxu_resident_beyond_32kb_of_tiles(case):
+    """K2 streams only the B tiles a block cannot keep: these plans' tiles
+    (8448, 9600 and 11904 words) stay resident, their full-size layout
+    builds with no stream, and the resident walk equals the plain
+    version."""
+    _, p, t, shape, full = case
+    assert engine._mxu_b_shape(p)[1] > 8192
+    assert not engine.mxu_streamed(p) and engine.mxu_chain_refusal(p) is None
+    nd = p.ndim_spatial
+    block = engine.default_block(p, t)
+    out = p.out_shape(full, t)
+    lead = tuple(t * v for v in p.lead_trail()[0])
+    pad3 = (1,) * (3 - nd)
+    head = (1,) + pad3 + full + pad3 + tuple(out) + (0,) * (3 - nd) + lead
+    w_shape = p.exts if p.coeff_mode == "dense" else None
+    lay = engine.mxu_layout(p, head, pad3 + block, t, 4, full[-1],
+                            engine.mxu_entries(p, w_shape))
+    assert lay.stream is None and lay.smem <= engine.SMEM_LIMIT
+    x = torch.from_numpy(_np(shape, 21))
+    w = torch.from_numpy(_np(p.exts, 22, 1 / 11)) if w_shape else None
+    _close(engine.emulate_mxu_kernel(x, w, plan=p, time_steps=t),
+           engine.run_window_plan_reference(x, w, plan=p, time_steps=t))
 
 
 def test_mxu_stream_groups_and_layout():
@@ -224,3 +273,36 @@ def test_mxu_streamed_nonfinite_reach():
     bad = ~torch.isfinite(want)
     assert bad.any() and torch.equal(~torch.isfinite(got), bad)
     _close(got[~bad], want[~bad])
+
+
+@pytest.mark.parametrize("t,dt", [(2, "float32"), (3, "float32"),
+                                  (2, "bfloat16")], ids=str)
+def test_mxu_streamed_time_steps(t, dt):
+    """A 33 x 33 box stencil (1089 taps, streamed) at t > 1: each
+    application walks every group again, its sums carried in the buffer
+    its iterate then takes; the layout of the dtype's default tile at
+    8192² fits one block and its two sums buffers hold the iterates; the
+    walk equals the plain version, and an inf and a nan reach exactly the
+    plain version's outputs."""
+    p = _box_stencil("box33x33", 2, (33, 33))
+    assert engine.mxu_streamed(p) and engine.mxu_chain_refusal(p) is None
+    dtype = getattr(torch, dt)
+    es = torch.empty((), dtype=dtype).element_size()
+    block = engine.default_block(p, t, es)
+    head = (1, 1, 8192, 8192, 1, 8192, 8192, 0, 16 * t, 16 * t)
+    lay = engine.mxu_layout(p, head, (1,) + block, t, es, 8192,
+                            engine.mxu_entries(p, None))
+    assert lay.stream is not None and lay.smem <= engine.SMEM_LIMIT
+    for k in range(t):
+        g = t - 1 - k
+        need = (block[0] + 32 * g) * engine.mxu_pitch(block[1] + 32 * g)
+        assert need <= lay.bufs[1 + (k & 1)]
+    x = torch.from_numpy(_np((50, 70), 23)).to(dtype)
+    if dt == "float32":
+        x[17, 20], x[40, 61] = float("inf"), float("nan")
+    got = engine.emulate_mxu_kernel(x, plan=p, time_steps=t).float()
+    want = engine.run_window_plan_reference(x, plan=p, time_steps=t).float()
+    bad = ~torch.isfinite(want)
+    assert torch.equal(~torch.isfinite(got), bad)
+    assert bad.any() == (dt == "float32")
+    _close(got[~bad], want[~bad], 3e-5 if dt == "float32" else 3e-2)
